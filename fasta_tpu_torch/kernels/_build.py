@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``fasta_tpu_torch/csrc/`` expose a plain C interface;
+they are compiled by ``nvcc`` into one shared library at first use and
+loaded with ``ctypes``.  The library goes to ``build/fasta_tpu_torch/``
+beside the package, named by a hash of the sources and flags, so a stale
+library is never loaded.  Nothing is built when a module is imported:
+only a call on a CUDA tensor reaches :func:`library`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["library", "library_path", "on_device", "check", "NVCC_FLAGS"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fasta_tpu_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_double)
+
+# C entry points: name -> argtypes (every one returns a cudaError_t)
+_SIGNATURES = {
+    "fasta_lstsq_gradmap_plan": [_I, _I, _P, _P, _P, _P],
+    "fasta_lstsq_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P, _P, _P],
+    "fasta_microsolve_grid": [_P],
+    "fasta_microsolve_lasso": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
+                               _F, _F, _I, _I, _I,
+                               _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _P],
+}
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sum(_sources(), []):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_DIR / f"libfasta_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "CUDA toolkit is needed to build the kernels")
+    return str(path)
+
+
+def _compile(out: Path) -> None:
+    cu, _ = _sources()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # -Xptxas -v reports registers, shared memory and spills per kernel
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, compiled first if missing."""
+    path = library_path()
+    if not path.exists():
+        _compile(path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.fasta_error_string.argtypes = [_I]
+    lib.fasta_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if err != 0:
+        name = library().fasta_error_string(err).decode()
+        raise RuntimeError(f"{what} failed with cudaError_t {err} ({name})")
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Make ``device`` current for a C call (only when it is not already)
+    and yield the raw handle of its current stream, on which the kernels
+    launch (the handle PyTorch's own launches use, without building a
+    ``torch.cuda.Stream``)."""
+    import torch
+    guard = (contextlib.nullcontext() if torch.cuda.current_device() ==
+             device.index else torch.cuda.device(device))
+    with guard:
+        yield torch._C._cuda_getCurrentRawStream(device.index)

@@ -1,0 +1,25 @@
+"""Problem suite of the port (port of ``problems/__init__.py``).  Slice 1
+has the LASSO; the other problems come with their terms (ROADMAP Queue A
+item 7)."""
+
+from typing import Callable, Dict
+
+REGISTRY: Dict[str, Callable] = {}
+
+
+def register(name: str):
+    def deco(fn):
+        REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def build(name: str, **kwargs):
+    """Construct a named problem instance:
+    ``build('lasso', m=..., device=...)``."""
+    from . import lasso  # noqa: F401
+    if name not in REGISTRY:
+        raise NotImplementedError(
+            f"problem {name!r} is not ported yet (ROADMAP Queue A item 7); "
+            f"ported: {sorted(REGISTRY)}")
+    return REGISTRY[name](**kwargs)

@@ -1,0 +1,169 @@
+"""Objective terms: smooth f(A·) and prox-friendly g(·) (port of
+``fasta_tpu/terms.py:45-195, 543-625, 854-889``).
+
+Smooth terms implement ``value(d)`` and ``grad(d)`` (evaluated at
+d = A x); prox terms implement ``value(x)`` and ``prox(z, t)``.  Terms
+are plain data holders over tensors.  Slice 1 ports the least-squares
+loss and the L1 penalty; the other terms come with their problems
+(ROADMAP Queue A item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from . import prox as _prox
+
+__all__ = [
+    "SmoothTerm", "LeastSquares", "FunctionSmooth", "ProxTerm", "L1Norm",
+    "FunctionProx", "as_smooth_term", "as_prox_term",
+]
+
+
+# --------------------------------------------------------------------------
+# Smooth terms  f(d), ∇f(d)
+# --------------------------------------------------------------------------
+
+class SmoothTerm:
+    def value(self, d):
+        raise NotImplementedError
+
+    def value_f64(self, d):
+        """f(d) as a float64 scalar — the solver's high-precision decision
+        value.  Default: exact lift of the plain value (no extra
+        precision); terms whose value is a large reduction override it
+        with a float64 accumulation."""
+        return self.value(d).to(torch.float64)
+
+    def grad(self, d):
+        raise NotImplementedError
+
+    def fused_gradmap(self, op):
+        """Optional fused evaluation  x ↦ (d, f(d), Aᴴ∇f(d))  in one
+        operator pass.  Return None when no fusion applies (the solver
+        then uses the two-call path)."""
+        del op
+        return None
+
+
+class LeastSquares(SmoothTerm):
+    """f(d) = ½‖d − b‖²  (complex-safe Hermitian norm)."""
+
+    def __init__(self, b: torch.Tensor):
+        self.b = b
+
+    def value(self, d):
+        r = d - self.b
+        return 0.5 * torch.sum(torch.real(torch.conj(r) * r))
+
+    def value_f64(self, d):
+        from .precision import dot64
+        r = d - self.b
+        return 0.5 * dot64(r, r)
+
+    def grad(self, d):
+        return d - self.b
+
+    def fused_gradmap(self, op):
+        """One-pass (Ax, ½‖Ax−b‖², Aᴴ(Ax−b)) for a dense real operator.
+
+        A float32 matrix of any shape takes kernel K-B3
+        (``fused_lstsq_gradmap``: the CUDA kernel for a CUDA tensor, its
+        plain version for a CPU tensor).  Any other dtype takes the plain
+        two-pass form, as the JAX package's f32/bf16 dtype rule does
+        (``lstsq_fused.py:144-145``)."""
+        from .operators import DenseOp
+        if not isinstance(op, DenseOp):
+            return None
+        A, b = op.A, self.b
+        if A.ndim != 2 or A.is_complex() or b.ndim != 1:
+            return None
+        from .kernels.lstsq_fused import (fused_lstsq_gradmap,
+                                          lstsq_gradmap_reference,
+                                          supports_fusion)
+        m, n = A.shape
+        if supports_fusion(m, n, A.dtype):
+            return lambda x: fused_lstsq_gradmap(A, x, b)
+        return lambda x: lstsq_gradmap_reference(A, x, b)
+
+
+class FunctionSmooth(SmoothTerm):
+    """Wrap raw (f, gradf) callables — reference-style closures.
+    ``gradf=None`` derives the gradient with ``torch.func.grad`` (the
+    conjugate Wirtinger convention for complex measurement spaces)."""
+
+    def __init__(self, f: Callable, gradf: Optional[Callable] = None):
+        self.f = f
+        if gradf is None:
+            raw = torch.func.grad(lambda d: torch.real(f(d)))
+
+            def gradf(d):
+                out = raw(d)
+                return torch.conj(out) if d.is_complex() else out
+        self.gradf = gradf
+
+    def value(self, d):
+        return torch.as_tensor(self.f(d))
+
+    def grad(self, d):
+        return self.gradf(d)
+
+
+# --------------------------------------------------------------------------
+# Prox terms  g(x), prox_{t·g}(z)
+# --------------------------------------------------------------------------
+
+class ProxTerm:
+    def value(self, x):
+        raise NotImplementedError
+
+    def prox(self, z, t):
+        raise NotImplementedError
+
+
+class L1Norm(ProxTerm):
+    """g = μ‖·‖₁; prox = soft threshold (shrink)."""
+
+    def __init__(self, mu: float = 1.0):
+        self.mu = mu
+
+    def value(self, x):
+        return self.mu * torch.sum(torch.abs(x))
+
+    def prox(self, z, t):
+        return _prox.shrink(z, t * self.mu)
+
+
+class FunctionProx(ProxTerm):
+    """Wrap raw (g, proxg) callables — reference-style closures.  ``g``
+    may be None (value 0)."""
+
+    def __init__(self, g: Optional[Callable], proxg: Callable):
+        self.g = g
+        self.proxg = proxg
+
+    def value(self, x):
+        if self.g is None:
+            return torch.zeros((), dtype=torch.real(x).dtype, device=x.device)
+        return torch.as_tensor(self.g(x))
+
+    def prox(self, z, t):
+        return self.proxg(z, t)
+
+
+def as_smooth_term(f, gradf=None) -> SmoothTerm:
+    if isinstance(f, SmoothTerm):
+        return f
+    return FunctionSmooth(f, gradf)
+
+
+def as_prox_term(g, proxg=None) -> ProxTerm:
+    """A ``ProxTerm`` as itself, callables wrapped; (None, None) is g ≡ 0
+    with the identity prox."""
+    if isinstance(g, ProxTerm):
+        return g
+    if g is None and proxg is None:
+        return FunctionProx(None, lambda z, t: z)
+    return FunctionProx(g, proxg)
