@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's LASSO main path once on an NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,11 +11,28 @@ non-zero without the final ``ok`` line):
    1000×2000 and 8192×16384 float32, with median times over 20 runs;
 4. K-B1 (whole-solve kernel) against its plain version on the card, on
    LASSO 1000×2000, hp off and on;
-5. the main path through the public entry points — ``Problem.microsolve``
-   and ``Problem.solve`` on ``problems.build("lasso", device="cuda")`` —
-   checked against the float64 oracle, with the launch counters proving
-   that both kernels ran; then the it/s of the kernel path and of the
-   PyTorch loop path at a fixed 2000 iterations.
+5. the LASSO main path through the public entry points —
+   ``Problem.microsolve`` and ``Problem.solve`` on
+   ``problems.build("lasso", device="cuda")`` — checked against the
+   float64 oracle, with the launch counters proving that both kernels
+   ran; then the it/s of the kernel path and of the PyTorch loop path at
+   a fixed 2000 iterations;
+6. K-B3p (fused pointwise gradient map) against its plain version for the
+   logistic loss and the squared hinge at 1000×500, 997×1999 and
+   8192×16384 float32;
+7. K-B1 against its plain version for all 12 loss × prox pairs on the
+   full-width NNLS, logistic and SVM instances, adaptive (hp off, and hp
+   on for one pair per loss) and FISTA with restart (hp on; hp off held
+   to the objective);
+8. K-B1p: the cold and the warm path on LASSO 1000×2000 over
+   μ = 0.4, 0.2, 0.1, 0.05 against the plain version, the cold points
+   against separate ``Problem.microsolve`` calls;
+9. the dense family's main path — ``Problem.solve`` in the three modes,
+   ``Problem.microsolve`` adaptive and FISTA and ``Problem.microsolve_sweep``
+   on ``problems.build("nnls" | "logistic" | "svm", device="cuda")`` —
+   against the float64 oracle, with the launch counters proving that
+   K-B1, K-B1p and K-B3p ran; then the it/s of each problem's kernel and
+   loop paths at a fixed 2000 iterations.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
@@ -42,6 +59,7 @@ from reference_oracle.fasta_numpy import fasta as fasta_np  # noqa: E402
 from reference_oracle.generators import make_lasso  # noqa: E402
 
 DEV = torch.device("cuda", 0)
+PROXES = microsolver.PROXES
 
 
 def require(ok: bool, what: str) -> None:
@@ -66,18 +84,35 @@ def cuda_ms(fn, runs: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 20) -> float:
-    """Mean device time of ``fn`` per run: the card's kernel time summed
-    by ``torch.profiler`` over ``runs`` runs (host overhead excluded)."""
-    from torch.profiler import ProfilerActivity, profile
+def stream_ms(fn, runs: int = 20) -> float:
+    """Mean time per run of ``fn`` on the card's stream: CUDA events
+    around ``runs`` back-to-back runs with no host sync between them,
+    after a warm-up.  Where the host enqueues a run more slowly than the
+    card computes it (small shapes), the host's rate bounds this time."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / runs / 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / runs
+    require(ms > 0.0, "CUDA events measured no time on the stream")
+    return ms
+
+
+def reset_launches() -> None:
+    lstsq_fused.LAUNCHES = lstsq_fused.POINTWISE_LAUNCHES = 0
+    microsolver.LAUNCHES = microsolver.PATH_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {"K-B1": microsolver.LAUNCHES,
+            "K-B1p": microsolver.PATH_LAUNCHES,
+            "K-B3": lstsq_fused.LAUNCHES,
+            "K-B3p": lstsq_fused.POINTWISE_LAUNCHES}
 
 
 def phase_device() -> str:
@@ -125,24 +160,26 @@ def phase_gradmap() -> dict:
         kernel_fn = lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b)  # noqa: E731
         plain_fn = lambda: lstsq_fused.lstsq_gradmap_reference(A, x, b)  # noqa: E731
         kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
-        kern_dev, plain_dev = device_ms(kernel_fn), device_ms(plain_fn)
+        kern_stream = stream_ms(kernel_fn)
+        plain_stream = stream_ms(plain_fn)
         print(f"[3 K-B3 {m}x{n}] max|dd| {err_d:.3e} (tol {tol_d:.1e}) "
               f"max|dg| {err_g:.3e} (tol {tol_g:.1e}) rel df {rel_f:.3e} "
               f"(tol 1e-5); call, median of 20: kernel {kern:.4f} ms, plain "
-              f"{plain:.4f} ms; device time, mean of 20: kernel "
-              f"{kern_dev:.4f} ms, plain {plain_dev:.4f} ms; kernel reads A "
-              f"once: {m * n * 4 / kern_dev / 1e6:.1f} GB/s of device time")
+              f"{plain:.4f} ms; stream time, 20 back-to-back runs: kernel "
+              f"{kern_stream:.4f} ms, plain {plain_stream:.4f} ms; kernel "
+              f"reads A once: {m * n * 4 / kern_stream / 1e6:.1f} GB/s of "
+              f"stream time")
         require(err_d <= tol_d and err_g <= tol_g and rel_f <= 1e-5,
                 f"K-B3 {m}x{n} disagrees with its plain version")
         worst = max(worst, err_d, err_g)
-        ms[(m, n)] = (kern, plain, kern_dev, plain_dev)
+        ms[(m, n)] = (kern, plain, kern_stream, plain_stream)
         del A
     big, small = ms[(8192, 16384)], ms[(1000, 2000)]
     return dict(max_abs_err=worst, ms=big[0], plain_ms=big[1],
-                shape="8192x16384", device_ms=big[2], plain_device_ms=big[3],
+                shape="8192x16384", stream_ms=big[2], plain_stream_ms=big[3],
                 ms_1000x2000=small[0], plain_ms_1000x2000=small[1],
-                device_ms_1000x2000=small[2],
-                plain_device_ms_1000x2000=small[3])
+                stream_ms_1000x2000=small[2],
+                plain_stream_ms_1000x2000=small[3])
 
 
 def phase_microsolver() -> dict:
@@ -191,9 +228,9 @@ def phase_microsolver() -> dict:
 
 
 def objective64(inst, x) -> float:
+    """f(Ax) + g(x) of a generator instance, in float64 on the host."""
     x = np.asarray(x, np.float64)
-    r = inst["A"] @ x - inst["b"]
-    return 0.5 * float(r @ r) + inst["mu"] * float(np.abs(x).sum())
+    return float(inst["f"](inst["A"] @ x)) + float(inst["g"](x))
 
 
 def phase_main_path() -> dict:
@@ -207,11 +244,10 @@ def phase_main_path() -> dict:
                       max_iters=5000)
     obj_ref = objective64(inst, oracle.solution)
 
-    lstsq_fused.LAUNCHES = 0
-    microsolver.LAUNCHES = 0
+    reset_launches()
     micro = prob.microsolve(max_iters=5000, tol=1e-6)
     loop = prob.solve(tol=1e-6, max_iters=5000)
-    launches = {"K-B1": microsolver.LAUNCHES, "K-B3": lstsq_fused.LAUNCHES}
+    launches = read_launches()
 
     obj_micro = objective64(inst, micro.solution.cpu().numpy())
     obj_loop = objective64(inst, loop.solution)
@@ -226,6 +262,8 @@ def phase_main_path() -> dict:
           f"{loop.iteration_count} iterations, objective {obj_loop:.9g} "
           f"(rel {rel_loop:.2e}, tol 1e-5)")
     print(f"[5 main path] launches during the two solves: {launches}")
+    require(launches["K-B1p"] == 0 and launches["K-B3p"] == 0,
+            f"the LASSO path launched a kernel it does not use: {launches}")
     require(micro.status == "converged" and loop.converged,
             "a main-path solve did not converge")
     require(rel_micro <= 1e-5 and rel_loop <= 1e-5,
@@ -245,21 +283,352 @@ def phase_main_path() -> dict:
     return launches
 
 
+def phase_pointwise() -> dict:
+    """K-B3p against the plain two-pass form on the same seeded inputs,
+    with phase 3's tolerance."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    worst, ms = 0.0, {}
+    for m, n in ((1000, 500), (997, 1999), (8192, 16384)):
+        A = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
+        x = 3.0 * torch.randn(n, generator=gen, device=DEV)
+        labels = (torch.rand(m, generator=gen, device=DEV) < 0.5).float()
+        for loss, y in (("logistic", labels),
+                        ("squared_hinge", 2.0 * labels - 1.0)):
+            d, f, g = lstsq_fused.fused_pointwise_gradmap(A, x, y, loss)
+            d0, f0, g0 = lstsq_fused.pointwise_gradmap_reference(A, x, y,
+                                                                 loss)
+            torch.cuda.synchronize()
+            err_d = float((d - d0).abs().max())
+            err_g = float((g - g0).abs().max())
+            rel_f = abs(float(f) - float(f0)) / abs(float(f0))
+            tol_d = 1e-5 * max(1.0, float(d0.abs().max()))
+            tol_g = 1e-5 * max(1.0, float(g0.abs().max()))
+            kernel_fn = lambda: lstsq_fused.fused_pointwise_gradmap(  # noqa: E731
+                A, x, y, loss)
+            plain_fn = lambda: lstsq_fused.pointwise_gradmap_reference(  # noqa: E731
+                A, x, y, loss)
+            kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
+            kern_stream = stream_ms(kernel_fn)
+            plain_stream = stream_ms(plain_fn)
+            print(f"[6 K-B3p {loss} {m}x{n}] max|dd| {err_d:.3e} (tol "
+                  f"{tol_d:.1e}) max|dg| {err_g:.3e} (tol {tol_g:.1e}) rel "
+                  f"df {rel_f:.3e} (tol 1e-5); call, median of 20: kernel "
+                  f"{kern:.4f} ms, plain {plain:.4f} ms; stream time, 20 "
+                  f"back-to-back runs: kernel {kern_stream:.4f} ms, plain "
+                  f"{plain_stream:.4f} ms; kernel reads A once: "
+                  f"{m * n * 4 / kern_stream / 1e6:.1f} GB/s of stream time")
+            require(err_d <= tol_d and err_g <= tol_g and rel_f <= 1e-5,
+                    f"K-B3p {loss} {m}x{n} disagrees with its plain version")
+            worst = max(worst, err_d, err_g)
+            ms[(loss, m, n)] = (kern, plain, kern_stream, plain_stream)
+        del A
+    big = ms[("logistic", 8192, 16384)]
+    small = ms[("logistic", 1000, 500)]
+    return dict(max_abs_err=worst, ms=big[0], plain_ms=big[1],
+                shape="logistic 8192x16384", stream_ms=big[2],
+                plain_stream_ms=big[3], ms_1000x500=small[0],
+                plain_ms_1000x500=small[1], stream_ms_1000x500=small[2],
+                plain_stream_ms_1000x500=small[3])
+
+
+# loss -> (problem, tau0, weight μ of the l1 / ridge prox)
+DENSE = {"lstsq": ("nnls", 0.08, 0.05), "logistic": ("logistic", 1.0, 0.02),
+         "squared_hinge": ("svm", 0.3, 0.2)}
+
+
+def objective(A, b, x, loss, prox, mu) -> float:
+    """f(Ax) + g(x) in float64 on the card."""
+    A, b, x = A.double(), b.double(), x.double()
+    z = A @ x
+    if loss == "lstsq":
+        f = 0.5 * torch.sum((z - b) ** 2)
+    elif loss == "logistic":
+        f = torch.sum(torch.clamp_min(z, 0.0)
+                      + torch.log1p(torch.exp(-z.abs())) - b * z)
+    else:
+        f = 0.5 * torch.sum(torch.clamp_min(1.0 - b * z, 0.0) ** 2)
+    g = {"l1": mu * x.abs().sum(), "ridge": 0.5 * mu * (x @ x)}
+    return float(f + g.get(prox, 0.0))
+
+
+def phase_pairs() -> dict:
+    """K-B1 against its plain version on the card, to tol 1e-5 (hybrid
+    rule), for every loss × prox pair.  Phase 4's tolerances: equal
+    status; iteration counts within 2; the first 10 taus rtol 1e-3, first
+    10 residuals rtol 1e-3 / atol 1e-6 and first 10 backtracks equal —
+    later iterations reach the float32 noise floor, where the order of
+    float32 sums moves the trajectory; the solution atol 1e-5 of its
+    scale; and the float64 objective within 1e-5.  The logistic loss's
+    backtracking is knife-edge (tests/parity/test_parity.py), so its
+    iteration count and solution are held to the objective check instead.
+    FISTA with hp off runs 30 iterations: to a tolerance its float32
+    window can stall, for the kernel and the plain version alike (LASSO
+    ridge: neither converged in 3000 iterations), so it is held to the
+    first 10 iterations' checks and the objective after 30."""
+    worst = 0.0
+    timed = {}
+    for loss, (name, tau0, mu) in DENSE.items():
+        p = problems.build(name, device=DEV)
+        A, x0 = p.op.A, p.x0
+        b = p.fterm.y if loss == "squared_hinge" else p.fterm.b
+        runs = [(prox, False, False) for prox in PROXES]
+        runs += [("l1", False, True)]
+        runs += [(prox, True, True) for prox in PROXES]
+        runs += [(prox, True, False) for prox in PROXES]
+        for prox, accelerate, hp in runs:
+            fista_f32 = accelerate and not hp
+            kw = dict(max_iters=3000, tol=1e-5, loss=loss, prox=prox,
+                      accelerate=accelerate, hp=hp, restart_dd=hp,
+                      record_bts=True)
+            if fista_f32:
+                kw.update(max_iters=30, stop_rule="iterations")
+            out = microsolver.microsolve_lasso(A, b, x0, tau0, mu, **kw)
+            t0 = time.perf_counter()
+            ref = microsolver.microsolve_lasso_reference(A, b, x0, tau0, mu,
+                                                         **kw)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
+            kern = cuda_ms(lambda: microsolver.microsolve_lasso(
+                A, b, x0, tau0, mu, **kw), 5, warmup=1)
+            k1, k2 = int(out.iteration_count), int(ref.iteration_count)
+            f1 = objective(A, b, out.x, loss, prox, mu)
+            f2 = objective(A, b, ref.x, loss, prox, mu)
+            rel_f = abs(f1 - f2) / abs(f2)
+            x_err = float((out.x - ref.x).abs().max())
+            x_tol = 1e-5 * max(1.0, float(ref.x.abs().max()))
+            kt = min(k1, k2, 10)
+            tau_err = float(((out.taus[:kt] - ref.taus[:kt]).abs()
+                             / ref.taus[:kt]).max())
+            res_ok = torch.allclose(out.residuals[:kt], ref.residuals[:kt],
+                                    rtol=1e-3, atol=1e-6)
+            bt_ok = torch.equal(out.backtracks[:kt], ref.backtracks[:kt])
+            if fista_f32:
+                rule = "FISTA hp off: 30 iterations, objective check"
+                ok = (k1 == k2 == 30 and rel_f <= 1e-5 and tau_err <= 1e-3
+                      and res_ok and bt_ok)
+            elif loss == "logistic":
+                rule = "logistic: objective check for count and solution"
+                ok = (out.status == ref.status == "converged"
+                      and rel_f <= 1e-5 and tau_err <= 1e-3 and res_ok
+                      and bt_ok)
+            else:
+                rule = "phase 4's tolerances"
+                ok = (out.status == ref.status == "converged"
+                      and abs(k1 - k2) <= 2 and rel_f <= 1e-5
+                      and tau_err <= 1e-3 and res_ok and bt_ok
+                      and x_err <= x_tol)
+            mode = "FISTA" if accelerate else "adaptive"
+            print(f"[7 K-B1 {loss} x {prox} {mode} hp={hp}] iterations "
+                  f"kernel {k1} plain {k2}; status {out.status}/{ref.status}; "
+                  f"taus[:{kt}] max rel {tau_err:.2e}; residuals[:{kt}] "
+                  f"allclose {res_ok}; backtracks[:{kt}] equal {bt_ok}; "
+                  f"max|dx| {x_err:.2e} (tol {x_tol:.1e}); objective rel "
+                  f"{rel_f:.2e} (tol 1e-5); held to {rule}; "
+                  f"{'30 iterations' if fista_f32 else 'to tol 1e-5'}: "
+                  f"kernel {kern:.3f} ms (median of 5), plain loop on the "
+                  f"card {plain:.3f} ms (one run)")
+            require(ok, f"K-B1 {loss} x {prox} {mode} hp={hp} disagrees "
+                    f"with its plain version")
+            if not fista_f32 and loss != "logistic":
+                worst = max(worst, x_err)
+            timed[(loss, prox, accelerate, hp)] = (kern, plain)
+    return dict(max_abs_err_pairs=worst,
+                ms_pairs={f"{k[0]}x{k[1]}{'/fista' if k[2] else ''}"
+                          f"{'/hp' if k[3] else ''}": v[0]
+                          for k, v in timed.items()},
+                plain_ms_pairs={f"{k[0]}x{k[1]}{'/fista' if k[2] else ''}"
+                                f"{'/hp' if k[3] else ''}": v[1]
+                                for k, v in timed.items()})
+
+
+PATH_MUS = [0.4, 0.2, 0.1, 0.05]
+
+
+def phase_path() -> dict:
+    """K-B1p against its plain version on LASSO 1000×2000.  The cold
+    points must be bit-identical to per-μ Problem.microsolve calls; the
+    warm points converge, within 1e-5 of the plain warm path's objective
+    at each μ, in fewer total iterations than the cold path."""
+    prob = problems.build("lasso", device=DEV)
+    A, b, x0 = prob.op.A, prob.fterm.b, prob.x0
+    kw = dict(max_iters=3000, tol=1e-5, stop_rule="residual",
+              record_bts=True)
+    out = {}
+    for warm in (False, True):
+        ker = microsolver.microsolve_lasso_path(A, b, x0, 0.05, PATH_MUS,
+                                                warm=warm, **kw)
+        t0 = time.perf_counter()
+        ref = microsolver.microsolve_lasso_path_reference(
+            A, b, x0, 0.05, PATH_MUS, warm=warm, **kw)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        kern = cuda_ms(lambda: microsolver.microsolve_lasso_path(
+            A, b, x0, 0.05, PATH_MUS, warm=warm, **kw), 5, warmup=1)
+        rel = max(abs(objective(A, b, ker.x[i], "lstsq", "l1", mu)
+                      - objective(A, b, ref.x[i], "lstsq", "l1", mu))
+                  / objective(A, b, ref.x[i], "lstsq", "l1", mu)
+                  for i, mu in enumerate(PATH_MUS))
+        err = float((ker.x - ref.x).abs().max())
+        ks, kr = ker.iteration_count.tolist(), ref.iteration_count.tolist()
+        name = "warm" if warm else "cold"
+        print(f"[8 K-B1p {name}] iterations per mu kernel {ks} (total "
+              f"{sum(ks)}), plain {kr} (total {sum(kr)}); statuses "
+              f"{ker.halt.tolist()}; max|dx| {err:.2e}; objective max rel "
+              f"{rel:.2e} (tol 1e-5); path: kernel {kern:.3f} ms (median "
+              f"of 5), plain loop on the card {plain:.3f} ms (one run)")
+        require(bool((ker.halt == 1).all() and (ref.halt == 1).all())
+                and rel <= 1e-5, f"K-B1p {name} disagrees with its plain "
+                f"version")
+        out[name] = (ker, kern, plain, err)
+    cold, warm = out["cold"][0], out["warm"][0]
+    p = problems.build("lasso", device=DEV)
+    p.tau0 = 0.05
+    same = True
+    for i, mu in enumerate(PATH_MUS):
+        p.gterm = ftt.L1Norm(mu)
+        one = p.microsolve(stop_rule="residual", max_iters=3000, tol=1e-5)
+        same &= (torch.equal(one.solution, cold.x[i])
+                 and one.iteration_count == int(cold.iteration_count[i]))
+    total_w = int(warm.iteration_count.sum())
+    total_c = int(cold.iteration_count.sum())
+    print(f"[8 K-B1p] cold points bit-identical to per-mu "
+          f"Problem.microsolve: {same}; total iterations warm {total_w}, "
+          f"cold {total_c}")
+    require(same, "a cold path point differs from its separate solve")
+    require(total_w < total_c, "the warm path took no fewer iterations")
+    return dict(max_abs_err=max(out["cold"][3], out["warm"][3]),
+                ms=out["warm"][1], plain_ms=out["warm"][2],
+                ms_cold=out["cold"][1], plain_ms_cold=out["cold"][2],
+                iterations_warm=total_w, iterations_cold=total_c)
+
+
+MAIN = {"nnls": 0.08, "logistic": 1.0, "svm": 0.3}
+
+
+def phase_dense_main_path() -> dict:
+    """The dense family through the public entry points on the card, each
+    objective within rtol 1e-5 of the float64 oracle's: the converged
+    oracle for the adaptive and FISTA solves, the oracle's run of the same
+    length for plain mode (a fixed τ converges slowly)."""
+    objs, probs = {}, {}
+    for name, tau0 in MAIN.items():
+        prob = problems.build(name, device=DEV)
+        prob.tau0 = tau0
+        inst = prob.instance
+        oracle = fasta_np(inst["op"], None, inst["f"], inst["gradf"],
+                          inst["g"], inst["proxg"], inst["x0"], tau0=tau0,
+                          tol=1e-10, max_iters=20000)
+        plain_np = fasta_np(inst["op"], None, inst["f"], inst["gradf"],
+                            inst["g"], inst["proxg"], inst["x0"], tau0=tau0,
+                            tol=1e-6, max_iters=500, adaptive=False)
+        objs[name] = (objective64(inst, oracle.solution),
+                      objective64(inst, plain_np.solution),
+                      oracle.iteration_count)
+        probs[name] = prob
+
+    reset_launches()
+    results = []
+    for name, prob in probs.items():
+        lam = float(prob.instance["mu"])    # μ of the l1, λ of the ridge
+        results.append((name, "solve adaptive", prob.solve(
+            tol=1e-6, max_iters=5000)))
+        results.append((name, "solve plain", prob.solve(
+            tol=1e-6, max_iters=500, adaptive=False)))
+        results.append((name, "solve FISTA", prob.solve(
+            tol=1e-6, max_iters=5000, accelerate=True)))
+        results.append((name, "microsolve adaptive", prob.microsolve(
+            tol=1e-6, max_iters=5000)))
+        results.append((name, "microsolve FISTA", prob.microsolve(
+            tol=1e-6, max_iters=5000, accelerate=True, hp=True,
+            restart_dd=True)))
+        # the weight path ends at the problem's own weight; the NNLS
+        # projection has no weight to sweep.  The SVM path runs cold: a
+        # warm start carries the last accepted τ, and the SVM's solves
+        # end on stalled steps whose accepted τ is ≈ 4e-7 (PERF.md)
+        if name == "logistic":
+            results.append((name, "microsolve_sweep warm",
+                            prob.microsolve_sweep(
+                                [4.0 * lam, 2.0 * lam, lam], warm_start=True,
+                                stop_rule="residual", tol=1e-6,
+                                max_iters=5000)))
+        elif name == "svm":
+            results.append((name, "microsolve_sweep cold",
+                            prob.microsolve_sweep(
+                                [4.0 * lam, 2.0 * lam, lam], tol=1e-6,
+                                max_iters=5000)))
+    launches = read_launches()
+
+    for name, what, r in results:
+        ref, ref_plain, k_ref = objs[name]
+        if what.startswith("microsolve_sweep"):
+            x = r.solutions[-1].cpu().numpy()
+            ok = bool(r.converged.all())
+            k = r.iteration_counts.tolist()
+        else:
+            x = (r.solution.cpu().numpy() if isinstance(r.solution,
+                                                        torch.Tensor)
+                 else r.solution)
+            ok = r.converged
+            k = r.iteration_count
+        if what == "solve plain":
+            goal, how = ref_plain, "its 500 plain iterations"
+        else:
+            goal, how = ref, f"converged in {k_ref} iterations"
+        obj = objective64(probs[name].instance, x)
+        rel = abs(obj - goal) / abs(goal)
+        print(f"[9 main path {name}] {what}: converged={ok} in {k} "
+              f"iterations, objective {obj:.9g} against the float64 "
+              f"oracle's {goal:.9g} ({how}): rel {rel:.2e} (tol 1e-5)")
+        if what != "solve plain":
+            require(ok, f"{name} {what} did not converge")
+        require(rel <= 1e-5, f"{name} {what}: objective disagrees with the "
+                f"float64 oracle")
+    print(f"[9 main path] launches during the solves: {launches}")
+    for kernel in ("K-B1", "K-B1p", "K-B3p", "K-B3"):
+        require(launches[kernel] >= 1,
+                f"{kernel} never launched on the dense main path: "
+                f"{launches}")
+
+    iters = 2000
+    for name, prob in probs.items():
+        kern = cuda_ms(lambda: prob.microsolve(
+            max_iters=iters, tol=0.0, stop_rule="iterations"), 3, warmup=1)
+        opts = ftt.FastaOptions(max_iters=iters, stop_rule="iterations")
+        loop_ms = cuda_ms(lambda: prob.solve_device(opts), 1, warmup=1)
+        print(f"[9 main path {name}] {iters} iterations: kernel path "
+              f"{iters / kern * 1e3:.1f} it/s ({kern:.3f} ms), PyTorch loop "
+              f"path {iters / loop_ms * 1e3:.1f} it/s ({loop_ms:.3f} ms)")
+    return launches
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
     b3 = phase_gradmap()
     b1 = phase_microsolver()
-    launches = phase_main_path()
+    lasso = phase_main_path()
+    b3p = phase_pointwise()
+    b1_pairs = phase_pairs()
+    b1p = phase_path()
+    dense = phase_dense_main_path()
+    launches = {k: lasso[k] + dense[k] for k in lasso}
     kernels = [
         dict(name="K-B3 fused_lstsq_gradmap", route="cuda",
              source="fasta_tpu_torch/csrc/lstsq_fused.cu",
              replaces="fasta_tpu/kernels/lstsq_fused.py:368",
              launches=launches["K-B3"], **b3),
+        dict(name="K-B3p fused_pointwise_gradmap", route="cuda",
+             source="fasta_tpu_torch/csrc/lstsq_fused.cu",
+             replaces="fasta_tpu/kernels/lstsq_fused.py:293",
+             launches=launches["K-B3p"], **b3p),
         dict(name="K-B1 microsolve_lasso (with K-B2 reduce.cuh)",
              route="cuda", source="fasta_tpu_torch/csrc/microsolver.cu",
              replaces="fasta_tpu/kernels/microsolver.py:721",
-             launches=launches["K-B1"], **b1),
+             launches=launches["K-B1"], **b1, **b1_pairs),
+        dict(name="K-B1p microsolve_lasso_path", route="cuda",
+             source="fasta_tpu_torch/csrc/microsolver.cu",
+             replaces="fasta_tpu/kernels/microsolver.py:853",
+             launches=launches["K-B1p"], **b1p),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

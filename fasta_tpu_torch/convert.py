@@ -17,7 +17,8 @@ import torch
 
 from .operators import DenseOp
 from .problem import Problem
-from .terms import L1Norm, LeastSquares
+from .terms import (L1Norm, L2Norm2, LeastSquares, Logistic,
+                    NonnegIndicator, SquaredHinge)
 
 __all__ = ["problem_from_instance", "problem_from_arrays",
            "result_to_numpy"]
@@ -43,19 +44,37 @@ def problem_from_arrays(A, b, mu: float, x0, tau0: Optional[float] = None,
     )
 
 
+# instance name -> (smooth term, prox term from the instance)
+_DENSE = {
+    "lasso": (LeastSquares, lambda inst: L1Norm(float(inst["mu"]))),
+    "nnls": (LeastSquares, lambda inst: NonnegIndicator()),
+    "logistic": (Logistic, lambda inst: L1Norm(float(inst["mu"]))),
+    "svm": (SquaredHinge, lambda inst: L2Norm2(float(inst["lam"]))),
+}
+
+
 def problem_from_instance(inst: dict, *, device,
                           dtype: torch.dtype) -> Problem:
     """A port ``Problem`` from a generator instance dict (the JAX
-    ``Problem.instance``).  Slice 1 carries the LASSO instance."""
-    if inst.get("name") != "lasso":
+    ``Problem.instance``) of one of the dense problems: LASSO, NNLS,
+    sparse logistic regression or the SVM, whose instances hold the
+    matrix ``A``, the measurements or labels ``b`` and ``x0``."""
+    name = inst.get("name")
+    if name not in _DENSE:
         raise NotImplementedError(
-            f"instance {inst.get('name')!r} is not ported yet (ROADMAP "
-            f"Queue A item 7); the port carries 'lasso'")
-    prob = problem_from_arrays(inst["A"], inst["b"], inst["mu"], inst["x0"],
-                               device=device, dtype=dtype)
-    prob.x_true = inst.get("x_true")
-    prob.instance = inst
-    return prob
+            f"instance {name!r} is not ported yet (ROADMAP Queue A item 7); "
+            f"the port carries {sorted(_DENSE)}")
+    smooth, prox = _DENSE[name]
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+    A = t(inst["A"])
+    m, n = A.shape
+    return Problem(name=f"{name}[{m}x{n}]", op=DenseOp(A),
+                   fterm=smooth(t(inst["b"])), gterm=prox(inst),
+                   x0=t(inst["x0"]), x_true=inst.get("x_true"),
+                   instance=inst)
 
 
 def result_to_numpy(result) -> dict:

@@ -1,13 +1,16 @@
-// K-B3: fused least-squares gradient map
-//     (d, f, g) = (A x, ½‖A x − b‖², Aᵀ(A x − b))   in one read of A.
+// K-B3 and K-B3p: fused gradient maps in one read of A,
+//     lstsq:     (d, f, g) = (A x, ½‖A x − b‖², Aᵀ(A x − b)),
+//     pointwise: (d, f, g) = (A x, Σᵢ ℓ((A x)ᵢ; yᵢ), Aᵀ ℓ′(A x))
+// for the logistic loss and the squared hinge (losses.cuh).
 //
 // Replaces: fasta_tpu/kernels/lstsq_fused.py, fused_lstsq_gradmap (bodies
-// _kernel_vpu and _make_kernel_mxu) — the TPU kernel that walks row tiles
-// of A in a sequential grid and accumulates Aᵀr in scratch.
+// _kernel_vpu and _make_kernel_mxu) and fused_pointwise_gradmap (body
+// _make_kernel_pointwise) — the TPU kernels that walk row tiles of A in a
+// sequential grid and accumulate Aᵀℓ′ in scratch.
 //
 // Bound on this card: device-memory bytes.  The two-pass form reads A
-// twice (A x, then Aᵀ r); this kernel reads it once, so at 8192×16384 f32
-// (512 MB) the floor is one read of A at the card's HBM bandwidth.
+// twice (A x, then Aᵀ ℓ′); this kernel reads it once, so at 8192×16384
+// f32 (512 MB) the floor is one read of A at the card's HBM bandwidth.
 //
 // Design:
 //  * A cluster of C blocks (C = ⌈n / 16384⌉, at most 8) walks row tiles
@@ -23,12 +26,17 @@
 //  * Each block reduces its partial row dots in a fixed order and leaves
 //    them in its shared memory; after a cluster barrier every block sums
 //    the C partials over distributed shared memory in rank order, so all
-//    blocks hold bit-identical residuals r_i = (A x)_i − b_i.  Each
-//    thread then adds Σ_i A_ij r_i to its gradient partial from the tile.
+//    blocks hold bit-identical row values d_i = (A x)_i.  The loss code
+//    (a runtime int, the same for the whole launch) turns each d_i into
+//    the gradient weight ℓ′(d_i) and its f term, between the row dot and
+//    the gradient partial, on all three routes (one block, cluster, wide).
+//    Each thread then adds Σ_i A_ij ℓ′(d_i) to its gradient partial from
+//    the tile.  Only real rows are reduced, so the pointwise losses, for
+//    which ℓ(0) ≠ 0, need no padding mask.
 //  * At the end each cluster writes its partial gradient to a
-//    (clusters, n) scratch and its partial ‖r‖² to (clusters,).  A second
-//    kernel sums both in a fixed order.  No float atomics: results are
-//    deterministic from run to run.
+//    (clusters, n) scratch and its partial f sum to (clusters,).  A
+//    second kernel sums both in a fixed order.  No float atomics: results
+//    are deterministic from run to run.
 //  * Ragged m (last tile) and n (n % 4 != 0: 4-byte copies) are masked
 //    in the kernel; nothing is padded or copied.
 //  * Rows wider than 8 chunks (131072 floats) take gradmap_rows_wide:
@@ -41,6 +49,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "losses.cuh"
 #include "reduce.cuh"
 
 namespace cg = cooperative_groups;
@@ -108,7 +117,7 @@ __device__ __forceinline__ void tile_row_sums(const float* dot, int rows,
 template <int VEC, int CPT, bool CLUSTER>
 __global__ void __launch_bounds__(kThreads, 1)
 gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
-             const float* __restrict__ b, int m, int n, int tm, int cw,
+             const float* __restrict__ b, int m, int n, int tm, int cw, int loss,
              float* __restrict__ d, float* __restrict__ gpart,
              float* __restrict__ fpart) {
   using V = Vec<VEC>;
@@ -116,7 +125,8 @@ gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[kTileMax][kWarps];
   __shared__ float part[2][kTileMax];  // this block's row dots, by tile parity
-  __shared__ float rs[kTileMax];
+  __shared__ float rs[kTileMax];       // the tile's gradient weights ℓ′(d)
+  __shared__ float es[kTileMax];       // and f terms
 
   cg::cluster_group cluster = cg::this_cluster();
   const int nc = CLUSTER ? (int)cluster.num_blocks() : 1;
@@ -158,7 +168,7 @@ gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
   };
 
   for (int i = 0; i < kStages - 1; ++i) prefetch(i);
-  float fblk = 0.f;  // thread 0 of rank 0: this cluster's Σ r², in tile order
+  float fblk = 0.f;  // thread 0 of rank 0: this cluster's f sum, in tile order
   for (int i = 0;; ++i) {
     const int t = cid + i * ncl;  // the same in every block of the cluster
     if (t >= ntiles) break;
@@ -191,11 +201,11 @@ gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
       for (int c = 0; c < nc; ++c)
         s += (CLUSTER ? cluster.map_shared_rank(mine, c) : mine)[tid];
       if (rank == 0) d[r0 + tid] = s;
-      rs[tid] = __fsub_rn(s, __ldg(b + r0 + tid));
+      fasta::loss_eval(loss, s, __ldg(b + r0 + tid), rs[tid], es[tid]);
     }
     __syncthreads();
     if (tid == 0 && rank == 0)
-      for (int r = 0; r < rows; ++r) fblk = fmaf(rs[r], rs[r], fblk);
+      for (int r = 0; r < rows; ++r) fblk = fasta::loss_accum(loss, es[r], fblk);
     // gradient partial from the tile in shared memory
     for (int r = 0; r < rows; ++r) {
       const float rr = rs[r];
@@ -225,13 +235,14 @@ gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 gradmap_rows_wide(const float* __restrict__ A, const float* __restrict__ x,
-                  const float* __restrict__ b, int m, int n, int tm,
+                  const float* __restrict__ b, int m, int n, int tm, int loss,
                   float* __restrict__ d, float* __restrict__ gpart,
                   float* __restrict__ fpart) {
   using V = Vec<VEC>;
   using T = typename V::T;
   __shared__ float red[kTileMax][kWarps];
   __shared__ float rs[kTileMax];
+  __shared__ float es[kTileMax];
 
   const int tid = threadIdx.x;
   const int ng = n / VEC;
@@ -239,7 +250,7 @@ gradmap_rows_wide(const float* __restrict__ A, const float* __restrict__ x,
   const T* xv = reinterpret_cast<const T*>(x);
   T* gp = reinterpret_cast<T*>(gpart + (size_t)blockIdx.x * n);
 
-  float fblk = 0.f;  // thread 0: this block's Σ r², in tile order
+  float fblk = 0.f;  // thread 0: this block's f sum, in tile order
   bool first = true;
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int r0 = t * tm, rows = min(tm, m - r0);
@@ -257,12 +268,13 @@ gradmap_rows_wide(const float* __restrict__ A, const float* __restrict__ x,
     }
     tile_row_sums(dot, rows, red, rs);
     if (tid < rows) {
-      d[r0 + tid] = rs[tid];
-      rs[tid] = __fsub_rn(rs[tid], __ldg(b + r0 + tid));
+      const float s = rs[tid];
+      d[r0 + tid] = s;
+      fasta::loss_eval(loss, s, __ldg(b + r0 + tid), rs[tid], es[tid]);
     }
     __syncthreads();
     if (tid == 0)
-      for (int r = 0; r < rows; ++r) fblk = fmaf(rs[r], rs[r], fblk);
+      for (int r = 0; r < rows; ++r) fblk = fasta::loss_accum(loss, es[r], fblk);
     for (int q = tid; q < ng; q += kThreads) {
       T g = first ? V::zero() : gp[q];
       for (int r = 0; r < rows; ++r) g = V::axpy(At[(size_t)r * ng + q], rs[r], g);
@@ -273,7 +285,7 @@ gradmap_rows_wide(const float* __restrict__ A, const float* __restrict__ x,
   if (tid == 0) fpart[blockIdx.x] = fblk;
 }
 
-// Pass 2: g_j = Σ_parts gpart[p, j] and f = ½ Σ_parts fpart, in a fixed
+// Pass 2: g_j = Σ_parts gpart[p, j] and f = scale · Σ_parts fpart, in a fixed
 // order: thread row y sums parts y, y + kChains, ... in turn, then the
 // kChains partial sums are added in y order.  Independent chains keep
 // several loads in flight per column.
@@ -282,7 +294,8 @@ constexpr int kReduceCols = 32;
 
 __global__ void __launch_bounds__(kReduceCols * kChains)
 gradmap_reduce(const float* __restrict__ gpart, const float* __restrict__ fpart,
-               int nparts, int n, float* __restrict__ g, float* __restrict__ f) {
+               int nparts, int n, float scale, float* __restrict__ g,
+               float* __restrict__ f) {
   __shared__ float part[kChains][kReduceCols];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int j = blockIdx.x * kReduceCols + tx;
@@ -300,13 +313,13 @@ gradmap_reduce(const float* __restrict__ gpart, const float* __restrict__ fpart,
     float v = 0.f;
     for (int p = tx; p < nparts; p += 32) v += fpart[p];
     v = fasta::warp_sum(v);
-    if (tx == 0) *f = 0.5f * v;
+    if (tx == 0) *f = scale * v;
   }
 }
 
-using RowsKernel = void (*)(const float*, const float*, const float*, int, int, int, int,
+using RowsKernel = void (*)(const float*, const float*, const float*, int, int, int, int, int,
                            float*, float*, float*);
-using WideKernel = void (*)(const float*, const float*, const float*, int, int, int,
+using WideKernel = void (*)(const float*, const float*, const float*, int, int, int, int,
                            float*, float*, float*);
 
 // Chunk width of a row of n floats split over `cluster` blocks: a
@@ -368,7 +381,7 @@ cudaLaunchConfig_t cluster_config(int cluster, int nclusters, int smem, cudaStre
 // kernel, in clusters of that many blocks, with *tm rows per tile and
 // *nparts clusters; *cluster = 0: the wide kernel with *nparts blocks.
 // *nparts is also the row count of the gradient scratch.
-extern "C" int fasta_lstsq_gradmap_plan(int m, int n, int* cluster, int* tm, int* nparts,
+extern "C" int fasta_gradmap_plan(int m, int n, int* cluster, int* tm, int* nparts,
                                         int* smem_bytes) {
   if (m < 1 || n < 1) return cudaErrorInvalidValue;
   int dev = 0, optin = 0, sms = 0;
@@ -426,14 +439,16 @@ extern "C" int fasta_lstsq_gradmap_plan(int m, int n, int* cluster, int* tm, int
   return cudaSuccess;
 }
 
-// Launch both passes on `stream`.  gpart is (nparts, n), fpart (nparts,).
-extern "C" int fasta_lstsq_gradmap(const float* A, const float* x, const float* b,
-                                   int m, int n, int cluster, int tm, int nparts,
-                                   int smem_bytes, float* d, float* f, float* g,
-                                   float* gpart, float* fpart, void* stream) {
+// Launch both passes on `stream` for the loss code `loss` (losses.cuh; b
+// holds the measurements or labels).  gpart is (nparts, n), fpart
+// (nparts,).
+extern "C" int fasta_gradmap(const float* A, const float* x, const float* b, int m, int n,
+                             int loss, int cluster, int tm, int nparts, int smem_bytes,
+                             float* d, float* f, float* g, float* gpart, float* fpart,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1 || n < 1 || tm < 1 || tm > kTileMax || nparts < 1 || cluster < 0 ||
-      cluster > kClusterMax)
+      cluster > kClusterMax || loss < fasta::kLstsq || loss > fasta::kSquaredHinge)
     return cudaErrorInvalidValue;
   cudaError_t err;
   if (cluster > 0) {
@@ -443,14 +458,15 @@ extern "C" int fasta_lstsq_gradmap(const float* A, const float* x, const float* 
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = cluster_config(cluster, nparts, smem_bytes, s, &attr);
     if (cluster == 1) cfg.numAttrs = 0;  // a plain launch
-    err = cudaLaunchKernelEx(&cfg, fn, A, x, b, m, n, tm, cw, d, gpart, fpart);
+    err = cudaLaunchKernelEx(&cfg, fn, A, x, b, m, n, tm, cw, loss, d, gpart, fpart);
   } else {
-    pick_wide(n)<<<nparts, kThreads, 0, s>>>(A, x, b, m, n, tm, d, gpart, fpart);
+    pick_wide(n)<<<nparts, kThreads, 0, s>>>(A, x, b, m, n, tm, loss, d, gpart, fpart);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
   const int rb = (n + kReduceCols - 1) / kReduceCols;
-  gradmap_reduce<<<rb, dim3(kReduceCols, kChains), 0, s>>>(gpart, fpart, nparts, n, g, f);
+  gradmap_reduce<<<rb, dim3(kReduceCols, kChains), 0, s>>>(gpart, fpart, nparts, n,
+                                                           fasta::loss_scale(loss), g, f);
   return cudaGetLastError();
 }
 

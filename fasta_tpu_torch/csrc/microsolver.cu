@@ -1,9 +1,14 @@
-// K-B1: the whole adaptive FASTA solve of a LASSO problem in one launch,
-//     min ½‖A x − b‖² + μ‖x‖₁,   A dense real float32.
+// K-B1 and K-B1p: whole dense FASTA solves in one launch,
+//     min f(A x) + g(x),   A dense real float32,
+// f ∈ {½‖·−b‖², Σlog(1+exp(·))−bᵀ·, ½Σmax(0,1−b⊙·)²} (losses.cuh) and
+// g ∈ {μ‖·‖₁, indicator{x ≥ 0}, indicator{−1 ≤ x ≤ 1}, (μ/2)‖·‖²}, in
+// adaptive (BB) or FISTA mode, for one weight μ (K-B1) or a path of
+// weights, warm or cold (K-B1p).
 //
-// Replaces: fasta_tpu/kernels/microsolver.py, microsolve_lasso (body
-// _make_kernel) for loss "lstsq" × prox "l1" in adaptive mode — the TPU
-// kernel that pins A in VMEM and runs the solver loop on one core.
+// Replaces: fasta_tpu/kernels/microsolver.py, microsolve_lasso and
+// microsolve_lasso_path (body _make_kernel) — the TPU kernels that pin A
+// in VMEM and run the solver loop on one core, the path as a sequential
+// grid with the warm x/τ carry in persistent scratch.
 //
 // Bound on this card: latency.  One iteration moves A and Aᵀ once from L2
 // (16 MB at 1000×2000, which fits the 50 MB L2) and is otherwise a chain
@@ -14,26 +19,44 @@
 //  * One persistent cooperative launch, at most one block per SM.  The
 //    phases of a line-search trial are separated by grid-wide barriers
 //    (cooperative_groups::this_grid().sync()), in the order of the TPU
-//    kernel's loop body (microsolver.py:607-678):
-//      1. the shrink step over each block's columns, with partial ‖Δx‖²,
-//         ⟨Δx,g⟩, ‖g‖² and ‖x₁−x̂₁‖²;
-//      2. r = A x₁ − b over each block's rows (one warp per row), with
-//         partial ‖r‖²;
-//      3. g₁ = Aᵀ r over each block's columns (one warp per row of a
-//         contiguous Aᵀ copy), with partial ⟨Δx,Δg⟩ and ‖Δg‖²;
+//    kernel's loop body (microsolver.py:474-678):
+//      1. the prox step over each block's columns, with partial ‖Δx‖²,
+//         ⟨Δx,g⟩, ‖g‖², ‖x₁−x̂₁‖², and when asked Σ|x₁| or Σx₁² (the
+//         objective's g) and the FISTA restart dot ⟨y−x₁, x₁−x_acc⟩;
+//      2. d = A x₁ over each block's rows (one warp per row), with the
+//         loss's gradient weight ℓ′(d) and partial f;
+//      3. adaptive: g₁ = Aᵀ ℓ′(d) over each block's columns (one warp per
+//         row of a contiguous Aᵀ copy), with partial ⟨Δx,Δg⟩ and ‖Δg‖²;
+//         FISTA needs no adjoint during the trials;
 //      4. every block reduces all blocks' partials and takes the decisions.
-//  * Uniform control flow.  The backtracking loop, the stop test and the
-//    halt code branch around grid barriers, so every block must take the
-//    same branch.  Each block reduces the same per-block partials, read
-//    from global memory in the same fixed order (reduce.cuh), and so
-//    derives bit-identical scalars.  No atomics; no fast-math.
-//  * State (the nonmonotone window, τ, the max residual, k, the status)
-//    is replicated in each block's shared memory; block 0 alone writes
-//    the records, the iteration count and the status.
+//    After a FISTA acceptance two more phases follow: A. the extrapolated
+//    d_n = d₁ + β(d₁ − d_acc) over the rows (A is linear: no matvec),
+//    with ℓ′(d_n) and partial f(d_n); B. g_n = Aᵀ ℓ′(d_n), y_n and x_acc
+//    over the columns; then the window takes f(d_n), or f(x₁) on a stop.
+//  * Uniform control flow.  The backtracking loop, the stop test, the
+//    halt code, the mode, the loss and the prox branch around grid
+//    barriers, so every block must take the same branch.  Loss, prox and
+//    mode are runtime codes fixed for the launch; the decisions come from
+//    the same per-block partials, which each block reduces from global
+//    memory in the same fixed order (reduce.cuh), so every block derives
+//    bit-identical scalars.  No atomics; no fast-math.  The FP64
+//    accumulation type (hp off / on) and the mode are template
+//    parameters, so the adaptive instantiations carry no FISTA code: four
+//    instantiations.
+//  * State (the nonmonotone window, τ, α, the max residual, k, the
+//    status, the warm carry) is replicated in each block's shared memory;
+//    block 0 alone writes the records, the iteration count and the status.
 //  * Partials are double-buffered by trial parity, so a fast block's
-//    next trial never overwrites partials a slow block is still reading.
-//  * With hp, the decision scalars (f, the window, ⟨Δx,∇f⟩, ⟨Δx,Δg⟩)
-//    accumulate in FP64 (K-B2); positive sums stay in float32.
+//    next trial never overwrites partials a slow block is still reading;
+//    a third buffer serves each path point's start.
+//  * K-B1p runs the path points one after another inside the launch (the
+//    TPU's sequential grid), a grid barrier between them.  Point i's
+//    solution is its row of the output, from which point i+1 starts when
+//    the path is warm; adaptive mode also carries the last genuinely
+//    accepted τ.  A single solve is a path of one point.
+//  * With hp, the decision scalars (f, the window, ⟨Δx,∇f⟩, ⟨Δx,Δg⟩, and
+//    with restart_dd the restart dot) accumulate in FP64 (K-B2); positive
+//    sums stay in float32.
 //  * Elementwise formulas use the _rn intrinsics, which the compiler never
 //    contracts into FMAs, so they round exactly like the plain PyTorch
 //    version's separate operations.
@@ -41,9 +64,12 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "losses.cuh"
 #include "reduce.cuh"
 
 namespace cg = cooperative_groups;
+using fasta::nanmax;
+using fasta::nanmin;
 
 namespace {
 
@@ -52,47 +78,56 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kWinMax = 128;
 constexpr float kEps32 = 1.1920928955078125e-07f;
 
-// partial slots, each (nblocks,) doubles
-enum Slot { kNd2, kBtDot, kNg2, kNsm2, kF, kBbDot, kNdg2, kSlots };
-// the cancellation-prone slots, which sum in Acc; the others in float
+// partial slots, each (nblocks,) doubles: the kCommon slots every trial
+// writes, the objective's g and the restart dot when asked for, and
+// FISTA's f(d_n)
+enum Slot { kNd2, kBtDot, kNg2, kNsm2, kF, kBbDot, kNdg2, kGx, kRdot, kFn, kSlots };
+constexpr int kCommon = kGx;
+constexpr int kReduced = kFn;  // the slots the decision reads
+// the cancellation-prone common slots, which sum in Acc; the others in float
 __host__ __device__ constexpr bool acc_slot(int s) { return s == kBtDot || s == kF || s == kBbDot; }
 // stop rules, in the order of options.STOP_RULES
 enum Rule { kResidual, kNormalized, kRatio, kHybrid, kIterations };
+// proxes, in the order of kernels.microsolver.PROXES
+enum Prox { kL1, kNonneg, kBox, kRidge };
+// option bits of fasta_microsolve's flags
+enum Flag { kHp = 1, kAccel = 2, kRestart = 4, kRestartDd = 8, kWarm = 16 };
 
 struct Args {
-  const float* A;   // (m, n)
-  const float* At;  // (n, m), contiguous transpose of A
-  const float* b;   // (m,)
-  const float* x0;  // (n,)
-  float* x_out;     // (n,)
-  float* taus;      // (max_iters,)
-  float* res;       // (max_iters,)
-  float* fvals;     // (max_iters,) or null
-  int* bts;         // (max_iters,) or null
-  int* k_out;
-  int* status_out;
-  float* xbuf;      // (2, n): current and trial iterate
-  float* gbuf;      // (2, n): their gradients
-  float* rbuf;      // (m,): residual A x₁ − b of the trial
-  double* part;     // (2, kSlots, nblocks)
-  int m, n, max_iters, window, max_backtracks, stop_rule;
-  float tau0, mu, tol, shrink;
+  const float* A;    // (m, n)
+  const float* At;   // (n, m), contiguous transpose of A
+  const float* b;    // (m,) measurements or labels
+  const float* x0;   // (n,)
+  const float* mus;  // (npath,) the weight of each path point
+  float* x_out;      // (npath, n)
+  float* taus;       // (npath, max_iters)
+  float* res;        // (npath, max_iters)
+  float* fvals;      // (npath, max_iters) or null
+  int* bts;          // (npath, max_iters) or null
+  float* objs;       // (npath, max_iters) or null
+  float* nres;       // (npath, max_iters) or null
+  float* its;        // (npath, max_iters, n) or null
+  int* k_out;        // (npath,)
+  int* status_out;   // (npath,)
+  float* xbuf;       // (2, pn): current and trial iterate (FISTA: y and x₁)
+  float* gbuf;       // (2, pn): their gradients
+  float* xacc;       // (n,) FISTA: the last prox point
+  float* rbuf;       // (m,) the gradient weights ℓ′(d)
+  float* dbuf;       // (m,) FISTA: A x₁ of the trial
+  double* part;      // (3, kSlots, nblocks)
+  float* dacc;       // (m,) FISTA: A x_acc
+  int npath, m, n, pn, max_iters, window, max_backtracks, stop_rule, loss, prox;
+  int accel, restart, rdd, warm;  // accel also selects the instantiation
+  float tau0, tol, shrink;
 };
 
 struct State {
-  float tau;
-  float maxres;
-  int k;
-  int cnt;     // line-search trials of the current iteration
-  int cur;     // which half of xbuf/gbuf holds the accepted iterate
-  int status;  // 0 running, 1 converged, 2 nonfinite
-  int done;
+  float tau, maxres, alpha, beta, res, tau_acc, tau_start;
+  int k, cnt, cur, status, done;
+  int accepted;  // the last trial was accepted, as iteration krec
+  int post;      // FISTA: phases A and B follow the acceptance
+  int stop, krec;
 };
-
-// jnp.maximum semantics: NaN in either operand gives NaN
-__device__ __forceinline__ float nanmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? CUDART_NAN_F : fmaxf(a, b);
-}
 
 // x̂ = x − τ g, rounded like the separate multiply and subtract
 __device__ __forceinline__ float step_hat(float x, float g, float tau) {
@@ -103,6 +138,16 @@ __device__ __forceinline__ float step_hat(float x, float g, float tau) {
 __device__ __forceinline__ float shrink(float z, float t) {
   const float mag = fabsf(z);
   return __fmul_rn(z, __fdiv_rn(nanmax(__fsub_rn(mag, t), 0.f), nanmax(mag, 1e-30f)));
+}
+
+// the prox of g at z with t = τμ (ridge: z/(1+τλ), μ carrying λ)
+__device__ __forceinline__ float prox_eval(int prox, float z, float t) {
+  switch (prox) {
+    case kNonneg: return nanmax(z, 0.f);
+    case kBox: return nanmin(nanmax(z, -1.f), 1.f);
+    case kRidge: return __fdiv_rn(z, __fadd_rn(1.f, t));
+    default: return shrink(z, t);
+  }
 }
 
 // row · v over L entries by one warp (fixed order); result in lane 0.  v
@@ -137,245 +182,429 @@ __device__ __forceinline__ bool stop_rule(int rule, float res, float nres, float
   }
 }
 
-template <typename Acc>
+template <typename Acc, bool ACCEL>
 __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Acc fwin[kWinMax];
   __shared__ Acc acc_scratch[kWarps];
   __shared__ float f32_scratch[kWarps];
-  __shared__ double tot[kSlots];
+  __shared__ double f64_scratch[kWarps];
+  __shared__ double tot[kReduced];
   __shared__ State st;
+  __shared__ Acc f1s;        // FISTA: f(x₁) of the accepted trial
+  __shared__ int carry_ok;   // the previous path point ended finite
+  __shared__ float tprev;    // its warm τ carry
 
+  constexpr bool hp = sizeof(Acc) == sizeof(double);
   const int tid = threadIdx.x, lane = tid & 31;
   const int nb = gridDim.x, blk = blockIdx.x;
   const int gtid = blk * kThreads + tid, gthreads = nb * kThreads;
   const int gwarp = blk * kWarps + (tid >> 5), gwarps = nb * kWarps;
   const int m = a.m, n = a.n;
-  float* X[2] = {a.xbuf, a.xbuf + n};
-  float* G[2] = {a.gbuf, a.gbuf + n};
+  const float fscale = fasta::loss_scale(a.loss);
+  const bool need_gx = a.objs != nullptr && (a.prox == kL1 || a.prox == kRidge);
+  float* X[2] = {a.xbuf, a.xbuf + a.pn};
+  float* G[2] = {a.gbuf, a.gbuf + a.pn};
+  double* P0 = a.part;  // each point's start
+  int trial = 0;
 
-  // ---- initial point: r₀ = A x₀ − b, f₀ = ½‖r₀‖², g₀ = Aᵀ r₀
-  {
-    Acc fpart = Acc(0);
-    for (int i = gwarp; i < m; i += gwarps) {
-      const float d = row_dot(a.A + (size_t)i * n, a.x0, n, lane);
-      if (lane == 0) {
-        const float r = __fsub_rn(d, __ldg(a.b + i));
-        a.rbuf[i] = r;
-        fpart += Acc(r) * Acc(r);
-      }
-    }
-    for (int j = gtid; j < n; j += gthreads) X[0][j] = __ldg(a.x0 + j);
-    fpart = fasta::block_sum(fpart, acc_scratch);
-    if (tid == 0) a.part[kF * nb + blk] = double(fpart);
-    grid.sync();
-    for (int j = gwarp; j < n; j += gwarps) {
-      const float g = row_dot(a.At + (size_t)j * m, a.rbuf, m, lane);
-      if (lane == 0) G[0][j] = g;
-    }
-    if (tid < 32) {
-      const Acc f = fasta::warp_sum_global<Acc>(a.part + kF * nb, nb);
-      if (tid == 0) {
-        fwin[0] = Acc(0.5) * f;
-        for (int w = 1; w < kWinMax; ++w) fwin[w] = Acc(-CUDART_INF);
-        st = State{a.tau0, -CUDART_INF_F, 0, 0, 0, 0, 0};
-      }
-    }
-    grid.sync();
+  if (tid == 0) {
+    carry_ok = 0;
+    tprev = 0.f;
   }
+  __syncthreads();
 
-  for (int trial = 1;; ++trial) {
-    double* P = a.part + (size_t)(trial & 1) * kSlots * nb;
-    const float tau = st.tau;
-    const int cur = st.cur;
-    const float* xc = X[cur];
-    const float* gc = G[cur];
-    float* x1 = X[cur ^ 1];
-    float* g1 = G[cur ^ 1];
+  for (int p = 0; p < a.npath; ++p) {
+    const float mu = __ldg(a.mus + p);
+    const size_t rec0 = (size_t)p * a.max_iters;
+    // the start: point p−1's solution when the path is warm and it ended
+    // finite; adaptive mode also takes its carried τ
+    const float* xs = (a.warm && p > 0 && carry_ok) ? a.x_out + (size_t)(p - 1) * n : a.x0;
+    const float tau_start =
+        (a.warm && !ACCEL && p > 0 && tprev > 0.f) ? tprev : a.tau0;
 
-    // ---- phase 1: trial step over this block's columns
-    {
-      const float t = __fmul_rn(tau, a.mu);
-      float nd2 = 0.f, ng2 = 0.f, nsm2 = 0.f;
-      Acc btd = Acc(0);
-      for (int j = gtid; j < n; j += gthreads) {
-        const float xv = __ldcg(xc + j), gv = __ldcg(gc + j);
-        const float xh = step_hat(xv, gv, tau);
-        const float xn = shrink(xh, t);
-        const float dx = __fsub_rn(xn, xv), sm = __fsub_rn(xn, xh);
-        x1[j] = xn;
-        nd2 = fmaf(dx, dx, nd2);
-        ng2 = fmaf(gv, gv, ng2);
-        nsm2 = fmaf(sm, sm, nsm2);
-        btd += Acc(dx) * Acc(gv);
-      }
-      nd2 = fasta::block_sum(nd2, f32_scratch);
-      ng2 = fasta::block_sum(ng2, f32_scratch);
-      nsm2 = fasta::block_sum(nsm2, f32_scratch);
-      btd = fasta::block_sum(btd, acc_scratch);
-      if (tid == 0) {
-        P[kNd2 * nb + blk] = nd2;
-        P[kNg2 * nb + blk] = ng2;
-        P[kNsm2 * nb + blk] = nsm2;
-        P[kBtDot * nb + blk] = double(btd);
-      }
-    }
-    grid.sync();
-
-    // ---- phase 2: r = A x₁ − b over this block's rows
+    // ---- point start: d₀ = A x₀, f₀, g₀ = Aᵀ ℓ′(d₀)
     {
       Acc fpart = Acc(0);
       for (int i = gwarp; i < m; i += gwarps) {
-        const float d = row_dot(a.A + (size_t)i * n, x1, n, lane);
+        const float d = row_dot(a.A + (size_t)i * n, xs, n, lane);
         if (lane == 0) {
-          const float r = __fsub_rn(d, __ldg(a.b + i));
-          a.rbuf[i] = r;
-          fpart += Acc(r) * Acc(r);
+          float w, e;
+          fasta::loss_eval(a.loss, d, __ldg(a.b + i), w, e);
+          a.rbuf[i] = w;
+          if (ACCEL) a.dacc[i] = d;
+          fpart += fasta::loss_term<Acc>(a.loss, e);
         }
+      }
+      for (int j = gtid; j < n; j += gthreads) {
+        const float v = __ldcg(xs + j);
+        X[0][j] = v;
+        if (ACCEL) a.xacc[j] = v;
       }
       fpart = fasta::block_sum(fpart, acc_scratch);
-      if (tid == 0) P[kF * nb + blk] = double(fpart);
-    }
-    grid.sync();
-
-    // ---- phase 3: g₁ = Aᵀ r over this block's columns, BB partials
-    {
-      Acc bbd = Acc(0);
-      float ndg2 = 0.f;
+      if (tid == 0) P0[kF * nb + blk] = double(fpart);
+      grid.sync();
       for (int j = gwarp; j < n; j += gwarps) {
         const float g = row_dot(a.At + (size_t)j * m, a.rbuf, m, lane);
-        if (lane == 0) {
-          g1[j] = g;
+        if (lane == 0) G[0][j] = g;
+      }
+      if (tid < 32) {
+        const Acc f = fasta::warp_sum_global<Acc>(P0 + kF * nb, nb);
+        if (tid == 0) {
+          fwin[0] = Acc(fscale) * f;
+          for (int w = 1; w < kWinMax; ++w) fwin[w] = Acc(-CUDART_INF);
+          State s;
+          s.tau = tau_start;
+          s.maxres = -CUDART_INF_F;
+          s.alpha = 1.f;
+          s.beta = 0.f;
+          s.res = 0.f;
+          s.tau_acc = 0.f;
+          s.tau_start = tau_start;
+          s.k = s.cnt = s.cur = s.status = s.done = s.accepted = s.post = s.stop = s.krec = 0;
+          st = s;
+        }
+      }
+      grid.sync();
+    }
+
+    for (;;) {
+      ++trial;
+      double* P = a.part + (size_t)(1 + (trial & 1)) * kSlots * nb;
+      const float tau = st.tau;
+      const int cur = st.cur;
+      const float* xc = X[cur];
+      const float* gc = G[cur];
+      float* x1 = X[cur ^ 1];
+
+      // ---- phase 1: trial step over this block's columns
+      {
+        const float t = __fmul_rn(tau, mu);
+        float nd2 = 0.f, ng2 = 0.f, nsm2 = 0.f, gx = 0.f, rdot = 0.f;
+        Acc btd = Acc(0);
+        double rdot64 = 0.0;
+        for (int j = gtid; j < n; j += gthreads) {
           const float xv = __ldcg(xc + j), gv = __ldcg(gc + j);
           const float xh = step_hat(xv, gv, tau);
-          const float dx = __fsub_rn(__ldcg(x1 + j), xv);
-          // Δg = g₁ + (x̂₁ − x)/τ  (== g₁ − g, in the TPU kernel's rounding)
-          const float dg = __fadd_rn(g, __fdiv_rn(__fsub_rn(xh, xv), tau));
-          bbd += Acc(dx) * Acc(dg);
-          ndg2 = fmaf(dg, dg, ndg2);
+          const float xn = prox_eval(a.prox, xh, t);
+          const float dx = __fsub_rn(xn, xv), sm = __fsub_rn(xn, xh);
+          x1[j] = xn;
+          nd2 = fmaf(dx, dx, nd2);
+          ng2 = fmaf(gv, gv, ng2);
+          nsm2 = fmaf(sm, sm, nsm2);
+          btd += Acc(dx) * Acc(gv);
+          if (need_gx) gx = a.prox == kL1 ? __fadd_rn(gx, fabsf(xn)) : fmaf(xn, xn, gx);
+          if (ACCEL) {
+            // the restart dot ⟨y − x₁, x₁ − x_acc⟩
+            const float ra = __fsub_rn(xv, xn), rb = __fsub_rn(xn, __ldcg(a.xacc + j));
+            if (a.rdd)
+              rdot64 += double(ra) * double(rb);
+            else
+              rdot = fmaf(ra, rb, rdot);
+          }
         }
-      }
-      bbd = fasta::block_sum(bbd, acc_scratch);
-      ndg2 = fasta::block_sum(ndg2, f32_scratch);
-      if (tid == 0) {
-        P[kBbDot * nb + blk] = double(bbd);
-        P[kNdg2 * nb + blk] = ndg2;
-      }
-    }
-    grid.sync();
-
-    // ---- phase 4: every block reduces the same partials in the same order
-    // (lane-strided, then a shuffle tree); the loads of all slots start
-    // together
-    if (tid < 32) {
-      Acc sa[kSlots];
-      float sf[kSlots];
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        sa[s] = Acc(0);
-        sf[s] = 0.f;
-      }
-      for (int i = lane; i < nb; i += 32) {
-        double v[kSlots];
-#pragma unroll
-        for (int s = 0; s < kSlots; ++s) v[s] = __ldcg(P + s * nb + i);
-#pragma unroll
-        for (int s = 0; s < kSlots; ++s) {
-          if (acc_slot(s))
-            sa[s] += Acc(v[s]);
+        nd2 = fasta::block_sum(nd2, f32_scratch);
+        ng2 = fasta::block_sum(ng2, f32_scratch);
+        nsm2 = fasta::block_sum(nsm2, f32_scratch);
+        btd = fasta::block_sum(btd, acc_scratch);
+        if (need_gx) gx = fasta::block_sum(gx, f32_scratch);
+        if (ACCEL) {
+          if (a.rdd)
+            rdot64 = fasta::block_sum(rdot64, f64_scratch);
           else
-            sf[s] += float(v[s]);
+            rdot = fasta::block_sum(rdot, f32_scratch);
+        }
+        if (tid == 0) {
+          P[kNd2 * nb + blk] = nd2;
+          P[kNg2 * nb + blk] = ng2;
+          P[kNsm2 * nb + blk] = nsm2;
+          P[kBtDot * nb + blk] = double(btd);
+          P[kGx * nb + blk] = gx;
+          P[kRdot * nb + blk] = a.rdd ? rdot64 : double(rdot);
         }
       }
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        const double v = acc_slot(s) ? double(fasta::warp_sum(sa[s]))
-                                     : double(fasta::warp_sum(sf[s]));
-        if (tid == 0) tot[s] = v;
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      State s = st;
-      const float nd2 = float(tot[kNd2]);
-      const Acc f1 = Acc(0.5) * Acc(tot[kF]);
-      const Acc btd = Acc(tot[kBtDot]);
-      Acc M = fwin[0];
-      for (int w = 1; w < a.window; ++w) M = fwin[w] > M ? fwin[w] : M;
-      const float q = __fdiv_rn(nd2, __fmul_rn(2.f, s.tau));
-      bool viol;
-      if (sizeof(Acc) == sizeof(double)) {
-        // the TPU kernel's hp slack: 1e-12 plus 64 ulp of the f scale
-        const double slack = 1e-12 + (64.0 * double(kEps32)) * (fabs(double(M)) + fabs(double(f1)));
-        viol = (double(f1) - (double(M) + (double(btd) + double(q)))) > slack;
-      } else {
-        const float suff = __fadd_rn(__fadd_rn(float(M), float(btd)), q);
-        viol = __fsub_rn(float(f1), 1e-12f) > suff;
-      }
-      if (viol && s.cnt < a.max_backtracks) {
-        s.tau = __fmul_rn(s.tau, a.shrink);
-        s.cnt += 1;
-      } else {
-        const float res = __fdiv_rn(sqrtf(nd2), s.tau);
-        s.maxres = nanmax(s.maxres, res);
-        const float nrm = __fadd_rn(nanmax(sqrtf(float(tot[kNg2])),
-                                           __fdiv_rn(sqrtf(float(tot[kNsm2])), s.tau)),
-                                    1e-8f);
-        const float nres = __fdiv_rn(res, nrm);
-        const bool stop = stop_rule(a.stop_rule, res, nres, s.maxres, a.tol);
-        // Zhou–Gao–Dai BB stepsize; the numerator rounds to float32
-        const float dot = float(Acc(tot[kBbDot]));
-        const float ndg2 = float(tot[kNdg2]);
-        const float tau_s = dot != 0.f ? __fdiv_rn(nd2, dot) : CUDART_INF_F;
-        const float tau_m = nanmax(ndg2 > 0.f ? __fdiv_rn(dot, ndg2) : 0.f, 0.f);
-        float tau_n = __fmul_rn(2.f, tau_m) > tau_s ? tau_m
-                                                    : __fsub_rn(tau_s, __fmul_rn(0.5f, tau_m));
-        if (tau_n <= 0.f || isinf(tau_n) || isnan(tau_n)) tau_n = __fmul_rn(s.tau, 1.5f);
-        // halt code: nonfinite wins over converged
-        const bool finite = isfinite(res) && isfinite(tau_n) && isfinite(double(f1));
-        s.status = !finite ? 2 : (stop ? 1 : 0);
-        if (blk == 0) {
-          a.taus[s.k] = s.tau;
-          a.res[s.k] = res;
-          if (a.fvals) a.fvals[s.k] = float(f1);
-          if (a.bts) a.bts[s.k] = s.cnt;
-        }
-        fwin[(s.k + 1) % a.window] = f1;
-        s.k += 1;
-        s.cur ^= 1;
-        s.tau = tau_n;
-        s.cnt = 0;
-        s.done = (s.k >= a.max_iters) || (s.status != 0);
-      }
-      st = s;
-    }
-    __syncthreads();
-    if (st.done) break;
-  }
+      grid.sync();
 
-  const float* xf = X[st.cur];
-  for (int j = gtid; j < n; j += gthreads) a.x_out[j] = __ldcg(xf + j);
-  if (blk == 0 && tid == 0) {
-    *a.k_out = st.k;
-    *a.status_out = st.status;
+      // ---- phase 2: d = A x₁ over this block's rows, ℓ′(d), partial f
+      {
+        Acc fpart = Acc(0);
+        for (int i = gwarp; i < m; i += gwarps) {
+          const float d = row_dot(a.A + (size_t)i * n, x1, n, lane);
+          if (lane == 0) {
+            float w, e;
+            fasta::loss_eval(a.loss, d, __ldg(a.b + i), w, e);
+            if (ACCEL)
+              a.dbuf[i] = d;
+            else
+              a.rbuf[i] = w;
+            fpart += fasta::loss_term<Acc>(a.loss, e);
+          }
+        }
+        fpart = fasta::block_sum(fpart, acc_scratch);
+        if (tid == 0) P[kF * nb + blk] = double(fpart);
+      }
+      grid.sync();
+
+      // ---- phase 3 (adaptive): g₁ = Aᵀ ℓ′(d) over this block's columns,
+      // BB partials
+      if (!ACCEL) {
+        float* g1 = G[cur ^ 1];
+        Acc bbd = Acc(0);
+        float ndg2 = 0.f;
+        for (int j = gwarp; j < n; j += gwarps) {
+          const float g = row_dot(a.At + (size_t)j * m, a.rbuf, m, lane);
+          if (lane == 0) {
+            g1[j] = g;
+            const float xv = __ldcg(xc + j), gv = __ldcg(gc + j);
+            const float xh = step_hat(xv, gv, tau);
+            const float dx = __fsub_rn(__ldcg(x1 + j), xv);
+            // Δg = g₁ + (x̂₁ − x)/τ  (== g₁ − g, in the TPU kernel's rounding)
+            const float dg = __fadd_rn(g, __fdiv_rn(__fsub_rn(xh, xv), tau));
+            bbd += Acc(dx) * Acc(dg);
+            ndg2 = fmaf(dg, dg, ndg2);
+          }
+        }
+        bbd = fasta::block_sum(bbd, acc_scratch);
+        ndg2 = fasta::block_sum(ndg2, f32_scratch);
+        if (tid == 0) {
+          P[kBbDot * nb + blk] = double(bbd);
+          P[kNdg2 * nb + blk] = ndg2;
+        }
+        grid.sync();
+      }
+
+      // ---- phase 4: every block reduces the same partials in the same
+      // order (lane-strided, then a shuffle tree); the loads of the seven
+      // slots every trial writes start together, the two optional slots
+      // follow only when they were written
+      if (tid < 32) {
+        Acc sa[kCommon];
+        float sf[kCommon];
+#pragma unroll
+        for (int s = 0; s < kCommon; ++s) {
+          sa[s] = Acc(0);
+          sf[s] = 0.f;
+        }
+        for (int i = lane; i < nb; i += 32) {
+          double v[kCommon];
+#pragma unroll
+          for (int s = 0; s < kCommon; ++s) v[s] = __ldcg(P + s * nb + i);
+#pragma unroll
+          for (int s = 0; s < kCommon; ++s) {
+            if (acc_slot(s))
+              sa[s] += Acc(v[s]);
+            else
+              sf[s] += float(v[s]);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kCommon; ++s) {
+          const double v = acc_slot(s) ? double(fasta::warp_sum(sa[s]))
+                                       : double(fasta::warp_sum(sf[s]));
+          if (tid == 0) tot[s] = v;
+        }
+        if (need_gx || ACCEL) {
+          float gx = 0.f, rdot = 0.f;
+          double rdot64 = 0.0;
+          for (int i = lane; i < nb; i += 32) {
+            gx += float(__ldcg(P + kGx * nb + i));
+            const double r = __ldcg(P + kRdot * nb + i);
+            rdot += float(r);
+            rdot64 += r;
+          }
+          gx = fasta::warp_sum(gx);
+          const double rd = a.rdd ? fasta::warp_sum(rdot64) : double(fasta::warp_sum(rdot));
+          if (tid == 0) {
+            tot[kGx] = gx;
+            tot[kRdot] = rd;
+          }
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        State s = st;
+        const float nd2 = float(tot[kNd2]);
+        const Acc f1 = Acc(fscale) * Acc(tot[kF]);
+        const Acc btd = Acc(tot[kBtDot]);
+        Acc M = fwin[0];
+        for (int w = 1; w < a.window; ++w) M = fwin[w] > M ? fwin[w] : M;
+        const float q = __fdiv_rn(nd2, __fmul_rn(2.f, s.tau));
+        bool viol;
+        if (hp) {
+          // the TPU kernel's hp slack: 1e-12 plus 64 ulp of the f scale
+          const double slack = 1e-12 + (64.0 * double(kEps32)) * (fabs(double(M)) + fabs(double(f1)));
+          viol = (double(f1) - (double(M) + (double(btd) + double(q)))) > slack;
+        } else {
+          const float suff = __fadd_rn(__fadd_rn(float(M), float(btd)), q);
+          viol = __fsub_rn(float(f1), 1e-12f) > suff;
+        }
+        s.accepted = 0;
+        if (viol && s.cnt < a.max_backtracks) {
+          s.tau = __fmul_rn(s.tau, a.shrink);
+          s.cnt += 1;
+        } else {
+          s.accepted = 1;
+          const float res = __fdiv_rn(sqrtf(nd2), s.tau);
+          s.maxres = nanmax(s.maxres, res);
+          const float nrm = __fadd_rn(nanmax(sqrtf(float(tot[kNg2])),
+                                             __fdiv_rn(sqrtf(float(tot[kNsm2])), s.tau)),
+                                      1e-8f);
+          const float nres = __fdiv_rn(res, nrm);
+          const bool stop = stop_rule(a.stop_rule, res, nres, s.maxres, a.tol);
+          // the last genuinely accepted τ, for the warm carry
+          if (s.cnt < a.max_backtracks) s.tau_acc = s.tau;
+          const size_t r = rec0 + s.k;
+          if (blk == 0) {
+            a.taus[r] = s.tau;
+            a.res[r] = res;
+            if (a.bts) a.bts[r] = s.cnt;
+            if (a.nres) a.nres[r] = nres;
+            if (a.objs) {
+              // the prox-point objective f(x₁) + g(x₁)
+              const float gx = float(tot[kGx]);
+              const float gv = a.prox == kL1     ? __fmul_rn(mu, gx)
+                               : a.prox == kRidge ? __fmul_rn(__fmul_rn(0.5f, mu), gx)
+                                                  : 0.f;
+              a.objs[r] = __fadd_rn(float(f1), gv);
+            }
+          }
+          s.krec = s.k;
+          if (!ACCEL) {
+            // Zhou–Gao–Dai BB stepsize; the numerator rounds to float32
+            const float dot = float(Acc(tot[kBbDot]));
+            const float ndg2 = float(tot[kNdg2]);
+            const float tau_s = dot != 0.f ? __fdiv_rn(nd2, dot) : CUDART_INF_F;
+            const float tau_m = nanmax(ndg2 > 0.f ? __fdiv_rn(dot, ndg2) : 0.f, 0.f);
+            float tau_n = __fmul_rn(2.f, tau_m) > tau_s
+                              ? tau_m
+                              : __fsub_rn(tau_s, __fmul_rn(0.5f, tau_m));
+            if (tau_n <= 0.f || isinf(tau_n) || isnan(tau_n)) tau_n = __fmul_rn(s.tau, 1.5f);
+            // halt code: nonfinite wins over converged
+            const bool finite = isfinite(res) && isfinite(tau_n) && isfinite(double(f1));
+            s.status = !finite ? 2 : (stop ? 1 : 0);
+            if (blk == 0 && a.fvals) a.fvals[r] = float(f1);
+            fwin[(s.k + 1) % a.window] = f1;
+            s.k += 1;
+            s.cur ^= 1;
+            s.tau = tau_n;
+            s.cnt = 0;
+            s.done = (s.k >= a.max_iters) || (s.status != 0);
+          } else {
+            // O'Donoghue–Candès restart and the FISTA momentum
+            const float rdot = float(tot[kRdot]);
+            const float a0 = (a.restart && rdot > 0.f) ? 1.f : s.alpha;
+            const float a1 = __fdiv_rn(
+                __fadd_rn(1.f, sqrtf(__fadd_rn(1.f, __fmul_rn(__fmul_rn(4.f, a0), a0)))), 2.f);
+            s.beta = __fdiv_rn(__fsub_rn(a0, 1.f), a1);
+            s.alpha = a1;
+            s.res = res;
+            s.stop = stop;
+            s.post = 1;
+            f1s = f1;
+          }
+        }
+        st = s;
+      }
+      __syncthreads();
+      if (a.its && st.accepted) {
+        // record the accepted prox point: this thread wrote these columns
+        float* row = a.its + (rec0 + st.krec) * n;
+        for (int j = gtid; j < n; j += gthreads) row[j] = x1[j];
+      }
+
+      if (ACCEL && st.post) {
+        const float beta = st.beta;
+        // ---- phase A: d_n = d₁ + β(d₁ − d_acc), ℓ′(d_n), partial f(d_n)
+        {
+          Acc fpart = Acc(0);
+          for (int i = gtid; i < m; i += gthreads) {
+            const float d1 = __ldcg(a.dbuf + i), da = __ldcg(a.dacc + i);
+            const float dn = __fadd_rn(d1, __fmul_rn(beta, __fsub_rn(d1, da)));
+            a.dacc[i] = d1;
+            float w, e;
+            fasta::loss_eval(a.loss, dn, __ldg(a.b + i), w, e);
+            a.rbuf[i] = w;
+            fpart += fasta::loss_term<Acc>(a.loss, e);
+          }
+          fpart = fasta::block_sum(fpart, acc_scratch);
+          if (tid == 0) P[kFn * nb + blk] = double(fpart);
+        }
+        grid.sync();
+        // ---- phase B: g_n = Aᵀ ℓ′(d_n), y_n = x₁ + β(x₁ − x_acc), x_acc = x₁
+        {
+          float* y = X[cur];
+          float* gy = G[cur];
+          for (int j = gwarp; j < n; j += gwarps) {
+            const float g = row_dot(a.At + (size_t)j * m, a.rbuf, m, lane);
+            if (lane == 0) {
+              const float xv1 = __ldcg(x1 + j), xa = __ldcg(a.xacc + j);
+              gy[j] = g;
+              y[j] = __fadd_rn(xv1, __fmul_rn(beta, __fsub_rn(xv1, xa)));
+              a.xacc[j] = xv1;
+            }
+          }
+        }
+        grid.sync();
+        if (tid < 32) {
+          const Acc fn = Acc(fscale) * fasta::warp_sum_global<Acc>(P + kFn * nb, nb);
+          if (tid == 0) {
+            State s = st;
+            // the window sees f at the next search point, or f(x₁) on a stop
+            const Acc f_rec = s.stop ? f1s : fn;
+            const bool finite = isfinite(s.res) && isfinite(s.tau) && isfinite(double(f_rec));
+            s.status = !finite ? 2 : (s.stop ? 1 : 0);
+            if (blk == 0 && a.fvals) a.fvals[rec0 + s.k] = float(f_rec);
+            fwin[(s.k + 1) % a.window] = f_rec;
+            s.k += 1;
+            s.cnt = 0;
+            s.post = 0;
+            s.done = (s.k >= a.max_iters) || (s.status != 0);
+            st = s;
+          }
+        }
+        __syncthreads();
+      }
+      if (st.done) break;
+    }
+
+    // ---- point end: the solution (FISTA: x₁ on a converged stop, else
+    // the extrapolated y), its counts, and the warm carry
+    const float* xf = (ACCEL && st.status == 1) ? a.xacc : X[st.cur];
+    float* xo = a.x_out + (size_t)p * n;
+    for (int j = gtid; j < n; j += gthreads) xo[j] = __ldcg(xf + j);
+    if (blk == 0 && tid == 0) {
+      a.k_out[p] = st.k;
+      a.status_out[p] = st.status;
+    }
+    if (tid == 0) {
+      const bool ok = st.status != 2;
+      carry_ok = ok;
+      tprev = (ok && st.k > 0 && st.tau_acc > 0.f) ? st.tau_acc : st.tau_start;
+    }
+    if (p + 1 < a.npath) grid.sync();  // the next point may start from xo
   }
 }
 
 cudaError_t max_blocks(int* nblocks) {
-  int dev = 0, sms = 0, per_sm_f = 0, per_sm_d = 0;
+  int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_f, microsolve_kernel<float>,
-                                                        kThreads, 0);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_d, microsolve_kernel<double>,
-                                                        kThreads, 0);
+  const void* fns[] = {(const void*)microsolve_kernel<float, false>,
+                       (const void*)microsolve_kernel<double, false>,
+                       (const void*)microsolve_kernel<float, true>,
+                       (const void*)microsolve_kernel<double, true>};
+  int per_sm = 1 << 30;
+  for (const void* fn : fns) {
+    int k = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, fn, kThreads, 0);
+    per_sm = k < per_sm ? k : per_sm;
+  }
   if (err != cudaSuccess) return err;
-  const int per_sm = per_sm_f < per_sm_d ? per_sm_f : per_sm_d;
   *nblocks = per_sm < 1 ? 0 : sms;  // at most one block per SM
   return cudaSuccess;
 }
+
+size_t pad4(int v) { return ((size_t)v + 3) / 4 * 4; }
 
 }  // namespace
 
@@ -383,28 +612,73 @@ cudaError_t max_blocks(int* nblocks) {
 // (0 if the kernel cannot be resident at all).
 extern "C" int fasta_microsolve_grid(int* nblocks) { return max_blocks(nblocks); }
 
-// Run the whole solve on `stream`.  work_f holds 4n + m floats, work_d
-// 2·7·nblocks doubles.  fvals and bts may be null.
-extern "C" int fasta_microsolve_lasso(const float* A, const float* At, const float* b,
-                                      const float* x0, float tau0, float mu, int m, int n,
-                                      int max_iters, int window, float tol, float shrink_factor,
-                                      int max_backtracks, int hp, int stop_rule_code,
-                                      float* x_out, float* taus, float* res, float* fvals,
-                                      int* bts, int* k_out, int* status_out, float* work_f,
-                                      double* work_d, int nblocks, void* stream) {
-  if (m < 1 || n < 1 || max_iters < 1 || window < 1 || window > kWinMax || max_backtracks < 0 ||
-      stop_rule_code < kResidual || stop_rule_code > kIterations)
+// Run npath solves (one per weight in mus) on `stream`; see the option
+// bits in Flag.  Outputs have a leading axis of npath.  work_f holds
+// 5·pad4(n) + 3·pad4(m) floats, work_d 3·10·nblocks doubles.  fvals,
+// bts, objs, nres and its may be null.
+extern "C" int fasta_microsolve(const float* A, const float* At, const float* b,
+                                const float* x0, const float* mus, int npath, float tau0, int m,
+                                int n, int max_iters, int window, float tol, float shrink_factor,
+                                int max_backtracks, int stop_rule_code, int loss, int prox,
+                                int flags, float* x_out, float* taus, float* res, float* fvals,
+                                int* bts, float* objs, float* nres, float* its, int* k_out,
+                                int* status_out, float* work_f, double* work_d, int nblocks,
+                                void* stream) {
+  if (m < 1 || n < 1 || npath < 1 || max_iters < 1 || window < 1 || window > kWinMax ||
+      max_backtracks < 0 || stop_rule_code < kResidual || stop_rule_code > kIterations ||
+      loss < fasta::kLstsq || loss > fasta::kSquaredHinge || prox < kL1 || prox > kRidge)
     return cudaErrorInvalidValue;
   int limit = 0;
   cudaError_t err = max_blocks(&limit);
   if (err != cudaSuccess) return err;
   if (nblocks < 1 || nblocks > limit) return cudaErrorCooperativeLaunchTooLarge;
-  Args args{A, At, b, x0, x_out, taus, res, fvals, bts, k_out, status_out,
-            work_f, work_f + 2 * (size_t)n, work_f + 4 * (size_t)n, work_d,
-            m, n, max_iters, window, max_backtracks, stop_rule_code,
-            tau0, mu, tol, shrink_factor};
+  const size_t pn = pad4(n), pm = pad4(m);
+  Args args{};
+  args.A = A;
+  args.At = At;
+  args.b = b;
+  args.x0 = x0;
+  args.mus = mus;
+  args.x_out = x_out;
+  args.taus = taus;
+  args.res = res;
+  args.fvals = fvals;
+  args.bts = bts;
+  args.objs = objs;
+  args.nres = nres;
+  args.its = its;
+  args.k_out = k_out;
+  args.status_out = status_out;
+  args.xbuf = work_f;
+  args.gbuf = work_f + 2 * pn;
+  args.xacc = work_f + 4 * pn;
+  args.rbuf = work_f + 5 * pn;
+  args.dbuf = args.rbuf + pm;
+  args.dacc = args.dbuf + pm;
+  args.part = work_d;
+  args.npath = npath;
+  args.m = m;
+  args.n = n;
+  args.pn = (int)pn;
+  args.max_iters = max_iters;
+  args.window = window;
+  args.max_backtracks = max_backtracks;
+  args.stop_rule = stop_rule_code;
+  args.loss = loss;
+  args.prox = prox;
+  args.accel = (flags & kAccel) != 0;
+  args.restart = (flags & kRestart) != 0;
+  args.rdd = (flags & kHp) && (flags & kRestartDd);
+  args.warm = (flags & kWarm) != 0;
+  args.tau0 = tau0;
+  args.tol = tol;
+  args.shrink = shrink_factor;
   void* params[] = {&args};
-  const void* fn = hp ? (const void*)microsolve_kernel<double> : (const void*)microsolve_kernel<float>;
+  const bool hp = (flags & kHp) != 0, accel = (flags & kAccel) != 0;
+  const void* fn = hp ? (accel ? (const void*)microsolve_kernel<double, true>
+                               : (const void*)microsolve_kernel<double, false>)
+                      : (accel ? (const void*)microsolve_kernel<float, true>
+                               : (const void*)microsolve_kernel<float, false>);
   err = cudaLaunchCooperativeKernel(fn, dim3(nblocks), dim3(kThreads), params, 0,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;

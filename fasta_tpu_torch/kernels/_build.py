@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``fasta_tpu_torch/csrc/`` expose a plain C interface;
-they are compiled by ``nvcc`` into one shared library at first use and
-loaded with ``ctypes``.  The library goes to ``build/fasta_tpu_torch/``
+they are compiled at first use, one ``nvcc`` per source, all started
+together, then linked into one shared library and loaded with
+``ctypes``.  The library goes to ``build/fasta_tpu_torch/``
 beside the package, named by a hash of the sources and flags, so a stale
 library is never loaded.  Nothing is built when a module is imported:
 only a call on a CUDA tensor reaches :func:`library`.
@@ -25,21 +26,21 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fasta_tpu_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
 
 # C entry points: name -> argtypes (every one returns a cudaError_t)
 _SIGNATURES = {
-    "fasta_lstsq_gradmap_plan": [_I, _I, _P, _P, _P, _P],
-    "fasta_lstsq_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P, _P],
+    "fasta_gradmap_plan": [_I, _I, _P, _P, _P, _P],
+    "fasta_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P],
     "fasta_microsolve_grid": [_P],
-    "fasta_microsolve_lasso": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
-                               _F, _F, _I, _I, _I,
-                               _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _I, _P],
+    "fasta_microsolve": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I,
+                         _F, _F, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _I, _P],
 }
 
 
@@ -71,15 +72,31 @@ def _nvcc() -> str:
 def _compile(out: Path) -> None:
     cu, _ = _sources()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, pid = _nvcc(), os.getpid()
+    tmp = out.with_suffix(f".{pid}.tmp")
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{pid}.o") for src in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    steps = [(cmd, proc.communicate()[0], proc.returncode)
+             for cmd, proc in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in steps):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        steps.append((link, proc.stdout, proc.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     # -Xptxas -v reports registers, shared memory and spills per kernel
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    out.with_suffix(".log").write_text("".join(
+        f"$ {' '.join(cmd)}\n{text}" for cmd, text, _ in steps))
+    for cmd, text, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                               f"{text}")
     os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
 
 

@@ -1,10 +1,14 @@
-"""Kernel K-B3: the fused least-squares gradient map
-(d, f, g) = (Ax, ½‖Ax−b‖², Aᵀ(Ax−b)) in one read of A.
+"""Kernels K-B3 and K-B3p: fused gradient maps in one read of A.
 
-Port of ``fasta_tpu/kernels/lstsq_fused.py:148-164, 368-452``.  The CUDA
-source is ``fasta_tpu_torch/csrc/lstsq_fused.cu``; its header note gives
-the design.  ``fused_lstsq_gradmap`` launches it for CUDA tensors and
-runs the plain version ``lstsq_gradmap_reference`` for CPU tensors.
+K-B3, ``fused_lstsq_gradmap``: (d, f, g) = (Ax, ½‖Ax−b‖², Aᵀ(Ax−b)),
+port of ``fasta_tpu/kernels/lstsq_fused.py:148-164, 368-452``.  K-B3p,
+``fused_pointwise_gradmap``: (d, f, g) = (Ax, Σℓ(Ax; y), Aᵀℓ′(Ax)) for
+the logistic loss and the squared hinge, port of
+``lstsq_fused.py:246-365``.  Both run the same CUDA source,
+``fasta_tpu_torch/csrc/lstsq_fused.cu`` (its header note gives the
+design), with a loss code.  Each wrapper launches the kernel for CUDA
+tensors and runs its plain version (``lstsq_gradmap_reference``,
+``pointwise_gradmap_reference``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,11 +21,17 @@ import torch
 from . import _build
 
 __all__ = ["fused_lstsq_gradmap", "lstsq_gradmap_reference",
-           "supports_fusion", "LAUNCHES"]
+           "fused_pointwise_gradmap", "pointwise_gradmap_reference",
+           "supports_fusion", "LOSSES", "LAUNCHES", "POINTWISE_LAUNCHES"]
 
-# Launches of the CUDA kernel pair (counted where it launches, nowhere
-# else).
+# Launches of the CUDA kernel pair for the least-squares loss (K-B3) and
+# for a pointwise loss (K-B3p), each counted where it launches, nowhere
+# else.
 LAUNCHES = 0
+POINTWISE_LAUNCHES = 0
+
+# The kernel's loss codes, in order (csrc/losses.cuh).
+LOSSES = ("lstsq", "logistic", "squared_hinge")
 
 
 def supports_fusion(m: int, n: int, dtype: torch.dtype) -> bool:
@@ -42,6 +52,24 @@ def lstsq_gradmap_reference(A: torch.Tensor, x: torch.Tensor,
     return d, f, g
 
 
+def pointwise_gradmap_reference(A: torch.Tensor, x: torch.Tensor,
+                                data: torch.Tensor, loss: str):
+    """The plain two-pass form of K-B3p: d = A x, (ℓ, ℓ′) elementwise,
+    f = Σℓ, g = Aᵀℓ′ (``lstsq_fused.py``'s ``_logistic_elem`` and
+    ``_hinge_elem``; the squared hinge's ℓ is ½r²)."""
+    from ..terms import hinge_residual, logistic_ell, logistic_grad
+    d = torch.matmul(A, x)
+    if loss == "logistic":
+        ell, dl = logistic_ell(d, data), logistic_grad(d, data)
+    elif loss == "squared_hinge":
+        r = hinge_residual(d, data)
+        ell, dl = 0.5 * r * r, -data * r
+    else:
+        raise ValueError(f"unknown pointwise loss {loss!r} (choose "
+                         f"logistic or squared_hinge)")
+    return d, torch.sum(ell), torch.matmul(A.mT, dl)
+
+
 @functools.lru_cache(maxsize=None)
 def _plan(device_index: int, m: int, n: int):
     """(cluster, tile rows, parts, dynamic shared bytes) of the kernel
@@ -52,24 +80,24 @@ def _plan(device_index: int, m: int, n: int):
     lib = _build.library()
     out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device_index):
-        _build.check(lib.fasta_lstsq_gradmap_plan(
-            m, n, *(ctypes.byref(v) for v in out)),
-            "fasta_lstsq_gradmap_plan")
+        _build.check(lib.fasta_gradmap_plan(
+            m, n, *(ctypes.byref(v) for v in out)), "fasta_gradmap_plan")
     return tuple(v.value for v in out)
 
 
-def _check(A, x, b):
+def _check(A, x, b, what):
     if A.ndim != 2 or x.ndim != 1 or b.ndim != 1:
-        raise ValueError(f"fused_lstsq_gradmap needs A (m,n), x (n,), "
-                         f"b (m,); got {tuple(A.shape)}, {tuple(x.shape)}, "
+        raise ValueError(f"{what} needs A (m,n), x (n,), b (m,); got "
+                         f"{tuple(A.shape)}, {tuple(x.shape)}, "
                          f"{tuple(b.shape)}")
     m, n = A.shape
     if x.shape[0] != n or b.shape[0] != m:
-        raise ValueError(f"fused_lstsq_gradmap: x has {x.shape[0]} entries "
-                         f"and b {b.shape[0]} for A {m}x{n}")
+        raise ValueError(f"{what}: x has {x.shape[0]} entries and b "
+                         f"{b.shape[0]} for A {m}x{n}")
     if len({A.device, x.device, b.device}) != 1:
-        raise ValueError("fused_lstsq_gradmap: A, x and b must share a "
-                         "device")
+        raise ValueError(f"{what}: A, x and b must share a device")
+    if A.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {A.device}")
 
 
 def fused_lstsq_gradmap(A: torch.Tensor, x: torch.Tensor, b: torch.Tensor):
@@ -78,19 +106,42 @@ def fused_lstsq_gradmap(A: torch.Tensor, x: torch.Tensor, b: torch.Tensor):
     CUDA tensors launch kernel K-B3, at any shape, and must be float32,
     contiguous and 16-byte aligned; anything else raises.  CPU tensors
     run the plain version."""
-    _check(A, x, b)
+    _check(A, x, b, "fused_lstsq_gradmap")
     if A.device.type == "cpu":
         return lstsq_gradmap_reference(A, x, b)
-    if A.device.type != "cuda":
-        raise ValueError(f"fused_lstsq_gradmap: no kernel for device "
-                         f"{A.device}")
+    out = _launch(A, x, b, 0, "fused_lstsq_gradmap")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def fused_pointwise_gradmap(A: torch.Tensor, x: torch.Tensor,
+                            data: torch.Tensor, loss: str):
+    """One-pass (d: (m,), f = Σℓ: 0-d, g = Aᵀℓ′: (n,)) for the pointwise
+    loss ``loss``: "logistic" (labels in {0,1}) or "squared_hinge"
+    (labels ±1); ``data`` holds the labels.
+
+    CUDA tensors launch kernel K-B3p under the same rules as K-B3; CPU
+    tensors run the plain version."""
+    if loss not in LOSSES[1:]:
+        raise ValueError(f"unknown pointwise loss {loss!r} (choose "
+                         f"logistic or squared_hinge)")
+    _check(A, x, data, "fused_pointwise_gradmap")
+    if A.device.type == "cpu":
+        return pointwise_gradmap_reference(A, x, data, loss)
+    out = _launch(A, x, data, LOSSES.index(loss), "fused_pointwise_gradmap")
+    global POINTWISE_LAUNCHES
+    POINTWISE_LAUNCHES += 1
+    return out
+
+
+def _launch(A, x, b, loss_code, what):
     for name, t in (("A", A), ("x", x), ("b", b)):
         if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"fused_lstsq_gradmap: {name} must be a "
-                             f"contiguous float32 tensor, got {t.dtype}")
+            raise ValueError(f"{what}: {name} must be a contiguous float32 "
+                             f"tensor, got {t.dtype}")
         if t.data_ptr() % 16:
-            raise ValueError(f"fused_lstsq_gradmap: {name} must be 16-byte "
-                             f"aligned")
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
     m, n = A.shape
     cluster, tm, nb, smem = _plan(A.device.index, m, n)
     # one allocation: gpart (nb, n) first, so its rows stay 16-byte
@@ -100,10 +151,8 @@ def fused_lstsq_gradmap(A: torch.Tensor, x: torch.Tensor, b: torch.Tensor):
     base = ws.data_ptr()
     d, g, f = ws[nb * n + nb:].split([m, n, 1])
     with _build.on_device(A.device) as stream:
-        _build.check(_build.library().fasta_lstsq_gradmap(
-            A.data_ptr(), x.data_ptr(), b.data_ptr(), m, n, cluster, tm, nb,
-            smem, d.data_ptr(), f.data_ptr(), g.data_ptr(), base,
-            base + 4 * nb * n, stream), "fasta_lstsq_gradmap")
-    global LAUNCHES
-    LAUNCHES += 1
+        _build.check(_build.library().fasta_gradmap(
+            A.data_ptr(), x.data_ptr(), b.data_ptr(), m, n, loss_code,
+            cluster, tm, nb, smem, d.data_ptr(), f.data_ptr(), g.data_ptr(),
+            base, base + 4 * nb * n, stream), "fasta_gradmap")
     return d, f.reshape(()), g

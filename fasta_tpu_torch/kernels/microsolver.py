@@ -1,16 +1,21 @@
-"""Kernels K-B1 and K-B2: the whole adaptive LASSO solve in one launch.
+"""Kernels K-B1, K-B1p and K-B2: whole dense solves in one launch.
 
-Port of ``fasta_tpu/kernels/microsolver.py:49-102, 105-711, 721-843``
-(and, inlined, ``kernels/ddreduce.py``) for loss "lstsq" × prox "l1" in
-adaptive mode.  The CUDA sources are ``fasta_tpu_torch/csrc/
-microsolver.cu`` (K-B1) and ``csrc/reduce.cuh`` (K-B2, the fixed-order
-FP64 reduction of the hp decision scalars); their header notes give the
-design.  ``microsolve_lasso`` launches the kernel for CUDA tensors and
-runs the plain version ``microsolve_lasso_reference`` for CPU tensors.
+K-B1, ``microsolve_lasso``: the whole adaptive or FISTA solve of
+min f(Ax) + g(x) for the losses "lstsq" ½‖·−b‖², "logistic"
+Σlog(1+exp(·))−bᵀ· and "squared_hinge" ½Σmax(0,1−b⊙·)² × the proxes
+"l1" μ‖·‖₁, "nonneg", "box" ([−1,1]) and "ridge" (μ/2)‖·‖²; port of
+``fasta_tpu/kernels/microsolver.py:49-102, 105-711, 721-843``.
+K-B1p, ``microsolve_lasso_path``: the same solve over a path of weights μ
+in one launch, warm (each point from the previous solution and stepsize)
+or cold (each point as a separate ``microsolve_lasso`` call); port of
+``microsolver.py:853-966``.  K-B2, the fixed-order FP64 reduction of the
+hp decision scalars (``kernels/ddreduce.py``), is inlined.
 
-The other loss × prox pairs, FISTA and the objective / normalized
-residual / iterate recordings of the TPU kernel are ROADMAP Queue B item
-B1's later steps; asking for them raises ``NotImplementedError``.
+The CUDA source is ``fasta_tpu_torch/csrc/microsolver.cu`` (with
+``csrc/reduce.cuh`` and ``csrc/losses.cuh``); its header note gives the
+design.  Each wrapper launches the kernel for CUDA tensors and runs its
+plain version (``microsolve_lasso_reference``,
+``microsolve_lasso_path_reference``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,19 +28,26 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..options import STOP_RULES, stop_test
-from ..prox import shrink
+from ..prox import project_box, project_nonneg, shrink
+from ..terms import hinge_residual, logistic_ell, logistic_grad
 from . import _build
 
 __all__ = ["microsolve_lasso", "microsolve_lasso_reference",
-           "MicrosolveOutput", "STATUS_NAMES", "supports_microsolver",
-           "LAUNCHES"]
+           "microsolve_lasso_path", "microsolve_lasso_path_reference",
+           "MicrosolveOutput", "STATUS_NAMES", "LOSSES", "PROXES",
+           "supports_microsolver", "LAUNCHES", "PATH_LAUNCHES"]
 
-# Launches of the whole-solve kernel (counted where it launches, nowhere
-# else).
+# Launches of the whole-solve kernel for one solve (K-B1) and for a path
+# (K-B1p), each counted where it launches, nowhere else.
 LAUNCHES = 0
+PATH_LAUNCHES = 0
 
 # The kernel's int32 halt codes, in order.
 STATUS_NAMES = ("max_iters", "converged", "nonfinite")
+# The kernel's loss and prox codes, in order (csrc/losses.cuh,
+# csrc/microsolver.cu).
+LOSSES = ("lstsq", "logistic", "squared_hinge")
+PROXES = ("l1", "nonneg", "box", "ridge")
 
 # The kernel keeps the nonmonotone window in a fixed shared-memory ring.
 _WINDOW_MAX = 128
@@ -58,17 +70,21 @@ def supports_microsolver(m: int, n: int) -> bool:
 
 
 class MicrosolveOutput(NamedTuple):
-    """What one whole-solve run returns.  ``taus``, ``residuals``,
-    ``fvals`` and ``backtracks`` have ``max_iters`` entries; those at and
-    after ``iteration_count`` are zero.  ``halt`` is the int32 halt code;
-    ``status`` names it."""
+    """What a whole-solve run returns.  ``taus``, ``residuals`` and the
+    optional series have ``max_iters`` entries (``iterates``: rows);
+    those at and after ``iteration_count`` are zero.  ``halt`` is the
+    int32 halt code; ``status`` names it.  A path run stacks every field
+    on a leading axis of path points."""
     x: torch.Tensor
     taus: torch.Tensor
     residuals: torch.Tensor
-    iteration_count: torch.Tensor        # 0-d int32
-    halt: torch.Tensor                   # 0-d int32: index into STATUS_NAMES
+    iteration_count: torch.Tensor        # int32
+    halt: torch.Tensor                   # int32: index into STATUS_NAMES
     fvals: Optional[torch.Tensor]        # when record_fvals
     backtracks: Optional[torch.Tensor]   # int32, when record_bts
+    objectives: Optional[torch.Tensor]   # when record_objs
+    iterates: Optional[torch.Tensor]     # (max_iters, n), when record_its
+    norm_residuals: Optional[torch.Tensor]   # when record_nres
 
     @property
     def status(self) -> str:
@@ -76,21 +92,11 @@ class MicrosolveOutput(NamedTuple):
         return STATUS_NAMES[int(self.halt)]
 
 
-def _check_options(loss, prox, accelerate, record_objs, record_its,
-                   record_nres, stop_rule, window, max_iters):
-    if loss != "lstsq" or prox != "l1":
-        raise NotImplementedError(
-            f"microsolve_lasso: loss {loss!r} x prox {prox!r} is not ported "
-            f"yet; only lstsq x l1 is (the other pairs are ROADMAP Queue B "
-            f"item B1)")
-    if accelerate:
-        raise NotImplementedError(
-            "microsolve_lasso: FISTA mode is not ported yet (ROADMAP Queue "
-            "B item B1)")
-    if record_objs or record_its or record_nres:
-        raise NotImplementedError(
-            "microsolve_lasso: objective, iterate and normalized-residual "
-            "recording are not ported yet (ROADMAP Queue B item B1)")
+def _check_options(loss, prox, stop_rule, window, max_iters):
+    if loss not in LOSSES:
+        raise ValueError(f"unknown loss {loss!r} (choose from {LOSSES})")
+    if prox not in PROXES:
+        raise ValueError(f"unknown prox {prox!r} (choose from {PROXES})")
     if stop_rule not in STOP_RULES:
         raise ValueError(f"unknown stop_rule {stop_rule!r} "
                          f"(choose from {STOP_RULES})")
@@ -101,51 +107,101 @@ def _check_options(loss, prox, accelerate, record_objs, record_its,
         raise ValueError("max_iters must be >= 1")
 
 
-def _check_tensors(A, b, x0):
+def _check_tensors(A, b, x0, what):
     if A.ndim != 2 or b.ndim != 1 or x0.ndim != 1:
-        raise ValueError("microsolve_lasso needs A (m,n), b (m,), x0 (n,)")
+        raise ValueError(f"{what} needs A (m,n), b (m,), x0 (n,)")
     m, n = A.shape
     if b.shape[0] != m or x0.shape[0] != n:
-        raise ValueError(f"microsolve_lasso: b has {b.shape[0]} entries and "
-                         f"x0 {x0.shape[0]} for A {m}x{n}")
+        raise ValueError(f"{what}: b has {b.shape[0]} entries and x0 "
+                         f"{x0.shape[0]} for A {m}x{n}")
     for name, t in (("A", A), ("b", b), ("x0", x0)):
         if t.dtype != torch.float32:
-            raise ValueError(f"microsolve_lasso: {name} must be float32, "
-                             f"got {t.dtype}")
+            raise ValueError(f"{what}: {name} must be float32, got "
+                             f"{t.dtype}")
         if t.device != A.device:
-            raise ValueError("microsolve_lasso: A, b and x0 must share a "
-                             "device")
+            raise ValueError(f"{what}: A, b and x0 must share a device")
+    if A.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {A.device}")
 
 
-def microsolve_lasso(A, b, x0, tau0, mu, *, max_iters=1000, window=10,
-                     tol=1e-3, shrink_factor=0.2, max_backtracks=20,
-                     hp=False, stop_rule="hybrid_residual",
-                     record_fvals=False, record_bts=False, loss="lstsq",
-                     prox="l1", accelerate=False, record_objs=False,
-                     record_its=False, record_nres=False
-                     ) -> MicrosolveOutput:
-    """Whole adaptive solve of  min ½‖Ax−b‖² + μ‖x‖₁  in one launch.
+_DEFAULTS = dict(max_iters=1000, window=10, tol=1e-3, shrink_factor=0.2,
+                 max_backtracks=20, hp=False, stop_rule="hybrid_residual",
+                 loss="lstsq", prox="l1", accelerate=False, restart=True,
+                 restart_dd=False, record_fvals=False, record_bts=False,
+                 record_objs=False, record_nres=False)
 
-    Same options and math as the TPU kernel: nonmonotone backtracking
-    over a ``window`` of f-values, the Zhou–Gao–Dai BB stepsize, the five
-    stop rules, and the halt code (nonfinite wins over converged).
-    ``hp=True`` accumulates the decision scalars in float64.
+
+def microsolve_lasso(A, b, x0, tau0, mu, *, record_its=False,
+                     **options) -> MicrosolveOutput:
+    """Whole solve of  min f(Ax) + g(x)  in one launch.
+
+    ``loss`` selects f: "lstsq" (½‖·−b‖²), "logistic" (labels b ∈ {0,1})
+    or "squared_hinge" (labels b ∈ {±1}); ``prox`` selects g: "l1"
+    (μ‖·‖₁), "nonneg", "box" ([−1,1]) or "ridge" ((μ/2)‖·‖², μ carries
+    λ).  Same options and math as the TPU kernel: nonmonotone
+    backtracking over a ``window`` of f-values, the Zhou–Gao–Dai BB
+    stepsize or, with ``accelerate``, FISTA with O'Donoghue–Candès
+    ``restart`` (``restart_dd`` takes the restart dot in float64 under
+    hp), the five stop rules, and the halt code (nonfinite wins over
+    converged).  ``hp=True`` accumulates the decision scalars in float64.
+    ``record_fvals``, ``record_bts``, ``record_objs`` (prox-point
+    objective), ``record_its`` (iterate rows) and ``record_nres``
+    (normalized residuals) add series to the output.
 
     CUDA tensors launch kernel K-B1 (A, b, x0 float32; a contiguous Aᵀ
     is made once per call); CPU tensors run the plain version."""
-    _check_options(loss, prox, accelerate, record_objs, record_its,
-                   record_nres, stop_rule, window, max_iters)
-    _check_tensors(A, b, x0)
-    kw = dict(max_iters=max_iters, window=window, tol=tol,
-              shrink_factor=shrink_factor, max_backtracks=max_backtracks,
-              hp=hp, stop_rule=stop_rule, record_fvals=record_fvals,
-              record_bts=record_bts)
+    opts = _options(options)
+    _check_tensors(A, b, x0, "microsolve_lasso")
     if A.device.type == "cpu":
-        return microsolve_lasso_reference(A, b, x0, tau0, mu, **kw)
-    if A.device.type != "cuda":
-        raise ValueError(f"microsolve_lasso: no kernel for device "
-                         f"{A.device}")
-    return _launch(A, b, x0, tau0, mu, **kw)
+        return microsolve_lasso_reference(A, b, x0, tau0, mu,
+                                          record_its=record_its, **opts)
+    out = _launch(A, b, x0, tau0, torch.tensor([float(mu)]), False,
+                  record_its, opts)
+    global LAUNCHES
+    LAUNCHES += 1
+    return MicrosolveOutput(*(None if t is None else t[0] for t in out))
+
+
+def microsolve_lasso_path(A, b, x0, tau0, mus, *, warm=True,
+                          **options) -> MicrosolveOutput:
+    """The solve of ``microsolve_lasso`` for each weight of ``mus`` (B,)
+    in one launch; every output field gains a leading axis of B points.
+
+    ``warm=True`` is the continuation recipe of ``solve_path``: point i
+    starts from point i−1's solution and, in adaptive mode, its last
+    genuinely accepted stepsize (fewer than ``max_backtracks`` trials,
+    τ > 0), else τ₀; FISTA warm-starts x only and keeps τ₀.  A nonfinite
+    abort at point i sends point i+1 back to the cold x₀, with point i's
+    own start τ — the JAX kernel's code (microsolver.py:704-709), whose
+    docstring says the caller's τ₀.  Order ``mus`` strongest first and
+    prefer ``stop_rule="residual"``.
+    ``warm=False`` solves every point cold: each is bit-identical to a
+    separate ``microsolve_lasso`` call on the same device.
+
+    CUDA tensors launch kernel K-B1p; CPU tensors run the plain version."""
+    opts = _options(options)
+    _check_tensors(A, b, x0, "microsolve_lasso_path")
+    mus = torch.as_tensor(mus, dtype=torch.float32)
+    if mus.ndim != 1 or mus.shape[0] < 1:
+        raise ValueError("microsolve_lasso_path: mus must be a non-empty "
+                         "1-D vector of weights")
+    if A.device.type == "cpu":
+        return microsolve_lasso_path_reference(A, b, x0, tau0, mus,
+                                               warm=warm, **opts)
+    out = _launch(A, b, x0, tau0, mus.cpu(), warm, False, opts)
+    global PATH_LAUNCHES
+    PATH_LAUNCHES += 1
+    return MicrosolveOutput(*out)
+
+
+def _options(options):
+    unknown = set(options) - set(_DEFAULTS)
+    if unknown:
+        raise TypeError(f"unknown option(s) {sorted(unknown)}")
+    opts = {**_DEFAULTS, **options}
+    _check_options(opts["loss"], opts["prox"], opts["stop_rule"],
+                   opts["window"], opts["max_iters"])
+    return opts
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,89 +216,181 @@ def _grid(device_index: int) -> int:
     return nb.value
 
 
-def _launch(A, b, x0, tau0, mu, *, max_iters, window, tol, shrink_factor,
-            max_backtracks, hp, stop_rule, record_fvals, record_bts):
+# partial slots per block and trial in the kernel's FP64 scratch
+_SLOTS = 10
+
+
+def _pad4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def _launch(A, b, x0, tau0, mus, warm, record_its, o):
     for name, t in (("A", A), ("b", b), ("x0", x0)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"microsolve_lasso: {name} must be contiguous "
                              f"and 16-byte aligned")
     m, n = A.shape
+    B, K = mus.shape[0], o["max_iters"]
     dev = A.device
     nb = _grid(dev.index)
     f32 = dict(device=dev, dtype=torch.float32)
     i32 = dict(device=dev, dtype=torch.int32)
     At = A.t().contiguous()
-    x = torch.empty(n, **f32)
-    taus = torch.zeros(max_iters, **f32)
-    res = torch.zeros(max_iters, **f32)
-    fvals = torch.zeros(max_iters, **f32) if record_fvals else None
-    bts = torch.zeros(max_iters, **i32) if record_bts else None
-    k = torch.empty((), **i32)
-    halt = torch.empty((), **i32)
-    work_f = torch.empty(4 * n + m, **f32)
-    work_d = torch.empty(2 * 7 * nb, device=dev, dtype=torch.float64)
+    mus_d = mus.to(**f32)
+    x = torch.empty(B, n, **f32)
+    taus = torch.zeros(B, K, **f32)
+    res = torch.zeros(B, K, **f32)
+
+    def series(flag, dtype=torch.float32):
+        return torch.zeros(B, K, device=dev, dtype=dtype) if flag else None
+
+    fvals = series(o["record_fvals"])
+    bts = series(o["record_bts"], torch.int32)
+    objs = series(o["record_objs"])
+    nres = series(o["record_nres"])
+    its = torch.zeros(B, K, n, **f32) if record_its else None
+    k = torch.empty(B, **i32)
+    halt = torch.empty(B, **i32)
+    # the kernel carves five n-vectors and three m-vectors, each padded
+    # to 4 floats so that every one stays 16-byte aligned
+    work_f = torch.empty(5 * _pad4(n) + 3 * _pad4(m), **f32)
+    work_d = torch.empty(3 * _SLOTS * nb, device=dev, dtype=torch.float64)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    flags = (int(bool(o["hp"])) | int(bool(o["accelerate"])) << 1
+             | int(bool(o["restart"])) << 2 | int(bool(o["restart_dd"])) << 3
+             | int(bool(warm)) << 4)
     with _build.on_device(dev) as stream:
-        _build.check(_build.library().fasta_microsolve_lasso(
+        _build.check(_build.library().fasta_microsolve(
             A.data_ptr(), At.data_ptr(), b.data_ptr(), x0.data_ptr(),
-            float(tau0), float(mu), m, n, max_iters, window, float(tol),
-            float(shrink_factor), max_backtracks, int(bool(hp)),
-            STOP_RULES.index(stop_rule), x.data_ptr(), taus.data_ptr(),
-            res.data_ptr(), ptr(fvals), ptr(bts), k.data_ptr(),
-            halt.data_ptr(), work_f.data_ptr(), work_d.data_ptr(), nb,
-            stream), "fasta_microsolve_lasso")
-    global LAUNCHES
-    LAUNCHES += 1
-    return MicrosolveOutput(x, taus, res, k, halt, fvals, bts)
+            mus_d.data_ptr(), B, float(tau0), m, n, K, o["window"],
+            float(o["tol"]), float(o["shrink_factor"]), o["max_backtracks"],
+            STOP_RULES.index(o["stop_rule"]), LOSSES.index(o["loss"]),
+            PROXES.index(o["prox"]), flags, x.data_ptr(), taus.data_ptr(),
+            res.data_ptr(), ptr(fvals), ptr(bts), ptr(objs), ptr(nres),
+            ptr(its), k.data_ptr(), halt.data_ptr(), work_f.data_ptr(),
+            work_d.data_ptr(), nb, stream), "fasta_microsolve")
+    return x, taus, res, k, halt, fvals, bts, objs, its, nres
 
 
-def microsolve_lasso_reference(A, b, x0, tau0, mu, *, max_iters=1000,
-                               window=10, tol=1e-3, shrink_factor=0.2,
-                               max_backtracks=20, hp=False,
-                               stop_rule="hybrid_residual",
-                               record_fvals=False, record_bts=False
-                               ) -> MicrosolveOutput:
-    """The plain version of K-B1: a Python loop doing the kernel's math
-    in torch on A's device.  Scalars are float32 tensors, as in the
-    kernel; with ``hp`` the f-values, the window, the backtracking dot
-    and the BB numerator accumulate in float64.  Only the order of the
-    float32 sums differs from the kernel."""
-    _check_options("lstsq", "l1", False, False, False, False, stop_rule,
-                   window, max_iters)
-    dev = A.device
-    f32 = dict(device=dev, dtype=torch.float32)
-    acc = torch.float64 if hp else torch.float32
-    At = A.t()
-    tau = torch.tensor(tau0, **f32)
-    mu_t = torch.tensor(mu, **f32)
-    taus = torch.zeros(max_iters, **f32)
-    res_rec = torch.zeros(max_iters, **f32)
-    fvals = torch.zeros(max_iters, **f32) if record_fvals else None
-    bts = (torch.zeros(max_iters, device=dev, dtype=torch.int32)
-           if record_bts else None)
+# --------------------------------------------------------------------------
+# The plain versions
+# --------------------------------------------------------------------------
+
+def _loss_fns(loss, b, acc):
+    """(f, ℓ′) of the kernel's loss: f sums in ``acc`` (float64 under
+    hp), ℓ′ stays float32."""
+    if loss == "logistic":
+        return (lambda d: torch.sum(logistic_ell(d, b).to(acc)),
+                lambda d: logistic_grad(d, b))
+    if loss == "squared_hinge":
+        def fof(d):
+            r = hinge_residual(d, b).to(acc)
+            return 0.5 * torch.sum(r * r)
+        return fof, lambda d: -b * hinge_residual(d, b)
 
     def fof(d):
         r = (d - b).to(acc)
         return 0.5 * torch.sum(r * r)
+    return fof, lambda d: d - b
+
+
+def _prox_fns(prox, mu):
+    """(prox(z, τ), g(x)) of the kernel's prox with weight ``mu``."""
+    if prox == "nonneg":
+        return (lambda z, tau: project_nonneg(z),
+                lambda x: torch.zeros((), dtype=x.dtype, device=x.device))
+    if prox == "box":
+        return (lambda z, tau: project_box(z, -1.0, 1.0),
+                lambda x: torch.zeros((), dtype=x.dtype, device=x.device))
+    if prox == "ridge":
+        return (lambda z, tau: z / (1.0 + tau * mu),
+                lambda x: 0.5 * mu * torch.sum(x * x))
+    return (lambda z, tau: shrink(z, tau * mu),
+            lambda x: mu * torch.sum(torch.abs(x)))
+
+
+def microsolve_lasso_reference(A, b, x0, tau0, mu, *, record_its=False,
+                               **options) -> MicrosolveOutput:
+    """The plain version of K-B1: a Python loop doing the kernel's math
+    in torch on A's device.  Scalars are float32 tensors, as in the
+    kernel; with ``hp`` the f-values, the window, the backtracking dot,
+    the BB numerator and (with ``restart_dd``) the restart dot
+    accumulate in float64.  Only the order of the float32 sums differs
+    from the kernel."""
+    return _reference(A, b, x0, tau0, mu, record_its, _options(options))[0]
+
+
+def microsolve_lasso_path_reference(A, b, x0, tau0, mus, *, warm=True,
+                                    **options) -> MicrosolveOutput:
+    """The plain version of K-B1p: the plain K-B1 loop per path point,
+    with the kernel's warm carry of x and τ."""
+    o = _options(options)
+    x_start, tau_start = x0, float(tau0)
+    runs = []
+    for i, mu in enumerate(torch.as_tensor(mus).tolist()):
+        tau_i = (tau_start if warm and not o["accelerate"] and i > 0
+                 and tau_start > 0.0 else float(tau0))
+        out, tau_acc = _reference(A, b, x_start if warm else x0, tau_i, mu,
+                                  False, o)
+        runs.append(out)
+        ok = int(out.halt) != 2
+        # a nonfinite abort sends the next point back to the cold x₀; the
+        # τ carry keeps the point's own start τ when no τ was accepted
+        x_start = out.x if ok else x0
+        tau_start = (tau_acc if ok and int(out.iteration_count) > 0
+                     and tau_acc > 0.0 else tau_i)
+    return MicrosolveOutput(*(
+        None if vals[0] is None else torch.stack(vals)
+        for vals in zip(*runs)))
+
+
+def _reference(A, b, x0, tau0, mu, record_its, o):
+    """One plain solve; returns (output, last genuinely accepted τ)."""
+    dev = A.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    hp = bool(o["hp"])
+    acc = torch.float64 if hp else torch.float32
+    K, window, max_bt = o["max_iters"], o["window"], o["max_backtracks"]
+    shrink_factor, accelerate = o["shrink_factor"], o["accelerate"]
+    rdd = hp and o["restart_dd"]
+    At = A.t()
+    tau = torch.tensor(float(tau0), **f32)
+    mu_t = torch.tensor(float(mu), **f32)
+    fof, lgrad = _loss_fns(o["loss"], b, acc)
+    prox, gval = _prox_fns(o["prox"], mu_t)
+
+    def series(flag, dtype=torch.float32):
+        return torch.zeros(K, device=dev, dtype=dtype) if flag else None
+
+    taus, res_rec = series(True), series(True)
+    fvals = series(o["record_fvals"])
+    bts = series(o["record_bts"], torch.int32)
+    objs = series(o["record_objs"])
+    nres_rec = series(o["record_nres"])
+    its = torch.zeros(K, A.shape[1], **f32) if record_its else None
 
     def fb(x, g, tau):
+        """The trial: x̂, x₁, Δx, A x₁ and f(A x₁)."""
         x1hat = x - tau * g
-        x1 = shrink(x1hat, tau * mu_t)
+        x1 = prox(x1hat, tau)
         d1 = torch.matmul(A, x1)
-        return x1hat, x1, x1 - x, fof(d1), torch.matmul(At, d1 - b)
+        return x1hat, x1, x1 - x, d1, fof(d1)
 
-    x = x0
+    x = x0                       # adaptive: the iterate; FISTA: y
     d0 = torch.matmul(A, x0)
-    g = torch.matmul(At, d0 - b)
+    g = torch.matmul(At, lgrad(d0))
+    x_acc, d_acc = x0, d0        # FISTA: the last prox point and A·(it)
+    alpha = torch.tensor(1.0, **f32)
     fwin = torch.full((window,), -math.inf, device=dev, dtype=acc)
     fwin[0] = fof(d0)
     maxres = torch.tensor(-math.inf, **f32)
+    tau_acc = 0.0
     k, halt = 0, 0
-    while k < max_iters and halt == 0:
-        x1hat, x1, dx, f1, g1 = fb(x, g, tau)
+    while k < K and halt == 0:
+        x1hat, x1, dx, d1, f1 = fb(x, g, tau)
         M = torch.max(fwin)
         bt = 0
         while True:
@@ -256,11 +404,13 @@ def microsolve_lasso_reference(A, b, x0, tau0, mu, *, max_iters=1000,
             else:
                 suff = M + torch.sum(dx * g) + nd2 / (2.0 * tau)
                 viol = bool(f1 - 1e-12 > suff)
-            if not (viol and bt < max_backtracks):
+            if not (viol and bt < max_bt):
                 break
             tau = tau * shrink_factor
-            x1hat, x1, dx, f1, g1 = fb(x, g, tau)
+            x1hat, x1, dx, d1, f1 = fb(x, g, tau)
             bt += 1
+        if bt < max_bt:
+            tau_acc = float(tau)
 
         res = torch.sqrt(nd2) / tau
         maxres = torch.maximum(maxres, res)
@@ -268,32 +418,70 @@ def microsolve_lasso_reference(A, b, x0, tau0, mu, *, max_iters=1000,
         normalizer = torch.maximum(torch.sqrt(torch.sum(g * g)),
                                    torch.sqrt(torch.sum(sm * sm)) / tau) + 1e-8
         nres = res / normalizer
-        stop = bool(stop_test(stop_rule, res, nres, maxres, tol, _EPS_R))
+        stop = bool(stop_test(o["stop_rule"], res, nres, maxres, o["tol"],
+                              _EPS_R))
 
-        dg = g1 + (x1hat - x) / tau
-        if hp:
-            dot = torch.sum(dx.double() * dg.double()).float()
+        if accelerate:
+            if rdd:
+                rdot = torch.sum((x - x1).double()
+                                 * (x1 - x_acc).double()).float()
+            else:
+                rdot = torch.sum((x - x1) * (x1 - x_acc))
+            alpha0 = (torch.where(rdot > 0.0, 1.0, alpha) if o["restart"]
+                      else alpha)
+            alpha1 = (1.0 + torch.sqrt(1.0 + 4.0 * alpha0 * alpha0)) / 2.0
+            beta = (alpha0 - 1.0) / alpha1
+            y_n = x1 + beta * (x1 - x_acc)
+            d_n = d1 + beta * (d1 - d_acc)          # A is linear
+            g_n = torch.matmul(At, lgrad(d_n))
+            f_rec = f1 if stop else fof(d_n)
+            finite = bool(torch.isfinite(res) & torch.isfinite(tau)
+                          & torch.isfinite(f_rec))
+            tau_n = tau
         else:
-            dot = torch.sum(dx * dg)
-        ndg2 = torch.sum(dg * dg)
-        tau_s = torch.where(dot != 0.0, nd2 / dot, math.inf)
-        tau_m = torch.clamp_min(torch.where(ndg2 > 0.0, dot / ndg2, 0.0), 0.0)
-        tau_n = torch.where(2.0 * tau_m > tau_s, tau_m, tau_s - 0.5 * tau_m)
-        bad = (tau_n <= 0.0) | torch.isinf(tau_n) | torch.isnan(tau_n)
-        tau_n = torch.where(bad, tau * 1.5, tau_n)
-        finite = bool(torch.isfinite(res) & torch.isfinite(tau_n)
-                      & torch.isfinite(f1))
+            g_n = torch.matmul(At, lgrad(d1))
+            # Zhou–Gao–Dai BB stepsize; Δg = g₁ + (x̂₁ − x)/τ
+            dg = g_n + (x1hat - x) / tau
+            if hp:
+                dot = torch.sum(dx.double() * dg.double()).float()
+            else:
+                dot = torch.sum(dx * dg)
+            ndg2 = torch.sum(dg * dg)
+            tau_s = torch.where(dot != 0.0, nd2 / dot, math.inf)
+            tau_m = torch.clamp_min(torch.where(ndg2 > 0.0, dot / ndg2, 0.0),
+                                    0.0)
+            tau_n = torch.where(2.0 * tau_m > tau_s, tau_m,
+                                tau_s - 0.5 * tau_m)
+            bad = (tau_n <= 0.0) | torch.isinf(tau_n) | torch.isnan(tau_n)
+            tau_n = torch.where(bad, tau * 1.5, tau_n)
+            f_rec = f1
+            finite = bool(torch.isfinite(res) & torch.isfinite(tau_n)
+                          & torch.isfinite(f1))
         halt = 2 if not finite else (1 if stop else 0)
 
         taus[k] = tau
         res_rec[k] = res
-        if record_fvals:
-            fvals[k] = f1
-        if record_bts:
+        if fvals is not None:
+            fvals[k] = f_rec
+        if bts is not None:
             bts[k] = bt
-        fwin[(k + 1) % window] = f1
-        x, g, tau = x1, g1, tau_n
+        if objs is not None:
+            objs[k] = f1.float() + gval(x1)
+        if nres_rec is not None:
+            nres_rec[k] = nres
+        if its is not None:
+            its[k] = x1
+        fwin[(k + 1) % window] = f_rec
+        if accelerate:
+            x, x_acc, d_acc, alpha = y_n, x1, d1, alpha1
+        else:
+            x = x1
+        g, tau = g_n, tau_n
         k += 1
-    return MicrosolveOutput(
-        x, taus, res_rec, torch.tensor(k, device=dev, dtype=torch.int32),
-        torch.tensor(halt, device=dev, dtype=torch.int32), fvals, bts)
+    # FISTA: a converged stop exits at the prox point, otherwise at y
+    sol = x_acc if (accelerate and halt == 1) else x
+    out = MicrosolveOutput(
+        sol, taus, res_rec, torch.tensor(k, device=dev, dtype=torch.int32),
+        torch.tensor(halt, device=dev, dtype=torch.int32), fvals, bts, objs,
+        its, nres_rec)
+    return out, tau_acc

@@ -1,14 +1,17 @@
-"""Public dispatch onto the whole-solve kernel (port of
-``fasta_tpu/micro.py:41-325``, dense branch, lstsq × l1).
+"""Public dispatch onto the whole-solve kernels (port of
+``fasta_tpu/micro.py:41-350, 442-621``, dense branch).
 
 :func:`microsolve` inspects a :class:`~fasta_tpu_torch.problem.Problem`'s
-operator and term types and routes it to kernel K-B1, raising with a
-reason when the structure is outside the kernel's scope.  Calling it is
+operator and term types and routes a dense problem — least-squares,
+logistic or squared-hinge loss × L1, nonnegativity, [−1,1] box or ridge
+prox — to kernel K-B1, raising with a reason when the structure is
+outside the kernels' scope.  :func:`microsolve_sweep` solves a path of
+weights in one launch of kernel K-B1p, cold or warm.  Calling either is
 the opt-in: it never falls back to the general loop.
 
 Two faults of the reference are not inherited: ``best_index`` ignores
-NaN residuals and is None after a nonfinite abort, and ``status`` is a
-string, never a truthy int.
+NaN and is None after a nonfinite abort, and ``status`` is a string,
+never a truthy int.
 """
 
 from __future__ import annotations
@@ -21,12 +24,18 @@ import numpy as np
 import torch
 
 from .kernels.microsolver import (_DENSE_VMEM_BYTES, STATUS_NAMES,
-                                  microsolve_lasso, supports_microsolver)
+                                  microsolve_lasso, microsolve_lasso_path,
+                                  supports_microsolver)
 from .operators import DenseOp
 from .problem import Problem
-from .terms import L1Norm, LeastSquares
+from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares, Logistic,
+                    NonnegIndicator, SquaredHinge)
 
-__all__ = ["MicroResult", "microsolve", "microsolve_supported"]
+__all__ = ["MicroResult", "MicroBatchResult", "microsolve",
+           "microsolve_supported", "microsolve_sweep"]
+
+_LOSSES = {LeastSquares: "lstsq", Logistic: "logistic",
+           SquaredHinge: "squared_hinge"}
 
 
 @dataclass
@@ -37,11 +46,12 @@ class MicroResult:
     diagnostic series are on the host.  ``status`` says why the solve
     stopped: "converged", "max_iters" or "nonfinite" (the in-kernel guard
     aborts the iteration f, τ or the residual goes NaN/inf).
-    ``best_index`` is the index of the smallest recorded residual,
-    ignoring NaN, and None when the solve aborted as nonfinite or ran no
-    iteration.  The objective, iterate and normalized-residual series of
-    the reference's contract are not recorded by this slice's kernel and
-    stay None."""
+    ``best_index`` is the index of the best iterate — the smallest
+    recorded objective when ``record_objs``, else the smallest residual
+    (the loop's rule), ignoring NaN — and None when the solve aborted as
+    nonfinite or ran no iteration.  ``fvals``, ``objectives``,
+    ``iterates`` ((k, n)) and ``norm_residuals`` are None unless
+    recorded."""
 
     solution: torch.Tensor
     iteration_count: int
@@ -59,13 +69,38 @@ class MicroResult:
     norm_residuals: Optional[np.ndarray] = None
 
 
+@dataclass
+class MicroBatchResult:
+    """Result of a path run: the leading axis of every field is the path
+    point.  ``solutions`` stays on the device; the per-point series are
+    host arrays trimmed to each point's iteration count (lists of (kᵢ,)
+    arrays).  ``best_indices`` follows ``MicroResult.best_index``, with
+    −1 where that is None."""
+
+    solutions: torch.Tensor              # (B, n)
+    iteration_counts: np.ndarray         # (B,) int
+    converged: np.ndarray                # (B,) bool
+    residuals: list
+    taus: list
+    solve_time: float
+    fvals: Optional[list] = None
+    statuses: Optional[np.ndarray] = None
+    norm_residuals: Optional[list] = None
+    backtracks: Optional[list] = None
+    total_backtracks: Optional[np.ndarray] = None
+    best_indices: Optional[np.ndarray] = None
+    objectives: Optional[list] = None
+
+
 def _dispatch(problem: Problem):
     """Return (kind, detail) for a supported problem, else (None, why)."""
     op, f, g = problem.op, problem.fterm, problem.gterm
-    if isinstance(op, DenseOp) and isinstance(f, LeastSquares):
-        if f.b.ndim != 1:
-            return None, (f"dense kernel needs a vector of measurements, "
-                          f"got ndim={f.b.ndim}")
+    if isinstance(op, DenseOp) and type(f) in _LOSSES:
+        loss = _LOSSES[type(f)]
+        data = f.y if isinstance(f, SquaredHinge) else f.b
+        if data.ndim != 1:
+            return None, (f"dense kernel needs a vector of measurements/"
+                          f"labels, got ndim={data.ndim}")
         m, n = op.A.shape
         if not supports_microsolver(m, n):
             return None, (
@@ -74,14 +109,27 @@ def _dispatch(problem: Problem):
                 f"{_DENSE_VMEM_BYTES >> 20} MB — use Problem.solve")
         if isinstance(g, L1Norm):
             if np.ndim(g.mu) != 0:
-                return None, "dense kernel needs a scalar mu per solve"
-            return "dense", ("lstsq", "l1", float(g.mu))
-        return None, (f"the port's dense kernel supports the L1Norm prox "
-                      f"term, got {type(g).__name__} (the other proxes are "
-                      f"ROADMAP Queue B item B1)")
+                return None, ("dense kernel needs a scalar mu per solve; "
+                              "for a mu sweep use microsolve_sweep")
+            return "dense", (loss, "l1", float(g.mu))
+        if isinstance(g, NonnegIndicator):
+            return "dense", (loss, "nonneg", 0.0)
+        if isinstance(g, BoxIndicator) and g.lo == -1.0 and g.hi == 1.0:
+            return "dense", (loss, "box", 0.0)
+        if isinstance(g, L2Norm2):
+            if np.ndim(g.lam) != 0:
+                return None, ("dense kernel needs a scalar ridge lambda "
+                              "per solve; for a lambda sweep use "
+                              "microsolve_sweep")
+            return "dense", (loss, "ridge", float(g.lam))
+        return None, (f"dense kernel supports L1Norm/NonnegIndicator/"
+                      f"BoxIndicator(-1,1)/L2Norm2 prox terms, got "
+                      f"{type(g).__name__}")
     return None, (f"no whole-solve kernel for operator {type(op).__name__} "
-                  f"+ smooth {type(f).__name__} (the port supports DenseOp "
-                  f"with the least-squares loss)")
+                  f"+ smooth {type(f).__name__}: the port supports DenseOp "
+                  f"with the least-squares, logistic or squared-hinge loss; "
+                  f"the TV-dual kernel (ROADMAP Queue A item 9) and the "
+                  f"planar PhaseMax kernel (item 10) are not ported yet")
 
 
 def microsolve_supported(problem: Problem) -> tuple:
@@ -92,66 +140,83 @@ def microsolve_supported(problem: Problem) -> tuple:
     return True, kind
 
 
-def microsolve(problem: Problem, tau0: Optional[float] = None,
-               max_iters: int = 1000, tol: float = 1e-3, window: int = 10,
-               shrink_factor: float = 0.2, max_backtracks: int = 20,
-               hp: Optional[bool] = None, engine: Optional[str] = None,
-               accelerate: bool = False,
-               stop_rule: str = "hybrid_residual",
-               record_fvals: bool = False, record_bts: bool = True,
-               record_objs: bool = False, record_iterates: bool = False,
-               record_nres: bool = False,
-               interpret: Optional[bool] = None,
-               generator: Optional[torch.Generator] = None) -> MicroResult:
-    """Solve ``problem`` inside one launch of kernel K-B1 (adaptive mode).
-
-    Options mean what they mean on ``fasta_tpu.micro.microsolve``.
-    ``hp`` (default off) accumulates the decision scalars in float64.
-    ``engine`` and ``interpret`` select TPU code paths and raise
-    ``ValueError`` when passed; ``accelerate`` and the objective, iterate
-    and normalized-residual recordings raise ``NotImplementedError``
-    (ROADMAP Queue B item B1).  Without ``tau0`` (here or on the
-    problem) the stepsize is estimated from points drawn from
-    ``generator`` (default: seed 0 on the problem's device).
-
-    The problem's data must lie on one device: a CUDA problem runs the
-    kernel, a CPU problem its plain version.  Raises ``ValueError`` when
-    the structure has no kernel."""
+def _start(problem, what, tau0, engine, interpret, generator):
+    """(loss, prox, mu, A, data, x0, tau0) of a dense problem, after the
+    checks every entry point makes."""
     kind, detail = _dispatch(problem)
     if kind is None:
-        raise ValueError(f"microsolve: {detail}")
+        raise ValueError(f"{what}: {detail}")
     if engine is not None:
-        raise ValueError("microsolve: engine selects the TPU kernels' "
-                         "matvec unit; the CUDA kernel has none")
+        raise ValueError(f"{what}: engine selects the TPU kernels' matvec "
+                         f"unit; the CUDA kernel has none")
     if interpret is not None:
-        raise ValueError("microsolve: interpret selects the Pallas "
-                         "interpreter; a CUDA kernel has no interpret mode")
-    if accelerate:
-        raise NotImplementedError("microsolve: FISTA mode is not ported "
-                                  "yet (ROADMAP Queue B item B1)")
-    _loss, _prox, mu = detail
+        raise ValueError(f"{what}: interpret selects the Pallas "
+                         f"interpreter; a CUDA kernel has no interpret mode")
+    loss, prox, mu = detail
     A = problem.op.A
-    b = problem.fterm.b
+    f = problem.fterm
+    data = f.y if isinstance(f, SquaredHinge) else f.b
     x0 = torch.as_tensor(problem.x0).to(A.device, torch.float32)
-
     if tau0 is None:
         tau0 = problem.tau0
     if tau0 is None:
         from .solver import estimate_stepsize
         if generator is None:
             generator = torch.Generator(device=A.device).manual_seed(0)
-        tau0_t, _ = estimate_stepsize(problem.op, problem.fterm,
-                                      x0.to(A.dtype), generator)
+        tau0_t, _ = estimate_stepsize(problem.op, f, x0.to(A.dtype),
+                                      generator)
         tau0 = float(tau0_t)
+    return (loss, prox, mu, A.to(torch.float32), data.to(torch.float32), x0,
+            tau0)
 
+
+def _best(status, series):
+    """The best iterate's index: NaN-aware argmin, None after a
+    nonfinite abort or with no iteration."""
+    if status == "nonfinite" or series.size == 0 or np.isnan(series).all():
+        return None
+    return int(np.nanargmin(series))
+
+
+def microsolve(problem: Problem, tau0: Optional[float] = None,
+               max_iters: int = 1000, tol: float = 1e-3, window: int = 10,
+               shrink_factor: float = 0.2, max_backtracks: int = 20,
+               hp: Optional[bool] = None, engine: Optional[str] = None,
+               accelerate: bool = False, restart: bool = True,
+               restart_dd: bool = False,
+               stop_rule: str = "hybrid_residual",
+               record_fvals: bool = False, record_bts: bool = True,
+               record_objs: bool = False, record_iterates: bool = False,
+               record_nres: bool = False,
+               interpret: Optional[bool] = None,
+               generator: Optional[torch.Generator] = None) -> MicroResult:
+    """Solve ``problem`` inside one launch of kernel K-B1.
+
+    Options mean what they mean on ``fasta_tpu.micro.microsolve``:
+    adaptive (BB) mode by default, FISTA with O'Donoghue–Candès
+    ``restart`` with ``accelerate=True`` (``restart_dd`` takes the
+    restart dot in float64 under hp); ``hp`` (default off) accumulates
+    the decision scalars in float64; the ``record_*`` flags add the
+    f-value, backtrack, prox-point objective, iterate and
+    normalized-residual series.  ``engine`` and ``interpret`` select TPU
+    code paths and raise ``ValueError`` when passed.  Without ``tau0``
+    (here or on the problem) the stepsize is estimated from points drawn
+    from ``generator`` (default: seed 0 on the problem's device).
+
+    The problem's data must lie on one device: a CUDA problem runs the
+    kernel, a CPU problem its plain version.  Raises ``ValueError`` when
+    the structure has no kernel."""
+    loss, prox, mu, A, data, x0, tau0 = _start(
+        problem, "microsolve", tau0, engine, interpret, generator)
     t0 = time.perf_counter()
     out = microsolve_lasso(
-        A.to(torch.float32), b.to(torch.float32), x0, tau0, mu,
-        max_iters=max_iters, window=window, tol=tol,
+        A, data, x0, tau0, mu, max_iters=max_iters, window=window, tol=tol,
         shrink_factor=shrink_factor, max_backtracks=max_backtracks,
-        hp=bool(hp), stop_rule=stop_rule, record_fvals=record_fvals,
-        record_bts=record_bts, record_objs=record_objs,
-        record_its=record_iterates, record_nres=record_nres)
+        hp=bool(hp), stop_rule=stop_rule, loss=loss, prox=prox,
+        accelerate=accelerate, restart=restart, restart_dd=restart_dd,
+        record_fvals=record_fvals, record_bts=record_bts,
+        record_objs=record_objs, record_its=record_iterates,
+        record_nres=record_nres)
     k = int(out.iteration_count)
     status = STATUS_NAMES[int(out.halt)]
     solve_time = time.perf_counter() - t0
@@ -159,13 +224,10 @@ def microsolve(problem: Problem, tau0: Optional[float] = None,
     def host(a):
         return None if a is None else a.detach().cpu().numpy()[:k]
 
-    res_h = host(out.residuals)
+    res_h, objs_h = host(out.residuals), host(out.objectives)
     bts_h = host(out.backtracks)
     if bts_h is not None:
         bts_h = bts_h.astype(np.int64)
-    best = None
-    if status != "nonfinite" and k > 0 and not np.isnan(res_h).all():
-        best = int(np.nanargmin(res_h))
     return MicroResult(
         solution=out.x,
         iteration_count=k,
@@ -177,5 +239,96 @@ def microsolve(problem: Problem, tau0: Optional[float] = None,
         status=status,
         backtracks=bts_h,
         total_backtracks=None if bts_h is None else int(bts_h.sum()),
-        best_index=best,
+        best_index=_best(status, objs_h if objs_h is not None else res_h),
+        objectives=objs_h,
+        iterates=host(out.iterates),
+        norm_residuals=host(out.norm_residuals),
+    )
+
+
+def microsolve_sweep(problem: Problem, mus, tau0: Optional[float] = None,
+                     max_iters: int = 1000, tol: float = 1e-3,
+                     window: int = 10, shrink_factor: float = 0.2,
+                     max_backtracks: int = 20, hp: Optional[bool] = None,
+                     engine: Optional[str] = None,
+                     accelerate: bool = False, restart: bool = True,
+                     restart_dd: bool = False,
+                     stop_rule: str = "hybrid_residual",
+                     record_fvals: bool = False, record_bts: bool = True,
+                     record_objs: bool = False, record_nres: bool = False,
+                     warm_start: bool = False,
+                     interpret: Optional[bool] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> MicroBatchResult:
+    """Solve the regularization path — one full solve per weight in
+    ``mus`` (μ of the L1 term, λ of the ridge) — in one launch of kernel
+    K-B1p.
+
+    By default each point runs cold from ``problem.x0``: bit-identical to
+    per-μ :func:`microsolve` calls on the same device (use it when the
+    points are independent, as in cross-validation).  ``warm_start=True``
+    runs ``solve_path``'s continuation recipe in the kernel: point i
+    starts from point i−1's solution and (adaptive mode) last accepted
+    stepsize — order ``mus`` strongest first and prefer
+    ``stop_rule="residual"``.  Options mean what they mean on
+    :func:`microsolve`.
+
+    The nonnegativity and box proxes have no weight, so sweeping them
+    raises ``ValueError``, as does every structure without a dense
+    kernel."""
+    loss, prox, _mu, A, data, x0, tau0 = _start(
+        problem, "microsolve_sweep", tau0, engine, interpret, generator)
+    if prox in ("nonneg", "box"):
+        # the projections discard the weight, so every swept mu would
+        # return the same solve
+        raise ValueError(
+            f"microsolve_sweep: the {prox!r} prox is a projection with no "
+            f"penalty weight — every swept mu would return the same solve; "
+            f"sweep applies to 'l1' (mu) and 'ridge' (lambda) dense "
+            f"problems")
+    mus = torch.as_tensor(mus, dtype=torch.float32)
+    if mus.ndim != 1:
+        raise ValueError(f"mus must be a 1-D vector of penalty weights, "
+                         f"got ndim={mus.ndim}")
+    B = mus.shape[0]
+    t0 = time.perf_counter()
+    out = microsolve_lasso_path(
+        A, data, x0, tau0, mus, warm=warm_start, max_iters=max_iters,
+        window=window, tol=tol, shrink_factor=shrink_factor,
+        max_backtracks=max_backtracks, hp=bool(hp), stop_rule=stop_rule,
+        loss=loss, prox=prox, accelerate=accelerate, restart=restart,
+        restart_dd=restart_dd, record_fvals=record_fvals,
+        record_bts=record_bts, record_objs=record_objs,
+        record_nres=record_nres)
+    ks = out.iteration_count.cpu().numpy().astype(np.int64)
+    statuses = np.array([STATUS_NAMES[int(h)] for h in out.halt.cpu()])
+    solve_time = time.perf_counter() - t0
+
+    def ragged(a, dtype=None):
+        if a is None:
+            return None
+        a = a.detach().cpu().numpy()
+        if dtype is not None:
+            a = a.astype(dtype)
+        return [a[i, :ks[i]] for i in range(B)]
+
+    res_l, objs_l = ragged(out.residuals), ragged(out.objectives)
+    bts_l = ragged(out.backtracks, np.int64)
+    best_l = objs_l if objs_l is not None else res_l
+    best = [_best(statuses[i], best_l[i]) for i in range(B)]
+    return MicroBatchResult(
+        solutions=out.x,
+        iteration_counts=ks,
+        converged=statuses == "converged",
+        residuals=res_l,
+        taus=ragged(out.taus),
+        solve_time=solve_time,
+        fvals=ragged(out.fvals),
+        statuses=statuses,
+        norm_residuals=ragged(out.norm_residuals),
+        backtracks=bts_l,
+        total_backtracks=(None if bts_l is None
+                          else np.array([int(b.sum()) for b in bts_l])),
+        best_indices=np.array([-1 if i is None else i for i in best]),
+        objectives=objs_l,
     )

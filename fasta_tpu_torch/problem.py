@@ -50,8 +50,15 @@ class Problem:
                                  torch.as_tensor(self.x0), tau0)
 
     def microsolve(self, **kwargs):
-        """Whole-solve-in-one-kernel path (adaptive mode); see
+        """Whole-solve-in-one-kernel path (adaptive or FISTA); see
         :func:`fasta_tpu_torch.micro.microsolve`.  Raises ``ValueError``
         when this problem's structure has no kernel."""
         from .micro import microsolve as _micro
         return _micro(self, **kwargs)
+
+    def microsolve_sweep(self, mus, **kwargs):
+        """The regularization path over ``mus`` in one kernel launch,
+        cold or (``warm_start=True``) warm; see
+        :func:`fasta_tpu_torch.micro.microsolve_sweep`."""
+        from .micro import microsolve_sweep as _sweep
+        return _sweep(self, mus, **kwargs)

@@ -1,6 +1,6 @@
-"""Problem suite of the port (port of ``problems/__init__.py``).  Slice 1
-has the LASSO; the other problems come with their terms (ROADMAP Queue A
-item 7)."""
+"""Problem suite of the port (port of ``problems/__init__.py``): the dense
+problems LASSO, NNLS, sparse logistic regression and the SVM; the other
+problems come with their terms (ROADMAP Queue A item 7)."""
 
 from typing import Callable, Dict
 
@@ -17,7 +17,7 @@ def register(name: str):
 def build(name: str, **kwargs):
     """Construct a named problem instance:
     ``build('lasso', m=..., device=...)``."""
-    from . import lasso  # noqa: F401
+    from . import lasso, logistic, nnls, svm  # noqa: F401
     if name not in REGISTRY:
         raise NotImplementedError(
             f"problem {name!r} is not ported yet (ROADMAP Queue A item 7); "

@@ -1,20 +1,19 @@
 """FASTA solver core (port of ``fasta_tpu/solver.py:58-191, 194-603,
-664-672, 745-749, 851-930``).
+664-672, 745-749, 771-930``).
 
-Forward-backward splitting with the Zhou–Gao–Dai BB stepsize
-(adaptive mode), nonmonotone backtracking, the five stopping rules plus a
-custom ``stop_fn``, the nonfinite guard, best-iterate tracking and full
-per-iteration diagnostics.  The iteration math is the JAX solver's — same
-update order, formulas and guard constants — so trajectories agree within
-floating-point tolerance.
+Forward-backward splitting in the three modes of the reference — plain
+(fixed stepsize), adaptive (the Zhou–Gao–Dai BB stepsize) and FISTA with
+O'Donoghue–Candès restart — with nonmonotone backtracking, the five
+stopping rules plus a custom ``stop_fn``, the nonfinite guard,
+best-iterate tracking and full per-iteration diagnostics, and the
+warm-started regularization path ``solve_path``.  The iteration math is
+the JAX solver's — same update order, formulas and guard constants — so
+trajectories agree within floating-point tolerance.
 
 The loop runs eagerly in PyTorch on the device of the data.  Decisions
 (backtracking, stopping) read one device scalar each, so an iteration
 synchronises with the device; the whole-solve kernel
 (``fasta_tpu_torch.micro.microsolve``) keeps them on the card.
-
-Plain (non-adaptive) mode and FISTA are ROADMAP Queue A item 5's next
-steps and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,8 +31,8 @@ from .options import FastaOptions, stop_test
 from .precision import dot64, norm2, real_dtype, redot, use_high_precision
 from .terms import ProxTerm, SmoothTerm, as_prox_term, as_smooth_term
 
-__all__ = ["fasta", "solve", "make_solver", "estimate_stepsize",
-           "FastaResult", "DeviceResult"]
+__all__ = ["fasta", "solve", "make_solver", "solve_path",
+           "estimate_stepsize", "FastaResult", "DeviceResult"]
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -110,11 +109,8 @@ def estimate_stepsize(op: LinearOp, fterm: SmoothTerm, x0: torch.Tensor,
 
 def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
            gterm: ProxTerm, x0, tau0) -> DeviceResult:
-    mode = opts.effective_mode
-    if mode != "adaptive":
-        raise NotImplementedError(
-            f"{mode} mode is not ported yet (ROADMAP Queue A item 5); the "
-            f"port runs adaptive (BB) mode")
+    mode = opts.effective_mode      # the oracle's precedence
+    accelerated = mode == "accelerated"
     x0 = torch.as_tensor(x0)
     dev = x0.device
     rdt = real_dtype(x0.dtype)
@@ -129,11 +125,19 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
         return fterm.value_f64(d) if hp else fterm.value(d).to(rdt)
 
     fused = fterm.fused_gradmap(op) if opts.fuse else None
+    # zero-matvec FISTA gradient extrapolation: valid when ∇f is affine in
+    # d and the gradient at the prox point comes free from the fused pass
+    affine_accel = accelerated and fused is not None and fterm.grad_affine
 
     d0 = op(x0)
     fwin = torch.full((W,), -math.inf, dtype=sdt, device=dev)
     fwin[0] = fval(d0)
     gradf = op.rmatvec(fterm.grad(d0))
+    # FISTA carry: the last prox point, A·(it), its gradient map (affine
+    # case only) and the momentum α
+    one = torch.ones((), dtype=rdt, device=dev)
+    accel = (((x0, d0, gradf, one) if affine_accel else (x0, d0, one))
+             if accelerated else None)
 
     rec = opts.record_diagnostics
 
@@ -150,6 +154,7 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
                 else None)
 
     x = x0
+    solution = x0
     best_x = x0
     min_obj = torch.tensor(math.inf, dtype=rdt, device=dev)
     max_res = torch.tensor(-math.inf, dtype=rdt, device=dev)
@@ -209,7 +214,6 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
             residuals[k] = res
             norm_residuals[k] = nres
             taus[k] = tau
-            fvals[k] = f1_f
             backtracks[k] = bt
             if opts.record_objective:
                 objectives[k] = obj
@@ -235,27 +239,66 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
                   f"{float(res):.3e}  nresid {float(nres):.3e}  f "
                   f"{float(f1_f):.6e}  bt {bt}")
 
-        # adaptive (Zhou–Gao–Dai BB) stepsize for the next iteration
-        gradf1 = grad1 if fused is not None else op.rmatvec(fterm.grad(d1))
-        Dg = gradf1 + (x1hat - x_) / tau                # == gradf1 - g_
-        dotprod = dot64(Dx, Dg).to(rdt) if hp else redot(Dx, Dg)
-        nDx2, nDg2 = norm2(Dx), norm2(Dg)
-        tau_s = torch.where(dotprod != 0.0, nDx2 / dotprod, math.inf)
-        tau_m = torch.clamp_min(
-            torch.where(nDg2 > 0.0, dotprod / nDg2, 0.0), 0.0)
-        tau_next = torch.where(2.0 * tau_m > tau_s, tau_m,
-                               tau_s - 0.5 * tau_m)
-        degenerate = ((tau_next <= 0.0) | torch.isinf(tau_next)
-                      | torch.isnan(tau_next))
-        tau_next = torch.where(degenerate, tau * 1.5, tau_next)
+        # the mode's next point and stepsize; computed on the stopping
+        # iteration too, as in the reference
+        x_next, f_record = x1, f1
+        if mode == "adaptive":
+            # Zhou–Gao–Dai BB stepsize
+            gradf1 = (grad1 if fused is not None
+                      else op.rmatvec(fterm.grad(d1)))
+            Dg = gradf1 + (x1hat - x_) / tau            # == gradf1 - g_
+            dotprod = dot64(Dx, Dg).to(rdt) if hp else redot(Dx, Dg)
+            nDx2, nDg2 = norm2(Dx), norm2(Dg)
+            tau_s = torch.where(dotprod != 0.0, nDx2 / dotprod, math.inf)
+            tau_m = torch.clamp_min(
+                torch.where(nDg2 > 0.0, dotprod / nDg2, 0.0), 0.0)
+            tau_next = torch.where(2.0 * tau_m > tau_s, tau_m,
+                                   tau_s - 0.5 * tau_m)
+            degenerate = ((tau_next <= 0.0) | torch.isinf(tau_next)
+                          | torch.isnan(tau_next))
+            tau_next = torch.where(degenerate, tau * 1.5, tau_next)
+        elif accelerated:
+            if affine_accel:
+                x_acc, d_acc, g_acc, alpha0 = accel
+            else:
+                x_acc, d_acc, alpha0 = accel
+            if opts.restart:
+                # O'Donoghue–Candès gradient restart
+                a, c = x_ - x1, x1 - x_acc
+                rdot = dot64(a, c).to(rdt) if hp else redot(a, c)
+                alpha0 = torch.where(rdot > 0.0, 1.0, alpha0)
+            alpha1 = (1.0 + torch.sqrt(1.0 + 4.0 * alpha0 ** 2)) / 2.0
+            beta = (alpha0 - 1.0) / alpha1
+            x_next = x1 + beta * (x1 - x_acc)
+            d_next = d1 + beta * (d1 - d_acc)           # A is linear
+            if affine_accel:
+                # Aᴴ∇f(d) is affine in d too: the same combination
+                gradf1 = grad1 + beta * (grad1 - g_acc)
+                accel = (x1, d1, grad1, alpha1)
+            else:
+                gradf1 = op.rmatvec(fterm.grad(d_next))
+                accel = (x1, d1, alpha1)
+            tau_next = tau
+            # the window sees f at the next search point (the
+            # extrapolated y); on a stop the prox-point value
+            f_record = f1 if stop else fval(d_next)
+        else:
+            gradf1 = (grad1 if fused is not None
+                      else op.rmatvec(fterm.grad(d1)))
+            tau_next = tau
+        if rec:
+            fvals[k] = f_record.to(rdt)
 
-        fwin[(k + 1) % W] = f1
+        fwin[(k + 1) % W] = f_record
         total_bt += bt
-        x, gradf, tau = x1, gradf1, tau_next
+        # on a stop the loop breaks at the prox iterate; at max_iters
+        # FISTA returns the extrapolated point
+        solution = x1 if (stop or not accelerated) else x_next
+        x, gradf, tau = x_next, gradf1, tau_next
         k += 1
 
     return DeviceResult(
-        solution=x, best_iterate=best_x, iteration_count=k,
+        solution=solution, best_iterate=best_x, iteration_count=k,
         converged=stop and not nonfinite, residuals=residuals,
         norm_residuals=norm_residuals, taus=taus, fvals=fvals,
         objectives=objectives, backtracks=backtracks,
@@ -274,6 +317,70 @@ def solve(op: LinearOp, fterm: SmoothTerm, gterm: ProxTerm, x0, tau0,
           opts: Optional[FastaOptions] = None) -> DeviceResult:
     """Device-side solve — thin wrapper over ``make_solver``."""
     return make_solver(opts or FastaOptions())(op, fterm, gterm, x0, tau0)
+
+
+def _path_terms(gterms) -> list:
+    """The prox term of each path point: a sequence of terms as given, or
+    an ``L1Norm`` / ``L2Norm2`` whose weight is a 1-D tensor or array
+    (the leading path axis of the JAX package's ``gterms`` leaves)."""
+    from .terms import L1Norm, L2Norm2
+    if isinstance(gterms, (list, tuple)):
+        return list(gterms)
+    for cls, attr in ((L1Norm, "mu"), (L2Norm2, "lam")):
+        if isinstance(gterms, cls):
+            w = getattr(gterms, attr)
+            if np.ndim(w) == 1:
+                return [cls(w[i]) for i in range(len(w))]
+    raise ValueError("solve_path needs a sequence of prox terms or an "
+                     "L1Norm/L2Norm2 with a 1-D weight (one entry per path "
+                     "point)")
+
+
+def solve_path(op: LinearOp, fterm: SmoothTerm, gterms, x0, tau0,
+               opts: Optional[FastaOptions] = None) -> DeviceResult:
+    """Warm-started regularization path (continuation / homotopy).
+
+    ``gterms`` gives one prox term per path point, strongest penalty
+    first — a sequence, or e.g. ``L1Norm(torch.tensor([0.3, 0.1, 0.03]))``.
+    The solves run in order, each from the previous solution and its last
+    accepted stepsize.  Returns a :class:`DeviceResult` whose tensor
+    fields are stacked along the path axis and whose host fields
+    (iteration counts, flags, total backtracks) are NumPy arrays.
+
+    The stepsize carry follows the reference: adaptive mode carries the
+    last genuinely accepted τ (fewer than ``max_backtracks`` trials,
+    τ > 0; the carried τ when there is none); FISTA and plain mode with
+    backtracking, whose τ never grows, keep the caller's τ₀.  Prefer
+    ``stop_rule="residual"``: the hybrid rule normalizes by the max
+    residual seen within a solve, which a warm start makes small."""
+    opts = opts or FastaOptions()
+    if not opts.record_diagnostics:
+        raise ValueError("solve_path warm-starts each leg from the "
+                         "previous recorded taus; record_diagnostics "
+                         "must stay True")
+    tau_monotone = opts.accelerate or (opts.backtrack and not opts.adaptive)
+    x, tau = torch.as_tensor(x0), tau0
+    runs = []
+    for g in _path_terms(gterms):
+        r = _solve(opts, op, fterm, g, x, tau)
+        runs.append(r)
+        if not tau_monotone:
+            k = r.iteration_count
+            ok = ((r.backtracks[:k] < opts.max_backtracks)
+                  & (r.taus[:k] > 0)).nonzero()
+            if len(ok):
+                tau = r.taus[int(ok[-1])]
+        x = r.solution
+
+    def stack(name):
+        vals = [getattr(r, name) for r in runs]
+        if vals[0] is None:
+            return None
+        if isinstance(vals[0], torch.Tensor):
+            return torch.stack(vals)
+        return np.array(vals)
+
+    return DeviceResult(*(stack(f) for f in DeviceResult._fields))
 
 
 def fasta(

@@ -1,11 +1,12 @@
 """Objective terms: smooth f(A·) and prox-friendly g(·) (port of
-``fasta_tpu/terms.py:45-195, 543-625, 854-889``).
+``fasta_tpu/terms.py:45-260, 443-482, 543-625, 693-720, 799-815,
+854-889``).
 
 Smooth terms implement ``value(d)`` and ``grad(d)`` (evaluated at
 d = A x); prox terms implement ``value(x)`` and ``prox(z, t)``.  Terms
-are plain data holders over tensors.  Slice 1 ports the least-squares
-loss and the L1 penalty; the other terms come with their problems
-(ROADMAP Queue A item 7).
+are plain data holders over tensors.  The port has the terms of the dense
+problems (LASSO, NNLS, sparse logistic regression, SVM); the other terms
+come with their problems (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ import torch
 from . import prox as _prox
 
 __all__ = [
-    "SmoothTerm", "LeastSquares", "FunctionSmooth", "ProxTerm", "L1Norm",
-    "FunctionProx", "as_smooth_term", "as_prox_term",
+    "SmoothTerm", "LeastSquares", "Logistic", "SquaredHinge",
+    "FunctionSmooth", "ProxTerm", "L1Norm", "NonnegIndicator",
+    "BoxIndicator", "L2Norm2", "FunctionProx", "as_smooth_term",
+    "as_prox_term", "logistic_ell", "logistic_grad", "hinge_residual",
 ]
 
 
@@ -27,6 +30,10 @@ __all__ = [
 # --------------------------------------------------------------------------
 
 class SmoothTerm:
+    # ∇f affine in d: the FISTA loop then extrapolates the gradient map
+    # instead of evaluating it (fasta_tpu/solver.py:250-251)
+    grad_affine = False
+
     def value(self, d):
         raise NotImplementedError
 
@@ -50,6 +57,8 @@ class SmoothTerm:
 
 class LeastSquares(SmoothTerm):
     """f(d) = ½‖d − b‖²  (complex-safe Hermitian norm)."""
+
+    grad_affine = True
 
     def __init__(self, b: torch.Tensor):
         self.b = b
@@ -87,6 +96,84 @@ class LeastSquares(SmoothTerm):
         if supports_fusion(m, n, A.dtype):
             return lambda x: fused_lstsq_gradmap(A, x, b)
         return lambda x: lstsq_gradmap_reference(A, x, b)
+
+
+def logistic_ell(d, b):
+    """Elementwise stable logistic loss ℓ = max(d,0) + log1p(exp(−|d|))
+    − b·d (the oracle's formula, in the JAX order of operations)."""
+    return (torch.clamp_min(d, 0.0) + torch.log1p(torch.exp(-torch.abs(d)))
+            - b * d)
+
+
+def logistic_grad(d, b):
+    """ℓ′ = 1/(1+exp(−d)) − b."""
+    return 1.0 / (1.0 + torch.exp(-d)) - b
+
+
+def hinge_residual(d, y):
+    """r = max(0, 1 − y⊙d) of the squared hinge; ℓ = ½r², ℓ′ = −y⊙r."""
+    return torch.clamp_min(1.0 - y * d, 0.0)
+
+
+def _pointwise_fused(op, data, loss):
+    """One-pass (d, Σℓ, Aᵀℓ′) for a pointwise loss over a float32 dense
+    real operator: kernel K-B3p (``fused_pointwise_gradmap``), the CUDA
+    kernel for a CUDA tensor and its plain version for a CPU tensor.
+    Other operators and dtypes take the two-call path (None), as the JAX
+    package's dtype rule does."""
+    from .operators import DenseOp
+    if not isinstance(op, DenseOp):
+        return None
+    A = op.A
+    if (A.ndim != 2 or A.dtype != torch.float32 or data.ndim != 1):
+        return None
+    from .kernels.lstsq_fused import fused_pointwise_gradmap
+    return lambda x: fused_pointwise_gradmap(A, x, data, loss)
+
+
+class Logistic(SmoothTerm):
+    """Logistic loss  Σ log(1+exp(d)) − bᵀd,  labels b ∈ {0,1}; stable
+    evaluation as the oracle's (max(d,0) + log1p(exp(−|d|)))."""
+
+    def __init__(self, b: torch.Tensor):
+        self.b = b
+
+    def value(self, d):
+        return torch.sum(logistic_ell(d, self.b))
+
+    def value_f64(self, d):
+        """A float64 sum of the working-precision elementwise ℓ (the
+        counterpart of ``value_dd``)."""
+        return torch.sum(logistic_ell(d, self.b).to(torch.float64))
+
+    def grad(self, d):
+        return logistic_grad(d, self.b)
+
+    def fused_gradmap(self, op):
+        return _pointwise_fused(op, self.b, "logistic")
+
+
+class SquaredHinge(SmoothTerm):
+    """SVM squared hinge  f(d) = ½ Σ max(0, 1 − y⊙d)²,
+    ∇f(d) = −y⊙max(0, 1 − y⊙d);  labels y ∈ {−1, +1}."""
+
+    def __init__(self, y: torch.Tensor):
+        self.y = y
+
+    def value(self, d):
+        r = hinge_residual(d, self.y)
+        return 0.5 * torch.sum(r * r)
+
+    def value_f64(self, d):
+        from .precision import dot64
+        r = hinge_residual(d, self.y)
+        return 0.5 * dot64(r, r)
+
+    def grad(self, d):
+        return -self.y * hinge_residual(d, self.y)
+
+    def fused_gradmap(self, op):
+        return _pointwise_fused(op, self.y, "squared_hinge")
 
 
 class FunctionSmooth(SmoothTerm):
@@ -134,6 +221,46 @@ class L1Norm(ProxTerm):
 
     def prox(self, z, t):
         return _prox.shrink(z, t * self.mu)
+
+
+class NonnegIndicator(ProxTerm):
+    """g = indicator{x ≥ 0}; prox = orthant projection (NNLS)."""
+
+    def value(self, x):
+        return torch.zeros((), dtype=torch.real(x).dtype, device=x.device)
+
+    def prox(self, z, t):
+        del t
+        return _prox.project_nonneg(z)
+
+
+class BoxIndicator(ProxTerm):
+    """g = indicator{lo ≤ x ≤ hi}; prox = clamp (real)."""
+
+    def __init__(self, lo: float = -1.0, hi: float = 1.0):
+        self.lo = lo
+        self.hi = hi
+
+    def value(self, x):
+        return torch.zeros((), dtype=torch.real(x).dtype, device=x.device)
+
+    def prox(self, z, t):
+        del t
+        return _prox.project_box(z, self.lo, self.hi)
+
+
+class L2Norm2(ProxTerm):
+    """g = (λ/2)‖·‖² (ridge / Tikhonov); prox(z, t) = z/(1+tλ)."""
+
+    def __init__(self, lam=1.0):
+        self.lam = lam
+
+    def value(self, x):
+        return 0.5 * self.lam * torch.real(torch.vdot(x.reshape(-1),
+                                                      x.reshape(-1)))
+
+    def prox(self, z, t):
+        return z / (1.0 + t * self.lam)
 
 
 class FunctionProx(ProxTerm):

@@ -166,3 +166,175 @@ def test_main_path_on_the_card_reaches_the_cpu_result(dev):
     assert mg.status == mc.status == "converged"
     np.testing.assert_allclose(mg.solution.cpu().numpy(),
                                mc.solution.numpy(), atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# K-B3p, the rest of K-B1, K-B1p
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("loss", ["logistic", "squared_hinge"])
+@pytest.mark.parametrize("m,n", [
+    (1000, 500), (997, 1999), (3, 5), (4096, 32768), (40, 200000)])
+def test_pointwise_gradmap_kernel_matches_plain(dev, loss, m, n):
+    """K-B3p on the one-block, cluster and wide routes, ragged shapes
+    included: only real rows are reduced, although ℓ(0) ≠ 0.  Tolerance
+    as K-B3's."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    A = torch.randn((m, n), generator=g, device=dev) / m ** 0.5
+    x = 3.0 * torch.randn(n, generator=g, device=dev)
+    y = (torch.rand(m, generator=g, device=dev) < 0.5).float()
+    if loss == "squared_hinge":
+        y = 2.0 * y - 1.0
+    before = lstsq_fused.POINTWISE_LAUNCHES
+    d, f, gr = lstsq_fused.fused_pointwise_gradmap(A, x, y, loss)
+    assert lstsq_fused.POINTWISE_LAUNCHES == before + 1
+    d0, f0, g0 = lstsq_fused.pointwise_gradmap_reference(A, x, y, loss)
+    torch.cuda.synchronize()
+    assert (d - d0).abs().max() <= 1e-5 * max(1.0, float(d0.abs().max()))
+    assert (gr - g0).abs().max() <= 1e-5 * max(1.0, float(g0.abs().max()))
+    assert abs(float(f) - float(f0)) <= 1e-5 * abs(float(f0))
+    d2, f2, g2 = lstsq_fused.fused_pointwise_gradmap(A, x, y, loss)
+    assert torch.equal(d, d2) and torch.equal(gr, g2) and torch.equal(f, f2)
+
+
+def test_kernels_reject_what_they_do_not_take(dev):
+    """A CUDA tensor launches the kernel or raises; none falls back."""
+    A = torch.zeros((8, 8), device=dev)
+    x, y = torch.zeros(8, device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        lstsq_fused.fused_pointwise_gradmap(A.double(), x.double(),
+                                            y.double(), "logistic")
+    with pytest.raises(ValueError, match="contiguous"):
+        lstsq_fused.fused_pointwise_gradmap(A.t(), x, y, "squared_hinge")
+    with pytest.raises(ValueError, match="loss"):
+        lstsq_fused.fused_pointwise_gradmap(A, x, y, "huber")
+    with pytest.raises(ValueError, match="float32"):
+        microsolver.microsolve_lasso(A.double(), y, x, 0.1, 0.1,
+                                     loss="logistic")
+    with pytest.raises(ValueError, match="contiguous"):
+        microsolver.microsolve_lasso_path(A.t(), y, x, 0.1, [0.1, 0.05])
+    with pytest.raises(ValueError, match="share a device"):
+        microsolver.microsolve_lasso_path(A, y.cpu(), x, 0.1, [0.1])
+
+
+def _dense(dev, loss):
+    """(A, b, x0, tau0, μ) of each loss's full-width problem."""
+    name, tau0, mu = {"lstsq": ("nnls", 0.08, 0.05),
+                      "logistic": ("logistic", 1.0, 0.02),
+                      "squared_hinge": ("svm", 0.3, 0.2)}[loss]
+    p = problems.build(name, device=dev)
+    data = p.fterm.y if loss == "squared_hinge" else p.fterm.b
+    return p.op.A, data, p.x0, tau0, mu
+
+
+def _objective(A, b, x, loss, prox, mu):
+    A, b, x = A.double(), b.double(), x.double()
+    z = A @ x
+    if loss == "lstsq":
+        f = 0.5 * torch.sum((z - b) ** 2)
+    elif loss == "logistic":
+        f = torch.sum(torch.clamp_min(z, 0) + torch.log1p(torch.exp(-z.abs()))
+                      - b * z)
+    else:
+        f = 0.5 * torch.sum(torch.clamp_min(1 - b * z, 0) ** 2)
+    g = {"l1": mu * x.abs().sum(), "ridge": 0.5 * mu * x @ x}.get(prox, 0.0)
+    return float(f + g)
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+@pytest.mark.parametrize("loss", ["lstsq", "logistic", "squared_hinge"])
+@pytest.mark.parametrize("prox", ["l1", "nonneg", "box", "ridge"])
+def test_microsolve_kernel_pairs_match_plain(dev, loss, prox, accelerate):
+    """Every loss × prox pair, adaptive and FISTA, hp on, at the
+    problems' full widths: equal status, iteration counts within 2 (the
+    logistic loss, whose backtracking is knife-edge: the objective
+    check alone), first-10 taus rtol 1e-3, objective within 1e-5, and
+    every recorded series present."""
+    A, b, x0, tau0, mu = _dense(dev, loss)
+    kw = dict(max_iters=2000, tol=1e-5, hp=True, restart_dd=True,
+              loss=loss, prox=prox, accelerate=accelerate,
+              record_fvals=True, record_bts=True, record_objs=True,
+              record_nres=True)
+    before = microsolver.LAUNCHES
+    out = microsolver.microsolve_lasso(A, b, x0, tau0, mu, **kw)
+    assert microsolver.LAUNCHES == before + 1
+    ref = microsolver.microsolve_lasso_reference(A, b, x0, tau0, mu, **kw)
+    assert out.status == ref.status == "converged"
+    k1, k2 = int(out.iteration_count), int(ref.iteration_count)
+    if loss != "logistic":
+        assert abs(k1 - k2) <= 2
+    torch.testing.assert_close(out.taus[:10], ref.taus[:10], rtol=1e-3,
+                               atol=0)
+    f1 = _objective(A, b, out.x, loss, prox, mu)
+    f2 = _objective(A, b, ref.x, loss, prox, mu)
+    assert abs(f1 - f2) <= 1e-5 * abs(f2)
+    k = min(k1, k2)
+    torch.testing.assert_close(out.objectives[:10], ref.objectives[:10],
+                               rtol=1e-4, atol=0)
+    assert torch.isfinite(out.norm_residuals[:k]).all()
+    again = microsolver.microsolve_lasso(A, b, x0, tau0, mu, **kw)
+    assert torch.equal(again.x, out.x)
+
+
+def test_microsolve_kernel_records_iterates(dev):
+    A, b, x0, tau0, mu = _dense(dev, "lstsq")
+    out = microsolver.microsolve_lasso(A, b, x0, tau0, mu, prox="nonneg",
+                                       max_iters=50, tol=1e-5,
+                                       record_its=True)
+    k = int(out.iteration_count)
+    assert out.status == "converged"
+    assert torch.equal(out.iterates[k - 1], out.x)
+    assert not out.iterates[k:].any()
+    assert (out.iterates[:k] >= 0).all()
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+def test_path_kernel_matches_plain_and_separate_solves(dev, accelerate):
+    """K-B1p on LASSO 1000×2000: cold points bit-identical to separate
+    K-B1 launches; warm points converge to the plain path's objectives
+    in fewer total iterations."""
+    p = problems.build("lasso", device=dev)
+    A, b, x0 = p.op.A, p.fterm.b, p.x0
+    mus = [0.4, 0.2, 0.1, 0.05]
+    kw = dict(max_iters=3000, tol=1e-5, stop_rule="residual",
+              accelerate=accelerate, record_bts=True)
+    before = microsolver.PATH_LAUNCHES
+    cold = microsolver.microsolve_lasso_path(A, b, x0, 0.05, mus,
+                                             warm=False, **kw)
+    warm = microsolver.microsolve_lasso_path(A, b, x0, 0.05, mus,
+                                             warm=True, **kw)
+    assert microsolver.PATH_LAUNCHES == before + 2
+    for i, mu in enumerate(mus):
+        one = microsolver.microsolve_lasso(A, b, x0, 0.05, mu, **kw)
+        assert torch.equal(cold.x[i], one.x)
+        assert torch.equal(cold.taus[i], one.taus)
+        assert int(cold.iteration_count[i]) == int(one.iteration_count)
+    assert (cold.halt == 1).all() and (warm.halt == 1).all()
+    assert int(warm.iteration_count.sum()) < int(cold.iteration_count.sum())
+    ref = microsolver.microsolve_lasso_path_reference(A, b, x0, 0.05, mus,
+                                                      warm=True, **kw)
+    for i, mu in enumerate(mus):
+        f1 = _objective(A, b, warm.x[i], "lstsq", "l1", mu)
+        f2 = _objective(A, b, ref.x[i], "lstsq", "l1", mu)
+        assert abs(f1 - f2) <= 1e-5 * abs(f2)
+
+
+def test_slice_main_path_on_the_card(dev):
+    """problems.build → Problem.solve (three modes) and
+    Problem.microsolve on the card reach the CPU run's objective, and the
+    logistic and SVM loops go through K-B3p."""
+    for name, tau0 in (("nnls", 0.08), ("logistic", 1.0), ("svm", 0.3)):
+        pg = problems.build(name, device=dev)
+        pg.tau0 = tau0
+        before = lstsq_fused.POINTWISE_LAUNCHES
+        r = pg.solve(tol=1e-6, max_iters=3000)
+        assert r.converged
+        if name != "nnls":
+            assert lstsq_fused.POINTWISE_LAUNCHES > before
+        for mode in (dict(adaptive=False, max_iters=200),
+                     dict(accelerate=True, max_iters=3000)):
+            rr = pg.solve(tol=1e-6, **mode)
+            assert np.isfinite(rr.solution).all()
+        m = pg.microsolve(tol=1e-6, max_iters=3000, accelerate=True,
+                          hp=True)
+        assert m.status == "converged"

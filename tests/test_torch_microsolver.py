@@ -106,8 +106,11 @@ def test_cref3_raw_wrapper_returns_a_named_tuple(lasso32):
                            record_bts=True)
     assert isinstance(out, MicrosolveOutput)
     assert out._fields == ("x", "taus", "residuals", "iteration_count",
-                           "halt", "fvals", "backtracks")
+                           "halt", "fvals", "backtracks", "objectives",
+                           "iterates", "norm_residuals")
     assert out.fvals is None and out.backtracks is not None
+    assert out.objectives is None and out.iterates is None
+    assert out.norm_residuals is None
     assert out.iteration_count.dtype == torch.int32
 
 
@@ -178,24 +181,22 @@ def test_microsolve_estimates_tau0_from_an_explicit_generator(lasso32):
 
 
 def test_unported_options_raise(lasso32):
+    """What the CUDA kernel has no counterpart for raises: the TPU
+    engine and interpreter switches, unknown losses, proxes and stop
+    rules, out-of-range windows and non-float32 data."""
     p = _prob(lasso32)
     with pytest.raises(ValueError, match="engine"):
         p.microsolve(engine="vpu")
     with pytest.raises(ValueError, match="interpret"):
         p.microsolve(interpret=True)
-    with pytest.raises(NotImplementedError, match="Queue B item B1"):
-        p.microsolve(accelerate=True)
-    for flag in ("record_objs", "record_iterates", "record_nres"):
-        with pytest.raises(NotImplementedError, match="Queue B item B1"):
-            p.microsolve(**{flag: True})
     A, b, x0 = (torch.from_numpy(lasso32[k]) for k in ("A", "b", "x0"))
-    for kw in (dict(loss="logistic"), dict(prox="nonneg")):
-        with pytest.raises(NotImplementedError, match="Queue B item B1"):
+    for kw, what in ((dict(loss="huber"), "loss"), (dict(prox="l2"), "prox"),
+                     (dict(stop_rule="bogus"), "stop_rule"),
+                     (dict(window=129), "window")):
+        with pytest.raises(ValueError, match=what):
             microsolve_lasso(A, b, x0, TAU0, 0.1, **kw)
-    with pytest.raises(ValueError, match="stop_rule"):
-        microsolve_lasso(A, b, x0, TAU0, 0.1, stop_rule="bogus")
-    with pytest.raises(ValueError, match="window"):
-        microsolve_lasso(A, b, x0, TAU0, 0.1, window=129)
+    with pytest.raises(TypeError, match="unknown option"):
+        microsolve_lasso(A, b, x0, TAU0, 0.1, engine="vpu")
     with pytest.raises(ValueError, match="float32"):
         microsolve_lasso(A.double(), b, x0, TAU0, 0.1)
 
