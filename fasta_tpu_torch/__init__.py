@@ -2,17 +2,19 @@
 NVIDIA Hopper, ported from ``fasta_tpu`` (which stays the reference).
 
 Ported so far: the dense problem family — LASSO, NNLS, sparse logistic
-regression and the SVM — in plain, adaptive and FISTA mode, through
-``fasta()`` / ``Problem.solve`` (the PyTorch loop with the one-read
-gradient-map kernels), ``Problem.microsolve`` (the whole-solve kernel),
-``solve_path`` and ``Problem.microsolve_sweep`` (the regularization path).
+regression and the SVM — and TV denoising on the dual, in plain,
+adaptive and FISTA mode, through ``fasta()`` / ``Problem.solve`` (the
+PyTorch loop with the one-read gradient-map kernels), ``Problem.microsolve``
+(the whole-solve kernels), ``solve_path`` and ``Problem.microsolve_sweep``
+(the regularization path).
 Only what is ported is exported.  Importing this package imports no JAX
 and compiles nothing.
 """
 
 from .micro import (MicroBatchResult, MicroResult, microsolve,
                     microsolve_supported, microsolve_sweep)
-from .operators import AdjointOp, DenseOp, LinearOp, as_linear_op, check_adjoint
+from .operators import (AdjointOp, DenseOp, LinearOp, ScaledOp, TVDiv2D,
+                        TVGrad2D, as_linear_op, check_adjoint)
 from .options import STOP_RULES, FastaOptions
 from .problem import Problem
 from .prox import project_box, project_nonneg, shrink
@@ -26,7 +28,8 @@ from .terms import (BoxIndicator, FunctionProx, FunctionSmooth, L1Norm,
 __all__ = [
     "fasta", "solve", "make_solver", "solve_path", "estimate_stepsize",
     "FastaResult", "DeviceResult", "FastaOptions", "STOP_RULES", "Problem",
-    "LinearOp", "AdjointOp", "DenseOp", "as_linear_op", "check_adjoint",
+    "LinearOp", "AdjointOp", "DenseOp", "ScaledOp", "TVGrad2D", "TVDiv2D",
+    "as_linear_op", "check_adjoint",
     "SmoothTerm", "LeastSquares", "Logistic", "SquaredHinge",
     "FunctionSmooth", "ProxTerm", "L1Norm", "NonnegIndicator",
     "BoxIndicator", "L2Norm2", "FunctionProx", "as_smooth_term",

@@ -15,9 +15,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .operators import DenseOp
+from .operators import DenseOp, ScaledOp, TVDiv2D, tv_div_2d
 from .problem import Problem
-from .terms import (L1Norm, L2Norm2, LeastSquares, Logistic,
+from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares, Logistic,
                     NonnegIndicator, SquaredHinge)
 
 __all__ = ["problem_from_instance", "problem_from_arrays",
@@ -56,18 +56,29 @@ _DENSE = {
 def problem_from_instance(inst: dict, *, device,
                           dtype: torch.dtype) -> Problem:
     """A port ``Problem`` from a generator instance dict (the JAX
-    ``Problem.instance``) of one of the dense problems: LASSO, NNLS,
+    ``Problem.instance``) of one of the dense problems — LASSO, NNLS,
     sparse logistic regression or the SVM, whose instances hold the
-    matrix ``A``, the measurements or labels ``b`` and ``x0``."""
+    matrix ``A``, the measurements or labels ``b`` and ``x0`` — or of TV
+    denoising, whose instance holds the image ``b``, the dual start
+    ``x0`` (2, H, W) and the TV weight ``mu``, and no matrix."""
     name = inst.get("name")
-    if name not in _DENSE:
+    if name not in _DENSE and name != "tv":
         raise NotImplementedError(
-            f"instance {name!r} is not ported yet (ROADMAP Queue A item 7); "
-            f"the port carries {sorted(_DENSE)}")
-    smooth, prox = _DENSE[name]
+            f"instance {name!r} is not ported yet (ROADMAP Queue A items 7 "
+            f"and 10); the port carries {sorted(_DENSE) + ['tv']}")
 
     def t(a):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+    if name == "tv":
+        mu = float(inst["mu"])
+        h, w = np.shape(inst["b"])
+        return Problem(name=f"tv[{h}x{w}]", op=ScaledOp(mu, TVDiv2D()),
+                       fterm=LeastSquares(t(inst["b"])),
+                       gterm=BoxIndicator(-1.0, 1.0), x0=t(inst["x0"]),
+                       x_true=inst.get("x_true"), instance=inst,
+                       recover=_tv_recover(np.asarray(inst["b"]), mu))
+    smooth, prox = _DENSE[name]
 
     A = t(inst["A"])
     m, n = A.shape
@@ -75,6 +86,16 @@ def problem_from_instance(inst: dict, *, device,
                    fterm=smooth(t(inst["b"])), gterm=prox(inst),
                    x0=t(inst["x0"]), x_true=inst.get("x_true"),
                    instance=inst)
+
+
+def _tv_recover(b: np.ndarray, mu: float):
+    """x = b − μ·div(p): the denoised image of a dual field p, in float64
+    on p's device (the JAX problem's ``recover``, ``problems/tv.py``)."""
+    def recover(p):
+        p = torch.as_tensor(p)
+        b64 = torch.as_tensor(b, dtype=torch.float64, device=p.device)
+        return b64 - mu * tv_div_2d(p.to(torch.float64))
+    return recover
 
 
 def result_to_numpy(result) -> dict:

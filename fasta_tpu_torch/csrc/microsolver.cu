@@ -38,8 +38,9 @@
 //    barriers, so every block must take the same branch.  Loss, prox and
 //    mode are runtime codes fixed for the launch; the decisions come from
 //    the same per-block partials, which each block reduces from global
-//    memory in the same fixed order (reduce.cuh), so every block derives
-//    bit-identical scalars.  No atomics; no fast-math.  The FP64
+//    memory in the same fixed order (fbs_control.cuh, shared with K-B6),
+//    so every block derives bit-identical scalars.  No atomics; no
+//    fast-math.  The FP64
 //    accumulation type (hp off / on) and the mode are template
 //    parameters, so the adaptive instantiations carry no FISTA code: four
 //    instantiations.
@@ -64,34 +65,20 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "fbs_control.cuh"
 #include "losses.cuh"
 #include "reduce.cuh"
 
 namespace cg = cooperative_groups;
-using fasta::nanmax;
-using fasta::nanmin;
+using namespace fasta;
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWinMax = 128;
-constexpr float kEps32 = 1.1920928955078125e-07f;
 
-// partial slots, each (nblocks,) doubles: the kCommon slots every trial
-// writes, the objective's g and the restart dot when asked for, and
-// FISTA's f(d_n)
-enum Slot { kNd2, kBtDot, kNg2, kNsm2, kF, kBbDot, kNdg2, kGx, kRdot, kFn, kSlots };
-constexpr int kCommon = kGx;
-constexpr int kReduced = kFn;  // the slots the decision reads
-// the cancellation-prone common slots, which sum in Acc; the others in float
-__host__ __device__ constexpr bool acc_slot(int s) { return s == kBtDot || s == kF || s == kBbDot; }
-// stop rules, in the order of options.STOP_RULES
-enum Rule { kResidual, kNormalized, kRatio, kHybrid, kIterations };
 // proxes, in the order of kernels.microsolver.PROXES
 enum Prox { kL1, kNonneg, kBox, kRidge };
-// option bits of fasta_microsolve's flags
-enum Flag { kHp = 1, kAccel = 2, kRestart = 4, kRestartDd = 8, kWarm = 16 };
 
 struct Args {
   const float* A;    // (m, n)
@@ -100,12 +87,7 @@ struct Args {
   const float* x0;   // (n,)
   const float* mus;  // (npath,) the weight of each path point
   float* x_out;      // (npath, n)
-  float* taus;       // (npath, max_iters)
-  float* res;        // (npath, max_iters)
-  float* fvals;      // (npath, max_iters) or null
-  int* bts;          // (npath, max_iters) or null
-  float* objs;       // (npath, max_iters) or null
-  float* nres;       // (npath, max_iters) or null
+  Records rec;
   float* its;        // (npath, max_iters, n) or null
   int* k_out;        // (npath,)
   int* status_out;   // (npath,)
@@ -116,23 +98,11 @@ struct Args {
   float* dbuf;       // (m,) FISTA: A x₁ of the trial
   double* part;      // (3, kSlots, nblocks)
   float* dacc;       // (m,) FISTA: A x_acc
-  int npath, m, n, pn, max_iters, window, max_backtracks, stop_rule, loss, prox;
-  int accel, restart, rdd, warm;  // accel also selects the instantiation
-  float tau0, tol, shrink;
+  Control ctl;
+  int npath, m, n, pn, loss, prox;
+  int rdd, warm;
+  float tau0;
 };
-
-struct State {
-  float tau, maxres, alpha, beta, res, tau_acc, tau_start;
-  int k, cnt, cur, status, done;
-  int accepted;  // the last trial was accepted, as iteration krec
-  int post;      // FISTA: phases A and B follow the acceptance
-  int stop, krec;
-};
-
-// x̂ = x − τ g, rounded like the separate multiply and subtract
-__device__ __forceinline__ float step_hat(float x, float g, float tau) {
-  return __fsub_rn(x, __fmul_rn(tau, g));
-}
 
 // soft threshold z·max(|z|−t, 0)/max(|z|, 1e-30)
 __device__ __forceinline__ float shrink(float z, float t) {
@@ -171,17 +141,6 @@ __device__ __forceinline__ float row_dot(const float* __restrict__ row, const fl
   return fasta::warp_sum(s);
 }
 
-__device__ __forceinline__ bool stop_rule(int rule, float res, float nres, float maxres,
-                                          float tol) {
-  switch (rule) {
-    case kResidual: return res < tol;
-    case kNormalized: return nres < tol;
-    case kRatio: return __fdiv_rn(res, maxres + 1e-8f) < tol;
-    case kIterations: return false;
-    default: return (__fdiv_rn(res, maxres + 1e-8f) < tol) || (nres < tol);
-  }
-}
-
 template <typename Acc, bool ACCEL>
 __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
@@ -195,14 +154,13 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
   __shared__ int carry_ok;   // the previous path point ended finite
   __shared__ float tprev;    // its warm τ carry
 
-  constexpr bool hp = sizeof(Acc) == sizeof(double);
   const int tid = threadIdx.x, lane = tid & 31;
   const int nb = gridDim.x, blk = blockIdx.x;
   const int gtid = blk * kThreads + tid, gthreads = nb * kThreads;
   const int gwarp = blk * kWarps + (tid >> 5), gwarps = nb * kWarps;
   const int m = a.m, n = a.n;
   const float fscale = fasta::loss_scale(a.loss);
-  const bool need_gx = a.objs != nullptr && (a.prox == kL1 || a.prox == kRidge);
+  const bool need_gx = a.rec.objs != nullptr && (a.prox == kL1 || a.prox == kRidge);
   float* X[2] = {a.xbuf, a.xbuf + a.pn};
   float* G[2] = {a.gbuf, a.gbuf + a.pn};
   double* P0 = a.part;  // each point's start
@@ -216,7 +174,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
 
   for (int p = 0; p < a.npath; ++p) {
     const float mu = __ldg(a.mus + p);
-    const size_t rec0 = (size_t)p * a.max_iters;
+    const size_t rec0 = (size_t)p * a.ctl.max_iters;
     // the start: point p−1's solution when the path is warm and it ended
     // finite; adaptive mode also takes its carried τ
     const float* xs = (a.warm && p > 0 && carry_ok) ? a.x_out + (size_t)(p - 1) * n : a.x0;
@@ -250,20 +208,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
       }
       if (tid < 32) {
         const Acc f = fasta::warp_sum_global<Acc>(P0 + kF * nb, nb);
-        if (tid == 0) {
-          fwin[0] = Acc(fscale) * f;
-          for (int w = 1; w < kWinMax; ++w) fwin[w] = Acc(-CUDART_INF);
-          State s;
-          s.tau = tau_start;
-          s.maxres = -CUDART_INF_F;
-          s.alpha = 1.f;
-          s.beta = 0.f;
-          s.res = 0.f;
-          s.tau_acc = 0.f;
-          s.tau_start = tau_start;
-          s.k = s.cnt = s.cur = s.status = s.done = s.accepted = s.post = s.stop = s.krec = 0;
-          st = s;
-        }
+        if (tid == 0) start_point(st, fwin, Acc(fscale) * f, tau_start);
       }
       grid.sync();
     }
@@ -374,135 +319,16 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
       }
 
       // ---- phase 4: every block reduces the same partials in the same
-      // order (lane-strided, then a shuffle tree); the loads of the seven
-      // slots every trial writes start together, the two optional slots
-      // follow only when they were written
-      if (tid < 32) {
-        Acc sa[kCommon];
-        float sf[kCommon];
-#pragma unroll
-        for (int s = 0; s < kCommon; ++s) {
-          sa[s] = Acc(0);
-          sf[s] = 0.f;
-        }
-        for (int i = lane; i < nb; i += 32) {
-          double v[kCommon];
-#pragma unroll
-          for (int s = 0; s < kCommon; ++s) v[s] = __ldcg(P + s * nb + i);
-#pragma unroll
-          for (int s = 0; s < kCommon; ++s) {
-            if (acc_slot(s))
-              sa[s] += Acc(v[s]);
-            else
-              sf[s] += float(v[s]);
-          }
-        }
-#pragma unroll
-        for (int s = 0; s < kCommon; ++s) {
-          const double v = acc_slot(s) ? double(fasta::warp_sum(sa[s]))
-                                       : double(fasta::warp_sum(sf[s]));
-          if (tid == 0) tot[s] = v;
-        }
-        if (need_gx || ACCEL) {
-          float gx = 0.f, rdot = 0.f;
-          double rdot64 = 0.0;
-          for (int i = lane; i < nb; i += 32) {
-            gx += float(__ldcg(P + kGx * nb + i));
-            const double r = __ldcg(P + kRdot * nb + i);
-            rdot += float(r);
-            rdot64 += r;
-          }
-          gx = fasta::warp_sum(gx);
-          const double rd = a.rdd ? fasta::warp_sum(rdot64) : double(fasta::warp_sum(rdot));
-          if (tid == 0) {
-            tot[kGx] = gx;
-            tot[kRdot] = rd;
-          }
-        }
-      }
+      // order and takes the same decision
+      if (tid < 32) reduce_partials<Acc, ACCEL>(P, nb, need_gx, a.rdd, tot);
       __syncthreads();
       if (tid == 0) {
+        const float gx = float(tot[kGx]);
+        const float gobj = a.prox == kL1     ? __fmul_rn(mu, gx)
+                           : a.prox == kRidge ? __fmul_rn(__fmul_rn(0.5f, mu), gx)
+                                              : 0.f;
         State s = st;
-        const float nd2 = float(tot[kNd2]);
-        const Acc f1 = Acc(fscale) * Acc(tot[kF]);
-        const Acc btd = Acc(tot[kBtDot]);
-        Acc M = fwin[0];
-        for (int w = 1; w < a.window; ++w) M = fwin[w] > M ? fwin[w] : M;
-        const float q = __fdiv_rn(nd2, __fmul_rn(2.f, s.tau));
-        bool viol;
-        if (hp) {
-          // the TPU kernel's hp slack: 1e-12 plus 64 ulp of the f scale
-          const double slack = 1e-12 + (64.0 * double(kEps32)) * (fabs(double(M)) + fabs(double(f1)));
-          viol = (double(f1) - (double(M) + (double(btd) + double(q)))) > slack;
-        } else {
-          const float suff = __fadd_rn(__fadd_rn(float(M), float(btd)), q);
-          viol = __fsub_rn(float(f1), 1e-12f) > suff;
-        }
-        s.accepted = 0;
-        if (viol && s.cnt < a.max_backtracks) {
-          s.tau = __fmul_rn(s.tau, a.shrink);
-          s.cnt += 1;
-        } else {
-          s.accepted = 1;
-          const float res = __fdiv_rn(sqrtf(nd2), s.tau);
-          s.maxres = nanmax(s.maxres, res);
-          const float nrm = __fadd_rn(nanmax(sqrtf(float(tot[kNg2])),
-                                             __fdiv_rn(sqrtf(float(tot[kNsm2])), s.tau)),
-                                      1e-8f);
-          const float nres = __fdiv_rn(res, nrm);
-          const bool stop = stop_rule(a.stop_rule, res, nres, s.maxres, a.tol);
-          // the last genuinely accepted τ, for the warm carry
-          if (s.cnt < a.max_backtracks) s.tau_acc = s.tau;
-          const size_t r = rec0 + s.k;
-          if (blk == 0) {
-            a.taus[r] = s.tau;
-            a.res[r] = res;
-            if (a.bts) a.bts[r] = s.cnt;
-            if (a.nres) a.nres[r] = nres;
-            if (a.objs) {
-              // the prox-point objective f(x₁) + g(x₁)
-              const float gx = float(tot[kGx]);
-              const float gv = a.prox == kL1     ? __fmul_rn(mu, gx)
-                               : a.prox == kRidge ? __fmul_rn(__fmul_rn(0.5f, mu), gx)
-                                                  : 0.f;
-              a.objs[r] = __fadd_rn(float(f1), gv);
-            }
-          }
-          s.krec = s.k;
-          if (!ACCEL) {
-            // Zhou–Gao–Dai BB stepsize; the numerator rounds to float32
-            const float dot = float(Acc(tot[kBbDot]));
-            const float ndg2 = float(tot[kNdg2]);
-            const float tau_s = dot != 0.f ? __fdiv_rn(nd2, dot) : CUDART_INF_F;
-            const float tau_m = nanmax(ndg2 > 0.f ? __fdiv_rn(dot, ndg2) : 0.f, 0.f);
-            float tau_n = __fmul_rn(2.f, tau_m) > tau_s
-                              ? tau_m
-                              : __fsub_rn(tau_s, __fmul_rn(0.5f, tau_m));
-            if (tau_n <= 0.f || isinf(tau_n) || isnan(tau_n)) tau_n = __fmul_rn(s.tau, 1.5f);
-            // halt code: nonfinite wins over converged
-            const bool finite = isfinite(res) && isfinite(tau_n) && isfinite(double(f1));
-            s.status = !finite ? 2 : (stop ? 1 : 0);
-            if (blk == 0 && a.fvals) a.fvals[r] = float(f1);
-            fwin[(s.k + 1) % a.window] = f1;
-            s.k += 1;
-            s.cur ^= 1;
-            s.tau = tau_n;
-            s.cnt = 0;
-            s.done = (s.k >= a.max_iters) || (s.status != 0);
-          } else {
-            // O'Donoghue–Candès restart and the FISTA momentum
-            const float rdot = float(tot[kRdot]);
-            const float a0 = (a.restart && rdot > 0.f) ? 1.f : s.alpha;
-            const float a1 = __fdiv_rn(
-                __fadd_rn(1.f, sqrtf(__fadd_rn(1.f, __fmul_rn(__fmul_rn(4.f, a0), a0)))), 2.f);
-            s.beta = __fdiv_rn(__fsub_rn(a0, 1.f), a1);
-            s.alpha = a1;
-            s.res = res;
-            s.stop = stop;
-            s.post = 1;
-            f1s = f1;
-          }
-        }
+        decide<Acc, ACCEL>(s, tot, fwin, f1s, fscale, gobj, a.ctl, a.rec, rec0, blk == 0);
         st = s;
       }
       __syncthreads();
@@ -549,16 +375,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
           const Acc fn = Acc(fscale) * fasta::warp_sum_global<Acc>(P + kFn * nb, nb);
           if (tid == 0) {
             State s = st;
-            // the window sees f at the next search point, or f(x₁) on a stop
-            const Acc f_rec = s.stop ? f1s : fn;
-            const bool finite = isfinite(s.res) && isfinite(s.tau) && isfinite(double(f_rec));
-            s.status = !finite ? 2 : (s.stop ? 1 : 0);
-            if (blk == 0 && a.fvals) a.fvals[rec0 + s.k] = float(f_rec);
-            fwin[(s.k + 1) % a.window] = f_rec;
-            s.k += 1;
-            s.cnt = 0;
-            s.post = 0;
-            s.done = (s.k >= a.max_iters) || (s.status != 0);
+            finish_fista(s, fn, f1s, fwin, a.ctl, a.rec, rec0, blk == 0);
             st = s;
           }
         }
@@ -586,22 +403,11 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
 }
 
 cudaError_t max_blocks(int* nblocks) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const void* fns[] = {(const void*)microsolve_kernel<float, false>,
                        (const void*)microsolve_kernel<double, false>,
                        (const void*)microsolve_kernel<float, true>,
                        (const void*)microsolve_kernel<double, true>};
-  int per_sm = 1 << 30;
-  for (const void* fn : fns) {
-    int k = 0;
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, fn, kThreads, 0);
-    per_sm = k < per_sm ? k : per_sm;
-  }
-  if (err != cudaSuccess) return err;
-  *nblocks = per_sm < 1 ? 0 : sms;  // at most one block per SM
-  return cudaSuccess;
+  return cooperative_blocks(fns, 4, kThreads, nblocks);
 }
 
 size_t pad4(int v) { return ((size_t)v + 3) / 4 * 4; }
@@ -612,10 +418,17 @@ size_t pad4(int v) { return ((size_t)v + 3) / 4 * 4; }
 // (0 if the kernel cannot be resident at all).
 extern "C" int fasta_microsolve_grid(int* nblocks) { return max_blocks(nblocks); }
 
+// The doubles of work_d that a launch of K-B1 or K-B6 over nblocks needs.
+extern "C" int fasta_fbs_work_doubles(int nblocks, int* ndoubles) {
+  if (nblocks < 1) return cudaErrorInvalidValue;
+  *ndoubles = (int)work_doubles(nblocks);
+  return cudaSuccess;
+}
+
 // Run npath solves (one per weight in mus) on `stream`; see the option
 // bits in Flag.  Outputs have a leading axis of npath.  work_f holds
-// 5·pad4(n) + 3·pad4(m) floats, work_d 3·10·nblocks doubles.  fvals,
-// bts, objs, nres and its may be null.
+// 5·pad4(n) + 3·pad4(m) floats, work_d fasta_fbs_work_doubles(nblocks)
+// doubles.  fvals, bts, objs, nres and its may be null.
 extern "C" int fasta_microsolve(const float* A, const float* At, const float* b,
                                 const float* x0, const float* mus, int npath, float tau0, int m,
                                 int n, int max_iters, int window, float tol, float shrink_factor,
@@ -640,12 +453,7 @@ extern "C" int fasta_microsolve(const float* A, const float* At, const float* b,
   args.x0 = x0;
   args.mus = mus;
   args.x_out = x_out;
-  args.taus = taus;
-  args.res = res;
-  args.fvals = fvals;
-  args.bts = bts;
-  args.objs = objs;
-  args.nres = nres;
+  args.rec = Records{taus, res, fvals, bts, objs, nres};
   args.its = its;
   args.k_out = k_out;
   args.status_out = status_out;
@@ -660,19 +468,13 @@ extern "C" int fasta_microsolve(const float* A, const float* At, const float* b,
   args.m = m;
   args.n = n;
   args.pn = (int)pn;
-  args.max_iters = max_iters;
-  args.window = window;
-  args.max_backtracks = max_backtracks;
-  args.stop_rule = stop_rule_code;
+  args.ctl = Control{max_iters, window, max_backtracks, stop_rule_code,
+                     (flags & kRestart) != 0, tol, shrink_factor};
   args.loss = loss;
   args.prox = prox;
-  args.accel = (flags & kAccel) != 0;
-  args.restart = (flags & kRestart) != 0;
   args.rdd = (flags & kHp) && (flags & kRestartDd);
   args.warm = (flags & kWarm) != 0;
   args.tau0 = tau0;
-  args.tol = tol;
-  args.shrink = shrink_factor;
   void* params[] = {&args};
   const bool hp = (flags & kHp) != 0, accel = (flags & kAccel) != 0;
   const void* fn = hp ? (accel ? (const void*)microsolve_kernel<double, true>

@@ -41,6 +41,13 @@ _SIGNATURES = {
                          _F, _F, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _P],
+    "fasta_fbs_work_doubles": [_I, _P],
+    "fasta_tv_gradmap_work": [_I, _I, _P],
+    "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    "fasta_microsolve_tv_grid": [_P],
+    "fasta_microsolve_tv": [_P, _P, _P, _I, _F, _I, _I, _I, _I, _F, _F, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _P],
 }
 
 

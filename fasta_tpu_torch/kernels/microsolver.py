@@ -216,8 +216,46 @@ def _grid(device_index: int) -> int:
     return nb.value
 
 
-# partial slots per block and trial in the kernel's FP64 scratch
-_SLOTS = 10
+@functools.lru_cache(maxsize=None)
+def _work_doubles(nblocks: int) -> int:
+    """The FP64 scratch of a K-B1 or K-B6 launch over ``nblocks``
+    (csrc/fbs_control.cuh)."""
+    nd = ctypes.c_int()
+    _build.check(_build.library().fasta_fbs_work_doubles(
+        nblocks, ctypes.byref(nd)), "fasta_fbs_work_doubles")
+    return nd.value
+
+
+class _Outputs(NamedTuple):
+    """What every whole-solve launch writes besides the solution: the
+    (B, K) records, the (B,) counts and halt codes, and the FP64
+    scratch."""
+    taus: torch.Tensor
+    res: torch.Tensor
+    fvals: Optional[torch.Tensor]
+    bts: Optional[torch.Tensor]
+    objs: Optional[torch.Tensor]
+    nres: Optional[torch.Tensor]
+    k: torch.Tensor
+    halt: torch.Tensor
+    work_d: torch.Tensor
+
+
+def _outputs(B, K, o, dev, nblocks) -> _Outputs:
+    def series(flag, dtype=torch.float32):
+        return torch.zeros(B, K, device=dev, dtype=dtype) if flag else None
+
+    return _Outputs(
+        series(True), series(True), series(o["record_fvals"]),
+        series(o["record_bts"], torch.int32), series(o["record_objs"]),
+        series(o["record_nres"]),
+        torch.empty(B, device=dev, dtype=torch.int32),
+        torch.empty(B, device=dev, dtype=torch.int32),
+        torch.empty(_work_doubles(nblocks), device=dev, dtype=torch.float64))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _pad4(v: int) -> int:
@@ -234,31 +272,14 @@ def _launch(A, b, x0, tau0, mus, warm, record_its, o):
     dev = A.device
     nb = _grid(dev.index)
     f32 = dict(device=dev, dtype=torch.float32)
-    i32 = dict(device=dev, dtype=torch.int32)
     At = A.t().contiguous()
     mus_d = mus.to(**f32)
     x = torch.empty(B, n, **f32)
-    taus = torch.zeros(B, K, **f32)
-    res = torch.zeros(B, K, **f32)
-
-    def series(flag, dtype=torch.float32):
-        return torch.zeros(B, K, device=dev, dtype=dtype) if flag else None
-
-    fvals = series(o["record_fvals"])
-    bts = series(o["record_bts"], torch.int32)
-    objs = series(o["record_objs"])
-    nres = series(o["record_nres"])
+    r = _outputs(B, K, o, dev, nb)
     its = torch.zeros(B, K, n, **f32) if record_its else None
-    k = torch.empty(B, **i32)
-    halt = torch.empty(B, **i32)
     # the kernel carves five n-vectors and three m-vectors, each padded
     # to 4 floats so that every one stays 16-byte aligned
     work_f = torch.empty(5 * _pad4(n) + 3 * _pad4(m), **f32)
-    work_d = torch.empty(3 * _SLOTS * nb, device=dev, dtype=torch.float64)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     flags = (int(bool(o["hp"])) | int(bool(o["accelerate"])) << 1
              | int(bool(o["restart"])) << 2 | int(bool(o["restart_dd"])) << 3
              | int(bool(warm)) << 4)
@@ -268,11 +289,12 @@ def _launch(A, b, x0, tau0, mus, warm, record_its, o):
             mus_d.data_ptr(), B, float(tau0), m, n, K, o["window"],
             float(o["tol"]), float(o["shrink_factor"]), o["max_backtracks"],
             STOP_RULES.index(o["stop_rule"]), LOSSES.index(o["loss"]),
-            PROXES.index(o["prox"]), flags, x.data_ptr(), taus.data_ptr(),
-            res.data_ptr(), ptr(fvals), ptr(bts), ptr(objs), ptr(nres),
-            ptr(its), k.data_ptr(), halt.data_ptr(), work_f.data_ptr(),
-            work_d.data_ptr(), nb, stream), "fasta_microsolve")
-    return x, taus, res, k, halt, fvals, bts, objs, its, nres
+            PROXES.index(o["prox"]), flags, x.data_ptr(), r.taus.data_ptr(),
+            r.res.data_ptr(), _ptr(r.fvals), _ptr(r.bts), _ptr(r.objs),
+            _ptr(r.nres), _ptr(its), r.k.data_ptr(), r.halt.data_ptr(),
+            work_f.data_ptr(), r.work_d.data_ptr(), nb, stream),
+            "fasta_microsolve")
+    return x, r.taus, r.res, r.k, r.halt, r.fvals, r.bts, r.objs, its, r.nres
 
 
 # --------------------------------------------------------------------------
@@ -328,13 +350,22 @@ def microsolve_lasso_path_reference(A, b, x0, tau0, mus, *, warm=True,
     """The plain version of K-B1p: the plain K-B1 loop per path point,
     with the kernel's warm carry of x and τ."""
     o = _options(options)
+    return path_reference(
+        lambda x, tau, mu: _reference(A, b, x, tau, mu, False, o), x0, tau0,
+        mus, warm, o["accelerate"])
+
+
+def path_reference(solve, x0, tau0, mus, warm, accelerate):
+    """A plain path: ``solve(x_start, τ_start, μ) -> (output, last
+    genuinely accepted τ)`` per point, with the whole-solve kernels' warm
+    carry of x and τ (K-B1p, K-B6p); outputs stacked on a leading
+    axis."""
     x_start, tau_start = x0, float(tau0)
     runs = []
     for i, mu in enumerate(torch.as_tensor(mus).tolist()):
-        tau_i = (tau_start if warm and not o["accelerate"] and i > 0
+        tau_i = (tau_start if warm and not accelerate and i > 0
                  and tau_start > 0.0 else float(tau0))
-        out, tau_acc = _reference(A, b, x_start if warm else x0, tau_i, mu,
-                                  False, o)
+        out, tau_acc = solve(x_start if warm else x0, tau_i, mu)
         runs.append(out)
         ok = int(out.halt) != 2
         # a nonfinite abort sends the next point back to the cold x₀; the
@@ -348,15 +379,26 @@ def microsolve_lasso_path_reference(A, b, x0, tau0, mus, *, warm=True,
 
 
 def _reference(A, b, x0, tau0, mu, record_its, o):
-    """One plain solve; returns (output, last genuinely accepted τ)."""
-    dev = A.device
+    """One plain dense solve; returns (output, last genuinely accepted
+    τ)."""
+    At = A.t()
+    return solve_reference(lambda x: torch.matmul(A, x),
+                           lambda r: torch.matmul(At, r), b, x0, tau0, mu,
+                           record_its, o)
+
+
+def solve_reference(fwd, adj, b, x0, tau0, mu, record_its, o):
+    """The whole-solve kernels' loop in plain PyTorch over a linear
+    operator given as ``fwd`` (x ↦ Ax) and ``adj`` (r ↦ Aᵀr), for x of
+    any shape: K-B1's with a matrix, K-B6's with the TV stencils.
+    Returns (output, last genuinely accepted τ)."""
+    dev = x0.device
     f32 = dict(device=dev, dtype=torch.float32)
     hp = bool(o["hp"])
     acc = torch.float64 if hp else torch.float32
     K, window, max_bt = o["max_iters"], o["window"], o["max_backtracks"]
     shrink_factor, accelerate = o["shrink_factor"], o["accelerate"]
     rdd = hp and o["restart_dd"]
-    At = A.t()
     tau = torch.tensor(float(tau0), **f32)
     mu_t = torch.tensor(float(mu), **f32)
     fof, lgrad = _loss_fns(o["loss"], b, acc)
@@ -370,18 +412,19 @@ def _reference(A, b, x0, tau0, mu, record_its, o):
     bts = series(o["record_bts"], torch.int32)
     objs = series(o["record_objs"])
     nres_rec = series(o["record_nres"])
-    its = torch.zeros(K, A.shape[1], **f32) if record_its else None
+    its = (torch.zeros((K,) + tuple(x0.shape), **f32) if record_its
+           else None)
 
     def fb(x, g, tau):
         """The trial: x̂, x₁, Δx, A x₁ and f(A x₁)."""
         x1hat = x - tau * g
         x1 = prox(x1hat, tau)
-        d1 = torch.matmul(A, x1)
+        d1 = fwd(x1)
         return x1hat, x1, x1 - x, d1, fof(d1)
 
     x = x0                       # adaptive: the iterate; FISTA: y
-    d0 = torch.matmul(A, x0)
-    g = torch.matmul(At, lgrad(d0))
+    d0 = fwd(x0)
+    g = adj(lgrad(d0))
     x_acc, d_acc = x0, d0        # FISTA: the last prox point and A·(it)
     alpha = torch.tensor(1.0, **f32)
     fwin = torch.full((window,), -math.inf, device=dev, dtype=acc)
@@ -433,13 +476,13 @@ def _reference(A, b, x0, tau0, mu, record_its, o):
             beta = (alpha0 - 1.0) / alpha1
             y_n = x1 + beta * (x1 - x_acc)
             d_n = d1 + beta * (d1 - d_acc)          # A is linear
-            g_n = torch.matmul(At, lgrad(d_n))
+            g_n = adj(lgrad(d_n))
             f_rec = f1 if stop else fof(d_n)
             finite = bool(torch.isfinite(res) & torch.isfinite(tau)
                           & torch.isfinite(f_rec))
             tau_n = tau
         else:
-            g_n = torch.matmul(At, lgrad(d1))
+            g_n = adj(lgrad(d1))
             # Zhou–Gao–Dai BB stepsize; Δg = g₁ + (x̂₁ − x)/τ
             dg = g_n + (x1hat - x) / tau
             if hp:

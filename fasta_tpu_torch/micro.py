@@ -1,13 +1,15 @@
 """Public dispatch onto the whole-solve kernels (port of
-``fasta_tpu/micro.py:41-350, 442-621``, dense branch).
+``fasta_tpu/micro.py:41-350, 442-621``, dense and TV branches).
 
 :func:`microsolve` inspects a :class:`~fasta_tpu_torch.problem.Problem`'s
 operator and term types and routes a dense problem — least-squares,
 logistic or squared-hinge loss × L1, nonnegativity, [−1,1] box or ridge
-prox — to kernel K-B1, raising with a reason when the structure is
-outside the kernels' scope.  :func:`microsolve_sweep` solves a path of
-weights in one launch of kernel K-B1p, cold or warm.  Calling either is
-the opt-in: it never falls back to the general loop.
+prox — to kernel K-B1 and a TV-dual problem — ``ScaledOp(μ, TVDiv2D())``
+× ``LeastSquares`` × ``BoxIndicator(-1, 1)`` — to kernel K-B6, raising
+with a reason when the structure is outside the kernels' scope.
+:func:`microsolve_sweep` solves a path of weights in one launch of kernel
+K-B1p or K-B6p, cold or warm.  Calling either is the opt-in: it never
+falls back to the general loop.
 
 Two faults of the reference are not inherited: ``best_index`` ignores
 NaN and is None after a nonfinite abort, and ``status`` is a string,
@@ -26,7 +28,8 @@ import torch
 from .kernels.microsolver import (_DENSE_VMEM_BYTES, STATUS_NAMES,
                                   microsolve_lasso, microsolve_lasso_path,
                                   supports_microsolver)
-from .operators import DenseOp
+from .kernels.microsolver_tv import microsolve_tv, microsolve_tv_path
+from .operators import DenseOp, ScaledOp, TVDiv2D
 from .problem import Problem
 from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares, Logistic,
                     NonnegIndicator, SquaredHinge)
@@ -53,7 +56,7 @@ class MicroResult:
     ``iterates`` ((k, n)) and ``norm_residuals`` are None unless
     recorded."""
 
-    solution: torch.Tensor
+    solution: torch.Tensor               # (n,); TV: the dual field (2, H, W)
     iteration_count: int
     converged: bool
     residuals: np.ndarray
@@ -77,7 +80,7 @@ class MicroBatchResult:
     arrays).  ``best_indices`` follows ``MicroResult.best_index``, with
     −1 where that is None."""
 
-    solutions: torch.Tensor              # (B, n)
+    solutions: torch.Tensor              # (B, n); TV: (B, 2, H, W)
     iteration_counts: np.ndarray         # (B,) int
     converged: np.ndarray                # (B,) bool
     residuals: list
@@ -95,6 +98,13 @@ class MicroBatchResult:
 def _dispatch(problem: Problem):
     """Return (kind, detail) for a supported problem, else (None, why)."""
     op, f, g = problem.op, problem.fterm, problem.gterm
+    if (isinstance(op, ScaledOp) and isinstance(op.op, TVDiv2D)
+            and isinstance(f, LeastSquares) and isinstance(g, BoxIndicator)):
+        if f.b.ndim != 2:
+            return None, f"TV kernel needs a 2-D image, got b.ndim={f.b.ndim}"
+        if not (g.lo == -1.0 and g.hi == 1.0):
+            return None, "TV kernel implements the [-1,1] dual ball only"
+        return "tv", float(op.c)
     if isinstance(op, DenseOp) and type(f) in _LOSSES:
         loss = _LOSSES[type(f)]
         data = f.y if isinstance(f, SquaredHinge) else f.b
@@ -127,9 +137,11 @@ def _dispatch(problem: Problem):
                       f"{type(g).__name__}")
     return None, (f"no whole-solve kernel for operator {type(op).__name__} "
                   f"+ smooth {type(f).__name__}: the port supports DenseOp "
-                  f"with the least-squares, logistic or squared-hinge loss; "
-                  f"the TV-dual kernel (ROADMAP Queue A item 9) and the "
-                  f"planar PhaseMax kernel (item 10) are not ported yet")
+                  f"with the least-squares, logistic or squared-hinge loss "
+                  f"and the TV dual (ScaledOp(mu, TVDiv2D()) with "
+                  f"LeastSquares and BoxIndicator(-1, 1)); the planar "
+                  f"PhaseMax kernel (ROADMAP Queue A item 10) is not ported "
+                  f"yet")
 
 
 def microsolve_supported(problem: Problem) -> tuple:
@@ -140,34 +152,39 @@ def microsolve_supported(problem: Problem) -> tuple:
     return True, kind
 
 
-def _start(problem, what, tau0, engine, interpret, generator):
-    """(loss, prox, mu, A, data, x0, tau0) of a dense problem, after the
-    checks every entry point makes."""
+def _start(problem, what, tau0, engine, interpret, generator,
+           record_iterates=False):
+    """(kind, detail, data, x0, tau0) of a supported problem — ``data``
+    the float32 measurements, labels or image — after the checks every
+    entry point makes."""
     kind, detail = _dispatch(problem)
     if kind is None:
         raise ValueError(f"{what}: {detail}")
+    if record_iterates and kind == "tv":
+        raise ValueError(
+            f"{what}: record_iterates is implemented for the dense kernel "
+            f"(the TV kernel's per-iteration state is a 2-D dual field — a "
+            f"512x512 trajectory is ~4 GB; use "
+            f"Problem.solve(record_iterates=True))")
     if engine is not None:
         raise ValueError(f"{what}: engine selects the TPU kernels' matvec "
-                         f"unit; the CUDA kernel has none")
+                         f"unit; the CUDA kernels have none")
     if interpret is not None:
         raise ValueError(f"{what}: interpret selects the Pallas "
                          f"interpreter; a CUDA kernel has no interpret mode")
-    loss, prox, mu = detail
-    A = problem.op.A
     f = problem.fterm
     data = f.y if isinstance(f, SquaredHinge) else f.b
-    x0 = torch.as_tensor(problem.x0).to(A.device, torch.float32)
+    x0 = torch.as_tensor(problem.x0).to(data.device, torch.float32)
     if tau0 is None:
         tau0 = problem.tau0
     if tau0 is None:
         from .solver import estimate_stepsize
         if generator is None:
-            generator = torch.Generator(device=A.device).manual_seed(0)
-        tau0_t, _ = estimate_stepsize(problem.op, f, x0.to(A.dtype),
+            generator = torch.Generator(device=data.device).manual_seed(0)
+        tau0_t, _ = estimate_stepsize(problem.op, f, x0.to(data.dtype),
                                       generator)
         tau0 = float(tau0_t)
-    return (loss, prox, mu, A.to(torch.float32), data.to(torch.float32), x0,
-            tau0)
+    return kind, detail, data.to(torch.float32), x0, tau0
 
 
 def _best(status, series):
@@ -190,14 +207,16 @@ def microsolve(problem: Problem, tau0: Optional[float] = None,
                record_nres: bool = False,
                interpret: Optional[bool] = None,
                generator: Optional[torch.Generator] = None) -> MicroResult:
-    """Solve ``problem`` inside one launch of kernel K-B1.
+    """Solve ``problem`` inside one launch of kernel K-B1 (dense) or K-B6
+    (the TV dual).
 
     Options mean what they mean on ``fasta_tpu.micro.microsolve``:
     adaptive (BB) mode by default, FISTA with O'Donoghue–Candès
     ``restart`` with ``accelerate=True`` (``restart_dd`` takes the
-    restart dot in float64 under hp); ``hp`` (default off) accumulates
-    the decision scalars in float64; the ``record_*`` flags add the
-    f-value, backtrack, prox-point objective, iterate and
+    restart dot in float64 under hp); ``hp`` accumulates the decision
+    scalars in float64 and defaults off for the dense kernel, on for the
+    TV kernel; the ``record_*`` flags add the f-value, backtrack,
+    prox-point objective, iterate (dense only: TV raises) and
     normalized-residual series.  ``engine`` and ``interpret`` select TPU
     code paths and raise ``ValueError`` when passed.  Without ``tau0``
     (here or on the problem) the stepsize is estimated from points drawn
@@ -206,17 +225,24 @@ def microsolve(problem: Problem, tau0: Optional[float] = None,
     The problem's data must lie on one device: a CUDA problem runs the
     kernel, a CPU problem its plain version.  Raises ``ValueError`` when
     the structure has no kernel."""
-    loss, prox, mu, A, data, x0, tau0 = _start(
-        problem, "microsolve", tau0, engine, interpret, generator)
+    kind, detail, data, x0, tau0 = _start(
+        problem, "microsolve", tau0, engine, interpret, generator,
+        record_iterates)
+    kw = dict(max_iters=max_iters, window=window, tol=tol,
+              shrink_factor=shrink_factor, max_backtracks=max_backtracks,
+              stop_rule=stop_rule, accelerate=accelerate, restart=restart,
+              restart_dd=restart_dd, record_fvals=record_fvals,
+              record_bts=record_bts, record_objs=record_objs,
+              record_nres=record_nres)
     t0 = time.perf_counter()
-    out = microsolve_lasso(
-        A, data, x0, tau0, mu, max_iters=max_iters, window=window, tol=tol,
-        shrink_factor=shrink_factor, max_backtracks=max_backtracks,
-        hp=bool(hp), stop_rule=stop_rule, loss=loss, prox=prox,
-        accelerate=accelerate, restart=restart, restart_dd=restart_dd,
-        record_fvals=record_fvals, record_bts=record_bts,
-        record_objs=record_objs, record_its=record_iterates,
-        record_nres=record_nres)
+    if kind == "tv":
+        out = microsolve_tv(data, x0, tau0, detail,
+                            hp=True if hp is None else bool(hp), **kw)
+    else:
+        loss, prox, mu = detail
+        out = microsolve_lasso(
+            problem.op.A.to(torch.float32), data, x0, tau0, mu, hp=bool(hp),
+            loss=loss, prox=prox, record_its=record_iterates, **kw)
     k = int(out.iteration_count)
     status = STATUS_NAMES[int(out.halt)]
     solve_time = time.perf_counter() - t0
@@ -261,8 +287,8 @@ def microsolve_sweep(problem: Problem, mus, tau0: Optional[float] = None,
                      generator: Optional[torch.Generator] = None
                      ) -> MicroBatchResult:
     """Solve the regularization path — one full solve per weight in
-    ``mus`` (μ of the L1 term, λ of the ridge) — in one launch of kernel
-    K-B1p.
+    ``mus`` (μ of the L1 term, λ of the ridge; TV: the TV weight) — in one
+    launch of kernel K-B1p (K-B6p for TV).
 
     By default each point runs cold from ``problem.x0``: bit-identical to
     per-μ :func:`microsolve` calls on the same device (use it when the
@@ -271,35 +297,42 @@ def microsolve_sweep(problem: Problem, mus, tau0: Optional[float] = None,
     starts from point i−1's solution and (adaptive mode) last accepted
     stepsize — order ``mus`` strongest first and prefer
     ``stop_rule="residual"``.  Options mean what they mean on
-    :func:`microsolve`.
+    :func:`microsolve` (``hp`` defaults on for TV).
 
-    The nonnegativity and box proxes have no weight, so sweeping them
-    raises ``ValueError``, as does every structure without a dense
+    The dense nonnegativity and box proxes have no weight, so sweeping
+    them raises ``ValueError``, as does every structure without a
     kernel."""
-    loss, prox, _mu, A, data, x0, tau0 = _start(
+    kind, detail, data, x0, tau0 = _start(
         problem, "microsolve_sweep", tau0, engine, interpret, generator)
-    if prox in ("nonneg", "box"):
+    if kind == "dense" and detail[1] in ("nonneg", "box"):
+        prox = detail[1]
         # the projections discard the weight, so every swept mu would
         # return the same solve
         raise ValueError(
             f"microsolve_sweep: the {prox!r} prox is a projection with no "
             f"penalty weight — every swept mu would return the same solve; "
             f"sweep applies to 'l1' (mu) and 'ridge' (lambda) dense "
-            f"problems")
+            f"problems and the TV weight")
     mus = torch.as_tensor(mus, dtype=torch.float32)
     if mus.ndim != 1:
         raise ValueError(f"mus must be a 1-D vector of penalty weights, "
                          f"got ndim={mus.ndim}")
     B = mus.shape[0]
+    kw = dict(warm=warm_start, max_iters=max_iters, window=window, tol=tol,
+              shrink_factor=shrink_factor, max_backtracks=max_backtracks,
+              stop_rule=stop_rule, accelerate=accelerate, restart=restart,
+              restart_dd=restart_dd, record_fvals=record_fvals,
+              record_bts=record_bts, record_objs=record_objs,
+              record_nres=record_nres)
     t0 = time.perf_counter()
-    out = microsolve_lasso_path(
-        A, data, x0, tau0, mus, warm=warm_start, max_iters=max_iters,
-        window=window, tol=tol, shrink_factor=shrink_factor,
-        max_backtracks=max_backtracks, hp=bool(hp), stop_rule=stop_rule,
-        loss=loss, prox=prox, accelerate=accelerate, restart=restart,
-        restart_dd=restart_dd, record_fvals=record_fvals,
-        record_bts=record_bts, record_objs=record_objs,
-        record_nres=record_nres)
+    if kind == "tv":
+        out = microsolve_tv_path(data, x0, tau0, mus,
+                                 hp=True if hp is None else bool(hp), **kw)
+    else:
+        loss, prox, _mu = detail
+        out = microsolve_lasso_path(
+            problem.op.A.to(torch.float32), data, x0, tau0, mus, hp=bool(hp),
+            loss=loss, prox=prox, **kw)
     ks = out.iteration_count.cpu().numpy().astype(np.int64)
     statuses = np.array([STATUS_NAMES[int(h)] for h in out.halt.cpu()])
     solve_time = time.perf_counter() - t0

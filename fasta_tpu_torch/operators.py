@@ -1,8 +1,10 @@
-"""Linear operators (port of ``fasta_tpu/operators.py:47-132, 464-544``).
+"""Linear operators (port of ``fasta_tpu/operators.py:47-132, 301-343,
+391-410, 464-544``).
 
-Slice 1 needs the explicit dense matrix: ``LinearOp``, ``AdjointOp``,
-``DenseOp``, ``as_linear_op`` and ``check_adjoint``.  The other operators
-(identity, closures, stencils, FFTs, sparse) come with their problems
+The dense problems need the explicit matrix: ``LinearOp``, ``AdjointOp``,
+``DenseOp``, ``as_linear_op`` and ``check_adjoint``; TV denoising needs
+the stencil pair ``TVGrad2D`` / ``TVDiv2D`` and ``ScaledOp``.  The other
+operators (identity, closures, FFTs, sparse) come with their problems
 (ROADMAP Queue A item 2).  Operators are plain data holders; their
 tensors stay on whatever device the caller put them.
 
@@ -19,7 +21,8 @@ import torch
 
 from .precision import real_dtype
 
-__all__ = ["LinearOp", "AdjointOp", "DenseOp", "as_linear_op",
+__all__ = ["LinearOp", "AdjointOp", "DenseOp", "TVGrad2D", "TVDiv2D",
+           "ScaledOp", "tv_grad_2d", "tv_div_2d", "as_linear_op",
            "check_adjoint"]
 
 
@@ -75,16 +78,79 @@ class DenseOp(LinearOp):
         return tuple(self.A.shape)
 
 
-def as_linear_op(A: Any, At: Any = None) -> LinearOp:
+def tv_grad_2d(x: torch.Tensor) -> torch.Tensor:
+    """2-D forward differences (H, W) → (2, H, W): channel 0 vertical,
+    channel 1 horizontal, the last row / column of each channel zero
+    (``reference_oracle.generators.tv_grad_2d``)."""
+    zrow = torch.zeros_like(x[:1, :])
+    zcol = torch.zeros_like(x[:, :1])
+    dv = torch.cat([x[1:, :] - x[:-1, :], zrow], dim=0)
+    dh = torch.cat([x[:, 1:] - x[:, :-1], zcol], dim=1)
+    return torch.stack([dv, dh])
+
+
+def tv_div_2d(p: torch.Tensor) -> torch.Tensor:
+    """The adjoint of :func:`tv_grad_2d`, (2, H, W) → (H, W) (minus the
+    divergence), in the JAX package's order of operations: the vertical
+    difference plus the horizontal one (``generators.tv_div_2d``)."""
+    pv, ph = p[0], p[1]
+    zrow = torch.zeros_like(pv[:1, :])
+    zcol = torch.zeros_like(ph[:, :1])
+    out = (torch.cat([zrow, pv[:-1, :]], dim=0)
+           - torch.cat([pv[:-1, :], zrow], dim=0))
+    return out + (torch.cat([zcol, ph[:, :-1]], dim=1)
+                  - torch.cat([ph[:, :-1], zcol], dim=1))
+
+
+class TVGrad2D(LinearOp):
+    """2-D discrete gradient (forward differences, Neumann boundary),
+    (H, W) → (2, H, W); adjoint :class:`TVDiv2D`."""
+
+    def __call__(self, x):
+        return tv_grad_2d(x)
+
+    def rmatvec(self, p):
+        return tv_div_2d(p)
+
+
+class TVDiv2D(LinearOp):
+    """Adjoint of :class:`TVGrad2D`, (2, H, W) → (H, W) (equals minus the
+    divergence)."""
+
+    def __call__(self, p):
+        return tv_div_2d(p)
+
+    def rmatvec(self, y):
+        return tv_grad_2d(y)
+
+
+class ScaledOp(LinearOp):
+    """c · op with a real scalar c (so the adjoint is c · opᴴ)."""
+
+    def __init__(self, c: float, op: LinearOp):
+        self.c = c
+        self.op = op
+
+    def __call__(self, x):
+        return self.c * self.op(x)
+
+    def rmatvec(self, y):
+        return self.c * self.op.rmatvec(y)
+
+
+def as_linear_op(A: Any, At: Any = None, device=None) -> LinearOp:
     """Normalize an operator argument: a tensor becomes a ``DenseOp`` on
-    the tensor's own device, a NumPy matrix a CPU ``DenseOp``, a
-    ``LinearOp`` itself.  ``At`` must be None for those forms."""
+    the tensor's own device, a NumPy matrix a ``DenseOp`` on ``device``
+    (the CPU when None), a ``LinearOp`` itself.  ``At`` must be None for
+    those forms."""
     if isinstance(A, LinearOp):
         return A
     if isinstance(A, (torch.Tensor, np.ndarray)):
         if At is not None:
             raise ValueError("an explicit matrix takes no separate adjoint")
-        return DenseOp(torch.as_tensor(A))
+        if isinstance(A, np.ndarray):
+            return DenseOp(torch.as_tensor(A, device=device))
+        return DenseOp(A)
     raise NotImplementedError(
         f"operator type {type(A).__name__} is not ported yet: identity, "
         f"closure-pair and structured operators are ROADMAP Queue A "

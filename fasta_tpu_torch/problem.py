@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ class Problem:
     tau0: Optional[float] = None       # explicit stepsize (RNG-parity mode)
     x_true: Optional[np.ndarray] = None
     instance: dict = field(default_factory=dict)   # raw NumPy arrays
+    recover: Optional[Callable] = None  # solver variable -> signal (TV)
 
     def solve(self, options: Optional[FastaOptions] = None,
               **kwargs) -> FastaResult:

@@ -383,6 +383,26 @@ def solve_path(op: LinearOp, fterm: SmoothTerm, gterms, x0, tau0,
     return DeviceResult(*(stack(f) for f in DeviceResult._fields))
 
 
+def _target_device(device, A, x0) -> torch.device:
+    """``fasta``'s device for inputs that carry none, after checking the
+    tensors the caller placed against an explicit ``device``."""
+    target = torch.device("cuda" if device is None else device)
+    if device is not None:
+        for name, t in (("A", A), ("x0", x0)):
+            if isinstance(t, torch.Tensor) and t.device != target:
+                raise ValueError(
+                    f"fasta: {name} lies on {t.device} but device="
+                    f"{str(target)!r} was asked for; move it first "
+                    f"(fasta never moves a placed tensor)")
+    placeless = isinstance(A, np.ndarray) or not isinstance(x0,
+                                                             torch.Tensor)
+    if placeless and target.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fasta: the default device is 'cuda' and no CUDA device is "
+            "available; pass device='cpu' to solve on the CPU")
+    return target
+
+
 def fasta(
     A: Any,
     At: Any,
@@ -398,6 +418,7 @@ def fasta(
     generator: Union[torch.Generator, int] = 0,
     est_points: Optional[tuple] = None,
     check_adjoint_first: bool = False,
+    device: Union[str, torch.device, None] = None,
     **opt_kwargs,
 ) -> FastaResult:
     """Reference-compatible entry point — the call shape of the upstream
@@ -406,16 +427,24 @@ def fasta(
     SmoothTerm), simple term (g, proxg — callables or a ProxTerm),
     initial iterate, keyword options.
 
-    The solve runs on ``x0``'s device.  ``generator`` draws the random
-    points of the stepsize estimate and the adjoint check: a
-    ``torch.Generator`` on that device, or an int seed for one."""
+    ``device`` (default "cuda") is where inputs that carry no device go:
+    a NumPy ``x0`` or matrix ``A``.  Tensors the caller placed stay where
+    they are, and one on another device than an explicitly passed
+    ``device`` raises ``ValueError``; nothing is moved in silence.  With
+    no CUDA device present the default raises instead of solving on the
+    CPU: pass ``device="cpu"`` for that.  The solve runs on ``x0``'s
+    device.  ``generator`` draws the random points of the stepsize
+    estimate and the adjoint check: a ``torch.Generator`` on that device,
+    or an int seed for one."""
     opts = options or FastaOptions()
     if opt_kwargs:
         opts = opts.replace(**opt_kwargs)
-    op = as_linear_op(A, At)
+    target = _target_device(device, A, x0)
+    op = as_linear_op(A, At, device=target)
     fterm = as_smooth_term(f, gradf)
     gterm = as_prox_term(g, proxg)
-    x0 = torch.as_tensor(x0)
+    x0 = torch.as_tensor(x0, device=None if isinstance(x0, torch.Tensor)
+                         else target)
     if isinstance(generator, int):
         generator = torch.Generator(device=x0.device).manual_seed(generator)
 

@@ -5,8 +5,9 @@
 Smooth terms implement ``value(d)`` and ``grad(d)`` (evaluated at
 d = A x); prox terms implement ``value(x)`` and ``prox(z, t)``.  Terms
 are plain data holders over tensors.  The port has the terms of the dense
-problems (LASSO, NNLS, sparse logistic regression, SVM); the other terms
-come with their problems (ROADMAP Queue A item 7).
+problems (LASSO, NNLS, sparse logistic regression, SVM) and of TV
+denoising (``LeastSquares`` over a 2-D image, ``BoxIndicator``); the
+other terms come with their problems (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -82,8 +83,21 @@ class LeastSquares(SmoothTerm):
         (``fused_lstsq_gradmap``: the CUDA kernel for a CUDA tensor, its
         plain version for a CPU tensor).  Any other dtype takes the plain
         two-pass form, as the JAX package's f32/bf16 dtype rule does
-        (``lstsq_fused.py:144-145``)."""
-        from .operators import DenseOp
+        (``lstsq_fused.py:144-145``).
+
+        The TV dual's ``ScaledOp(μ, TVDiv2D())`` over a 2-D image takes
+        kernel K-B5 (``fused_tv_gradmap``) for a float32 image and its
+        plain version otherwise (``fasta_tpu/terms.py:146-155``, without
+        the JAX package's Pallas and TPU gates)."""
+        from .operators import DenseOp, ScaledOp, TVDiv2D
+        if (isinstance(op, ScaledOp) and isinstance(op.op, TVDiv2D)
+                and self.b.ndim == 2):
+            from .kernels.tv_fused import (fused_tv_gradmap,
+                                           tv_gradmap_reference)
+            b, mu = self.b, float(op.c)
+            if b.dtype == torch.float32:
+                return lambda p: fused_tv_gradmap(p, b, mu)
+            return lambda p: tv_gradmap_reference(p, b, mu)
         if not isinstance(op, DenseOp):
             return None
         A, b = op.A, self.b

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from fasta_tpu_torch import problems
-from fasta_tpu_torch.kernels import lstsq_fused, microsolver
+from fasta_tpu_torch.kernels import (lstsq_fused, microsolver, microsolver_tv,
+                                     tv_fused)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -338,3 +339,168 @@ def test_slice_main_path_on_the_card(dev):
         m = pg.microsolve(tol=1e-6, max_iters=3000, accelerate=True,
                           hp=True)
         assert m.status == "converged"
+
+
+@pytest.mark.parametrize("h,w", [(512, 512), (509, 517), (1, 7), (7, 1),
+                                 (1, 1), (130, 70), (2049, 33)])
+def test_tv_gradmap_kernel_matches_plain(dev, h, w):
+    """K-B5 at aligned, ragged and one-row / one-column shapes: d and g
+    round like the plain version (max|Δ| ≤ 1e-6 of the scale), f (an
+    FP64 sum in the kernel) to rel 1e-5; deterministic from run to run."""
+    g = torch.Generator(device=dev).manual_seed(h * w)
+    p = torch.randn((2, h, w), generator=g, device=dev)
+    b = torch.randn((h, w), generator=g, device=dev)
+    before = tv_fused.LAUNCHES
+    d, f, gr = tv_fused.fused_tv_gradmap(p, b, 0.1)
+    assert tv_fused.LAUNCHES == before + 1
+    d0, f0, g0 = tv_fused.tv_gradmap_reference(p, b, 0.1)
+    torch.cuda.synchronize()
+    assert (d - d0).abs().max() <= 1e-6 * max(1.0, float(d0.abs().max()))
+    assert (gr - g0).abs().max() <= 1e-6 * max(1.0, float(g0.abs().max()))
+    assert abs(float(f) - float(f0)) <= 1e-5 * max(abs(float(f0)), 1e-30)
+    d2, f2, g2 = tv_fused.fused_tv_gradmap(p, b, 0.1)
+    assert torch.equal(d, d2) and torch.equal(gr, g2) and torch.equal(f, f2)
+
+
+def test_tv_kernels_reject_what_they_do_not_take(dev):
+    p = torch.zeros((2, 8, 8), device=dev)
+    b = torch.zeros((8, 8), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        tv_fused.fused_tv_gradmap(p.double(), b.double(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tv_fused.fused_tv_gradmap(p.transpose(1, 2), b, 0.1)
+    with pytest.raises(ValueError, match="share a device"):
+        tv_fused.fused_tv_gradmap(p, b.cpu(), 0.1)
+    with pytest.raises(ValueError, match="float32"):
+        microsolver_tv.microsolve_tv(b.double(), p.double(), 1.0, 0.1)
+
+
+def _tv(dev, h=128, w=96):
+    prob = problems.build("tv", h=h, w=w, device=dev)
+    return prob.fterm.b, prob.x0, float(prob.instance["mu"])
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("h,w", [(128, 96), (7, 300), (300, 5)])
+def test_tv_microsolve_kernel_matches_plain(dev, accelerate, hp, h, w):
+    """K-B6 against its plain version on the card over 40 iterations: the
+    first 10 taus and residuals rtol 1e-3, the backtracks equal, the
+    float64 dual objective rel 1e-5 (the order of float32 sums moves the
+    knife-edge trajectory later on).  Images narrower or shorter than the
+    grid leave blocks without pixels."""
+    b, p0, mu = _tv(dev, h, w)
+    kw = dict(max_iters=40, tol=0.0, stop_rule="iterations", hp=hp,
+              accelerate=accelerate, record_bts=True, record_fvals=True,
+              record_objs=True, record_nres=True)
+    before = microsolver_tv.LAUNCHES
+    out = microsolver_tv.microsolve_tv(b, p0, 2.0, mu, **kw)
+    assert microsolver_tv.LAUNCHES == before + 1
+    ref = microsolver_tv.microsolve_tv_reference(b, p0, 2.0, mu, **kw)
+    torch.cuda.synchronize()
+    assert int(out.iteration_count) == int(ref.iteration_count) == 40
+    assert out.iterates is None
+    torch.testing.assert_close(out.taus[:10], ref.taus[:10], rtol=1e-3,
+                               atol=0.0)
+    torch.testing.assert_close(out.residuals[:10], ref.residuals[:10],
+                               rtol=1e-3, atol=1e-6)
+    assert torch.equal(out.backtracks[:10], ref.backtracks[:10])
+
+    def dual(p):
+        r = mu * tv_fused.tv_gradmap_reference(p.double(), b.double(),
+                                               1.0)[0] - b.double()
+        return float(0.5 * (r * r).sum())
+    assert abs(dual(out.x) - dual(ref.x)) <= 1e-5 * dual(ref.x)
+
+
+def test_tv_microsolve_kernel_converges_and_halts_nonfinite(dev):
+    b, p0, mu = _tv(dev)
+    for accelerate in (False, True):
+        out = microsolver_tv.microsolve_tv(b, p0, 2.0, mu, max_iters=5000,
+                                           tol=1e-5, accelerate=accelerate)
+        ref = microsolver_tv.microsolve_tv_reference(
+            b, p0, 2.0, mu, max_iters=5000, tol=1e-5, accelerate=accelerate)
+        assert out.status == ref.status == "converged"
+        assert abs(int(out.iteration_count) - int(ref.iteration_count)) <= \
+            max(5, int(0.2 * int(ref.iteration_count)))
+    bad = microsolver_tv.microsolve_tv(b, p0, float("nan"), mu,
+                                       max_iters=50)
+    assert bad.status == "nonfinite" and int(bad.iteration_count) <= 3
+
+
+def _warm_starts(out, tau0, accelerate, max_bt=20):
+    """Each warm path point's start τ from the run's records: the last τ
+    point i−1 accepted in fewer than ``max_bt`` trials, when > 0 and the
+    point ended finite, else point i−1's own start; FISTA keeps τ₀."""
+    starts, start = [], float(tau0)
+    for i in range(out.iteration_count.shape[0]):
+        starts.append(float(tau0) if accelerate else start)
+        k = int(out.iteration_count[i])
+        good = (out.backtracks[i, :k] < max_bt).nonzero().flatten()
+        acc = float(out.taus[i, good[-1]]) if len(good) else 0.0
+        if int(out.halt[i]) != 2 and acc > 0.0:
+            start = acc
+    return starts
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+def test_tv_path_kernel_cold_points_match_separate_solves(dev, accelerate):
+    """K-B6p: cold points bit-identical to separate K-B6 launches from
+    p₀; warm point i bit-identical to a K-B6 launch from point i−1's
+    field with the τ the JAX code carries; the warm path converges at
+    every weight."""
+    b, p0, _ = _tv(dev)
+    mus = [0.2, 0.1, 0.05]
+    kw = dict(max_iters=5000, tol=1e-5, accelerate=accelerate,
+              record_bts=True)
+    before = microsolver_tv.PATH_LAUNCHES
+    cold = microsolver_tv.microsolve_tv_path(b, p0, 2.0, mus, warm=False,
+                                             **kw)
+    warm = microsolver_tv.microsolve_tv_path(b, p0, 2.0, mus, warm=True,
+                                             **kw)
+    assert microsolver_tv.PATH_LAUNCHES == before + 2
+    for i, mu in enumerate(mus):
+        one = microsolver_tv.microsolve_tv(b, p0, 2.0, mu, **kw)
+        assert torch.equal(cold.x[i], one.x)
+        assert torch.equal(cold.taus[i], one.taus)
+        assert int(cold.iteration_count[i]) == int(one.iteration_count)
+    assert (cold.halt == 1).all() and (warm.halt == 1).all()
+    starts = _warm_starts(warm, 2.0, accelerate)
+    for i, mu in enumerate(mus):
+        start = warm.x[i - 1] if i > 0 else p0
+        one = microsolver_tv.microsolve_tv(b, start, starts[i], mu, **kw)
+        assert torch.equal(warm.x[i], one.x)
+        assert torch.equal(warm.taus[i], one.taus)
+        assert int(warm.iteration_count[i]) == int(one.iteration_count)
+    if not accelerate:
+        assert starts[1] != 2.0      # the τ carry is exercised
+
+
+def test_tv_main_path_on_the_card(dev):
+    """problems.build("tv") → Problem.solve (three modes, K-B5 on the
+    float32 loop), Problem.microsolve and microsolve_sweep on the card
+    reach the CPU run's dual objective."""
+    pg = problems.build("tv", h=96, w=80, device=dev)
+    pc = problems.build("tv", h=96, w=80, device="cpu")
+    mu = float(pg.instance["mu"])
+
+    def dual(p):
+        r = mu * tv_fused.tv_gradmap_reference(
+            torch.as_tensor(p).double().cpu(), pc.fterm.b.double(), 1.0)[0] \
+            - pc.fterm.b.double()
+        return float(0.5 * (r * r).sum())
+
+    goal = dual(pc.solve(tau0=2.0, tol=1e-6, max_iters=5000).solution)
+    before = tv_fused.LAUNCHES
+    for mode in (dict(), dict(adaptive=False), dict(accelerate=True)):
+        r = pg.solve(tau0=2.0, tol=1e-6, max_iters=5000, **mode)
+        assert np.isfinite(r.solution).all()
+        if not mode:
+            assert r.converged and abs(dual(r.solution) - goal) <= 1e-5 * goal
+    assert tv_fused.LAUNCHES > before
+    m = pg.microsolve(tau0=2.0, tol=1e-6, max_iters=5000)
+    assert m.status == "converged" and m.solution.is_cuda
+    assert abs(dual(m.solution) - goal) <= 1e-5 * goal
+    sw = pg.microsolve_sweep([0.2, mu], tau0=2.0, tol=1e-6, max_iters=5000,
+                             warm_start=True)
+    assert sw.converged.all() and sw.solutions.shape == (2, 2, 96, 80)

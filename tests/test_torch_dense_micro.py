@@ -320,7 +320,7 @@ def test_dispatch_reasons_for_every_structure():
         (ftt.Problem("smooth", op, ftt.as_smooth_term(lambda d: d.sum()),
                      ftt.L1Norm(0.1), x0), "least-squares, logistic"),
         (ftt.Problem("tv", _Stencil(), ftt.LeastSquares(z),
-                     ftt.BoxIndicator(), x0), "item 9"),
+                     ftt.BoxIndicator(), x0), "the TV dual"),
     ]
     for prob, why in cases:
         ok, reason = ftt.microsolve_supported(prob)

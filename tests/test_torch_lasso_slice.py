@@ -211,9 +211,9 @@ def test_unported_modes_raise():
     for mode in (dict(adaptive=False), dict(accelerate=True)):
         r = pt.solve(tau0=TAU0, max_iters=5, **mode)
         assert r.iteration_count == 5
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        problems.build("tv", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A items 7 and 10"):
+        problems.build("phase_retrieval", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A items 7 and 10"):
         problem_from_instance({"name": "mmv"}, device="cpu",
                               dtype=torch.float32)
 
@@ -258,7 +258,8 @@ def test_port_imports_no_jax():
             "sys.modules['jaxlib'] = None; sys.modules['fasta_tpu'] = None; "
             "import fasta_tpu_torch, fasta_tpu_torch.kernels, "
             "fasta_tpu_torch.convert, fasta_tpu_torch.micro; "
-            "from fasta_tpu_torch.problems import lasso, nnls, logistic, svm; "
+            "from fasta_tpu_torch.problems import lasso, nnls, logistic, svm, "
+            "tv; "
             "bad = [m for m in sys.modules if sys.modules[m] is not None and "
             "(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'fasta_tpu.')) "
             "or m == 'fasta_tpu')]; print(bad); sys.exit(1 if bad else 0)")
