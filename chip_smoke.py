@@ -47,7 +47,24 @@ non-zero without the final ``ok`` line):
     ``problems.build("tv", device="cuda")`` (512×512) — against a float64
     reference (the port's float64 loop on the card), with the launch
     counters proving that K-B5, K-B6 and K-B6p ran; then the it/s of the
-    kernel and loop paths at a fixed 2000 iterations.
+    kernel and loop paths at a fixed 2000 iterations;
+14. K-B7 (fused planar gradient map) against its plain version, the
+    least-squares and hinge forms, at 16384×256 (33.6 MB, in L2), 1000×37
+    and 16384×4096 (537 MB, streaming from HBM), with call and stream
+    times over 20 runs;
+15. K-P5 (planar layout probe): every layout at 16384×256 against its
+    plain version, then µs per chained pair and the implied GB/s, in
+    turns; the layout K-B8 uses;
+16. K-B8 (whole planar PhaseMax solve) against its plain version at
+    16384×256: adaptive hp to tol 1e-5, adaptive hp off for 300
+    iterations, FISTA hp to tol 1e-5, and the nonfinite abort;
+17. the phase-retrieval main path — ``Problem.microsolve`` (adaptive,
+    FISTA), ``Problem.solve`` (adaptive, FISTA) on
+    ``problems.build("phase_retrieval", planar=True)`` (16384×256 on the
+    default device) and the complex form's ``Problem.solve`` — against the
+    float64 NumPy oracle, with the launch counters proving that K-B7 and
+    K-B8 ran and no dense or TV kernel did; then the it/s of the kernel
+    and loop paths at a fixed 2000 iterations.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -77,7 +94,8 @@ if not torch.cuda.is_available():
 import fasta_tpu_torch as ftt  # noqa: E402
 from fasta_tpu_torch import problems  # noqa: E402
 from fasta_tpu_torch.kernels import (_build, lstsq_fused, microsolver,  # noqa: E402
-                                     microsolver_tv, tv_fused)
+                                     microsolver_planar, microsolver_tv,
+                                     planar_fused, planar_probe, tv_fused)
 from reference_oracle.fasta_numpy import fasta as fasta_np  # noqa: E402
 from reference_oracle.generators import make_lasso  # noqa: E402
 
@@ -194,6 +212,8 @@ def reset_launches() -> None:
     microsolver.LAUNCHES = microsolver.PATH_LAUNCHES = 0
     tv_fused.LAUNCHES = 0
     microsolver_tv.LAUNCHES = microsolver_tv.PATH_LAUNCHES = 0
+    planar_fused.LAUNCHES = microsolver_planar.LAUNCHES = 0
+    planar_probe.LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -203,7 +223,10 @@ def read_launches() -> dict:
             "K-B3p": lstsq_fused.POINTWISE_LAUNCHES,
             "K-B5": tv_fused.LAUNCHES,
             "K-B6": microsolver_tv.LAUNCHES,
-            "K-B6p": microsolver_tv.PATH_LAUNCHES}
+            "K-B6p": microsolver_tv.PATH_LAUNCHES,
+            "K-B7": planar_fused.LAUNCHES,
+            "K-B8": microsolver_planar.LAUNCHES,
+            "K-P5": planar_probe.LAUNCHES}
 
 
 def phase_device() -> str:
@@ -1074,6 +1097,355 @@ def phase_tv_main_path() -> dict:
     return launches
 
 
+def planar_data(m: int, n: int, seed: int):
+    """Seeded planar channel matrices scaled as the generator scales A,
+    x (n, 2), planar measurements and hinge magnitudes, on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    Ar = torch.randn((m, n), generator=gen, device=DEV) / (2 * m) ** 0.5
+    Ai = torch.randn((m, n), generator=gen, device=DEV) / (2 * m) ** 0.5
+    x = torch.randn((n, 2), generator=gen, device=DEV)
+    bl = torch.randn((m, 2), generator=gen, device=DEV)
+    bh = torch.rand(m, generator=gen, device=DEV) + 0.1
+    return Ar, Ai, x, bl, bh
+
+
+def planar_gradmap_bytes(m: int, n: int, hinge: bool) -> float:
+    """K-B7's inputs read once and outputs written once: Ar, Ai, x, b
+    (m for the hinge, 2m for least squares), d (2m) and g (2n)."""
+    return 4.0 * (2 * m * n + 2 * n + (m if hinge else 2 * m) + 2 * m
+                  + 2 * n)
+
+
+def phase_planar_gradmap() -> dict:
+    """K-B7 against the plain two-pass form on the same seeded inputs,
+    both losses, with phase 3's tolerance: max|Δd|, max|Δg| ≤
+    1e-5·max(1, max|ref|) and |Δf| ≤ 1e-5·|f| (float32 sums in another
+    order).  Operations: 16·m·n for the two products."""
+    worst, ms = 0.0, {}
+    for i, (m, n) in enumerate(((16384, 256), (1000, 37), (16384, 4096))):
+        Ar, Ai, x, bl, bh = planar_data(m, n, 10 + i)
+        for loss, fused, ref, b in (
+                ("hinge", planar_fused.fused_planar_hinge_gradmap,
+                 planar_fused.planar_hinge_gradmap_reference, bh),
+                ("lstsq", planar_fused.fused_planar_lstsq_gradmap,
+                 planar_fused.planar_lstsq_gradmap_reference, bl)):
+            d, f, g = fused(Ar, Ai, x, b)
+            d0, f0, g0 = ref(Ar, Ai, x, b)
+            torch.cuda.synchronize()
+            err_d = float((d - d0).abs().max())
+            err_g = float((g - g0).abs().max())
+            rel_f = abs(float(f) - float(f0)) / abs(float(f0))
+            tol_d = 1e-5 * max(1.0, float(d0.abs().max()))
+            tol_g = 1e-5 * max(1.0, float(g0.abs().max()))
+            kernel_fn = lambda: fused(Ar, Ai, x, b)  # noqa: E731
+            plain_fn = lambda: ref(Ar, Ai, x, b)  # noqa: E731
+            kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
+            kern_stream, plain_stream = stream_ms(kernel_fn), stream_ms(plain_fn)
+            nbytes = planar_gradmap_bytes(m, n, loss == "hinge")
+            bd = bound(nbytes, 16.0 * m * n)
+            print(f"[14 K-B7 {loss} {m}x{n}] max|dd| {err_d:.3e} (tol "
+                  f"{tol_d:.1e}) max|dg| {err_g:.3e} (tol {tol_g:.1e}) rel df "
+                  f"{rel_f:.3e} (tol 1e-5); call, median of 20: kernel "
+                  f"{kern:.4f} ms, plain {plain:.4f} ms; stream time, 20 "
+                  f"back-to-back runs: kernel {kern_stream:.4f} ms, plain "
+                  f"{plain_stream:.4f} ms; kernel reads Ar and Ai once: "
+                  f"{2 * m * n * 4 / kern_stream / 1e6:.1f} GB/s of stream "
+                  f"time; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            require(err_d <= tol_d and err_g <= tol_g and rel_f <= 1e-5,
+                    f"K-B7 {loss} {m}x{n} disagrees with its plain version")
+            worst = max(worst, err_d, err_g)
+            ms[(loss, m, n)] = (kern, plain, kern_stream, plain_stream,
+                                bd["bound_ms"])
+        del Ar, Ai
+    main, big = ms[("hinge", 16384, 256)], ms[("hinge", 16384, 4096)]
+    lsq = ms[("lstsq", 16384, 256)]
+    m, n = 16384, 256
+    return dict(max_abs_err=worst, ms=main[0], plain_ms=main[1],
+                **bound(planar_gradmap_bytes(m, n, True), 16.0 * m * n),
+                library_ms=None, shape="hinge 16384x256",
+                stream_ms=main[2], plain_stream_ms=main[3],
+                lstsq_ms=lsq[0], lstsq_plain_ms=lsq[1],
+                lstsq_stream_ms=lsq[2], lstsq_plain_stream_ms=lsq[3],
+                stream_ms_16384x4096=big[2],
+                plain_stream_ms_16384x4096=big[3],
+                bound_ms_16384x4096=big[4],
+                stream_ms_1000x37=ms[("hinge", 1000, 37)][2],
+                plain_stream_ms_1000x37=ms[("hinge", 1000, 37)][3])
+
+
+# K-B8's storage (csrc/microsolver_planar.cu kInterleaved = false)
+PLANAR_LAYOUT = "split"
+
+
+def phase_planar_probe() -> dict:
+    """K-P5 at 16384×256: each layout's last of 3 chained pairs against
+    the plain PlanarDenseOp pairs (max|Δ| ≤ 1e-5 of the largest entry),
+    then µs per pair as the difference of a 1100- and a 100-pair launch
+    over 1000 (the launch and the layout copy cancel), best of 3, each
+    layout in turns twice (in order, then reversed).  Implied GB/s counts
+    one read of both channel matrices per pair.  The fastest layout by the
+    mean of its two turns decides K-B8's storage, unless the split
+    layout is within the spread of the turns: then the layout that needs
+    no copy wins, since K-B8's copy counts in its time."""
+    m, n = 16384, 256
+    Ar, Ai, x, _, _ = planar_data(m, n, 20)
+    worst = 0.0
+    for variant in planar_probe.VARIANTS:
+        out = planar_probe.planar_probe(Ar, Ai, x, 3, variant)
+        ref = planar_probe.planar_probe_reference(Ar, Ai, x, 3)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max())
+        print(f"[15 K-P5 {variant}] last of 3 pairs max|dg| {err:.3e} (tol "
+              f"{tol:.1e})")
+        require(err <= tol, f"K-P5 {variant} disagrees with its plain version")
+        worst = max(worst, err)
+    plain = cuda_ms(lambda: planar_probe.planar_probe_reference(Ar, Ai, x, 10),
+                    5) / 10
+
+    def launch_ms(variant, K):
+        best = float("inf")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            planar_probe.planar_probe(Ar, Ai, x, K, variant)
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+        return best
+
+    reset_launches()
+    turns = {v: [] for v in planar_probe.VARIANTS}
+    for order in (planar_probe.VARIANTS, planar_probe.VARIANTS[::-1]):
+        for variant in order:
+            launch_ms(variant, 100)                      # warm-up
+            per = (launch_ms(variant, 1100) - launch_ms(variant, 100)) / 1000
+            turns[variant].append(per)
+    launches = read_launches()
+    one_read = 2.0 * m * n * 4
+    mean = {v: statistics.mean(t) for v, t in turns.items()}
+    for v, t in turns.items():
+        print(f"[15 K-P5 {v}] {mean[v] * 1e3:.3f} us per pair (turns "
+              f"{', '.join(f'{u * 1e3:.3f}' for u in t)}); "
+              f"{one_read / (mean[v] * 1e-3) / 1e9:.1f} GB/s implied (one "
+              f"read of Ar and Ai per pair)")
+    fastest = min(mean, key=mean.get)
+    spread = max(max(t) - min(t) for t in turns.values())
+    tie = mean["split"] - mean[fastest] <= spread
+    chosen = "split" if tie else fastest
+    print(f"[15 K-P5] fastest {fastest} ({mean[fastest] * 1e3:.3f} us); "
+          f"split {mean['split'] * 1e3:.3f} us, within the turns' spread "
+          f"({spread * 1e3:.3f} us): {tie}; layout by the rule: {chosen}; "
+          f"K-B8 uses {PLANAR_LAYOUT}; plain pair {plain * 1e3:.3f} us; "
+          f"launches during the timed runs: {launches['K-P5']}")
+    require(launches["K-P5"] >= 1, "the probe's timed runs launched no K-P5")
+    return dict(max_abs_err=worst, ms=mean[PLANAR_LAYOUT], plain_ms=plain,
+                **bound(one_read + 4.0 * 4 * n, 16.0 * m * n),
+                library_ms=None, launches_timed=launches["K-P5"],
+                shape="16384x256, per chained pair",
+                us_per_pair={v: mean[v] * 1e3 for v in mean},
+                layout_by_rule=chosen, layout_used=PLANAR_LAYOUT)
+
+
+def planar_flops(m: int, n: int, tried: int, accepted: int,
+                 accelerate: bool) -> float:
+    """float32 operations of K-B8 (csrc/microsolver_planar.cu), counted as
+    in ``dense_flops``, n-sized work over both channels.  Per trial: the
+    step x̂ = x − τg and x₁ = x̂ + τc (4 per entry), Δx and x₁ − x̂ (2),
+    ‖Δx‖², ‖g‖², ‖x₁ − x̂‖², ⟨c, x₁⟩, ⟨Δx, g⟩ (10), FISTA's restart dot
+    (4) besides; on the rows, A x₁ (8 per complex entry: 8mn) and the hinge
+    with its f term (10 per row); adaptive, the adjoint (8mn) and per entry
+    x̂ again, Δg, ⟨Δx,Δg⟩ and ‖Δg‖² (10).  Per FISTA acceptance: d_n
+    (6 per row), the hinge (10), the adjoint (8mn), y_n (3 per entry).
+    The start: A x₀ and its adjoint (16mn) and the hinge (10m)."""
+    if accelerate:
+        per_trial = 8 * m * n + 10 * m + 2 * n * 20
+        per_accept = 8 * m * n + 16 * m + 2 * n * 3
+    else:
+        per_trial = 16 * m * n + 10 * m + 2 * n * 26
+        per_accept = 0
+    return float(tried * per_trial + accepted * per_accept
+                 + 16 * m * n + 10 * m)
+
+
+def phase_objective(A, b, c, x) -> float:
+    """½Σmax(|Ax| − b, 0)² − Re⟨c, x⟩ of a complex signal, in float64 on
+    the host."""
+    x = np.asarray(x, np.complex128)
+    r = np.maximum(np.abs(A @ x) - b, 0.0)
+    return float(0.5 * np.sum(r * r) - np.real(np.vdot(c, x)))
+
+
+def planar_complex(x) -> np.ndarray:
+    x = x.detach().cpu().double().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float64)
+    return x[..., 0] + 1j * x[..., 1]
+
+
+def phase_planar_microsolver() -> dict:
+    """K-B8 against its plain version on the card at 16384×256 (τ₀ 1.0).
+    The first 10 taus and residuals rtol 1e-3 and backtracks equal: the
+    two sum the rows' float32 products in another order, which the hinge
+    carries into τ at the 1e-4 level by the tenth iteration.  hp to tol
+    1e-5: both converge; hp off, 300 iterations (its float32 window can
+    stall short of tol 1e-5); FISTA hp (restart_dd) to tol 1e-5.  The
+    float64 objective of each solution within rel 1e-6 of the plain
+    version's.  A nonfinite τ₀ aborts with status "nonfinite"."""
+    prob = problems.build("phase_retrieval", planar=True, device=DEV)
+    data = (prob.op.Ar, prob.op.Ai, prob.fterm.b, prob.gterm.c, prob.x0)
+    inst = prob.instance
+    A, bm = inst["A"], inst["b"]
+    c = inst["delta"] * inst["x0_hat"]
+    worst, timed = 0.0, {}
+    for accelerate, hp in ((False, True), (False, False), (True, True)):
+        kw = dict(max_iters=2000, tol=1e-5, hp=hp, accelerate=accelerate,
+                  restart_dd=hp, record_bts=True)
+        if not hp:
+            kw.update(max_iters=300, tol=0.0, stop_rule="iterations")
+        out = microsolver_planar.microsolve_planar_phasemax(*data, 1.0, **kw)
+        t0 = time.perf_counter()
+        ref = microsolver_planar.microsolve_planar_phasemax_reference(
+            *data, 1.0, **kw)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        kern = cuda_ms(lambda: microsolver_planar.microsolve_planar_phasemax(
+            *data, 1.0, **kw), 3, warmup=1)
+        k1, k2 = int(out.iteration_count), int(ref.iteration_count)
+        kt = min(k1, k2, 10)
+        tau_err = float(((out.taus[:kt] - ref.taus[:kt]).abs()
+                         / ref.taus[:kt]).max())
+        res_ok = torch.allclose(out.residuals[:kt], ref.residuals[:kt],
+                                rtol=1e-3, atol=1e-6)
+        bt_ok = torch.equal(out.backtracks[:kt], ref.backtracks[:kt])
+        f1 = phase_objective(A, bm, c, planar_complex(out.x))
+        f2 = phase_objective(A, bm, c, planar_complex(ref.x))
+        rel_f = abs(f1 - f2) / abs(f2)
+        x_err = float((out.x - ref.x).abs().max())
+        status_ok = (out.status == ref.status == "converged" if hp
+                     else k1 == k2 == 300)
+        mode = "FISTA" if accelerate else "adaptive"
+        print(f"[16 K-B8 {mode} hp={hp}] iterations kernel {k1} plain {k2}; "
+              f"status {out.status}/{ref.status}; taus[:{kt}] max rel "
+              f"{tau_err:.2e} (tol 1e-3); residuals[:{kt}] allclose(1e-3) "
+              f"{res_ok}; backtracks[:{kt}] equal {bt_ok}; max|dx| "
+              f"{x_err:.2e}; objective {f1:.12g} vs {f2:.12g}, rel "
+              f"{rel_f:.2e} (tol 1e-6); "
+              f"{'to tol 1e-5' if hp else '300 iterations'}: kernel "
+              f"{kern:.3f} ms (median of 3, {kern / k1 * 1e3:.2f} us per "
+              f"iteration), plain loop on the card {plain:.3f} ms (one run)")
+        require(status_ok and tau_err <= 1e-3 and res_ok and bt_ok
+                and rel_f <= 1e-6,
+                f"K-B8 {mode} hp={hp} disagrees with its plain version")
+        worst = max(worst, x_err)
+        timed[(accelerate, hp)] = (kern, plain, trials(out))
+    bad = microsolver_planar.microsolve_planar_phasemax(*data, float("nan"),
+                                                        max_iters=50)
+    bad_ref = microsolver_planar.microsolve_planar_phasemax_reference(
+        *data, float("nan"), max_iters=50)
+    print(f"[16 K-B8] tau0 = nan: kernel {bad.status} after "
+          f"{int(bad.iteration_count)} iterations, plain {bad_ref.status} "
+          f"after {int(bad_ref.iteration_count)}")
+    require(bad.status == bad_ref.status == "nonfinite",
+            "K-B8 did not abort a nonfinite solve")
+    kern, plain, (tried, k) = timed[(False, True)]
+    m, n = 16384, 256
+    state = 2.0 * m * n * 4       # the channel matrices, once per trial
+    # Ar, Ai, b, c, x₀ in; x and the k entries of taus, residuals and
+    # backtracks out
+    return dict(max_abs_err=worst, ms=kern, plain_ms=plain,
+                **bound(4.0 * (2 * m * n + m + 4 * n + 2 * n + 3 * k),
+                        planar_flops(m, n, tried, k, False)),
+                hbm_state_ms=tried * state / HBM_BYTES_PER_S * 1e3,
+                library_ms=None, iterations=k, trials=tried,
+                ms_hp_off_300=timed[(False, False)][0],
+                plain_ms_hp_off_300=timed[(False, False)][1],
+                ms_fista=timed[(True, True)][0],
+                plain_ms_fista=timed[(True, True)][1],
+                iterations_fista=timed[(True, True)][2][1])
+
+
+def phase_pr_main_path() -> dict:
+    """The phase-retrieval main path through the public entry points at
+    16384×256 (τ₀ 1.0, tol 1e-5), against the float64 NumPy oracle on the
+    host (adaptive, tol 1e-8): each objective within rtol 1e-5 of the
+    oracle's and each solution, its global phase aligned to the oracle's,
+    within rel 1e-3 (L2)."""
+    prob = problems.build("phase_retrieval", planar=True)   # the card
+    require(prob.op.Ar.is_cuda, "problems.build did not default to the card")
+    prob.tau0 = 1.0
+    inst = prob.instance
+    A, bm = inst["A"], inst["b"]
+    c = inst["delta"] * inst["x0_hat"]
+    t0 = time.perf_counter()
+    oracle = fasta_np(inst["op"], None, inst["f"], inst["gradf"], inst["g"],
+                      inst["proxg"], inst["x0"], tau0=1.0, tol=1e-8,
+                      max_iters=5000)
+    oracle_s = time.perf_counter() - t0
+    x_ref = np.asarray(oracle.solution)
+    obj_ref = phase_objective(A, bm, c, x_ref)
+    print(f"[17 phase main path] float64 oracle on the host: "
+          f"converged={oracle.converged} in {oracle.iteration_count} "
+          f"iterations ({oracle_s:.1f} s), objective {obj_ref:.12g}, "
+          f"recovery error {prob.recovery_error(x_ref, recovered=True):.4e}")
+    require(oracle.converged, "the float64 oracle did not converge")
+    cplx = problems.build("phase_retrieval")                # complex64
+    cplx.tau0 = 1.0
+
+    reset_launches()
+    runs = [("microsolve adaptive", prob.microsolve(max_iters=2000, tol=1e-5,
+                                                    hp=True)),
+            ("microsolve FISTA", prob.microsolve(max_iters=2000, tol=1e-5,
+                                                 hp=True, accelerate=True)),
+            ("solve adaptive", prob.solve(tol=1e-5, max_iters=2000)),
+            ("solve FISTA", prob.solve(tol=1e-5, max_iters=2000,
+                                       accelerate=True)),
+            ("complex solve adaptive", cplx.solve(tol=1e-5,
+                                                  max_iters=2000))]
+    launches = read_launches()
+    for what, r in runs:
+        sol = r.solution
+        x = (planar_complex(sol) if not what.startswith("complex")
+             else np.asarray(sol, np.complex128))
+        obj = phase_objective(A, bm, c, x)
+        rel = abs(obj - obj_ref) / abs(obj_ref)
+        phase = np.vdot(x, x_ref)
+        x_rel = float(np.linalg.norm(x * phase / abs(phase) - x_ref)
+                      / np.linalg.norm(x_ref))
+        err = (prob if not what.startswith("complex") else cplx) \
+            .recovery_error(sol)
+        print(f"[17 phase main path] {what}: converged={r.converged} in "
+              f"{r.iteration_count} iterations, objective {obj:.12g}: rel "
+              f"{rel:.2e} (tol 1e-5); phase-aligned solution rel L2 "
+              f"{x_rel:.2e} (tol 1e-3); recovery error {err:.4e}")
+        require(r.converged, f"phase retrieval {what} did not converge")
+        require(rel <= 1e-5 and x_rel <= 1e-3,
+                f"phase retrieval {what} disagrees with the float64 oracle")
+    print(f"[17 phase main path] launches during the solves: {launches}")
+    for kernel in ("K-B7", "K-B8"):
+        require(launches[kernel] >= 1,
+                f"{kernel} never launched on the phase retrieval main path: "
+                f"{launches}")
+    require(all(launches[k] == 0 for k in ("K-B1", "K-B1p", "K-B3", "K-B3p",
+                                            "K-B5", "K-B6", "K-B6p")),
+            f"the phase retrieval path launched a dense or TV kernel: "
+            f"{launches}")
+
+    iters = 2000
+    for accelerate in (False, True):
+        kern = cuda_ms(lambda: prob.microsolve(
+            max_iters=iters, tol=0.0, stop_rule="iterations", hp=True,
+            accelerate=accelerate), 3, warmup=1)
+        opts = ftt.FastaOptions(max_iters=iters, stop_rule="iterations",
+                                accelerate=accelerate)
+        loop_ms = cuda_ms(lambda: prob.solve_device(opts), 1, warmup=1)
+        mode = "FISTA" if accelerate else "adaptive"
+        print(f"[17 phase main path] {mode}, {iters} iterations: kernel path "
+              f"{iters / kern * 1e3:.1f} it/s ({kern:.3f} ms), PyTorch loop "
+              f"path {iters / loop_ms * 1e3:.1f} it/s ({loop_ms:.3f} ms)")
+    return launches
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -1088,7 +1460,12 @@ def main() -> None:
     b6 = phase_tv_microsolver()
     b6p = phase_tv_path()
     tv = phase_tv_main_path()
-    launches = {k: lasso[k] + dense[k] + tv[k] for k in lasso}
+    b7 = phase_planar_gradmap()
+    p5 = phase_planar_probe()
+    b8 = phase_planar_microsolver()
+    pr = phase_pr_main_path()
+    launches = {k: lasso[k] + dense[k] + tv[k] + pr[k] for k in lasso}
+    launches["K-P5"] = p5.pop("launches_timed")
     kernels = [
         dict(name="K-B3 fused_lstsq_gradmap", route="cuda",
              source="fasta_tpu_torch/csrc/lstsq_fused.cu",
@@ -1118,6 +1495,18 @@ def main() -> None:
              source="fasta_tpu_torch/csrc/microsolver_tv.cu",
              replaces="fasta_tpu/kernels/microsolver_tv.py:731",
              launches=launches["K-B6p"], **b6p),
+        dict(name="K-B7 fused_planar_gradmap (hinge and least-squares forms)",
+             route="cuda", source="fasta_tpu_torch/csrc/planar_fused.cu",
+             replaces="fasta_tpu/kernels/planar_fused.py:197",
+             launches=launches["K-B7"], **b7),
+        dict(name="K-B8 microsolve_planar_phasemax", route="cuda",
+             source="fasta_tpu_torch/csrc/microsolver_planar.cu",
+             replaces="fasta_tpu/kernels/microsolver_planar.py:669",
+             launches=launches["K-B8"], **b8),
+        dict(name="K-P5 planar_probe (launches: phase 15's timed runs)",
+             route="cuda", source="fasta_tpu_torch/csrc/planar_probe.cu",
+             replaces="benchmarks/planar_matvec_probe.py:314",
+             launches=launches["K-P5"], **p5),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

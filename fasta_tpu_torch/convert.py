@@ -15,10 +15,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .operators import DenseOp, ScaledOp, TVDiv2D, tv_div_2d
+from .operators import DenseOp, PlanarDenseOp, ScaledOp, TVDiv2D, tv_div_2d
+from .precision import real_dtype
 from .problem import Problem
-from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares, Logistic,
-                    NonnegIndicator, SquaredHinge)
+from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares,
+                    LinearAnchor, Logistic, NonnegIndicator, PhaseHinge,
+                    PlanarLinearAnchor, PlanarPhaseHinge, SquaredHinge)
 
 __all__ = ["problem_from_instance", "problem_from_arrays",
            "result_to_numpy"]
@@ -53,19 +55,25 @@ _DENSE = {
 }
 
 
-def problem_from_instance(inst: dict, *, device,
-                          dtype: torch.dtype) -> Problem:
+def problem_from_instance(inst: dict, *, device, dtype: torch.dtype,
+                          planar: bool = False) -> Problem:
     """A port ``Problem`` from a generator instance dict (the JAX
     ``Problem.instance``) of one of the dense problems — LASSO, NNLS,
     sparse logistic regression or the SVM, whose instances hold the
-    matrix ``A``, the measurements or labels ``b`` and ``x0`` — or of TV
+    matrix ``A``, the measurements or labels ``b`` and ``x0`` — of TV
     denoising, whose instance holds the image ``b``, the dual start
-    ``x0`` (2, H, W) and the TV weight ``mu``, and no matrix."""
+    ``x0`` (2, H, W) and the TV weight ``mu``, and no matrix, or of phase
+    retrieval (complex ``A``, magnitudes ``b``, anchor ``x0_hat``, weight
+    ``delta``), as complex tensors or, with ``planar``, in planar layout
+    (``dtype`` then names the channels' real type)."""
     name = inst.get("name")
-    if name not in _DENSE and name != "tv":
+    ported = sorted(_DENSE) + ["phase_retrieval", "tv"]
+    if name not in ported:
         raise NotImplementedError(
-            f"instance {name!r} is not ported yet (ROADMAP Queue A items 7 "
-            f"and 10); the port carries {sorted(_DENSE) + ['tv']}")
+            f"instance {name!r} is not ported yet (ROADMAP Queue A items 2 "
+            f"and 7); the port carries {ported}")
+    if name == "phase_retrieval":
+        return _phase_retrieval(inst, device, dtype, planar)
 
     def t(a):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
@@ -86,6 +94,42 @@ def problem_from_instance(inst: dict, *, device,
                    fterm=smooth(t(inst["b"])), gterm=prox(inst),
                    x0=t(inst["x0"]), x_true=inst.get("x_true"),
                    instance=inst)
+
+
+def _phase_retrieval(inst, device, dtype, planar):
+    """The phase retrieval problem of ``problems/phase_retrieval.py``:
+    complex ``DenseOp`` · ``PhaseHinge`` · ``LinearAnchor``, or planar
+    ``PlanarDenseOp`` · ``PlanarPhaseHinge`` · ``PlanarLinearAnchor`` with
+    ``recover`` mapping (n, 2) to the complex signal."""
+    rdt = real_dtype(dtype)
+    m, n = np.shape(inst["A"])
+    c = inst["delta"] * np.asarray(inst["x0_hat"])
+    b = torch.tensor(np.asarray(inst["b"]), device=device, dtype=rdt)
+    if planar:
+        def planar_t(z):
+            z = np.asarray(z)
+            return torch.tensor(np.stack([z.real, z.imag], axis=-1),
+                                device=device, dtype=rdt)
+        return Problem(
+            name=f"phase_retrieval_planar[{m}x{n}]",
+            op=PlanarDenseOp.from_complex(inst["A"], rdt, device=device),
+            fterm=PlanarPhaseHinge(b), gterm=PlanarLinearAnchor(planar_t(c)),
+            x0=planar_t(inst["x0"]), x_true=inst.get("x_true"),
+            instance=inst, recover=_planar_recover)
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device, dtype=cdt)
+    return Problem(name=f"phase_retrieval[{m}x{n}]", op=DenseOp(t(inst["A"])),
+                   fterm=PhaseHinge(b), gterm=LinearAnchor(t(c)),
+                   x0=t(inst["x0"]), x_true=inst.get("x_true"),
+                   instance=inst)
+
+
+def _planar_recover(xp):
+    """The complex signal of a planar (…, 2) vector, on its device."""
+    xp = torch.as_tensor(xp)
+    return torch.complex(xp[..., 0], xp[..., 1])
 
 
 def _tv_recover(b: np.ndarray, mu: float):

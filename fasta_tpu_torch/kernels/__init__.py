@@ -10,6 +10,13 @@ version beside it.
 * K-B5 ``fused_tv_gradmap`` (``tv_fused.py``, ``csrc/tv_fused.cu``)
 * K-B6 ``microsolve_tv`` and K-B6p ``microsolve_tv_path``
   (``microsolver_tv.py``, ``csrc/microsolver_tv.cu``)
+* K-B7 ``fused_planar_lstsq_gradmap`` / ``fused_planar_hinge_gradmap``
+  (``planar_fused.py``, ``csrc/planar_fused.cu``)
+* K-B8 ``microsolve_planar_phasemax`` (``microsolver_planar.py``,
+  ``csrc/microsolver_planar.cu``), whose row work it shares with K-P5
+  (``csrc/planar_rows.cuh``)
+* K-P5 ``planar_probe``, the planar layout probe (``planar_probe.py``,
+  ``csrc/planar_probe.cu``)
 
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors.  Each module counts its kernels' launches (``LAUNCHES``,
@@ -18,7 +25,8 @@ attributes (``lstsq_fused.LAUNCHES``), since importing the name copies
 the integer.  Nothing is compiled at import.
 """
 
-from . import lstsq_fused, microsolver, microsolver_tv, tv_fused
+from . import (lstsq_fused, microsolver, microsolver_planar, microsolver_tv,
+               planar_fused, planar_probe, tv_fused)
 from .lstsq_fused import (fused_lstsq_gradmap, fused_pointwise_gradmap,
                           lstsq_gradmap_reference,
                           pointwise_gradmap_reference, supports_fusion)
@@ -27,13 +35,23 @@ from .microsolver import (MicrosolveOutput, microsolve_lasso,
                           microsolve_lasso_path_reference,
                           microsolve_lasso_reference, supports_microsolver)
 
+from .microsolver_planar import (microsolve_planar_phasemax,
+                                 microsolve_planar_phasemax_reference)
 from .microsolver_tv import (microsolve_tv, microsolve_tv_path,
                              microsolve_tv_path_reference,
                              microsolve_tv_reference)
+from .planar_fused import (fused_planar_hinge_gradmap,
+                           fused_planar_lstsq_gradmap,
+                           planar_hinge_gradmap_reference,
+                           planar_lstsq_gradmap_reference)
 from .tv_fused import fused_tv_gradmap, tv_gradmap_reference
 
 __all__ = [
-    "lstsq_fused", "microsolver", "microsolver_tv", "tv_fused",
+    "lstsq_fused", "microsolver", "microsolver_planar", "microsolver_tv",
+    "planar_fused", "planar_probe", "tv_fused",
+    "fused_planar_lstsq_gradmap", "fused_planar_hinge_gradmap",
+    "planar_lstsq_gradmap_reference", "planar_hinge_gradmap_reference",
+    "microsolve_planar_phasemax", "microsolve_planar_phasemax_reference",
     "fused_tv_gradmap", "tv_gradmap_reference", "microsolve_tv",
     "microsolve_tv_reference", "microsolve_tv_path",
     "microsolve_tv_path_reference",

@@ -303,7 +303,18 @@ def _launch(A, b, x0, tau0, mus, warm, record_its, o):
 
 def _loss_fns(loss, b, acc):
     """(f, ℓ′) of the kernel's loss: f sums in ``acc`` (float64 under
-    hp), ℓ′ stays float32."""
+    hp), ℓ′ stays float32.  "phase_hinge" is K-B8's PhaseMax hinge over
+    planar rows d (m, 2) against magnitudes b (m,)."""
+    if loss == "phase_hinge":
+        from ..terms import phase_hinge_parts
+
+        def parts(d):
+            return phase_hinge_parts(torch.sqrt(torch.sum(d * d, dim=-1)), b)
+
+        def fof(d):
+            r = parts(d)[0].to(acc)
+            return 0.5 * torch.sum(r * r)
+        return fof, lambda d: parts(d)[1][:, None] * d
     if loss == "logistic":
         return (lambda d: torch.sum(logistic_ell(d, b).to(acc)),
                 lambda d: logistic_grad(d, b))
@@ -320,7 +331,11 @@ def _loss_fns(loss, b, acc):
 
 
 def _prox_fns(prox, mu):
-    """(prox(z, τ), g(x)) of the kernel's prox with weight ``mu``."""
+    """(prox(z, τ), g(x)) of the kernel's prox with weight ``mu`` (for
+    K-B8's "anchor", g(x) = −⟨c, x⟩, ``mu`` is the anchor c)."""
+    if prox == "anchor":
+        return (lambda z, tau: z + tau * mu,
+                lambda x: -torch.sum(mu * x))
     if prox == "nonneg":
         return (lambda z, tau: project_nonneg(z),
                 lambda x: torch.zeros((), dtype=x.dtype, device=x.device))
@@ -390,8 +405,9 @@ def _reference(A, b, x0, tau0, mu, record_its, o):
 def solve_reference(fwd, adj, b, x0, tau0, mu, record_its, o):
     """The whole-solve kernels' loop in plain PyTorch over a linear
     operator given as ``fwd`` (x ↦ Ax) and ``adj`` (r ↦ Aᵀr), for x of
-    any shape: K-B1's with a matrix, K-B6's with the TV stencils.
-    Returns (output, last genuinely accepted τ)."""
+    any shape: K-B1's with a matrix, K-B6's with the TV stencils, K-B8's
+    with the planar pair.  ``mu`` is the prox's weight, or a tensor for
+    the anchor.  Returns (output, last genuinely accepted τ)."""
     dev = x0.device
     f32 = dict(device=dev, dtype=torch.float32)
     hp = bool(o["hp"])
@@ -400,7 +416,7 @@ def solve_reference(fwd, adj, b, x0, tau0, mu, record_its, o):
     shrink_factor, accelerate = o["shrink_factor"], o["accelerate"]
     rdd = hp and o["restart_dd"]
     tau = torch.tensor(float(tau0), **f32)
-    mu_t = torch.tensor(float(mu), **f32)
+    mu_t = mu if torch.is_tensor(mu) else torch.tensor(float(mu), **f32)
     fof, lgrad = _loss_fns(o["loss"], b, acc)
     prox, gval = _prox_fns(o["prox"], mu_t)
 

@@ -1,15 +1,17 @@
 """Public dispatch onto the whole-solve kernels (port of
-``fasta_tpu/micro.py:41-350, 442-621``, dense and TV branches).
+``fasta_tpu/micro.py:41-350, 442-621, 669-698``, dense, TV and planar
+branches).
 
 :func:`microsolve` inspects a :class:`~fasta_tpu_torch.problem.Problem`'s
 operator and term types and routes a dense problem — least-squares,
 logistic or squared-hinge loss × L1, nonnegativity, [−1,1] box or ridge
-prox — to kernel K-B1 and a TV-dual problem — ``ScaledOp(μ, TVDiv2D())``
-× ``LeastSquares`` × ``BoxIndicator(-1, 1)`` — to kernel K-B6, raising
-with a reason when the structure is outside the kernels' scope.
-:func:`microsolve_sweep` solves a path of weights in one launch of kernel
-K-B1p or K-B6p, cold or warm.  Calling either is the opt-in: it never
-falls back to the general loop.
+prox — to kernel K-B1, a TV-dual problem — ``ScaledOp(μ, TVDiv2D())``
+× ``LeastSquares`` × ``BoxIndicator(-1, 1)`` — to kernel K-B6 and planar
+PhaseMax — ``PlanarDenseOp`` × ``PlanarPhaseHinge`` ×
+``PlanarLinearAnchor`` — to kernel K-B8, raising with a reason when the
+structure is outside the kernels' scope.  :func:`microsolve_sweep` solves
+a path of weights in one launch of kernel K-B1p or K-B6p, cold or warm.
+Calling either is the opt-in: it never falls back to the general loop.
 
 Two faults of the reference are not inherited: ``best_index`` ignores
 NaN and is None after a nonfinite abort, and ``status`` is a string,
@@ -28,11 +30,15 @@ import torch
 from .kernels.microsolver import (_DENSE_VMEM_BYTES, STATUS_NAMES,
                                   microsolve_lasso, microsolve_lasso_path,
                                   supports_microsolver)
+from .kernels.microsolver_planar import (microsolve_planar_phasemax,
+                                        row_chunk,
+                                        supports_planar_microsolver)
 from .kernels.microsolver_tv import microsolve_tv, microsolve_tv_path
-from .operators import DenseOp, ScaledOp, TVDiv2D
+from .operators import DenseOp, PlanarDenseOp, ScaledOp, TVDiv2D
 from .problem import Problem
 from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares, Logistic,
-                    NonnegIndicator, SquaredHinge)
+                    NonnegIndicator, PlanarLinearAnchor, PlanarPhaseHinge,
+                    SquaredHinge)
 
 __all__ = ["MicroResult", "MicroBatchResult", "microsolve",
            "microsolve_supported", "microsolve_sweep"]
@@ -53,10 +59,10 @@ class MicroResult:
     recorded objective when ``record_objs``, else the smallest residual
     (the loop's rule), ignoring NaN — and None when the solve aborted as
     nonfinite or ran no iteration.  ``fvals``, ``objectives``,
-    ``iterates`` ((k, n)) and ``norm_residuals`` are None unless
-    recorded."""
+    ``iterates`` ((k, n); planar (k, n, 2)) and ``norm_residuals`` are
+    None unless recorded."""
 
-    solution: torch.Tensor               # (n,); TV: the dual field (2, H, W)
+    solution: torch.Tensor   # (n,); TV: dual field (2, H, W); planar (n, 2)
     iteration_count: int
     converged: bool
     residuals: np.ndarray
@@ -105,6 +111,20 @@ def _dispatch(problem: Problem):
         if not (g.lo == -1.0 and g.hi == 1.0):
             return None, "TV kernel implements the [-1,1] dual ball only"
         return "tv", float(op.c)
+    if (isinstance(op, PlanarDenseOp) and isinstance(f, PlanarPhaseHinge)
+            and isinstance(g, PlanarLinearAnchor)):
+        m, n = op.Ar.shape
+        if not supports_planar_microsolver(m, n):
+            # the reference's gates and reasons (micro.py:121-135)
+            if row_chunk(m) is None:
+                return None, (f"planar PhaseMax kernel needs m divisible "
+                              f"by a 128-multiple row chunk, got m={m} — "
+                              f"pad the measurement rows to a multiple "
+                              f"of 128")
+            return None, (f"planar PhaseMax kernel needs both channel "
+                          f"matrices within the reference's residency "
+                          f"gate (2*{m}*{n}*4 bytes > 48 MB)")
+        return "planar", None
     if isinstance(op, DenseOp) and type(f) in _LOSSES:
         loss = _LOSSES[type(f)]
         data = f.y if isinstance(f, SquaredHinge) else f.b
@@ -137,11 +157,11 @@ def _dispatch(problem: Problem):
                       f"{type(g).__name__}")
     return None, (f"no whole-solve kernel for operator {type(op).__name__} "
                   f"+ smooth {type(f).__name__}: the port supports DenseOp "
-                  f"with the least-squares, logistic or squared-hinge loss "
-                  f"and the TV dual (ScaledOp(mu, TVDiv2D()) with "
-                  f"LeastSquares and BoxIndicator(-1, 1)); the planar "
-                  f"PhaseMax kernel (ROADMAP Queue A item 10) is not ported "
-                  f"yet")
+                  f"with the least-squares, logistic or squared-hinge loss, "
+                  f"the TV dual (ScaledOp(mu, TVDiv2D()) with LeastSquares "
+                  f"and BoxIndicator(-1, 1)) and planar PhaseMax "
+                  f"(PlanarDenseOp with PlanarPhaseHinge and "
+                  f"PlanarLinearAnchor)")
 
 
 def microsolve_supported(problem: Problem) -> tuple:
@@ -162,9 +182,9 @@ def _start(problem, what, tau0, engine, interpret, generator,
         raise ValueError(f"{what}: {detail}")
     if record_iterates and kind == "tv":
         raise ValueError(
-            f"{what}: record_iterates is implemented for the dense kernel "
-            f"(the TV kernel's per-iteration state is a 2-D dual field — a "
-            f"512x512 trajectory is ~4 GB; use "
+            f"{what}: record_iterates is implemented for the dense and "
+            f"planar kernels (the TV kernel's per-iteration state is a 2-D "
+            f"dual field — a 512x512 trajectory is ~4 GB; use "
             f"Problem.solve(record_iterates=True))")
     if engine is not None:
         raise ValueError(f"{what}: engine selects the TPU kernels' matvec "
@@ -207,18 +227,19 @@ def microsolve(problem: Problem, tau0: Optional[float] = None,
                record_nres: bool = False,
                interpret: Optional[bool] = None,
                generator: Optional[torch.Generator] = None) -> MicroResult:
-    """Solve ``problem`` inside one launch of kernel K-B1 (dense) or K-B6
-    (the TV dual).
+    """Solve ``problem`` inside one launch of kernel K-B1 (dense), K-B6
+    (the TV dual) or K-B8 (planar PhaseMax).
 
     Options mean what they mean on ``fasta_tpu.micro.microsolve``:
     adaptive (BB) mode by default, FISTA with O'Donoghue–Candès
     ``restart`` with ``accelerate=True`` (``restart_dd`` takes the
     restart dot in float64 under hp); ``hp`` accumulates the decision
-    scalars in float64 and defaults off for the dense kernel, on for the
-    TV kernel; the ``record_*`` flags add the f-value, backtrack,
-    prox-point objective, iterate (dense only: TV raises) and
-    normalized-residual series.  ``engine`` and ``interpret`` select TPU
-    code paths and raise ``ValueError`` when passed.  Without ``tau0``
+    scalars in float64 and defaults off for the dense and planar
+    kernels, on for the TV kernel; the ``record_*`` flags add the
+    f-value, backtrack, prox-point objective, iterate (dense: (k, n);
+    planar: (k, n, 2); TV raises) and normalized-residual series.
+    ``engine`` and ``interpret`` select TPU code paths and raise
+    ``ValueError`` when passed.  Without ``tau0``
     (here or on the problem) the stepsize is estimated from points drawn
     from ``generator`` (default: seed 0 on the problem's device).
 
@@ -238,6 +259,12 @@ def microsolve(problem: Problem, tau0: Optional[float] = None,
     if kind == "tv":
         out = microsolve_tv(data, x0, tau0, detail,
                             hp=True if hp is None else bool(hp), **kw)
+    elif kind == "planar":
+        op = problem.op
+        out = microsolve_planar_phasemax(
+            op.Ar.to(torch.float32), op.Ai.to(torch.float32), data,
+            problem.gterm.c.to(torch.float32), x0, tau0, hp=bool(hp),
+            record_its=record_iterates, **kw)
     else:
         loss, prox, mu = detail
         out = microsolve_lasso(
@@ -299,11 +326,14 @@ def microsolve_sweep(problem: Problem, mus, tau0: Optional[float] = None,
     ``stop_rule="residual"``.  Options mean what they mean on
     :func:`microsolve` (``hp`` defaults on for TV).
 
-    The dense nonnegativity and box proxes have no weight, so sweeping
-    them raises ``ValueError``, as does every structure without a
-    kernel."""
+    The dense nonnegativity and box proxes and planar PhaseMax have no
+    weight, so sweeping them raises ``ValueError``, as does every
+    structure without a kernel."""
     kind, detail, data, x0, tau0 = _start(
         problem, "microsolve_sweep", tau0, engine, interpret, generator)
+    if kind == "planar":
+        raise ValueError("microsolve_sweep: the planar PhaseMax kernel has "
+                         "no penalty weight to sweep")
     if kind == "dense" and detail[1] in ("nonneg", "box"):
         prox = detail[1]
         # the projections discard the weight, so every swept mu would

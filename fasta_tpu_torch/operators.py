@@ -1,12 +1,13 @@
-"""Linear operators (port of ``fasta_tpu/operators.py:47-132, 301-343,
-391-410, 464-544``).
+"""Linear operators (port of ``fasta_tpu/operators.py:47-132, 215-264,
+301-343, 391-410, 464-544``).
 
 The dense problems need the explicit matrix: ``LinearOp``, ``AdjointOp``,
 ``DenseOp``, ``as_linear_op`` and ``check_adjoint``; TV denoising needs
-the stencil pair ``TVGrad2D`` / ``TVDiv2D`` and ``ScaledOp``.  The other
-operators (identity, closures, FFTs, sparse) come with their problems
-(ROADMAP Queue A item 2).  Operators are plain data holders; their
-tensors stay on whatever device the caller put them.
+the stencil pair ``TVGrad2D`` / ``TVDiv2D`` and ``ScaledOp``; planar
+phase retrieval needs ``PlanarDenseOp``.  The other operators (identity,
+closures, FFTs, sparse) come with their problems (ROADMAP Queue A item
+2).  Operators are plain data holders; their tensors stay on whatever
+device the caller put them.
 
 All adjoints are conjugate transposes, so complex data is handled
 exactly.
@@ -21,9 +22,9 @@ import torch
 
 from .precision import real_dtype
 
-__all__ = ["LinearOp", "AdjointOp", "DenseOp", "TVGrad2D", "TVDiv2D",
-           "ScaledOp", "tv_grad_2d", "tv_div_2d", "as_linear_op",
-           "check_adjoint"]
+__all__ = ["LinearOp", "AdjointOp", "DenseOp", "PlanarDenseOp", "TVGrad2D",
+           "TVDiv2D", "ScaledOp", "tv_grad_2d", "tv_div_2d", "as_linear_op",
+           "check_adjoint", "default_device"]
 
 
 class LinearOp:
@@ -76,6 +77,49 @@ class DenseOp(LinearOp):
     @property
     def shape(self):
         return tuple(self.A.shape)
+
+
+class PlanarDenseOp(LinearOp):
+    """Complex dense operator A = Ar + i·Ai in planar layout: two real
+    channel matrices (m, n), vectors with real and imaginary parts on a
+    trailing axis of 2, x ∈ ℝ^{n×2} ↦ d ∈ ℝ^{m×2}:
+
+        d = [Ar xr − Ai xi,  Ar xi + Ai xr]
+        Aᴴ y = [Arᵀyr + Aiᵀyi,  Arᵀyi − Aiᵀyr]
+
+    Each application is two (m,n)·(n,2) products through ``torch.matmul``
+    (the JAX package leaves them to XLA at ``Precision.HIGHEST``; a
+    float32 product on the card runs in full float32 unless the caller
+    enables TF32).  The real dot of two planar vectors is Re⟨·,·⟩ of the
+    complex ones, so the real solver drives complex problems unchanged.
+    The fused gradient map over the same matrices is kernel K-B7."""
+
+    def __init__(self, Ar: torch.Tensor, Ai: torch.Tensor):
+        self.Ar = Ar
+        self.Ai = Ai
+
+    @classmethod
+    def from_complex(cls, A, dtype: torch.dtype = torch.float32, *,
+                     device) -> "PlanarDenseOp":
+        """The channels of a complex NumPy matrix as ``dtype`` tensors on
+        ``device``."""
+        A = np.asarray(A)
+        return cls(torch.tensor(A.real, dtype=dtype, device=device),
+                   torch.tensor(A.imag, dtype=dtype, device=device))
+
+    def __call__(self, x):
+        p = torch.matmul(self.Ar, x)
+        q = torch.matmul(self.Ai, x)
+        return torch.stack([p[:, 0] - q[:, 1], p[:, 1] + q[:, 0]], dim=-1)
+
+    def rmatvec(self, y):
+        p = torch.matmul(self.Ar.mT, y)
+        q = torch.matmul(self.Ai.mT, y)
+        return torch.stack([p[:, 0] + q[:, 1], p[:, 1] - q[:, 0]], dim=-1)
+
+    @property
+    def shape(self):
+        return tuple(self.Ar.shape)
 
 
 def tv_grad_2d(x: torch.Tensor) -> torch.Tensor:
@@ -138,18 +182,33 @@ class ScaledOp(LinearOp):
         return self.c * self.op.rmatvec(y)
 
 
+def default_device(device, what: str) -> torch.device:
+    """The device an entry point places data that carries none on:
+    ``device``, or the card when None.  With no card present the default
+    raises rather than fall back to the CPU; callers pass ``device="cpu"``
+    for that."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}: the default device is 'cuda' and no CUDA device is "
+            f"available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def as_linear_op(A: Any, At: Any = None, device=None) -> LinearOp:
     """Normalize an operator argument: a tensor becomes a ``DenseOp`` on
     the tensor's own device, a NumPy matrix a ``DenseOp`` on ``device``
-    (the CPU when None), a ``LinearOp`` itself.  ``At`` must be None for
-    those forms."""
+    (the card when None: see :func:`default_device`), a ``LinearOp``
+    itself.  ``At`` must be None for those forms."""
     if isinstance(A, LinearOp):
         return A
     if isinstance(A, (torch.Tensor, np.ndarray)):
         if At is not None:
             raise ValueError("an explicit matrix takes no separate adjoint")
         if isinstance(A, np.ndarray):
-            return DenseOp(torch.as_tensor(A, device=device))
+            return DenseOp(torch.as_tensor(
+                A, device=default_device(device, "as_linear_op")))
         return DenseOp(A)
     raise NotImplementedError(
         f"operator type {type(A).__name__} is not ported yet: identity, "

@@ -30,7 +30,7 @@ class Problem:
     tau0: Optional[float] = None       # explicit stepsize (RNG-parity mode)
     x_true: Optional[np.ndarray] = None
     instance: dict = field(default_factory=dict)   # raw NumPy arrays
-    recover: Optional[Callable] = None  # solver variable -> signal (TV)
+    recover: Optional[Callable] = None  # solver variable -> signal
 
     def solve(self, options: Optional[FastaOptions] = None,
               **kwargs) -> FastaResult:
@@ -63,3 +63,34 @@ class Problem:
         :func:`fasta_tpu_torch.micro.microsolve_sweep`."""
         from .micro import microsolve_sweep as _sweep
         return _sweep(self, mus, **kwargs)
+
+    def recovery_error(self, x, recovered: Optional[bool] = None) -> float:
+        """Relative error against the planted signal, phase-invariant for
+        complex problems (the global phase is aligned first).
+
+        ``recovered=False`` says ``x`` is a solver-layout iterate
+        (``recover`` is applied when present), True that it is already a
+        signal-space vector (e.g. the oracle's solution of a planar
+        problem's complex formulation); None infers it from the shape, as
+        the JAX package does (``fasta_tpu/problem.py:96-120``).  NaN
+        without a planted signal."""
+        if self.x_true is None:
+            return float("nan")
+        x = _host(x)
+        xt = np.asarray(self.x_true)
+        apply = (self.recover is not None
+                 and (recovered is False
+                      or (recovered is None and x.shape != xt.shape)))
+        if apply:
+            x = _host(self.recover(x))
+        if np.iscomplexobj(xt) or np.iscomplexobj(x):
+            phase = np.vdot(x, xt)
+            x = x * (phase / max(abs(phase), 1e-30))
+        return float(np.linalg.norm(x - xt) / max(np.linalg.norm(xt), 1e-30))
+
+
+def _host(a) -> np.ndarray:
+    """A tensor or array as a NumPy array on the host."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

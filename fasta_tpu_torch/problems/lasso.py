@@ -13,6 +13,7 @@ import torch
 from reference_oracle.generators import make_lasso
 
 from ..convert import problem_from_instance
+from ..operators import default_device
 from ..problem import Problem
 from . import register
 
@@ -22,9 +23,9 @@ __all__ = ["build"]
 @register("lasso")
 def build(m: int = 1000, n: int = 2000, k: int = 100, mu: float = 0.1,
           seed: int = 1, dtype: torch.dtype = torch.float32, *,
-          device) -> Problem:
+          device=None) -> Problem:
     """The LASSO instance of ``make_lasso(m, n, k, mu, seed)`` as
-    ``dtype`` tensors on ``device`` (required: the port never picks a
-    device itself)."""
+    ``dtype`` tensors on ``device`` (the card when None)."""
     inst = make_lasso(m=m, n=n, k=k, mu=mu, seed=seed)
-    return problem_from_instance(inst, device=device, dtype=dtype)
+    return problem_from_instance(
+        inst, device=default_device(device, "problems.build"), dtype=dtype)

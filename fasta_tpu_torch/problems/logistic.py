@@ -13,6 +13,7 @@ import torch
 from reference_oracle.generators import make_logistic
 
 from ..convert import problem_from_instance
+from ..operators import default_device
 from ..problem import Problem
 from . import register
 
@@ -22,8 +23,9 @@ __all__ = ["build"]
 @register("logistic")
 def build(m: int = 1000, n: int = 500, k: int = 20, mu: float = 0.02,
           seed: int = 3, dtype: torch.dtype = torch.float32, *,
-          device) -> Problem:
+          device=None) -> Problem:
     """The instance of ``make_logistic(m, n, k, mu, seed)`` as ``dtype``
-    tensors on ``device`` (required)."""
+    tensors on ``device`` (the card when None)."""
     inst = make_logistic(m=m, n=n, k=k, mu=mu, seed=seed)
-    return problem_from_instance(inst, device=device, dtype=dtype)
+    return problem_from_instance(
+        inst, device=default_device(device, "problems.build"), dtype=dtype)

@@ -13,6 +13,7 @@ import torch
 from reference_oracle.generators import make_nnls
 
 from ..convert import problem_from_instance
+from ..operators import default_device
 from ..problem import Problem
 from . import register
 
@@ -21,8 +22,9 @@ __all__ = ["build"]
 
 @register("nnls")
 def build(m: int = 1000, n: int = 500, seed: int = 2,
-          dtype: torch.dtype = torch.float32, *, device) -> Problem:
+          dtype: torch.dtype = torch.float32, *, device=None) -> Problem:
     """The NNLS instance of ``make_nnls(m, n, seed)`` as ``dtype``
-    tensors on ``device`` (required)."""
+    tensors on ``device`` (the card when None)."""
     inst = make_nnls(m=m, n=n, seed=seed)
-    return problem_from_instance(inst, device=device, dtype=dtype)
+    return problem_from_instance(
+        inst, device=default_device(device, "problems.build"), dtype=dtype)

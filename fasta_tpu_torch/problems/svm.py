@@ -12,6 +12,7 @@ import torch
 from reference_oracle.generators import make_svm
 
 from ..convert import problem_from_instance
+from ..operators import default_device
 from ..problem import Problem
 from . import register
 
@@ -20,8 +21,9 @@ __all__ = ["build"]
 
 @register("svm")
 def build(m: int = 800, n: int = 100, lam: float = 0.01, seed: int = 11,
-          dtype: torch.dtype = torch.float32, *, device) -> Problem:
+          dtype: torch.dtype = torch.float32, *, device=None) -> Problem:
     """The instance of ``make_svm(m, n, lam, seed)`` as ``dtype`` tensors
-    on ``device`` (required)."""
+    on ``device`` (the card when None)."""
     inst = make_svm(m=m, n=n, lam=lam, seed=seed)
-    return problem_from_instance(inst, device=device, dtype=dtype)
+    return problem_from_instance(
+        inst, device=default_device(device, "problems.build"), dtype=dtype)

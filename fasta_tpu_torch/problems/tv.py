@@ -16,6 +16,7 @@ import torch
 from reference_oracle.generators import make_tv
 
 from ..convert import problem_from_instance
+from ..operators import default_device
 from ..problem import Problem
 from . import register
 
@@ -25,9 +26,10 @@ __all__ = ["build"]
 @register("tv")
 def build(h: int = 512, w: int = 512, mu: float = 0.1, sigma: float = 0.1,
           seed: int = 4, dtype: torch.dtype = torch.float32, *,
-          device) -> Problem:
+          device=None) -> Problem:
     """The TV instance of ``make_tv(h, w, mu, sigma, seed)`` as ``dtype``
-    tensors on ``device`` (required), with ``recover`` mapping a dual
-    field to the denoised image."""
+    tensors on ``device`` (the card when None), with ``recover`` mapping a
+    dual field to the denoised image."""
     inst = make_tv(h=h, w=w, mu=mu, sigma=sigma, seed=seed)
-    return problem_from_instance(inst, device=device, dtype=dtype)
+    return problem_from_instance(
+        inst, device=default_device(device, "problems.build"), dtype=dtype)

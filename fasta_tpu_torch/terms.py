@@ -1,13 +1,14 @@
 """Objective terms: smooth f(A·) and prox-friendly g(·) (port of
-``fasta_tpu/terms.py:45-260, 443-482, 543-625, 693-720, 799-815,
+``fasta_tpu/terms.py:45-260, 330-439, 443-482, 543-625, 693-720, 777-838,
 854-889``).
 
 Smooth terms implement ``value(d)`` and ``grad(d)`` (evaluated at
 d = A x); prox terms implement ``value(x)`` and ``prox(z, t)``.  Terms
 are plain data holders over tensors.  The port has the terms of the dense
-problems (LASSO, NNLS, sparse logistic regression, SVM) and of TV
-denoising (``LeastSquares`` over a 2-D image, ``BoxIndicator``); the
-other terms come with their problems (ROADMAP Queue A item 7).
+problems (LASSO, NNLS, sparse logistic regression, SVM), of TV denoising
+(``LeastSquares`` over a 2-D image, ``BoxIndicator``) and of phase
+retrieval (``PhaseHinge`` and ``LinearAnchor``, and their planar forms);
+the other terms come with their problems (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import torch
 from . import prox as _prox
 
 __all__ = [
-    "SmoothTerm", "LeastSquares", "Logistic", "SquaredHinge",
-    "FunctionSmooth", "ProxTerm", "L1Norm", "NonnegIndicator",
-    "BoxIndicator", "L2Norm2", "FunctionProx", "as_smooth_term",
-    "as_prox_term", "logistic_ell", "logistic_grad", "hinge_residual",
+    "SmoothTerm", "LeastSquares", "Logistic", "SquaredHinge", "PhaseHinge",
+    "PlanarPhaseHinge", "FunctionSmooth", "ProxTerm", "L1Norm",
+    "NonnegIndicator", "BoxIndicator", "L2Norm2", "LinearAnchor",
+    "PlanarLinearAnchor", "FunctionProx", "as_smooth_term", "as_prox_term",
+    "logistic_ell", "logistic_grad", "hinge_residual", "phase_hinge_parts",
 ]
 
 
@@ -88,8 +90,21 @@ class LeastSquares(SmoothTerm):
         The TV dual's ``ScaledOp(μ, TVDiv2D())`` over a 2-D image takes
         kernel K-B5 (``fused_tv_gradmap``) for a float32 image and its
         plain version otherwise (``fasta_tpu/terms.py:146-155``, without
-        the JAX package's Pallas and TPU gates)."""
-        from .operators import DenseOp, ScaledOp, TVDiv2D
+        the JAX package's Pallas and TPU gates).
+
+        A float32 ``PlanarDenseOp`` with planar measurements b (m, 2)
+        takes kernel K-B7's least-squares form
+        (``fused_planar_lstsq_gradmap``, ``fasta_tpu/terms.py:156-170``,
+        without the JAX package's 64 MB streaming gate); other dtypes take
+        the two-call path, as in the JAX package."""
+        from .operators import DenseOp, PlanarDenseOp, ScaledOp, TVDiv2D
+        if isinstance(op, PlanarDenseOp):
+            b = self.b
+            if (op.Ar.ndim != 2 or op.Ar.dtype != torch.float32
+                    or b.ndim != 2 or b.shape[-1] != 2):
+                return None
+            from .kernels.planar_fused import fused_planar_lstsq_gradmap
+            return lambda x: fused_planar_lstsq_gradmap(op.Ar, op.Ai, x, b)
         if (isinstance(op, ScaledOp) and isinstance(op.op, TVDiv2D)
                 and self.b.ndim == 2):
             from .kernels.tv_fused import (fused_tv_gradmap,
@@ -190,6 +205,76 @@ class SquaredHinge(SmoothTerm):
         return _pointwise_fused(op, self.y, "squared_hinge")
 
 
+def phase_hinge_parts(mag, b):
+    """(r, s) of the PhaseMax hinge at magnitudes ``mag``: r = max(|d| − b,
+    0), s = r / max(|d|, 1e-30); f = ½Σr², ∇f = s·d."""
+    r = torch.clamp_min(mag - b, 0.0)
+    return r, r / torch.clamp_min(mag, 1e-30)
+
+
+class PhaseHinge(SmoothTerm):
+    """Smooth circular hinge for PhaseMax phase retrieval:
+    f(d) = ½ Σ max(|d|−b, 0)², Wirtinger gradient max(|d|−b,0)·d/|d|.
+    No fused map: the JAX package fuses it only on its sharded operators
+    (``fasta_tpu/terms.py:358-366``, ROADMAP Queue A item 13)."""
+
+    def __init__(self, b: torch.Tensor):
+        self.b = b
+
+    def value(self, d):
+        r, _ = phase_hinge_parts(torch.abs(d), self.b)
+        return 0.5 * torch.sum(r * r)
+
+    def value_f64(self, d):
+        from .precision import dot64
+        r, _ = phase_hinge_parts(torch.abs(d), self.b)
+        return 0.5 * dot64(r, r)
+
+    def grad(self, d):
+        _, s = phase_hinge_parts(torch.abs(d), self.b)
+        return s * d
+
+
+class PlanarPhaseHinge(SmoothTerm):
+    """PhaseMax hinge on planar measurements d ∈ ℝ^{m×2}:
+    |d| = √(dr² + di²) on the real channels, the gradient the Wirtinger
+    gradient in planar layout — :class:`PhaseHinge`'s math, all real."""
+
+    def __init__(self, b: torch.Tensor):
+        self.b = b                      # (m,) magnitudes
+
+    def _parts(self, d):
+        return phase_hinge_parts(torch.sqrt(torch.sum(d * d, dim=-1)),
+                                  self.b)
+
+    def value(self, d):
+        r, _ = self._parts(d)
+        return 0.5 * torch.sum(r * r)
+
+    def value_f64(self, d):
+        from .precision import dot64
+        r, _ = self._parts(d)
+        return 0.5 * dot64(r, r)
+
+    def grad(self, d):
+        _, s = self._parts(d)
+        return s[:, None] * d
+
+    def fused_gradmap(self, op):
+        """K-B7's hinge form (``fused_planar_hinge_gradmap``) on a float32
+        ``PlanarDenseOp``: the CUDA kernel for CUDA tensors, its plain
+        version for CPU tensors (``fasta_tpu/terms.py:418-432``, without
+        the JAX package's 64 MB streaming gate).  Other operators and
+        dtypes take the two-call path (None)."""
+        from .operators import PlanarDenseOp
+        if (not isinstance(op, PlanarDenseOp) or op.Ar.ndim != 2
+                or op.Ar.dtype != torch.float32 or self.b.ndim != 1):
+            return None
+        from .kernels.planar_fused import fused_planar_hinge_gradmap
+        b = self.b
+        return lambda x: fused_planar_hinge_gradmap(op.Ar, op.Ai, x, b)
+
+
 class FunctionSmooth(SmoothTerm):
     """Wrap raw (f, gradf) callables — reference-style closures.
     ``gradf=None`` derives the gradient with ``torch.func.grad`` (the
@@ -275,6 +360,33 @@ class L2Norm2(ProxTerm):
 
     def prox(self, z, t):
         return z / (1.0 + t * self.lam)
+
+
+class LinearAnchor(ProxTerm):
+    """g(x) = −Re⟨c, x⟩ (the PhaseMax anchor); prox(z, t) = z + t·c."""
+
+    def __init__(self, c: torch.Tensor):
+        self.c = c
+
+    def value(self, x):
+        return -torch.real(torch.vdot(self.c.reshape(-1), x.reshape(-1)))
+
+    def prox(self, z, t):
+        return z + t * self.c
+
+
+class PlanarLinearAnchor(ProxTerm):
+    """g(x) = −⟨c, x⟩ on planar vectors (−Re⟨c, x⟩ on ℂ);
+    prox(z, t) = z + t·c.  c ∈ ℝ^{n×2}."""
+
+    def __init__(self, c: torch.Tensor):
+        self.c = c
+
+    def value(self, x):
+        return -torch.sum(self.c * x)
+
+    def prox(self, z, t):
+        return z + t * self.c
 
 
 class FunctionProx(ProxTerm):

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+import fasta_tpu_torch as ftt
 from fasta_tpu_torch import problems
-from fasta_tpu_torch.kernels import (lstsq_fused, microsolver, microsolver_tv,
-                                     tv_fused)
+from fasta_tpu_torch.kernels import (lstsq_fused, microsolver,
+                                     microsolver_planar, microsolver_tv,
+                                     planar_fused, planar_probe, tv_fused)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -504,3 +506,171 @@ def test_tv_main_path_on_the_card(dev):
     sw = pg.microsolve_sweep([0.2, mu], tau0=2.0, tol=1e-6, max_iters=5000,
                              warm_start=True)
     assert sw.converged.all() and sw.solutions.shape == (2, 2, 96, 80)
+
+
+# --------------------------------------------------------------------------
+# K-B7, K-P5, K-B8: phase retrieval
+# --------------------------------------------------------------------------
+
+def _planar_data(dev, m, n):
+    g = torch.Generator(device=dev).manual_seed(m * n)
+    Ar = torch.randn((m, n), generator=g, device=dev) / (2 * m) ** 0.5
+    Ai = torch.randn((m, n), generator=g, device=dev) / (2 * m) ** 0.5
+    x = torch.randn((n, 2), generator=g, device=dev)
+    bl = torch.randn((m, 2), generator=g, device=dev)
+    bh = torch.rand(m, generator=g, device=dev) + 0.1
+    return Ar, Ai, x, bl, bh
+
+
+@pytest.mark.parametrize("loss", ["lstsq", "hinge"])
+@pytest.mark.parametrize("m,n,route", [
+    (16384, 256, 1), (1000, 37, 1), (4099, 256, 1), (5, 3, 1),
+    # rows wider than 512 floats: a block per row; past 8192 (2048 when
+    # n % 4 != 0) the wide route
+    (1000, 1024, 2), (300, 2046, 2), (40, 9000, 3), (33, 3001, 3)])
+def test_planar_gradmap_kernel_matches_plain(dev, loss, m, n, route):
+    """K-B7 on each route, aligned and ragged: d, g within 1e-5 of the
+    largest entry and f rel 1e-5 (float32 sums in another order), and the
+    same result on every run."""
+    assert planar_fused._plan(dev.index or 0, m, n)[0] == route
+    Ar, Ai, x, bl, bh = _planar_data(dev, m, n)
+    fused, ref, b = ((planar_fused.fused_planar_lstsq_gradmap,
+                      planar_fused.planar_lstsq_gradmap_reference, bl)
+                     if loss == "lstsq" else
+                     (planar_fused.fused_planar_hinge_gradmap,
+                      planar_fused.planar_hinge_gradmap_reference, bh))
+    before = planar_fused.LAUNCHES
+    d, f, g = fused(Ar, Ai, x, b)
+    assert planar_fused.LAUNCHES == before + 1
+    d0, f0, g0 = ref(Ar, Ai, x, b)
+    torch.cuda.synchronize()
+    assert (d - d0).abs().max() <= 1e-5 * max(1.0, float(d0.abs().max()))
+    assert (g - g0).abs().max() <= 1e-5 * max(1.0, float(g0.abs().max()))
+    assert abs(float(f) - float(f0)) <= 1e-5 * abs(float(f0))
+    d2, f2, g2 = fused(Ar, Ai, x, b)
+    assert torch.equal(d, d2) and torch.equal(g, g2) and torch.equal(f, f2)
+
+
+def test_planar_kernels_reject_what_they_do_not_take(dev):
+    Ar, Ai, x, bl, bh = _planar_data(dev, 8, 8)
+    with pytest.raises(ValueError, match="float32"):
+        planar_fused.fused_planar_hinge_gradmap(Ar.double(), Ai.double(),
+                                                x.double(), bh.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        planar_fused.fused_planar_lstsq_gradmap(Ar.t(), Ai, x, bl)
+    with pytest.raises(ValueError, match="share a device"):
+        planar_fused.fused_planar_hinge_gradmap(Ar, Ai, x, bh.cpu())
+    with pytest.raises(ValueError, match="n must be"):
+        planar_probe.planar_probe(Ar, Ai, x, 2)
+    big = torch.zeros((8, 600), device=dev)
+    with pytest.raises(ValueError, match="n up to 512"):
+        microsolver_planar.microsolve_planar_phasemax(
+            big, big, bh, torch.zeros((600, 2), device=dev),
+            torch.zeros((600, 2), device=dev), 1.0)
+
+
+@pytest.mark.parametrize("variant", planar_probe.VARIANTS)
+@pytest.mark.parametrize("m,n", [(1000, 256), (4099, 128), (517, 512)])
+def test_planar_probe_kernel_matches_plain(dev, variant, m, n):
+    """K-P5: the last of 3 chained pairs within 1e-5 of the largest
+    entry of the plain PlanarDenseOp pairs, on every layout."""
+    Ar, Ai, x, _, _ = _planar_data(dev, m, n)
+    before = planar_probe.LAUNCHES
+    out = planar_probe.planar_probe(Ar, Ai, x, 3, variant)
+    assert planar_probe.LAUNCHES == before + 1
+    ref = planar_probe.planar_probe_reference(Ar, Ai, x, 3)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * float(ref.abs().max())
+
+
+def _phase(dev, m, n):
+    p = problems.build("phase_retrieval", m=m, n=n, planar=True, device=dev)
+    return p, (p.op.Ar, p.op.Ai, p.fterm.b, p.gterm.c, p.x0)
+
+
+def _phase_objective(p, x):
+    """f(x) − ⟨c, x⟩ in float64 on the card."""
+    Ar, Ai = p.op.Ar.double(), p.op.Ai.double()
+    x = x.double()
+    d = ftt.PlanarDenseOp(Ar, Ai)(x)
+    r = torch.clamp_min(torch.sqrt(torch.sum(d * d, -1)) - p.fterm.b.double(),
+                        0.0)
+    return float(0.5 * torch.sum(r * r) - torch.sum(p.gterm.c.double() * x))
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("m,n", [(256, 32), (1000, 37), (4099, 256)])
+def test_planar_microsolve_kernel_matches_plain(dev, accelerate, hp, m, n):
+    """K-B8 against its plain version on the card over 40 iterations: the
+    first 10 taus and residuals rtol 1e-3 and backtracks equal (the hinge
+    amplifies the order of float32 sums), the float64 objective rel 1e-5,
+    every record present; the last iterate is the returned x (adaptive)."""
+    p, data = _phase(dev, m, n)
+    kw = dict(max_iters=40, tol=0.0, stop_rule="iterations", hp=hp,
+              accelerate=accelerate, restart_dd=hp, record_bts=True,
+              record_fvals=True, record_objs=True, record_nres=True)
+    before = microsolver_planar.LAUNCHES
+    out = microsolver_planar.microsolve_planar_phasemax(*data, 1.0,
+                                                        record_its=True, **kw)
+    assert microsolver_planar.LAUNCHES == before + 1
+    ref = microsolver_planar.microsolve_planar_phasemax_reference(
+        *data, 1.0, record_its=True, **kw)
+    torch.cuda.synchronize()
+    assert int(out.iteration_count) == int(ref.iteration_count) == 40
+    torch.testing.assert_close(out.taus[:10], ref.taus[:10], rtol=1e-3,
+                               atol=0.0)
+    torch.testing.assert_close(out.residuals[:10], ref.residuals[:10],
+                               rtol=1e-3, atol=1e-6)
+    assert torch.equal(out.backtracks[:10], ref.backtracks[:10])
+    f1, f2 = _phase_objective(p, out.x), _phase_objective(p, ref.x)
+    assert abs(f1 - f2) <= 1e-5 * abs(f2)
+    assert out.iterates.shape == (40, n, 2)
+    if not accelerate:
+        assert torch.equal(out.iterates[-1], out.x)
+    torch.testing.assert_close(out.objectives[:10], ref.objectives[:10],
+                               rtol=1e-3, atol=0.0)
+    again = microsolver_planar.microsolve_planar_phasemax(*data, 1.0, **kw)
+    assert torch.equal(again.x, out.x) and torch.equal(again.taus, out.taus)
+
+
+def test_planar_microsolve_kernel_converges_and_halts_nonfinite(dev):
+    p, data = _phase(dev, 4099, 256)
+    for accelerate in (False, True):
+        kw = dict(max_iters=2000, tol=1e-5, hp=True, accelerate=accelerate,
+                  restart_dd=True)
+        out = microsolver_planar.microsolve_planar_phasemax(*data, 1.0, **kw)
+        ref = microsolver_planar.microsolve_planar_phasemax_reference(
+            *data, 1.0, **kw)
+        assert out.status == ref.status == "converged"
+        f1, f2 = _phase_objective(p, out.x), _phase_objective(p, ref.x)
+        assert abs(f1 - f2) <= 1e-6 * abs(f2)
+    bad = microsolver_planar.microsolve_planar_phasemax(*data, float("nan"),
+                                                        max_iters=50)
+    assert bad.status == "nonfinite" and int(bad.iteration_count) == 1
+
+
+def test_phase_main_path_on_the_card(dev):
+    """problems.build("phase_retrieval") → Problem.solve through K-B7 and
+    Problem.microsolve through one K-B8 launch reach the CPU run's
+    objective; the complex form solves through the loop."""
+    pg = problems.build("phase_retrieval", m=2048, n=64, planar=True,
+                        device=dev)
+    pc = problems.build("phase_retrieval", m=2048, n=64, planar=True,
+                        device="cpu")
+    goal = _phase_objective(pc, torch.as_tensor(pc.solve(
+        tau0=1.0, tol=1e-5, max_iters=2000).solution))
+    before = planar_fused.LAUNCHES
+    r = pg.solve(tau0=1.0, tol=1e-5, max_iters=2000)
+    assert r.converged and planar_fused.LAUNCHES > before
+    assert abs(_phase_objective(pc, torch.as_tensor(r.solution)) - goal) \
+        <= 1e-5 * abs(goal)
+    before = microsolver_planar.LAUNCHES
+    m = pg.microsolve(tau0=1.0, tol=1e-5, max_iters=2000, hp=True)
+    assert microsolver_planar.LAUNCHES == before + 1
+    assert m.status == "converged" and m.solution.is_cuda
+    assert abs(_phase_objective(pg, m.solution) - goal) <= 1e-5 * abs(goal)
+    assert pg.recovery_error(m.solution) < 0.05
+    cx = problems.build("phase_retrieval", m=2048, n=64, device=dev)
+    rc = cx.solve(tau0=1.0, tol=1e-5, max_iters=2000)
+    assert rc.converged and cx.recovery_error(rc.solution) < 0.05

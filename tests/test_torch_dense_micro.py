@@ -327,7 +327,7 @@ def test_dispatch_reasons_for_every_structure():
         assert not ok and why in reason, (prob.name, reason)
         with pytest.raises(ValueError, match="microsolve"):
             prob.microsolve()
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="and planar PhaseMax"):
         cases[-1][0].microsolve_sweep([0.1, 0.2])
 
 

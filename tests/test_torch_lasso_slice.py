@@ -211,9 +211,9 @@ def test_unported_modes_raise():
     for mode in (dict(adaptive=False), dict(accelerate=True)):
         r = pt.solve(tau0=TAU0, max_iters=5, **mode)
         assert r.iteration_count == 5
-    with pytest.raises(NotImplementedError, match="Queue A items 7 and 10"):
-        problems.build("phase_retrieval", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A items 7 and 10"):
+    with pytest.raises(NotImplementedError, match="Queue A items 2 and 7"):
+        problems.build("phase_retrieval_cdp", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A items 2 and 7"):
         problem_from_instance({"name": "mmv"}, device="cpu",
                               dtype=torch.float32)
 

@@ -58,7 +58,7 @@ def test_as_linear_op_forms():
     t = torch.from_numpy(A)
     assert isinstance(ftt.as_linear_op(t), ftt.DenseOp)
     assert ftt.as_linear_op(t).A is t        # stays on the caller's device
-    op = ftt.as_linear_op(A)                 # NumPy: a CPU tensor
+    op = ftt.as_linear_op(A, device="cpu")   # NumPy: on the asked device
     assert op.A.device.type == "cpu"
     assert ftt.as_linear_op(op) is op
     with pytest.raises(NotImplementedError, match="Queue A item 2"):
