@@ -64,7 +64,24 @@ non-zero without the final ``ok`` line):
     default device) and the complex form's ``Problem.solve`` — against the
     float64 NumPy oracle, with the launch counters proving that K-B7 and
     K-B8 ran and no dense or TV kernel did; then the it/s of the kernel
-    and loop paths at a fixed 2000 iterations.
+    and loop paths at a fixed 2000 iterations;
+18. K-B4 (fused shrink step) against its plain version at 1×2000,
+    1×128, 1×100, 32×2000 and 1×2²⁴, a NaN entry, two calls equal; call
+    and stream times at 1×2000, 32×2000 and 1×2²⁴ against the bound;
+19. K-B1b (the dense whole solve over a batch): LASSO 1000×2000, 32
+    instances, adaptive and FISTA, per-instance τ₀, each instance
+    bit-identical to a separate K-B1 launch, two against the plain batch;
+20. K-B6b: TV 512×512, 8 images, adaptive and FISTA, each bit-identical
+    to a separate K-B6 launch, one against the plain version;
+21. K-B8b: planar phase retrieval 16384×256, 16 instances, as phase 19;
+22. the serving main path — ``recommend_path(...).run(bs)`` and
+    ``Problem.solve_serving`` on TV 512×512 × 8, LASSO 1000×2000 × 32 and
+    planar phase retrieval 16384×256 × 16, one request of each, and
+    LASSO with full diagnostics — its routes, the launch counters of
+    K-B4, K-B1b, K-B6b and K-B8b (and no call of their plain versions),
+    objectives against the float64 references, the batch loop's lanes
+    against separate solves, and the wall time per instance of a batch
+    against separate calls on both batch routes.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -80,6 +97,7 @@ device the script fails at once.  Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -95,12 +113,16 @@ import fasta_tpu_torch as ftt  # noqa: E402
 from fasta_tpu_torch import problems  # noqa: E402
 from fasta_tpu_torch.kernels import (_build, lstsq_fused, microsolver,  # noqa: E402
                                      microsolver_planar, microsolver_tv,
-                                     planar_fused, planar_probe, tv_fused)
+                                     planar_fused, planar_probe, prox_fused,
+                                     tv_fused)
 from reference_oracle.fasta_numpy import fasta as fasta_np  # noqa: E402
 from reference_oracle.generators import make_lasso  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 PROXES = microsolver.PROXES
+# float64 references that a later phase reuses: phase 13's TV (dual
+# objective, recovered image) and phase 17's phase-retrieval objective
+REFS = {}
 
 
 def require(ok: bool, what: str) -> None:
@@ -214,6 +236,9 @@ def reset_launches() -> None:
     microsolver_tv.LAUNCHES = microsolver_tv.PATH_LAUNCHES = 0
     planar_fused.LAUNCHES = microsolver_planar.LAUNCHES = 0
     planar_probe.LAUNCHES = 0
+    prox_fused.LAUNCHES = 0
+    microsolver.BATCH_LAUNCHES = microsolver_tv.BATCH_LAUNCHES = 0
+    microsolver_planar.BATCH_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -226,7 +251,11 @@ def read_launches() -> dict:
             "K-B6p": microsolver_tv.PATH_LAUNCHES,
             "K-B7": planar_fused.LAUNCHES,
             "K-B8": microsolver_planar.LAUNCHES,
-            "K-P5": planar_probe.LAUNCHES}
+            "K-P5": planar_probe.LAUNCHES,
+            "K-B4": prox_fused.LAUNCHES,
+            "K-B1b": microsolver.BATCH_LAUNCHES,
+            "K-B6b": microsolver_tv.BATCH_LAUNCHES,
+            "K-B8b": microsolver_planar.BATCH_LAUNCHES}
 
 
 def phase_device() -> str:
@@ -1043,6 +1072,7 @@ def phase_tv_main_path() -> dict:
     b64, mu = ref_prob.fterm.b, 0.1
     obj_ref = tv_objective(b64, mu, p_ref)
     x_ref = ref_prob.recover(p_ref)
+    REFS["tv"] = (obj_ref, x_ref)
     print(f"[13 TV main path] float64 reference (the port's loop on the "
           f"card): converged={ref.converged} in {ref.iteration_count} "
           f"iterations ({ref_s:.1f} s), dual objective {obj_ref:.9g}")
@@ -1384,6 +1414,7 @@ def phase_pr_main_path() -> dict:
     oracle_s = time.perf_counter() - t0
     x_ref = np.asarray(oracle.solution)
     obj_ref = phase_objective(A, bm, c, x_ref)
+    REFS["pr"] = obj_ref
     print(f"[17 phase main path] float64 oracle on the host: "
           f"converged={oracle.converged} in {oracle.iteration_count} "
           f"iterations ({oracle_s:.1f} s), objective {obj_ref:.12g}, "
@@ -1446,6 +1477,586 @@ def phase_pr_main_path() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# Slice 5: K-B4, the batched whole-solve kernels and the serving path
+# --------------------------------------------------------------------------
+
+def stack_requests(b, B: int):
+    """B requests' measurements: instance i's are b·(1 + 0.02·i) (the JAX
+    package's batch tests' recipe, tests/unit/test_micro_batch.py)."""
+    return torch.stack([b * (1.0 + 0.02 * i) for i in range(B)])
+
+
+def identical(batch, singles) -> bool:
+    """Every instance of a batched output equal, field by field, to its
+    own single launch."""
+    return all(b is None or torch.equal(a[i], b)
+               for i, one in enumerate(singles) for a, b in zip(batch, one))
+
+
+def prefix_ok(out, i, ref) -> tuple:
+    """Phase 4's prefix checks of instance i of a batched output against a
+    plain run: (first 10 taus' max rel, residuals allclose(1e-3, 1e-6),
+    backtracks equal)."""
+    k = min(int(out.iteration_count[i]), int(ref.iteration_count), 10)
+    tau_err = float(((out.taus[i, :k] - ref.taus[:k]).abs()
+                     / ref.taus[:k]).max())
+    res = torch.allclose(out.residuals[i, :k], ref.residuals[:k], rtol=1e-3,
+                         atol=1e-6)
+    return tau_err, res, torch.equal(out.backtracks[i, :k], ref.backtracks[:k])
+
+
+def phase_shrink_step() -> dict:
+    """K-B4 against its plain version on the same seeded rows, a τ and a μ
+    per row: x₁ bit for bit (both round each operation alike: the _rn
+    intrinsics), the float64 sums within rtol 1e-10 (their order), the
+    same sums on a second call (no atomics), and a NaN carried into x₁ and
+    every sum.  Call time (median of 20) and stream time (20 back-to-back
+    calls) at 1×2000 (a trial of the LASSO loop), 32×2000 (a trial of the
+    serving batch loop) and 1×2²⁴ (streaming), against the bound of 12
+    bytes per entry (x₀ and g read, x₁ written) over 3.35 TB/s."""
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    worst, ms = 0.0, {}
+    for R, n in ((1, 2000), (1, 128), (1, 100), (32, 2000), (1, 1 << 24)):
+        x0 = torch.randn((R, n), generator=gen, device=DEV)
+        g = torch.randn((R, n), generator=gen, device=DEV)
+        tau = torch.rand(R, generator=gen, device=DEV) + 0.05
+        mu = torch.rand(R, generator=gen, device=DEV)
+        out = prox_fused.fused_shrink_step(x0, g, tau, mu)
+        ref = prox_fused.shrink_step_reference(x0, g, tau, mu)
+        again = prox_fused.fused_shrink_step(x0, g, tau, mu)
+        torch.cuda.synchronize()
+        err = float((out[0] - ref[0]).abs().max())
+        rel = max(float(((a - b).abs() / b.abs()).max())
+                  for a, b in zip(out[1:], ref[1:]))
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        line = (f"[18 K-B4 {R}x{n}] max|dx1| {err:.1e} (tol 0: bit for bit); "
+                f"sums max rel {rel:.2e} (tol 1e-10); second call equal "
+                f"{same}")
+        require(err == 0.0 and rel <= 1e-10 and same,
+                f"K-B4 {R}x{n} disagrees with its plain version")
+        worst = max(worst, err)
+        if n in (2000, 1 << 24):
+            kernel_fn = lambda: prox_fused.fused_shrink_step(  # noqa: E731
+                x0, g, tau, mu)
+            plain_fn = lambda: prox_fused.shrink_step_reference(  # noqa: E731
+                x0, g, tau, mu)
+            kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
+            ks, ps = stream_ms(kernel_fn), stream_ms(plain_fn)
+            bd = bound(12.0 * R * n, 16.0 * R * n)
+            line += (f"; call, median of 20: kernel {kern:.4f} ms, plain "
+                     f"{plain:.4f} ms; stream time, 20 back-to-back calls: "
+                     f"kernel {ks:.4f} ms, plain {ps:.4f} ms; "
+                     f"{12.0 * R * n / ks / 1e6:.1f} GB/s of stream time; "
+                     f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+            ms[(R, n)] = (kern, plain, ks, ps, bd["bound_ms"])
+        print(line)
+        del x0, g
+    x0 = torch.randn(2000, generator=gen, device=DEV)
+    x0[700] = float("nan")
+    g = torch.randn(2000, generator=gen, device=DEV)
+    out = prox_fused.fused_shrink_step(x0, g, 0.3, 0.5)
+    ref = prox_fused.shrink_step_reference(x0, g, 0.3, 0.5)
+    nan_ok = (bool(torch.isnan(out[0][700]))
+              and torch.equal(torch.isnan(out[0]), torch.isnan(ref[0]))
+              and all(bool(torch.isnan(s)) for s in out[1:]))
+    print(f"[18 K-B4] a NaN entry stays NaN in x1 and in the three sums: "
+          f"{nan_ok}")
+    require(nan_ok, "K-B4 dropped a NaN")
+    main, one, big = ms[(32, 2000)], ms[(1, 2000)], ms[(1, 1 << 24)]
+    return dict(max_abs_err=worst, ms=main[0], plain_ms=main[1],
+                **bound(12.0 * 32 * 2000, 16.0 * 32 * 2000), library_ms=None,
+                shape="32x2000 (a batch-loop trial), call time",
+                stream_ms=main[2], plain_stream_ms=main[3],
+                ms_1x2000=one[0], plain_ms_1x2000=one[1],
+                stream_ms_1x2000=one[2], plain_stream_ms_1x2000=one[3],
+                bound_ms_1x2000=one[4], stream_ms_1x2pow24=big[2],
+                plain_stream_ms_1x2pow24=big[3], bound_ms_1x2pow24=big[4])
+
+
+def phase_batch_dense() -> dict:
+    """K-B1b on LASSO 1000×2000, 32 instances (b·(1 + 0.02·i), τ₀ 0.05,
+    0.075 or 0.1 by i mod 3), adaptive and FISTA (restart_dd), hp, tol
+    1e-6: every instance bit-identical (x, records, count, status) to a
+    separate K-B1 launch; the first and the last instance against the
+    plain batch with phase 4's tolerances (status, counts within 2, the
+    first 10 taus rtol 1e-3, residuals and backtracks) and the float64
+    objective within 1e-5."""
+    prob = problems.build("lasso", device=DEV)
+    A, x0, inst = prob.op.A, prob.x0, prob.instance
+    B = 32
+    bs = stack_requests(prob.fterm.b, B)
+    t0s = torch.tensor([0.05 * (1.0 + (i % 3) / 2.0) for i in range(B)],
+                       device=DEV)
+    timed, worst = {}, 0.0
+    for accelerate in (False, True):
+        kw = dict(max_iters=5000, tol=1e-6, hp=True, accelerate=accelerate,
+                  restart_dd=True, record_bts=True)
+        out = microsolver.microsolve_lasso_batch(A, bs, x0, t0s, 0.1, **kw)
+        singles = [microsolver.microsolve_lasso(A, bs[i], x0, float(t0s[i]),
+                                                0.1, **kw) for i in range(B)]
+        same = identical(out, singles)
+        t0 = time.perf_counter()
+        ref = microsolver.microsolve_lasso_batch_reference(A, bs, x0, t0s, 0.1,
+                                                           **kw)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        kern = cuda_ms(lambda: microsolver.microsolve_lasso_batch(
+            A, bs, x0, t0s, 0.1, **kw), 5, warmup=1)
+        sep = cuda_ms(lambda: [microsolver.microsolve_lasso(
+            A, bs[i], x0, float(t0s[i]), 0.1, **kw) for i in range(B)], 3,
+            warmup=1)
+        mode = "FISTA" if accelerate else "adaptive"
+        ks = out.iteration_count.tolist()
+        ok = same
+        for i in (0, B - 1):
+            one = ref._replace(**{f: None if getattr(ref, f) is None
+                                  else getattr(ref, f)[i]
+                                  for f in ref._fields})
+            tau_err, res_ok, bt_ok = prefix_ok(out, i, one)
+            f1 = lasso_objective(A, bs[i], out.x[i])
+            f2 = lasso_objective(A, bs[i], one.x)
+            rel = abs(f1 - f2) / abs(f2)
+            worst = max(worst, float((out.x[i] - one.x).abs().max()))
+            k1, k2 = ks[i], int(one.iteration_count)
+            good = (int(out.halt[i]) == int(one.halt) == 1 and abs(k1 - k2) <= 2
+                    and tau_err <= 1e-3 and res_ok and bt_ok and rel <= 1e-5)
+            print(f"[19 K-B1b {mode} instance {i}] iterations kernel {k1} "
+                  f"plain {k2}; taus[:10] max rel {tau_err:.2e} (tol 1e-3); "
+                  f"residuals allclose {res_ok}; backtracks equal {bt_ok}; "
+                  f"objective rel {rel:.2e} (tol 1e-5): {good}")
+            ok &= good
+        print(f"[19 K-B1b {mode}] {B} instances, iterations {min(ks)}-"
+              f"{max(ks)} (total {sum(ks)}); each bit-identical to its own "
+              f"K-B1 launch: {same}; one K-B1b launch {kern:.3f} ms (median "
+              f"of 5, {kern / B:.3f} ms per instance), {B} K-B1 launches "
+              f"{sep:.3f} ms (median of 3), plain batch on the card "
+              f"{plain:.3f} ms (one run)")
+        require(ok, f"K-B1b {mode} disagrees with its separate launches or "
+                f"its plain version")
+        timed[accelerate] = (kern, plain, sep, trials(out))
+    kern, plain, sep, (tried, k) = timed[False]
+    m, n = A.shape
+    # A, the B measurement vectors, x₀ and the τ₀s in; each instance's x
+    # and the k entries of taus, residuals and backtracks out
+    return dict(max_abs_err=worst, ms=kern, plain_ms=plain,
+                **bound(4.0 * (m * n + B * m + n + B + B * n + 3 * k),
+                        dense_flops(m, n, tried, k, B, False)),
+                hbm_state_ms=k * dense_iteration_bytes(m, n)
+                / HBM_BYTES_PER_S * 1e3,
+                library_ms=None, instances=B, iterations=k, trials=tried,
+                separate_launches_ms=sep, ms_fista=timed[True][0],
+                plain_ms_fista=timed[True][1],
+                separate_launches_ms_fista=timed[True][2])
+
+
+def lasso_objective(A, b, x) -> float:
+    """½‖Ax − b‖² + 0.1‖x‖₁ in float64 on the card."""
+    x = x.double()
+    r = A.double() @ x - b.double()
+    return float(0.5 * (r @ r) + 0.1 * x.abs().sum())
+
+
+def phase_batch_tv() -> dict:
+    """K-B6b on TV 512×512, 8 images (b·(1 + 0.02·i)), hp, tol 1e-5,
+    adaptive and FISTA: every image bit-identical to a separate K-B6
+    launch; the first image against the plain version with phase 11's
+    checks (status, the first 10 taus rtol 1e-3, residuals, backtracks,
+    the float64 dual objective within 1e-5)."""
+    prob = problems.build("tv", device=DEV)
+    b, p0, mu = prob.fterm.b, prob.x0, 0.1
+    B = 8
+    bs = stack_requests(b, B)
+    timed, worst = {}, 0.0
+    for accelerate in (False, True):
+        kw = dict(max_iters=5000, tol=1e-5, accelerate=accelerate,
+                  record_bts=True)
+        out = microsolver_tv.microsolve_tv_batch(bs, p0, 2.0, mu, **kw)
+        singles = [microsolver_tv.microsolve_tv(bs[i], p0, 2.0, mu, **kw)
+                   for i in range(B)]
+        same = identical(out, singles)
+        t0 = time.perf_counter()
+        ref = microsolver_tv.microsolve_tv_reference(bs[0], p0, 2.0, mu, **kw)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        kern = cuda_ms(lambda: microsolver_tv.microsolve_tv_batch(
+            bs, p0, 2.0, mu, **kw), 3, warmup=1)
+        sep = cuda_ms(lambda: [microsolver_tv.microsolve_tv(
+            bs[i], p0, 2.0, mu, **kw) for i in range(B)], 1, warmup=0)
+        tau_err, res_ok, bt_ok = prefix_ok(out, 0, ref)
+        f1 = tv_objective(bs[0], mu, out.x[0])
+        f2 = tv_objective(bs[0], mu, ref.x)
+        rel = abs(f1 - f2) / abs(f2)
+        img = tv_image_err(bs[0], mu, out.x[0], ref.x)
+        ks = out.iteration_count.tolist()
+        mode = "FISTA" if accelerate else "adaptive"
+        good = (int(out.halt[0]) == int(ref.halt) == 1 and tau_err <= 1e-3
+                and res_ok and bt_ok and rel <= 1e-5)
+        print(f"[20 K-B6b {mode}] {B} images, iterations {ks}; each "
+              f"bit-identical to its own K-B6 launch: {same}; image 0 against "
+              f"the plain version: iterations {ks[0]} vs "
+              f"{int(ref.iteration_count)}, taus[:10] max rel {tau_err:.2e}, "
+              f"residuals {res_ok}, backtracks {bt_ok}, objective rel "
+              f"{rel:.2e} (tol 1e-5), image max|dx| {img:.2e}: {good}; one "
+              f"K-B6b launch {kern:.3f} ms (median of 3, {kern / B:.3f} ms "
+              f"per image), {B} K-B6 launches {sep:.3f} ms, plain image 0 "
+              f"{plain:.3f} ms (one run)")
+        require(same and good, f"K-B6b {mode} disagrees with its separate "
+                f"launches or its plain version")
+        worst = max(worst, img)
+        timed[accelerate] = (kern, plain, sep, trials(out))
+    kern, plain, sep, (tried, k) = timed[False]
+    h = w = 512
+    # the 8 images, p₀ and τ₀ in; each image's p and the k entries of
+    # taus, residuals and backtracks out
+    return dict(max_abs_err=worst, ms=kern, plain_ms=plain,
+                plain_ms_covers="image 0 of 8 (the plain loop takes ~3 s "
+                "per image)",
+                **bound(4.0 * (B * h * w + 2 * h * w + 1 + B * 2 * h * w
+                               + 3 * k),
+                        tv_flops(h, w, tried, k, B, False)),
+                hbm_state_ms=k * tv_iteration_bytes(h, w, False)
+                / HBM_BYTES_PER_S * 1e3,
+                library_ms=None, instances=B, iterations=k, trials=tried,
+                separate_launches_ms=sep, ms_fista=timed[True][0],
+                plain_ms_fista=timed[True][1],
+                separate_launches_ms_fista=timed[True][2])
+
+
+def phase_batch_planar() -> dict:
+    """K-B8b on planar phase retrieval 16384×256, 16 instances (b·(1 +
+    0.02·i), τ₀ 1.0, 1.5 or 2.0 by i mod 3), hp, tol 1e-5, adaptive and
+    FISTA (restart_dd): every instance bit-identical to a separate K-B8
+    launch; the first and the last against the plain batch with phase 16's
+    checks (status, the first 10 taus rtol 1e-3, residuals, backtracks,
+    the float64 objective within 1e-6)."""
+    prob = problems.build("phase_retrieval", planar=True, device=DEV)
+    Ar, Ai, b, c, x0 = (prob.op.Ar, prob.op.Ai, prob.fterm.b, prob.gterm.c,
+                        prob.x0)
+    inst = prob.instance
+    A, bm, cc = inst["A"], inst["b"], inst["delta"] * inst["x0_hat"]
+    B = 16
+    bs = stack_requests(b, B)
+    t0s = torch.tensor([1.0 + (i % 3) / 2.0 for i in range(B)], device=DEV)
+    timed, worst = {}, 0.0
+    for accelerate in (False, True):
+        kw = dict(max_iters=2000, tol=1e-5, hp=True, accelerate=accelerate,
+                  restart_dd=True, record_bts=True)
+        out = microsolver_planar.microsolve_planar_phasemax_batch(
+            Ar, Ai, bs, c, x0, t0s, **kw)
+        singles = [microsolver_planar.microsolve_planar_phasemax(
+            Ar, Ai, bs[i], c, x0, float(t0s[i]), **kw) for i in range(B)]
+        same = identical(out, singles)
+        t0 = time.perf_counter()
+        ref = microsolver_planar.microsolve_planar_phasemax_batch_reference(
+            Ar, Ai, bs, c, x0, t0s, **kw)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        kern = cuda_ms(lambda: microsolver_planar.microsolve_planar_phasemax_batch(
+            Ar, Ai, bs, c, x0, t0s, **kw), 3, warmup=1)
+        sep = cuda_ms(lambda: [microsolver_planar.microsolve_planar_phasemax(
+            Ar, Ai, bs[i], c, x0, float(t0s[i]), **kw) for i in range(B)], 3,
+            warmup=1)
+        mode = "FISTA" if accelerate else "adaptive"
+        ks = out.iteration_count.tolist()
+        ok = same
+        for i in (0, B - 1):
+            one = ref._replace(**{f: None if getattr(ref, f) is None
+                                  else getattr(ref, f)[i]
+                                  for f in ref._fields})
+            tau_err, res_ok, bt_ok = prefix_ok(out, i, one)
+            scale = 1.0 + 0.02 * i
+            f1 = phase_objective(A, bm * scale, cc, planar_complex(out.x[i]))
+            f2 = phase_objective(A, bm * scale, cc, planar_complex(one.x))
+            rel = abs(f1 - f2) / abs(f2)
+            worst = max(worst, float((out.x[i] - one.x).abs().max()))
+            good = (int(out.halt[i]) == int(one.halt) == 1 and tau_err <= 1e-3
+                    and res_ok and bt_ok and rel <= 1e-6)
+            print(f"[21 K-B8b {mode} instance {i}] iterations kernel {ks[i]} "
+                  f"plain {int(one.iteration_count)}; taus[:10] max rel "
+                  f"{tau_err:.2e} (tol 1e-3); residuals {res_ok}; backtracks "
+                  f"{bt_ok}; objective rel {rel:.2e} (tol 1e-6): {good}")
+            ok &= good
+        print(f"[21 K-B8b {mode}] {B} instances, iterations {min(ks)}-"
+              f"{max(ks)} (total {sum(ks)}); each bit-identical to its own "
+              f"K-B8 launch: {same}; one K-B8b launch {kern:.3f} ms (median "
+              f"of 3, {kern / B:.3f} ms per instance), {B} K-B8 launches "
+              f"{sep:.3f} ms (median of 3), plain batch on the card "
+              f"{plain:.3f} ms (one run)")
+        require(ok, f"K-B8b {mode} disagrees with its separate launches or "
+                f"its plain version")
+        timed[accelerate] = (kern, plain, sep, trials(out))
+    kern, plain, sep, (tried, k) = timed[False]
+    m, n = 16384, 256
+    # Ar, Ai, the B magnitude vectors, c, x₀ and the τ₀s in; each
+    # instance's x and the k entries of taus, residuals and backtracks out
+    return dict(max_abs_err=worst, ms=kern, plain_ms=plain,
+                **bound(4.0 * (2 * m * n + B * m + 2 * n + 2 * n + B
+                               + B * 2 * n + 3 * k),
+                        planar_flops(m, n, tried, k, False)
+                        + (B - 1) * (16.0 * m * n + 10 * m)),
+                hbm_state_ms=tried * 2.0 * m * n * 4 / HBM_BYTES_PER_S * 1e3,
+                library_ms=None, instances=B, iterations=k, trials=tried,
+                separate_launches_ms=sep, ms_fista=timed[True][0],
+                plain_ms_fista=timed[True][1],
+                separate_launches_ms_fista=timed[True][2])
+
+
+# The plain versions of the serving path's kernels, counted during phase
+# 22 by wrapping the module attributes the wrappers call.
+PLAIN = {"K-B4": (prox_fused, "shrink_step_reference"),
+         "K-B1b": (microsolver, "microsolve_lasso_batch_reference"),
+         "K-B6b": (microsolver_tv, "microsolve_tv_batch_reference"),
+         "K-B8b": (microsolver_planar,
+                   "microsolve_planar_phasemax_batch_reference"),
+         "K-B1": (microsolver, "microsolve_lasso_reference"),
+         "K-B6": (microsolver_tv, "microsolve_tv_reference")}
+
+
+@contextlib.contextmanager
+def counting_plain():
+    counts = dict.fromkeys(PLAIN, 0)
+    saved = {k: getattr(mod, name) for k, (mod, name) in PLAIN.items()}
+
+    def counted(k):
+        def fn(*a, **kw):
+            counts[k] += 1
+            return saved[k](*a, **kw)
+        return fn
+
+    for k, (mod, name) in PLAIN.items():
+        setattr(mod, name, counted(k))
+    try:
+        yield counts
+    finally:
+        for k, (mod, name) in PLAIN.items():
+            setattr(mod, name, saved[k])
+
+
+def wall_ms(fn) -> float:
+    """Host wall time of ``fn`` to its last result on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_serving() -> dict:
+    """The serving path through ``recommend_path(...).run(bs)`` and
+    ``Problem.solve_serving`` on every configuration of the slice, at full
+    width on the card: TV 512×512 × 8 images (τ₀ 2.0, tol 1e-5), LASSO
+    1000×2000 × 32 right-hand sides (τ₀ 0.05, tol 1e-6) and planar phase
+    retrieval 16384×256 × 16 measurement vectors (τ₀ 1.0, tol 1e-5), each
+    batch request and one request of each; ``Problem.microsolve_batch``
+    on LASSO and planar; LASSO with ``need_full_diagnostics``.  Held: the
+    route of each; through the launch counters, that K-B4, K-B1b, K-B6b
+    and K-B8b (and K-B1, K-B6, K-B8, K-B3) ran and that no plain version
+    of the four did; the objectives of the first and last instance of
+    each batch (and of each single request) within rtol 1e-5 of the
+    float64 reference's (LASSO and phase retrieval: the NumPy oracle; TV:
+    the port's float64 loop, its recovered image within rel 1e-3); each
+    batch-loop lane within rtol 1e-6 in objective of a separate
+    ``Problem.solve_device``.  Then the wall time per instance of each
+    route, a batch of B against B separate calls, for both batch routes
+    at each configuration (TV at a fixed 300 iterations, the others to
+    tolerance)."""
+    lasso = problems.build("lasso", device=DEV)
+    lasso.tau0 = 0.05
+    tv = problems.build("tv", device=DEV)
+    tv.tau0 = 2.0
+    pr = problems.build("phase_retrieval", planar=True, device=DEV)
+    pr.tau0 = 1.0
+    sizes = {"tv": 8, "lasso": 32, "pr": 16}
+    probs = {"tv": tv, "lasso": lasso, "pr": pr}
+    data = {"tv": tv.fterm.b, "lasso": lasso.fterm.b, "pr": pr.fterm.b}
+    reqs = {k: stack_requests(data[k], sizes[k]) for k in probs}
+    kernel_kw = {"tv": dict(max_iters=5000, tol=1e-5),
+                 "lasso": dict(max_iters=5000, tol=1e-6),
+                 "pr": dict(max_iters=2000, tol=1e-5, hp=True)}
+    loop_opts = {"tv": ftt.FastaOptions(tol=1e-5, max_iters=5000),
+                 "lasso": ftt.FastaOptions(tol=1e-6, max_iters=5000),
+                 "pr": ftt.FastaOptions(tol=1e-5, max_iters=2000)}
+    routes = {"tv": "microsolve_batch", "lasso": "batch_solver",
+              "pr": "batch_solver"}
+
+    # the float64 references of the first and last instance of each batch
+    # (instance 0's measurements are the problem's own: phases 13 and 17
+    # computed its TV and phase-retrieval references)
+    refs = {}
+    t0 = time.perf_counter()
+    linst = lasso.instance
+    for i in (0, sizes["lasso"] - 1):
+        bi = linst["b"] * (1.0 + 0.02 * i)
+        o = fasta_np(linst["op"], None, lambda d, bi=bi: 0.5 * np.sum(
+            (d - bi) ** 2), lambda d, bi=bi: d - bi, linst["g"],
+            linst["proxg"], linst["x0"], tau0=0.05, tol=1e-10,
+            max_iters=20000)
+        refs[("lasso", i)] = lasso_objective(
+            lasso.op.A, reqs["lasso"][i], torch.as_tensor(o.solution,
+                                                          device=DEV))
+    tv_last = sizes["tv"] - 1
+    ref_prob = problems.build("tv", dtype=torch.float64, device=DEV)
+    refs[("tv", 0)] = REFS["tv"]
+    b_last = ref_prob.fterm.b * (1.0 + 0.02 * tv_last)
+    r64 = ref_prob.with_parts(fterm=ftt.LeastSquares(b_last)).solve(
+        tau0=2.0, tol=1e-7, max_iters=30000)
+    require(r64.converged, "the float64 TV reference did not converge")
+    p64 = torch.as_tensor(r64.solution, device=DEV)
+    refs[("tv", tv_last)] = (tv_objective(b_last, 0.1, p64),
+                             b_last - 0.1 * ftt.TVDiv2D()(p64))
+    pinst = pr.instance
+    A_c, bm, cc = pinst["A"], pinst["b"], pinst["delta"] * pinst["x0_hat"]
+    refs[("pr", 0)] = REFS["pr"]
+    i = sizes["pr"] - 1
+    bi = bm * (1.0 + 0.02 * i)
+
+    def hinge_f(d, bi=bi):
+        r = np.maximum(np.abs(d) - bi, 0.0)
+        return 0.5 * float(np.sum(r * r))
+
+    def hinge_g(d, bi=bi):
+        mag = np.abs(d)
+        return np.maximum(mag - bi, 0.0) * d / np.maximum(mag, 1e-30)
+
+    o = fasta_np(pinst["op"], None, hinge_f, hinge_g, pinst["g"],
+                 pinst["proxg"], pinst["x0"], tau0=1.0, tol=1e-8,
+                 max_iters=5000)
+    require(o.converged, "the float64 phase-retrieval oracle did not "
+            "converge")
+    refs[("pr", i)] = phase_objective(A_c, bi, cc, np.asarray(o.solution))
+    print(f"[22 serving] float64 references of the first and last instance "
+          f"of each batch in {time.perf_counter() - t0:.1f} s (the TV "
+          f"reference: {r64.iteration_count} iterations of the port's float64 "
+          f"loop on the card)")
+
+    def objective(name, i, x) -> float:
+        scale = 1.0 + 0.02 * i
+        if name == "lasso":
+            return lasso_objective(lasso.op.A, reqs["lasso"][i], x)
+        if name == "tv":
+            return tv_objective(reqs["tv"][i], 0.1, x)
+        return phase_objective(A_c, bm * scale, cc, planar_complex(x))
+
+    with counting_plain() as plain_calls:
+        reset_launches()
+        runs = []       # (config, what, result, instances)
+        for name, p in probs.items():
+            plan = ftt.recommend_path(p, sizes[name])
+            print(f"[22 serving {name} x {sizes[name]}] route {plan.path}: "
+                  f"{plan.reason}")
+            require(plan.path == routes[name], f"{name}: route {plan.path}")
+            kw = (kernel_kw[name] if plan.path == "microsolve_batch"
+                  else dict(options=loop_opts[name]))
+            runs.append((name, "recommend_path.run", plan.run(reqs[name],
+                                                              **kw)))
+            runs.append((name, "solve_serving", p.solve_serving(reqs[name],
+                                                                **kw)))
+            if name != "tv":
+                runs.append((name, "microsolve_batch", p.microsolve_batch(
+                    reqs[name], **kernel_kw[name])))
+            plan1 = ftt.recommend_path(p, 1)
+            require(plan1.path == "microsolve", f"{name} single: route "
+                    f"{plan1.path}")
+            runs.append((name, "one request", p.solve_serving(
+                **kernel_kw[name])))
+        diag = ftt.recommend_path(lasso, 1, need_full_diagnostics=True)
+        require(diag.path == "loop", f"full diagnostics: route {diag.path}")
+        runs.append(("lasso", "one request, full diagnostics",
+                     lasso.solve_serving(need_full_diagnostics=True,
+                                         tol=1e-6, max_iters=5000)))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    plain = dict(plain_calls)
+
+    worst = 0.0
+    for name, what, r in runs:
+        if isinstance(r, ftt.MicroBatchResult):
+            xs, ok = r.solutions, bool(r.converged.all())
+            ks = r.iteration_counts.tolist()
+        elif isinstance(r, ftt.DeviceResult):
+            xs, ok = r.solution, bool(r.converged.all())
+            ks = r.iteration_count.tolist()
+        else:
+            xs = torch.as_tensor(r.solution, device=DEV)[None]
+            ok, ks = bool(r.converged), [r.iteration_count]
+        line = []
+        for i in ((0, sizes[name] - 1) if xs.shape[0] > 1 else (0,)):
+            ref = refs[(name, i)]
+            f = objective(name, i, xs[i])
+            goal = ref[0] if name == "tv" else ref
+            rel = abs(f - goal) / abs(goal)
+            worst = max(worst, rel)
+            good = rel <= 1e-5
+            if name == "tv":
+                img = reqs["tv"][i].double() - 0.1 * ftt.TVDiv2D()(
+                    xs[i].double())
+                x_rel = float(torch.linalg.norm(img - ref[1])
+                              / torch.linalg.norm(ref[1]))
+                good &= x_rel <= 1e-3
+                line.append(f"instance {i} objective rel {rel:.2e}, image "
+                            f"rel {x_rel:.2e}")
+            else:
+                line.append(f"instance {i} objective rel {rel:.2e}")
+            require(good, f"{name} {what}: instance {i} disagrees with the "
+                    f"float64 reference")
+        print(f"[22 serving {name}] {what}: converged={ok}, iterations "
+              f"{min(ks)}-{max(ks)}; {'; '.join(line)} (tol 1e-5)")
+        require(ok, f"{name} {what} did not converge")
+
+    # each batch-loop lane against a separate loop solve
+    for name in ("lasso", "pr"):
+        r = next(r for n, w, r in runs if n == name
+                 and w == "recommend_path.run")
+        p = probs[name]
+        rel = 0.0
+        for i in range(sizes[name]):
+            one = p.with_parts(fterm=type(p.fterm)(reqs[name][i])) \
+                .solve_device(loop_opts[name])
+            f1, f2 = objective(name, i, r.solution[i]), objective(
+                name, i, one.solution)
+            rel = max(rel, abs(f1 - f2) / abs(f2))
+        print(f"[22 serving {name}] batch-loop lanes against "
+              f"{sizes[name]} separate Problem.solve_device: objective max "
+              f"rel {rel:.2e} (tol 1e-6)")
+        require(rel <= 1e-6, f"{name}: a batch-loop lane disagrees with its "
+                f"separate solve")
+
+    print(f"[22 serving] launches during the main path: {launches}; plain "
+          f"versions called: {plain}")
+    for kernel in ("K-B4", "K-B1b", "K-B6b", "K-B8b", "K-B1", "K-B6", "K-B8",
+                   "K-B3"):
+        require(launches[kernel] >= 1, f"{kernel} never launched on the "
+                f"serving path: {launches}")
+    require(not any(plain.values()), f"a plain version ran on the serving "
+            f"path: {plain}")
+
+    # M5: a batch of B against B separate calls, both batch routes
+    m5 = {}
+    fixed = dict(max_iters=300, tol=0.0, stop_rule="iterations")
+    for name, p in probs.items():
+        B = sizes[name]
+        kkw = dict(fixed) if name == "tv" else kernel_kw[name]
+        opts = (ftt.FastaOptions(**fixed) if name == "tv"
+                else loop_opts[name])
+        solve = ftt.make_batch_solver(opts, (None, 0, None, None, None))
+        one = [p.with_parts(fterm=type(p.fterm)(reqs[name][i]))
+               for i in range(B)]
+        t = {"microsolve_batch": wall_ms(lambda: p.microsolve_batch(
+                 reqs[name], **kkw)),
+             "microsolve x B": wall_ms(lambda: [q.microsolve(**kkw)
+                                                for q in one]),
+             "batch_solver": wall_ms(lambda: solve(
+                 p.op, type(p.fterm)(reqs[name]), p.gterm, p.x0, p.tau0)),
+             "solve_device x B": wall_ms(lambda: [q.solve_device(opts)
+                                                  for q in one])}
+        m5[name] = {k: v / B for k, v in t.items()}
+        how = "300 iterations" if name == "tv" else "to tolerance"
+        print(f"[22 serving M5 {name} x {B}, {how}] ms per instance: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in m5[name].items()))
+    return dict(launches=launches, m5=m5, worst_rel=worst)
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -1464,7 +2075,13 @@ def main() -> None:
     p5 = phase_planar_probe()
     b8 = phase_planar_microsolver()
     pr = phase_pr_main_path()
-    launches = {k: lasso[k] + dense[k] + tv[k] + pr[k] for k in lasso}
+    b4 = phase_shrink_step()
+    b1b = phase_batch_dense()
+    b6b = phase_batch_tv()
+    b8b = phase_batch_planar()
+    serving = phase_serving()
+    launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
+                + serving["launches"][k] for k in lasso}
     launches["K-P5"] = p5.pop("launches_timed")
     kernels = [
         dict(name="K-B3 fused_lstsq_gradmap", route="cuda",
@@ -1507,6 +2124,25 @@ def main() -> None:
              route="cuda", source="fasta_tpu_torch/csrc/planar_probe.cu",
              replaces="benchmarks/planar_matvec_probe.py:314",
              launches=launches["K-P5"], **p5),
+        dict(name="K-B4 fused_shrink_step", route="cuda",
+             source="fasta_tpu_torch/csrc/prox_fused.cu",
+             replaces="fasta_tpu/kernels/prox_fused.py:101",
+             launches=launches["K-B4"], **b4),
+        dict(name="K-B1b microsolve_lasso_batch", route="cuda",
+             source="fasta_tpu_torch/csrc/microsolver.cu",
+             replaces="fasta_tpu/kernels/microsolver.py:810 under vmap, "
+                      "fasta_tpu/micro.py:435",
+             launches=launches["K-B1b"], **b1b),
+        dict(name="K-B6b microsolve_tv_batch", route="cuda",
+             source="fasta_tpu_torch/csrc/microsolver_tv.cu",
+             replaces="fasta_tpu/kernels/microsolver_tv.py:607 under vmap, "
+                      "fasta_tpu/micro.py:435",
+             launches=launches["K-B6b"], **b6b),
+        dict(name="K-B8b microsolve_planar_phasemax_batch", route="cuda",
+             source="fasta_tpu_torch/csrc/microsolver_planar.cu",
+             replaces="fasta_tpu/kernels/microsolver_planar.py:669 under "
+                      "vmap, fasta_tpu/micro.py:435",
+             launches=launches["K-B8b"], **b8b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

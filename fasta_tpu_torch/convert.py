@@ -143,9 +143,10 @@ def _tv_recover(b: np.ndarray, mu: float):
 
 
 def result_to_numpy(result) -> dict:
-    """A result (``FastaResult``, ``DeviceResult``, ``MicroResult`` or a
-    kernel's ``MicrosolveOutput``) as a dict of NumPy arrays and Python
-    scalars, field by field."""
+    """A result (``FastaResult``, ``DeviceResult`` — of one solve or of a
+    batch — ``MicroResult``, ``MicroBatchResult`` or a kernel's
+    ``MicrosolveOutput``) as a dict of NumPy arrays and Python scalars,
+    field by field; a batch's per-instance lists stay lists of arrays."""
     if dataclasses.is_dataclass(result):
         fields = {f.name: getattr(result, f.name)
                   for f in dataclasses.fields(result)}
@@ -155,6 +156,8 @@ def result_to_numpy(result) -> dict:
     def host(v):
         if isinstance(v, torch.Tensor):
             return v.detach().cpu().numpy()
+        if isinstance(v, list):
+            return [host(e) for e in v]
         return v
 
     return {k: host(v) for k, v in fields.items()}

@@ -33,7 +33,8 @@ enum Slot { kNd2, kBtDot, kNg2, kNsm2, kF, kBbDot, kNdg2, kGx, kRdot, kFn, kSlot
 constexpr int kCommon = kGx;
 constexpr int kReduced = kFn;  // the slots the decision reads
 // the FP64 scratch of a launch over nblocks: the partials of a path
-// point's start and of two trials (double-buffered by parity)
+// point's start and of two trials (double-buffered by parity); every
+// point overwrites them, so a batch reuses one scratch
 constexpr size_t work_doubles(int nblocks) { return 3 * (size_t)kSlots * nblocks; }
 // the cancellation-prone common slots, which sum in Acc; the others in float
 __host__ __device__ constexpr bool acc_slot(int s) { return s == kBtDot || s == kF || s == kBbDot; }
@@ -46,6 +47,27 @@ enum Flag { kHp = 1, kAccel = 2, kRestart = 4, kRestartDd = 8, kWarm = 16 };
 struct Control {
   int max_iters, window, max_backtracks, stop_rule, restart;
   float tol, shrink;
+};
+
+// Where each point of a launch (a path point or a batch instance) finds
+// its data: point p's measurements at b + p·b_stride, its cold start at
+// x0 + p·x0_stride, its weight at mus[p·mu_stride] and its τ₀ at
+// tau0s[p], or tau0 when tau0s is null.  A stride of 0 shares one datum
+// among the points: a weight path shares b and x₀, a batch μ.
+struct Points {
+  const float* b;
+  const float* x0;
+  const float* mus;
+  const float* tau0s;
+  long long b_stride, x0_stride;
+  int mu_stride;
+  float tau0;
+  __device__ __forceinline__ const float* b_at(int p) const { return b + p * b_stride; }
+  __device__ __forceinline__ const float* x0_at(int p) const { return x0 + p * x0_stride; }
+  __device__ __forceinline__ float mu_at(int p) const { return __ldg(mus + p * mu_stride); }
+  __device__ __forceinline__ float tau0_at(int p) const {
+    return tau0s ? __ldg(tau0s + p) : tau0;
+  }
 };
 
 // per-iteration records, (npath, max_iters) each; all but taus and res

@@ -2,13 +2,16 @@
 //     min f(A x) + g(x),   A dense real float32,
 // f ∈ {½‖·−b‖², Σlog(1+exp(·))−bᵀ·, ½Σmax(0,1−b⊙·)²} (losses.cuh) and
 // g ∈ {μ‖·‖₁, indicator{x ≥ 0}, indicator{−1 ≤ x ≤ 1}, (μ/2)‖·‖²}, in
-// adaptive (BB) or FISTA mode, for one weight μ (K-B1) or a path of
-// weights, warm or cold (K-B1p).
+// adaptive (BB) or FISTA mode, for one weight μ (K-B1), a path of
+// weights, warm or cold (K-B1p), or a batch of instances sharing A, each
+// with its own b, x₀ and τ₀ (K-B1b).
 //
 // Replaces: fasta_tpu/kernels/microsolver.py, microsolve_lasso and
 // microsolve_lasso_path (body _make_kernel) — the TPU kernels that pin A
 // in VMEM and run the solver loop on one core, the path as a sequential
-// grid with the warm x/τ carry in persistent scratch.
+// grid with the warm x/τ carry in persistent scratch; K-B1b replaces
+// microsolve_lasso under jax.vmap (fasta_tpu/micro.py:435), which Pallas
+// lowers to a leading grid axis of instances.
 //
 // Bound on this card: latency.  One iteration moves A and Aᵀ once from L2
 // (16 MB at 1000×2000, which fits the 50 MB L2) and is otherwise a chain
@@ -55,6 +58,13 @@
 //    solution is its row of the output, from which point i+1 starts when
 //    the path is warm; adaptive mode also carries the last genuinely
 //    accepted τ.  A single solve is a path of one point.
+//  * K-B1b is the same loop over cold points that each take their own b,
+//    x₀ and τ₀ (Points in fbs_control.cuh; a path shares b and x₀, a
+//    batch shares μ).  Every point runs over the whole grid exactly as a
+//    single launch runs it, from state that start_point resets (window,
+//    τ, counts, halt code) and partials that each trial overwrites, so an
+//    instance is bit-identical to its own K-B1 launch, and A stays in L2
+//    from one instance to the next.
 //  * With hp, the decision scalars (f, the window, ⟨Δx,∇f⟩, ⟨Δx,Δg⟩, and
 //    with restart_dd the restart dot) accumulate in FP64 (K-B2); positive
 //    sums stay in float32.
@@ -67,6 +77,7 @@
 
 #include "fbs_control.cuh"
 #include "losses.cuh"
+#include "prox.cuh"
 #include "reduce.cuh"
 
 namespace cg = cooperative_groups;
@@ -83,9 +94,7 @@ enum Prox { kL1, kNonneg, kBox, kRidge };
 struct Args {
   const float* A;    // (m, n)
   const float* At;   // (n, m), contiguous transpose of A
-  const float* b;    // (m,) measurements or labels
-  const float* x0;   // (n,)
-  const float* mus;  // (npath,) the weight of each path point
+  Points pts;        // each point's b (m,), cold x₀ (n,), μ and τ₀
   float* x_out;      // (npath, n)
   Records rec;
   float* its;        // (npath, max_iters, n) or null
@@ -101,14 +110,7 @@ struct Args {
   Control ctl;
   int npath, m, n, pn, loss, prox;
   int rdd, warm;
-  float tau0;
 };
-
-// soft threshold z·max(|z|−t, 0)/max(|z|, 1e-30)
-__device__ __forceinline__ float shrink(float z, float t) {
-  const float mag = fabsf(z);
-  return __fmul_rn(z, __fdiv_rn(nanmax(__fsub_rn(mag, t), 0.f), nanmax(mag, 1e-30f)));
-}
 
 // the prox of g at z with t = τμ (ridge: z/(1+τλ), μ carrying λ)
 __device__ __forceinline__ float prox_eval(int prox, float z, float t) {
@@ -173,13 +175,16 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
   __syncthreads();
 
   for (int p = 0; p < a.npath; ++p) {
-    const float mu = __ldg(a.mus + p);
+    const float mu = a.pts.mu_at(p);
+    const float* bp = a.pts.b_at(p);
     const size_t rec0 = (size_t)p * a.ctl.max_iters;
     // the start: point p−1's solution when the path is warm and it ended
-    // finite; adaptive mode also takes its carried τ
-    const float* xs = (a.warm && p > 0 && carry_ok) ? a.x_out + (size_t)(p - 1) * n : a.x0;
+    // finite, else the point's own cold start; adaptive mode also takes
+    // the carried τ
+    const float* xs =
+        (a.warm && p > 0 && carry_ok) ? a.x_out + (size_t)(p - 1) * n : a.pts.x0_at(p);
     const float tau_start =
-        (a.warm && !ACCEL && p > 0 && tprev > 0.f) ? tprev : a.tau0;
+        (a.warm && !ACCEL && p > 0 && tprev > 0.f) ? tprev : a.pts.tau0_at(p);
 
     // ---- point start: d₀ = A x₀, f₀, g₀ = Aᵀ ℓ′(d₀)
     {
@@ -188,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
         const float d = row_dot(a.A + (size_t)i * n, xs, n, lane);
         if (lane == 0) {
           float w, e;
-          fasta::loss_eval(a.loss, d, __ldg(a.b + i), w, e);
+          fasta::loss_eval(a.loss, d, __ldg(bp + i), w, e);
           a.rbuf[i] = w;
           if (ACCEL) a.dacc[i] = d;
           fpart += fasta::loss_term<Acc>(a.loss, e);
@@ -277,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
           const float d = row_dot(a.A + (size_t)i * n, x1, n, lane);
           if (lane == 0) {
             float w, e;
-            fasta::loss_eval(a.loss, d, __ldg(a.b + i), w, e);
+            fasta::loss_eval(a.loss, d, __ldg(bp + i), w, e);
             if (ACCEL)
               a.dbuf[i] = d;
             else
@@ -348,7 +353,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
             const float dn = __fadd_rn(d1, __fmul_rn(beta, __fsub_rn(d1, da)));
             a.dacc[i] = d1;
             float w, e;
-            fasta::loss_eval(a.loss, dn, __ldg(a.b + i), w, e);
+            fasta::loss_eval(a.loss, dn, __ldg(bp + i), w, e);
             a.rbuf[i] = w;
             fpart += fasta::loss_term<Acc>(a.loss, e);
           }
@@ -425,12 +430,15 @@ extern "C" int fasta_fbs_work_doubles(int nblocks, int* ndoubles) {
   return cudaSuccess;
 }
 
-// Run npath solves (one per weight in mus) on `stream`; see the option
-// bits in Flag.  Outputs have a leading axis of npath.  work_f holds
+// Run npath solves on `stream`: point p takes b + p·b_stride, the cold
+// start x0 + p·x0_stride, the weight mus[p·mu_stride] and τ₀ tau0s[p]
+// (tau0 when tau0s is null); see the option bits in Flag (a warm path
+// takes strides 0 for b and x0).  Outputs have a leading axis of npath.  work_f holds
 // 5·pad4(n) + 3·pad4(m) floats, work_d fasta_fbs_work_doubles(nblocks)
 // doubles.  fvals, bts, objs, nres and its may be null.
-extern "C" int fasta_microsolve(const float* A, const float* At, const float* b,
-                                const float* x0, const float* mus, int npath, float tau0, int m,
+extern "C" int fasta_microsolve(const float* A, const float* At, const float* b, int b_stride,
+                                const float* x0, int x0_stride, const float* mus, int mu_stride,
+                                const float* tau0s, int npath, float tau0, int m,
                                 int n, int max_iters, int window, float tol, float shrink_factor,
                                 int max_backtracks, int stop_rule_code, int loss, int prox,
                                 int flags, float* x_out, float* taus, float* res, float* fvals,
@@ -439,7 +447,8 @@ extern "C" int fasta_microsolve(const float* A, const float* At, const float* b,
                                 void* stream) {
   if (m < 1 || n < 1 || npath < 1 || max_iters < 1 || window < 1 || window > kWinMax ||
       max_backtracks < 0 || stop_rule_code < kResidual || stop_rule_code > kIterations ||
-      loss < fasta::kLstsq || loss > fasta::kSquaredHinge || prox < kL1 || prox > kRidge)
+      loss < fasta::kLstsq || loss > fasta::kSquaredHinge || prox < kL1 || prox > kRidge ||
+      b_stride < 0 || x0_stride < 0 || mu_stride < 0)
     return cudaErrorInvalidValue;
   int limit = 0;
   cudaError_t err = max_blocks(&limit);
@@ -449,9 +458,7 @@ extern "C" int fasta_microsolve(const float* A, const float* At, const float* b,
   Args args{};
   args.A = A;
   args.At = At;
-  args.b = b;
-  args.x0 = x0;
-  args.mus = mus;
+  args.pts = Points{b, x0, mus, tau0s, b_stride, x0_stride, mu_stride, tau0};
   args.x_out = x_out;
   args.rec = Records{taus, res, fvals, bts, objs, nres};
   args.its = its;
@@ -474,7 +481,6 @@ extern "C" int fasta_microsolve(const float* A, const float* At, const float* b,
   args.prox = prox;
   args.rdd = (flags & kHp) && (flags & kRestartDd);
   args.warm = (flags & kWarm) != 0;
-  args.tau0 = tau0;
   void* params[] = {&args};
   const bool hp = (flags & kHp) != 0, accel = (flags & kAccel) != 0;
   const void* fn = hp ? (accel ? (const void*)microsolve_kernel<double, true>

@@ -1,12 +1,15 @@
 // K-B8: the whole planar PhaseMax FASTA solve in one launch,
 //     min_x  ½ Σᵢ max(|(A x)ᵢ| − bᵢ, 0)²  −  ⟨c, x⟩,   prox(z, τ) = z + τ·c,
 // A = Ar + i·Ai complex (m, n) in planar layout, x and c (n, 2), b (m,)
-// magnitudes, float32, in adaptive (BB) or FISTA mode.
+// magnitudes, float32, in adaptive (BB) or FISTA mode, for one instance
+// (K-B8) or a batch of instances sharing A and c, each with its own b, x₀
+// and τ₀ (K-B8b).
 //
 // Replaces: fasta_tpu/kernels/microsolver_planar.py,
 // microsolve_planar_phasemax (pallas_call at :669), body _make_kernel —
 // the TPU kernel that pins the transposed channel matrices in VMEM and
-// runs the loop on one core.
+// runs the loop on one core; K-B8b replaces it under jax.vmap
+// (fasta_tpu/micro.py:435).
 //
 // Bound on this card: operations and latency.  A trial does 16·m·n
 // operations on the rows (1.0 µs at 67 TFLOP/s at 16384×256) and reads
@@ -40,6 +43,13 @@
 //    measured fastest on the H100 (PERF.md); ragged n is padded to a
 //    multiple of 4 with zero columns by the wrapper (zero columns of A, x
 //    and c stay zero through the solve).
+//  * K-B8b runs the instances in turn inside the launch, each over the
+//    whole grid exactly as K-B8 runs its one (Points in fbs_control.cuh:
+//    per-instance b, x₀ and τ₀; A and c shared, so the channel matrices
+//    stay in L2 from one instance to the next).  A grid barrier separates
+//    instances, after which every block reloads its shared-memory state
+//    and start_point resets the window, τ, the counts and the halt code,
+//    so each instance is bit-identical to its own K-B8 launch.
 //  * Elementwise formulas use the _rn intrinsics, so they round like the
 //    plain PyTorch version's separate operations.
 #include <cooperative_groups.h>
@@ -64,22 +74,20 @@ constexpr bool kInterleaved = false;  // K-P5's decision: the split layout
 struct Args {
   const float* A0;   // Ar (m, n4)
   const float* A1;   // Ai (m, n4)
-  const float* b;    // (m,)
+  Points pts;        // each instance's b (m,), cold x₀ (n4, 2) and τ₀
   const float* c;    // (n4, 2)
-  const float* x0;   // (n4, 2)
-  float* x_out;      // (n, 2)
+  float* x_out;      // (npoints, n, 2)
   Records rec;
-  float* its;        // (max_iters, n, 2) or null
-  int* k_out;
-  int* status_out;
+  float* its;        // (npoints, max_iters, n, 2) or null
+  int* k_out;        // (npoints,)
+  int* status_out;   // (npoints,)
   float* gpart;      // (nblocks, 2·n4) the blocks' shares of Aᴴℓ
   float* gvec;       // (2·n4,) the reduced g: [gr | gi]
   float* dbuf;       // (m, 2) FISTA: d₁ of the trial
   float* dacc;       // (m, 2) FISTA: A x_acc
   double* part;      // (3, kSlots, nblocks)
   Control ctl;
-  int m, n, n4, rdd;
-  float tau0;
+  int npoints, m, n, n4, rdd;
 };
 
 // What a rows pass does on each owned row.
@@ -114,8 +122,8 @@ __device__ __forceinline__ void block_sums(T (&v)[N], T (*scratch)[kWarps]) {
 // thread 0); with the adjoint, writes the block's (2·n4,) share of Aᴴℓ to
 // gpart through gw.
 template <typename Acc, int CPT, int PASS>
-__device__ __forceinline__ Acc rows_pass(const Args& a, const float* x, float beta, float* gw,
-                                         Acc* acc_scratch) {
+__device__ __forceinline__ Acc rows_pass(const Args& a, const float* bp, const float* x,
+                                         float beta, float* gw, Acc* acc_scratch) {
   constexpr bool kAdj = PASS != kFista;
   constexpr int TM = CPT <= 2 ? 2 : 1;  // rows in flight per warp
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -169,7 +177,7 @@ __device__ __forceinline__ Acc rows_pass(const Args& a, const float* x, float be
         pi = warp_allsum(di[t]);
       }
       float lr, li, r;
-      phase_hinge(pr, pi, __ldg(a.b + i), lr, li, r);
+      phase_hinge(pr, pi, __ldg(bp + i), lr, li, r);
       if (lane == 0) {
         fsum += Acc(r) * Acc(r);
         if (PASS == kFista) {
@@ -257,175 +265,186 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_kernel(Args a) 
   int trial = 0;
 
   for (int j = tid; j < n4; j += kThreads) {
-    X[0][j] = a.x0[2 * j];
-    X[0][n4 + j] = a.x0[2 * j + 1];
     cs[j] = a.c[2 * j];
     cs[n4 + j] = a.c[2 * j + 1];
-    if (ACCEL) {
-      xacc[j] = X[0][j];
-      xacc[n4 + j] = X[0][n4 + j];
-    }
   }
-  __syncthreads();
 
-  // ---- start: d₀ = A x₀, f₀, g₀ = Aᴴℓ(d₀); FISTA: d_acc = d₀
-  {
-    const Acc f = rows_pass<Acc, CPT, kStart>(a, X[0], 0.f, gw, acc_scratch);
-    if (tid == 0) P0[kF * nb + blk] = double(f);
-    grid.sync();
-    reduce_shares(a, red);
-    grid.sync();
-    for (int j = tid; j < N2; j += kThreads) G[0][j] = __ldcg(a.gvec + j);
-    if (tid < 32) {
-      const Acc f0 = warp_sum_global<Acc>(P0 + kF * nb, nb);
-      if (tid == 0) start_point(st, fwin, Acc(0.5f) * f0, a.tau0);
+  for (int p = 0; p < a.npoints; ++p) {
+    const float* bp = a.pts.b_at(p);
+    const float* x0 = a.pts.x0_at(p);
+    const size_t rec0 = (size_t)p * a.ctl.max_iters;
+    for (int j = tid; j < n4; j += kThreads) {
+      X[0][j] = x0[2 * j];
+      X[0][n4 + j] = x0[2 * j + 1];
+      if (ACCEL) {
+        xacc[j] = X[0][j];
+        xacc[n4 + j] = X[0][n4 + j];
+      }
     }
     __syncthreads();
-  }
 
-  for (;;) {
-    ++trial;
-    double* P = a.part + (size_t)(1 + (trial & 1)) * kSlots * nb;
-    const float tau = st.tau;
-    const int cur = st.cur;
-    const float* xc = X[cur];
-    const float* gc = G[cur];
-    float* x1 = X[cur ^ 1];
-
-    // ---- the trial step x₁ = (x − τg) + τc over all of x, with its sums
+    // ---- start: d₀ = A x₀, f₀, g₀ = Aᴴℓ(d₀); FISTA: d_acc = d₀
     {
-      // ‖Δx‖², ‖g‖², ‖x₁ − x̂‖², ⟨c, x₁⟩ and the float32 restart dot
-      float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-      Acc w[1] = {Acc(0)};  // ⟨Δx, g⟩
-      double rdot64 = 0.0;
-      for (int j = tid; j < N2; j += kThreads) {
-        const float xv = xc[j], gv = gc[j];
-        const float z = step_hat(xv, gv, tau);
-        const float xn = __fadd_rn(z, __fmul_rn(tau, cs[j]));
-        x1[j] = xn;
-        const float dx = __fsub_rn(xn, xv), sm = __fsub_rn(xn, z);
-        v[0] = fmaf(dx, dx, v[0]);
-        v[1] = fmaf(gv, gv, v[1]);
-        v[2] = fmaf(sm, sm, v[2]);
-        v[3] = fmaf(cs[j], xn, v[3]);
-        w[0] += Acc(dx) * Acc(gv);
-        if (ACCEL) {
-          // the restart dot ⟨y − x₁, x₁ − x_acc⟩
-          const float ra = __fsub_rn(xv, xn), rb = __fsub_rn(xn, xacc[j]);
-          if (a.rdd)
-            rdot64 += double(ra) * double(rb);
-          else
-            v[4] = fmaf(ra, rb, v[4]);
+      const Acc f = rows_pass<Acc, CPT, kStart>(a, bp, X[0], 0.f, gw, acc_scratch);
+      if (tid == 0) P0[kF * nb + blk] = double(f);
+      grid.sync();
+      reduce_shares(a, red);
+      grid.sync();
+      for (int j = tid; j < N2; j += kThreads) G[0][j] = __ldcg(a.gvec + j);
+      if (tid < 32) {
+        const Acc f0 = warp_sum_global<Acc>(P0 + kF * nb, nb);
+        if (tid == 0) start_point(st, fwin, Acc(0.5f) * f0, a.pts.tau0_at(p));
+      }
+      __syncthreads();
+    }
+
+    for (;;) {
+      ++trial;
+      double* P = a.part + (size_t)(1 + (trial & 1)) * kSlots * nb;
+      const float tau = st.tau;
+      const int cur = st.cur;
+      const float* xc = X[cur];
+      const float* gc = G[cur];
+      float* x1 = X[cur ^ 1];
+
+      // ---- the trial step x₁ = (x − τg) + τc over all of x, with its sums
+      {
+        // ‖Δx‖², ‖g‖², ‖x₁ − x̂‖², ⟨c, x₁⟩ and the float32 restart dot
+        float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+        Acc w[1] = {Acc(0)};  // ⟨Δx, g⟩
+        double rdot64 = 0.0;
+        for (int j = tid; j < N2; j += kThreads) {
+          const float xv = xc[j], gv = gc[j];
+          const float z = step_hat(xv, gv, tau);
+          const float xn = __fadd_rn(z, __fmul_rn(tau, cs[j]));
+          x1[j] = xn;
+          const float dx = __fsub_rn(xn, xv), sm = __fsub_rn(xn, z);
+          v[0] = fmaf(dx, dx, v[0]);
+          v[1] = fmaf(gv, gv, v[1]);
+          v[2] = fmaf(sm, sm, v[2]);
+          v[3] = fmaf(cs[j], xn, v[3]);
+          w[0] += Acc(dx) * Acc(gv);
+          if (ACCEL) {
+            // the restart dot ⟨y − x₁, x₁ − x_acc⟩
+            const float ra = __fsub_rn(xv, xn), rb = __fsub_rn(xn, xacc[j]);
+            if (a.rdd)
+              rdot64 += double(ra) * double(rb);
+            else
+              v[4] = fmaf(ra, rb, v[4]);
+          }
+        }
+        block_sums(v, f32_5);
+        block_sums(w, acc2);
+        if (ACCEL && a.rdd) rdot64 = block_sum(rdot64, f64_scratch);
+        if (tid == 0) {
+          tot[kNd2] = v[0];
+          tot[kNg2] = v[1];
+          tot[kNsm2] = v[2];
+          tot[kBtDot] = double(w[0]);
+          tot[kRdot] = a.rdd ? rdot64 : double(v[4]);
+          gobj = -v[3];
         }
       }
-      block_sums(v, f32_5);
-      block_sums(w, acc2);
-      if (ACCEL && a.rdd) rdot64 = block_sum(rdot64, f64_scratch);
-      if (tid == 0) {
-        tot[kNd2] = v[0];
-        tot[kNg2] = v[1];
-        tot[kNsm2] = v[2];
-        tot[kBtDot] = double(w[0]);
-        tot[kRdot] = a.rdd ? rdot64 : double(v[4]);
-        gobj = -v[3];
-      }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // ---- the rows at x₁: f (and the adaptive gradient's shares)
-    {
-      const Acc f = ACCEL ? rows_pass<Acc, CPT, kFista>(a, x1, 0.f, gw, acc_scratch)
-                          : rows_pass<Acc, CPT, kAdaptive>(a, x1, 0.f, gw, acc_scratch);
-      if (tid == 0) P[kF * nb + blk] = double(f);
-    }
-    grid.sync();
-
-    if (!ACCEL) {
-      // ---- g₁ reduced, then the BB sums over all of x
-      reduce_shares(a, red);
-      grid.sync();
-      float* g1 = G[cur ^ 1];
-      float v[1] = {0.f};
-      Acc w[1] = {Acc(0)};
-      for (int j = tid; j < N2; j += kThreads) {
-        const float g = __ldcg(a.gvec + j);
-        g1[j] = g;
-        const float xv = xc[j];
-        const float z = step_hat(xv, gc[j], tau);
-        const float dx = __fsub_rn(x1[j], xv);
-        // Δg = g₁ + (x̂₁ − x)/τ  (== g₁ − g, in the TPU kernel's rounding)
-        const float dg = __fadd_rn(g, __fdiv_rn(__fsub_rn(z, xv), tau));
-        w[0] += Acc(dx) * Acc(dg);
-        v[0] = fmaf(dg, dg, v[0]);
-      }
-      block_sums(v, f32_5);
-      block_sums(w, acc2);
-      if (tid == 0) {
-        tot[kBbDot] = double(w[0]);
-        tot[kNdg2] = v[0];
-      }
-    }
-
-    // ---- the decision, the same in every block
-    if (tid < 32) {
-      const Acc f = warp_sum_global<Acc>(P + kF * nb, nb);
-      if (tid == 0) {
-        tot[kF] = double(f);
-        State s = st;
-        decide<Acc, ACCEL>(s, tot, fwin, f1s, 0.5f, gobj, a.ctl, a.rec, 0, blk == 0);
-        st = s;
-      }
-    }
-    __syncthreads();
-    if (a.its && st.accepted && blk == 0) {
-      float* row = a.its + (size_t)st.krec * 2 * n;
-      for (int j = tid; j < n; j += kThreads) {
-        row[2 * j] = x1[j];
-        row[2 * j + 1] = x1[n4 + j];
-      }
-    }
-
-    if (ACCEL && st.post) {
-      const float beta = st.beta;
-      // ---- the rows at d_n = d₁ + β(d₁ − d_acc): f(d_n) and g_n's shares;
-      // y_n = x₁ + β(x₁ − x_acc), x_acc = x₁ over all of x
-      const Acc fn = rows_pass<Acc, CPT, kExtrap>(a, nullptr, beta, gw, acc_scratch);
-      if (tid == 0) P[kFn * nb + blk] = double(fn);
-      float* y = X[cur];
-      for (int j = tid; j < N2; j += kThreads) {
-        const float xv1 = x1[j], xa = xacc[j];
-        y[j] = __fadd_rn(xv1, __fmul_rn(beta, __fsub_rn(xv1, xa)));
-        xacc[j] = xv1;
+      // ---- the rows at x₁: f (and the adaptive gradient's shares)
+      {
+        const Acc f = ACCEL ? rows_pass<Acc, CPT, kFista>(a, bp, x1, 0.f, gw, acc_scratch)
+                            : rows_pass<Acc, CPT, kAdaptive>(a, bp, x1, 0.f, gw, acc_scratch);
+        if (tid == 0) P[kF * nb + blk] = double(f);
       }
       grid.sync();
-      reduce_shares(a, red);
-      grid.sync();
-      for (int j = tid; j < N2; j += kThreads) G[cur][j] = __ldcg(a.gvec + j);
-      if (tid < 32) {
-        const Acc f = Acc(0.5f) * warp_sum_global<Acc>(P + kFn * nb, nb);
+
+      if (!ACCEL) {
+        // ---- g₁ reduced, then the BB sums over all of x
+        reduce_shares(a, red);
+        grid.sync();
+        float* g1 = G[cur ^ 1];
+        float v[1] = {0.f};
+        Acc w[1] = {Acc(0)};
+        for (int j = tid; j < N2; j += kThreads) {
+          const float g = __ldcg(a.gvec + j);
+          g1[j] = g;
+          const float xv = xc[j];
+          const float z = step_hat(xv, gc[j], tau);
+          const float dx = __fsub_rn(x1[j], xv);
+          // Δg = g₁ + (x̂₁ − x)/τ  (== g₁ − g, in the TPU kernel's rounding)
+          const float dg = __fadd_rn(g, __fdiv_rn(__fsub_rn(z, xv), tau));
+          w[0] += Acc(dx) * Acc(dg);
+          v[0] = fmaf(dg, dg, v[0]);
+        }
+        block_sums(v, f32_5);
+        block_sums(w, acc2);
         if (tid == 0) {
+          tot[kBbDot] = double(w[0]);
+          tot[kNdg2] = v[0];
+        }
+      }
+
+      // ---- the decision, the same in every block
+      if (tid < 32) {
+        const Acc f = warp_sum_global<Acc>(P + kF * nb, nb);
+        if (tid == 0) {
+          tot[kF] = double(f);
           State s = st;
-          finish_fista(s, f, f1s, fwin, a.ctl, a.rec, 0, blk == 0);
+          decide<Acc, ACCEL>(s, tot, fwin, f1s, 0.5f, gobj, a.ctl, a.rec, rec0, blk == 0);
           st = s;
         }
       }
       __syncthreads();
-    }
-    if (st.done) break;
-  }
+      if (a.its && st.accepted && blk == 0) {
+        float* row = a.its + (rec0 + st.krec) * 2 * n;
+        for (int j = tid; j < n; j += kThreads) {
+          row[2 * j] = x1[j];
+          row[2 * j + 1] = x1[n4 + j];
+        }
+      }
 
-  // ---- the solution (FISTA: x₁ on a converged stop, else the
-  // extrapolated y) and the counts
-  if (blk == 0) {
-    const float* xf = (ACCEL && st.status == 1) ? xacc : X[st.cur];
-    for (int j = tid; j < n; j += kThreads) {
-      a.x_out[2 * j] = xf[j];
-      a.x_out[2 * j + 1] = xf[n4 + j];
+      if (ACCEL && st.post) {
+        const float beta = st.beta;
+        // ---- the rows at d_n = d₁ + β(d₁ − d_acc): f(d_n) and g_n's shares;
+        // y_n = x₁ + β(x₁ − x_acc), x_acc = x₁ over all of x
+        const Acc fn = rows_pass<Acc, CPT, kExtrap>(a, bp, nullptr, beta, gw, acc_scratch);
+        if (tid == 0) P[kFn * nb + blk] = double(fn);
+        float* y = X[cur];
+        for (int j = tid; j < N2; j += kThreads) {
+          const float xv1 = x1[j], xa = xacc[j];
+          y[j] = __fadd_rn(xv1, __fmul_rn(beta, __fsub_rn(xv1, xa)));
+          xacc[j] = xv1;
+        }
+        grid.sync();
+        reduce_shares(a, red);
+        grid.sync();
+        for (int j = tid; j < N2; j += kThreads) G[cur][j] = __ldcg(a.gvec + j);
+        if (tid < 32) {
+          const Acc f = Acc(0.5f) * warp_sum_global<Acc>(P + kFn * nb, nb);
+          if (tid == 0) {
+            State s = st;
+            finish_fista(s, f, f1s, fwin, a.ctl, a.rec, rec0, blk == 0);
+            st = s;
+          }
+        }
+        __syncthreads();
+      }
+      if (st.done) break;
     }
-    if (tid == 0) {
-      *a.k_out = st.k;
-      *a.status_out = st.status;
+
+    // ---- the solution (FISTA: x₁ on a converged stop, else the
+    // extrapolated y) and the counts
+    if (blk == 0) {
+      const float* xf = (ACCEL && st.status == 1) ? xacc : X[st.cur];
+      float* xo = a.x_out + (size_t)p * 2 * n;
+      for (int j = tid; j < n; j += kThreads) {
+        xo[2 * j] = xf[j];
+        xo[2 * j + 1] = xf[n4 + j];
+      }
+      if (tid == 0) {
+        a.k_out[p] = st.k;
+        a.status_out[p] = st.status;
+      }
     }
+    // every block is done with this instance's shared and global state
+    if (p + 1 < a.npoints) grid.sync();
   }
 }
 
@@ -484,14 +503,18 @@ extern "C" int fasta_microsolve_planar_work(int m, int n4, int nblocks, int* nfl
   return cudaSuccess;
 }
 
-// Run one solve on `stream`; see the option bits in Flag (kWarm is not
-// taken).  A0 and A1 are Ar and Ai (m, n4), c and x0 (n4, 2), all with
-// n4 − n zero columns; x_out is (n, 2), its (max_iters, n, 2) or null;
+// Run npoints solves on `stream`, point p taking b + p·b_stride, the cold
+// start x0 + p·x0_stride and τ₀ tau0s[p] (tau0 when tau0s is null); see
+// the option bits in Flag (kWarm is not taken).  A0 and A1 are Ar and Ai
+// (m, n4), c and each x0 (n4, 2), all with n4 − n zero columns; x_out is
+// (npoints, n, 2), its (npoints, max_iters, n, 2) or null;
 // work_f holds fasta_microsolve_planar_work floats, work_d
 // fasta_fbs_work_doubles(nblocks) doubles.  fvals, bts, objs and nres may
 // be null.
 extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const float* b,
-                                       const float* c, const float* x0, float tau0, int m, int n,
+                                       int b_stride, const float* c, const float* x0,
+                                       int x0_stride, const float* tau0s, int npoints,
+                                       float tau0, int m, int n,
                                        int n4, int max_iters, int window, float tol,
                                        float shrink_factor, int max_backtracks, int stop_rule_code,
                                        int flags, float* x_out, float* taus, float* res,
@@ -501,7 +524,8 @@ extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const f
   const int cpt = slots(n4);
   if (m < 1 || n < 1 || n4 < n || n4 % 4 || cpt == 0 || max_iters < 1 || window < 1 ||
       window > kWinMax || max_backtracks < 0 || stop_rule_code < kResidual ||
-      stop_rule_code > kIterations || (flags & kWarm))
+      stop_rule_code > kIterations || (flags & kWarm) || npoints < 1 || b_stride < 0 ||
+      x0_stride < 0)
     return cudaErrorInvalidValue;
   int limit = 0;
   cudaError_t err = fasta_microsolve_planar_grid(n4, &limit) == cudaSuccess
@@ -513,9 +537,8 @@ extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const f
   Args args{};
   args.A0 = A0;
   args.A1 = A1;
-  args.b = b;
+  args.pts = Points{b, x0, nullptr, tau0s, b_stride, x0_stride, 0, tau0};
   args.c = c;
-  args.x0 = x0;
   args.x_out = x_out;
   args.rec = Records{taus, res, fvals, bts, objs, nres};
   args.its = its;
@@ -528,11 +551,11 @@ extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const f
   args.part = work_d;
   args.ctl = Control{max_iters, window, max_backtracks, stop_rule_code,
                      (flags & kRestart) != 0, tol, shrink_factor};
+  args.npoints = npoints;
   args.m = m;
   args.n = n;
   args.n4 = n4;
   args.rdd = (flags & kHp) && (flags & kRestartDd);
-  args.tau0 = tau0;
   void* params[] = {&args};
   const Kernel fn = pick((flags & kHp) != 0, accel, cpt);
   err = cudaLaunchCooperativeKernel((const void*)fn, dim3(nblocks), dim3(kThreads), params,

@@ -2,14 +2,16 @@
 //     min_p ½‖μ·div p − b‖²   s.t.  ‖p‖∞ ≤ 1,
 // p a dual field (2, H, W) (channel 0 vertical, channel 1 horizontal), b
 // an image (H, W), float32, in adaptive (BB) or FISTA mode, for one TV
-// weight μ (K-B6) or a path of weights, warm or cold (K-B6p).  The
+// weight μ (K-B6), a path of weights, warm or cold (K-B6p), or a batch of
+// images, each with its own start and τ₀, under one weight (K-B6b).  The
 // stencils follow reference_oracle/generators.py: grad leaves the last
 // row (channel 0) and column (channel 1) at zero, div is its adjoint.
 //
 // Replaces: fasta_tpu/kernels/microsolver_tv.py, microsolve_tv (pallas_call
 // at :607) and microsolve_tv_path (:731), body _make_kernel — the TPU
 // kernels that keep the state in VMEM and run the loop on one core, the
-// path as a sequential grid with the warm carry in persistent scratch.
+// path as a sequential grid with the warm carry in persistent scratch;
+// K-B6b replaces microsolve_tv under jax.vmap (fasta_tpu/micro.py:435).
 //
 // Bound on this card: latency.  One adaptive iteration must read y, g and
 // b and write x₁ and g₁, 36 B per pixel (9.4 MB at 512×512, 2.8 µs at
@@ -46,6 +48,10 @@
 //    nonfinite point sends the next one back to x₀ (the JAX code's carry).
 //    A single solve is a path of one point, so cold points are
 //    bit-identical to separate K-B6 launches.
+//  * K-B6b is the same loop over cold points that each take their own
+//    image, start and τ₀ (Points in fbs_control.cuh) under a shared μ;
+//    each runs over the whole grid from reset state and reuses the one
+//    work buffer, so every image is bit-identical to its own K-B6 launch.
 //  * Elementwise formulas use the _rn intrinsics, so they round like the
 //    plain PyTorch version's separate operations.
 #include <cooperative_groups.h>
@@ -65,9 +71,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
 struct Args {
-  const float* b;    // (H, W)
-  const float* x0;   // (2, H, W)
-  const float* mus;  // (npath,) the TV weight of each path point
+  Points pts;        // each point's image b (H, W), cold x₀ (2, H, W), μ, τ₀
   float* x_out;      // (npath, 2, H, W)
   Records rec;
   int* k_out;        // (npath,)
@@ -81,7 +85,6 @@ struct Args {
   double* part;      // (3, kSlots, nblocks): work_doubles(nblocks)
   Control ctl;
   int npath, H, W, N, rdd, warm;
-  float tau0;
 };
 
 // the box prox clamp(z, −1, 1), NaN propagating as torch.clamp does
@@ -131,11 +134,13 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_tv_kernel(Args a) {
   __syncthreads();
 
   for (int p = 0; p < a.npath; ++p) {
-    const float mu = __ldg(a.mus + p);
+    const float mu = a.pts.mu_at(p);
+    const float* bp = a.pts.b_at(p);
     const size_t rec0 = (size_t)p * a.ctl.max_iters;
     const float* xs =
-        (a.warm && p > 0 && carry_ok) ? a.x_out + (size_t)(p - 1) * 2 * N : a.x0;
-    const float tau_start = (a.warm && !ACCEL && p > 0 && tprev > 0.f) ? tprev : a.tau0;
+        (a.warm && p > 0 && carry_ok) ? a.x_out + (size_t)(p - 1) * 2 * N : a.pts.x0_at(p);
+    const float tau_start =
+        (a.warm && !ACCEL && p > 0 && tprev > 0.f) ? tprev : a.pts.tau0_at(p);
 
     // ---- point start: d₀ = μ·div x₀, r₀, f₀; then g₀ = μ·grad r₀
     {
@@ -146,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_tv_kernel(Args a) {
         const float up = i > 0 ? __ldcg(xs + q - W) : 0.f;
         const float left = j > 0 ? __ldcg(xs + N + q - 1) : 0.f;
         const float d = div_of(up, i < H - 1 ? xv : 0.f, left, j < W - 1 ? xh : 0.f, mu);
-        const float r = __fsub_rn(d, __ldg(a.b + q));
+        const float r = __fsub_rn(d, __ldg(bp + q));
         a.rbuf[q] = r;
         X[0][q] = xv;
         X[0][N + q] = xh;
@@ -220,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_tv_kernel(Args a) {
           const float left =
               j > 0 ? box(step_hat(__ldcg(xc + N + q - 1), __ldcg(gc + N + q - 1), tau)) : 0.f;
           const float d = div_of(up, i < H - 1 ? x1v : 0.f, left, j < W - 1 ? x1h : 0.f, mu);
-          const float r = __fsub_rn(d, __ldg(a.b + q));
+          const float r = __fsub_rn(d, __ldg(bp + q));
           if (ACCEL)
             a.dbuf[q] = d;
           else
@@ -302,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_tv_kernel(Args a) {
             const float d1 = __ldcg(a.dbuf + q), da = __ldcg(a.dacc + q);
             const float dn = __fadd_rn(d1, __fmul_rn(beta, __fsub_rn(d1, da)));
             a.dacc[q] = d1;
-            const float r = __fsub_rn(dn, __ldg(a.b + q));
+            const float r = __fsub_rn(dn, __ldg(bp + q));
             a.rbuf[q] = r;
             fpart += Acc(r) * Acc(r);
           }
@@ -375,11 +380,14 @@ cudaError_t max_blocks(int* nblocks) {
 // (0 if the kernel cannot be resident at all).
 extern "C" int fasta_microsolve_tv_grid(int* nblocks) { return max_blocks(nblocks); }
 
-// Run npath TV-dual solves (one per weight in mus) on `stream`; see the
+// Run npath TV-dual solves on `stream`: point p takes the image
+// b + p·b_stride, the cold start x0 + p·x0_stride, the weight
+// mus[p·mu_stride] and τ₀ tau0s[p] (tau0 when tau0s is null); see the
 // option bits in Flag.  Outputs have a leading axis of npath.  work_f
 // holds 13·H·W floats, work_d fasta_fbs_work_doubles(nblocks) doubles
 // (microsolver.cu).  fvals, bts, objs and nres may be null.
-extern "C" int fasta_microsolve_tv(const float* b, const float* x0, const float* mus, int npath,
+extern "C" int fasta_microsolve_tv(const float* b, int b_stride, const float* x0, int x0_stride,
+                                   const float* mus, int mu_stride, const float* tau0s, int npath,
                                    float tau0, int H, int W, int max_iters, int window, float tol,
                                    float shrink_factor, int max_backtracks, int stop_rule_code,
                                    int flags, float* x_out, float* taus, float* res, float* fvals,
@@ -387,7 +395,7 @@ extern "C" int fasta_microsolve_tv(const float* b, const float* x0, const float*
                                    float* work_f, double* work_d, int nblocks, void* stream) {
   if (H < 1 || W < 1 || (long long)H * W > (1LL << 28) || npath < 1 || max_iters < 1 ||
       window < 1 || window > kWinMax || max_backtracks < 0 || stop_rule_code < kResidual ||
-      stop_rule_code > kIterations)
+      stop_rule_code > kIterations || b_stride < 0 || x0_stride < 0 || mu_stride < 0)
     return cudaErrorInvalidValue;
   int limit = 0;
   cudaError_t err = max_blocks(&limit);
@@ -395,9 +403,7 @@ extern "C" int fasta_microsolve_tv(const float* b, const float* x0, const float*
   if (nblocks < 1 || nblocks > limit) return cudaErrorCooperativeLaunchTooLarge;
   const size_t N = (size_t)H * W;
   Args args{};
-  args.b = b;
-  args.x0 = x0;
-  args.mus = mus;
+  args.pts = Points{b, x0, mus, tau0s, b_stride, x0_stride, mu_stride, tau0};
   args.x_out = x_out;
   args.rec = Records{taus, res, fvals, bts, objs, nres};
   args.k_out = k_out;
@@ -417,7 +423,6 @@ extern "C" int fasta_microsolve_tv(const float* b, const float* x0, const float*
                      (flags & kRestart) != 0, tol, shrink_factor};
   args.rdd = (flags & kHp) && (flags & kRestartDd);
   args.warm = (flags & kWarm) != 0;
-  args.tau0 = tau0;
   void* params[] = {&args};
   const bool hp = (flags & kHp) != 0, accel = (flags & kAccel) != 0;
   const void* fn = hp ? (accel ? (const void*)microsolve_tv_kernel<double, true>

@@ -37,11 +37,13 @@ _SIGNATURES = {
     "fasta_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
     "fasta_microsolve_grid": [_P],
-    "fasta_microsolve": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I,
-                         _F, _F, _I, _I, _I, _I, _I,
+    "fasta_microsolve": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _F,
+                         _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _P],
     "fasta_fbs_work_doubles": [_I, _P],
+    "fasta_shrink_step_work": [_I, _I, _P],
+    "fasta_shrink_step": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "fasta_tv_gradmap_work": [_I, _I, _P],
     "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "fasta_microsolve_tv_grid": [_P],
@@ -51,14 +53,15 @@ _SIGNATURES = {
     "fasta_planar_probe_grid": [_I, _I, _P],
     "fasta_microsolve_planar_grid": [_I, _P],
     "fasta_microsolve_planar_work": [_I, _I, _I, _P],
-    "fasta_microsolve_planar": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
-                                _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _P, _P, _P, _P, _I, _P],
+    "fasta_microsolve_planar": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _F,
+                                _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _I, _P],
     "fasta_planar_probe": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                            _P],
-    "fasta_microsolve_tv": [_P, _P, _P, _I, _F, _I, _I, _I, _I, _F, _F, _I,
-                            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _P],
+    "fasta_microsolve_tv": [_P, _I, _P, _I, _P, _I, _P, _I, _F, _I, _I, _I,
+                            _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 

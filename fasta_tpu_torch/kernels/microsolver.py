@@ -1,4 +1,4 @@
-"""Kernels K-B1, K-B1p and K-B2: whole dense solves in one launch.
+"""Kernels K-B1, K-B1p, K-B1b and K-B2: whole dense solves in one launch.
 
 K-B1, ``microsolve_lasso``: the whole adaptive or FISTA solve of
 min f(Ax) + g(x) for the losses "lstsq" ½‖·−b‖², "logistic"
@@ -8,14 +8,18 @@ min f(Ax) + g(x) for the losses "lstsq" ½‖·−b‖², "logistic"
 K-B1p, ``microsolve_lasso_path``: the same solve over a path of weights μ
 in one launch, warm (each point from the previous solution and stepsize)
 or cold (each point as a separate ``microsolve_lasso`` call); port of
-``microsolver.py:853-966``.  K-B2, the fixed-order FP64 reduction of the
-hp decision scalars (``kernels/ddreduce.py``), is inlined.
+``microsolver.py:853-966``.  K-B1b, ``microsolve_lasso_batch``: B
+instances sharing A, each with its own b, x₀ and τ₀, in one launch; port
+of ``microsolve_lasso`` under ``jax.vmap`` (``fasta_tpu/micro.py:435``).
+K-B2, the fixed-order FP64 reduction of the hp decision scalars
+(``kernels/ddreduce.py``), is inlined.
 
 The CUDA source is ``fasta_tpu_torch/csrc/microsolver.cu`` (with
 ``csrc/reduce.cuh`` and ``csrc/losses.cuh``); its header note gives the
 design.  Each wrapper launches the kernel for CUDA tensors and runs its
 plain version (``microsolve_lasso_reference``,
-``microsolve_lasso_path_reference``) for CPU tensors.
+``microsolve_lasso_path_reference``, ``microsolve_lasso_batch_reference``)
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,13 +38,17 @@ from . import _build
 
 __all__ = ["microsolve_lasso", "microsolve_lasso_reference",
            "microsolve_lasso_path", "microsolve_lasso_path_reference",
+           "microsolve_lasso_batch", "microsolve_lasso_batch_reference",
            "MicrosolveOutput", "STATUS_NAMES", "LOSSES", "PROXES",
-           "supports_microsolver", "LAUNCHES", "PATH_LAUNCHES"]
+           "supports_microsolver", "LAUNCHES", "PATH_LAUNCHES",
+           "BATCH_LAUNCHES"]
 
-# Launches of the whole-solve kernel for one solve (K-B1) and for a path
-# (K-B1p), each counted where it launches, nowhere else.
+# Launches of the whole-solve kernel for one solve (K-B1), for a path
+# (K-B1p) and for a batch (K-B1b), each counted where it launches, nowhere
+# else.
 LAUNCHES = 0
 PATH_LAUNCHES = 0
+BATCH_LAUNCHES = 0
 
 # The kernel's int32 halt codes, in order.
 STATUS_NAMES = ("max_iters", "converged", "nonfinite")
@@ -155,7 +163,7 @@ def microsolve_lasso(A, b, x0, tau0, mu, *, record_its=False,
     if A.device.type == "cpu":
         return microsolve_lasso_reference(A, b, x0, tau0, mu,
                                           record_its=record_its, **opts)
-    out = _launch(A, b, x0, tau0, torch.tensor([float(mu)]), False,
+    out = _launch(A, b, x0, tau0, torch.tensor([float(mu)]), 1, False,
                   record_its, opts)
     global LAUNCHES
     LAUNCHES += 1
@@ -188,10 +196,66 @@ def microsolve_lasso_path(A, b, x0, tau0, mus, *, warm=True,
     if A.device.type == "cpu":
         return microsolve_lasso_path_reference(A, b, x0, tau0, mus,
                                                warm=warm, **opts)
-    out = _launch(A, b, x0, tau0, mus.cpu(), warm, False, opts)
+    out = _launch(A, b, x0, tau0, mus.cpu(), mus.shape[0], warm, False, opts)
     global PATH_LAUNCHES
     PATH_LAUNCHES += 1
     return MicrosolveOutput(*out)
+
+
+def microsolve_lasso_batch(A, bs, x0s, tau0s, mu,
+                           **options) -> MicrosolveOutput:
+    """The solve of ``microsolve_lasso`` for B instances sharing A and the
+    weight ``mu`` in one launch: measurements or labels ``bs`` (B, m),
+    starts ``x0s`` (B, n) or one shared x₀ (n,), and τ₀ a number or a (B,)
+    tensor (one per instance).  Every output field gains a leading axis of
+    B instances, each bit-identical to a separate ``microsolve_lasso``
+    call on the same device (the JAX contract of ``microsolve_batch``).
+
+    CUDA tensors launch kernel K-B1b; CPU tensors run the plain version."""
+    opts = _options(options)
+    B = _check_batch(A, bs, x0s, tau0s, 1, "microsolve_lasso_batch")
+    _check_tensors(A, bs[0], x0s if x0s.ndim == 1 else x0s[0],
+                   "microsolve_lasso_batch")
+    if A.device.type == "cpu":
+        return microsolve_lasso_batch_reference(A, bs, x0s, tau0s, mu,
+                                                **opts)
+    out = _launch(A, bs, x0s, tau0s, torch.tensor([float(mu)]), B, False,
+                  False, opts)
+    global BATCH_LAUNCHES
+    BATCH_LAUNCHES += 1
+    return MicrosolveOutput(*out)
+
+
+def _check_batch(lead, bs, x0s, tau0s, data_ndim, what) -> int:
+    """B, after checking that ``bs`` stacks instance data of ``data_ndim``
+    dimensions on a leading axis, that ``x0s`` is one start or B and that
+    τ₀ is a number or B on ``lead``'s device."""
+    if bs.ndim != data_ndim + 1 or bs.shape[0] < 1:
+        raise ValueError(f"{what}: bs must stack {data_ndim}-d instance data "
+                         f"on a leading batch axis, got {tuple(bs.shape)}")
+    B = bs.shape[0]
+    for name, t in (("bs", bs), ("x0s", x0s)):
+        if t.device != lead.device:
+            raise ValueError(f"{what}: {name} lies on {t.device}, the "
+                             f"operator on {lead.device}")
+    if torch.is_tensor(tau0s) and tau0s.ndim:
+        if tuple(tau0s.shape) != (B,):
+            raise ValueError(f"{what}: per-instance tau0 shape "
+                             f"{tuple(tau0s.shape)} != ({B},)")
+    return B
+
+
+def _points(B, b, b_dims, x0, x0_dims, tau0, dev):
+    """The per-point data of a launch over B points (csrc/fbs_control.cuh,
+    Points): the strides of b and x₀ (their size when they stack B on a
+    leading axis, else 0: shared) and τ₀ as (a (B,) float32 tensor on
+    ``dev`` or None, the shared number)."""
+    b_stride = b[0].numel() if b.ndim == b_dims + 1 else 0
+    x0_stride = x0[0].numel() if x0.ndim == x0_dims + 1 else 0
+    if torch.is_tensor(tau0) and tau0.ndim:
+        return (b_stride, x0_stride,
+                tau0.to(device=dev, dtype=torch.float32).contiguous(), 0.0)
+    return b_stride, x0_stride, None, float(tau0)
 
 
 def _options(options):
@@ -262,18 +326,21 @@ def _pad4(v: int) -> int:
     return (v + 3) // 4 * 4
 
 
-def _launch(A, b, x0, tau0, mus, warm, record_its, o):
+def _launch(A, b, x0, tau0, mus, B, warm, record_its, o):
+    """One launch over B points: b (m,) or (B, m), x0 (n,) or (B, n), τ₀
+    a number or (B,), mus (1,) shared or (B,)."""
     for name, t in (("A", A), ("b", b), ("x0", x0)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"microsolve_lasso: {name} must be contiguous "
                              f"and 16-byte aligned")
     m, n = A.shape
-    B, K = mus.shape[0], o["max_iters"]
+    K = o["max_iters"]
     dev = A.device
     nb = _grid(dev.index)
     f32 = dict(device=dev, dtype=torch.float32)
     At = A.t().contiguous()
     mus_d = mus.to(**f32)
+    b_stride, x0_stride, tau0s, tau0 = _points(B, b, 1, x0, 1, tau0, dev)
     x = torch.empty(B, n, **f32)
     r = _outputs(B, K, o, dev, nb)
     its = torch.zeros(B, K, n, **f32) if record_its else None
@@ -285,8 +352,10 @@ def _launch(A, b, x0, tau0, mus, warm, record_its, o):
              | int(bool(warm)) << 4)
     with _build.on_device(dev) as stream:
         _build.check(_build.library().fasta_microsolve(
-            A.data_ptr(), At.data_ptr(), b.data_ptr(), x0.data_ptr(),
-            mus_d.data_ptr(), B, float(tau0), m, n, K, o["window"],
+            A.data_ptr(), At.data_ptr(), b.data_ptr(), b_stride,
+            x0.data_ptr(), x0_stride, mus_d.data_ptr(),
+            int(mus_d.numel() > 1), _ptr(tau0s), B, tau0, m, n, K,
+            o["window"],
             float(o["tol"]), float(o["shrink_factor"]), o["max_backtracks"],
             STOP_RULES.index(o["stop_rule"]), LOSSES.index(o["loss"]),
             PROXES.index(o["prox"]), flags, x.data_ptr(), r.taus.data_ptr(),
@@ -368,6 +437,31 @@ def microsolve_lasso_path_reference(A, b, x0, tau0, mus, *, warm=True,
     return path_reference(
         lambda x, tau, mu: _reference(A, b, x, tau, mu, False, o), x0, tau0,
         mus, warm, o["accelerate"])
+
+
+def microsolve_lasso_batch_reference(A, bs, x0s, tau0s, mu,
+                                     **options) -> MicrosolveOutput:
+    """The plain version of K-B1b: the plain K-B1 loop per instance, its
+    outputs stacked on a leading axis."""
+    o = _options(options)
+    return batch_reference(
+        lambda b, x0, tau0: _reference(A, b, x0, tau0, mu, False, o)[0],
+        bs, x0s, tau0s, 1)
+
+
+def batch_reference(solve, bs, x0s, tau0s, x0_dims):
+    """A plain batch: ``solve(b, x₀, τ₀) -> output`` per instance, x₀
+    shared (``x0_dims`` dimensions) or stacked, τ₀ a number or one per
+    instance; outputs stacked on a leading axis."""
+    runs = []
+    for i in range(bs.shape[0]):
+        x0 = x0s if x0s.ndim == x0_dims else x0s[i]
+        tau0 = (float(tau0s[i]) if torch.is_tensor(tau0s) and tau0s.ndim
+                else float(tau0s))
+        runs.append(solve(bs[i], x0, tau0))
+    return MicrosolveOutput(*(
+        None if vals[0] is None else torch.stack(vals)
+        for vals in zip(*runs)))
 
 
 def path_reference(solve, x0, tau0, mus, warm, accelerate):

@@ -1,14 +1,18 @@
-"""Kernel K-B8: the whole planar PhaseMax solve in one launch.
+"""Kernels K-B8 and K-B8b: the whole planar PhaseMax solve in one launch.
 
 ``microsolve_planar_phasemax`` runs the adaptive or FISTA solve of
 min ½ Σ max(|Ax| − b, 0)² − ⟨c, x⟩ on planar x (n, 2), A = Ar + i·Ai
 (m, n), b (m,) magnitudes, c (n, 2) the anchor; port of
 ``fasta_tpu/kernels/microsolver_planar.py:45-64, 606-722`` (pallas_call at
-:669).  The CUDA source is ``fasta_tpu_torch/csrc/microsolver_planar.cu``
-(its header note gives the design).  The wrapper launches the kernel for
-CUDA tensors and runs the plain version
+:669).  ``microsolve_planar_phasemax_batch`` (K-B8b) solves B instances
+sharing A and c, each with its own b, x₀ and τ₀, in one launch; port of
+the kernel under ``jax.vmap`` (``fasta_tpu/micro.py:435``).  The CUDA
+source is ``fasta_tpu_torch/csrc/microsolver_planar.cu``
+(its header note gives the design).  The wrappers launch the kernel for
+CUDA tensors and run the plain versions
 (``microsolve_planar_phasemax_reference``: K-B1's plain loop over the
-planar pair with the hinge and the anchor) for CPU tensors.
+planar pair with the hinge and the anchor, per instance for the batch)
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,16 +25,21 @@ import torch.nn.functional as F
 
 from ..options import STOP_RULES
 from . import _build
-from .microsolver import (MicrosolveOutput, _check_options, _outputs, _ptr,
+from .microsolver import (MicrosolveOutput, _check_batch, _check_options,
+                          _outputs, _points, _ptr, batch_reference,
                           solve_reference)
 
 __all__ = ["microsolve_planar_phasemax",
            "microsolve_planar_phasemax_reference",
-           "supports_planar_microsolver", "row_chunk", "MAX_N", "LAUNCHES"]
+           "microsolve_planar_phasemax_batch",
+           "microsolve_planar_phasemax_batch_reference",
+           "supports_planar_microsolver", "row_chunk", "MAX_N", "LAUNCHES",
+           "BATCH_LAUNCHES"]
 
-# Launches of the whole-solve kernel, counted where it launches, nowhere
-# else.
+# Launches of the whole-solve kernel for one solve (K-B8) and for a batch
+# (K-B8b), each counted where it launches, nowhere else.
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
 
 # The widest signal the kernel takes (after padding to a multiple of 4):
 # each block keeps the n-sized state in shared memory and a warp's lanes
@@ -123,10 +132,45 @@ def microsolve_planar_phasemax(Ar, Ai, b, c, x0, tau0, *, record_its=False,
     _check(Ar, Ai, b, c, x0, "microsolve_planar_phasemax")
     if Ar.device.type == "cpu":
         return _solve(Ar, Ai, b, c, x0, tau0, record_its, o)
-    out = _launch(Ar, Ai, b, c, x0, tau0, record_its, o)
+    out = _launch(Ar, Ai, b, c, x0, tau0, 1, record_its, o)
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return MicrosolveOutput(*(None if t is None else t[0] for t in out))
+
+
+def microsolve_planar_phasemax_batch(Ar, Ai, bs, c, x0s, tau0s,
+                                     **options) -> MicrosolveOutput:
+    """The solve of ``microsolve_planar_phasemax`` for B instances sharing
+    Ar, Ai and the anchor c in one launch: magnitudes ``bs`` (B, m), starts
+    ``x0s`` (B, n, 2) or one shared (n, 2), τ₀ a number or a (B,) tensor.
+    Every output field gains a leading axis of B instances, each
+    bit-identical to a separate ``microsolve_planar_phasemax`` call on the
+    same device.
+
+    CUDA tensors launch kernel K-B8b; CPU tensors run the plain version."""
+    o = _options(options)
+    B = _check_batch(Ar, bs, x0s, tau0s, 1,
+                     "microsolve_planar_phasemax_batch")
+    _check(Ar, Ai, bs[0], c, x0s if x0s.ndim == 2 else x0s[0],
+           "microsolve_planar_phasemax_batch")
+    if Ar.device.type == "cpu":
+        return microsolve_planar_phasemax_batch_reference(
+            Ar, Ai, bs, c, x0s, tau0s, **options)
+    out = _launch(Ar, Ai, bs, c, x0s, tau0s, B, False, o)
+    global BATCH_LAUNCHES
+    BATCH_LAUNCHES += 1
+    return MicrosolveOutput(*out)
+
+
+def microsolve_planar_phasemax_batch_reference(Ar, Ai, bs, c, x0s, tau0s,
+                                               **options
+                                               ) -> MicrosolveOutput:
+    """The plain version of K-B8b: the plain K-B8 solve per instance, its
+    outputs stacked on a leading axis."""
+    o = _options(options)
+    return batch_reference(
+        lambda b, x0, tau0: _solve(Ar, Ai, b, c, x0, tau0, False, o),
+        bs, x0s, tau0s, 2)
 
 
 def microsolve_planar_phasemax_reference(Ar, Ai, b, c, x0, tau0, *,
@@ -169,7 +213,9 @@ def _work(m: int, n4: int, nblocks: int) -> int:
     return nf.value
 
 
-def _launch(Ar, Ai, b, c, x0, tau0, record_its, o):
+def _launch(Ar, Ai, b, c, x0, tau0, B, record_its, o):
+    """One launch over B instances: b (m,) or (B, m), x0 (n, 2) or
+    (B, n, 2), τ₀ a number or (B,)."""
     m, n = Ar.shape
     n4 = (n + 3) // 4 * 4
     if n4 > MAX_N:
@@ -186,23 +232,22 @@ def _launch(Ar, Ai, b, c, x0, tau0, record_its, o):
     K = o["max_iters"]
     nb = _grid(dev.index, n4)
     f32 = dict(device=dev, dtype=torch.float32)
-    x = torch.empty((n, 2), **f32)
-    r = _outputs(1, K, o, dev, nb)
-    its = torch.zeros((K, n, 2), **f32) if record_its else None
+    b_stride, x0_stride, tau0s, tau0 = _points(B, b, 1, x0, 2, tau0, dev)
+    x = torch.empty((B, n, 2), **f32)
+    r = _outputs(B, K, o, dev, nb)
+    its = torch.zeros((B, K, n, 2), **f32) if record_its else None
     work_f = torch.empty(_work(m, n4, nb), **f32)
     flags = (int(bool(o["hp"])) | int(bool(o["accelerate"])) << 1
              | int(bool(o["restart"])) << 2 | int(bool(o["restart_dd"])) << 3)
     with _build.on_device(dev) as stream:
         _build.check(_build.library().fasta_microsolve_planar(
-            Ar.data_ptr(), Ai.data_ptr(), b.data_ptr(), c.data_ptr(),
-            x0.data_ptr(), float(tau0), m, n, n4, K, o["window"],
+            Ar.data_ptr(), Ai.data_ptr(), b.data_ptr(), b_stride,
+            c.data_ptr(), x0.data_ptr(), x0_stride, _ptr(tau0s), B, tau0,
+            m, n, n4, K, o["window"],
             float(o["tol"]), float(o["shrink_factor"]), o["max_backtracks"],
             STOP_RULES.index(o["stop_rule"]), flags, x.data_ptr(),
             r.taus.data_ptr(), r.res.data_ptr(), _ptr(r.fvals), _ptr(r.bts),
             _ptr(r.objs), _ptr(r.nres), _ptr(its), r.k.data_ptr(),
             r.halt.data_ptr(), work_f.data_ptr(), r.work_d.data_ptr(), nb,
             stream), "fasta_microsolve_planar")
-    return MicrosolveOutput(x, r.taus[0], r.res[0], r.k[0], r.halt[0],
-                            *(None if t is None else t[0]
-                              for t in (r.fvals, r.bts, r.objs)),
-                            its, None if r.nres is None else r.nres[0])
+    return x, r.taus, r.res, r.k, r.halt, r.fvals, r.bts, r.objs, its, r.nres

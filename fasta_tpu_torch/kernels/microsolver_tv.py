@@ -1,4 +1,4 @@
-"""Kernels K-B6 and K-B6p: whole TV-dual solves in one launch.
+"""Kernels K-B6, K-B6p and K-B6b: whole TV-dual solves in one launch.
 
 K-B6, ``microsolve_tv``: the whole adaptive or FISTA solve of the TV
 denoising dual  min_p ½‖μ·div p − b‖²  s.t. ‖p‖∞ ≤ 1  for a dual field p
@@ -8,13 +8,16 @@ denoising dual  min_p ½‖μ·div p − b‖²  s.t. ‖p‖∞ ≤ 1  for a du
 weights in one launch, warm (each point from the previous dual field and,
 adaptive, its last accepted stepsize) or cold (each point as a separate
 ``microsolve_tv`` call); port of ``microsolver_tv.py:664-790`` (pallas_call
-at :731).
+at :731).  K-B6b, ``microsolve_tv_batch``: B images under one TV
+weight, each with its own start and τ₀, in one launch; port of
+``microsolve_tv`` under ``jax.vmap`` (``fasta_tpu/micro.py:435``).
 
 The CUDA source is ``fasta_tpu_torch/csrc/microsolver_tv.cu``; its
 header note gives the design.  Each wrapper launches the kernel for CUDA
 tensors and runs its plain version (``microsolve_tv_reference``,
-``microsolve_tv_path_reference``: K-B1's plain loop over the TV stencils,
-the same phases in PyTorch) for CPU tensors.  Outputs are
+``microsolve_tv_path_reference``, ``microsolve_tv_batch_reference``: K-B1's
+plain loop over the TV stencils, the same phases in PyTorch) for CPU
+tensors.  Outputs are
 :class:`~fasta_tpu_torch.kernels.microsolver.MicrosolveOutput`s without
 iterates: a TV trajectory is a (2, H, W) field per iteration, which the
 JAX kernel does not record either.
@@ -29,16 +32,21 @@ import torch
 
 from ..options import STOP_RULES
 from . import _build
-from .microsolver import (MicrosolveOutput, _check_options, _outputs, _ptr,
+from .microsolver import (MicrosolveOutput, _check_batch, _check_options,
+                          _outputs, _points, _ptr, batch_reference,
                           path_reference, solve_reference)
 
 __all__ = ["microsolve_tv", "microsolve_tv_reference", "microsolve_tv_path",
-           "microsolve_tv_path_reference", "LAUNCHES", "PATH_LAUNCHES"]
+           "microsolve_tv_path_reference", "microsolve_tv_batch",
+           "microsolve_tv_batch_reference", "LAUNCHES", "PATH_LAUNCHES",
+           "BATCH_LAUNCHES"]
 
-# Launches of the whole-solve kernel for one solve (K-B6) and for a path
-# (K-B6p), each counted where it launches, nowhere else.
+# Launches of the whole-solve kernel for one solve (K-B6), for a path
+# (K-B6p) and for a batch (K-B6b), each counted where it launches, nowhere
+# else.
 LAUNCHES = 0
 PATH_LAUNCHES = 0
+BATCH_LAUNCHES = 0
 
 # The JAX kernel's defaults (microsolver_tv.py:547-552): hp on.
 _DEFAULTS = dict(max_iters=2000, window=10, tol=1e-5, shrink_factor=0.2,
@@ -91,7 +99,7 @@ def microsolve_tv(b, p0, tau0, mu, **options) -> MicrosolveOutput:
     _check(b, p0, "microsolve_tv")
     if b.device.type == "cpu":
         return microsolve_tv_reference(b, p0, tau0, mu, **options)
-    out = _launch(b, p0, tau0, torch.tensor([float(mu)]), False, o)
+    out = _launch(b, p0, tau0, torch.tensor([float(mu)]), 1, False, o)
     global LAUNCHES
     LAUNCHES += 1
     return MicrosolveOutput(*(None if t is None else t[0] for t in out))
@@ -120,9 +128,28 @@ def microsolve_tv_path(b, p0, tau0, mus, *, warm=True,
     if b.device.type == "cpu":
         return microsolve_tv_path_reference(b, p0, tau0, mus, warm=warm,
                                             **options)
-    out = _launch(b, p0, tau0, mus.cpu(), warm, o)
+    out = _launch(b, p0, tau0, mus.cpu(), mus.shape[0], warm, o)
     global PATH_LAUNCHES
     PATH_LAUNCHES += 1
+    return MicrosolveOutput(*out)
+
+
+def microsolve_tv_batch(bs, p0s, tau0s, mu, **options) -> MicrosolveOutput:
+    """The solve of ``microsolve_tv`` for B images ``bs`` (B, H, W) under
+    one TV weight ``mu`` in one launch, from starts ``p0s`` (B, 2, H, W) or
+    one shared (2, H, W), with τ₀ a number or a (B,) tensor.  Every output
+    field gains a leading axis of B images, each bit-identical to a
+    separate ``microsolve_tv`` call on the same device.
+
+    CUDA tensors launch kernel K-B6b; CPU tensors run the plain version."""
+    o = _options(options)
+    B = _check_batch(bs, bs, p0s, tau0s, 2, "microsolve_tv_batch")
+    _check(bs[0], p0s if p0s.ndim == 3 else p0s[0], "microsolve_tv_batch")
+    if bs.device.type == "cpu":
+        return microsolve_tv_batch_reference(bs, p0s, tau0s, mu, **options)
+    out = _launch(bs, p0s, tau0s, torch.tensor([float(mu)]), B, False, o)
+    global BATCH_LAUNCHES
+    BATCH_LAUNCHES += 1
     return MicrosolveOutput(*out)
 
 
@@ -138,17 +165,21 @@ def _grid(device_index: int) -> int:
     return nb.value
 
 
-def _launch(b, p0, tau0, mus, warm, o):
+def _launch(b, p0, tau0, mus, B, warm, o):
+    """One launch over B points: b (H, W) or (B, H, W), p0 (2, H, W) or
+    (B, 2, H, W), τ₀ a number or (B,), mus (1,) shared or (B,)."""
     b, p0 = b.contiguous(), p0.contiguous()
-    H, W = b.shape
-    B, K = mus.shape[0], o["max_iters"]
+    H, W = b.shape[-2:]
+    K = o["max_iters"]
     dev = b.device
     nb = _grid(dev.index)
     f32 = dict(device=dev, dtype=torch.float32)
     mus_d = mus.to(**f32)
+    b_stride, p0_stride, tau0s, tau0 = _points(B, b, 2, p0, 3, tau0, dev)
     x = torch.empty(B, 2, H, W, **f32)
     r = _outputs(B, K, o, dev, nb)
-    # y and x₁, their gradients, x_acc (2 channels each); r, d₁, d_acc
+    # y and x₁, their gradients, x_acc (2 channels each); r, d₁, d_acc —
+    # one buffer that every point of the launch reuses
     work_f = torch.empty(13 * H * W, **f32)
 
     flags = (int(bool(o["hp"])) | int(bool(o["accelerate"])) << 1
@@ -156,8 +187,9 @@ def _launch(b, p0, tau0, mus, warm, o):
              | int(bool(warm)) << 4)
     with _build.on_device(dev) as stream:
         _build.check(_build.library().fasta_microsolve_tv(
-            b.data_ptr(), p0.data_ptr(), mus_d.data_ptr(), B, float(tau0), H,
-            W, K, o["window"], float(o["tol"]), float(o["shrink_factor"]),
+            b.data_ptr(), b_stride, p0.data_ptr(), p0_stride,
+            mus_d.data_ptr(), int(mus_d.numel() > 1), _ptr(tau0s), B, tau0,
+            H, W, K, o["window"], float(o["tol"]), float(o["shrink_factor"]),
             o["max_backtracks"], STOP_RULES.index(o["stop_rule"]), flags,
             x.data_ptr(), r.taus.data_ptr(), r.res.data_ptr(),
             _ptr(r.fvals), _ptr(r.bts), _ptr(r.objs), _ptr(r.nres),
@@ -185,6 +217,15 @@ def microsolve_tv_reference(b, p0, tau0, mu, **options) -> MicrosolveOutput:
     (with ``restart_dd``) the restart dot accumulate in float64; only the
     order of the float32 sums differs from the kernel."""
     return _solve(b, p0, tau0, mu, _options(options))[0]
+
+
+def microsolve_tv_batch_reference(bs, p0s, tau0s, mu,
+                                  **options) -> MicrosolveOutput:
+    """The plain version of K-B6b: the plain K-B6 solve per image, its
+    outputs stacked on a leading axis."""
+    o = _options(options)
+    return batch_reference(
+        lambda b, p0, tau0: _solve(b, p0, tau0, mu, o)[0], bs, p0s, tau0s, 3)
 
 
 def microsolve_tv_path_reference(b, p0, tau0, mus, *, warm=True,

@@ -1,6 +1,5 @@
 """Public dispatch onto the whole-solve kernels (port of
-``fasta_tpu/micro.py:41-350, 442-621, 669-698``, dense, TV and planar
-branches).
+``fasta_tpu/micro.py:41-621, 669-698``, dense, TV and planar branches).
 
 :func:`microsolve` inspects a :class:`~fasta_tpu_torch.problem.Problem`'s
 operator and term types and routes a dense problem — least-squares,
@@ -10,8 +9,10 @@ prox — to kernel K-B1, a TV-dual problem — ``ScaledOp(μ, TVDiv2D())``
 PhaseMax — ``PlanarDenseOp`` × ``PlanarPhaseHinge`` ×
 ``PlanarLinearAnchor`` — to kernel K-B8, raising with a reason when the
 structure is outside the kernels' scope.  :func:`microsolve_sweep` solves
-a path of weights in one launch of kernel K-B1p or K-B6p, cold or warm.
-Calling either is the opt-in: it never falls back to the general loop.
+a path of weights in one launch of kernel K-B1p or K-B6p, cold or warm,
+and :func:`microsolve_batch` a batch of instances sharing the operator in
+one launch of kernel K-B1b, K-B6b or K-B8b.  Calling any of them is the
+opt-in: it never falls back to the general loop.
 
 Two faults of the reference are not inherited: ``best_index`` ignores
 NaN and is None after a nonfinite abort, and ``status`` is a string,
@@ -28,12 +29,15 @@ import numpy as np
 import torch
 
 from .kernels.microsolver import (_DENSE_VMEM_BYTES, STATUS_NAMES,
-                                  microsolve_lasso, microsolve_lasso_path,
+                                  microsolve_lasso, microsolve_lasso_batch,
+                                  microsolve_lasso_path,
                                   supports_microsolver)
 from .kernels.microsolver_planar import (microsolve_planar_phasemax,
+                                        microsolve_planar_phasemax_batch,
                                         row_chunk,
                                         supports_planar_microsolver)
-from .kernels.microsolver_tv import microsolve_tv, microsolve_tv_path
+from .kernels.microsolver_tv import (microsolve_tv, microsolve_tv_batch,
+                                     microsolve_tv_path)
 from .operators import DenseOp, PlanarDenseOp, ScaledOp, TVDiv2D
 from .problem import Problem
 from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares, Logistic,
@@ -41,7 +45,7 @@ from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares, Logistic,
                     SquaredHinge)
 
 __all__ = ["MicroResult", "MicroBatchResult", "microsolve",
-           "microsolve_supported", "microsolve_sweep"]
+           "microsolve_supported", "microsolve_sweep", "microsolve_batch"]
 
 _LOSSES = {LeastSquares: "lstsq", Logistic: "logistic",
            SquaredHinge: "squared_hinge"}
@@ -80,13 +84,16 @@ class MicroResult:
 
 @dataclass
 class MicroBatchResult:
-    """Result of a path run: the leading axis of every field is the path
-    point.  ``solutions`` stays on the device; the per-point series are
-    host arrays trimmed to each point's iteration count (lists of (kᵢ,)
-    arrays).  ``best_indices`` follows ``MicroResult.best_index``, with
-    −1 where that is None."""
+    """Result of a batched run — the points of a weight path
+    (:func:`microsolve_sweep`) or the instances of a batch
+    (:func:`microsolve_batch`): the leading axis of every field is the
+    point or instance.  ``solutions`` stays on the device; the
+    per-point series are host arrays trimmed to each point's iteration
+    count (lists of (kᵢ,) arrays).  ``statuses`` holds each point's
+    ``MicroResult.status`` and ``best_indices`` its
+    ``MicroResult.best_index``, with −1 where that is None."""
 
-    solutions: torch.Tensor              # (B, n); TV: (B, 2, H, W)
+    solutions: torch.Tensor    # (B, n); TV: (B, 2, H, W); planar (B, n, 2)
     iteration_counts: np.ndarray         # (B,) int
     converged: np.ndarray                # (B,) bool
     residuals: list
@@ -363,6 +370,13 @@ def microsolve_sweep(problem: Problem, mus, tau0: Optional[float] = None,
         out = microsolve_lasso_path(
             problem.op.A.to(torch.float32), data, x0, tau0, mus, hp=bool(hp),
             loss=loss, prox=prox, **kw)
+    return _pack_batch(out, B, t0)
+
+
+def _pack_batch(out, B: int, t0: float) -> MicroBatchResult:
+    """A batched kernel output (leading axis of B points) as a
+    :class:`MicroBatchResult`, its series trimmed to each point's count;
+    ``t0`` is the perf_counter reading before the launch."""
     ks = out.iteration_count.cpu().numpy().astype(np.int64)
     statuses = np.array([STATUS_NAMES[int(h)] for h in out.halt.cpu()])
     solve_time = time.perf_counter() - t0
@@ -395,3 +409,80 @@ def microsolve_sweep(problem: Problem, mus, tau0: Optional[float] = None,
         best_indices=np.array([-1 if i is None else i for i in best]),
         objectives=objs_l,
     )
+
+
+def microsolve_batch(problem: Problem, bs, x0s=None, tau0=None,
+                     max_iters: int = 1000, tol: float = 1e-3,
+                     window: int = 10, shrink_factor: float = 0.2,
+                     max_backtracks: int = 20, hp: Optional[bool] = None,
+                     engine: Optional[str] = None,
+                     accelerate: bool = False, restart: bool = True,
+                     restart_dd: bool = False,
+                     stop_rule: str = "hybrid_residual",
+                     record_fvals: bool = False, record_bts: bool = True,
+                     record_objs: bool = False, record_nres: bool = False,
+                     interpret: Optional[bool] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> MicroBatchResult:
+    """Solve a batch of instances sharing ``problem``'s operator in one
+    launch of kernel K-B1b (dense), K-B6b (the TV dual, one image per
+    instance) or K-B8b (planar PhaseMax); port of
+    ``fasta_tpu/micro.py:353-475``.
+
+    ``bs`` stacks the instances' measurements, labels or images on a new
+    leading axis (``(B,) +`` the smooth term's data shape); ``x0s``
+    stacks their starts (default: every instance starts from
+    ``problem.x0``).  ``tau0`` is one stepsize for all, or a (B,) vector
+    of one per instance (default: the problem's, else estimated as
+    :func:`microsolve` does).  Each instance runs the whole solve with its
+    own stopping decision and is bit-identical to a separate
+    :func:`microsolve` call on the same device.  Options mean what they
+    mean on :func:`microsolve`.  Raises ``ValueError`` for a structure
+    without a kernel and for ``bs``, ``x0s`` or ``tau0`` of the wrong
+    shape."""
+    kind, detail, data, x0, tau0 = _start(
+        problem, "microsolve_batch", tau0, engine, interpret, generator)
+    dev = data.device
+    bs = torch.as_tensor(bs).to(dev, torch.float32)
+    if bs.ndim != data.ndim + 1:
+        raise ValueError(f"microsolve_batch: bs must stack {data.ndim}-d "
+                         f"instance data on a leading batch axis, got "
+                         f"ndim={bs.ndim}")
+    B = bs.shape[0]
+    if x0s is None:
+        x0s = x0                      # shared: the kernels read it once
+    else:
+        x0s = torch.as_tensor(x0s).to(dev, torch.float32)
+        if tuple(x0s.shape) != (B,) + tuple(x0.shape):
+            raise ValueError(f"microsolve_batch: x0s shape "
+                             f"{tuple(x0s.shape)} != {(B,) + tuple(x0.shape)}")
+    tau0 = torch.as_tensor(tau0, dtype=torch.float32)
+    if tau0.ndim > 1:
+        raise ValueError(f"microsolve_batch: tau0 must be a scalar or a (B,) "
+                         f"vector of per-instance stepsizes, got "
+                         f"ndim={tau0.ndim}")
+    if tau0.ndim == 1 and tuple(tau0.shape) != (B,):
+        raise ValueError(f"microsolve_batch: per-instance tau0 shape "
+                         f"{tuple(tau0.shape)} != ({B},)")
+    tau0s = tau0.to(dev) if tau0.ndim else float(tau0)
+    kw = dict(max_iters=max_iters, window=window, tol=tol,
+              shrink_factor=shrink_factor, max_backtracks=max_backtracks,
+              stop_rule=stop_rule, accelerate=accelerate, restart=restart,
+              restart_dd=restart_dd, record_fvals=record_fvals,
+              record_bts=record_bts, record_objs=record_objs,
+              record_nres=record_nres)
+    t0 = time.perf_counter()
+    if kind == "tv":
+        out = microsolve_tv_batch(bs, x0s, tau0s, detail,
+                                  hp=True if hp is None else bool(hp), **kw)
+    elif kind == "planar":
+        op = problem.op
+        out = microsolve_planar_phasemax_batch(
+            op.Ar.to(torch.float32), op.Ai.to(torch.float32), bs,
+            problem.gterm.c.to(torch.float32), x0s, tau0s, hp=bool(hp), **kw)
+    else:
+        loss, prox, mu = detail
+        out = microsolve_lasso_batch(
+            problem.op.A.to(torch.float32), bs, x0s, tau0s, mu, hp=bool(hp),
+            loss=loss, prox=prox, **kw)
+    return _pack_batch(out, B, t0)

@@ -7,7 +7,10 @@ the stencil pair ``TVGrad2D`` / ``TVDiv2D`` and ``ScaledOp``; planar
 phase retrieval needs ``PlanarDenseOp``.  The other operators (identity,
 closures, FFTs, sparse) come with their problems (ROADMAP Queue A item
 2).  Operators are plain data holders; their tensors stay on whatever
-device the caller put them.
+device the caller put them.  ``lanes`` and ``rmatvec_lanes`` apply an
+operator to every lane of a leading lane axis (the batch dimension of
+``solver.make_batch_solver``; ``jax.vmap`` in the JAX package): one call
+per lane by default, one batched call where the operator has one.
 
 All adjoints are conjugate transposes, so complex data is handled
 exactly.
@@ -37,6 +40,14 @@ class LinearOp:
         """Apply the conjugate-transpose (adjoint) operator."""
         raise NotImplementedError
 
+    def lanes(self, x):
+        """The operator on each lane of ``x`` (B, ...), stacked."""
+        return torch.stack([self(xi) for xi in x])
+
+    def rmatvec_lanes(self, y):
+        """The adjoint on each lane of ``y`` (B, ...), stacked."""
+        return torch.stack([self.rmatvec(yi) for yi in y])
+
     @property
     def H(self) -> "LinearOp":
         """The adjoint as a first-class operator."""
@@ -52,6 +63,12 @@ class AdjointOp(LinearOp):
 
     def rmatvec(self, y):
         return self.base(y)
+
+    def lanes(self, x):
+        return self.base.rmatvec_lanes(x)
+
+    def rmatvec_lanes(self, y):
+        return self.base.lanes(y)
 
     @property
     def H(self):
@@ -73,6 +90,19 @@ class DenseOp(LinearOp):
 
     def rmatvec(self, y):
         return torch.matmul(self.A.mH, y)
+
+    def lanes(self, x):
+        """Vector lanes (B, n) as one product X·Aᵀ (one lane: A x, the
+        single solve's product)."""
+        if x.shape[0] == 1 or x.ndim != 2:
+            return super().lanes(x)
+        return torch.matmul(x, self.A.mT)
+
+    def rmatvec_lanes(self, y):
+        """Vector lanes (B, m) as one product Y·Ā (one lane: Aᴴ y)."""
+        if y.shape[0] == 1 or y.ndim != 2:
+            return super().rmatvec_lanes(y)
+        return torch.matmul(y, self.A.conj())
 
     @property
     def shape(self):
@@ -110,12 +140,22 @@ class PlanarDenseOp(LinearOp):
     def __call__(self, x):
         p = torch.matmul(self.Ar, x)
         q = torch.matmul(self.Ai, x)
-        return torch.stack([p[:, 0] - q[:, 1], p[:, 1] + q[:, 0]], dim=-1)
+        return torch.stack([p[..., 0] - q[..., 1], p[..., 1] + q[..., 0]],
+                           dim=-1)
 
     def rmatvec(self, y):
         p = torch.matmul(self.Ar.mT, y)
         q = torch.matmul(self.Ai.mT, y)
-        return torch.stack([p[:, 0] + q[:, 1], p[:, 1] - q[:, 0]], dim=-1)
+        return torch.stack([p[..., 0] + q[..., 1], p[..., 1] - q[..., 0]],
+                           dim=-1)
+
+    def lanes(self, x):
+        """Lanes (B, n, 2) in two batched products (one lane: the single
+        solve's products)."""
+        return super().lanes(x) if x.shape[0] == 1 else self(x)
+
+    def rmatvec_lanes(self, y):
+        return super().rmatvec_lanes(y) if y.shape[0] == 1 else self.rmatvec(y)
 
     @property
     def shape(self):
@@ -123,27 +163,28 @@ class PlanarDenseOp(LinearOp):
 
 
 def tv_grad_2d(x: torch.Tensor) -> torch.Tensor:
-    """2-D forward differences (H, W) → (2, H, W): channel 0 vertical,
-    channel 1 horizontal, the last row / column of each channel zero
-    (``reference_oracle.generators.tv_grad_2d``)."""
-    zrow = torch.zeros_like(x[:1, :])
-    zcol = torch.zeros_like(x[:, :1])
-    dv = torch.cat([x[1:, :] - x[:-1, :], zrow], dim=0)
-    dh = torch.cat([x[:, 1:] - x[:, :-1], zcol], dim=1)
-    return torch.stack([dv, dh])
+    """2-D forward differences (..., H, W) → (..., 2, H, W): channel 0
+    vertical, channel 1 horizontal, the last row / column of each channel
+    zero (``reference_oracle.generators.tv_grad_2d``); leading axes are
+    lanes."""
+    zrow = torch.zeros_like(x[..., :1, :])
+    zcol = torch.zeros_like(x[..., :, :1])
+    dv = torch.cat([x[..., 1:, :] - x[..., :-1, :], zrow], dim=-2)
+    dh = torch.cat([x[..., :, 1:] - x[..., :, :-1], zcol], dim=-1)
+    return torch.stack([dv, dh], dim=-3)
 
 
 def tv_div_2d(p: torch.Tensor) -> torch.Tensor:
-    """The adjoint of :func:`tv_grad_2d`, (2, H, W) → (H, W) (minus the
-    divergence), in the JAX package's order of operations: the vertical
-    difference plus the horizontal one (``generators.tv_div_2d``)."""
-    pv, ph = p[0], p[1]
-    zrow = torch.zeros_like(pv[:1, :])
-    zcol = torch.zeros_like(ph[:, :1])
-    out = (torch.cat([zrow, pv[:-1, :]], dim=0)
-           - torch.cat([pv[:-1, :], zrow], dim=0))
-    return out + (torch.cat([zcol, ph[:, :-1]], dim=1)
-                  - torch.cat([ph[:, :-1], zcol], dim=1))
+    """The adjoint of :func:`tv_grad_2d`, (..., 2, H, W) → (..., H, W)
+    (minus the divergence), in the JAX package's order of operations: the
+    vertical difference plus the horizontal one (``generators.tv_div_2d``)."""
+    pv, ph = p[..., 0, :, :], p[..., 1, :, :]
+    zrow = torch.zeros_like(pv[..., :1, :])
+    zcol = torch.zeros_like(ph[..., :, :1])
+    out = (torch.cat([zrow, pv[..., :-1, :]], dim=-2)
+           - torch.cat([pv[..., :-1, :], zrow], dim=-2))
+    return out + (torch.cat([zcol, ph[..., :, :-1]], dim=-1)
+                  - torch.cat([ph[..., :, :-1], zcol], dim=-1))
 
 
 class TVGrad2D(LinearOp):
@@ -156,6 +197,8 @@ class TVGrad2D(LinearOp):
     def rmatvec(self, p):
         return tv_div_2d(p)
 
+    lanes, rmatvec_lanes = __call__, rmatvec      # leading axes are lanes
+
 
 class TVDiv2D(LinearOp):
     """Adjoint of :class:`TVGrad2D`, (2, H, W) → (H, W) (equals minus the
@@ -166,6 +209,8 @@ class TVDiv2D(LinearOp):
 
     def rmatvec(self, y):
         return tv_grad_2d(y)
+
+    lanes, rmatvec_lanes = __call__, rmatvec      # leading axes are lanes
 
 
 class ScaledOp(LinearOp):
@@ -180,6 +225,12 @@ class ScaledOp(LinearOp):
 
     def rmatvec(self, y):
         return self.c * self.op.rmatvec(y)
+
+    def lanes(self, x):
+        return self.c * self.op.lanes(x)
+
+    def rmatvec_lanes(self, y):
+        return self.c * self.op.rmatvec_lanes(y)
 
 
 def default_device(device, what: str) -> torch.device:

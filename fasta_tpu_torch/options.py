@@ -33,8 +33,9 @@ STOP_RULES = (
 
 
 def stop_test(rule: str, res, nres, max_res, tol: float, eps_r: float):
-    """The stopping rule ``rule`` as a 0-d bool tensor (oracle-identical
-    formulas; "iterations" never stops early)."""
+    """The stopping rule ``rule`` as a bool tensor shaped like ``res`` (0-d
+    for one solve, one per lane for a batch; oracle-identical formulas;
+    "iterations" never stops early)."""
     if rule == "residual":
         return res < tol
     if rule == "normalized_residual":
@@ -43,7 +44,7 @@ def stop_test(rule: str, res, nres, max_res, tol: float, eps_r: float):
         return res / (max_res + eps_r) < tol
     if rule == "hybrid_residual":
         return (res / (max_res + eps_r) < tol) | (nres < tol)
-    return torch.zeros((), dtype=torch.bool, device=res.device)
+    return torch.zeros_like(res, dtype=torch.bool)
 
 
 @dataclasses.dataclass(frozen=True)

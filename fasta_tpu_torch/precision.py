@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["use_high_precision", "redot", "norm2", "dot64", "real_dtype"]
+__all__ = ["use_high_precision", "redot", "norm2", "real_dtype",
+           "lane_sum", "lane_redot", "lane_norm2", "lane_dot64", "lane"]
 
 
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -41,7 +42,35 @@ def norm2(a: torch.Tensor) -> torch.Tensor:
     return redot(a, a)
 
 
-def dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Re⟨a, b⟩ accumulated in float64 (complex128 for complex data)."""
+# Over a leading lane axis (the batch dimension of ``make_batch_solver``;
+# one solve is one lane): one value per lane, each summed as the
+# functions above sum one tensor.
+
+
+def lane_sum(a: torch.Tensor) -> torch.Tensor:
+    """The sum of each lane of ``a``, shape (B,)."""
+    return torch.sum(a.reshape(a.shape[0], -1), dim=1)
+
+
+def lane_redot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Re⟨aᵢ, bᵢ⟩ per lane in the working precision."""
+    return lane_sum(torch.real(torch.conj(a) * b))
+
+
+def lane_norm2(a: torch.Tensor) -> torch.Tensor:
+    """‖aᵢ‖² per lane in the working precision."""
+    return lane_redot(a, a)
+
+
+def lane_dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Re⟨aᵢ, bᵢ⟩ per lane accumulated in float64."""
     wide = torch.complex128 if a.is_complex() else torch.float64
-    return redot(a.to(wide), b.to(wide))
+    return lane_redot(a.to(wide), b.to(wide))
+
+
+def lane(v, like: torch.Tensor):
+    """A per-lane value (B,) shaped to broadcast against ``like`` (B, ...);
+    a number or a 0-d tensor as it is."""
+    if not torch.is_tensor(v) or v.ndim == 0:
+        return v
+    return v.reshape((v.shape[0],) + (1,) * (like.ndim - 1))

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -63,6 +63,31 @@ class Problem:
         :func:`fasta_tpu_torch.micro.microsolve_sweep`."""
         from .micro import microsolve_sweep as _sweep
         return _sweep(self, mus, **kwargs)
+
+    def microsolve_batch(self, bs, x0s=None, **kwargs):
+        """B instances sharing this problem's operator — measurements
+        ``bs`` stacked on a leading axis, optional starts ``x0s`` — in one
+        kernel launch; see :func:`fasta_tpu_torch.micro.microsolve_batch`."""
+        from .micro import microsolve_batch as _batch
+        return _batch(self, bs, x0s=x0s, **kwargs)
+
+    def solve_serving(self, bs=None, *, need_full_diagnostics=False,
+                      **kwargs):
+        """Solve on the serving path that
+        :func:`fasta_tpu_torch.serving.recommend_path` picks for this
+        problem and batch: ``bs`` stacks the requests' measurements on a
+        leading axis (None: one solve of the problem's own); the other
+        keyword arguments go to that path."""
+        from .serving import recommend_path
+        batch = 1 if bs is None else len(bs)
+        plan = recommend_path(self, batch,
+                              need_full_diagnostics=need_full_diagnostics)
+        return plan.run(bs, **kwargs)
+
+    def with_parts(self, **kwargs) -> "Problem":
+        """A copy with the named fields replaced (``op``, ``fterm``,
+        ``gterm``, ``x0``, ...)."""
+        return replace(self, **kwargs)
 
     def recovery_error(self, x, recovered: Optional[bool] = None) -> float:
         """Relative error against the planted signal, phase-invariant for

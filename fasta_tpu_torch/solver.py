@@ -1,23 +1,28 @@
 """FASTA solver core (port of ``fasta_tpu/solver.py:58-191, 194-603,
-664-672, 745-749, 771-930``).
+664-672, 745-765, 771-930``).
 
 Forward-backward splitting in the three modes of the reference — plain
 (fixed stepsize), adaptive (the Zhou–Gao–Dai BB stepsize) and FISTA with
 O'Donoghue–Candès restart — with nonmonotone backtracking, the five
 stopping rules plus a custom ``stop_fn``, the nonfinite guard,
-best-iterate tracking and full per-iteration diagnostics, and the
-warm-started regularization path ``solve_path``.  The iteration math is
-the JAX solver's — same update order, formulas and guard constants — so
-trajectories agree within floating-point tolerance.
+best-iterate tracking and full per-iteration diagnostics, the
+warm-started regularization path ``solve_path`` and the batch solver
+``make_batch_solver``.  The iteration math is the JAX solver's — same
+update order, formulas and guard constants — so trajectories agree within
+floating-point tolerance.
 
-The loop runs eagerly in PyTorch on the device of the data.  Decisions
-(backtracking, stopping) read one device scalar each, so an iteration
-synchronises with the device; the whole-solve kernel
-(``fasta_tpu_torch.micro.microsolve``) keeps them on the card.
+The loop runs eagerly in PyTorch on the device of the data, over a
+leading lane axis: one solve is one lane, a batch many.  Decisions
+(backtracking, stopping) read one device value each, so an iteration
+synchronises with the device; the whole-solve kernels
+(``fasta_tpu_torch.micro``) keep them on the card.  An L1 trial step of
+real float32 data is kernel K-B4 (``kernels/prox_fused.py``), which
+returns x₁ and the step's three sums in one pass.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 from dataclasses import dataclass
@@ -26,13 +31,16 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from .kernels.prox_fused import fused_shrink_step
 from .operators import LinearOp, as_linear_op, check_adjoint, randn_like
 from .options import FastaOptions, stop_test
-from .precision import dot64, norm2, real_dtype, redot, use_high_precision
-from .terms import ProxTerm, SmoothTerm, as_prox_term, as_smooth_term
+from .precision import (lane, lane_dot64, lane_norm2, lane_redot, norm2,
+                        real_dtype, use_high_precision)
+from .terms import (L1Norm, ProxTerm, SmoothTerm, as_prox_term,
+                    as_smooth_term)
 
-__all__ = ["fasta", "solve", "make_solver", "solve_path",
-           "estimate_stepsize", "FastaResult", "DeviceResult"]
+__all__ = ["fasta", "solve", "make_solver", "make_batch_solver",
+           "solve_path", "estimate_stepsize", "FastaResult", "DeviceResult"]
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -107,42 +115,95 @@ def estimate_stepsize(op: LinearOp, fterm: SmoothTerm, x0: torch.Tensor,
     return 2.0 / L / 10.0, L
 
 
+class _Trial(NamedTuple):
+    """One line-search trial over the lanes: the prox point, A x₁, f(A x₁)
+    in the decision precision, the fused pass's gradient (or None), ‖Δx‖²
+    and ⟨Δx, g⟩ (the latter in the decision precision), and either
+    ‖x₁ − x̂₁‖² (kernel K-B4) or the composition's x̂₁ and Δx."""
+    x1: Any
+    d1: Any
+    f1: Any
+    grad1: Any
+    nd2: Any
+    btd: Any
+    nsm2: Any
+    x1hat: Any
+    Dx: Any
+
+
 def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
-           gterm: ProxTerm, x0, tau0) -> DeviceResult:
+           gterm: ProxTerm, x0, tau0, lanes: bool = False) -> DeviceResult:
+    """The FASTA loop over a leading lane axis.
+
+    ``lanes=False`` is one solve: one lane, and a result without the lane
+    axis.  ``lanes=True`` is ``make_batch_solver``'s batch: x0 (B, ...)
+    and tau0 (B,) carry the lanes, and the terms' data is shared or has a
+    leading axis of B.  The lanes follow a vmapped ``lax.while_loop``: the
+    loop runs while any lane is live, a stopped lane is frozen and its
+    records are not written past its own count, backtracking continues
+    while a live lane violates the test with trials left (a lane that
+    accepted keeps its trial), and τ, the window, the counts, the flags and
+    the totals are per lane.  Each decision of the whole batch reads one
+    device value (one ``any()`` per trial and per iteration)."""
     mode = opts.effective_mode      # the oracle's precedence
     accelerated = mode == "accelerated"
     x0 = torch.as_tensor(x0)
+    if not lanes:
+        x0 = x0[None]
+    B = x0.shape[0]
     dev = x0.device
     rdt = real_dtype(x0.dtype)
     hp = use_high_precision(opts.precision, x0.dtype)
     sdt = torch.float64 if hp else rdt       # decision-scalar dtype
     W, N = opts.window, opts.max_iters
     shrink_f = opts.shrink_factor
-    tau = torch.as_tensor(tau0, dtype=rdt).to(dev)
+    tau = torch.as_tensor(tau0, dtype=rdt).to(dev).expand(B).clone()
+
+    def keep(new, old, live):
+        """``new`` in the live lanes, ``old`` in the stopped ones (one lane
+        is live while the loop runs)."""
+        return new if B == 1 else torch.where(lane(live, new), new, old)
+
+    def masked(m):
+        """``m`` in the live lanes, False in the stopped ones."""
+        return m if B == 1 else m & live
+
+    def any_lane(m):
+        """Whether ``m`` holds in some lane: one device read."""
+        return bool(m) if B == 1 else bool(m.any())
 
     def fval(d):
-        """f(d) in the decision precision."""
-        return fterm.value_f64(d) if hp else fterm.value(d).to(rdt)
+        """f(d) per lane in the decision precision."""
+        return (fterm.value_f64_lanes(d) if hp
+                else fterm.value_lanes(d).to(rdt))
 
-    fused = fterm.fused_gradmap(op) if opts.fuse else None
+    # the one-pass gradient map serves one lane (the JAX batch solver runs
+    # none either at this slice's sizes: supports_fusion's 64 MB gate)
+    fused = fterm.fused_gradmap(op) if opts.fuse and B == 1 else None
     # zero-matvec FISTA gradient extrapolation: valid when ∇f is affine in
     # d and the gradient at the prox point comes free from the fused pass
     affine_accel = accelerated and fused is not None and fterm.grad_affine
+    # kernel K-B4 takes the L1 trial step of real float32 lanes; complex
+    # and float64 keep the composition, as in the reference
+    if isinstance(gterm, L1Norm) and x0.dtype == torch.float32:
+        mu_b4 = torch.as_tensor(gterm.mu, dtype=torch.float32, device=dev)
+    else:
+        mu_b4 = None
 
-    d0 = op(x0)
-    fwin = torch.full((W,), -math.inf, dtype=sdt, device=dev)
-    fwin[0] = fval(d0)
-    gradf = op.rmatvec(fterm.grad(d0))
+    d0 = op.lanes(x0)
+    fwin = torch.full((B, W), -math.inf, dtype=sdt, device=dev)
+    fwin[:, 0] = fval(d0)
+    gradf = op.rmatvec_lanes(fterm.grad_lanes(d0))
     # FISTA carry: the last prox point, A·(it), its gradient map (affine
     # case only) and the momentum α
-    one = torch.ones((), dtype=rdt, device=dev)
+    one = torch.ones(B, dtype=rdt, device=dev)
     accel = (((x0, d0, gradf, one) if affine_accel else (x0, d0, one))
              if accelerated else None)
 
     rec = opts.record_diagnostics
 
     def zeros(dtype=rdt, shape=()):
-        return torch.zeros((N,) + shape, dtype=dtype, device=dev)
+        return torch.zeros((B, N) + shape, dtype=dtype, device=dev)
 
     residuals = zeros() if rec else None
     norm_residuals = zeros() if rec else None
@@ -150,105 +211,139 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
     fvals = zeros() if rec else None
     objectives = zeros() if opts.record_objective else None
     backtracks = zeros(torch.int32) if rec else None
-    iterates = (zeros(x0.dtype, tuple(x0.shape)) if opts.record_iterates
+    iterates = (zeros(x0.dtype, tuple(x0.shape[1:])) if opts.record_iterates
                 else None)
 
     x = x0
     solution = x0
     best_x = x0
-    min_obj = torch.tensor(math.inf, dtype=rdt, device=dev)
-    max_res = torch.tensor(-math.inf, dtype=rdt, device=dev)
-    total_bt = 0
-    nonfinite = False
-    stop = False
-    k = 0
-    while k < N and not stop:
+    min_obj = torch.full((B,), math.inf, dtype=rdt, device=dev)
+    max_res = torch.full((B,), -math.inf, dtype=rdt, device=dev)
+    # a single lane keeps its counts on the host: its iteration count is
+    # the loop's and its backtracks are the trials made
+    k = None if B == 1 else torch.zeros(B, dtype=torch.int64, device=dev)
+    total_bt = 0 if B == 1 else torch.zeros(B, dtype=torch.int64, device=dev)
+    nonfinite = torch.zeros(B, dtype=torch.bool, device=dev)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    it = 0              # every live lane's iteration count
+    while it < N:
         x_, g_ = x, gradf
 
         def fb_step(tau):
-            """Forward (gradient) step, backward (prox) step, f at the
-            trial point; the fused pass also returns its gradient."""
-            x1hat = x_ - tau * g_
-            x1 = gterm.prox(x1hat, tau)
-            if fused is not None:
-                d1, f1, grad1 = fused(x1)
-                f1 = fval(d1) if hp else f1.to(rdt)
+            """Forward (gradient) step, backward (prox) step, the step's
+            sums, f at the trial point; the fused pass also returns its
+            gradient."""
+            if mu_b4 is not None:
+                x1, nd2, btd, nsm2 = fused_shrink_step(
+                    x_.reshape(B, -1), g_.reshape(B, -1), tau, mu_b4)
+                x1 = x1.reshape(x_.shape)
+                # float64 sums, each used in the precision the
+                # composition gives it
+                nd2, nsm2 = nd2.to(rdt), nsm2.to(rdt)
+                btd = btd if hp else btd.to(rdt)
+                x1hat = Dx = None
             else:
-                d1 = op(x1)
+                x1hat = x_ - lane(tau, x_) * g_
+                x1 = gterm.prox_lanes(x1hat, tau)
+                Dx = x1 - x_
+                nd2 = lane_norm2(Dx)
+                btd = lane_dot64(Dx, g_) if hp else lane_redot(Dx, g_)
+                nsm2 = None
+            if fused is not None:
+                d1, f1, grad1 = fused(x1[0])
+                d1, grad1 = d1[None], grad1[None]
+                f1 = fval(d1) if hp else f1.to(rdt).reshape(1)
+            else:
+                d1 = op.lanes(x1)
                 f1, grad1 = fval(d1), None
-            return x1hat, x1, x1 - x_, d1, f1, grad1
+            return _Trial(x1, d1, f1, grad1, nd2, btd, nsm2, x1hat, Dx)
 
-        x1hat, x1, Dx, d1, f1, grad1 = fb_step(tau)
-        bt = 0
+        t = fb_step(tau)
+        bt = 0 if B == 1 else torch.zeros(B, dtype=torch.int32, device=dev)
         if opts.backtrack:
-            # nonmonotone backtracking line search (Zhang–Hager window)
-            M = torch.max(fwin)
-            while bt < opts.max_backtracks:
+            # nonmonotone backtracking line search (Zhang–Hager window); a
+            # lane that violates at trial j violated at every trial before,
+            # so it has made j shrinks and the trial bound is its own
+            M = torch.amax(fwin, dim=1)
+            for _ in range(opts.max_backtracks):
                 if hp:
                     # the JAX hp slack: 1e-12 plus 64 ulp (float32) of
                     # the f scale, since the iterates are float32-rounded
                     slack = 1e-12 + (64.0 * _EPS32) * (torch.abs(M)
-                                                       + torch.abs(f1))
-                    q = (norm2(Dx) / (2.0 * tau)).double()
-                    suff = M + (dot64(Dx, g_) + q)
-                    viol = f1 - suff > slack
+                                                       + torch.abs(t.f1))
+                    q = (t.nd2 / (2.0 * tau)).double()
+                    suff = M + (t.btd + q)
+                    viol = t.f1 - suff > slack
                 else:
-                    suff = M + redot(Dx, g_) + norm2(Dx) / (2.0 * tau)
-                    viol = f1 - 1e-12 > suff
-                if not bool(viol):
+                    suff = M + t.btd + t.nd2 / (2.0 * tau)
+                    viol = t.f1 - 1e-12 > suff
+                need = masked(viol)
+                if not any_lane(need):
                     break
-                tau = tau * shrink_f
-                x1hat, x1, Dx, d1, f1, grad1 = fb_step(tau)
-                bt += 1
+                tau = torch.where(need, tau * shrink_f, tau)
+                new = fb_step(tau)
+                t = new if B == 1 else _Trial(*(
+                    None if a is None else torch.where(lane(need, a), a, b)
+                    for a, b in zip(new, t)))
+                bt = bt + (1 if B == 1 else need)
+        x1, d1, f1, grad1 = t.x1, t.d1, t.f1, t.grad1
 
         # residuals, diagnostics, best-iterate tracking
-        res = _norm(Dx) / tau
-        max_res = torch.maximum(max_res, res)
-        normalizer = (torch.maximum(_norm(g_), _norm(x1 - x1hat) / tau)
-                      + opts.eps_n)
+        res = torch.sqrt(t.nd2) / tau
+        max_res_t = torch.maximum(max_res, res)
+        nsm2 = t.nsm2 if t.nsm2 is not None else lane_norm2(x1 - t.x1hat)
+        normalizer = (torch.maximum(torch.sqrt(lane_norm2(g_)),
+                                    torch.sqrt(nsm2) / tau) + opts.eps_n)
         nres = res / normalizer
         f1_f = f1.to(rdt)
-        obj = (f1_f + gterm.value(x1).to(rdt) if opts.record_objective
+        obj = (f1_f + gterm.value_lanes(x1).to(rdt) if opts.record_objective
                else None)
         if rec:
-            residuals[k] = res
-            norm_residuals[k] = nres
-            taus[k] = tau
-            backtracks[k] = bt
+            residuals[:, it] = keep(res, residuals[:, it], live)
+            norm_residuals[:, it] = keep(nres, norm_residuals[:, it], live)
+            taus[:, it] = keep(tau, taus[:, it], live)
+            backtracks[:, it] = keep(bt, backtracks[:, it], live)
             if opts.record_objective:
-                objectives[k] = obj
+                objectives[:, it] = keep(obj, objectives[:, it], live)
             if opts.record_iterates:
-                iterates[k] = x1
+                iterates[:, it] = keep(x1, iterates[:, it], live)
         new_obj = obj if opts.record_objective else res
-        better = new_obj < min_obj
+        better = masked(new_obj < min_obj)
         min_obj = torch.where(better, new_obj, min_obj)
-        best_x = torch.where(better, x1, best_x)
+        best_x = torch.where(lane(better, x1), x1, best_x)
 
-        stop_t = stop_test(opts.stop_rule, res, nres, max_res, opts.tol,
-                           opts.eps_r)
+        stop = stop_test(opts.stop_rule, res, nres, max_res_t, opts.tol,
+                         opts.eps_r)
         if opts.stop_fn is not None:
-            stop_t = stop_t | torch.as_tensor(
-                opts.stop_fn(k, res, nres, max_res, f1_f), device=dev)
+            counts = k if B > 1 else torch.full((1,), it, device=dev)
+            asked = (opts.stop_fn(counts, res, nres, max_res_t, f1_f) if lanes
+                     else opts.stop_fn(it, res[0], nres[0], max_res_t[0],
+                                       f1_f[0]))
+            stop = stop | torch.as_tensor(asked, device=dev).reshape(-1)
         if opts.guard_nonfinite:
             bad = ~(torch.isfinite(f1_f) & torch.isfinite(res))
-            stop_t = stop_t | bad
-            nonfinite = bool(bad)
-        stop = bool(stop_t)
+            stop = stop | bad
+            nonfinite = nonfinite | masked(bad)
         if opts.verbose:
-            print(f"[fasta-torch] iter {k}  tau {float(tau):.3e}  resid "
-                  f"{float(res):.3e}  nresid {float(nres):.3e}  f "
-                  f"{float(f1_f):.6e}  bt {bt}")
+            print(f"[fasta-torch] iter {it}  lanes live {int(live.sum())}  "
+                  f"tau {float(tau[0]):.3e}  resid {float(res[0]):.3e}  "
+                  f"nresid {float(nres[0]):.3e}  f {float(f1_f[0]):.6e}  "
+                  f"bt {int(bt[0])}")
 
         # the mode's next point and stepsize; computed on the stopping
         # iteration too, as in the reference
         x_next, f_record = x1, f1
         if mode == "adaptive":
-            # Zhou–Gao–Dai BB stepsize
+            # Zhou–Gao–Dai BB stepsize; K-B4 returns neither x̂₁ nor Δx,
+            # so they are recomputed for the accepted trial
             gradf1 = (grad1 if fused is not None
-                      else op.rmatvec(fterm.grad(d1)))
-            Dg = gradf1 + (x1hat - x_) / tau            # == gradf1 - g_
-            dotprod = dot64(Dx, Dg).to(rdt) if hp else redot(Dx, Dg)
-            nDx2, nDg2 = norm2(Dx), norm2(Dg)
+                      else op.rmatvec_lanes(fterm.grad_lanes(d1)))
+            x1hat = (t.x1hat if t.x1hat is not None
+                     else x_ - lane(tau, x_) * g_)
+            Dx = t.Dx if t.Dx is not None else x1 - x_
+            Dg = gradf1 + (x1hat - x_) / lane(tau, x_)   # == gradf1 - g_
+            dotprod = lane_dot64(Dx, Dg).to(rdt) if hp else lane_redot(Dx, Dg)
+            nDx2, nDg2 = t.nd2, lane_norm2(Dg)
             tau_s = torch.where(dotprod != 0.0, nDx2 / dotprod, math.inf)
             tau_m = torch.clamp_min(
                 torch.where(nDg2 > 0.0, dotprod / nDg2, 0.0), 0.0)
@@ -265,44 +360,72 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
             if opts.restart:
                 # O'Donoghue–Candès gradient restart
                 a, c = x_ - x1, x1 - x_acc
-                rdot = dot64(a, c).to(rdt) if hp else redot(a, c)
+                rdot = lane_dot64(a, c).to(rdt) if hp else lane_redot(a, c)
                 alpha0 = torch.where(rdot > 0.0, 1.0, alpha0)
             alpha1 = (1.0 + torch.sqrt(1.0 + 4.0 * alpha0 ** 2)) / 2.0
             beta = (alpha0 - 1.0) / alpha1
-            x_next = x1 + beta * (x1 - x_acc)
-            d_next = d1 + beta * (d1 - d_acc)           # A is linear
+            x_next = x1 + lane(beta, x1) * (x1 - x_acc)
+            d_next = d1 + lane(beta, d1) * (d1 - d_acc)   # A is linear
             if affine_accel:
                 # Aᴴ∇f(d) is affine in d too: the same combination
-                gradf1 = grad1 + beta * (grad1 - g_acc)
-                accel = (x1, d1, grad1, alpha1)
+                gradf1 = grad1 + lane(beta, grad1) * (grad1 - g_acc)
+                accel_next = (x1, d1, grad1, alpha1)
             else:
-                gradf1 = op.rmatvec(fterm.grad(d_next))
-                accel = (x1, d1, alpha1)
+                gradf1 = op.rmatvec_lanes(fterm.grad_lanes(d_next))
+                accel_next = (x1, d1, alpha1)
+            accel = tuple(keep(a, b, live) for a, b in zip(accel_next, accel))
             tau_next = tau
             # the window sees f at the next search point (the
             # extrapolated y); on a stop the prox-point value
-            f_record = f1 if stop else fval(d_next)
+            f_record = torch.where(stop, f1, fval(d_next))
         else:
             gradf1 = (grad1 if fused is not None
-                      else op.rmatvec(fterm.grad(d1)))
+                      else op.rmatvec_lanes(fterm.grad_lanes(d1)))
             tau_next = tau
         if rec:
-            fvals[k] = f_record.to(rdt)
+            fvals[:, it] = keep(f_record.to(rdt), fvals[:, it], live)
 
-        fwin[(k + 1) % W] = f_record
-        total_bt += bt
+        slot = (it + 1) % W          # each live lane's k + 1
+        fwin[:, slot] = keep(f_record, fwin[:, slot], live)
+        total_bt = total_bt + bt        # a stopped lane makes no trials
         # on a stop the loop breaks at the prox iterate; at max_iters
         # FISTA returns the extrapolated point
-        solution = x1 if (stop or not accelerated) else x_next
-        x, gradf, tau = x_next, gradf1, tau_next
-        k += 1
+        sol = (torch.where(lane(stop, x1), x1, x_next) if accelerated
+               else x1)
+        solution = keep(sol, solution, live)
+        x = keep(x_next, x, live)
+        gradf = keep(gradf1, gradf, live)
+        tau = keep(tau_next, tau, live)
+        max_res = keep(max_res_t, max_res, live)
+        if B > 1:
+            k = k + live
+        live = masked(~stop)
+        it += 1
+        if not any_lane(live):
+            break
 
+    converged = ~live & ~nonfinite
+    if lanes:
+        def host(v):
+            return v.cpu().numpy() if torch.is_tensor(v) else np.full(B, v)
+        return DeviceResult(
+            solution=solution, best_iterate=best_x,
+            iteration_count=host(it if B == 1 else k),
+            converged=host(converged),
+            residuals=residuals, norm_residuals=norm_residuals, taus=taus,
+            fvals=fvals, objectives=objectives, backtracks=backtracks,
+            total_backtracks=host(total_bt), iterates=iterates,
+            nonfinite=host(nonfinite))
+
+    def one_lane(v):
+        return None if v is None else v[0]
     return DeviceResult(
-        solution=solution, best_iterate=best_x, iteration_count=k,
-        converged=stop and not nonfinite, residuals=residuals,
-        norm_residuals=norm_residuals, taus=taus, fvals=fvals,
-        objectives=objectives, backtracks=backtracks,
-        total_backtracks=total_bt, iterates=iterates, nonfinite=nonfinite)
+        solution=solution[0], best_iterate=best_x[0], iteration_count=it,
+        converged=bool(converged[0]), residuals=one_lane(residuals),
+        norm_residuals=one_lane(norm_residuals), taus=one_lane(taus),
+        fvals=one_lane(fvals), objectives=one_lane(objectives),
+        backtracks=one_lane(backtracks), total_backtracks=total_bt,
+        iterates=one_lane(iterates), nonfinite=bool(nonfinite[0]))
 
 
 def make_solver(opts: FastaOptions) -> Callable:
@@ -311,6 +434,80 @@ def make_solver(opts: FastaOptions) -> Callable:
     def solve_fn(op, fterm, gterm, x0, tau0):
         return _solve(opts, op, fterm, gterm, x0, tau0)
     return solve_fn
+
+
+def make_batch_solver(opts: FastaOptions, in_axes) -> Callable:
+    """Return ``solve(op, fterm, gterm, x0, tau0) -> DeviceResult`` that
+    solves a family of instances at once over a leading lane axis: a
+    regularization sweep (μ of ``L1Norm`` or λ of ``L2Norm2`` per lane),
+    many right-hand sides (the smooth term's data per lane), many starts or
+    stepsizes; port of ``fasta_tpu/solver.py:751-765``.
+
+    ``in_axes`` names, for (op, fterm, gterm, x0, tau0), ``None`` (shared
+    by every lane) or ``0``: the term's one data tensor (b, y, μ, λ or c),
+    x0 or τ₀ carries the lane axis.  The lanes run the loop of
+    :func:`make_solver` with ``jax.vmap``'s semantics (see ``_solve``): a
+    stopped lane is frozen until the last one stops, and each lane's
+    trajectory is a separate solve's, up to the rounding of the batched
+    products.  With more than one lane the gradient map is the plain
+    composition (no fused pass).  The result's tensors gain a leading lane
+    axis; its counts and flags are NumPy arrays."""
+    axes = tuple(in_axes)
+    if len(axes) != 5 or any(a not in (None, 0) for a in axes):
+        raise ValueError(f"in_axes names None or 0 for each of (op, fterm, "
+                         f"gterm, x0, tau0), got {in_axes!r}")
+    if axes[0] == 0:
+        raise NotImplementedError(
+            "a batched operator (one per lane) is not ported: ROADMAP Queue "
+            "A item 5 (make_batch_solver) batches terms, x0 and tau0")
+
+    def solve_fn(op, fterm, gterm, x0, tau0):
+        x0 = torch.as_tensor(x0)
+        # numbers as float64, so that τ₀ rounds to the working dtype once,
+        # as in a single solve
+        tau0 = (tau0 if torch.is_tensor(tau0)
+                else torch.as_tensor(np.asarray(tau0, np.float64)))
+        sizes = {}
+        terms = []
+        for axis, term, what in ((axes[1], fterm, "fterm"),
+                                 (axes[2], gterm, "gterm")):
+            if axis == 0:
+                term = _lane_term(term, what, x0.device)
+                sizes[what] = getattr(term, term.lane_field).shape[0]
+            terms.append(term)
+        if axes[3] == 0:
+            sizes["x0"] = x0.shape[0]
+        if axes[4] == 0:
+            sizes["tau0"] = tau0.shape[0]
+        if not sizes:
+            raise ValueError("in_axes batches nothing: name 0 for at least "
+                             "one of fterm, gterm, x0 and tau0")
+        if len(set(sizes.values())) != 1:
+            raise ValueError(f"the batched inputs disagree on the number of "
+                             f"lanes: {sizes}")
+        B = next(iter(sizes.values()))
+        xs = (x0 if axes[3] == 0
+              else x0.expand((B,) + tuple(x0.shape))).clone()
+        t0 = tau0 if axes[4] == 0 else tau0.expand(B)
+        return _solve(opts, op, terms[0], terms[1], xs, t0, lanes=True)
+    return solve_fn
+
+
+def _lane_term(term, what, device):
+    """A copy of ``term`` whose data tensor, its leading axis the lanes,
+    lies on ``device``; raises for a term without one."""
+    field = getattr(term, "lane_field", None)
+    if field is None:
+        raise ValueError(f"in_axes batches {what}, but "
+                         f"{type(term).__name__} has no data tensor to "
+                         f"batch")
+    data = torch.as_tensor(getattr(term, field), device=device)
+    if data.ndim < 1:
+        raise ValueError(f"in_axes batches {what}, but its {field} has no "
+                         f"leading lane axis")
+    out = copy.copy(term)
+    setattr(out, field, data)
+    return out
 
 
 def solve(op: LinearOp, fterm: SmoothTerm, gterm: ProxTerm, x0, tau0,

@@ -4,11 +4,20 @@
 
 Smooth terms implement ``value(d)`` and ``grad(d)`` (evaluated at
 d = A x); prox terms implement ``value(x)`` and ``prox(z, t)``.  Terms
-are plain data holders over tensors.  The port has the terms of the dense
-problems (LASSO, NNLS, sparse logistic regression, SVM), of TV denoising
-(``LeastSquares`` over a 2-D image, ``BoxIndicator``) and of phase
-retrieval (``PhaseHinge`` and ``LinearAnchor``, and their planar forms);
-the other terms come with their problems (ROADMAP Queue A item 7).
+are plain data holders over tensors.
+
+Over a leading lane axis (the batch dimension of
+``solver.make_batch_solver``, ``jax.vmap`` in the JAX package), smooth
+terms give ``value_lanes``, ``value_f64_lanes`` and ``grad_lanes`` and
+prox terms ``value_lanes`` and ``prox_lanes`` (one stepsize per lane), one
+value per lane.  A term's one data tensor (``lane_field``: b, y, μ, λ or
+c) is either shared by every lane or carries the lane axis itself.
+
+The port has the terms of the dense problems (LASSO, NNLS, sparse
+logistic regression, SVM), of TV denoising (``LeastSquares`` over a 2-D
+image, ``BoxIndicator``) and of phase retrieval (``PhaseHinge`` and
+``LinearAnchor``, and their planar forms); the other terms come with
+their problems (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from . import prox as _prox
+from .precision import lane, lane_dot64, lane_sum
 
 __all__ = [
     "SmoothTerm", "LeastSquares", "Logistic", "SquaredHinge", "PhaseHinge",
@@ -36,19 +46,35 @@ class SmoothTerm:
     # ∇f affine in d: the FISTA loop then extrapolates the gradient map
     # instead of evaluating it (fasta_tpu/solver.py:250-251)
     grad_affine = False
+    # the attribute holding the term's one data tensor (None: no data)
+    lane_field: Optional[str] = None
 
     def value(self, d):
-        raise NotImplementedError
+        """f(d): one lane of ``value_lanes``."""
+        return self.value_lanes(d[None])[0]
 
     def value_f64(self, d):
         """f(d) as a float64 scalar — the solver's high-precision decision
-        value.  Default: exact lift of the plain value (no extra
-        precision); terms whose value is a large reduction override it
-        with a float64 accumulation."""
-        return self.value(d).to(torch.float64)
+        value: one lane of ``value_f64_lanes``."""
+        return self.value_f64_lanes(d[None])[0]
 
     def grad(self, d):
         raise NotImplementedError
+
+    def value_lanes(self, d):
+        """f of each lane of d (B, ...), shape (B,)."""
+        raise NotImplementedError
+
+    def value_f64_lanes(self, d):
+        """f per lane in float64.  Default: exact lift of the plain value
+        (no extra precision); terms whose value is a large reduction
+        override it with a float64 accumulation."""
+        return self.value_lanes(d).to(torch.float64)
+
+    def grad_lanes(self, d):
+        """∇f of each lane; the data terms' elementwise gradients take
+        the lane axis by broadcasting."""
+        return self.grad(d)
 
     def fused_gradmap(self, op):
         """Optional fused evaluation  x ↦ (d, f(d), Aᴴ∇f(d))  in one
@@ -62,18 +88,18 @@ class LeastSquares(SmoothTerm):
     """f(d) = ½‖d − b‖²  (complex-safe Hermitian norm)."""
 
     grad_affine = True
+    lane_field = "b"
 
     def __init__(self, b: torch.Tensor):
         self.b = b
 
-    def value(self, d):
+    def value_lanes(self, d):
         r = d - self.b
-        return 0.5 * torch.sum(torch.real(torch.conj(r) * r))
+        return 0.5 * lane_sum(torch.real(torch.conj(r) * r))
 
-    def value_f64(self, d):
-        from .precision import dot64
+    def value_f64_lanes(self, d):
         r = d - self.b
-        return 0.5 * dot64(r, r)
+        return 0.5 * lane_dot64(r, r)
 
     def grad(self, d):
         return d - self.b
@@ -164,16 +190,18 @@ class Logistic(SmoothTerm):
     """Logistic loss  Σ log(1+exp(d)) − bᵀd,  labels b ∈ {0,1}; stable
     evaluation as the oracle's (max(d,0) + log1p(exp(−|d|)))."""
 
+    lane_field = "b"
+
     def __init__(self, b: torch.Tensor):
         self.b = b
 
-    def value(self, d):
-        return torch.sum(logistic_ell(d, self.b))
+    def value_lanes(self, d):
+        return lane_sum(logistic_ell(d, self.b))
 
-    def value_f64(self, d):
+    def value_f64_lanes(self, d):
         """A float64 sum of the working-precision elementwise ℓ (the
         counterpart of ``value_dd``)."""
-        return torch.sum(logistic_ell(d, self.b).to(torch.float64))
+        return lane_sum(logistic_ell(d, self.b).to(torch.float64))
 
     def grad(self, d):
         return logistic_grad(d, self.b)
@@ -186,17 +214,18 @@ class SquaredHinge(SmoothTerm):
     """SVM squared hinge  f(d) = ½ Σ max(0, 1 − y⊙d)²,
     ∇f(d) = −y⊙max(0, 1 − y⊙d);  labels y ∈ {−1, +1}."""
 
+    lane_field = "y"
+
     def __init__(self, y: torch.Tensor):
         self.y = y
 
-    def value(self, d):
+    def value_lanes(self, d):
         r = hinge_residual(d, self.y)
-        return 0.5 * torch.sum(r * r)
+        return 0.5 * lane_sum(r * r)
 
-    def value_f64(self, d):
-        from .precision import dot64
+    def value_f64_lanes(self, d):
         r = hinge_residual(d, self.y)
-        return 0.5 * dot64(r, r)
+        return 0.5 * lane_dot64(r, r)
 
     def grad(self, d):
         return -self.y * hinge_residual(d, self.y)
@@ -218,17 +247,18 @@ class PhaseHinge(SmoothTerm):
     No fused map: the JAX package fuses it only on its sharded operators
     (``fasta_tpu/terms.py:358-366``, ROADMAP Queue A item 13)."""
 
+    lane_field = "b"
+
     def __init__(self, b: torch.Tensor):
         self.b = b
 
-    def value(self, d):
+    def value_lanes(self, d):
         r, _ = phase_hinge_parts(torch.abs(d), self.b)
-        return 0.5 * torch.sum(r * r)
+        return 0.5 * lane_sum(r * r)
 
-    def value_f64(self, d):
-        from .precision import dot64
+    def value_f64_lanes(self, d):
         r, _ = phase_hinge_parts(torch.abs(d), self.b)
-        return 0.5 * dot64(r, r)
+        return 0.5 * lane_dot64(r, r)
 
     def grad(self, d):
         _, s = phase_hinge_parts(torch.abs(d), self.b)
@@ -240,6 +270,8 @@ class PlanarPhaseHinge(SmoothTerm):
     |d| = √(dr² + di²) on the real channels, the gradient the Wirtinger
     gradient in planar layout — :class:`PhaseHinge`'s math, all real."""
 
+    lane_field = "b"
+
     def __init__(self, b: torch.Tensor):
         self.b = b                      # (m,) magnitudes
 
@@ -247,18 +279,17 @@ class PlanarPhaseHinge(SmoothTerm):
         return phase_hinge_parts(torch.sqrt(torch.sum(d * d, dim=-1)),
                                   self.b)
 
-    def value(self, d):
+    def value_lanes(self, d):
         r, _ = self._parts(d)
-        return 0.5 * torch.sum(r * r)
+        return 0.5 * lane_sum(r * r)
 
-    def value_f64(self, d):
-        from .precision import dot64
+    def value_f64_lanes(self, d):
         r, _ = self._parts(d)
-        return 0.5 * dot64(r, r)
+        return 0.5 * lane_dot64(r, r)
 
     def grad(self, d):
         _, s = self._parts(d)
-        return s[:, None] * d
+        return s[..., None] * d
 
     def fused_gradmap(self, op):
         """K-B7's hinge form (``fused_planar_hinge_gradmap``) on a float32
@@ -293,8 +324,14 @@ class FunctionSmooth(SmoothTerm):
     def value(self, d):
         return torch.as_tensor(self.f(d))
 
+    def value_lanes(self, d):
+        return torch.stack([self.value(di) for di in d])
+
     def grad(self, d):
         return self.gradf(d)
+
+    def grad_lanes(self, d):
+        return torch.stack([self.gradf(di) for di in d])
 
 
 # --------------------------------------------------------------------------
@@ -302,15 +339,37 @@ class FunctionSmooth(SmoothTerm):
 # --------------------------------------------------------------------------
 
 class ProxTerm:
+    # the attribute holding the term's one data tensor (None: no data)
+    lane_field: Optional[str] = None
+
     def value(self, x):
         raise NotImplementedError
 
     def prox(self, z, t):
         raise NotImplementedError
 
+    def value_lanes(self, x):
+        """g of each lane of x (B, ...), shape (B,); default one call per
+        lane (terms without lane data)."""
+        return torch.stack([self.value(xi) for xi in x])
+
+    def prox_lanes(self, z, t):
+        """The prox of each lane of z at the lane's stepsize t (B,);
+        default one call per lane (terms without lane data)."""
+        return torch.stack([self.prox(zi, ti) for zi, ti in zip(z, t)])
+
+
+def _weight(w, t):
+    """A weight as the lanes see it: a number as it is, a tensor (one per
+    lane) in the stepsize's dtype and device."""
+    return torch.as_tensor(w, dtype=t.dtype, device=t.device) \
+        if torch.is_tensor(w) else w
+
 
 class L1Norm(ProxTerm):
     """g = μ‖·‖₁; prox = soft threshold (shrink)."""
+
+    lane_field = "mu"
 
     def __init__(self, mu: float = 1.0):
         self.mu = mu
@@ -320,6 +379,13 @@ class L1Norm(ProxTerm):
 
     def prox(self, z, t):
         return _prox.shrink(z, t * self.mu)
+
+    def value_lanes(self, x):
+        s = lane_sum(torch.abs(x))
+        return _weight(self.mu, s) * s
+
+    def prox_lanes(self, z, t):
+        return _prox.shrink(z, lane(t * _weight(self.mu, t), z))
 
 
 class NonnegIndicator(ProxTerm):
@@ -331,6 +397,13 @@ class NonnegIndicator(ProxTerm):
     def prox(self, z, t):
         del t
         return _prox.project_nonneg(z)
+
+    def value_lanes(self, x):
+        return torch.zeros(x.shape[0], dtype=torch.real(x).dtype,
+                           device=x.device)
+
+    def prox_lanes(self, z, t):
+        return self.prox(z, t)
 
 
 class BoxIndicator(ProxTerm):
@@ -347,9 +420,18 @@ class BoxIndicator(ProxTerm):
         del t
         return _prox.project_box(z, self.lo, self.hi)
 
+    def value_lanes(self, x):
+        return torch.zeros(x.shape[0], dtype=torch.real(x).dtype,
+                           device=x.device)
+
+    def prox_lanes(self, z, t):
+        return self.prox(z, t)
+
 
 class L2Norm2(ProxTerm):
     """g = (λ/2)‖·‖² (ridge / Tikhonov); prox(z, t) = z/(1+tλ)."""
+
+    lane_field = "lam"
 
     def __init__(self, lam=1.0):
         self.lam = lam
@@ -361,9 +443,19 @@ class L2Norm2(ProxTerm):
     def prox(self, z, t):
         return z / (1.0 + t * self.lam)
 
+    def value_lanes(self, x):
+        sq = torch.stack([torch.real(torch.vdot(v, v))
+                          for v in x.reshape(x.shape[0], -1)])
+        return 0.5 * _weight(self.lam, sq) * sq
+
+    def prox_lanes(self, z, t):
+        return z / (1.0 + lane(t * _weight(self.lam, t), z))
+
 
 class LinearAnchor(ProxTerm):
     """g(x) = −Re⟨c, x⟩ (the PhaseMax anchor); prox(z, t) = z + t·c."""
+
+    lane_field = "c"
 
     def __init__(self, c: torch.Tensor):
         self.c = c
@@ -374,10 +466,19 @@ class LinearAnchor(ProxTerm):
     def prox(self, z, t):
         return z + t * self.c
 
+    def value_lanes(self, x):
+        return torch.stack([LinearAnchor(ci).value(xi)
+                            for ci, xi in zip(self.c.expand_as(x), x)])
+
+    def prox_lanes(self, z, t):
+        return z + lane(t, z) * self.c
+
 
 class PlanarLinearAnchor(ProxTerm):
     """g(x) = −⟨c, x⟩ on planar vectors (−Re⟨c, x⟩ on ℂ);
     prox(z, t) = z + t·c.  c ∈ ℝ^{n×2}."""
+
+    lane_field = "c"
 
     def __init__(self, c: torch.Tensor):
         self.c = c
@@ -387,6 +488,12 @@ class PlanarLinearAnchor(ProxTerm):
 
     def prox(self, z, t):
         return z + t * self.c
+
+    def value_lanes(self, x):
+        return -lane_sum(self.c * x)
+
+    def prox_lanes(self, z, t):
+        return z + lane(t, z) * self.c
 
 
 class FunctionProx(ProxTerm):

@@ -15,7 +15,8 @@ import fasta_tpu_torch as ftt
 from fasta_tpu_torch import problems
 from fasta_tpu_torch.kernels import (lstsq_fused, microsolver,
                                      microsolver_planar, microsolver_tv,
-                                     planar_fused, planar_probe, tv_fused)
+                                     planar_fused, planar_probe, prox_fused,
+                                     tv_fused)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -674,3 +675,152 @@ def test_phase_main_path_on_the_card(dev):
     cx = problems.build("phase_retrieval", m=2048, n=64, device=dev)
     rc = cx.solve(tau0=1.0, tol=1e-5, max_iters=2000)
     assert rc.converged and cx.recovery_error(rc.solution) < 0.05
+
+
+# --------------------------------------------------------------------------
+# K-B4 and the batched whole-solve kernels K-B1b, K-B6b, K-B8b
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R,n", [(1, 2000), (1, 128), (1, 100), (1, 37),
+                                 (32, 2000), (3, 37), (1, 1 << 22),
+                                 (300, 5)])
+def test_shrink_step_kernel_matches_plain(dev, R, n):
+    """x₁ bit for bit (the _rn intrinsics round like PyTorch's separate
+    operations), the float64 sums within rtol 1e-12 (their order), a τ
+    and a μ per row, and the same sums on a second call (no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(R * 7 + n)
+    x0 = torch.randn((R, n), generator=g, device=dev)
+    gr = torch.randn((R, n), generator=g, device=dev)
+    tau = torch.rand(R, generator=g, device=dev) + 0.05
+    mu = torch.rand(R, generator=g, device=dev)
+    before = prox_fused.LAUNCHES
+    out = prox_fused.fused_shrink_step(x0, gr, tau, mu)
+    assert prox_fused.LAUNCHES == before + 1
+    ref = prox_fused.shrink_step_reference(x0, gr, tau, mu)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0])
+    for a, b in zip(out[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    again = prox_fused.fused_shrink_step(x0, gr, tau, mu)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    one = prox_fused.fused_shrink_step(x0[0], gr[0], tau[0], mu[0])
+    assert torch.equal(one[0], out[0][0])
+
+
+def test_shrink_step_kernel_propagates_nan_and_rejects(dev):
+    x0 = torch.randn(2000, device=dev)
+    x0[700] = float("nan")
+    g = torch.randn(2000, device=dev)
+    out = prox_fused.fused_shrink_step(x0, g, 0.3, 0.5)
+    ref = prox_fused.shrink_step_reference(x0, g, 0.3, 0.5)
+    assert torch.isnan(out[0][700]) and torch.equal(
+        torch.isnan(out[0]), torch.isnan(ref[0]))
+    assert all(torch.isnan(s) for s in out[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        prox_fused.fused_shrink_step(torch.zeros(4, 8, device=dev).t(),
+                                     torch.zeros(8, 4, device=dev), 0.1, 0.1)
+
+
+def _stack(b, B):
+    return torch.stack([b * (1.0 + 0.02 * i) for i in range(B)])
+
+
+def _same(batch, singles):
+    """Each instance of a batched output equal, field by field, to its
+    separate launch."""
+    for i, one in enumerate(singles):
+        for name, a, b in zip(one._fields, batch, one):
+            if b is not None:
+                assert torch.equal(a[i], b), (i, name)
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(hp=True),
+                                  dict(accelerate=True, hp=True,
+                                       restart_dd=True)])
+def test_batch_kernel_dense_is_separate_launches(dev, mode):
+    p = problems.build("lasso", m=300, n=600, k=20, device=dev)
+    A, x0 = p.op.A, p.x0
+    bs = _stack(p.fterm.b, 4)
+    t0s = torch.tensor([0.02, 0.05, 0.09, 0.05], device=dev)
+    kw = dict(max_iters=400, tol=1e-6, record_bts=True, record_fvals=True,
+              record_objs=True, record_nres=True, **mode)
+    before = microsolver.BATCH_LAUNCHES
+    out = microsolver.microsolve_lasso_batch(A, bs, x0, t0s, 0.1, **kw)
+    assert microsolver.BATCH_LAUNCHES == before + 1
+    _same(out, [microsolver.microsolve_lasso(A, bs[i], x0, float(t0s[i]), 0.1,
+                                             **kw) for i in range(4)])
+    # stacked starts and the logistic loss
+    q = problems.build("logistic", m=400, n=200, k=10, device=dev)
+    x0s = torch.stack([q.x0 + 0.1 * i for i in range(3)])
+    bs = torch.stack([q.fterm.b] * 3)
+    out = microsolver.microsolve_lasso_batch(q.op.A, bs, x0s, 0.5, 0.02,
+                                             loss="logistic", **kw)
+    _same(out, [microsolver.microsolve_lasso(q.op.A, bs[i], x0s[i], 0.5, 0.02,
+                                             loss="logistic", **kw)
+                for i in range(3)])
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+def test_batch_kernel_tv_is_separate_launches(dev, accelerate):
+    b, p0, mu = _tv(dev, 64, 48)
+    bs = _stack(b, 3)
+    kw = dict(max_iters=600, tol=1e-4, accelerate=accelerate,
+              record_bts=True, record_fvals=True)
+    before = microsolver_tv.BATCH_LAUNCHES
+    out = microsolver_tv.microsolve_tv_batch(bs, p0, 2.0, mu, **kw)
+    assert microsolver_tv.BATCH_LAUNCHES == before + 1
+    _same(out, [microsolver_tv.microsolve_tv(bs[i], p0, 2.0, mu, **kw)
+                for i in range(3)])
+
+
+@pytest.mark.parametrize("m,n", [(2048, 64), (1000, 37)])
+def test_batch_kernel_planar_is_separate_launches(dev, m, n):
+    p, (Ar, Ai, b, c, x0) = _phase(dev, m, n)
+    bs = _stack(b, 3)
+    t0s = torch.tensor([1.0, 0.3, 2.0], device=dev)
+    for mode in (dict(), dict(hp=True, accelerate=True, restart_dd=True)):
+        kw = dict(max_iters=300, tol=1e-5, record_bts=True, **mode)
+        before = microsolver_planar.BATCH_LAUNCHES
+        out = microsolver_planar.microsolve_planar_phasemax_batch(
+            Ar, Ai, bs, c, x0, t0s, **kw)
+        assert microsolver_planar.BATCH_LAUNCHES == before + 1
+        _same(out, [microsolver_planar.microsolve_planar_phasemax(
+            Ar, Ai, bs[i], c, x0, float(t0s[i]), **kw) for i in range(3)])
+
+
+def test_batch_kernel_nonfinite_instance_ends_alone(dev):
+    """A NaN τ₀ aborts its own instance; the next starts clean."""
+    p = problems.build("lasso", m=300, n=600, k=20, device=dev)
+    bs = _stack(p.fterm.b, 3)
+    t0s = torch.tensor([0.05, float("nan"), 0.05], device=dev)
+    out = microsolver.microsolve_lasso_batch(p.op.A, bs, p.x0, t0s, 0.1,
+                                             max_iters=300, tol=1e-6)
+    assert out.halt.tolist() == [1, 2, 1]
+    one = microsolver.microsolve_lasso(p.op.A, bs[2], p.x0, 0.05, 0.1,
+                                       max_iters=300, tol=1e-6)
+    assert torch.equal(out.x[2], one.x)
+
+
+def test_serving_routes_on_the_card(dev):
+    """The batch loop's L1 trials launch K-B4 and agree with separate
+    solves; the kernel batch equals separate microsolves."""
+    p = problems.build("lasso", m=300, n=600, k=20, device=dev)
+    p.tau0 = 0.05
+    bs = _stack(p.fterm.b, 4)
+    opts = ftt.FastaOptions(tol=1e-6, max_iters=500)
+    before = prox_fused.LAUNCHES
+    out = ftt.recommend_path(p, 4).run(bs, options=opts)
+    assert prox_fused.LAUNCHES > before
+    for i in range(4):
+        one = p.with_parts(fterm=ftt.LeastSquares(bs[i])).solve_device(opts)
+        assert out.converged[i] and one.converged
+        f = [float(0.5 * ((p.op.A.double() @ x.double() - bs[i].double())
+                          ** 2).sum() + 0.1 * x.double().abs().sum())
+             for x in (out.solution[i], one.solution)]
+        assert abs(f[0] - f[1]) <= 1e-6 * abs(f[1])
+    mb = p.microsolve_batch(bs, max_iters=500, tol=1e-6)
+    for i in range(4):
+        one = p.with_parts(fterm=ftt.LeastSquares(bs[i])).microsolve(
+            max_iters=500, tol=1e-6)
+        assert torch.equal(mb.solutions[i], one.solution)
+
