@@ -81,7 +81,27 @@ non-zero without the final ``ok`` line):
     K-B4, K-B1b, K-B6b and K-B8b (and no call of their plain versions),
     objectives against the float64 references, the batch loop's lanes
     against separate solves, and the wall time per instance of a batch
-    against separate calls on both batch routes.
+    against separate calls on both batch routes;
+23. K-B3 and K-B3p over a bfloat16 A against their plain versions at
+    8192×16384, 1000×1003 (ragged) and 1024×200000 (the wide route), with
+    call and stream times beside K-B3 over the float32 A;
+24. K-B7 over bfloat16 channels at 16384×256, 16384×4096 and 1024×16384
+    (the wide route), both losses;
+25. K-P4 (the bfloat16-storage probe) at 1000×2000, float32 against
+    bfloat16 storage: µs per chained pair in turns;
+26. K-B8 and K-B8b on the route past n = 512 (C-4) at 8192×640 (to
+    tolerance), 2048×1024 and 256×8192 (300 iterations: no bounded
+    solution), adaptive and FISTA, against the plain version, each batch
+    instance bit-identical to its own launch, then
+    ``recommend_path(p, 1).run()``, ``Problem.microsolve_batch`` and
+    ``recommend_path(p, 4).run(bs)`` with the launch counters;
+27. the bfloat16 main paths: LASSO 8192×16384 through
+    ``LowPrecDenseOp`` (K-B3 bf16), a checkpoint round trip and the
+    float32 ``checkpoint.resume``, against the float32 solve from scratch
+    in float64 objective and iterations; logistic and the squared hinge
+    over the bfloat16 matrix (K-B3p bf16); planar phase retrieval
+    16384×256 over bfloat16 channels (K-B7 bf16), its float32 resume
+    against the float64 oracle and ``Problem.microsolve`` on it.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -110,11 +130,11 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
 
 import fasta_tpu_torch as ftt  # noqa: E402
-from fasta_tpu_torch import problems  # noqa: E402
-from fasta_tpu_torch.kernels import (_build, lstsq_fused, microsolver,  # noqa: E402
-                                     microsolver_planar, microsolver_tv,
-                                     planar_fused, planar_probe, prox_fused,
-                                     tv_fused)
+from fasta_tpu_torch import checkpoint, problems  # noqa: E402
+from fasta_tpu_torch.kernels import (_build, bf16_probe, lstsq_fused,  # noqa: E402
+                                     microsolver, microsolver_planar,
+                                     microsolver_tv, planar_fused,
+                                     planar_probe, prox_fused, tv_fused)
 from reference_oracle.fasta_numpy import fasta as fasta_np  # noqa: E402
 from reference_oracle.generators import make_lasso  # noqa: E402
 
@@ -231,6 +251,10 @@ def tv_flops(h: int, w: int, tried: int, accepted: int, points: int,
 
 def reset_launches() -> None:
     lstsq_fused.LAUNCHES = lstsq_fused.POINTWISE_LAUNCHES = 0
+    lstsq_fused.BF16_LAUNCHES = lstsq_fused.POINTWISE_BF16_LAUNCHES = 0
+    planar_fused.BF16_LAUNCHES = bf16_probe.LAUNCHES = 0
+    microsolver_planar.WIDE_LAUNCHES = 0
+    microsolver_planar.WIDE_BATCH_LAUNCHES = 0
     microsolver.LAUNCHES = microsolver.PATH_LAUNCHES = 0
     tv_fused.LAUNCHES = 0
     microsolver_tv.LAUNCHES = microsolver_tv.PATH_LAUNCHES = 0
@@ -255,7 +279,13 @@ def read_launches() -> dict:
             "K-B4": prox_fused.LAUNCHES,
             "K-B1b": microsolver.BATCH_LAUNCHES,
             "K-B6b": microsolver_tv.BATCH_LAUNCHES,
-            "K-B8b": microsolver_planar.BATCH_LAUNCHES}
+            "K-B8b": microsolver_planar.BATCH_LAUNCHES,
+            "K-B3 bf16": lstsq_fused.BF16_LAUNCHES,
+            "K-B3p bf16": lstsq_fused.POINTWISE_BF16_LAUNCHES,
+            "K-B7 bf16": planar_fused.BF16_LAUNCHES,
+            "K-P4": bf16_probe.LAUNCHES,
+            "K-B8w": microsolver_planar.WIDE_LAUNCHES,
+            "K-B8bw": microsolver_planar.WIDE_BATCH_LAUNCHES}
 
 
 def phase_device() -> str:
@@ -2057,6 +2087,546 @@ def phase_serving() -> dict:
     return dict(launches=launches, m5=m5, worst_rel=worst)
 
 
+# --------------------------------------------------------------------------
+# Slice 6: bfloat16 storage and refinement, K-P4, K-B8 past n = 512
+# --------------------------------------------------------------------------
+
+def check_map(tag, got, ref) -> float:
+    """Phase 3's tolerance between a gradient map and its plain version:
+    max|Δd|, max|Δg| ≤ 1e-5·max(1, max|ref|) and |Δf| ≤ 1e-5·|f|.
+    Returns the larger of the two errors."""
+    (d, f, g), (d0, f0, g0) = got, ref
+    torch.cuda.synchronize()
+    err_d = float((d - d0).abs().max())
+    err_g = float((g - g0).abs().max())
+    rel_f = abs(float(f) - float(f0)) / abs(float(f0))
+    tol_d = 1e-5 * max(1.0, float(d0.abs().max()))
+    tol_g = 1e-5 * max(1.0, float(g0.abs().max()))
+    print(f"{tag} max|dd| {err_d:.3e} (tol {tol_d:.1e}) max|dg| {err_g:.3e} "
+          f"(tol {tol_g:.1e}) rel df {rel_f:.3e} (tol 1e-5)")
+    require(err_d <= tol_d and err_g <= tol_g and rel_f <= 1e-5,
+            f"{tag} disagrees with its plain version")
+    return max(err_d, err_g)
+
+
+def gradmap_bytes(m: int, n: int, itemsize: int) -> float:
+    """K-B3's inputs read once and outputs written once: A, x, b, d, g."""
+    return itemsize * m * n + 4.0 * (2 * n + 2 * m)
+
+
+def phase_bf16_gradmap() -> tuple:
+    """K-B3 and K-B3p over a bfloat16 A against their plain versions (A
+    upcast to float32, x float32) at 8192×16384 (268.4 MB), 1000×1003
+    (rows not 16-byte aligned: one value a group) and 1024×200000 (the
+    wide route), with phase 3's tolerance; call and stream times beside
+    K-B3 over the float32 A at the same shape, and GB/s against the
+    0.0801 ms byte bound of one bfloat16 read."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    worst, ms = {"lstsq": 0.0, "pointwise": 0.0}, {}
+    for m, n in ((8192, 16384), (1000, 1003), (1024, 200000)):
+        A32 = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
+        A = A32.to(torch.bfloat16)
+        x = torch.randn(n, generator=gen, device=DEV)
+        b = torch.randn(m, generator=gen, device=DEV)
+        labels = (b > 0).float()
+        route = lstsq_fused._plan(0, m, n, True)[0]
+        cases = [("lstsq", lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b),
+                  lambda: lstsq_fused.lstsq_gradmap_reference(A, x, b))]
+        for loss, y in (("logistic", labels),
+                        ("squared_hinge", 2.0 * labels - 1.0)):
+            cases.append((loss, lambda loss=loss, y=y: lstsq_fused.
+                          fused_pointwise_gradmap(A, x, y, loss),
+                          lambda loss=loss, y=y: lstsq_fused.
+                          pointwise_gradmap_reference(A, x, y, loss)))
+        for loss, kernel_fn, plain_fn in cases:
+            tag = f"[23 K-B3{'' if loss == 'lstsq' else 'p'} bf16 {loss} {m}x{n}]"
+            err = check_map(tag, kernel_fn(), plain_fn())
+            key = "lstsq" if loss == "lstsq" else "pointwise"
+            worst[key] = max(worst[key], err)
+            kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
+            kern_stream, plain_stream = stream_ms(kernel_fn), stream_ms(plain_fn)
+            bd = bound(gradmap_bytes(m, n, 2), 4.0 * m * n)
+            print(f"{tag} route {'wide' if route == 0 else f'cluster {route}'}; "
+                  f"call, median of 20: kernel {kern:.4f} ms, plain "
+                  f"{plain:.4f} ms; stream time, 20 back-to-back runs: kernel "
+                  f"{kern_stream:.4f} ms, plain {plain_stream:.4f} ms; "
+                  f"{m * n * 2 / kern_stream / 1e6:.1f} GB/s of stream time; "
+                  f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+                  f"{kern_stream / bd['bound_ms']:.2f}x")
+            ms[(loss, m, n)] = (kern, plain, kern_stream, plain_stream)
+        f32_fn = lambda: lstsq_fused.fused_lstsq_gradmap(A32, x, b)  # noqa: E731
+        f32_call, f32_stream = cuda_ms(f32_fn, 20), stream_ms(f32_fn)
+        print(f"[23 K-B3 float32 {m}x{n}] beside it: call {f32_call:.4f} ms, "
+              f"stream {f32_stream:.4f} ms ({m * n * 4 / f32_stream / 1e6:.1f} "
+              f"GB/s), bound {bound(gradmap_bytes(m, n, 4), 4.0 * m * n)['bound_ms']:.4f} ms")
+        ms[("f32", m, n)] = (f32_call, f32_stream)
+        del A32, A
+    m, n = 8192, 16384
+    big, lg = ms[("lstsq", m, n)], ms[("logistic", m, n)]
+    wide = ms[("lstsq", 1024, 200000)]
+    b3 = dict(max_abs_err=worst["lstsq"], ms=big[0], plain_ms=big[1],
+              **bound(gradmap_bytes(m, n, 2), 4.0 * m * n), library_ms=None,
+              shape="8192x16384 bfloat16", stream_ms=big[2],
+              plain_stream_ms=big[3], f32_ms=ms[("f32", m, n)][0],
+              f32_stream_ms=ms[("f32", m, n)][1],
+              stream_ms_1024x200000=wide[2],
+              plain_stream_ms_1024x200000=wide[3],
+              f32_stream_ms_1024x200000=ms[("f32", 1024, 200000)][1],
+              stream_ms_1000x1003=ms[("lstsq", 1000, 1003)][2])
+    b3p = dict(max_abs_err=worst["pointwise"], ms=lg[0], plain_ms=lg[1],
+               **bound(gradmap_bytes(m, n, 2), 4.0 * m * n), library_ms=None,
+               shape="logistic 8192x16384 bfloat16", stream_ms=lg[2],
+               plain_stream_ms=lg[3],
+               hinge_stream_ms=ms[("squared_hinge", m, n)][2])
+    return b3, b3p
+
+
+def phase_bf16_planar_gradmap() -> dict:
+    """K-B7 over bfloat16 channels against its plain version (channels
+    upcast, x float32), both losses, at 16384×256, 16384×4096 (268.4 MB of
+    channels) and 1024×16384 (the wide route), with phase 3's tolerance;
+    call and stream times, GB/s against the byte bound of one bfloat16
+    read of Ar and Ai."""
+    worst, ms = 0.0, {}
+    for i, (m, n) in enumerate(((16384, 256), (16384, 4096), (1024, 16384))):
+        Ar, Ai, x, bl, bh = planar_data(m, n, 24 + i)
+        Ar, Ai = Ar.to(torch.bfloat16), Ai.to(torch.bfloat16)
+        route = planar_fused._plan(0, m, n, True)[0]
+        for loss, fused, ref, b in (
+                ("hinge", planar_fused.fused_planar_hinge_gradmap,
+                 planar_fused.planar_hinge_gradmap_reference, bh),
+                ("lstsq", planar_fused.fused_planar_lstsq_gradmap,
+                 planar_fused.planar_lstsq_gradmap_reference, bl)):
+            tag = f"[24 K-B7 bf16 {loss} {m}x{n}]"
+            worst = max(worst, check_map(tag, fused(Ar, Ai, x, b),
+                                         ref(Ar, Ai, x, b)))
+            kernel_fn = lambda: fused(Ar, Ai, x, b)  # noqa: E731
+            plain_fn = lambda: ref(Ar, Ai, x, b)  # noqa: E731
+            kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
+            kern_stream, plain_stream = stream_ms(kernel_fn), stream_ms(plain_fn)
+            nbytes = planar_gradmap_bytes(m, n, loss == "hinge") \
+                - 4.0 * m * n                 # channels at 2 bytes
+            bd = bound(nbytes, 16.0 * m * n)
+            print(f"{tag} route {route}; call, median of 20: kernel "
+                  f"{kern:.4f} ms, plain {plain:.4f} ms; stream time, 20 "
+                  f"back-to-back runs: kernel {kern_stream:.4f} ms, plain "
+                  f"{plain_stream:.4f} ms; "
+                  f"{2 * m * n * 2 / kern_stream / 1e6:.1f} GB/s of stream "
+                  f"time; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            ms[(loss, m, n)] = (kern, plain, kern_stream, plain_stream,
+                                bd["bound_ms"])
+        del Ar, Ai
+    m, n = 16384, 4096
+    big = ms[("hinge", m, n)]
+    return dict(max_abs_err=worst, ms=big[0], plain_ms=big[1],
+                **bound(planar_gradmap_bytes(m, n, True) - 4.0 * m * n,
+                        16.0 * m * n),
+                library_ms=None, shape="hinge 16384x4096 bfloat16",
+                stream_ms=big[2], plain_stream_ms=big[3],
+                stream_ms_16384x256=ms[("hinge", 16384, 256)][2],
+                plain_stream_ms_16384x256=ms[("hinge", 16384, 256)][3],
+                stream_ms_1024x16384=ms[("hinge", 1024, 16384)][2],
+                plain_stream_ms_1024x16384=ms[("hinge", 1024, 16384)][3])
+
+
+def phase_bf16_probe() -> dict:
+    """K-P4 at the probe's 1000×2000, float32 and bfloat16 storage: the
+    last of 3 chained pairs' g within 1e-5 of its largest entry of the
+    plain loop's and x equal to x₀; then µs per pair as the difference of
+    a 1100- and a 100-pair launch over 1000, best of 3, in turns (float32,
+    bfloat16, bfloat16, float32).  A pair reads A twice: 16.0 MB in
+    float32, 8.0 MB in bfloat16, both inside the 50 MB L2."""
+    m, n = 1000, 2000
+    gen = torch.Generator(device=DEV).manual_seed(25)
+    A32 = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
+    x0 = torch.randn(n, generator=gen, device=DEV)
+    mats = {"float32": A32, "bfloat16": A32.to(torch.bfloat16)}
+    worst = 0.0
+    for name, A in mats.items():
+        x, g = bf16_probe.bf16_probe(A, x0, 3)
+        xr, gr = bf16_probe.bf16_probe_reference(A, x0, 3)
+        torch.cuda.synchronize()
+        err = float((g - gr).abs().max())
+        tol = 1e-5 * float(gr.abs().max())
+        print(f"[25 K-P4 {name}] last of 3 pairs max|dg| {err:.3e} (tol "
+              f"{tol:.1e}); x equal to x0: {torch.equal(x, x0)}")
+        require(err <= tol and torch.equal(x, x0) and torch.equal(xr, x0),
+                f"K-P4 {name} disagrees with its plain version")
+        worst = max(worst, err)
+
+    def launch_ms(A, K):
+        best = float("inf")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            bf16_probe.bf16_probe(A, x0, K)
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+        return best
+
+    plain = {k: cuda_ms(lambda A=A: bf16_probe.bf16_probe_reference(A, x0, 10),
+                        5) / 10 for k, A in mats.items()}
+    reset_launches()
+    turns = {k: [] for k in mats}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        launch_ms(mats[name], 100)                       # warm-up
+        turns[name].append((launch_ms(mats[name], 1100)
+                            - launch_ms(mats[name], 100)) / 1000)
+    launches = read_launches()["K-P4"]
+    per = {k: statistics.mean(t) for k, t in turns.items()}
+    for name in mats:
+        nbytes = 2.0 * m * n * (4 if name == "float32" else 2)
+        print(f"[25 K-P4 {name}] {per[name] * 1e3:.3f} us per pair (turns "
+              f"{', '.join(f'{u * 1e3:.3f}' for u in turns[name])}); "
+              f"{nbytes / 1e6:.1f} MB read per pair, "
+              f"{nbytes / (per[name] * 1e-3) / 1e9:.1f} GB/s implied; plain "
+              f"pair {plain[name] * 1e3:.3f} us")
+    print(f"[25 K-P4] bfloat16 storage against float32: "
+          f"{per['float32'] / per['bfloat16']:.3f}x; launches during the "
+          f"timed runs: {launches}")
+    require(launches >= 1, "the probe's timed runs launched no K-P4")
+    # per pair: A read once, x in, g out; 4mn operations
+    return dict(max_abs_err=worst, ms=per["bfloat16"],
+                plain_ms=plain["bfloat16"],
+                **bound(2.0 * m * n + 8.0 * n, 4.0 * m * n),
+                library_ms=None, launches_timed=launches,
+                shape="1000x2000, per chained pair, bfloat16 storage",
+                us_per_pair={k: v * 1e3 for k, v in per.items()},
+                f32_ms=per["float32"], f32_plain_ms=plain["float32"],
+                f32_bound_ms=bound(4.0 * m * n + 8.0 * n,
+                                   4.0 * m * n)["bound_ms"],
+                bf16_speedup=per["float32"] / per["bfloat16"])
+
+
+def phase_objective_t(p, x) -> float:
+    """f(x) − ⟨c, x⟩ of a planar problem in float64 on the card."""
+    x = torch.as_tensor(x, device=DEV).double()
+    d = ftt.PlanarDenseOp(p.op.Ar.double(), p.op.Ai.double())(x)
+    r = torch.clamp_min(torch.sqrt(torch.sum(d * d, -1))
+                        - p.fterm.b.double(), 0.0)
+    return float(0.5 * torch.sum(r * r) - torch.sum(p.gterm.c.double() * x))
+
+
+def reversed_columns(data):
+    """A planar problem's (Ar, Ai, b, c, x₀) with the columns in reverse
+    order: the same problem, its products summed in another order."""
+    Ar, Ai, b, c, x0 = data
+    r = torch.arange(Ar.shape[1] - 1, -1, -1, device=Ar.device)
+    return (Ar[:, r].contiguous(), Ai[:, r].contiguous(), b,
+            c[r].contiguous(), x0[r].contiguous())
+
+
+def rel_spread(a, b) -> float:
+    """The largest relative difference of two positive series."""
+    return float(((a - b).abs() / b.abs()).max())
+
+
+# PhaseMax needs m ≳ 4n measurements for a bounded solution: 2048×1024
+# and 256×8192, inside the reference's gate, have none (the iterates run
+# off along the anchor), so they run a fixed 300 iterations and hold the
+# prefix; 8192×640, also inside the gate, is well posed and runs to
+# tolerance.
+WIDE_SHAPES = ((8192, 640), (2048, 1024), (256, 8192))
+
+
+def phase_wide_planar() -> dict:
+    """K-B8 and K-B8b on the route past n = 512 (C-4) against the plain
+    version, adaptive and FISTA (hp, restart_dd): backtracks equal and the
+    first 10 taus and residuals within rtol max(1e-3, twice the plain
+    version's own spread when its columns are reversed — the hinge carries
+    a change in the order of float32 sums into τ at the 1e-3 level by the
+    tenth iteration, the plain version against itself too), equal counts
+    and status, and where the problem is well posed (8192×640, tol 1e-5)
+    the float64 objective within 1e-6; a batch of 4 bit-identical to
+    separate launches; then the public routes — recommend_path(p,
+    1).run(), Problem.microsolve_batch and recommend_path(p, 4).run(bs) —
+    with the launch counters."""
+    worst, timed = 0.0, {}
+    probs = {}
+    for m, n in WIDE_SHAPES:
+        p = problems.build("phase_retrieval", m=m, n=n, planar=True,
+                           device=DEV)
+        p.tau0 = 1.0
+        probs[(m, n)] = p
+        posed = (m, n) == WIDE_SHAPES[0]
+        data = (p.op.Ar, p.op.Ai, p.fterm.b, p.gterm.c, p.x0)
+        require(ftt.microsolve_supported(p) == (True, "planar"),
+                f"{m}x{n} is outside the planar gate")
+        for accelerate in (False, True):
+            # adaptive runs the well-posed shape to tolerance; FISTA's hinge
+            # solve there takes more than 6000 iterations in the plain
+            # version, so it runs 300 as the other shapes do
+            to_tol = posed and not accelerate
+            kw = dict(max_iters=2000, tol=1e-5, hp=True, accelerate=accelerate,
+                      restart_dd=True, record_bts=True)
+            if not to_tol:
+                kw.update(max_iters=300, tol=0.0, stop_rule="iterations")
+            out = microsolver_planar.microsolve_planar_phasemax(*data, 1.0,
+                                                                **kw)
+            t0 = time.perf_counter()
+            ref = microsolver_planar.microsolve_planar_phasemax_reference(
+                *data, 1.0, **kw)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
+            kern = cuda_ms(lambda: microsolver_planar.microsolve_planar_phasemax(
+                *data, 1.0, **kw), 3, warmup=1)
+            k1, k2 = int(out.iteration_count), int(ref.iteration_count)
+            kt = min(k1, k2, 10)
+            rev = microsolver_planar.microsolve_planar_phasemax_reference(
+                *reversed_columns(data), 1.0,
+                **(kw if not to_tol else {**kw, "max_iters": kt, "tol": 0.0,
+                                          "stop_rule": "iterations"}))
+            spread = max(rel_spread(rev.taus[:kt], ref.taus[:kt]),
+                         rel_spread(rev.residuals[:kt], ref.residuals[:kt]))
+            tol = max(1e-3, 2.0 * spread)
+            tau_err = rel_spread(out.taus[:kt], ref.taus[:kt])
+            res_ok = torch.allclose(out.residuals[:kt], ref.residuals[:kt],
+                                    rtol=tol, atol=1e-6)
+            bt_ok = torch.equal(out.backtracks[:kt], ref.backtracks[:kt])
+            f1, f2 = phase_objective_t(p, out.x), phase_objective_t(p, ref.x)
+            rel_f = abs(f1 - f2) / abs(f2)
+            f_tol = 1e-6
+            if not to_tol:
+                f_rev = phase_objective_t(p, rev.x.flip(0))
+                f_tol = max(1e-6, 2.0 * abs(f_rev - f2) / abs(f2))
+            ok = tau_err <= tol and res_ok and bt_ok
+            if to_tol:
+                ok &= out.status == ref.status == "converged"
+            else:
+                ok &= k1 == k2 == 300
+            if posed:
+                ok &= rel_f <= f_tol
+            mode = "FISTA" if accelerate else "adaptive"
+            print(f"[26 K-B8 wide {m}x{n} {mode}] iterations kernel {k1} plain "
+                  f"{k2}; status {out.status}/{ref.status}; taus[:{kt}] max rel "
+                  f"{tau_err:.2e} (tol {tol:.2e}: the plain version against "
+                  f"itself, columns reversed, {spread:.2e}); residuals "
+                  f"{res_ok}; backtracks "
+                  f"{bt_ok}; objective {f1:.12g} vs {f2:.12g}, rel "
+                  f"{rel_f:.2e}{f' (tol {f_tol:.2e})' if posed else ''}; kernel "
+                  f"{kern:.3f} ms (median of 3, {kern / k1 * 1e3:.2f} us per "
+                  f"iteration), plain loop on the card {plain:.3f} ms (one "
+                  f"run)")
+            require(ok, f"K-B8 wide {m}x{n} {mode} disagrees with its plain "
+                    f"version")
+            if posed:
+                worst = max(worst, float((out.x - ref.x).abs().max()))
+            timed[(m, n, accelerate)] = (kern, plain, trials(out))
+            bs = stack_requests(p.fterm.b, 4)
+            t0s = torch.tensor([1.0, 0.3, 2.0, 1.5], device=DEV)
+            batch = microsolver_planar.microsolve_planar_phasemax_batch(
+                data[0], data[1], bs, data[3], data[4], t0s, **kw)
+            singles = [microsolver_planar.microsolve_planar_phasemax(
+                data[0], data[1], bs[i], data[3], data[4], float(t0s[i]),
+                **kw) for i in range(4)]
+            same = identical(batch, singles)
+            print(f"[26 K-B8b wide {m}x{n} {mode}] 4 instances, each "
+                  f"bit-identical to its own K-B8 launch: {same}")
+            require(same, f"K-B8b wide {m}x{n} {mode} differs from its "
+                    f"separate launches")
+
+    # the C-4 routes through the public entry points
+    reset_launches()
+    runs = []
+    for (m, n), p in probs.items():
+        posed = (m, n) == WIDE_SHAPES[0]
+        kw = (dict(max_iters=2000, tol=1e-5, hp=True) if posed else
+              dict(max_iters=300, tol=0.0, stop_rule="iterations", hp=True))
+        plan = ftt.recommend_path(p, 1)
+        require(plan.path == "microsolve", f"{m}x{n}: route {plan.path}")
+        one = plan.run(**kw)
+        bs = stack_requests(p.fterm.b, 4)
+        mb = p.microsolve_batch(bs, **kw)
+        plan4 = ftt.recommend_path(p, 4)
+        loop = plan4.run(bs, options=ftt.FastaOptions(max_iters=50))
+        runs.append(((m, n), one, mb, plan4.path, loop))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for (m, n), one, mb, path4, loop in runs:
+        same = torch.equal(mb.solutions[0], one.solution)
+        print(f"[26 C-4 {m}x{n}] recommend_path(p, 1).run(): {one.status} in "
+              f"{one.iteration_count} iterations; Problem.microsolve_batch "
+              f"x 4, instance 0 equal to it: {same}; recommend_path(p, 4): "
+              f"{path4}, solutions {tuple(loop.solution.shape)}")
+        require(same, f"C-4 {m}x{n}: the batch differs from the single solve")
+        if (m, n) == WIDE_SHAPES[0]:
+            require(one.status == "converged", "C-4 8192x640 did not converge")
+    print(f"[26 C-4] launches during the routes: {launches}")
+    require(launches["K-B8w"] >= 3 and launches["K-B8bw"] >= 3,
+            f"the wide route never launched on the C-4 path: {launches}")
+    require(launches["K-B8"] == launches["K-B8b"] == 0,
+            f"a C-4 route took the n <= 512 kernel: {launches}")
+    m, n = 2048, 1024
+    kern, plain, (tried, k) = timed[(m, n, False)]
+    return dict(max_abs_err=worst, ms=kern, plain_ms=plain,
+                **bound(4.0 * (2 * m * n + m + 4 * n + 2 * n + 3 * k),
+                        planar_flops(m, n, tried, k, False)),
+                hbm_state_ms=tried * 2.0 * m * n * 4 / HBM_BYTES_PER_S * 1e3,
+                library_ms=None, shape="2048x1024, 300 iterations, hp",
+                iterations=k, trials=tried,
+                ms_fista=timed[(m, n, True)][0],
+                plain_ms_fista=timed[(m, n, True)][1],
+                ms_256x8192=timed[(256, 8192, False)][0],
+                plain_ms_256x8192=timed[(256, 8192, False)][1],
+                ms_8192x640_to_tol=timed[(8192, 640, False)][0],
+                plain_ms_8192x640_to_tol=timed[(8192, 640, False)][1],
+                iterations_8192x640=timed[(8192, 640, False)][2][1],
+                launches=launches)
+
+
+def lasso_objective64(A64, b64, mu, x) -> float:
+    """½‖Ax − b‖² + μ‖x‖₁ in float64 on the card."""
+    x = torch.as_tensor(x, device=DEV).double()
+    r = A64 @ x - b64
+    return float(0.5 * torch.dot(r, r) + mu * x.abs().sum())
+
+
+def phase_bf16_main_path() -> dict:
+    """The bfloat16 main paths through the public entry points.
+
+    LASSO 8192×16384 (make_lasso k=100, μ 0.1, seed 1; τ₀ 0.05): the
+    float32 solve from scratch (tol 1e-6), then the bfloat16 solve over
+    ``LowPrecDenseOp.from_dense(A)`` (tol 1e-3), ``checkpoint.save_pytree``
+    / ``load_pytree`` of its result, and ``checkpoint.resume`` of the
+    float32 problem (tol 1e-6): the refined float64 objective within 1e-4
+    of the from-scratch one in fewer iterations (test_mixed_precision.py's
+    bars), every bfloat16 trial one K-B3 bf16 launch.  Logistic and the
+    squared hinge over the same bfloat16 matrix (labels from b), 20
+    iterations each through K-B3p bf16.  Phase retrieval 16384×256
+    planar: the bfloat16 solve over ``PlanarDenseOp.from_complex(A,
+    torch.bfloat16)`` (tol 1e-3) through K-B7 bf16, its checkpoint, the
+    float32 resume (tol 1e-5) within 1e-5 of the float64 oracle's
+    objective (phase 17), and ``Problem.microsolve`` on the bfloat16
+    problem, equal to the kernel's run on the upcast channels."""
+    import tempfile
+    t0 = time.perf_counter()
+    inst = make_lasso(m=8192, n=16384, k=100, mu=0.1, seed=1)
+    A64 = torch.as_tensor(inst["A"], device=DEV)
+    del inst["A"], inst["op"]             # the host copy: 1.07 GB
+    b64 = torch.as_tensor(inst["b"], device=DEV)
+    mu = float(inst["mu"])
+    prob = ftt.Problem("lasso[8192x16384]", op=ftt.DenseOp(A64.float()),
+                       fterm=ftt.LeastSquares(b64.float()),
+                       gterm=ftt.L1Norm(mu),
+                       x0=torch.zeros(16384, device=DEV), tau0=0.05)
+    op16 = ftt.LowPrecDenseOp.from_dense(A64)
+    p16 = prob.with_parts(op=op16)
+    print(f"[27 bf16 main path] LASSO 8192x16384 built in "
+          f"{time.perf_counter() - t0:.1f} s: float32 A "
+          f"{prob.op.A.numel() * 4 / 1e6:.1f} MB, bfloat16 A "
+          f"{op16.A.numel() * 2 / 1e6:.1f} MB")
+
+    def timed_solve(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    reset_launches()
+    r_full, w_full = timed_solve(lambda: prob.solve(tol=1e-6, max_iters=2000))
+    before = lstsq_fused.BF16_LAUNCHES
+    r16, w16 = timed_solve(lambda: p16.solve(tol=1e-3, max_iters=2000))
+    bf16_trials = lstsq_fused.BF16_LAUNCHES - before
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save_pytree(r16, f"{tmp}/bf16_result.npz")
+        loaded = checkpoint.load_pytree(r16, path)
+    require(np.array_equal(loaded.solution, r16.solution)
+            and np.array_equal(loaded.taus, r16.taus),
+            "the checkpoint round trip changed the result")
+    r_ref, w_ref = timed_solve(lambda: checkpoint.resume(
+        prob, loaded, tol=1e-6, max_iters=2000))
+    pointwise = []
+    for loss, term in (("logistic", ftt.Logistic((b64 > 0).float())),
+                       ("squared_hinge",
+                        ftt.SquaredHinge(2.0 * (b64 > 0).float() - 1.0))):
+        r, w = timed_solve(lambda term=term: p16.with_parts(fterm=term).solve(
+            tau0=0.05, tol=0.0, max_iters=20))
+        pointwise.append((loss, r, w))
+
+    # planar phase retrieval 16384×256, bfloat16 then float32
+    pr = problems.build("phase_retrieval", planar=True, device=DEV)
+    pr.tau0 = 1.0
+    pinst = pr.instance
+    opb = ftt.PlanarDenseOp.from_complex(pinst["A"], torch.bfloat16,
+                                         device=DEV)
+    prb = pr.with_parts(op=opb)
+    rpb, wpb = timed_solve(lambda: prb.solve(tol=1e-3, max_iters=2000))
+    with tempfile.TemporaryDirectory() as tmp:
+        loaded_p = checkpoint.load_pytree(rpb, checkpoint.save_pytree(
+            rpb, f"{tmp}/planar.npz"))
+    rpr, wpr = timed_solve(lambda: checkpoint.resume(
+        pr, loaded_p, tol=1e-5, max_iters=2000))
+    micro = prb.microsolve(max_iters=2000, tol=1e-5, hp=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    up = pr.with_parts(op=ftt.PlanarDenseOp(opb.Ar.float(), opb.Ai.float()))
+    micro_up = up.microsolve(max_iters=2000, tol=1e-5, hp=True)
+
+    f_full = lasso_objective64(A64, b64, mu, r_full.solution)
+    f16 = lasso_objective64(A64, b64, mu, r16.solution)
+    f_ref = lasso_objective64(A64, b64, mu, r_ref.solution)
+    rel = abs(f_ref - f_full) / abs(f_full)
+    print(f"[27 bf16 main path] float32 from scratch: {r_full.iteration_count} "
+          f"iterations, {w_full:.1f} ms, objective {f_full:.12g}")
+    print(f"[27 bf16 main path] bfloat16 (LowPrecDenseOp, tol 1e-3): "
+          f"{r16.iteration_count} iterations, {r16.total_backtracks} "
+          f"backtracks, {w16:.1f} ms, objective {f16:.12g} (rel "
+          f"{abs(f16 - f_full) / abs(f_full):.2e}); K-B3 bf16 launches "
+          f"{bf16_trials} for {r16.iteration_count + r16.total_backtracks} "
+          f"trials")
+    print(f"[27 bf16 main path] checkpoint round trip, float32 resume (tau0 "
+          f"{r_ref.initial_tau:.6g}): {r_ref.iteration_count} iterations, "
+          f"{w_ref:.1f} ms, objective {f_ref:.12g}: rel {rel:.2e} (tol 1e-4); "
+          f"bfloat16 + resume {w16 + w_ref:.1f} ms against {w_full:.1f} ms")
+    require(r_full.converged and r16.converged and r_ref.converged,
+            "a LASSO solve of the bf16 main path did not converge")
+    require(rel <= 1e-4, "the refined objective misses the float32 one")
+    require(r_ref.iteration_count < r_full.iteration_count,
+            "the refinement took no fewer iterations than the solve from "
+            "scratch")
+    require(bf16_trials == r16.iteration_count + r16.total_backtracks,
+            "a bfloat16 trial did not launch K-B3 bf16")
+    for loss, r, w in pointwise:
+        f = r.fvals[-1]
+        print(f"[27 bf16 main path] {loss} over the bfloat16 matrix: "
+              f"{r.iteration_count} iterations in {w:.1f} ms, f {f:.9g} "
+              f"(from {r.fvals[0]:.9g})")
+        require(np.isfinite(r.solution).all() and f < r.fvals[0],
+                f"the {loss} solve over the bfloat16 matrix made no progress")
+
+    A_c, bm, cc = pinst["A"], pinst["b"], pinst["delta"] * pinst["x0_hat"]
+    goal = REFS["pr"]
+    fpb = phase_objective(A_c, bm, cc, planar_complex(rpb.solution))
+    fpr = phase_objective(A_c, bm, cc, planar_complex(rpr.solution))
+    relp = abs(fpr - goal) / abs(goal)
+    same = torch.equal(micro.solution, micro_up.solution)
+    print(f"[27 bf16 main path] planar 16384x256 bfloat16 (tol 1e-3): "
+          f"{rpb.iteration_count} iterations, {wpb:.1f} ms, objective "
+          f"{fpb:.12g}; float32 resume (tol 1e-5): {rpr.iteration_count} "
+          f"iterations, {wpr:.1f} ms, objective {fpr:.12g}: rel {relp:.2e} "
+          f"to the float64 oracle (tol 1e-5)")
+    print(f"[27 bf16 main path] Problem.microsolve on the bfloat16 planar "
+          f"problem: {micro.status} in {micro.iteration_count} iterations, "
+          f"equal to the kernel on the upcast channels: {same}")
+    require(rpb.converged and rpr.converged and relp <= 1e-5,
+            "the planar bfloat16 path misses the float64 oracle")
+    require(same and micro.status == "converged",
+            "Problem.microsolve on the bfloat16 planar problem")
+    print(f"[27 bf16 main path] launches: {launches}")
+    for kernel in ("K-B3 bf16", "K-B3p bf16", "K-B7 bf16", "K-B3", "K-B7",
+                   "K-B8"):
+        require(launches[kernel] >= 1, f"{kernel} never launched on the "
+                f"bfloat16 main paths: {launches}")
+    del A64
+    return dict(launches=launches, rel=rel, relp=relp,
+                iterations=(r_full.iteration_count, r16.iteration_count,
+                            r_ref.iteration_count),
+                walls_ms=(w_full, w16, w_ref))
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2080,9 +2650,17 @@ def main() -> None:
     b6b = phase_batch_tv()
     b8b = phase_batch_planar()
     serving = phase_serving()
+    b3_16, b3p_16 = phase_bf16_gradmap()
+    b7_16 = phase_bf16_planar_gradmap()
+    p4 = phase_bf16_probe()
+    b8w = phase_wide_planar()
+    bf16 = phase_bf16_main_path()
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
-                + serving["launches"][k] for k in lasso}
+                + serving["launches"][k] + b8w["launches"][k]
+                + bf16["launches"][k] for k in lasso}
+    del b8w["launches"]
     launches["K-P5"] = p5.pop("launches_timed")
+    launches["K-P4"] = p4.pop("launches_timed")
     kernels = [
         dict(name="K-B3 fused_lstsq_gradmap", route="cuda",
              source="fasta_tpu_torch/csrc/lstsq_fused.cu",
@@ -2143,6 +2721,27 @@ def main() -> None:
              replaces="fasta_tpu/kernels/microsolver_planar.py:669 under "
                       "vmap, fasta_tpu/micro.py:435",
              launches=launches["K-B8b"], **b8b),
+        dict(name="K-B3 bf16 fused_lstsq_gradmap (bfloat16 A)", route="cuda",
+             source="fasta_tpu_torch/csrc/lstsq_fused.cu",
+             replaces="fasta_tpu/kernels/lstsq_fused.py:407",
+             launches=launches["K-B3 bf16"], **b3_16),
+        dict(name="K-B3p bf16 fused_pointwise_gradmap (bfloat16 A)",
+             route="cuda", source="fasta_tpu_torch/csrc/lstsq_fused.cu",
+             replaces="fasta_tpu/kernels/lstsq_fused.py:331",
+             launches=launches["K-B3p bf16"], **b3p_16),
+        dict(name="K-B7 bf16 fused_planar_gradmap (bfloat16 channels)",
+             route="cuda", source="fasta_tpu_torch/csrc/planar_fused.cu",
+             replaces="fasta_tpu/kernels/planar_fused.py:197",
+             launches=launches["K-B7 bf16"], **b7_16),
+        dict(name="K-P4 bf16_probe (launches: phase 25's timed runs)",
+             route="cuda", source="fasta_tpu_torch/csrc/bf16_probe.cu",
+             replaces="benchmarks/bf16_matvec_probe.py:53",
+             launches=launches["K-P4"], **p4),
+        dict(name="K-B8w microsolve_planar_phasemax, the route past n = 512 "
+                  "(launches: K-B8 and K-B8b on it)", route="cuda",
+             source="fasta_tpu_torch/csrc/microsolver_planar.cu",
+             replaces="fasta_tpu/kernels/microsolver_planar.py:669",
+             launches=launches["K-B8w"] + launches["K-B8bw"], **b8w),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

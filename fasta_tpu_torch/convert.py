@@ -4,7 +4,9 @@ The JAX package's problem data is its ``Problem.instance`` dict of raw
 NumPy arrays (or ``np.asarray`` of its leaves); these helpers build a
 port :class:`~fasta_tpu_torch.problem.Problem` holding the same numbers,
 so both packages solve bit-identical inputs, and turn a port result back
-into NumPy.  No JAX import: everything crosses as NumPy.
+into NumPy.  No JAX import: everything crosses as NumPy.  A JAX bfloat16
+array crosses as its bits (:func:`bf16_tensor`), so the port holds the
+very values the JAX operator stores.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .operators import DenseOp, PlanarDenseOp, ScaledOp, TVDiv2D, tv_div_2d
+from .operators import (DenseOp, LowPrecDenseOp, PlanarDenseOp, ScaledOp,
+                        TVDiv2D, tv_div_2d)
 from .precision import real_dtype
 from .problem import Problem
 from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares,
@@ -23,7 +26,41 @@ from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares,
                     PlanarLinearAnchor, PlanarPhaseHinge, SquaredHinge)
 
 __all__ = ["problem_from_instance", "problem_from_arrays",
-           "result_to_numpy"]
+           "result_to_numpy", "bf16_tensor", "lowprec_op_from_arrays",
+           "planar_op_from_arrays"]
+
+
+def bf16_tensor(a, *, device) -> torch.Tensor:
+    """A bfloat16 tensor on ``device`` holding exactly the values of the
+    NumPy bfloat16 array ``a`` (``np.asarray`` of a JAX bfloat16 array,
+    whose dtype is named "bfloat16"): its bits, viewed as int16 and
+    reinterpreted."""
+    a = np.asarray(a)
+    if a.dtype.name != "bfloat16":
+        raise ValueError(f"bf16_tensor takes a bfloat16 array, got {a.dtype}")
+    bits = np.ascontiguousarray(a).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+
+
+def _stored(a, device) -> torch.Tensor:
+    """An array a JAX operator stores, as a tensor on ``device``: bfloat16
+    bits carried across, other types as they are."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return bf16_tensor(a, device=device)
+    return torch.as_tensor(a).to(device)
+
+
+def lowprec_op_from_arrays(A, *, device) -> LowPrecDenseOp:
+    """The port's ``LowPrecDenseOp`` over the stored matrix of a JAX
+    ``LowPrecDenseOp`` (``op.A``)."""
+    return LowPrecDenseOp(_stored(A, device))
+
+
+def planar_op_from_arrays(Ar, Ai, *, device) -> PlanarDenseOp:
+    """The port's ``PlanarDenseOp`` over the channels of a JAX one
+    (``op.Ar``, ``op.Ai``)."""
+    return PlanarDenseOp(_stored(Ar, device), _stored(Ai, device))
 
 
 def problem_from_arrays(A, b, mu: float, x0, tau0: Optional[float] = None,

@@ -8,15 +8,21 @@
 // _make_kernel_pointwise) — the TPU kernels that walk row tiles of A in a
 // sequential grid and accumulate Aᵀℓ′ in scratch.
 //
+// A is stored as float32 or bfloat16 (the mixed-precision path of
+// fused_lstsq_gradmap, fasta_tpu/kernels/lstsq_fused.py:368-452): a
+// bfloat16 tile is upcast to float32 in registers after the half-byte
+// copy; x, b, d, f and g are float32 either way.
+//
 // Bound on this card: device-memory bytes.  The two-pass form reads A
 // twice (A x, then Aᵀ ℓ′); this kernel reads it once, so at 8192×16384
-// f32 (512 MB) the floor is one read of A at the card's HBM bandwidth.
+// (537 MB in float32, 268 MB in bfloat16) the floor is one read of A at
+// the card's HBM bandwidth.
 //
 // Design:
 //  * A cluster of C blocks (C = ⌈n / 16384⌉, at most 8) walks row tiles
 //    of `tm` rows in a fixed round-robin order; block rank c of the
 //    cluster holds a chunk of at most 16384 columns.  A thread owns a
-//    fixed set of the chunk's columns (up to CPT groups of VEC floats);
+//    fixed set of the chunk's columns (up to CPT groups of VEC values);
 //    its slice of x and its gradient partial stay in registers for the
 //    whole call.
 //  * Tiles stream from device memory into shared memory with cp.async,
@@ -37,22 +43,35 @@
 //    (clusters, n) scratch and its partial f sum to (clusters,).  A
 //    second kernel sums both in a fixed order.  No float atomics: results
 //    are deterministic from run to run.
-//  * Ragged m (last tile) and n (n % 4 != 0: 4-byte copies) are masked
-//    in the kernel; nothing is padded or copied.
-//  * Rows wider than 8 chunks (131072 floats) take gradmap_rows_wide:
+//  * Ragged m (last tile) and n are masked in the kernel; nothing is
+//    padded or copied.  A column group is 16 bytes (4 floats, 8 bfloat16
+//    values) when every row starts 16-byte aligned (n % 4 == 0 in
+//    float32, n % 8 == 0 in bfloat16), else one value: 4-byte copies in
+//    float32, and in bfloat16 2-byte loads, which cp.async does not take,
+//    so those tiles are copied by plain loads and stores.
+//  * The chunk (16384 columns) and the wide route's threshold (8 chunks,
+//    131072 columns) count columns in both types: a thread keeps x and
+//    its gradient share in float32 registers per column, so the registers
+//    bound the chunk, not its bytes.  A bfloat16 row is half the bytes,
+//    so twice the tile rows fit the same shared memory.
+//  * Rows wider than 8 chunks (131072 columns) take gradmap_rows_wide:
 //    each thread walks its columns in strides of the block, reads x
 //    through the read-only cache and keeps its gradient partial in the
 //    block's own row of the scratch.  Its gradient pass reads each tile
 //    of 8 rows a second time, so it moves about 2.25 times the bytes of
 //    A (the plain form: 2 times).
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "losses.cuh"
 #include "reduce.cuh"
 
 namespace cg = cooperative_groups;
+using fasta::bf16_hi;
+using fasta::bf16_lo;
 
 namespace {
 
@@ -63,30 +82,116 @@ constexpr int kStages = 3;
 constexpr int kChunkMax = 16384;  // CPT·VEC·kThreads at the largest instantiation
 constexpr int kClusterMax = 8;    // the portable cluster size
 
-// One thread's view of a column group: VEC consecutive floats.
-template <int VEC>
+// One thread's view of a column group: VEC consecutive values of A stored
+// as E (storage type S, copied to shared memory by copy), and the group's
+// float32 form X in registers (x and the gradient share).
+struct Float8 {
+  float4 lo, hi;
+};
+
+template <typename E, int VEC>
 struct Vec;
 template <>
-struct Vec<4> {
-  using T = float4;
-  static __device__ __forceinline__ float dot(T a, T b, float s) {
+struct Vec<float, 4> {
+  using S = float4;
+  using X = float4;
+  static __device__ __forceinline__ float dot(S a, X b, float s) {
     s = fmaf(a.x, b.x, s);
     s = fmaf(a.y, b.y, s);
     s = fmaf(a.z, b.z, s);
     return fmaf(a.w, b.w, s);
   }
-  static __device__ __forceinline__ T axpy(T a, float r, T g) {
+  static __device__ __forceinline__ X axpy(S a, float r, X g) {
     return make_float4(fmaf(a.x, r, g.x), fmaf(a.y, r, g.y), fmaf(a.z, r, g.z),
                        fmaf(a.w, r, g.w));
   }
-  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ X zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ X ldg(const float* p, int q) {
+    return __ldg(reinterpret_cast<const float4*>(p) + q);
+  }
+  static __device__ __forceinline__ X ld(const float* p, int q) {
+    return reinterpret_cast<const float4*>(p)[q];
+  }
+  static __device__ __forceinline__ void st(float* p, int q, X v) {
+    reinterpret_cast<float4*>(p)[q] = v;
+  }
+  static __device__ __forceinline__ void copy(S* dst, const S* src) {
+    __pipeline_memcpy_async(dst, src, sizeof(S));
+  }
 };
 template <>
-struct Vec<1> {
-  using T = float;
-  static __device__ __forceinline__ float dot(T a, T b, float s) { return fmaf(a, b, s); }
-  static __device__ __forceinline__ T axpy(T a, float r, T g) { return fmaf(a, r, g); }
-  static __device__ __forceinline__ T zero() { return 0.f; }
+struct Vec<float, 1> {
+  using S = float;
+  using X = float;
+  static __device__ __forceinline__ float dot(S a, X b, float s) { return fmaf(a, b, s); }
+  static __device__ __forceinline__ X axpy(S a, float r, X g) { return fmaf(a, r, g); }
+  static __device__ __forceinline__ X zero() { return 0.f; }
+  static __device__ __forceinline__ X ldg(const float* p, int q) { return __ldg(p + q); }
+  static __device__ __forceinline__ X ld(const float* p, int q) { return p[q]; }
+  static __device__ __forceinline__ void st(float* p, int q, X v) { p[q] = v; }
+  static __device__ __forceinline__ void copy(S* dst, const S* src) {
+    __pipeline_memcpy_async(dst, src, sizeof(S));
+  }
+};
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  using S = uint4;  // 8 bfloat16 values, element 2k in the low half of word k
+  using X = Float8;
+  static __device__ __forceinline__ float dot(S a, X b, float s) {
+    s = fmaf(bf16_lo(a.x), b.lo.x, s);
+    s = fmaf(bf16_hi(a.x), b.lo.y, s);
+    s = fmaf(bf16_lo(a.y), b.lo.z, s);
+    s = fmaf(bf16_hi(a.y), b.lo.w, s);
+    s = fmaf(bf16_lo(a.z), b.hi.x, s);
+    s = fmaf(bf16_hi(a.z), b.hi.y, s);
+    s = fmaf(bf16_lo(a.w), b.hi.z, s);
+    return fmaf(bf16_hi(a.w), b.hi.w, s);
+  }
+  static __device__ __forceinline__ X axpy(S a, float r, X g) {
+    X o;
+    o.lo = make_float4(fmaf(bf16_lo(a.x), r, g.lo.x), fmaf(bf16_hi(a.x), r, g.lo.y),
+                       fmaf(bf16_lo(a.y), r, g.lo.z), fmaf(bf16_hi(a.y), r, g.lo.w));
+    o.hi = make_float4(fmaf(bf16_lo(a.z), r, g.hi.x), fmaf(bf16_hi(a.z), r, g.hi.y),
+                       fmaf(bf16_lo(a.w), r, g.hi.z), fmaf(bf16_hi(a.w), r, g.hi.w));
+    return o;
+  }
+  static __device__ __forceinline__ X zero() {
+    return X{make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  static __device__ __forceinline__ X ldg(const float* p, int q) {
+    const float4* v = reinterpret_cast<const float4*>(p) + 2 * q;
+    return X{__ldg(v), __ldg(v + 1)};
+  }
+  static __device__ __forceinline__ X ld(const float* p, int q) {
+    const float4* v = reinterpret_cast<const float4*>(p) + 2 * q;
+    return X{v[0], v[1]};
+  }
+  static __device__ __forceinline__ void st(float* p, int q, X v) {
+    float4* o = reinterpret_cast<float4*>(p) + 2 * q;
+    o[0] = v.lo;
+    o[1] = v.hi;
+  }
+  static __device__ __forceinline__ void copy(S* dst, const S* src) {
+    __pipeline_memcpy_async(dst, src, sizeof(S));
+  }
+};
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  using S = unsigned short;  // the bits of one bfloat16 value
+  using X = float;
+  static __device__ __forceinline__ float dot(S a, X b, float s) {
+    return fmaf(fasta::bf16_up(a), b, s);
+  }
+  static __device__ __forceinline__ X axpy(S a, float r, X g) {
+    return fmaf(fasta::bf16_up(a), r, g);
+  }
+  static __device__ __forceinline__ X zero() { return 0.f; }
+  static __device__ __forceinline__ X ldg(const float* p, int q) { return __ldg(p + q); }
+  static __device__ __forceinline__ X ld(const float* p, int q) { return p[q]; }
+  static __device__ __forceinline__ void st(float* p, int q, X v) { p[q] = v; }
+  // cp.async copies 4, 8 or 16 bytes: a plain load and store, which the
+  // thread alone reads back
+  static __device__ __forceinline__ void copy(S* dst, const S* src) { *dst = *src; }
 };
 
 // Sum of a tile's row dots over the block, in a fixed order: lanes by
@@ -114,14 +219,14 @@ __device__ __forceinline__ void tile_row_sums(const float* dot, int rows,
 // thread tid the groups tid + k·kThreads, k < CPT.  CLUSTER = false is the
 // launch without clusters (cw = n), which compiles without the cluster
 // barrier and bookkeeping.
-template <int VEC, int CPT, bool CLUSTER>
+template <typename E, int VEC, int CPT, bool CLUSTER>
 __global__ void __launch_bounds__(kThreads, 1)
-gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
+gradmap_rows(const E* __restrict__ A, const float* __restrict__ x,
              const float* __restrict__ b, int m, int n, int tm, int cw, int loss,
              float* __restrict__ d, float* __restrict__ gpart,
              float* __restrict__ fpart) {
-  using V = Vec<VEC>;
-  using T = typename V::T;
+  using V = Vec<E, VEC>;
+  using T = typename V::S;
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[kTileMax][kWarps];
   __shared__ float part[2][kTileMax];  // this block's row dots, by tile parity
@@ -140,11 +245,11 @@ gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
   T* stages = reinterpret_cast<T*>(smem);
   const int ntiles = (m + tm - 1) / tm;
 
-  T xr[CPT], gacc[CPT];
+  typename V::X xr[CPT], gacc[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int q = tid + c * kThreads;
-    xr[c] = q < ng ? __ldg(reinterpret_cast<const T*>(x + c0) + q) : V::zero();
+    xr[c] = q < ng ? V::ldg(x + c0, q) : V::zero();
     gacc[c] = V::zero();
   }
 
@@ -160,7 +265,7 @@ gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const int q = tid + c * kThreads;
-          if (q < ng) __pipeline_memcpy_async(st + (size_t)r * sg + q, src + q, sizeof(T));
+          if (q < ng) V::copy(st + (size_t)r * sg + q, src + q);
         }
       }
     }
@@ -218,11 +323,11 @@ gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
   }
   __pipeline_wait_prior(0);
   if (CLUSTER) cluster.sync();  // no block exits while another may read its `part`
-  T* out = reinterpret_cast<T*>(gpart + (size_t)cid * n + c0);
+  float* out = gpart + (size_t)cid * n + c0;
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int q = tid + c * kThreads;
-    if (q < ng) out[q] = gacc[c];
+    if (q < ng) V::st(out, q, gacc[c]);
   }
   if (tid == 0 && rank == 0) fpart[cid] = fblk;
 }
@@ -232,14 +337,14 @@ gradmap_rows(const float* __restrict__ A, const float* __restrict__ x,
 // tile again.  A thread reads and
 // writes only its own columns of the tile and of its block's gpart row,
 // so only the row-dot reduction needs barriers.
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads)
-gradmap_rows_wide(const float* __restrict__ A, const float* __restrict__ x,
+gradmap_rows_wide(const E* __restrict__ A, const float* __restrict__ x,
                   const float* __restrict__ b, int m, int n, int tm, int loss,
                   float* __restrict__ d, float* __restrict__ gpart,
                   float* __restrict__ fpart) {
-  using V = Vec<VEC>;
-  using T = typename V::T;
+  using V = Vec<E, VEC>;
+  using T = typename V::S;
   __shared__ float red[kTileMax][kWarps];
   __shared__ float rs[kTileMax];
   __shared__ float es[kTileMax];
@@ -247,8 +352,7 @@ gradmap_rows_wide(const float* __restrict__ A, const float* __restrict__ x,
   const int tid = threadIdx.x;
   const int ng = n / VEC;
   const int ntiles = (m + tm - 1) / tm;
-  const T* xv = reinterpret_cast<const T*>(x);
-  T* gp = reinterpret_cast<T*>(gpart + (size_t)blockIdx.x * n);
+  float* gp = gpart + (size_t)blockIdx.x * n;
 
   float fblk = 0.f;  // thread 0: this block's f sum, in tile order
   bool first = true;
@@ -261,7 +365,7 @@ gradmap_rows_wide(const float* __restrict__ A, const float* __restrict__ x,
     for (int r = 0; r < kTileMax; ++r) dot[r] = 0.f;
 #pragma unroll 4
     for (int q = tid; q < ng; q += kThreads) {
-      const T xq = __ldg(xv + q);
+      const typename V::X xq = V::ldg(x, q);
 #pragma unroll
       for (int r = 0; r < kTileMax; ++r)
         if (r < rows) dot[r] = V::dot(At[(size_t)r * ng + q], xq, dot[r]);
@@ -276,9 +380,9 @@ gradmap_rows_wide(const float* __restrict__ A, const float* __restrict__ x,
     if (tid == 0)
       for (int r = 0; r < rows; ++r) fblk = fasta::loss_accum(loss, es[r], fblk);
     for (int q = tid; q < ng; q += kThreads) {
-      T g = first ? V::zero() : gp[q];
+      typename V::X g = first ? V::zero() : V::ld(gp, q);
       for (int r = 0; r < rows; ++r) g = V::axpy(At[(size_t)r * ng + q], rs[r], g);
-      gp[q] = g;
+      V::st(gp, q, g);
     }
     first = false;
   }
@@ -317,46 +421,62 @@ gradmap_reduce(const float* __restrict__ gpart, const float* __restrict__ fpart,
   }
 }
 
-using RowsKernel = void (*)(const float*, const float*, const float*, int, int, int, int, int,
+template <typename E>
+using RowsKernel = void (*)(const E*, const float*, const float*, int, int, int, int, int,
                            float*, float*, float*);
-using WideKernel = void (*)(const float*, const float*, const float*, int, int, int, int,
-                           float*, float*, float*);
+template <typename E>
+using WideKernel = void (*)(const E*, const float*, const float*, int, int, int, int, float*,
+                           float*, float*);
 
-// Chunk width of a row of n floats split over `cluster` blocks: a
-// multiple of 4 when n is, so that every chunk starts 16-byte aligned.
+// Values of E per 16 bytes: the wide group when a row starts 16-byte
+// aligned.
+template <typename E>
+constexpr int kWideVec = 16 / sizeof(E);
+
+// Chunk width of a row of n values split over `cluster` blocks: a
+// multiple of the wide group when n is, so that every chunk starts
+// 16-byte aligned.
+template <typename E>
 int chunk_width(int n, int cluster) {
+  constexpr int v = kWideVec<E>;
   const int cw = (n + cluster - 1) / cluster;
-  return n % 4 == 0 ? (cw + 3) / 4 * 4 : cw;
+  return n % v == 0 ? (cw + v - 1) / v * v : cw;
 }
 
 // The instantiation whose CPT·VEC·kThreads covers a chunk, or null.
-template <bool CLUSTER>
-RowsKernel pick_chunk(int n, int cw) {
-  if (n % 4 == 0) {
-    const int g = cw / 4;
-    if (g <= kThreads) return gradmap_rows<4, 1, CLUSTER>;
-    if (g <= 2 * kThreads) return gradmap_rows<4, 2, CLUSTER>;
-    if (g <= 4 * kThreads) return gradmap_rows<4, 4, CLUSTER>;
-    if (g <= 8 * kThreads) return gradmap_rows<4, 8, CLUSTER>;
+template <typename E, bool CLUSTER>
+RowsKernel<E> pick_chunk(int n, int cw) {
+  constexpr int v = kWideVec<E>;
+  if (n % v == 0) {
+    const int g = cw / v;
+    if (g <= kThreads) return gradmap_rows<E, v, 1, CLUSTER>;
+    if (g <= 2 * kThreads) return gradmap_rows<E, v, 2, CLUSTER>;
+    if (g <= 4 * kThreads) return gradmap_rows<E, v, 4, CLUSTER>;
+    if constexpr (v == 4) {  // float32: a 16384-column chunk is 4096 groups
+      if (g <= 8 * kThreads) return gradmap_rows<E, v, 8, CLUSTER>;
+    }
     return nullptr;
   }
-  if (cw <= kThreads) return gradmap_rows<1, 1, CLUSTER>;
-  if (cw <= 2 * kThreads) return gradmap_rows<1, 2, CLUSTER>;
-  if (cw <= 4 * kThreads) return gradmap_rows<1, 4, CLUSTER>;
-  if (cw <= 8 * kThreads) return gradmap_rows<1, 8, CLUSTER>;
-  if (cw <= 16 * kThreads) return gradmap_rows<1, 16, CLUSTER>;
-  if (cw <= 32 * kThreads) return gradmap_rows<1, 32, CLUSTER>;
+  if (cw <= kThreads) return gradmap_rows<E, 1, 1, CLUSTER>;
+  if (cw <= 2 * kThreads) return gradmap_rows<E, 1, 2, CLUSTER>;
+  if (cw <= 4 * kThreads) return gradmap_rows<E, 1, 4, CLUSTER>;
+  if (cw <= 8 * kThreads) return gradmap_rows<E, 1, 8, CLUSTER>;
+  if (cw <= 16 * kThreads) return gradmap_rows<E, 1, 16, CLUSTER>;
+  if (cw <= 32 * kThreads) return gradmap_rows<E, 1, 32, CLUSTER>;
   return nullptr;
 }
 
-RowsKernel pick_kernel(int n, int cluster) {
-  const int cw = chunk_width(n, cluster);
+template <typename E>
+RowsKernel<E> pick_kernel(int n, int cluster) {
+  const int cw = chunk_width<E>(n, cluster);
   if (cw > kChunkMax) return nullptr;
-  return cluster == 1 ? pick_chunk<false>(n, cw) : pick_chunk<true>(n, cw);
+  return cluster == 1 ? pick_chunk<E, false>(n, cw) : pick_chunk<E, true>(n, cw);
 }
 
-WideKernel pick_wide(int n) {
-  return n % 4 == 0 ? gradmap_rows_wide<4> : gradmap_rows_wide<1>;
+template <typename E>
+WideKernel<E> pick_wide(int n) {
+  constexpr int v = kWideVec<E>;
+  return n % v == 0 ? gradmap_rows_wide<E, v> : gradmap_rows_wide<E, 1>;
 }
 
 cudaLaunchConfig_t cluster_config(int cluster, int nclusters, int smem, cudaStream_t s,
@@ -375,15 +495,12 @@ cudaLaunchConfig_t cluster_config(int cluster, int nclusters, int smem, cudaStre
   return cfg;
 }
 
-}  // namespace
-
-// Plan an m×n problem on the current device.  *cluster ≥ 1: the clustered
-// kernel, in clusters of that many blocks, with *tm rows per tile and
-// *nparts clusters; *cluster = 0: the wide kernel with *nparts blocks.
-// *nparts is also the row count of the gradient scratch.
-extern "C" int fasta_gradmap_plan(int m, int n, int* cluster, int* tm, int* nparts,
-                                        int* smem_bytes) {
-  if (m < 1 || n < 1) return cudaErrorInvalidValue;
+// Plan an m×n problem of element type E on the current device.  *cluster
+// ≥ 1: the clustered kernel, in clusters of that many blocks, with *tm
+// rows per tile and *nparts clusters; *cluster = 0: the wide kernel with
+// *nparts blocks.  *nparts is also the row count of the gradient scratch.
+template <typename E>
+cudaError_t plan(int m, int n, int* cluster, int* tm, int* nparts, int* smem_bytes) {
   int dev = 0, optin = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -392,8 +509,8 @@ extern "C" int fasta_gradmap_plan(int m, int n, int* cluster, int* tm, int* npar
   if (err != cudaSuccess) return err;
   const int nc = (n + kChunkMax - 1) / kChunkMax;
   if (nc <= kClusterMax) {
-    const int cw = chunk_width(n, nc);
-    const RowsKernel fn = pick_kernel(n, nc);
+    const int cw = chunk_width<E>(n, nc);
+    const RowsKernel<E> fn = pick_kernel<E>(n, nc);
     cudaFuncAttributes fa;
     err = cudaFuncGetAttributes(&fa, (const void*)fn);
     if (err != cudaSuccess) return err;
@@ -402,7 +519,7 @@ extern "C" int fasta_gradmap_plan(int m, int n, int* cluster, int* tm, int* npar
     err = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                room);
     if (err != cudaSuccess) return err;
-    const size_t row = (size_t)cw * sizeof(float);
+    const size_t row = (size_t)cw * sizeof(E);
     const size_t fit = (size_t)room / (kStages * row);
     if (fit < 1) return cudaErrorInvalidConfiguration;
     const int t = fit < (size_t)kTileMax ? (int)fit : kTileMax;
@@ -439,28 +556,21 @@ extern "C" int fasta_gradmap_plan(int m, int n, int* cluster, int* tm, int* npar
   return cudaSuccess;
 }
 
-// Launch both passes on `stream` for the loss code `loss` (losses.cuh; b
-// holds the measurements or labels).  gpart is (nparts, n), fpart
-// (nparts,).
-extern "C" int fasta_gradmap(const float* A, const float* x, const float* b, int m, int n,
-                             int loss, int cluster, int tm, int nparts, int smem_bytes,
-                             float* d, float* f, float* g, float* gpart, float* fpart,
-                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m < 1 || n < 1 || tm < 1 || tm > kTileMax || nparts < 1 || cluster < 0 ||
-      cluster > kClusterMax || loss < fasta::kLstsq || loss > fasta::kSquaredHinge)
-    return cudaErrorInvalidValue;
+template <typename E>
+cudaError_t launch(const E* A, const float* x, const float* b, int m, int n, int loss,
+                   int cluster, int tm, int nparts, int smem_bytes, float* d, float* f,
+                   float* g, float* gpart, float* fpart, cudaStream_t s) {
   cudaError_t err;
   if (cluster > 0) {
-    const int cw = chunk_width(n, cluster);
-    const RowsKernel fn = pick_kernel(n, cluster);
+    const int cw = chunk_width<E>(n, cluster);
+    const RowsKernel<E> fn = pick_kernel<E>(n, cluster);
     if (fn == nullptr) return cudaErrorInvalidValue;
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = cluster_config(cluster, nparts, smem_bytes, s, &attr);
     if (cluster == 1) cfg.numAttrs = 0;  // a plain launch
     err = cudaLaunchKernelEx(&cfg, fn, A, x, b, m, n, tm, cw, loss, d, gpart, fpart);
   } else {
-    pick_wide(n)<<<nparts, kThreads, 0, s>>>(A, x, b, m, n, tm, loss, d, gpart, fpart);
+    pick_wide<E>(n)<<<nparts, kThreads, 0, s>>>(A, x, b, m, n, tm, loss, d, gpart, fpart);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
@@ -468,6 +578,34 @@ extern "C" int fasta_gradmap(const float* A, const float* x, const float* b, int
   gradmap_reduce<<<rb, dim3(kReduceCols, kChains), 0, s>>>(gpart, fpart, nparts, n,
                                                            fasta::loss_scale(loss), g, f);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plan an m×n problem on the current device for A stored as float32
+// (bf16 = 0) or bfloat16 (bf16 = 1); see plan above.
+extern "C" int fasta_gradmap_plan(int m, int n, int bf16, int* cluster, int* tm, int* nparts,
+                                  int* smem_bytes) {
+  if (m < 1 || n < 1) return cudaErrorInvalidValue;
+  return bf16 ? plan<__nv_bfloat16>(m, n, cluster, tm, nparts, smem_bytes)
+              : plan<float>(m, n, cluster, tm, nparts, smem_bytes);
+}
+
+// Launch both passes on `stream` for the loss code `loss` (losses.cuh; b
+// holds the measurements or labels), A float32 (bf16 = 0) or bfloat16
+// (bf16 = 1).  gpart is (nparts, n), fpart (nparts,).
+extern "C" int fasta_gradmap(const void* A, const float* x, const float* b, int m, int n,
+                             int bf16, int loss, int cluster, int tm, int nparts, int smem_bytes,
+                             float* d, float* f, float* g, float* gpart, float* fpart,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1 || n < 1 || tm < 1 || tm > kTileMax || nparts < 1 || cluster < 0 ||
+      cluster > kClusterMax || loss < fasta::kLstsq || loss > fasta::kSquaredHinge)
+    return cudaErrorInvalidValue;
+  return bf16 ? launch(static_cast<const __nv_bfloat16*>(A), x, b, m, n, loss, cluster, tm,
+                       nparts, smem_bytes, d, f, g, gpart, fpart, s)
+              : launch(static_cast<const float*>(A), x, b, m, n, loss, cluster, tm, nparts,
+                       smem_bytes, d, f, g, gpart, fpart, s);
 }
 
 extern "C" const char* fasta_error_string(int err) {

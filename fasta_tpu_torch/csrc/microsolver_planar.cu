@@ -17,7 +17,13 @@
 // less from the 50 MB L2, where they stay between trials); the phases
 // depend on one another through grid-wide barriers and decisions.
 //
-// Design, after K-B1 and K-B6 (fbs_control.cuh holds the shared control):
+// Two routes: microsolve_planar_kernel for n ≤ 512 (padded), below, and
+// microsolve_planar_wide_kernel for every wider n the reference's gate
+// admits (2·m·n·4 ≤ 48 MB, so up to millions of columns at small m), whose
+// note follows its own code.
+//
+// Design of the route for n ≤ 512, after K-B1 and K-B6 (fbs_control.cuh
+// holds the shared control):
 //  * One persistent cooperative launch, one block per SM.  n is small
 //    (n ≤ 512 once padded to a multiple of 4), so every block keeps the
 //    whole n-sized state in shared memory — x (FISTA: y), g, the trial x₁,
@@ -448,7 +454,364 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_kernel(Args a) 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The route past n = 512 (the "wide" route).  The n-sized state no longer
+// fits every block's shared memory (the gate admits n up to 48 MB / 8m),
+// so it lives in device memory, where it stays in L2:
+//  * Block b owns a contiguous range of column groups (4 columns each) of
+//    x (FISTA: y), g, the trial x₁, c and x_acc, and does the prox step,
+//    its sums and the BB sums on those columns only; every n-sized sum is
+//    a block's fixed-order partial, reduced over blocks in a fixed order
+//    (fbs_control.cuh reduce_partials), so every block takes bit-identical
+//    decisions.
+//  * Rows: a warp per row, as on the other route, its lanes striding
+//    over the row's column groups (x read from device memory), the row dot
+//    summed by a shuffle butterfly; lane 0 applies the hinge and stores
+//    the row's weight ℓᵢ = (ℓr, ℓi) in device memory.
+//  * Columns: Aᴴℓ on a block's own columns reads the matrices a second
+//    time, by columns: threads are (row lane, column group) pairs, each
+//    summing its rows in order, the row lanes' sums added by a fixed
+//    pairwise tree in shared memory (a sequential sum of 256 lanes cost
+//    the BB step's Δg = g₁ − g visible accuracy).  No gradient shares
+//    cross blocks.
+//  * Grid barriers per adaptive trial: 3 (after the step: x₁ complete;
+//    after the rows: ℓ and f; after the columns: g₁ and the BB sums).
+//    FISTA: 2 per trial (the trials need only f) plus 1 per acceptance
+//    (d_n = d₁ + β(d₁ − d_acc) on the owned rows, then g_n by columns).
+//  * K-B8b runs the instances in turn as the other route does; each is
+//    bit-identical to its own K-B8 launch on this route.
+// ---------------------------------------------------------------------------
+
+struct WideArgs {
+  const float* A0;   // Ar (m, n4)
+  const float* A1;   // Ai (m, n4)
+  Points pts;
+  const float* c;    // (n4, 2)
+  float* x_out;      // (npoints, n, 2)
+  Records rec;
+  float* its;        // (npoints, max_iters, n, 2) or null
+  int* k_out;
+  int* status_out;
+  float* X[2];       // (2·n4,) each: [xr | xi]; FISTA: y and x₁
+  float* G[2];       // (2·n4,) each: g at X[k]
+  float* xacc;       // (2·n4,) FISTA: x_acc
+  float* lbuf;       // (m, 2) the rows' weights ℓ
+  float* dbuf;       // (m, 2) FISTA: d₁ of the trial
+  float* dacc;       // (m, 2) FISTA: A x_acc
+  double* part;      // (3, kSlots, nblocks)
+  Control ctl;
+  int npoints, m, n, n4, rdd;
+};
+
+// One pass over the block's rows (see Pass), a warp per row, x = [xr | xi]
+// in device memory (unused by kExtrap).  Returns the block's Σr² (valid
+// in every thread) and, except for kFista, leaves each row's weight in
+// lbuf.
+template <typename Acc, int PASS>
+__device__ __forceinline__ Acc rows_wide(const WideArgs& a, const float* bp, const float* x,
+                                         float beta, Acc* acc_scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n4 = a.n4, nq = n4 / 4;
+  Acc fsum = Acc(0);
+  // the loop is uniform per warp: no block barrier inside
+  for (int i = blockIdx.x * kWarps + warp; i < a.m; i += gridDim.x * kWarps) {
+    float pr, pi;
+    if (PASS == kExtrap) {
+      const float d1r = __ldcg(a.dbuf + 2 * i), d1i = __ldcg(a.dbuf + 2 * i + 1);
+      const float dar = __ldcg(a.dacc + 2 * i), dai = __ldcg(a.dacc + 2 * i + 1);
+      pr = __fadd_rn(d1r, __fmul_rn(beta, __fsub_rn(d1r, dar)));
+      pi = __fadd_rn(d1i, __fmul_rn(beta, __fsub_rn(d1i, dai)));
+      __syncwarp();
+      if (lane == 0) {
+        a.dacc[2 * i] = d1r;
+        a.dacc[2 * i + 1] = d1i;
+      }
+    } else {
+      float sr = 0.f, si = 0.f;
+#pragma unroll 4
+      for (int q = lane; q < nq; q += 32) {
+        float4 va, vc;
+        load_slot<kInterleaved>(a.A0, a.A1, n4, i, q, va, vc);
+        const float4 xr = __ldcg(reinterpret_cast<const float4*>(x) + q);
+        const float4 xi = __ldcg(reinterpret_cast<const float4*>(x + n4) + q);
+        slot_dot(va, vc, xr, xi, sr, si);
+      }
+      pr = warp_allsum(sr);
+      pi = warp_allsum(si);
+    }
+    if (lane == 0) {
+      float lr, li, r;
+      phase_hinge(pr, pi, __ldg(bp + i), lr, li, r);
+      fsum += Acc(r) * Acc(r);
+      if (PASS != kFista) {
+        a.lbuf[2 * i] = lr;
+        a.lbuf[2 * i + 1] = li;
+      } else {
+        a.dbuf[2 * i] = pr;
+        a.dbuf[2 * i + 1] = pi;
+      }
+      if (PASS == kStart && a.dacc != nullptr) {
+        a.dacc[2 * i] = pr;
+        a.dacc[2 * i + 1] = pi;
+      }
+    }
+  }
+  return block_sum(fsum, acc_scratch);
+}
+
+// g = Aᴴℓ on the block's own column groups [g0, g1), into gout ([gr | gi]).
+// With BB (the adaptive trial), also the block's ⟨Δx, Δg⟩ and ‖Δg‖² from
+// x (xc), its gradient gc and the trial x₁ at stepsize tau, in thread 0.
+template <typename Acc, bool BB>
+__device__ __forceinline__ void columns_wide(const WideArgs& a, int g0, int g1, float* gout,
+                                             const float* xc, const float* gc, const float* x1,
+                                             float tau, float4 (*colred)[kThreads],
+                                             float (*f32_5)[kWarps], Acc (*acc2)[kWarps],
+                                             Acc& bbdot, float& ndg2) {
+  const int tid = threadIdx.x, n4 = a.n4;
+  int tg = 1;  // column groups side by side: up to 32, as many as owned
+  while (tg < 32 && tg < g1 - g0) tg <<= 1;
+  const int R = kThreads / tg, rl = tid / tg, gl = tid % tg;
+  float v[1] = {0.f};
+  Acc w[1] = {Acc(0)};
+  for (int gb = g0; gb < g1; gb += tg) {  // uniform per block
+    const int q = gb + gl;
+    float4 gr = make_float4(0.f, 0.f, 0.f, 0.f), gi = gr;
+    if (q < g1)
+#pragma unroll 4
+      for (int i = rl; i < a.m; i += R) {
+        float4 va, vc;
+        load_slot<kInterleaved>(a.A0, a.A1, n4, i, q, va, vc);
+        slot_grad(va, vc, __ldcg(a.lbuf + 2 * i), __ldcg(a.lbuf + 2 * i + 1), gr, gi);
+      }
+    colred[0][tid] = gr;
+    colred[1][tid] = gi;
+    __syncthreads();
+    // the row lanes' sums by a fixed pairwise tree (lane r takes r + s)
+    for (int st = R >> 1; st > 0; st >>= 1) {
+      if (rl < st)
+        for (int k = 0; k < 2; ++k) {
+          const float4 u = colred[k][tid + st * tg];
+          float4& v = colred[k][tid];
+          v = make_float4(v.x + u.x, v.y + u.y, v.z + u.z, v.w + u.w);
+        }
+      __syncthreads();
+    }
+    if (tid < tg && q < g1) {
+      const float4 sr = colred[0][tid], si = colred[1][tid];
+      reinterpret_cast<float4*>(gout)[q] = sr;
+      reinterpret_cast<float4*>(gout + n4)[q] = si;
+      if (BB) {
+        const float gs[8] = {sr.x, sr.y, sr.z, sr.w, si.x, si.y, si.z, si.w};
+        for (int k = 0; k < 8; ++k) {
+          const int idx = (k < 4 ? 0 : n4) + 4 * q + (k & 3);
+          const float g = gs[k], xv = xc[idx];
+          const float z = step_hat(xv, gc[idx], tau);
+          const float dx = __fsub_rn(x1[idx], xv);
+          // Δg = g₁ + (x̂₁ − x)/τ  (== g₁ − g, in the TPU kernel's rounding)
+          const float dg = __fadd_rn(g, __fdiv_rn(__fsub_rn(z, xv), tau));
+          w[0] += Acc(dx) * Acc(dg);
+          v[0] = fmaf(dg, dg, v[0]);
+        }
+      }
+    }
+    __syncthreads();  // colred is rewritten by the next tile
+  }
+  if (BB) {
+    block_sums(v, f32_5);
+    block_sums(w, acc2);
+    bbdot = w[0];
+    ndg2 = v[0];
+  }
+}
+
+template <typename Acc, bool ACCEL>
+__global__ void __launch_bounds__(kThreads, 1) microsolve_planar_wide_kernel(WideArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ Acc fwin[kWinMax];
+  __shared__ Acc acc2[2][kWarps];
+  __shared__ float f32_5[5][kWarps];
+  __shared__ double f64_scratch[kWarps];
+  __shared__ Acc acc_scratch[kWarps];
+  __shared__ float4 colred[2][kThreads];
+  __shared__ double tot[kReduced];
+  __shared__ State st;
+  __shared__ Acc f1s;
+
+  const int tid = threadIdx.x;
+  const int nb = gridDim.x, blk = blockIdx.x;
+  const int n4 = a.n4, nq = n4 / 4, n = a.n;
+  // the block's own column groups [g0, g1) and their entries in each half
+  const int per = (nq + nb - 1) / nb;
+  const int g0 = min(nq, blk * per), g1 = min(nq, g0 + per);
+  const int c0 = 4 * g0, cnt = 4 * (g1 - g0);
+  double* P0 = a.part;
+  int trial = 0;
+  Acc bbdot;
+  float ndg2;
+
+  for (int p = 0; p < a.npoints; ++p) {
+    const float* bp = a.pts.b_at(p);
+    const float* x0 = a.pts.x0_at(p);
+    const size_t rec0 = (size_t)p * a.ctl.max_iters;
+    for (int e = tid; e < 2 * cnt; e += kThreads) {
+      const int h = e >= cnt, j = c0 + e - h * cnt, idx = h * n4 + j;
+      a.X[0][idx] = x0[2 * j + h];
+      if (ACCEL) a.xacc[idx] = x0[2 * j + h];
+    }
+    grid.sync();
+
+    // ---- start: d₀ = A x₀, f₀, g₀ = Aᴴℓ(d₀); FISTA: d_acc = d₀
+    {
+      const Acc f = rows_wide<Acc, kStart>(a, bp, a.X[0], 0.f, acc_scratch);
+      if (tid == 0) P0[kF * nb + blk] = double(f);
+      grid.sync();
+      columns_wide<Acc, false>(a, g0, g1, a.G[0], nullptr, nullptr, nullptr, 0.f, colred, f32_5,
+                               acc2, bbdot, ndg2);
+      if (tid < 32) {
+        const Acc f0 = warp_sum_global<Acc>(P0 + kF * nb, nb);
+        if (tid == 0) start_point(st, fwin, Acc(0.5f) * f0, a.pts.tau0_at(p));
+      }
+      __syncthreads();
+    }
+
+    for (;;) {
+      ++trial;
+      double* P = a.part + (size_t)(1 + (trial & 1)) * kSlots * nb;
+      const float tau = st.tau;
+      const int cur = st.cur;
+      const float* xc = a.X[cur];
+      const float* gc = a.G[cur];
+      float* x1 = a.X[cur ^ 1];
+
+      // ---- the trial step x₁ = (x − τg) + τc on the own columns, its sums
+      {
+        // ‖Δx‖², ‖g‖², ‖x₁ − x̂‖², ⟨c, x₁⟩ and the float32 restart dot
+        float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+        Acc w[1] = {Acc(0)};  // ⟨Δx, g⟩
+        double rdot64 = 0.0;
+        for (int e = tid; e < 2 * cnt; e += kThreads) {
+          const int h = e >= cnt, j = c0 + e - h * cnt, idx = h * n4 + j;
+          const float xv = xc[idx], gv = gc[idx], cv = __ldg(a.c + 2 * j + h);
+          const float z = step_hat(xv, gv, tau);
+          const float xn = __fadd_rn(z, __fmul_rn(tau, cv));
+          x1[idx] = xn;
+          const float dx = __fsub_rn(xn, xv), sm = __fsub_rn(xn, z);
+          v[0] = fmaf(dx, dx, v[0]);
+          v[1] = fmaf(gv, gv, v[1]);
+          v[2] = fmaf(sm, sm, v[2]);
+          v[3] = fmaf(cv, xn, v[3]);
+          w[0] += Acc(dx) * Acc(gv);
+          if (ACCEL) {
+            // the restart dot ⟨y − x₁, x₁ − x_acc⟩
+            const float ra = __fsub_rn(xv, xn), rb = __fsub_rn(xn, a.xacc[idx]);
+            if (a.rdd)
+              rdot64 += double(ra) * double(rb);
+            else
+              v[4] = fmaf(ra, rb, v[4]);
+          }
+        }
+        block_sums(v, f32_5);
+        block_sums(w, acc2);
+        if (ACCEL && a.rdd) rdot64 = block_sum(rdot64, f64_scratch);
+        if (tid == 0) {
+          P[kNd2 * nb + blk] = v[0];
+          P[kNg2 * nb + blk] = v[1];
+          P[kNsm2 * nb + blk] = v[2];
+          P[kGx * nb + blk] = v[3];
+          P[kBtDot * nb + blk] = double(w[0]);
+          P[kRdot * nb + blk] = a.rdd ? rdot64 : double(v[4]);
+        }
+      }
+      grid.sync();
+
+      // ---- the rows at x₁: f (and the adaptive gradient's weights)
+      {
+        const Acc f = ACCEL ? rows_wide<Acc, kFista>(a, bp, x1, 0.f, acc_scratch)
+                            : rows_wide<Acc, kAdaptive>(a, bp, x1, 0.f, acc_scratch);
+        if (tid == 0) P[kF * nb + blk] = double(f);
+      }
+      grid.sync();
+
+      if (!ACCEL) {
+        // ---- g₁ on the own columns, then the BB sums there
+        columns_wide<Acc, true>(a, g0, g1, a.G[cur ^ 1], xc, gc, x1, tau, colred, f32_5, acc2,
+                                bbdot, ndg2);
+        if (tid == 0) {
+          P[kBbDot * nb + blk] = double(bbdot);
+          P[kNdg2 * nb + blk] = ndg2;
+        }
+        grid.sync();
+      }
+
+      // ---- the decision, the same in every block
+      if (tid < 32) {
+        reduce_partials<Acc, ACCEL>(P, nb, true, a.rdd, tot);
+        if (tid == 0) {
+          State s = st;
+          decide<Acc, ACCEL>(s, tot, fwin, f1s, 0.5f, -float(tot[kGx]), a.ctl, a.rec, rec0,
+                             blk == 0);
+          st = s;
+        }
+      }
+      __syncthreads();
+      if (a.its && st.accepted) {
+        float* row = a.its + (rec0 + st.krec) * 2 * n;
+        for (int e = tid; e < 2 * cnt; e += kThreads) {
+          const int h = e >= cnt, j = c0 + e - h * cnt;
+          if (j < n) row[2 * j + h] = x1[h * n4 + j];
+        }
+      }
+
+      if (ACCEL && st.post) {
+        const float beta = st.beta;
+        // ---- the rows at d_n = d₁ + β(d₁ − d_acc): f(d_n) and ℓ(d_n);
+        // y_n = x₁ + β(x₁ − x_acc), x_acc = x₁ on the own columns
+        const Acc fn = rows_wide<Acc, kExtrap>(a, bp, nullptr, beta, acc_scratch);
+        if (tid == 0) P[kFn * nb + blk] = double(fn);
+        float* y = a.X[cur];
+        for (int e = tid; e < 2 * cnt; e += kThreads) {
+          const int h = e >= cnt, idx = h * n4 + c0 + e - h * cnt;
+          const float xv1 = x1[idx], xa = a.xacc[idx];
+          y[idx] = __fadd_rn(xv1, __fmul_rn(beta, __fsub_rn(xv1, xa)));
+          a.xacc[idx] = xv1;
+        }
+        grid.sync();
+        columns_wide<Acc, false>(a, g0, g1, a.G[cur], nullptr, nullptr, nullptr, 0.f, colred,
+                                 f32_5, acc2, bbdot, ndg2);
+        if (tid < 32) {
+          const Acc f = Acc(0.5f) * warp_sum_global<Acc>(P + kFn * nb, nb);
+          if (tid == 0) {
+            State s = st;
+            finish_fista(s, f, f1s, fwin, a.ctl, a.rec, rec0, blk == 0);
+            st = s;
+          }
+        }
+        __syncthreads();
+      }
+      if (st.done) break;
+    }
+
+    // ---- the solution on the own columns (FISTA: x₁ on a converged
+    // stop, else the extrapolated y) and the counts
+    const float* xf = (ACCEL && st.status == 1) ? a.xacc : a.X[st.cur];
+    float* xo = a.x_out + (size_t)p * 2 * n;
+    for (int e = tid; e < 2 * cnt; e += kThreads) {
+      const int h = e >= cnt, j = c0 + e - h * cnt;
+      if (j < n) xo[2 * j + h] = xf[h * n4 + j];
+    }
+    if (blk == 0 && tid == 0) {
+      a.k_out[p] = st.k;
+      a.status_out[p] = st.status;
+    }
+    // every block is done with this instance's state
+    if (p + 1 < a.npoints) grid.sync();
+  }
+}
+
 using Kernel = void (*)(Args);
+using WideKernel = void (*)(WideArgs);
 
 Kernel pick(bool hp, bool accel, int cpt) {
   if (cpt == 2)
@@ -464,6 +827,14 @@ Kernel pick(bool hp, bool accel, int cpt) {
   return nullptr;
 }
 
+WideKernel pick_wide(bool hp, bool accel) {
+  return hp ? (accel ? microsolve_planar_wide_kernel<double, true>
+                     : microsolve_planar_wide_kernel<double, false>)
+            : (accel ? microsolve_planar_wide_kernel<float, true>
+                     : microsolve_planar_wide_kernel<float, false>);
+}
+
+// column slots per lane of the route for n ≤ 512; 0: the wide route
 int slots(int n4) { return n4 <= 256 ? 2 : n4 <= 512 ? 4 : 0; }
 
 size_t smem_bytes(int n4) { return (size_t)(6 + kWarps) * 2 * n4 * sizeof(float); }
@@ -472,13 +843,18 @@ size_t pad4(int v) { return ((size_t)v + 3) / 4 * 4; }
 
 }  // namespace
 
-// The cooperative grid at padded width n4 (a multiple of 4 up to 512) on
-// the current device: one block per SM, after raising each
-// instantiation's dynamic shared-memory cap (0 blocks if one cannot be
-// resident).
+// The cooperative grid at padded width n4 (a multiple of 4) on the
+// current device: one block per SM, after raising each instantiation's
+// dynamic shared-memory cap on the route for n4 ≤ 512 (0 blocks if one
+// cannot be resident).
 extern "C" int fasta_microsolve_planar_grid(int n4, int* nblocks) {
+  if (n4 < 4 || n4 % 4) return cudaErrorInvalidValue;
   const int cpt = slots(n4);
-  if (n4 < 4 || n4 % 4 || cpt == 0) return cudaErrorInvalidValue;
+  if (cpt == 0) {
+    const void* fns[4];
+    for (int k = 0; k < 4; ++k) fns[k] = (const void*)pick_wide(k & 1, k & 2);
+    return cooperative_blocks(fns, 4, kThreads, nblocks);
+  }
   const int smem = (int)smem_bytes(n4);
   int dev = 0, sms = 0, per_sm = 1 << 30;
   cudaError_t err = cudaGetDevice(&dev);
@@ -496,10 +872,14 @@ extern "C" int fasta_microsolve_planar_grid(int n4, int* nblocks) {
   return cudaSuccess;
 }
 
-// The floats of work_f a launch needs: the blocks' shares, g, d₁ and d_acc.
+// The floats of work_f a launch needs.  n4 ≤ 512: the blocks' shares, g,
+// d₁ and d_acc; wider: x, g (two each), x_acc, ℓ, d₁ and d_acc.
 extern "C" int fasta_microsolve_planar_work(int m, int n4, int nblocks, int* nfloats) {
   if (m < 1 || n4 < 4 || nblocks < 1) return cudaErrorInvalidValue;
-  *nfloats = (int)((size_t)nblocks * 2 * n4 + 2 * (size_t)n4 + 2 * pad4(2 * m));
+  if (slots(n4) == 0)
+    *nfloats = (int)(5 * 2 * (size_t)n4 + 3 * pad4(2 * m));
+  else
+    *nfloats = (int)((size_t)nblocks * 2 * n4 + 2 * (size_t)n4 + 2 * pad4(2 * m));
   return cudaSuccess;
 }
 
@@ -510,7 +890,7 @@ extern "C" int fasta_microsolve_planar_work(int m, int n4, int nblocks, int* nfl
 // (npoints, n, 2), its (npoints, max_iters, n, 2) or null;
 // work_f holds fasta_microsolve_planar_work floats, work_d
 // fasta_fbs_work_doubles(nblocks) doubles.  fvals, bts, objs and nres may
-// be null.
+// be null.  n4 ≤ 512 takes the shared-memory route, wider n4 the wide one.
 extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const float* b,
                                        int b_stride, const float* c, const float* x0,
                                        int x0_stride, const float* tau0s, int npoints,
@@ -522,7 +902,7 @@ extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const f
                                        float* its, int* k_out, int* status_out, float* work_f,
                                        double* work_d, int nblocks, void* stream) {
   const int cpt = slots(n4);
-  if (m < 1 || n < 1 || n4 < n || n4 % 4 || cpt == 0 || max_iters < 1 || window < 1 ||
+  if (m < 1 || n < 1 || n4 < n || n4 % 4 || max_iters < 1 || window < 1 ||
       window > kWinMax || max_backtracks < 0 || stop_rule_code < kResidual ||
       stop_rule_code > kIterations || (flags & kWarm) || npoints < 1 || b_stride < 0 ||
       x0_stride < 0)
@@ -533,14 +913,53 @@ extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const f
                         : cudaErrorInvalidConfiguration;
   if (err != cudaSuccess) return err;
   if (nblocks < 1 || nblocks > limit) return cudaErrorCooperativeLaunchTooLarge;
-  const bool accel = (flags & kAccel) != 0;
+  const bool accel = (flags & kAccel) != 0, hp = (flags & kHp) != 0;
+  const Points pts{b, x0, nullptr, tau0s, b_stride, x0_stride, 0, tau0};
+  const Records rec{taus, res, fvals, bts, objs, nres};
+  const Control ctl{max_iters, window, max_backtracks, stop_rule_code,
+                    (flags & kRestart) != 0, tol, shrink_factor};
+  const int rdd = hp && (flags & kRestartDd);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cpt == 0) {
+    WideArgs args{};
+    args.A0 = A0;
+    args.A1 = A1;
+    args.pts = pts;
+    args.c = c;
+    args.x_out = x_out;
+    args.rec = rec;
+    args.its = its;
+    args.k_out = k_out;
+    args.status_out = status_out;
+    const size_t N2 = 2 * (size_t)n4;
+    args.X[0] = work_f;
+    args.X[1] = work_f + N2;
+    args.G[0] = work_f + 2 * N2;
+    args.G[1] = work_f + 3 * N2;
+    args.xacc = work_f + 4 * N2;
+    args.lbuf = work_f + 5 * N2;
+    args.dbuf = args.lbuf + pad4(2 * m);
+    args.dacc = accel ? args.dbuf + pad4(2 * m) : nullptr;
+    args.part = work_d;
+    args.ctl = ctl;
+    args.npoints = npoints;
+    args.m = m;
+    args.n = n;
+    args.n4 = n4;
+    args.rdd = rdd;
+    void* params[] = {&args};
+    err = cudaLaunchCooperativeKernel((const void*)pick_wide(hp, accel), dim3(nblocks),
+                                      dim3(kThreads), params, 0, s);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
   Args args{};
   args.A0 = A0;
   args.A1 = A1;
-  args.pts = Points{b, x0, nullptr, tau0s, b_stride, x0_stride, 0, tau0};
+  args.pts = pts;
   args.c = c;
   args.x_out = x_out;
-  args.rec = Records{taus, res, fvals, bts, objs, nres};
+  args.rec = rec;
   args.its = its;
   args.k_out = k_out;
   args.status_out = status_out;
@@ -549,17 +968,16 @@ extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const f
   args.dbuf = args.gvec + 2 * n4;
   args.dacc = accel ? args.dbuf + pad4(2 * m) : nullptr;
   args.part = work_d;
-  args.ctl = Control{max_iters, window, max_backtracks, stop_rule_code,
-                     (flags & kRestart) != 0, tol, shrink_factor};
+  args.ctl = ctl;
   args.npoints = npoints;
   args.m = m;
   args.n = n;
   args.n4 = n4;
-  args.rdd = (flags & kHp) && (flags & kRestartDd);
+  args.rdd = rdd;
   void* params[] = {&args};
-  const Kernel fn = pick((flags & kHp) != 0, accel, cpt);
+  const Kernel fn = pick(hp, accel, cpt);
   err = cudaLaunchCooperativeKernel((const void*)fn, dim3(nblocks), dim3(kThreads), params,
-                                    smem_bytes(n4), static_cast<cudaStream_t>(stream));
+                                    smem_bytes(n4), s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

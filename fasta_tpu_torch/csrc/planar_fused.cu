@@ -11,11 +11,15 @@
 // — the TPU kernel that walks row tiles of both channel matrices in a
 // sequential grid and carries g in VMEM scratch from step to step.
 //
+// Ar and Ai are stored as float32 or bfloat16 (the TPU kernel admits
+// both, planar_fused.py:69): a bfloat16 value is upcast to float32 right
+// after its load; x, b, d, f and g are float32 either way.
+//
 // Bound on this card: device-memory bytes.  The two-pass form reads both
 // channel matrices twice (A x, then Aᴴℓ); this kernel reads them once:
-// 2·m·n·4 bytes, 33.6 MB at 16384×256 (10.0 µs at 3.35 TB/s, less when
-// the matrices sit in the 50 MB L2), against 16·m·n operations (1.0 µs at
-// 67 TFLOP/s).
+// 2·m·n·4 bytes in float32, 33.6 MB at 16384×256 (10.0 µs at 3.35 TB/s,
+// less when the matrices sit in the 50 MB L2), against 16·m·n operations
+// (1.0 µs at 67 TFLOP/s); half the bytes in bfloat16.
 //
 // Design:
 //  * Rows are owned by groups of threads: a warp per row for n ≤ 512
@@ -32,16 +36,23 @@
 //    order: no float atomics, the same result on every run.  On route 1
 //    the block's warps add their gradient shares into shared memory one
 //    warp after another, in warp order.
-//  * Route 3, rows wider than 8192 floats (2048 when n % 4 ≠ 0): a block
-//    per tile of up to 8 rows, x read through the read-only cache, the
-//    gradient share kept in the block's scratch row; the gradient pass
-//    reads the tile a second time (from L1 or L2), as K-B3's wide kernel.
-//  * Ragged m and n (n % 4 ≠ 0: 4-byte loads) are masked in the kernel;
-//    nothing is padded or copied.  Elementwise formulas use the _rn
-//    intrinsics, so they round like the plain version's separate steps.
+//  * Route 3, rows wider than 8192 values (2048 when rows are not 16-byte
+//    aligned): a block per tile of up to 8 rows, x read through the
+//    read-only cache, the gradient share kept in the block's scratch row;
+//    the gradient pass reads the tile a second time (from L1 or L2), as
+//    K-B3's wide kernel.  The routes count columns, not bytes, in both
+//    types: x and the gradient share are float32 registers per column.
+//  * Ragged m and n are masked in the kernel; nothing is padded or
+//    copied.  A column group is one 16-byte load (4 floats, 8 bfloat16
+//    values) when every row starts 16-byte aligned (n % 4 == 0 in
+//    float32, n % 8 == 0 in bfloat16), else one value.  Elementwise
+//    formulas use the _rn intrinsics, so they round like the plain
+//    version's separate steps.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "bf16.cuh"
 #include "losses.cuh"
 #include "planar_rows.cuh"
 #include "reduce.cuh"
@@ -75,6 +86,50 @@ struct Cols<1> {
   static __device__ __forceinline__ float& at(T& v, int) { return v; }
   static __device__ __forceinline__ float get(const T& v, int) { return v; }
 };
+struct Float8 {
+  float4 lo, hi;
+};
+template <>
+struct Cols<8> {
+  using T = Float8;
+  static __device__ __forceinline__ T zero() { return T{Cols<4>::zero(), Cols<4>::zero()}; }
+  static __device__ __forceinline__ float& at(T& v, int k) {
+    return k < 4 ? Cols<4>::at(v.lo, k) : Cols<4>::at(v.hi, k - 4);
+  }
+  static __device__ __forceinline__ float get(const T& v, int k) {
+    return k < 4 ? Cols<4>::get(v.lo, k) : Cols<4>::get(v.hi, k - 4);
+  }
+};
+
+// Column group q of a row stored as E, VEC values, as float32.
+template <typename E, int VEC>
+struct Load;
+template <int VEC>
+struct Load<float, VEC> {
+  static __device__ __forceinline__ typename Cols<VEC>::T get(const float* row, int q) {
+    return __ldg(reinterpret_cast<const typename Cols<VEC>::T*>(row) + q);
+  }
+};
+template <>
+struct Load<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ Float8 get(const __nv_bfloat16* row, int q) {
+    using fasta::bf16_hi;
+    using fasta::bf16_lo;
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(row) + q);
+    return Float8{make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y)),
+                  make_float4(bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w))};
+  }
+};
+template <>
+struct Load<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ float get(const __nv_bfloat16* row, int q) {
+    return fasta::bf16_up(__ldg(reinterpret_cast<const unsigned short*>(row) + q));
+  }
+};
+
+// values of E per 16-byte load
+template <typename E>
+constexpr int kWideVec = 16 / sizeof(E);
 
 // The loss at row value (dr, di): gradient weight (lr, li) and f term e
 // (summed as given; the finished sum is halved).
@@ -93,9 +148,9 @@ __device__ __forceinline__ void planar_loss(int loss, float dr, float di, const 
 
 // Routes 1 (GROUP = 32) and 2 (GROUP = kThreads).  A thread owns the
 // column groups q = lane + s·GROUP, s < CPT, of VEC columns each.
-template <int VEC, int CPT, int GROUP>
+template <typename E, int VEC, int CPT, int GROUP>
 __global__ void __launch_bounds__(kThreads) planar_rows(
-    const float* __restrict__ Ar, const float* __restrict__ Ai, const float* __restrict__ x,
+    const E* __restrict__ Ar, const E* __restrict__ Ai, const float* __restrict__ x,
     const float* __restrict__ b, int m, int n, int loss, float* __restrict__ d,
     float* __restrict__ gpart, double* __restrict__ fpart) {
   using C = Cols<VEC>;
@@ -126,15 +181,15 @@ __global__ void __launch_bounds__(kThreads) planar_rows(
   const int stride = gridDim.x * kGroups;
   // on route 2 i depends on the block alone, so the barriers are uniform
   for (int i = blockIdx.x * kGroups + grp; i < m; i += stride) {
-    const T* ar = reinterpret_cast<const T*>(Ar + (size_t)i * n);
-    const T* ai = reinterpret_cast<const T*>(Ai + (size_t)i * n);
+    const E* ar = Ar + (size_t)i * n;
+    const E* ai = Ai + (size_t)i * n;
     T va[CPT], vb[CPT];
     float sr = 0.f, si = 0.f;
 #pragma unroll
     for (int s = 0; s < CPT; ++s) {
       const int q = lane + s * GROUP;
-      va[s] = q < ng ? __ldg(ar + q) : C::zero();
-      vb[s] = q < ng ? __ldg(ai + q) : C::zero();
+      va[s] = q < ng ? Load<E, VEC>::get(ar, q) : C::zero();
+      vb[s] = q < ng ? Load<E, VEC>::get(ai, q) : C::zero();
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
         const float a = C::at(va[s], k), c = C::at(vb[s], k);
@@ -218,9 +273,9 @@ __global__ void __launch_bounds__(kThreads) planar_rows(
 
 // Route 3: a block per tile of up to kWideTile rows; the gradient pass
 // reads the tile again and keeps the block's share in its scratch row.
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads) planar_rows_wide(
-    const float* __restrict__ Ar, const float* __restrict__ Ai, const float* __restrict__ x,
+    const E* __restrict__ Ar, const E* __restrict__ Ai, const float* __restrict__ x,
     const float* __restrict__ b, int m, int n, int loss, float* __restrict__ d,
     float* __restrict__ gpart, double* __restrict__ fpart) {
   using C = Cols<VEC>;
@@ -249,8 +304,8 @@ __global__ void __launch_bounds__(kThreads) planar_rows_wide(
 #pragma unroll
       for (int r = 0; r < kWideTile; ++r) {
         if (r < rows) {
-          const T a = __ldg(reinterpret_cast<const T*>(Ar + (size_t)(r0 + r) * n) + q);
-          const T c = __ldg(reinterpret_cast<const T*>(Ai + (size_t)(r0 + r) * n) + q);
+          const T a = Load<E, VEC>::get(Ar + (size_t)(r0 + r) * n, q);
+          const T c = Load<E, VEC>::get(Ai + (size_t)(r0 + r) * n, q);
 #pragma unroll
           for (int k = 0; k < VEC; ++k) {
             const float av = C::get(a, k), cv = C::get(c, k);
@@ -289,8 +344,8 @@ __global__ void __launch_bounds__(kThreads) planar_rows_wide(
     for (int j = tid; j < n; j += kThreads) {
       float g_r = first ? 0.f : gp[j], g_i = first ? 0.f : gp[n + j];
       for (int r = 0; r < rows; ++r) {
-        const float a = __ldg(Ar + (size_t)(r0 + r) * n + j);
-        const float c = __ldg(Ai + (size_t)(r0 + r) * n + j);
+        const float a = Load<E, 1>::get(Ar + (size_t)(r0 + r) * n, j);
+        const float c = Load<E, 1>::get(Ai + (size_t)(r0 + r) * n, j);
         g_r = fmaf(a, lw[r][0], fmaf(c, lw[r][1], g_r));
         g_i = fmaf(a, lw[r][1], fmaf(-c, lw[r][0], g_i));
       }
@@ -336,34 +391,41 @@ __global__ void __launch_bounds__(kReduceCols * kChains) planar_reduce(
   }
 }
 
-using RowsKernel = void (*)(const float*, const float*, const float*, const float*, int, int,
-                           int, float*, float*, double*);
+template <typename E>
+using RowsKernel = void (*)(const E*, const E*, const float*, const float*, int, int, int,
+                           float*, float*, double*);
 
 // the kernel of a route and its column slots per thread (route 3: cpt 0)
-RowsKernel pick(int route, int vec, int cpt) {
+template <typename E>
+RowsKernel<E> pick(int route, int vec, int cpt) {
+  constexpr int v = kWideVec<E>;
   if (route == 1) {
-    if (vec == 4) {
-      if (cpt == 1) return planar_rows<4, 1, 32>;
-      if (cpt == 2) return planar_rows<4, 2, 32>;
-      if (cpt == 4) return planar_rows<4, 4, 32>;
+    if (vec == v) {
+      if (cpt == 1) return planar_rows<E, v, 1, 32>;
+      if (cpt == 2) return planar_rows<E, v, 2, 32>;
+      if constexpr (v == 4) {
+        if (cpt == 4) return planar_rows<E, v, 4, 32>;
+      }
     } else {
-      if (cpt == 1) return planar_rows<1, 1, 32>;
-      if (cpt == 2) return planar_rows<1, 2, 32>;
-      if (cpt == 4) return planar_rows<1, 4, 32>;
-      if (cpt == 8) return planar_rows<1, 8, 32>;
-      if (cpt == 16) return planar_rows<1, 16, 32>;
+      if (cpt == 1) return planar_rows<E, 1, 1, 32>;
+      if (cpt == 2) return planar_rows<E, 1, 2, 32>;
+      if (cpt == 4) return planar_rows<E, 1, 4, 32>;
+      if (cpt == 8) return planar_rows<E, 1, 8, 32>;
+      if (cpt == 16) return planar_rows<E, 1, 16, 32>;
     }
   } else if (route == 2) {
-    if (vec == 4) {
-      if (cpt == 1) return planar_rows<4, 1, kThreads>;
-      if (cpt == 2) return planar_rows<4, 2, kThreads>;
-      if (cpt == 4) return planar_rows<4, 4, kThreads>;
+    if (vec == v) {
+      if (cpt == 1) return planar_rows<E, v, 1, kThreads>;
+      if (cpt == 2) return planar_rows<E, v, 2, kThreads>;
+      if constexpr (v == 4) {
+        if (cpt == 4) return planar_rows<E, v, 4, kThreads>;
+      }
     } else {
-      if (cpt == 2) return planar_rows<1, 2, kThreads>;
-      if (cpt == 4) return planar_rows<1, 4, kThreads>;
+      if (cpt == 2) return planar_rows<E, 1, 2, kThreads>;
+      if (cpt == 4) return planar_rows<E, 1, 4, kThreads>;
     }
   } else if (route == 3) {
-    return vec == 4 ? planar_rows_wide<4> : planar_rows_wide<1>;
+    return vec == v ? planar_rows_wide<E, v> : planar_rows_wide<E, 1>;
   }
   return nullptr;
 }
@@ -374,24 +436,22 @@ int pow2_at_least(int v) {
   return p;
 }
 
-}  // namespace
-
-// Plan an m×n call on the current device: the route (1 warp rows, 2 block
-// rows, 3 wide), the column slots per thread, the blocks (also the row
-// count of the gradient scratch) and the dynamic shared bytes.
-extern "C" int fasta_planar_gradmap_plan(int m, int n, int* route, int* cpt, int* nblocks,
-                                         int* smem_bytes) {
-  if (m < 1 || n < 1) return cudaErrorInvalidValue;
+template <typename E>
+cudaError_t plan(int m, int n, int* route, int* cpt, int* nblocks, int* smem_bytes) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int vec = n % 4 == 0 ? 4 : 1, ng = n / vec;
+  constexpr int v = kWideVec<E>;
+  const int vec = n % v == 0 ? v : 1, ng = n / vec;
+  // route 1 up to 512 columns, route 2 up to 8192 (2048 one value a
+  // group): the float32 registers of a thread's columns bound both
+  const int warp_slots = 16 / vec, block_slots = vec == 1 ? 4 : 16 / vec;
   int r, c;
-  if (ng <= 32 * (vec == 4 ? 4 : 16)) {
+  if (ng <= 32 * warp_slots) {
     r = 1;
     c = pow2_at_least((ng + 31) / 32);
-  } else if (ng <= kThreads * 4) {
+  } else if (ng <= kThreads * block_slots) {
     r = 2;
     c = pow2_at_least((ng + kThreads - 1) / kThreads);
     if (vec == 1 && c < 2) c = 2;
@@ -399,7 +459,7 @@ extern "C" int fasta_planar_gradmap_plan(int m, int n, int* route, int* cpt, int
     r = 3;
     c = 0;
   }
-  const RowsKernel fn = pick(r, vec, c);
+  const RowsKernel<E> fn = pick<E>(r, vec, c);
   if (fn == nullptr) return cudaErrorInvalidConfiguration;
   const int smem = r == 1 ? 2 * n * (int)sizeof(float) : 0;
   if (smem > 48 * 1024) {
@@ -421,22 +481,47 @@ extern "C" int fasta_planar_gradmap_plan(int m, int n, int* route, int* cpt, int
   return cudaSuccess;
 }
 
-// Launch both passes on `stream`.  b is (m, 2) for the least-squares loss
-// and (m,) for the hinge; gpart holds nblocks·2n floats, fpart nblocks
-// doubles.
-extern "C" int fasta_planar_gradmap(const float* Ar, const float* Ai, const float* x,
-                                    const float* b, int m, int n, int loss, int route, int cpt,
-                                    int nblocks, int smem_bytes, float* d, float* f, float* g,
-                                    float* gpart, double* fpart, void* stream) {
-  if (m < 1 || n < 1 || nblocks < 1 || loss < kPlanarLstsq || loss > kPlanarHinge)
-    return cudaErrorInvalidValue;
-  const RowsKernel fn = pick(route, n % 4 == 0 ? 4 : 1, cpt);
+template <typename E>
+cudaError_t launch(const E* Ar, const E* Ai, const float* x, const float* b, int m, int n,
+                   int loss, int route, int cpt, int nblocks, int smem_bytes, float* d, float* f,
+                   float* g, float* gpart, double* fpart, cudaStream_t s) {
+  constexpr int v = kWideVec<E>;
+  const RowsKernel<E> fn = pick<E>(route, n % v == 0 ? v : 1, cpt);
   if (fn == nullptr) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   fn<<<nblocks, kThreads, smem_bytes, s>>>(Ar, Ai, x, b, m, n, loss, d, gpart, fpart);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   planar_reduce<<<(2 * n + kReduceCols - 1) / kReduceCols, dim3(kReduceCols, kChains), 0, s>>>(
       gpart, fpart, nblocks, n, g, f);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plan an m×n call on the current device for channels stored as float32
+// (bf16 = 0) or bfloat16 (bf16 = 1): the route (1 warp rows, 2 block rows,
+// 3 wide), the column slots per thread, the blocks (also the row count of
+// the gradient scratch) and the dynamic shared bytes.
+extern "C" int fasta_planar_gradmap_plan(int m, int n, int bf16, int* route, int* cpt,
+                                         int* nblocks, int* smem_bytes) {
+  if (m < 1 || n < 1) return cudaErrorInvalidValue;
+  return bf16 ? plan<__nv_bfloat16>(m, n, route, cpt, nblocks, smem_bytes)
+              : plan<float>(m, n, route, cpt, nblocks, smem_bytes);
+}
+
+// Launch both passes on `stream`.  Ar and Ai are float32 (bf16 = 0) or
+// bfloat16 (bf16 = 1); b is (m, 2) for the least-squares loss and (m,) for
+// the hinge; gpart holds nblocks·2n floats, fpart nblocks doubles.
+extern "C" int fasta_planar_gradmap(const void* Ar, const void* Ai, const float* x,
+                                    const float* b, int m, int n, int bf16, int loss, int route,
+                                    int cpt, int nblocks, int smem_bytes, float* d, float* f,
+                                    float* g, float* gpart, double* fpart, void* stream) {
+  if (m < 1 || n < 1 || nblocks < 1 || loss < kPlanarLstsq || loss > kPlanarHinge)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch(static_cast<const __nv_bfloat16*>(Ar),
+                       static_cast<const __nv_bfloat16*>(Ai), x, b, m, n, loss, route, cpt,
+                       nblocks, smem_bytes, d, f, g, gpart, fpart, s)
+              : launch(static_cast<const float*>(Ar), static_cast<const float*>(Ai), x, b, m,
+                       n, loss, route, cpt, nblocks, smem_bytes, d, f, g, gpart, fpart, s);
 }

@@ -2,7 +2,8 @@
 version beside it.
 
 * K-B3 ``fused_lstsq_gradmap`` and K-B3p ``fused_pointwise_gradmap``
-  (``lstsq_fused.py``, ``csrc/lstsq_fused.cu``)
+  over a float32 or bfloat16 A (``lstsq_fused.py``,
+  ``csrc/lstsq_fused.cu``)
 * K-B1 ``microsolve_lasso``, K-B1p ``microsolve_lasso_path`` and K-B1b
   ``microsolve_lasso_batch`` (``microsolver.py``, ``csrc/microsolver.cu``),
   with K-B2, the FP64 decision-scalar reduction (``csrc/reduce.cuh``),
@@ -14,23 +15,29 @@ version beside it.
 * K-B6 ``microsolve_tv``, K-B6p ``microsolve_tv_path`` and K-B6b
   ``microsolve_tv_batch`` (``microsolver_tv.py``, ``csrc/microsolver_tv.cu``)
 * K-B7 ``fused_planar_lstsq_gradmap`` / ``fused_planar_hinge_gradmap``
-  (``planar_fused.py``, ``csrc/planar_fused.cu``)
+  over float32 or bfloat16 channels (``planar_fused.py``,
+  ``csrc/planar_fused.cu``)
 * K-B8 ``microsolve_planar_phasemax`` and K-B8b
   ``microsolve_planar_phasemax_batch`` (``microsolver_planar.py``,
-  ``csrc/microsolver_planar.cu``), whose row work they share with K-P5
-  (``csrc/planar_rows.cuh``)
+  ``csrc/microsolver_planar.cu``; a route for n ≤ 512 and one past it),
+  whose row work they share with K-P5 (``csrc/planar_rows.cuh``)
 * K-P5 ``planar_probe``, the planar layout probe (``planar_probe.py``,
   ``csrc/planar_probe.cu``)
+* K-P4 ``bf16_probe``, the bfloat16-storage probe (``bf16_probe.py``,
+  ``csrc/bf16_probe.cu``)
 
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors.  Each module counts its kernels' launches (``LAUNCHES``,
-``POINTWISE_LAUNCHES``, ``PATH_LAUNCHES``, ``BATCH_LAUNCHES``); read
+``POINTWISE_LAUNCHES``, ``PATH_LAUNCHES``, ``BATCH_LAUNCHES``, and
+``BF16_LAUNCHES``, ``POINTWISE_BF16_LAUNCHES``, ``WIDE_LAUNCHES``,
+``WIDE_BATCH_LAUNCHES`` for the bfloat16 forms and K-B8's wide route); read
 them as module attributes (``lstsq_fused.LAUNCHES``), since importing the
 name copies the integer.  Nothing is compiled at import.
 """
 
-from . import (lstsq_fused, microsolver, microsolver_planar, microsolver_tv,
-               planar_fused, planar_probe, prox_fused, tv_fused)
+from . import (bf16_probe, lstsq_fused, microsolver, microsolver_planar,
+               microsolver_tv, planar_fused, planar_probe, prox_fused,
+               tv_fused)
 from .lstsq_fused import (fused_lstsq_gradmap, fused_pointwise_gradmap,
                           lstsq_gradmap_reference,
                           pointwise_gradmap_reference, supports_fusion)
@@ -56,8 +63,9 @@ from .planar_fused import (fused_planar_hinge_gradmap,
 from .tv_fused import fused_tv_gradmap, tv_gradmap_reference
 
 __all__ = [
-    "lstsq_fused", "microsolver", "microsolver_planar", "microsolver_tv",
-    "planar_fused", "planar_probe", "prox_fused", "tv_fused",
+    "bf16_probe", "lstsq_fused", "microsolver", "microsolver_planar",
+    "microsolver_tv", "planar_fused", "planar_probe", "prox_fused",
+    "tv_fused",
     "fused_shrink_step", "shrink_step_reference",
     "microsolve_lasso_batch", "microsolve_lasso_batch_reference",
     "microsolve_tv_batch", "microsolve_tv_batch_reference",

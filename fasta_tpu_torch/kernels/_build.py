@@ -33,8 +33,8 @@ _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 
 # C entry points: name -> argtypes (every one returns a cudaError_t)
 _SIGNATURES = {
-    "fasta_gradmap_plan": [_I, _I, _P, _P, _P, _P],
-    "fasta_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "fasta_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P],
+    "fasta_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
     "fasta_microsolve_grid": [_P],
     "fasta_microsolve": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _F,
@@ -47,10 +47,12 @@ _SIGNATURES = {
     "fasta_tv_gradmap_work": [_I, _I, _P],
     "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "fasta_microsolve_tv_grid": [_P],
-    "fasta_planar_gradmap_plan": [_I, _I, _P, _P, _P, _P],
+    "fasta_planar_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P],
     "fasta_planar_gradmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _P, _P, _P, _P, _P, _P],
+                             _I, _P, _P, _P, _P, _P, _P],
     "fasta_planar_probe_grid": [_I, _I, _P],
+    "fasta_bf16_probe_grid": [_I, _I, _P],
+    "fasta_bf16_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "fasta_microsolve_planar_grid": [_I, _P],
     "fasta_microsolve_planar_work": [_I, _I, _I, _P],
     "fasta_microsolve_planar": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _F,

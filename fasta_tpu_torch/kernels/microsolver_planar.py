@@ -33,18 +33,22 @@ __all__ = ["microsolve_planar_phasemax",
            "microsolve_planar_phasemax_reference",
            "microsolve_planar_phasemax_batch",
            "microsolve_planar_phasemax_batch_reference",
-           "supports_planar_microsolver", "row_chunk", "MAX_N", "LAUNCHES",
-           "BATCH_LAUNCHES"]
+           "supports_planar_microsolver", "row_chunk", "WIDE_N", "LAUNCHES",
+           "BATCH_LAUNCHES", "WIDE_LAUNCHES", "WIDE_BATCH_LAUNCHES"]
 
 # Launches of the whole-solve kernel for one solve (K-B8) and for a batch
-# (K-B8b), each counted where it launches, nowhere else.
+# (K-B8b), on the route for n ≤ WIDE_N and on the wide route past it, each
+# counted where it launches, nowhere else.
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
+WIDE_LAUNCHES = 0
+WIDE_BATCH_LAUNCHES = 0
 
-# The widest signal the kernel takes (after padding to a multiple of 4):
-# each block keeps the n-sized state in shared memory and a warp's lanes
-# hold a row's columns in registers.
-MAX_N = 512
+# The widest signal (after padding to a multiple of 4) whose n-sized state
+# every block keeps in shared memory, a warp's lanes holding a row's
+# columns in registers; wider signals take the wide route, whose state
+# lives in device memory (csrc/microsolver_planar.cu).
+WIDE_N = 512
 
 # The reference's residency gate (microsolver_planar.py:61-64, sized for
 # the TPU's VMEM), kept so that the port's dispatch decisions match the
@@ -125,16 +129,19 @@ def microsolve_planar_phasemax(Ar, Ai, b, c, x0, tau0, *, record_its=False,
     ``record_bts``, ``record_objs`` (f(x₁) − ⟨c, x₁⟩), ``record_nres``
     and ``record_its`` (iterates (max_iters, n, 2)) add series.
 
-    CUDA tensors launch kernel K-B8 (any m; n up to ``MAX_N``, padded by
-    the wrapper to a multiple of 4 with zero columns); CPU tensors run
-    the plain version."""
+    CUDA tensors launch kernel K-B8 at any shape (n padded by the wrapper
+    to a multiple of 4 with zero columns; past ``WIDE_N`` the wide route);
+    CPU tensors run the plain version."""
     o = _options(options)
     _check(Ar, Ai, b, c, x0, "microsolve_planar_phasemax")
     if Ar.device.type == "cpu":
         return _solve(Ar, Ai, b, c, x0, tau0, record_its, o)
     out = _launch(Ar, Ai, b, c, x0, tau0, 1, record_its, o)
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, WIDE_LAUNCHES
+    if _wide(Ar.shape[1]):
+        WIDE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return MicrosolveOutput(*(None if t is None else t[0] for t in out))
 
 
@@ -157,8 +164,11 @@ def microsolve_planar_phasemax_batch(Ar, Ai, bs, c, x0s, tau0s,
         return microsolve_planar_phasemax_batch_reference(
             Ar, Ai, bs, c, x0s, tau0s, **options)
     out = _launch(Ar, Ai, bs, c, x0s, tau0s, B, False, o)
-    global BATCH_LAUNCHES
-    BATCH_LAUNCHES += 1
+    global BATCH_LAUNCHES, WIDE_BATCH_LAUNCHES
+    if _wide(Ar.shape[1]):
+        WIDE_BATCH_LAUNCHES += 1
+    else:
+        BATCH_LAUNCHES += 1
     return MicrosolveOutput(*out)
 
 
@@ -193,6 +203,11 @@ def _solve(Ar, Ai, b, c, x0, tau0, record_its, o):
     return solve_reference(op, op.rmatvec, b, x0, tau0, c, record_its, o)[0]
 
 
+def _wide(n: int) -> bool:
+    """Whether n columns take the wide route."""
+    return (n + 3) // 4 * 4 > WIDE_N
+
+
 @functools.lru_cache(maxsize=None)
 def _grid(device_index: int, n4: int) -> int:
     nb = ctypes.c_int()
@@ -218,9 +233,6 @@ def _launch(Ar, Ai, b, c, x0, tau0, B, record_its, o):
     (B, n, 2), τ₀ a number or (B,)."""
     m, n = Ar.shape
     n4 = (n + 3) // 4 * 4
-    if n4 > MAX_N:
-        raise ValueError(f"microsolve_planar_phasemax: the kernel takes n up "
-                         f"to {MAX_N}, got {n}")
     pad = n4 - n
     # a copy per launch only where the layout needs one: zero columns up to
     # a multiple of 4 (16-byte rows)

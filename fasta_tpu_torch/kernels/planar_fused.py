@@ -5,7 +5,9 @@ two channel matrices.
 f(x) = ½‖Ax − b‖² and ``fused_planar_hinge_gradmap(Ar, Ai, x, b)`` for the
 PhaseMax hinge f(x) = ½ Σ max(|Ax| − b, 0)², on planar complex
 A = Ar + i·Ai (m, n), x (n, 2), d (m, 2), g (n, 2); port of
-``fasta_tpu/kernels/planar_fused.py:75-256`` (pallas_call at :197).  Both
+``fasta_tpu/kernels/planar_fused.py:75-256`` (pallas_call at :197).  The
+channels are float32 or bfloat16 (upcast to float32 in the kernel, x and
+the outputs float32; the plain versions upcast them too).  Both
 run the CUDA source ``fasta_tpu_torch/csrc/planar_fused.cu`` (its header
 note gives the design) with a loss code.  Each wrapper launches the kernel
 for CUDA tensors and runs its plain version
@@ -24,11 +26,15 @@ from . import _build
 
 __all__ = ["fused_planar_lstsq_gradmap", "fused_planar_hinge_gradmap",
            "planar_lstsq_gradmap_reference", "planar_hinge_gradmap_reference",
-           "LOSSES", "LAUNCHES"]
+           "LOSSES", "LAUNCHES", "BF16_LAUNCHES"]
 
-# Launches of the CUDA kernel pair, either loss, counted where it
-# launches, nowhere else.
+# Launches of the CUDA kernel pair, either loss, over float32 and over
+# bfloat16 channels, counted where it launches, nowhere else.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
+
+# The storage types of the channels the kernel takes
+DTYPES = (torch.float32, torch.bfloat16)
 
 # The kernel's loss codes, in order (csrc/planar_fused.cu).
 LOSSES = ("lstsq", "hinge")
@@ -36,7 +42,8 @@ LOSSES = ("lstsq", "hinge")
 
 def planar_lstsq_gradmap_reference(Ar, Ai, x, b):
     """The plain two-pass form over ``PlanarDenseOp``: d = A x, r = d − b,
-    f = ½‖r‖², g = Aᴴr."""
+    f = ½‖r‖², g = Aᴴr (bfloat16 channels upcast, as the operator
+    does)."""
     from ..operators import PlanarDenseOp
     op = PlanarDenseOp(Ar, Ai)
     d = op(x)
@@ -76,9 +83,10 @@ def _check(Ar, Ai, x, b, planar_b, what):
 def fused_planar_lstsq_gradmap(Ar, Ai, x, b):
     """One-pass (d: (m,2), f: 0-d, g: (n,2)) for f(x) = ½‖Ax − b‖², b (m,2).
 
-    CUDA tensors launch kernel K-B7, at any shape, and must be float32,
-    contiguous and 16-byte aligned; anything else raises.  CPU tensors
-    run the plain version."""
+    CUDA tensors launch kernel K-B7, at any shape, and must be
+    contiguous and 16-byte aligned, Ar and Ai float32 or bfloat16 (one
+    type) and x, b float32; anything else raises.  CPU tensors run the
+    plain version."""
     _check(Ar, Ai, x, b, True, "fused_planar_lstsq_gradmap")
     if Ar.device.type == "cpu":
         return planar_lstsq_gradmap_reference(Ar, Ai, x, b)
@@ -99,28 +107,32 @@ def fused_planar_hinge_gradmap(Ar, Ai, x, b):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(device_index: int, m: int, n: int):
+def _plan(device_index: int, m: int, n: int, bf16: bool = False):
     """(route, column slots per thread, blocks, dynamic shared bytes) of
-    the kernel for an m×n pair on the device (csrc/planar_fused.cu)."""
+    the kernel for an m×n pair of float32 or (``bf16``) bfloat16 channels
+    on the device (csrc/planar_fused.cu)."""
     lib = _build.library()
     out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device_index):
         _build.check(lib.fasta_planar_gradmap_plan(
-            m, n, *(ctypes.byref(v) for v in out)),
+            m, n, int(bf16), *(ctypes.byref(v) for v in out)),
             "fasta_planar_gradmap_plan")
     return tuple(v.value for v in out)
 
 
 def _launch(Ar, Ai, x, b, loss_code, what):
-    for name, t in (("Ar", Ar), ("Ai", Ai), ("x", x), ("b", b)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous float32 "
+    for name, t, types in (("Ar", Ar, DTYPES), ("Ai", Ai, (Ar.dtype,)),
+                           ("x", x, DTYPES[:1]), ("b", b, DTYPES[:1])):
+        if t.dtype not in types or not t.is_contiguous():
+            kinds = " or ".join(str(d).removeprefix("torch.") for d in types)
+            raise ValueError(f"{what}: {name} must be a contiguous {kinds} "
                              f"tensor, got {t.dtype}")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     m, n = Ar.shape
     dev = Ar.device
-    route, cpt, nb, smem = _plan(dev.index, m, n)
+    bf16 = Ar.dtype == torch.bfloat16
+    route, cpt, nb, smem = _plan(dev.index, m, n, bf16)
     f32 = dict(device=dev, dtype=torch.float32)
     d = torch.empty((m, 2), **f32)
     g = torch.empty((n, 2), **f32)
@@ -130,9 +142,12 @@ def _launch(Ar, Ai, x, b, loss_code, what):
     with _build.on_device(dev) as stream:
         _build.check(_build.library().fasta_planar_gradmap(
             Ar.data_ptr(), Ai.data_ptr(), x.data_ptr(), b.data_ptr(), m, n,
-            loss_code, route, cpt, nb, smem, d.data_ptr(), f.data_ptr(),
+            int(bf16), loss_code, route, cpt, nb, smem, d.data_ptr(), f.data_ptr(),
             g.data_ptr(), gpart.data_ptr(), fpart.data_ptr(), stream),
             what)
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, BF16_LAUNCHES
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return d, f, g

@@ -2,9 +2,11 @@
 301-343, 391-410, 464-544``).
 
 The dense problems need the explicit matrix: ``LinearOp``, ``AdjointOp``,
-``DenseOp``, ``as_linear_op`` and ``check_adjoint``; TV denoising needs
-the stencil pair ``TVGrad2D`` / ``TVDiv2D`` and ``ScaledOp``; planar
-phase retrieval needs ``PlanarDenseOp``.  The other operators (identity,
+``DenseOp``, ``as_linear_op`` and ``check_adjoint``, and ``LowPrecDenseOp``
+for bfloat16 storage (port of ``operators.py:170-212``); TV denoising
+needs the stencil pair ``TVGrad2D`` / ``TVDiv2D`` and ``ScaledOp``;
+planar phase retrieval needs ``PlanarDenseOp`` (float32 or bfloat16
+channels).  The other operators (identity,
 closures, FFTs, sparse) come with their problems (ROADMAP Queue A item
 2).  Operators are plain data holders; their tensors stay on whatever
 device the caller put them.  ``lanes`` and ``rmatvec_lanes`` apply an
@@ -25,7 +27,8 @@ import torch
 
 from .precision import real_dtype
 
-__all__ = ["LinearOp", "AdjointOp", "DenseOp", "PlanarDenseOp", "TVGrad2D",
+__all__ = ["LinearOp", "AdjointOp", "DenseOp", "LowPrecDenseOp",
+           "PlanarDenseOp", "TVGrad2D",
            "TVDiv2D", "ScaledOp", "tv_grad_2d", "tv_div_2d", "as_linear_op",
            "check_adjoint", "default_device"]
 
@@ -75,34 +78,106 @@ class AdjointOp(LinearOp):
         return self.base
 
 
+def _promoted(A: torch.Tensor, x: torch.Tensor):
+    """A and x in their common type, as ``jnp.matmul`` promotes mixed
+    operands (a bfloat16 matrix times a float32 vector is a float32
+    product); ``torch.matmul`` itself refuses mixed types."""
+    dt = torch.promote_types(A.dtype, x.dtype)
+    return A.to(dt), x.to(dt)
+
+
 class DenseOp(LinearOp):
     """Explicit dense matrix A ∈ 𝔽^{m×n}.  Matvecs are ``torch.matmul``
-    (the JAX package leaves them to XLA outside Pallas too); the fused
-    least-squares pass over the same matrix is kernel K-B3
-    (``LeastSquares.fused_gradmap``).  A float32 product on the card runs
-    in full float32 unless the caller enables TF32."""
+    (the JAX package leaves them to XLA outside Pallas too) in the type
+    the two operands promote to; the fused least-squares pass over the
+    same matrix is kernel K-B3 (``LeastSquares.fused_gradmap``).  A
+    float32 product on the card runs in full float32 unless the caller
+    enables TF32."""
 
     def __init__(self, A: torch.Tensor):
         self.A = A
 
     def __call__(self, x):
-        return torch.matmul(self.A, x)
+        return torch.matmul(*_promoted(self.A, x))
 
     def rmatvec(self, y):
-        return torch.matmul(self.A.mH, y)
+        return torch.matmul(*_promoted(self.A.mH, y))
 
     def lanes(self, x):
         """Vector lanes (B, n) as one product X·Aᵀ (one lane: A x, the
         single solve's product)."""
         if x.shape[0] == 1 or x.ndim != 2:
             return super().lanes(x)
-        return torch.matmul(x, self.A.mT)
+        A, x = _promoted(self.A, x)
+        return torch.matmul(x, A.mT)
 
     def rmatvec_lanes(self, y):
         """Vector lanes (B, m) as one product Y·Ā (one lane: Aᴴ y)."""
         if y.shape[0] == 1 or y.ndim != 2:
             return super().rmatvec_lanes(y)
-        return torch.matmul(y, self.A.conj())
+        A, y = _promoted(self.A, y)
+        return torch.matmul(y, A.conj())
+
+    @property
+    def shape(self):
+        return tuple(self.A.shape)
+
+
+class LowPrecDenseOp(LinearOp):
+    """Dense real matrix stored in a low-precision type (bfloat16 by
+    default) with float32 accumulation: the mixed-precision path of
+    ``fasta_tpu/operators.py:170-212``.
+
+    The product is the JAX one, ``dot_general(A, x.astype(A.dtype),
+    preferred_element_type=float32)``: the vector is rounded to the
+    storage type, each product of two bfloat16 values is exact in
+    float32, and the sums run in float32.  Here both operands are upcast
+    to float32 for ``torch.matmul`` (a bfloat16 product would round its
+    result to bfloat16, and a mixed one raises); outputs are float32.
+    The intended workflow solves at this precision to a loose tolerance
+    and then warm-restarts the float32 problem from the result
+    (``checkpoint.resume``).  The one-read gradient maps over a bfloat16
+    matrix are kernels K-B3 and K-B3p (``terms.py``: past the reference's
+    64 MB gate).
+
+    Not a ``DenseOp``, as in JAX: the whole-solve kernels do not take it
+    (``micro._dispatch``)."""
+
+    def __init__(self, A: torch.Tensor):
+        self.A = A                     # already in the storage type
+
+    @classmethod
+    def from_dense(cls, A, storage_dtype: torch.dtype = torch.bfloat16, *,
+                   device=None) -> "LowPrecDenseOp":
+        """A tensor or NumPy matrix in ``storage_dtype``: a tensor on its
+        own device unless ``device`` is given, a NumPy matrix on
+        ``device`` (the card when None: see :func:`default_device`)."""
+        if not isinstance(A, torch.Tensor):
+            device = default_device(device, "LowPrecDenseOp.from_dense")
+            A = torch.as_tensor(np.asarray(A))
+        return cls(A.to(device=device, dtype=storage_dtype))
+
+    def _rounded(self, v):
+        """``v`` rounded to the storage type, as float32."""
+        return v.to(self.A.dtype).to(torch.float32)
+
+    def __call__(self, x):
+        return torch.matmul(self.A.to(torch.float32), self._rounded(x))
+
+    def rmatvec(self, y):
+        return torch.matmul(self.A.to(torch.float32).mT, self._rounded(y))
+
+    def lanes(self, x):
+        """Vector lanes (B, n) as one product X·Aᵀ (one lane: A x)."""
+        if x.shape[0] == 1 or x.ndim != 2:
+            return super().lanes(x)
+        return torch.matmul(self._rounded(x), self.A.to(torch.float32).mT)
+
+    def rmatvec_lanes(self, y):
+        """Vector lanes (B, m) as one product Y·A (one lane: Aᵀ y)."""
+        if y.shape[0] == 1 or y.ndim != 2:
+            return super().rmatvec_lanes(y)
+        return torch.matmul(self._rounded(y), self.A.to(torch.float32))
 
     @property
     def shape(self):
@@ -118,9 +193,10 @@ class PlanarDenseOp(LinearOp):
         Aᴴ y = [Arᵀyr + Aiᵀyi,  Arᵀyi − Aiᵀyr]
 
     Each application is two (m,n)·(n,2) products through ``torch.matmul``
-    (the JAX package leaves them to XLA at ``Precision.HIGHEST``; a
-    float32 product on the card runs in full float32 unless the caller
-    enables TF32).  The real dot of two planar vectors is Re⟨·,·⟩ of the
+    in the promoted type (the JAX package leaves them to XLA at
+    ``Precision.HIGHEST``; a float32 product on the card runs in full
+    float32 unless the caller enables TF32): bfloat16 channels are upcast
+    and the vector stays float32, as ``jnp.matmul`` promotes them.  The real dot of two planar vectors is Re⟨·,·⟩ of the
     complex ones, so the real solver drives complex problems unchanged.
     The fused gradient map over the same matrices is kernel K-B7."""
 
@@ -138,14 +214,14 @@ class PlanarDenseOp(LinearOp):
                    torch.tensor(A.imag, dtype=dtype, device=device))
 
     def __call__(self, x):
-        p = torch.matmul(self.Ar, x)
-        q = torch.matmul(self.Ai, x)
+        p = torch.matmul(*_promoted(self.Ar, x))
+        q = torch.matmul(*_promoted(self.Ai, x))
         return torch.stack([p[..., 0] - q[..., 1], p[..., 1] + q[..., 0]],
                            dim=-1)
 
     def rmatvec(self, y):
-        p = torch.matmul(self.Ar.mT, y)
-        q = torch.matmul(self.Ai.mT, y)
+        p = torch.matmul(*_promoted(self.Ar.mT, y))
+        q = torch.matmul(*_promoted(self.Ai.mT, y))
         return torch.stack([p[..., 0] + q[..., 1], p[..., 1] - q[..., 0]],
                            dim=-1)
 

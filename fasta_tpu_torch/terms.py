@@ -111,22 +111,26 @@ class LeastSquares(SmoothTerm):
         (``fused_lstsq_gradmap``: the CUDA kernel for a CUDA tensor, its
         plain version for a CPU tensor).  Any other dtype takes the plain
         two-pass form, as the JAX package's f32/bf16 dtype rule does
-        (``lstsq_fused.py:144-145``).
+        (``lstsq_fused.py:144-145``).  A ``LowPrecDenseOp`` takes the
+        kernel's bfloat16 form past the reference's 64 MB gate, else the
+        two-call path (:func:`_lowprec_fused`).
 
         The TV dual's ``ScaledOp(μ, TVDiv2D())`` over a 2-D image takes
         kernel K-B5 (``fused_tv_gradmap``) for a float32 image and its
         plain version otherwise (``fasta_tpu/terms.py:146-155``, without
         the JAX package's Pallas and TPU gates).
 
-        A float32 ``PlanarDenseOp`` with planar measurements b (m, 2)
-        takes kernel K-B7's least-squares form
+        A float32 or bfloat16 ``PlanarDenseOp`` with planar measurements
+        b (m, 2) takes kernel K-B7's least-squares form
         (``fused_planar_lstsq_gradmap``, ``fasta_tpu/terms.py:156-170``,
-        without the JAX package's 64 MB streaming gate); other dtypes take
-        the two-call path, as in the JAX package."""
+        without the JAX package's 64 MB streaming gate: over bfloat16
+        channels both of its paths upcast the matrix and keep x in
+        float32, so the kernel computes the two-call path's function);
+        other dtypes take the two-call path, as in the JAX package."""
         from .operators import DenseOp, PlanarDenseOp, ScaledOp, TVDiv2D
         if isinstance(op, PlanarDenseOp):
             b = self.b
-            if (op.Ar.ndim != 2 or op.Ar.dtype != torch.float32
+            if (op.Ar.ndim != 2 or op.Ar.dtype not in _PLANAR_FUSED
                     or b.ndim != 2 or b.shape[-1] != 2):
                 return None
             from .kernels.planar_fused import fused_planar_lstsq_gradmap
@@ -139,8 +143,9 @@ class LeastSquares(SmoothTerm):
             if b.dtype == torch.float32:
                 return lambda p: fused_tv_gradmap(p, b, mu)
             return lambda p: tv_gradmap_reference(p, b, mu)
-        if not isinstance(op, DenseOp):
-            return None
+        fused = _lowprec_fused(op, self.b, "lstsq")
+        if fused is not None or not isinstance(op, DenseOp):
+            return fused
         A, b = op.A, self.b
         if A.ndim != 2 or A.is_complex() or b.ndim != 1:
             return None
@@ -151,6 +156,40 @@ class LeastSquares(SmoothTerm):
         if supports_fusion(m, n, A.dtype):
             return lambda x: fused_lstsq_gradmap(A, x, b)
         return lambda x: lstsq_gradmap_reference(A, x, b)
+
+
+# The channel types K-B7 takes
+_PLANAR_FUSED = (torch.float32, torch.bfloat16)
+
+# The reference's streaming gate (``fasta_tpu/kernels/lstsq_fused.py:125,
+# 138``) over the stored bytes of a LowPrecDenseOp.  It is kept because it
+# chooses the function, not for speed: the kernel keeps x in float32,
+# while the two-call path rounds x to the storage type (the reference's
+# LowPrecDenseOp product).  Below the gate the port computes what the
+# reference computes there.  No H100 measurement set it.
+_STREAMING_BYTES = 64 << 20
+
+
+def _lowprec_fused(op, data, loss):
+    """The one-read gradient map of ``loss`` ("lstsq", "logistic" or
+    "squared_hinge") over a ``LowPrecDenseOp``: kernel K-B3 or K-B3p in
+    its bfloat16 form when the storage is bfloat16 and the stored bytes
+    pass the 64 MB gate, else None (the two-call path through the
+    operator, x rounded to the storage type).  A float16 operator always
+    takes None: the reference's kernel takes bfloat16 only.  None too for
+    any other operator."""
+    from .operators import LowPrecDenseOp
+    if not isinstance(op, LowPrecDenseOp):
+        return None
+    A = op.A
+    if (A.ndim != 2 or A.dtype != torch.bfloat16 or data.ndim != 1
+            or A.numel() * A.element_size() <= _STREAMING_BYTES):
+        return None
+    from .kernels.lstsq_fused import (fused_lstsq_gradmap,
+                                      fused_pointwise_gradmap)
+    if loss == "lstsq":
+        return lambda x: fused_lstsq_gradmap(A, x, data)
+    return lambda x: fused_pointwise_gradmap(A, x, data, loss)
 
 
 def logistic_ell(d, b):
@@ -173,12 +212,13 @@ def hinge_residual(d, y):
 def _pointwise_fused(op, data, loss):
     """One-pass (d, Σℓ, Aᵀℓ′) for a pointwise loss over a float32 dense
     real operator: kernel K-B3p (``fused_pointwise_gradmap``), the CUDA
-    kernel for a CUDA tensor and its plain version for a CPU tensor.
-    Other operators and dtypes take the two-call path (None), as the JAX
-    package's dtype rule does."""
+    kernel for a CUDA tensor and its plain version for a CPU tensor; over
+    a ``LowPrecDenseOp``, as :func:`_lowprec_fused` says
+    (``fasta_tpu/terms.py:272-289``).  Other operators and dtypes take the
+    two-call path (None), as the JAX package's dtype rule does."""
     from .operators import DenseOp
     if not isinstance(op, DenseOp):
-        return None
+        return _lowprec_fused(op, data, loss)
     A = op.A
     if (A.ndim != 2 or A.dtype != torch.float32 or data.ndim != 1):
         return None
@@ -293,13 +333,14 @@ class PlanarPhaseHinge(SmoothTerm):
 
     def fused_gradmap(self, op):
         """K-B7's hinge form (``fused_planar_hinge_gradmap``) on a float32
-        ``PlanarDenseOp``: the CUDA kernel for CUDA tensors, its plain
-        version for CPU tensors (``fasta_tpu/terms.py:418-432``, without
-        the JAX package's 64 MB streaming gate).  Other operators and
-        dtypes take the two-call path (None)."""
+        or bfloat16 ``PlanarDenseOp``: the CUDA kernel for CUDA tensors,
+        its plain version for CPU tensors (``fasta_tpu/terms.py:418-432``,
+        without the JAX package's 64 MB streaming gate, for the reason
+        ``LeastSquares.fused_gradmap`` gives).  Other operators and dtypes
+        take the two-call path (None)."""
         from .operators import PlanarDenseOp
         if (not isinstance(op, PlanarDenseOp) or op.Ar.ndim != 2
-                or op.Ar.dtype != torch.float32 or self.b.ndim != 1):
+                or op.Ar.dtype not in _PLANAR_FUSED or self.b.ndim != 1):
             return None
         from .kernels.planar_fused import fused_planar_hinge_gradmap
         b = self.b

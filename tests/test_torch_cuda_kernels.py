@@ -13,7 +13,7 @@ import torch
 
 import fasta_tpu_torch as ftt
 from fasta_tpu_torch import problems
-from fasta_tpu_torch.kernels import (lstsq_fused, microsolver,
+from fasta_tpu_torch.kernels import (bf16_probe, lstsq_fused, microsolver,
                                      microsolver_planar, microsolver_tv,
                                      planar_fused, planar_probe, prox_fused,
                                      tv_fused)
@@ -563,11 +563,20 @@ def test_planar_kernels_reject_what_they_do_not_take(dev):
         planar_fused.fused_planar_hinge_gradmap(Ar, Ai, x, bh.cpu())
     with pytest.raises(ValueError, match="n must be"):
         planar_probe.planar_probe(Ar, Ai, x, 2)
-    big = torch.zeros((8, 600), device=dev)
-    with pytest.raises(ValueError, match="n up to 512"):
-        microsolver_planar.microsolve_planar_phasemax(
-            big, big, bh, torch.zeros((600, 2), device=dev),
-            torch.zeros((600, 2), device=dev), 1.0)
+    # a signal wider than 512 takes the wide route rather than raising
+    g = torch.Generator(device=dev).manual_seed(600)
+    wide = [torch.randn((8, 600), generator=g, device=dev) / 4.0
+            for _ in range(2)]
+    c, x0 = (torch.randn((600, 2), generator=g, device=dev) for _ in range(2))
+    before = microsolver_planar.WIDE_LAUNCHES
+    out = microsolver_planar.microsolve_planar_phasemax(*wide, bh, c, x0, 1.0,
+                                                        max_iters=20)
+    assert microsolver_planar.WIDE_LAUNCHES == before + 1
+    ref = microsolver_planar.microsolve_planar_phasemax_reference(
+        *wide, bh, c, x0, 1.0, max_iters=20)
+    assert int(out.iteration_count) == int(ref.iteration_count)
+    torch.testing.assert_close(out.taus[:10], ref.taus[:10], rtol=1e-3,
+                               atol=0.0)
 
 
 @pytest.mark.parametrize("variant", planar_probe.VARIANTS)
@@ -824,3 +833,268 @@ def test_serving_routes_on_the_card(dev):
             max_iters=500, tol=1e-6)
         assert torch.equal(mb.solutions[i], one.solution)
 
+
+
+# --------------------------------------------------------------------------
+# Slice 6: the bfloat16 forms of K-B3, K-B3p and K-B7, K-P4, K-B8 past
+# n = 512
+# --------------------------------------------------------------------------
+
+def _bf16_data(dev, m, n):
+    g = torch.Generator(device=dev).manual_seed(m * 3 + n)
+    A = (torch.randn((m, n), generator=g, device=dev) / m ** 0.5).to(
+        torch.bfloat16)
+    x = torch.randn(n, generator=g, device=dev)
+    b = torch.randn(m, generator=g, device=dev)
+    return A, x, b
+
+
+@pytest.mark.parametrize("loss", ["lstsq", "logistic", "squared_hinge"])
+@pytest.mark.parametrize("m,n,cluster", [
+    (1000, 2000, 1), (1000, 1003, 1), (3, 5, 1), (4096, 8192, 1),
+    (37, 16385, 2), (300, 100000, 7), (64, 131072, 8), (40, 200000, 0),
+    (7, 150001, 0)])
+def test_bf16_gradmap_kernel_matches_plain(dev, loss, m, n, cluster):
+    """K-B3 and K-B3p over a bfloat16 A against the plain version (A
+    upcast to float32, x float32) on every route, aligned (n % 8 == 0:
+    16-byte groups) and ragged: 1e-5 of the largest entry, float32 sums
+    in another order; deterministic; counted as bfloat16 launches."""
+    assert lstsq_fused._plan(dev.index or 0, m, n, True)[0] == cluster
+    A, x, b = _bf16_data(dev, m, n)
+    if loss == "lstsq":
+        fused = lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b)  # noqa: E731
+        ref = lstsq_fused.lstsq_gradmap_reference(A, x, b)
+        counter = "BF16_LAUNCHES"
+    else:
+        y = (b > 0).float() if loss == "logistic" else torch.sign(b)
+        fused = lambda: lstsq_fused.fused_pointwise_gradmap(  # noqa: E731
+            A, x, y, loss)
+        ref = lstsq_fused.pointwise_gradmap_reference(A, x, y, loss)
+        counter = "POINTWISE_BF16_LAUNCHES"
+    before = getattr(lstsq_fused, counter), lstsq_fused.LAUNCHES
+    d, f, g = fused()
+    assert (getattr(lstsq_fused, counter), lstsq_fused.LAUNCHES) == \
+        (before[0] + 1, before[1])
+    d0, f0, g0 = ref
+    torch.cuda.synchronize()
+    assert (d - d0).abs().max() <= 1e-5 * max(1.0, float(d0.abs().max()))
+    assert (g - g0).abs().max() <= 1e-5 * max(1.0, float(g0.abs().max()))
+    assert abs(float(f) - float(f0)) <= 1e-5 * abs(float(f0))
+    d2, f2, g2 = fused()
+    assert torch.equal(d, d2) and torch.equal(g, g2) and torch.equal(f, f2)
+
+
+def test_lowprec_operator_routes_to_the_bf16_kernel(dev):
+    """A bfloat16 LowPrecDenseOp past the 64 MB gate takes K-B3 bf16 in
+    LeastSquares.fused_gradmap (and K-B3p in Logistic); at or below it,
+    the two-call path, which rounds x to bfloat16."""
+    A, x, b = _bf16_data(dev, 4096, 8200)           # 67.2 MB
+    op = ftt.LowPrecDenseOp(A)
+    before = lstsq_fused.BF16_LAUNCHES
+    d, f, g = ftt.LeastSquares(b).fused_gradmap(op)(x)
+    assert lstsq_fused.BF16_LAUNCHES == before + 1
+    d0, _, g0 = lstsq_fused.lstsq_gradmap_reference(A, x, b)
+    assert (g - g0).abs().max() <= 1e-5 * float(g0.abs().max())
+    assert ftt.Logistic((b > 0).float()).fused_gradmap(op) is not None
+    small = ftt.LowPrecDenseOp(A[:1024])                # 16.8 MB
+    assert ftt.LeastSquares(b[:1024]).fused_gradmap(small) is None
+    xr = x.to(torch.bfloat16).float()
+    torch.testing.assert_close(small(x), A[:1024].float() @ xr, rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_bf16_kernels_reject_what_they_do_not_take(dev):
+    A, x, b = _bf16_data(dev, 8, 8)
+    with pytest.raises(ValueError, match="float32"):
+        lstsq_fused.fused_lstsq_gradmap(A, x.to(torch.bfloat16), b)
+    with pytest.raises(ValueError, match="bfloat16"):
+        lstsq_fused.fused_lstsq_gradmap(A.half(), x, b)
+    with pytest.raises(ValueError, match="bfloat16"):
+        planar_fused.fused_planar_hinge_gradmap(A, A.float(),
+                                                torch.zeros((8, 2), device=dev),
+                                                b.abs())
+    with pytest.raises(ValueError, match="bfloat16"):
+        bf16_probe.bf16_probe(A.half(), x, 2)
+
+
+@pytest.mark.parametrize("loss", ["lstsq", "hinge"])
+@pytest.mark.parametrize("m,n,route", [
+    (1000, 256, 1), (517, 37, 1), (300, 4096, 2), (100, 2046, 2),
+    (40, 16384, 3), (33, 9001, 3)])
+def test_bf16_planar_gradmap_kernel_matches_plain(dev, loss, m, n, route):
+    """K-B7 over bfloat16 channels against the plain version (channels
+    upcast, x float32) on every route, aligned and ragged: 1e-5 of the
+    largest entry; deterministic; counted as bfloat16 launches."""
+    assert planar_fused._plan(dev.index or 0, m, n, True)[0] == route
+    Ar, Ai, x, bl, bh = _planar_data(dev, m, n)
+    Ar, Ai = Ar.to(torch.bfloat16), Ai.to(torch.bfloat16)
+    fused, ref, b = ((planar_fused.fused_planar_lstsq_gradmap,
+                      planar_fused.planar_lstsq_gradmap_reference, bl)
+                     if loss == "lstsq" else
+                     (planar_fused.fused_planar_hinge_gradmap,
+                      planar_fused.planar_hinge_gradmap_reference, bh))
+    before = planar_fused.BF16_LAUNCHES, planar_fused.LAUNCHES
+    d, f, g = fused(Ar, Ai, x, b)
+    assert (planar_fused.BF16_LAUNCHES, planar_fused.LAUNCHES) == \
+        (before[0] + 1, before[1])
+    d0, f0, g0 = ref(Ar, Ai, x, b)
+    torch.cuda.synchronize()
+    assert (d - d0).abs().max() <= 1e-5 * max(1.0, float(d0.abs().max()))
+    assert (g - g0).abs().max() <= 1e-5 * max(1.0, float(g0.abs().max()))
+    assert abs(float(f) - float(f0)) <= 1e-5 * abs(float(f0))
+    d2, f2, g2 = fused(Ar, Ai, x, b)
+    assert torch.equal(d, d2) and torch.equal(g, g2) and torch.equal(f, f2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(1000, 2000), (37, 1003), (64, 8)])
+def test_bf16_probe_kernel_matches_plain(dev, dtype, m, n):
+    """K-P4: the last of 3 chained pairs' g within 1e-5 of its largest
+    entry of the plain loop's, and x equal to x₀."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    A = (torch.randn((m, n), generator=g, device=dev) / m ** 0.5).to(dtype)
+    x0 = torch.randn(n, generator=g, device=dev)
+    before = bf16_probe.LAUNCHES
+    x, gk = bf16_probe.bf16_probe(A, x0, 3)
+    assert bf16_probe.LAUNCHES == before + 1
+    x_ref, g_ref = bf16_probe.bf16_probe_reference(A, x0, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(x, x0) and torch.equal(x_ref, x0)
+    assert (gk - g_ref).abs().max() <= 1e-5 * float(g_ref.abs().max())
+
+
+# PhaseMax needs m ≳ 4n measurements for a bounded solution: at 2048x1024
+# and 256x8192 (inside the reference's gate, so a route must serve them)
+# the iterates run off along the anchor c with τ growing 1.5x an
+# iteration, so past a prefix only the counts compare; 8192x640 and
+# 4099x601 are well posed.
+WELL_POSED = {(8192, 640), (4099, 601)}
+
+
+def _reordered(data, perm):
+    """The same planar problem with its columns in the order ``perm``: the
+    plain version's products summed in another order."""
+    Ar, Ai, b, c, x0 = data
+    return (Ar[:, perm].contiguous(), Ai[:, perm].contiguous(), b,
+            c[perm].contiguous(), x0[perm].contiguous())
+
+
+def _spread(a, b):
+    """The largest relative difference of two positive series."""
+    return float(((a - b).abs() / b.abs()).max())
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("m,n", [(8192, 640), (4099, 601), (2048, 1024),
+                                 (256, 8192)])
+def test_planar_wide_microsolve_kernel_matches_plain(dev, accelerate, hp, m,
+                                                     n):
+    """K-B8's wide route (n > 512) against its plain version over 40
+    iterations: backtracks equal and the first 10 taus and residuals
+    within rtol max(1e-3, twice the plain version's own spread when its
+    columns are reversed or rolled), every record; where the problem is
+    well posed the float64 objective within max(1e-5, twice that spread);
+    deterministic.  The spread is the hinge's: the plain version against
+    itself with another order of float32 sums differs by 2e-3 to 4e-3 in
+    the tenth τ at 8192x640, 4099x601 and 16384x256 (PERF.md)."""
+    p, data = _phase(dev, m, n)
+    kw = dict(max_iters=40, tol=0.0, stop_rule="iterations", hp=hp,
+              accelerate=accelerate, restart_dd=hp, record_bts=True,
+              record_fvals=True, record_objs=True, record_nres=True)
+    before = microsolver_planar.WIDE_LAUNCHES, microsolver_planar.LAUNCHES
+    out = microsolver_planar.microsolve_planar_phasemax(*data, 1.0,
+                                                        record_its=True, **kw)
+    assert (microsolver_planar.WIDE_LAUNCHES, microsolver_planar.LAUNCHES) \
+        == (before[0] + 1, before[1])
+    ref = microsolver_planar.microsolve_planar_phasemax_reference(
+        *data, 1.0, record_its=True, **kw)
+    # the plain version with its columns reversed and rolled by half
+    perms = [torch.arange(n - 1, -1, -1, device=dev),
+             torch.arange(n, device=dev).roll(n // 2)]
+    others = [(perm, microsolver_planar.microsolve_planar_phasemax_reference(
+        *_reordered(data, perm), 1.0, **kw)) for perm in perms]
+    torch.cuda.synchronize()
+    assert int(out.iteration_count) == int(ref.iteration_count) == 40
+    tol = max([1e-3] + [2.0 * _spread(o.taus[:10], ref.taus[:10])
+                        for _, o in others]
+              + [2.0 * _spread(o.residuals[:10], ref.residuals[:10])
+                 for _, o in others])
+    torch.testing.assert_close(out.taus[:10], ref.taus[:10], rtol=tol,
+                               atol=0.0)
+    torch.testing.assert_close(out.residuals[:10], ref.residuals[:10],
+                               rtol=tol, atol=1e-6)
+    assert torch.equal(out.backtracks[:10], ref.backtracks[:10])
+    if (m, n) in WELL_POSED:
+        f1, f2 = _phase_objective(p, out.x), _phase_objective(p, ref.x)
+        fo = [_phase_objective(p, o.x[perm.argsort()]) for perm, o in others]
+        assert abs(f1 - f2) <= max([1e-5 * abs(f2)]
+                                   + [2.0 * abs(f - f2) for f in fo])
+    assert out.iterates.shape == (40, n, 2)
+    if not accelerate:
+        assert torch.equal(out.iterates[-1], out.x)
+    torch.testing.assert_close(out.objectives[:10], ref.objectives[:10],
+                               rtol=tol, atol=0.0)
+    again = microsolver_planar.microsolve_planar_phasemax(*data, 1.0, **kw)
+    assert torch.equal(again.x, out.x) and torch.equal(again.taus, out.taus)
+
+
+def test_planar_wide_converges_and_serves(dev):
+    """At 8192x640, inside the reference's gate and well posed: the wide
+    route to tolerance within 1e-6 of the plain version's float64
+    objective; recommend_path(p, 1).run() on it; a NaN τ₀ halts as
+    nonfinite."""
+    p, (Ar, Ai, b, c, x0) = _phase(dev, 8192, 640)
+    # adaptive; FISTA's hinge solve here takes more than 6000 iterations in
+    # the plain version (the 40-iteration test holds FISTA)
+    kw = dict(max_iters=2000, tol=1e-5, hp=True)
+    out = microsolver_planar.microsolve_planar_phasemax(Ar, Ai, b, c, x0, 1.0,
+                                                        **kw)
+    ref = microsolver_planar.microsolve_planar_phasemax_reference(
+        Ar, Ai, b, c, x0, 1.0, **kw)
+    assert out.status == ref.status == "converged"
+    f1, f2 = _phase_objective(p, out.x), _phase_objective(p, ref.x)
+    assert abs(f1 - f2) <= 1e-6 * abs(f2)
+    p.tau0 = 1.0
+    assert ftt.microsolve_supported(p) == (True, "planar")
+    plan = ftt.recommend_path(p, 1)
+    assert plan.path == "microsolve"
+    before = microsolver_planar.WIDE_LAUNCHES
+    r = plan.run(max_iters=2000, tol=1e-5, hp=True)
+    assert microsolver_planar.WIDE_LAUNCHES == before + 1
+    assert r.status == "converged" and p.recovery_error(r.solution) < 0.05
+    bad = microsolver_planar.microsolve_planar_phasemax(Ar, Ai, b, c, x0,
+                                                        float("nan"),
+                                                        max_iters=50)
+    assert bad.status == "nonfinite" and int(bad.iteration_count) == 1
+
+
+@pytest.mark.parametrize("m,n", [(8192, 640), (2048, 1024), (256, 8192)])
+def test_planar_wide_batch_and_routes(dev, m, n):
+    """K-B8b on the wide route, adaptive and FISTA: each instance
+    bit-identical to its own K-B8 launch; recommend_path(p, 1).run() is
+    that launch, and Problem.microsolve_batch the batched one; a batch of
+    4 takes the reference's route (the batch loop below 32768 unknowns)."""
+    p, (Ar, Ai, b, c, x0) = _phase(dev, m, n)
+    bs = _stack(b, 3)
+    t0s = torch.tensor([1.0, 0.3, 2.0], device=dev)
+    for mode in (dict(), dict(hp=True, accelerate=True, restart_dd=True)):
+        kw = dict(max_iters=300, tol=1e-5, record_bts=True, **mode)
+        before = microsolver_planar.WIDE_BATCH_LAUNCHES
+        out = microsolver_planar.microsolve_planar_phasemax_batch(
+            Ar, Ai, bs, c, x0, t0s, **kw)
+        assert microsolver_planar.WIDE_BATCH_LAUNCHES == before + 1
+        _same(out, [microsolver_planar.microsolve_planar_phasemax(
+            Ar, Ai, bs[i], c, x0, float(t0s[i]), **kw) for i in range(3)])
+    p.tau0 = 1.0
+    kw = dict(max_iters=300, tol=1e-5, hp=True)
+    one = ftt.recommend_path(p, 1).run(**kw)
+    direct = microsolver_planar.microsolve_planar_phasemax(Ar, Ai, b, c, x0,
+                                                           1.0, **kw)
+    assert torch.equal(one.solution, direct.x)
+    mb = p.microsolve_batch(bs, **kw)
+    assert torch.equal(mb.solutions[0], direct.x)
+    plan = ftt.recommend_path(p, 4)
+    assert plan.path == "batch_solver"
+    res = plan.run(_stack(b, 4), options=ftt.FastaOptions(max_iters=20))
+    assert res.solution.shape == (4, n, 2)
