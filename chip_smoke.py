@@ -101,7 +101,16 @@ non-zero without the final ``ok`` line):
     in float64 objective and iterations; logistic and the squared hinge
     over the bfloat16 matrix (K-B3p bf16); planar phase retrieval
     16384×256 over bfloat16 channels (K-B7 bf16), its float32 resume
-    against the float64 oracle and ``Problem.microsolve`` on it.
+    against the float64 oracle and ``Problem.microsolve`` on it;
+28. K-P2 (the one-pass gradient-map check) at 1000×2048 against its plain
+    version and float64;
+29. K-P1 (the GEMV formulation probe): every formulation at 1000×2048
+    against its plain version, then µs per chained operation at K = 2000
+    beside ``torch.mv``'s card time (a CUDA graph of calls, and its
+    kernels in a ``profiling.trace``);
+30. K-P3 (the tail-ablation ladder) at 1000×2000: every rung L0…L6 and X
+    variant against its plain version at K = 3, then µs per iteration at
+    K = 5000 beside K-B1 (``microsolve_lasso``) at the same K.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -130,11 +139,12 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
 
 import fasta_tpu_torch as ftt  # noqa: E402
-from fasta_tpu_torch import checkpoint, problems  # noqa: E402
+from fasta_tpu_torch import checkpoint, problems, profiling  # noqa: E402
 from fasta_tpu_torch.kernels import (_build, bf16_probe, lstsq_fused,  # noqa: E402
-                                     microsolver, microsolver_planar,
-                                     microsolver_tv, planar_fused,
-                                     planar_probe, prox_fused, tv_fused)
+                                     matvec_probe, microsolver,
+                                     microsolver_planar, microsolver_tv,
+                                     planar_fused, planar_probe, prox_fused,
+                                     tail_probe, tv_fused)
 from reference_oracle.fasta_numpy import fasta as fasta_np  # noqa: E402
 from reference_oracle.generators import make_lasso  # noqa: E402
 
@@ -186,9 +196,47 @@ def stream_ms(fn, runs: int = 20) -> float:
     return ms
 
 
-# H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor-core) FLOP/s
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM data sheet: HBM3 bytes/s (profiling's rate) and float32
+# (non-tensor-core) FLOP/s
+HBM_BYTES_PER_S = profiling.H100_HBM_GBPS * 1e9
 F32_FLOPS = 67e12
+
+
+def graph_ms(fn, calls: int = 200) -> float:
+    """Card time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, the replay timed by CUDA events (median of 3) and divided by
+    ``calls``.  The graph takes the host's enqueueing out of the time;
+    stream order still runs each call after the last."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, 3, warmup=1) / calls
+
+
+def traced_kernel_us(fn, calls: int = 20):
+    """Mean card time per call of ``fn``'s kernels, read from the Chrome
+    trace that ``profiling.trace`` writes around ``calls`` calls (None when
+    the trace holds no kernel events), and the kernels' names."""
+    fn()
+    torch.cuda.synchronize()
+    with profiling.trace(str(_build._BUILD_DIR.parent / "chip_smoke_trace")) \
+            as logdir:
+        for _ in range(calls):
+            fn()
+    with open(f"{logdir}/trace.json") as fh:
+        events = [e for e in json.load(fh).get("traceEvents", [])
+                  if e.get("cat") == "kernel"]
+    names = sorted({e.get("name", "?")[:60] for e in events})
+    if not events:
+        return None, names
+    return sum(float(e.get("dur", 0.0)) for e in events) / calls, names
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -263,6 +311,8 @@ def reset_launches() -> None:
     prox_fused.LAUNCHES = 0
     microsolver.BATCH_LAUNCHES = microsolver_tv.BATCH_LAUNCHES = 0
     microsolver_planar.BATCH_LAUNCHES = 0
+    matvec_probe.LAUNCHES = matvec_probe.CHECK_LAUNCHES = 0
+    tail_probe.LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -285,7 +335,10 @@ def read_launches() -> dict:
             "K-B7 bf16": planar_fused.BF16_LAUNCHES,
             "K-P4": bf16_probe.LAUNCHES,
             "K-B8w": microsolver_planar.WIDE_LAUNCHES,
-            "K-B8bw": microsolver_planar.WIDE_BATCH_LAUNCHES}
+            "K-B8bw": microsolver_planar.WIDE_BATCH_LAUNCHES,
+            "K-P1": matvec_probe.LAUNCHES,
+            "K-P2": matvec_probe.CHECK_LAUNCHES,
+            "K-P3": tail_probe.LAUNCHES}
 
 
 def phase_device() -> str:
@@ -2627,6 +2680,270 @@ def phase_bf16_main_path() -> dict:
                 walls_ms=(w_full, w16, w_ref))
 
 
+# --------------------------------------------------------------------------
+# Slice 7: the probes K-P2, K-P1 and K-P3
+# --------------------------------------------------------------------------
+
+def probe_matrix():
+    """The GEMV probe's data (matvec_kernels.py:219-225): A 1000×2048
+    (n padded to a lane multiple on the TPU) scaled by 1/40, x, b; seed 0."""
+    rng = np.random.default_rng(0)
+    m, n = 1000, 2048
+    A = rng.standard_normal((m, n)).astype(np.float32) / 40
+    x = rng.standard_normal(n).astype(np.float32)
+    b = rng.standard_normal(m).astype(np.float32)
+    return [torch.from_numpy(v).to(DEV) for v in (A, x, b)]
+
+
+def rel_err(got, ref) -> float:
+    """max|got − ref| over max|ref| (a scalar: its relative error)."""
+    got, ref = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def phase_gradmap_check() -> dict:
+    """K-P2 at 1000×2048 (A/40, seed 0): the kernel's (f, g) against its
+    plain version (rel 1e-5: float32 sums in another order) and against
+    float64 (rel 1e-5, the kernel's own report); call times, median of
+    20."""
+    A, x, b = probe_matrix()
+    m, n = A.shape
+    f, g, ferr, gerr = matvec_probe.check_gradmap_correct(A, x, b)
+    f0, g0 = matvec_probe.gradmap_reference(A, x, b)
+    torch.cuda.synchronize()
+    err_f, err_g = rel_err(f, f0), rel_err(g, g0)
+    print(f"[28 K-P2 {m}x{n}] against float64: f rel {ferr:.3e}, g rel "
+          f"{gerr:.3e} (tol 1e-5); against its plain version: f rel "
+          f"{err_f:.3e}, max|dg|/max|g| {err_g:.3e} (tol 1e-5)")
+    require(max(ferr, gerr, err_f, err_g) <= 1e-5,
+            "K-P2 disagrees with float64 or its plain version")
+    reset_launches()
+    kern = cuda_ms(lambda: matvec_probe.gradmap_fused(A, x, b), 20)
+    launches = read_launches()["K-P2"]
+    plain = cuda_ms(lambda: matvec_probe.gradmap_reference(A, x, b), 20)
+    bd = bound(4.0 * (m * n + 2 * n + m + 1), 4.0 * m * n)
+    print(f"[28 K-P2] call, median of 20: {kern:.4f} ms, plain {plain:.4f} ms; bound "
+          f"{bd['bound_ms']:.5f} ms ({bd['bound_by']}); launches {launches}")
+    return dict(max_abs_err=float((g - g0).abs().max()), ms=kern,
+                plain_ms=plain, **bd, library_ms=None,
+                launches_timed=launches, f_rel_f64=ferr, g_rel_f64=gerr,
+                shape="1000x2048 float32, A/40")
+
+
+def phase_matvec_probe() -> dict:
+    """K-P1 at 1000×2048: every formulation against its plain version at
+    K = 3 on the last operation's result (rel 1e-5 of its largest entry:
+    float32 sums in another order; the tensor-core forms at 3×TF32), x
+    within 1e-6 of its largest entry; then µs per operation at K = 2000
+    (CUDA events around one launch, median of 3), the GB/s of one read of
+    A per operation, the same chains over a 16×16 corner of A (the grid
+    barrier's floor), and the card time of torch.mv(A, x) / torch.mv(A.mT,
+    r) per call (200 calls in one CUDA graph, ``graph_ms``) as the library
+    time of the fwd and adj rows, beside their kernels' own time in a
+    ``profiling.trace``.  TF32 is off for torch.mv (phase 1)."""
+    A, x0, b = probe_matrix()
+    m, n = A.shape
+    worst = 0.0
+    for v in matvec_probe.VARIANTS:
+        x, res = matvec_probe.run_variant(A, x0, b, v, 3)
+        xr, rr = matvec_probe.run_variant_reference(A, x0, b, v, 3)
+        torch.cuda.synchronize()
+        err = max(rel_err(res[0], rr[0]), rel_err(res[1], rr[1])) \
+            if v == "gradmap_fused" else rel_err(res, rr)
+        err_x = rel_err(x, xr)
+        print(f"[29 K-P1 {v}] last of 3 ops rel {err:.3e} (tol 1e-5); x rel "
+              f"{err_x:.3e} (tol 1e-6), equal {torch.equal(x, xr)}")
+        require(err <= 1e-5 and err_x <= 1e-6,
+                f"K-P1 {v} disagrees with its plain version")
+        worst = max(worst, err)
+    K, nbytes = 2000, 4.0 * m * n
+    bd = bound(nbytes + 8.0 * n, 2.0 * m * n)
+    d, g = torch.empty(m, device=DEV), torch.empty(n, device=DEV)
+    mv = {"fwd": lambda: torch.mv(A, x0, out=d),
+          "adj": lambda: torch.mv(A.mT, b, out=g)}
+    lib = {k: graph_ms(fn) for k, fn in mv.items()}
+    traced = {}
+    for k, fn in mv.items():
+        us, names = traced_kernel_us(fn)
+        traced[k] = us
+        print(f"[29 torch.mv {k}] {lib[k] * 1e3:.3f} us a call in a CUDA "
+              f"graph of 200; its kernels in profiling.trace: "
+              + ("no kernel events (not measured)" if us is None else
+                 f"{us:.3f} us a call ({', '.join(names)})"))
+    reset_launches()
+    per = {}
+    for v in matvec_probe.VARIANTS:
+        ms = cuda_ms(lambda v=v: matvec_probe.run_variant(A, x0, b, v, K), 3,
+                     warmup=1) / K
+        per[v] = ms
+        ref = lib.get(v[:3])
+        note = "" if ref is None else (
+            f"; torch.mv {ref * 1e3:.3f} us, "
+            f"{'SLOWER than' if ms > ref else 'faster than'} torch.mv "
+            f"({ms / ref:.2f}x)")
+        print(f"[29 K-P1 {v}] {ms * 1e3:.3f} us per op (K = {K}, median of "
+              f"3); {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of one read of A; "
+              f"bound {bd['bound_ms'] * 1e3:.3f} us{note}")
+    # the barrier floor: the same chains over a 16×16 corner of A, where an
+    # op is its grid barrier and a few dependent loads
+    As, xs, bs = (A[:16, :16].contiguous(), x0[:16].contiguous(),
+                  b[:16].contiguous())
+    floor = {v: cuda_ms(lambda v=v: matvec_probe.run_variant(As, xs, bs, v, K),
+                        3, warmup=1) / K for v in ("fwd_vpu", "adj_vpu")}
+    print(f"[29 K-P1 16x16] barrier floor: fwd_vpu "
+          f"{floor['fwd_vpu'] * 1e3:.3f} us, adj_vpu "
+          f"{floor['adj_vpu'] * 1e3:.3f} us per op")
+    launches = read_launches()["K-P1"]
+    plain = cuda_ms(lambda: matvec_probe.run_variant_reference(
+        A, x0, b, "fwd_vpu", K), 3, warmup=1) / K
+    print(f"[29 K-P1] plain fwd per op {plain * 1e3:.3f} us; launches "
+          f"during the timed runs {launches}")
+    return dict(max_abs_err=worst, ms=per["fwd_vpu"], plain_ms=plain, **bd,
+                library_ms=lib["fwd"], launches_timed=launches,
+                us_per_op={v: t * 1e3 for v, t in per.items()},
+                torch_mv_us={k: t * 1e3 for k, t in lib.items()},
+                torch_mv_traced_kernel_us=traced,
+                floor_16x16_us={k: t * 1e3 for k, t in floor.items()},
+                shape="1000x2048 float32, A/40, per chained op (K = 2000)")
+
+
+def tail_flops(m: int, n: int, tried: int) -> float:
+    """float32 operations of a K-P3 L6 run, counted as ``dense_flops``
+    counts K-B1's: per trial, phase P per column x̂ (2), the shrink (6),
+    Δx and x₁ − x̂ (2), ‖Δx‖² twice, ⟨Δx,g⟩, ‖g‖², ‖x₁ − x̂‖² (10); phase
+    F A x₁ (2mn), r and Σr² (3 per row); phase G Aᵀr (2mn), Δg (3),
+    ⟨Δx,Δg⟩ and ‖Δg‖² (4) per column; at the start A x₀, r₀, Aᵀr₀."""
+    return float(tried * (4 * m * n + 27 * n + 3 * m) + 4 * m * n + 3 * m)
+
+
+def phase_tail_probe() -> dict:
+    """K-P3 at 1000×2000 (seed 0, as micro_tail_probe.py:429-432): every
+    rung and X variant against its plain version at K = 3 — τ and residual
+    records, g and τ within 1e-5 of their largest entry (float32 sums in
+    another order; the trajectory is chaotic, so only short runs are
+    compared), trials equal; X2 and X5 bit-identical to L6.  Then µs per
+    iteration at K = 5000 (CUDA events around one launch, median of 3;
+    each X variant in turns with L6, L6 X X L6;
+    records finite — L1 and L2 keep τ = 0.05 against ‖AᵀA‖ ≈ 5.8e3, so
+    their g overflows, as in the TPU probe), the step between rungs, X1…X5 against L6, the plain
+    L6 per iteration, the rungs over a 16×16 corner of A (a trial without
+    its passes over A), and the fidelity row: K-B1 (microsolve_lasso, hp
+    off, stop_rule="iterations", tol 0) at the same K."""
+    rng = np.random.default_rng(0)
+    m, n = 1000, 2000
+    A, b, x0 = [torch.from_numpy(v).to(DEV) for v in (
+        rng.standard_normal((m, n)).astype(np.float32),
+        rng.standard_normal(m).astype(np.float32),
+        rng.standard_normal(n).astype(np.float32))]
+    rungs = [(f"L{i}", dict(level=i)) for i in range(7)] + [
+        (f"X{i + 1}-{f}", {"level": 6, f: True})
+        for i, f in enumerate(tail_probe.VARIANTS)]
+    worst, outs = 0.0, {}
+    for name, kw in rungs:
+        out = tail_probe.make(**kw)(A, b, x0, 3)
+        ref = tail_probe.tail_reference(A, b, x0, 3, kw["level"])
+        torch.cuda.synchronize()
+        # below L6 both record arrays are all zero: rel_err against a zero
+        # reference is 0 only for a zero result
+        err = max(rel_err(out.g, ref.g), rel_err(out.tau, ref.tau),
+                  rel_err(out.taus, ref.taus),
+                  rel_err(out.residuals, ref.residuals))
+        same = int(out.trials) == int(ref.trials) and \
+            torch.equal(out.x, ref.x)
+        print(f"[30 K-P3 {name}] K = 3: records, g, tau rel {err:.3e} (tol "
+              f"1e-5); trials {int(out.trials)}/{int(ref.trials)}; x equal "
+              f"{torch.equal(out.x, ref.x)}")
+        require(err <= 1e-5 and same,
+                f"K-P3 {name} disagrees with its plain version")
+        worst = max(worst, err)
+        outs[name] = out
+    for name in ("X2-thread", "X5-condbt"):
+        require(all(torch.equal(a, c) for a, c in zip(outs[name],
+                                                      outs["L6"])),
+                f"K-P3 {name} is not bit-identical to L6")
+    print("[30 K-P3] X2-thread and X5-condbt bit-identical to L6: True")
+    K = 5000
+    reset_launches()
+    per, tried, finite, beside = {}, {}, {}, {}
+    l6 = tail_probe.make(6)
+
+    def launch_ms(run) -> float:
+        return cuda_ms(lambda: run(A, b, x0, K), 3, warmup=0) / K
+
+    for name, kw in rungs:
+        run = tail_probe.make(**kw)
+        out = run(A, b, x0, K)              # the warm-up run, checked
+        require(bool(torch.isfinite(out.taus).all()
+                     and torch.isfinite(out.residuals).all()),
+                f"K-P3 {name} at K = {K}: records not finite")
+        finite[name], tried[name] = bool(torch.isfinite(out.g).all()), \
+            int(out.trials)
+        if name.startswith("X"):
+            # in turns with L6 (L6, X, X, L6): the spread between calls is
+            # as large as the smaller effects
+            t = [launch_ms(r) for r in (l6, run, run, l6)]
+            per[name], beside[name] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        else:
+            per[name] = launch_ms(run)
+    # the same rungs over a 16×16 corner of A: a trial is then its three
+    # grid barriers, its reductions and decisions, and almost no pass
+    As, bs, xs = (A[:16, :16].contiguous(), b[:16].contiguous(),
+                  x0[:16].contiguous())
+    small = {}
+    for name, kw in rungs[:7]:
+        run = tail_probe.make(**kw)
+        tr = int(run(As, bs, xs, K).trials)
+        small[name] = cuda_ms(lambda run=run: run(As, bs, xs, K), 3,
+                              warmup=0) / tr
+    launches = read_launches()["K-P3"]
+    prev = None
+    for name, _ in rungs:
+        us = per[name] * 1e3
+        step = "" if name.startswith("X") or prev is None else \
+            f" (+{us - prev:.3f} us)"
+        if name.startswith("X"):
+            step = (f" ({beside[name] / per[name]:.3f}x L6 in turns, L6 "
+                    f"{beside[name] * 1e3:.3f} us)")
+        else:
+            prev = us
+        print(f"[30 K-P3 {name}] {us:.3f} us per iteration, "
+              f"{tried[name] / K:.3f} trials per iteration, "
+              f"{per[name] * K / tried[name] * 1e3:.3f} us per trial{step}; "
+              f"g finite {finite[name]}" + ("" if name not in small else
+                                           f"; at 16x16 {small[name] * 1e3:.3f}"
+                                           f" us per trial"))
+    # the fidelity row: K-B1 itself at the same K
+    kb1 = lambda: microsolver.microsolve_lasso(  # noqa: E731
+        A, b, x0, tail_probe.TAU0, tail_probe.MU, max_iters=K, tol=0.0,
+        stop_rule="iterations", hp=False, record_bts=True)
+    b1_ms = cuda_ms(kb1, 3, warmup=1)
+    b1_tried, b1_k = trials(kb1())
+    transpose = cuda_ms(lambda: A.t().contiguous(), 20)
+    plain = cuda_ms(lambda: tail_probe.tail_reference(A, b, x0, 50, 6), 3,
+                    warmup=1) / 50
+    print(f"[30 K-B1 fidelity] microsolve_lasso hp off, {b1_k} iterations: "
+          f"{b1_ms / b1_k * 1e3:.3f} us per iteration, {b1_tried / b1_k:.3f} "
+          f"trials per iteration, {b1_ms / b1_tried * 1e3:.3f} us per trial; "
+          f"L6 {per['L6'] * 1e3:.3f} us per iteration")
+    print(f"[30 K-P3] the contiguous A^T copy K-B1's wrapper makes per "
+          f"launch: {transpose * 1e3:.3f} us (median of 20); X1 (no copy) "
+          f"against L6: {(per['X1-col'] - per['L6']) * 1e3:+.3f} us per "
+          f"iteration; plain L6 {plain * 1e3:.3f} us per iteration; "
+          f"launches during the timed runs {launches}")
+    bd = bound(4.0 * (m * n + m + 2 * n) / K,
+               tail_flops(m, n, tried["L6"]) / K)
+    return dict(max_abs_err=worst, ms=per["L6"], plain_ms=plain, **bd,
+                library_ms=None, launches_timed=launches,
+                us_per_iteration={k: v * 1e3 for k, v in per.items()},
+                trials_per_iteration={k: v / K for k, v in tried.items()},
+                l6_in_turns_us={k: v * 1e3 for k, v in beside.items()},
+                kb1_us_per_iteration=b1_ms / b1_k * 1e3,
+                kb1_trials_per_iteration=b1_tried / b1_k,
+                us_per_trial_16x16={k: v * 1e3 for k, v in small.items()},
+                transpose_us=transpose * 1e3,
+                shape="1000x2000 float32, L6, per iteration (K = 5000)")
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2655,12 +2972,17 @@ def main() -> None:
     p4 = phase_bf16_probe()
     b8w = phase_wide_planar()
     bf16 = phase_bf16_main_path()
+    p2 = phase_gradmap_check()
+    p1 = phase_matvec_probe()
+    p3 = phase_tail_probe()
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
                 + serving["launches"][k] + b8w["launches"][k]
                 + bf16["launches"][k] for k in lasso}
     del b8w["launches"]
     launches["K-P5"] = p5.pop("launches_timed")
     launches["K-P4"] = p4.pop("launches_timed")
+    for key, p in (("K-P1", p1), ("K-P2", p2), ("K-P3", p3)):
+        launches[key] = p.pop("launches_timed")
     kernels = [
         dict(name="K-B3 fused_lstsq_gradmap", route="cuda",
              source="fasta_tpu_torch/csrc/lstsq_fused.cu",
@@ -2742,6 +3064,21 @@ def main() -> None:
              source="fasta_tpu_torch/csrc/microsolver_planar.cu",
              replaces="fasta_tpu/kernels/microsolver_planar.py:669",
              launches=launches["K-B8w"] + launches["K-B8bw"], **b8w),
+        dict(name="K-P2 check_gradmap_correct (launches: phase 28's timed "
+                  "runs)", route="cuda",
+             source="fasta_tpu_torch/csrc/matvec_probe.cu",
+             replaces="benchmarks/matvec_kernels.py:199",
+             launches=launches["K-P2"], **p2),
+        dict(name="K-P1 run_variant (launches: phase 29's timed runs; ms: "
+                  "fwd_vpu per op)", route="cuda",
+             source="fasta_tpu_torch/csrc/matvec_probe.cu",
+             replaces="benchmarks/matvec_kernels.py:158",
+             launches=launches["K-P1"], **p1),
+        dict(name="K-P3 tail_probe ladder (launches: phase 30's timed runs; "
+                  "ms: L6 per iteration)", route="cuda",
+             source="fasta_tpu_torch/csrc/tail_probe.cu",
+             replaces="benchmarks/micro_tail_probe.py:411",
+             launches=launches["K-P3"], **p3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

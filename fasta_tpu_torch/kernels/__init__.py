@@ -25,19 +25,25 @@ version beside it.
   ``csrc/planar_probe.cu``)
 * K-P4 ``bf16_probe``, the bfloat16-storage probe (``bf16_probe.py``,
   ``csrc/bf16_probe.cu``)
+* K-P1 ``run_variant``, the GEMV formulation probe, and K-P2
+  ``gradmap_fused`` / ``check_gradmap_correct``, the one-pass gradient-map
+  check (``matvec_probe.py``, ``csrc/matvec_probe.cu``)
+* K-P3 ``make(level, ...)`` → ``run``, the tail-ablation ladder of the
+  dense whole-solve iteration (``tail_probe.py``, ``csrc/tail_probe.cu``)
 
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors.  Each module counts its kernels' launches (``LAUNCHES``,
 ``POINTWISE_LAUNCHES``, ``PATH_LAUNCHES``, ``BATCH_LAUNCHES``, and
 ``BF16_LAUNCHES``, ``POINTWISE_BF16_LAUNCHES``, ``WIDE_LAUNCHES``,
-``WIDE_BATCH_LAUNCHES`` for the bfloat16 forms and K-B8's wide route); read
+``WIDE_BATCH_LAUNCHES`` for the bfloat16 forms and K-B8's wide route,
+``CHECK_LAUNCHES`` for K-P2); read
 them as module attributes (``lstsq_fused.LAUNCHES``), since importing the
 name copies the integer.  Nothing is compiled at import.
 """
 
-from . import (bf16_probe, lstsq_fused, microsolver, microsolver_planar,
-               microsolver_tv, planar_fused, planar_probe, prox_fused,
-               tv_fused)
+from . import (bf16_probe, lstsq_fused, matvec_probe, microsolver,
+               microsolver_planar, microsolver_tv, planar_fused,
+               planar_probe, prox_fused, tail_probe, tv_fused)
 from .lstsq_fused import (fused_lstsq_gradmap, fused_pointwise_gradmap,
                           lstsq_gradmap_reference,
                           pointwise_gradmap_reference, supports_fusion)
@@ -63,9 +69,9 @@ from .planar_fused import (fused_planar_hinge_gradmap,
 from .tv_fused import fused_tv_gradmap, tv_gradmap_reference
 
 __all__ = [
-    "bf16_probe", "lstsq_fused", "microsolver", "microsolver_planar",
-    "microsolver_tv", "planar_fused", "planar_probe", "prox_fused",
-    "tv_fused",
+    "bf16_probe", "lstsq_fused", "matvec_probe", "microsolver",
+    "microsolver_planar", "microsolver_tv", "planar_fused", "planar_probe",
+    "prox_fused", "tail_probe", "tv_fused",
     "fused_shrink_step", "shrink_step_reference",
     "microsolve_lasso_batch", "microsolve_lasso_batch_reference",
     "microsolve_tv_batch", "microsolve_tv_batch_reference",

@@ -53,6 +53,13 @@ _SIGNATURES = {
     "fasta_planar_probe_grid": [_I, _I, _P],
     "fasta_bf16_probe_grid": [_I, _I, _P],
     "fasta_bf16_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "fasta_matvec_probe_grid": [_I, _I, _P],
+    "fasta_matvec_probe": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _P],
+    "fasta_tail_probe_grid": [_P],
+    "fasta_tail_probe_work": [_I, _I, _I, _P, _P],
+    "fasta_tail_probe": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _I, _P],
     "fasta_microsolve_planar_grid": [_I, _P],
     "fasta_microsolve_planar_work": [_I, _I, _I, _P],
     "fasta_microsolve_planar": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _F,

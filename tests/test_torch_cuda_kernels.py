@@ -13,9 +13,10 @@ import torch
 
 import fasta_tpu_torch as ftt
 from fasta_tpu_torch import problems
-from fasta_tpu_torch.kernels import (bf16_probe, lstsq_fused, microsolver,
-                                     microsolver_planar, microsolver_tv,
-                                     planar_fused, planar_probe, prox_fused,
+from fasta_tpu_torch.kernels import (bf16_probe, lstsq_fused, matvec_probe,
+                                     microsolver, microsolver_planar,
+                                     microsolver_tv, planar_fused,
+                                     planar_probe, prox_fused, tail_probe,
                                      tv_fused)
 
 pytestmark = pytest.mark.cuda
@@ -1098,3 +1099,108 @@ def test_planar_wide_batch_and_routes(dev, m, n):
     assert plan.path == "batch_solver"
     res = plan.run(_stack(b, 4), options=ftt.FastaOptions(max_iters=20))
     assert res.solution.shape == (4, n, 2)
+
+
+# --------------------------------------------------------------------------
+# Slice 7: the probes K-P1, K-P2 and K-P3
+# --------------------------------------------------------------------------
+
+def _rel(got, ref):
+    got, ref = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _probe_data(dev, m, n, scale):
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    return (torch.randn((m, n), generator=g, device=dev) * scale,
+            torch.randn(n, generator=g, device=dev),
+            torch.randn(m, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("variant", matvec_probe.VARIANTS)
+@pytest.mark.parametrize("m,n", [(1000, 2048), (37, 100), (300, 516)])
+def test_matvec_probe_kernel_matches_plain(dev, variant, m, n):
+    """K-P1: the last of 3 chained operations within 1e-5 of its largest
+    entry of the plain version's (float32 sums in another order; the
+    tensor-core forms at 3xTF32), x within 1e-6; two runs equal."""
+    A, x0, b = _probe_data(dev, m, n, 1 / 40)
+    before = matvec_probe.LAUNCHES
+    x, res = matvec_probe.run_variant(A, x0, b, variant, 3)
+    assert matvec_probe.LAUNCHES == before + 1
+    xr, rr = matvec_probe.run_variant_reference(A, x0, b, variant, 3)
+    torch.cuda.synchronize()
+    if variant == "gradmap_fused":
+        assert _rel(res[0], rr[0]) <= 1e-5 and _rel(res[1], rr[1]) <= 1e-5
+    else:
+        assert _rel(res, rr) <= 1e-5
+    assert _rel(x, xr) <= 1e-6
+    x2, res2 = matvec_probe.run_variant(A, x0, b, variant, 3)
+    assert torch.equal(x, x2)
+    assert all(torch.equal(u, v) for u, v in zip(
+        res if variant == "gradmap_fused" else [res],
+        res2 if variant == "gradmap_fused" else [res2]))
+
+
+@pytest.mark.parametrize("m,n", [(1000, 2048), (37, 100)])
+def test_gradmap_check_kernel_matches_plain_and_float64(dev, m, n):
+    """K-P2: f and g within rel 1e-5 of float64 and of the plain version."""
+    A, x, b = _probe_data(dev, m, n, 1 / 40)
+    before = matvec_probe.CHECK_LAUNCHES
+    f, g, ferr, gerr = matvec_probe.check_gradmap_correct(A, x, b)
+    assert matvec_probe.CHECK_LAUNCHES == before + 1
+    f0, g0 = matvec_probe.gradmap_reference(A, x, b)
+    assert max(ferr, gerr) <= 1e-5
+    assert _rel(f, f0) <= 1e-5 and _rel(g, g0) <= 1e-5
+
+
+TAIL_RUNGS = [(f"L{i}", dict(level=i)) for i in range(7)] + [
+    (f"X-{f}", {"level": 6, f: True}) for f in tail_probe.VARIANTS]
+
+
+@pytest.mark.parametrize("name,kw", TAIL_RUNGS, ids=[r[0] for r in TAIL_RUNGS])
+@pytest.mark.parametrize("m,n", [(1000, 2000), (200, 300)])
+def test_tail_probe_kernel_matches_plain(dev, name, kw, m, n):
+    """K-P3 at K = 3: records, g and τ within 1e-5 of their largest entry
+    of the plain version's (float32 sums in another order), the same
+    trials, x equal to x₀."""
+    A, x0, b = _probe_data(dev, m, n, 1.0)
+    before = tail_probe.LAUNCHES
+    out = tail_probe.make(**kw)(A, b, x0, 3)
+    assert tail_probe.LAUNCHES == before + 1
+    ref = tail_probe.tail_reference(A, b, x0, 3, kw["level"])
+    for got, want in zip(out[1:5], ref[1:5]):
+        if want.any():
+            assert _rel(got, want) <= 1e-5
+        else:  # the records below L6: nothing written
+            assert not got.any()
+    assert int(out.trials) == int(ref.trials)
+    assert torch.equal(out.x, x0) and torch.equal(ref.x, x0)
+
+
+def test_tail_probe_variants_keep_l6_sums(dev):
+    """X2 (one ‖Δx‖²), X3 (decisions in registers), X4 (stacked dots) and
+    X5 (the first trial outside the loop) keep L6's summation order:
+    bit-identical to L6 over 200 iterations."""
+    A, x0, b = _probe_data(dev, 1000, 2000, 1.0)
+    l6 = tail_probe.make(6)(A, b, x0, 200)
+    for flag in ("thread", "vecscal", "fusedred", "condbt"):
+        out = tail_probe.make(6, **{flag: True})(A, b, x0, 200)
+        assert all(torch.equal(u, v) for u, v in zip(out, l6)), flag
+
+
+def test_probe_kernels_reject_what_they_do_not_take(dev):
+    A, x, b = _probe_data(dev, 64, 128, 1.0)
+    run = tail_probe.make(6)
+    for call in (lambda A, x, b: matvec_probe.run_variant(A, x, b,
+                                                          "fwd_vpu", 2),
+                 lambda A, x, b: matvec_probe.gradmap_fused(A, x, b),
+                 lambda A, x, b: run(A, b, x, 2)):
+        with pytest.raises(ValueError, match="contiguous"):
+            call(A.t().contiguous().t(), x, b)
+        with pytest.raises(ValueError, match="float32"):
+            call(A.double(), x.double(), b.double())
+        with pytest.raises(ValueError, match="aligned"):
+            call(A, torch.zeros(129, device=dev)[1:], b)
+        A2, x2, _ = _probe_data(dev, 64, 130, 1.0)
+        with pytest.raises(ValueError, match="n % 4"):
+            call(A2, x2, b)
