@@ -35,13 +35,17 @@ non-zero without the final ``ok`` line):
    loop paths at a fixed 2000 iterations;
 10. K-B5 (fused TV gradient map) against its plain version at 512×512,
     509×517 and 4096×4096 float32, with stream times over 20 runs;
-11. K-B6 (whole TV-dual solve) against its plain version at 512×512,
-    adaptive and FISTA, hp on (to tol 1e-5) and off (300 iterations), and
-    the nonfinite abort;
+11. K-B6 (whole TV-dual solve) against its plain version at 512×512 on
+    its resident route (the route counter proves it), adaptive and FISTA,
+    hp on (to tol 1e-5) and off (300 iterations), and the nonfinite
+    abort; µs an iteration at a fixed 2000 iterations at 512×512 and at
+    16×16 (the floor: barriers, reductions, decisions); the global route
+    past the gate, 2048×2048 for 300 iterations, against its plain
+    version, and its µs an iteration;
 12. K-B6p: the cold and the warm adaptive TV path and the warm FISTA
     path over μ = 0.4, 0.2, 0.1, 0.05 (tol 1e-4) against the plain
     version, each point against a separate K-B6 launch from the start
-    that the path's carry gives it;
+    that the path's carry gives it, on the resident route;
 13. the TV main path — ``Problem.microsolve`` (adaptive, FISTA),
     ``Problem.solve`` and ``Problem.microsolve_sweep`` (cold, warm) on
     ``problems.build("tv", device="cuda")`` (512×512) — against a float64
@@ -72,7 +76,8 @@ non-zero without the final ``ok`` line):
     instances, adaptive and FISTA, per-instance τ₀, each instance
     bit-identical to a separate K-B1 launch, two against the plain batch;
 20. K-B6b: TV 512×512, 8 images, adaptive and FISTA, each bit-identical
-    to a separate K-B6 launch, one against the plain version;
+    to a separate K-B6 launch, one against the plain version, on the
+    resident route;
 21. K-B8b: planar phase retrieval 16384×256, 16 instances, as phase 19;
 22. the serving main path — ``recommend_path(...).run(bs)`` and
     ``Problem.solve_serving`` on TV 512×512 × 8, LASSO 1000×2000 × 32 and
@@ -105,9 +110,10 @@ non-zero without the final ``ok`` line):
 28. K-P2 (the one-pass gradient-map check) at 1000×2048 against its plain
     version and float64;
 29. K-P1 (the GEMV formulation probe): every formulation at 1000×2048
-    against its plain version, then µs per chained operation at K = 2000
-    beside ``torch.mv``'s card time (a CUDA graph of calls, and its
-    kernels in a ``profiling.trace``);
+    against its plain version, two runs equal, then the barrier alone (K
+    grid barriers of each kind, nothing else) and µs per chained
+    operation at K = 2000 beside ``torch.mv``'s card time (a CUDA graph
+    of calls, and its kernels in a ``profiling.trace``);
 30. K-P3 (the tail-ablation ladder) at 1000×2000: every rung L0…L6 and X
     variant against its plain version at K = 3, then µs per iteration at
     K = 5000 beside K-B1 (``microsolve_lasso``) at the same K.
@@ -306,6 +312,9 @@ def reset_launches() -> None:
     microsolver.LAUNCHES = microsolver.PATH_LAUNCHES = 0
     tv_fused.LAUNCHES = 0
     microsolver_tv.LAUNCHES = microsolver_tv.PATH_LAUNCHES = 0
+    microsolver_tv.LAUNCHES_RESIDENT = 0
+    microsolver_tv.PATH_LAUNCHES_RESIDENT = 0
+    microsolver_tv.BATCH_LAUNCHES_RESIDENT = 0
     planar_fused.LAUNCHES = microsolver_planar.LAUNCHES = 0
     planar_probe.LAUNCHES = 0
     prox_fused.LAUNCHES = 0
@@ -329,6 +338,9 @@ def read_launches() -> dict:
             "K-B4": prox_fused.LAUNCHES,
             "K-B1b": microsolver.BATCH_LAUNCHES,
             "K-B6b": microsolver_tv.BATCH_LAUNCHES,
+            "K-B6 resident": microsolver_tv.LAUNCHES_RESIDENT,
+            "K-B6p resident": microsolver_tv.PATH_LAUNCHES_RESIDENT,
+            "K-B6b resident": microsolver_tv.BATCH_LAUNCHES_RESIDENT,
             "K-B8b": microsolver_planar.BATCH_LAUNCHES,
             "K-B3 bf16": lstsq_fused.BF16_LAUNCHES,
             "K-B3p bf16": lstsq_fused.POINTWISE_BF16_LAUNCHES,
@@ -946,7 +958,10 @@ def phase_tv_microsolver() -> dict:
                       restart_dd=hp, record_bts=True)
             if not hp:
                 kw.update(max_iters=300, stop_rule="iterations")
+            before = microsolver_tv.LAUNCHES_RESIDENT
             out = microsolver_tv.microsolve_tv(b, p0, 2.0, mu, **kw)
+            require(microsolver_tv.LAUNCHES_RESIDENT == before + 1,
+                    "K-B6 at 512x512 did not take the resident route")
             t0 = time.perf_counter()
             ref = microsolver_tv.microsolve_tv_reference(b, p0, 2.0, mu, **kw)
             torch.cuda.synchronize()
@@ -991,19 +1006,91 @@ def phase_tv_microsolver() -> dict:
           f"after {int(bad_ref.iteration_count)}")
     require(bad.status == bad_ref.status == "nonfinite",
             "K-B6 did not abort a nonfinite solve")
+    glob = tv_global_route(mu)
+    worst = max(worst, glob.pop("image_err"))
+    split = tv_split(b, p0, mu)
     kern, plain, (tried, k) = timed[(False, True)]
     h = w = 512
+    hbm_state = k * tv_iteration_bytes(h, w, False) / HBM_BYTES_PER_S * 1e3
+    print(f"[11 K-B6] resident route at 512x512: {kern / k * 1e3:.3f} us an "
+          f"iteration to tol 1e-5, "
+          f"{split['us_per_iteration']:.3f} us at 2000 iterations; 16x16 "
+          f"floor {split['floor_us_per_iteration']:.3f} us an iteration; "
+          f"global route at 2048x2048 "
+          f"{glob['us_per_iteration']:.3f} us an iteration; hbm_state_ms "
+          f"{hbm_state:.3f} (36 B a pixel an iteration through HBM)")
     # b and p₀ in; p and the k entries of taus, residuals and backtracks
     # out
     return dict(max_abs_err=worst, ms=kern, plain_ms=plain,
                 **bound(4.0 * (h * w + 2 * h * w + 2 * h * w + 3 * k),
                         tv_flops(h, w, tried, k, 1, False)),
-                hbm_state_ms=k * tv_iteration_bytes(h, w, False)
-                / HBM_BYTES_PER_S * 1e3,
+                hbm_state_ms=hbm_state,
                 library_ms=None, iterations=k, trials=tried,
                 ms_fista=timed[(True, True)][0],
                 plain_ms_fista=timed[(True, True)][1],
-                iterations_fista=timed[(True, True)][2][1])
+                iterations_fista=timed[(True, True)][2][1], **split,
+                global_route_2048x2048=glob)
+
+
+def tv_split(b, p0, mu, iters: int = 2000) -> dict:
+    """K-B6 adaptive, hp, for a fixed ``iters`` iterations at 512×512 (b)
+    and at 16×16, where a trial is only its barrier, reductions and
+    decision: µs an iteration (CUDA events around one launch, median of
+    3), both on the resident route."""
+    small = problems.build("tv", h=16, w=16, device=DEV)
+    out = {}
+    for tag, (bb, pp, m) in (("", (b, p0, mu)),
+                             ("floor_", (small.fterm.b, small.x0,
+                                         float(small.instance["mu"])))):
+        before = microsolver_tv.LAUNCHES_RESIDENT
+        ms = cuda_ms(lambda: microsolver_tv.microsolve_tv(
+            bb, pp, 2.0, m, max_iters=iters, tol=0.0,
+            stop_rule="iterations"), 3, warmup=1)
+        require(microsolver_tv.LAUNCHES_RESIDENT == before + 4,
+                f"K-B6 at {tuple(bb.shape)} left the resident route")
+        out[f"{tag}us_per_iteration"] = ms / iters * 1e3
+    return out
+
+
+def tv_global_route(mu, side: int = 2048, iters: int = 300) -> dict:
+    """K-B6 past the resident route's gate, at side×side on the global
+    route: 300 iterations, adaptive, hp, against the plain version under
+    phase 11's checks (the first 10 taus rtol 1e-3, residuals rtol 1e-3 /
+    atol 1e-6, backtracks equal, the float64 dual objective within 1e-5),
+    then µs an iteration (median of 3)."""
+    prob = problems.build("tv", h=side, w=side, device=DEV)
+    b, p0 = prob.fterm.b, prob.x0
+    kw = dict(max_iters=iters, tol=0.0, stop_rule="iterations",
+              record_bts=True)
+    before = (microsolver_tv.LAUNCHES, microsolver_tv.LAUNCHES_RESIDENT)
+    out = microsolver_tv.microsolve_tv(b, p0, 2.0, mu, **kw)
+    require((microsolver_tv.LAUNCHES, microsolver_tv.LAUNCHES_RESIDENT)
+            == (before[0] + 1, before[1]),
+            f"K-B6 at {side}x{side} did not take the global route")
+    ref = microsolver_tv.microsolve_tv_reference(b, p0, 2.0, mu, **kw)
+    torch.cuda.synchronize()
+    tau_err = float(((out.taus[:10] - ref.taus[:10]).abs()
+                     / ref.taus[:10]).max())
+    res_ok = torch.allclose(out.residuals[:10], ref.residuals[:10],
+                            rtol=1e-3, atol=1e-6)
+    bt_ok = torch.equal(out.backtracks[:10], ref.backtracks[:10])
+    f1, f2 = tv_objective(b, mu, out.x), tv_objective(b, mu, ref.x)
+    rel_f = abs(f1 - f2) / abs(f2)
+    img = tv_image_err(b, mu, out.x, ref.x)
+    ms = cuda_ms(lambda: microsolver_tv.microsolve_tv(b, p0, 2.0, mu, **kw),
+                 3, warmup=1)
+    print(f"[11 K-B6 global route {side}x{side}] {iters} iterations: taus[:10] "
+          f"max rel {tau_err:.2e} (tol 1e-3); residuals[:10] allclose "
+          f"{res_ok}; backtracks[:10] equal {bt_ok}; objective rel "
+          f"{rel_f:.2e} (tol 1e-5); image max|dx| {img:.2e}; kernel "
+          f"{ms:.3f} ms (median of 3, {ms / iters * 1e3:.3f} us an "
+          f"iteration)")
+    require(tau_err <= 1e-3 and res_ok and bt_ok and rel_f <= 1e-5,
+            "K-B6's global route disagrees with its plain version")
+    return dict(ms=ms, us_per_iteration=ms / iters * 1e3, iterations=iters,
+                image_err=img,
+                hbm_state_ms=iters * tv_iteration_bytes(side, side, False)
+                / HBM_BYTES_PER_S * 1e3)
 
 
 TV_MUS = [0.4, 0.2, 0.1, 0.05]
@@ -1054,8 +1141,11 @@ def phase_tv_path() -> dict:
     out = {}
     for warm, accelerate in ((False, False), (True, False), (True, True)):
         kw = dict(record_bts=True, accelerate=accelerate, **TV_PATH_KW)
+        before = microsolver_tv.PATH_LAUNCHES_RESIDENT
         ker = microsolver_tv.microsolve_tv_path(b, p0, 2.0, TV_MUS, warm=warm,
                                                 **kw)
+        require(microsolver_tv.PATH_LAUNCHES_RESIDENT == before + 1,
+                "K-B6p at 512x512 did not take the resident route")
         t0 = time.perf_counter()
         ref = microsolver_tv.microsolve_tv_path_reference(
             b, p0, 2.0, TV_MUS, warm=warm, **kw)
@@ -1195,6 +1285,9 @@ def phase_tv_main_path() -> dict:
     for kernel in ("K-B5", "K-B6", "K-B6p"):
         require(launches[kernel] >= 1,
                 f"{kernel} never launched on the TV main path: {launches}")
+    for kernel in ("K-B6", "K-B6p"):
+        require(launches[f"{kernel} resident"] == launches[kernel],
+                f"{kernel} left the resident route at 512x512: {launches}")
     require(launches["K-B1"] == launches["K-B1p"] == launches["K-B3"]
             == launches["K-B3p"] == 0,
             f"the TV path launched a dense kernel: {launches}")
@@ -1754,7 +1847,10 @@ def phase_batch_tv() -> dict:
     for accelerate in (False, True):
         kw = dict(max_iters=5000, tol=1e-5, accelerate=accelerate,
                   record_bts=True)
+        before = microsolver_tv.BATCH_LAUNCHES_RESIDENT
         out = microsolver_tv.microsolve_tv_batch(bs, p0, 2.0, mu, **kw)
+        require(microsolver_tv.BATCH_LAUNCHES_RESIDENT == before + 1,
+                "K-B6b at 512x512 did not take the resident route")
         singles = [microsolver_tv.microsolve_tv(bs[i], p0, 2.0, mu, **kw)
                    for i in range(B)]
         same = identical(out, singles)
@@ -2734,10 +2830,12 @@ def phase_matvec_probe() -> dict:
     """K-P1 at 1000×2048: every formulation against its plain version at
     K = 3 on the last operation's result (rel 1e-5 of its largest entry:
     float32 sums in another order; the tensor-core forms at 3×TF32), x
-    within 1e-6 of its largest entry; then µs per operation at K = 2000
-    (CUDA events around one launch, median of 3), the GB/s of one read of
-    A per operation, the same chains over a 16×16 corner of A (the grid
-    barrier's floor), and the card time of torch.mv(A, x) / torch.mv(A.mT,
+    within 1e-6 of its largest entry, two runs equal; then the barrier
+    alone (K grid barriers of each kind, no load, no update), µs per
+    operation at K = 2000 (CUDA events around one launch, median of 3),
+    the GB/s of one read of A per operation, the same chains over a 16×16
+    corner of A (the barrier with its dependent load and update), and the
+    card time of torch.mv(A, x) / torch.mv(A.mT,
     r) per call (200 calls in one CUDA graph, ``graph_ms``) as the library
     time of the fwd and adj rows, beside their kernels' own time in a
     ``profiling.trace``.  TF32 is off for torch.mv (phase 1)."""
@@ -2746,15 +2844,21 @@ def phase_matvec_probe() -> dict:
     worst = 0.0
     for v in matvec_probe.VARIANTS:
         x, res = matvec_probe.run_variant(A, x0, b, v, 3)
+        x2, res2 = matvec_probe.run_variant(A, x0, b, v, 3)
         xr, rr = matvec_probe.run_variant_reference(A, x0, b, v, 3)
         torch.cuda.synchronize()
         err = max(rel_err(res[0], rr[0]), rel_err(res[1], rr[1])) \
             if v == "gradmap_fused" else rel_err(res, rr)
         err_x = rel_err(x, xr)
+        same = torch.equal(x, x2) and all(
+            torch.equal(u, w) for u, w in zip(
+                res if v == "gradmap_fused" else [res],
+                res2 if v == "gradmap_fused" else [res2]))
         print(f"[29 K-P1 {v}] last of 3 ops rel {err:.3e} (tol 1e-5); x rel "
-              f"{err_x:.3e} (tol 1e-6), equal {torch.equal(x, xr)}")
-        require(err <= 1e-5 and err_x <= 1e-6,
-                f"K-P1 {v} disagrees with its plain version")
+              f"{err_x:.3e} (tol 1e-6), equal {torch.equal(x, xr)}; two "
+              f"runs equal {same}")
+        require(err <= 1e-5 and err_x <= 1e-6 and same,
+                f"K-P1 {v} disagrees with its plain version or itself")
         worst = max(worst, err)
     K, nbytes = 2000, 4.0 * m * n
     bd = bound(nbytes + 8.0 * n, 2.0 * m * n)
@@ -2771,6 +2875,13 @@ def phase_matvec_probe() -> dict:
               + ("no kernel events (not measured)" if us is None else
                  f"{us:.3f} us a call ({', '.join(names)})"))
     reset_launches()
+    # the barrier alone, each kind: K barriers and nothing else
+    alone = {kind: cuda_ms(lambda kind=kind: matvec_probe.run_barriers(
+        K, DEV, kind), 3, warmup=1) / K for kind in matvec_probe.BARRIERS}
+    print(f"[29 K-P1 barrier alone] " + ", ".join(
+        f"{kind} {t * 1e3:.3f} us" for kind, t in alone.items())
+        + f" a barrier (K = {K}, median of 3); the forms end each op with "
+        f"{matvec_probe.BARRIERS[0]}")
     per = {}
     for v in matvec_probe.VARIANTS:
         ms = cuda_ms(lambda v=v: matvec_probe.run_variant(A, x0, b, v, K), 3,
@@ -2801,6 +2912,7 @@ def phase_matvec_probe() -> dict:
     return dict(max_abs_err=worst, ms=per["fwd_vpu"], plain_ms=plain, **bd,
                 library_ms=lib["fwd"], launches_timed=launches,
                 us_per_op={v: t * 1e3 for v, t in per.items()},
+                barrier_alone_us={k: t * 1e3 for k, t in alone.items()},
                 torch_mv_us={k: t * 1e3 for k, t in lib.items()},
                 torch_mv_traced_kernel_us=traced,
                 floor_16x16_us={k: t * 1e3 for k, t in floor.items()},

@@ -172,6 +172,41 @@ __device__ __forceinline__ void reduce_partials(const double* P, int nb, bool ne
   }
 }
 
+// Warps 0…kCommon−1 of every block (and two more when the objective's g
+// or the restart dot is wanted): the sums over blocks of a trial's
+// partials P into tot, one slot a warp, lane-strided then a shuffle tree —
+// reduce_partials' order, but every slot's loads start at once, eight a
+// lane, so the sums wait on one trip to L2 rather than one for each 32
+// blocks.  Every thread of the block may call it.
+template <typename Acc, bool ACCEL>
+__device__ __forceinline__ void reduce_partials_wide(const double* P, int nb, bool need_gx,
+                                                     bool rdd, double* tot) {
+  const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;
+  if (s >= ((need_gx || ACCEL) ? kReduced : kCommon)) return;
+  const bool wide = acc_slot(s) || (s == kRdot && rdd);
+  Acc sa = Acc(0);
+  float sf = 0.f;
+  double sd = 0.0;
+  for (int i0 = 0; i0 < nb; i0 += 256) {
+    double v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + lane + 32 * u;
+      v[u] = i < nb ? __ldcg(P + s * nb + i) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      sa += Acc(v[u]);
+      sf += float(v[u]);
+      sd += v[u];
+    }
+  }
+  // the restart dot in FP64 (restart_dd), the other Acc slots in Acc
+  const double tsum = wide ? (s == kRdot ? warp_sum(sd) : double(warp_sum(sa)))
+                           : double(warp_sum(sf));
+  if (lane == 0) tot[s] = tsum;
+}
+
 // Thread 0 of every block: the decision after a trial from the reduced
 // scalars tot (f = fscale·tot[kF]), gobj being g at the trial's prox
 // point for the objective record.  Backtracks (τ shrinks) or accepts;

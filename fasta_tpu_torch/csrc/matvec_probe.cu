@@ -23,23 +23,43 @@
 // operation.
 //
 // Design: one persistent cooperative launch, one block per SM, 512
-// threads.  Each TPU formulation maps to this card's counterpart:
-//  * fwd_vpu: a warp per row, 16-byte loads of A, x staged in every
-//    block's shared memory (K-B1's phase 2).  The forward variants keep x
-//    in every block's shared memory and update it there from d₀ (or s),
-//    read after the barrier: one barrier an operation.
+// threads.  Each TPU formulation maps to this card's counterpart.  The
+// forward forms (redesigned for the H100: every warp of every block takes
+// a share of A, and every load of A is coalesced) keep x in every block's
+// shared memory and update it there from d₀ (or s), read after the
+// barrier: one barrier an operation.  Block k takes rows (strips, tiles)
+// ⌊k·count/nb⌋ to ⌊(k+1)·count/nb⌋, so the split is a function of the
+// shape and the grid alone, and the partial sums meet in a fixed order:
+//  * fwd_vpu (K-B1's phase F): each of the block's rows is split over
+//    S = 16 / rows warps (at least one) in contiguous column ranges; a
+//    lane takes 16-byte loads of A 32 apart, eight in flight, and the
+//    warps' sums of a row meet in shared memory in warp order.  A lane's
+//    first eight loads of the next operation (fwd_strip: its column of
+//    the first strip's 8 rows) are issued between the block's arrival at
+//    the barrier that ends this one and its wait, so they travel while the
+//    block waits (A does not depend on x) and the arrival's release does
+//    not wait for them.  Every load of A is volatile, so each operation
+//    reads A once.
 //  * fwd_mxu / adj_mxu: tensor cores at float32 accuracy, the counterpart
 //    of Precision.HIGHEST: mma.sync.m16n8k8 TF32 through inline PTX with
-//    the 3×TF32 split (lo·hi + hi·lo + hi·hi, cvt.rna.tf32.f32); the vector
-//    is column 0 of the 8-wide operand, the other seven are zero.  A block
-//    takes a tile of 16 rows (forward) or 16 columns (adjoint) and its
-//    warps split the reduction dimension in steps of 8; their sums meet
-//    in shared memory in warp order.  32-bit types have no ldmatrix
-//    transpose, so fragments are loaded as scalars.
-//  * fwd_strip: a warp per strip of 8 rows, a register accumulator per row,
-//    only Σd kept; fwd_strip_auto: a thread per row and a plain loop left
-//    to the compiler.  Strip sums meet as block partials, summed by every
-//    block in block order.
+//    the 3×TF32 split (lo·hi + hi·lo + hi·hi, cvt.rna.tf32.f32).  Forward:
+//    A is the B operand, a tile of 8 rows of A as its 8 columns, and x is
+//    row 0 of the 16-row A operand (the wasted dimension), so the 125
+//    tiles of 1000 rows fill the grid; the 16 warps split the reduction
+//    in chunks of 32 columns.  A lane loads its row's 8 consecutive
+//    columns of a chunk with two 16-byte loads and feeds them to four
+//    k-steps, k permuted the same way in A and x (the sum over k does not
+//    depend on its order).  Adjoint: a block takes a tile of 16 columns
+//    and its warps split the rows in steps of 8, with scalar fragment
+//    loads (32-bit types have no ldmatrix transpose).  Warp sums meet in
+//    shared memory in warp order.
+//  * fwd_strip: strips of 8 rows; the 16 warps of a block split a strip's
+//    columns, a lane keeps a register accumulator per row over 16-byte
+//    loads; only Σd is kept.  fwd_strip_auto: the same strips and column
+//    split, each lane a plain loop over its columns and the strip's rows
+//    left to the compiler (no hand-written vector loads or shuffles in
+//    its row sums).  Lane sums meet in the block sum; block partials are
+//    summed by every block in block order.
 //  * gradmap (K-P2's pass): a warp per row computes rᵢ = aᵢᵀx − bᵢ and at
 //    once adds rᵢ·aᵢ into its warp's share of g in shared memory (the row
 //    is read from L2 once; its second touch hits L1); the warps' shares
@@ -50,12 +70,18 @@
 //    pairs, the row lanes' sums added by a fixed pairwise tree (as K-P4's
 //    adjoint).  The adjoint variants keep x in device memory, double-
 //    buffered by operation parity, each column updated by its owner.
+//  * The barrier-alone form runs K grid barriers and nothing else: the
+//    floor under every chained operation, with grid_barrier.cuh's barrier
+//    or, when the wrapper passes no counter, cooperative_groups'
+//    grid.sync (1.06 against 1.19 µs on an H100).  Every form ends its
+//    operations with grid_barrier.cuh's.
 //  * No atomics anywhere: the same result on every run.  Values other
 //    blocks wrote are read past L1 (__ldcg).  Elementwise updates use the
 //    _rn intrinsics, so they round as the plain PyTorch version does.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "grid_barrier.cuh"
 #include "reduce.cuh"
 
 namespace cg = cooperative_groups;
@@ -67,8 +93,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileCols = 16;
 constexpr int kRowLanes = kThreads / (kTileCols / 4);
 
-// in the order of kernels.matvec_probe.VARIANTS
-enum Variant { kFwdVpu, kFwdMxu, kFwdStrip, kFwdStripAuto, kGradmap, kAdjVpu, kAdjMxu, kCount };
+// in the order of kernels.matvec_probe.VARIANTS, then the barrier alone
+enum Variant {
+  kFwdVpu, kFwdMxu, kFwdStrip, kFwdStripAuto, kGradmap, kAdjVpu, kAdjMxu, kBarrier, kCount
+};
 
 struct Args {
   const float* A;  // (m, n), rows 16-byte aligned
@@ -82,7 +110,13 @@ struct Args {
   float* gpart;   // (nblocks, n): gradmap's per-block partial g
   double* fpart;  // (2, nblocks): strip sums or f partials by parity
   float* scal;    // (1,): the last strip sum or f
+  unsigned* bar;  // grid_barrier's counter, zero at launch; null: grid.sync
 };
+
+// rows (strips, tiles) ⌊k·count/nb⌋ to ⌊(k+1)·count/nb⌋ of block k
+__device__ __forceinline__ int share(int k, int count, int nb) {
+  return (int)((long long)k * count / nb);
+}
 
 __device__ __forceinline__ unsigned to_tf32(float v) {
   unsigned r;
@@ -116,6 +150,25 @@ __device__ __forceinline__ void mma3(float* c, const float* av, const float* bv)
   mma(c, ah, bh);
 }
 
+// 16 bytes of A through the read-only path, issued where it is written:
+// volatile, so the compiler neither hoists the load of a later operation
+// out of the chain nor merges it with an earlier one's — each operation
+// reads its share of A once
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float dot4(float4 v, float4 w, float s) {
+  s = fmaf(v.x, w.x, s);
+  s = fmaf(v.y, w.y, s);
+  s = fmaf(v.z, w.z, s);
+  return fmaf(v.w, w.w, s);
+}
+
 __device__ __forceinline__ float ld_a(const Args& a, int r, int c) {
   return (r < a.m && c < a.n) ? __ldg(a.A + (size_t)r * a.n + c) : 0.f;
 }
@@ -128,12 +181,25 @@ __device__ __forceinline__ float warp_allsum(float v) {
   return v;
 }
 
-// Σ over the blocks' partials P (nb,) in block order, by warp 0; the value
-// in every thread after the call
+// Σ over the blocks' partials P (nb,) by warp 0, lane-strided then a
+// shuffle tree (warp_sum_global's order), eight loads in flight a lane;
+// the value in every thread after the call
 __device__ __forceinline__ float grid_total(const double* P, int nb, float* slot) {
   if (threadIdx.x < 32) {
-    const float v = fasta::warp_sum_global<float>(P, nb);
-    if (threadIdx.x == 0) *slot = v;
+    const int lane = threadIdx.x;
+    float v = 0.f;
+    for (int i0 = 0; i0 < nb; i0 += 256) {
+      double w[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + lane + 32 * u;
+        w[u] = i < nb ? __ldcg(P + i) : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v += float(w[u]);
+    }
+    v = fasta::warp_sum(v);
+    if (lane == 0) *slot = v;
   }
   __syncthreads();
   return *slot;
@@ -157,11 +223,59 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
   float* xs = dyn;                          // (n,)
   float* gw = dyn + n;                      // gradmap: (kWarps, n)
   const float4* xs4 = reinterpret_cast<const float4*>(xs);
+  unsigned gen = 0;
+  // the grid barrier; with grid_barrier.cuh's, `during` runs between the
+  // arrival and the wait
+  auto sync_with = [&](auto during) {
+    if (a.bar) {
+      fasta::grid_arrive(a.bar, gen);
+      during();
+      fasta::grid_wait(a.bar, nb, gen);
+    } else {
+      during();
+      grid.sync();
+    }
+  };
+  auto sync = [&]() { sync_with([] {}); };
 
+  if (V == kBarrier) {
+    for (int k = 0; k < a.K; ++k) sync();
+    return;
+  }
   if (STAGED && V != kGradmap) {
     for (int j = tid; j < n; j += kThreads) xs[j] = __ldg(a.x0 + j);
     __syncthreads();
   }
+  // fwd_vpu: the block's rows, each split over S warps in contiguous
+  // column ranges (S = 1: the warps take whole rows in turn); fwd_strip:
+  // the block's strips of 8 rows, the warps splitting each strip's columns
+  const int r0 = share(blk, m, nb), rows = share(blk + 1, m, nb) - r0;
+  const int S = rows > 0 && rows < kWarps ? kWarps / rows : 1;
+  const int nstrips = (m + 7) / 8, s0 = share(blk, nstrips, nb), s1 = share(blk + 1, nstrips, nb);
+  const int sq0 = share(warp, n4, kWarps), sq1 = share(warp + 1, n4, kWarps);
+  // The first 8 loads of a lane in fwd_vpu (its warp's first row range,
+  // 32 apart) and fwd_strip (its first column of the block's first strip,
+  // 8 rows), issued during the barrier that ends the previous operation.
+  float4 pre[8];
+  auto prefetch = [&]() {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (V == kFwdVpu) {
+      const bool has = warp < rows * S;
+      const int i = r0 + warp / S, c = warp % S;
+      const int q = share(c, n4, S) + lane, q1 = share(c + 1, n4, S);
+      const float4* r4 = reinterpret_cast<const float4*>(a.A + (size_t)i * n);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) pre[u] = has && q + 32 * u < q1 ? ld_stream(r4 + q + 32 * u) : zero;
+    } else if (V == kFwdStrip) {
+      const int q = sq0 + lane;
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        pre[r] = s0 < s1 && q < sq1 && s0 * 8 + r < m
+                     ? ld_stream(reinterpret_cast<const float4*>(a.A + (size_t)(s0 * 8 + r) * n) + q)
+                     : zero;
+    }
+  };
+  prefetch();
   for (int k = 0; k < a.K; ++k) {
     const int par = k & 1;
     const bool last = k + 1 == a.K;
@@ -171,87 +285,126 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
     if (V == kFwdVpu || V == kFwdMxu) {
       float* d = a.dbuf + (size_t)par * m;
       if (V == kFwdVpu) {
-        for (int i = gwarp; i < m; i += gwarps) {
+        for (int t = warp; t < rows * S; t += kWarps) {
+          const int i = r0 + t / S, c = t % S;
+          const int q1 = share(c + 1, n4, S);
           const float4* r4 = reinterpret_cast<const float4*>(a.A + (size_t)i * n);
           float s = 0.f;
-#pragma unroll 4
-          for (int q = lane; q < n4; q += 32) {
-            const float4 v = __ldg(r4 + q), w = xs4[q];
-            s = fmaf(v.x, w.x, s);
-            s = fmaf(v.y, w.y, s);
-            s = fmaf(v.z, w.z, s);
-            s = fmaf(v.w, w.w, s);
+          int q = share(c, n4, S) + lane;
+          if (t == warp) {
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (q + 32 * u < q1) s = dot4(pre[u], xs4[q + 32 * u], s);
+            q += 8 * 32;
           }
+#pragma unroll 8
+          for (; q < q1; q += 32) s = dot4(ld_stream(r4 + q), xs4[q], s);
           s = fasta::warp_sum(s);
-          if (lane == 0) d[i] = s;
+          if (lane == 0) {
+            if (S == 1)
+              d[i] = s;
+            else
+              fscr[t] = s;
+          }
+        }
+        if (S > 1) {
+          __syncthreads();
+          if (tid < rows) {
+            float s = 0.f;
+            for (int c = 0; c < S; ++c) s += fscr[tid * S + c];
+            d[r0 + tid] = s;
+          }
         }
       } else {
-        const int ntiles = (m + 15) / 16, nks = (n + 7) / 8;
-        for (int t = blk; t < ntiles; t += nb) {
-          const int r0 = t * 16 + g8, r1 = r0 + 8;
+        // tiles of 8 rows of A as the B operand, x as row 0 of the A
+        // operand; the warps split the columns in chunks of 32
+        const int ntiles = (m + 7) / 8, nchunks = (n + 31) / 32;
+        const int c0 = share(warp, nchunks, kWarps), c1 = share(warp + 1, nchunks, kWarps);
+        for (int t = share(blk, ntiles, nb); t < share(blk + 1, ntiles, nb); ++t) {
+          const int row = t * 8 + g8;
           float c[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int ks = warp; ks < nks; ks += kWarps) {
-            const int k0 = ks * 8 + tq, k1 = k0 + 4;
-            const float av[4] = {ld_a(a, r0, k0), ld_a(a, r1, k0), ld_a(a, r0, k1),
-                                 ld_a(a, r1, k1)};
-            const float bv[2] = {(g8 == 0 && k0 < n) ? xs[k0] : 0.f,
-                                 (g8 == 0 && k1 < n) ? xs[k1] : 0.f};
-            mma3(c, av, bv);
+          for (int ch = c0; ch < c1; ++ch) {
+            // this lane's 8 consecutive columns of the chunk: A's row and,
+            // in lanes 0-3 (row 0 of the A operand), x
+            const int col = ch * 32 + 8 * tq;
+            float4 av[2], xv[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const bool in = col + 4 * h < n;
+              av[h] = in && row < m
+                          ? __ldg(reinterpret_cast<const float4*>(a.A + (size_t)row * n + col) + h)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+              xv[h] = in && g8 == 0 ? xs4[(col >> 2) + h] : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+            const float ae[8] = {av[0].x, av[0].y, av[0].z, av[0].w,
+                                 av[1].x, av[1].y, av[1].z, av[1].w};
+            const float xe[8] = {xv[0].x, xv[0].y, xv[0].z, xv[0].w,
+                                 xv[1].x, xv[1].y, xv[1].z, xv[1].w};
+#pragma unroll
+            for (int st = 0; st < 4; ++st) {
+              // k = tq ↦ column col + 2st, k = tq + 4 ↦ col + 2st + 1
+              const float xa[4] = {xe[2 * st], 0.f, xe[2 * st + 1], 0.f};
+              const float ab[2] = {ae[2 * st], ae[2 * st + 1]};
+              mma3(c, xa, ab);
+            }
           }
-          if (tq == 0) {
-            red[warp][g8] = c[0];
-            red[warp][g8 + 8] = c[2];
+          if (g8 == 0) {
+            red[warp][2 * tq] = c[0];
+            red[warp][2 * tq + 1] = c[1];
           }
           __syncthreads();
-          if (tid < 16) {
+          if (tid < 8 && t * 8 + tid < m) {
             float s = 0.f;
             for (int w = 0; w < kWarps; ++w) s += red[w][tid];
-            if (t * 16 + tid < m) d[t * 16 + tid] = s;
+            d[t * 8 + tid] = s;
           }
           __syncthreads();
         }
       }
-      grid.sync();
+      sync_with([&] {
+        if (k + 1 < a.K) prefetch();
+      });
       const float step = __fmul_rn(__ldcg(d), 1e-9f);
       for (int j = tid; j < n; j += kThreads) xs[j] = __fadd_rn(xs[j], step);
       __syncthreads();
     } else if (V == kFwdStrip || V == kFwdStripAuto) {
       float part = 0.f;
-      if (V == kFwdStrip) {
-        for (int i0 = gwarp * 8; i0 < m; i0 += gwarps * 8) {
+      for (int t = s0; t < s1; ++t) {
+        const int i0 = t * 8;
+        if (V == kFwdStrip) {
           float acc[8];
 #pragma unroll
           for (int r = 0; r < 8; ++r) acc[r] = 0.f;
-          for (int q = lane; q < n4; q += 32) {
+          for (int q = sq0 + lane; q < sq1; q += 32) {
             const float4 w = xs4[q];
+            const bool first = t == s0 && q == sq0 + lane;
 #pragma unroll
             for (int r = 0; r < 8; ++r) {
               if (i0 + r < m) {
-                const float4 v = __ldg(reinterpret_cast<const float4*>(a.A + (size_t)(i0 + r) * n) + q);
-                acc[r] = fmaf(v.x, w.x, acc[r]);
-                acc[r] = fmaf(v.y, w.y, acc[r]);
-                acc[r] = fmaf(v.z, w.z, acc[r]);
-                acc[r] = fmaf(v.w, w.w, acc[r]);
+                const float4 v =
+                    first ? pre[r]
+                          : ld_stream(reinterpret_cast<const float4*>(a.A + (size_t)(i0 + r) * n) + q);
+                acc[r] = dot4(v, w, acc[r]);
               }
             }
           }
-          float s = 0.f;
 #pragma unroll
-          for (int r = 0; r < 8; ++r) s += acc[r];
-          s = fasta::warp_sum(s);
-          if (lane == 0) part += s;
-        }
-      } else {
-        for (int i = gtid; i < m; i += gthreads) {
-          const float* row = a.A + (size_t)i * n;
-          float s = 0.f;
-          for (int j = 0; j < n; ++j) s = fmaf(__ldg(row + j), xs[j], s);
-          part += s;
+          for (int r = 0; r < 8; ++r) part += acc[r];
+        } else {
+          // a plain loop over this lane's columns, 32 apart; the strip's
+          // row sums as the compiler makes them
+          float d8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          for (int j = 4 * sq0 + lane; j < 4 * sq1; j += 32)
+            for (int r = 0; r < 8; ++r)
+              if (i0 + r < m) d8[r] = fmaf(a.A[(size_t)(i0 + r) * n + j], xs[j], d8[r]);
+          for (int r = 0; r < 8; ++r) part += d8[r];
         }
       }
       part = fasta::block_sum(part, fscr);
       if (tid == 0) a.fpart[par * nb + blk] = part;
-      grid.sync();
+      sync_with([&] {
+        if (k + 1 < a.K) prefetch();
+      });
       const float s = grid_total(a.fpart + par * nb, nb, &bcast);
       const float step = __fmul_rn(s, 1e-9f);
       for (int j = tid; j < n; j += kThreads) xs[j] = __fadd_rn(xs[j], step);
@@ -296,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
       }
       fp = fasta::block_sum(fp, fscr);
       if (tid == 0) a.fpart[blk] = fp;
-      grid.sync();
+      sync();
       // ---- phase B: g by columns from the block partials, f, the new x
       const float f = __fmul_rn(0.5f, grid_total(a.fpart, nb, &bcast));
       const float fstep = __fmul_rn(f, 1e-12f);
@@ -311,7 +464,7 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
         }
       }
       if (last && gtid == 0) a.scal[0] = f;
-      grid.sync();
+      sync();
     } else {
       // ---- adjoints: g = Aᵀ(x₀·1) by tiles of 16 columns
       const float xr = __ldcg(xk);
@@ -371,7 +524,7 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
         }
         __syncthreads();  // red and tree are rewritten by the next tile
       }
-      grid.sync();
+      sync();
     }
   }
   if (STAGED && V != kGradmap && blk == 0)
@@ -386,7 +539,8 @@ const void* pick(int v) {
     case kFwdStripAuto: return (const void*)matvec_probe_kernel<kFwdStripAuto>;
     case kGradmap: return (const void*)matvec_probe_kernel<kGradmap>;
     case kAdjVpu: return (const void*)matvec_probe_kernel<kAdjVpu>;
-    default: return (const void*)matvec_probe_kernel<kAdjMxu>;
+    case kAdjMxu: return (const void*)matvec_probe_kernel<kAdjMxu>;
+    default: return (const void*)matvec_probe_kernel<kBarrier>;
   }
 }
 
@@ -394,7 +548,7 @@ const void* pick(int v) {
 // shares of g
 size_t smem_bytes(int v, int n) {
   if (v == kGradmap) return (size_t)(kWarps + 1) * n * sizeof(float);
-  return v < kGradmap ? (size_t)n * sizeof(float) : 0;
+  return v < kGradmap ? (size_t)n * sizeof(float) : 0;  // adjoints, the barrier: none
 }
 
 }  // namespace
@@ -430,13 +584,15 @@ extern "C" int fasta_matvec_probe_grid(int variant, int n, int* nblocks) {
 // Run K operations of `variant` on `stream`.  dbuf holds 2m floats, xbuf
 // 2n, gout n, gpart nblocks·n (gradmap only, else may be null), fpart
 // 2·nblocks doubles, scal 1 float.  n % 4 == 0 and A, x0 16-byte aligned.
+// bar is a zeroed counter for grid_barrier.cuh, or null for grid.sync.
+// The barrier alone (variant kBarrier) reads no operand: they may be null.
 extern "C" int fasta_matvec_probe(int variant, const float* A, const float* x0, const float* b,
                                   int m, int n, int K, float* x_out, float* dbuf, float* xbuf,
                                   float* gout, float* gpart, double* fpart, float* scal,
-                                  int nblocks, void* stream) {
+                                  unsigned* bar, int nblocks, void* stream) {
   if (variant < 0 || variant >= kCount || m < 1 || n < 4 || n % 4 || K < 1 || nblocks < 1)
     return cudaErrorInvalidValue;
-  Args args{A, x0, b, m, n, K, x_out, dbuf, xbuf, gout, gpart, fpart, scal};
+  Args args{A, x0, b, m, n, K, x_out, dbuf, xbuf, gout, gpart, fpart, scal, bar};
   void* params[] = {&args};
   const void* fn = pick(variant);
   const size_t smem = smem_bytes(variant, n);

@@ -45,6 +45,45 @@ __device__ __forceinline__ T block_sum(T v, T* scratch) {
   return total;
 }
 
+// Sums over the block of NF floats and NA values of type T at once: a
+// shuffle tree on each value (the trees interleave), one shared-memory
+// round and one __syncthreads, then thread k < NF + NA adds up the k-th
+// value's warp sums in warp order (the floats first, then the Ts) and
+// returns that total as a double; the other threads return 0.  fs holds
+// NF floats and ts NA Ts per warp.  Every thread must call it, and no
+// thread may write fs or ts again before the block has passed another
+// barrier (a grid barrier is one).
+template <int NF, int NA, typename T>
+__device__ __forceinline__ double block_sums(float (&f)[NF], T (&t)[NA], float* fs, T* ts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int k = 0; k < NF; ++k) f[k] = warp_sum(f[k]);
+#pragma unroll
+  for (int k = 0; k < NA; ++k) t[k] = warp_sum(t[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) fs[warp * NF + k] = f[k];
+#pragma unroll
+    for (int k = 0; k < NA; ++k) ts[warp * NA + k] = t[k];
+  }
+  __syncthreads();
+  const int k = threadIdx.x;
+  if (k < NF) {
+    float s = 0.f;
+#pragma unroll 16
+    for (int w = 0; w < nwarps; ++w) s += fs[w * NF + k];
+    return s;
+  }
+  if (k < NF + NA) {
+    T s = T(0);
+#pragma unroll 16
+    for (int w = 0; w < nwarps; ++w) s += ts[w * NA + k - NF];
+    return double(s);
+  }
+  return 0.0;
+}
+
 // Sum of `count` values stored as double in global memory (written by
 // other blocks before a grid-wide barrier), accumulated in T by one warp
 // in a fixed order; the result is valid in lane 0.  The loads bypass L1,

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "fasta_shrink_step": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "fasta_tv_gradmap_work": [_I, _I, _P],
     "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
-    "fasta_microsolve_tv_grid": [_P],
+    "fasta_microsolve_tv_grid": [_P, _P],
     "fasta_planar_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P],
     "fasta_planar_gradmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P, _P, _P, _P, _P, _P],
@@ -55,7 +55,7 @@ _SIGNATURES = {
     "fasta_bf16_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "fasta_matvec_probe_grid": [_I, _I, _P],
     "fasta_matvec_probe": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                           _P, _P, _I, _P],
+                           _P, _P, _P, _I, _P],
     "fasta_tail_probe_grid": [_P],
     "fasta_tail_probe_work": [_I, _I, _I, _P, _P],
     "fasta_tail_probe": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
@@ -70,7 +70,8 @@ _SIGNATURES = {
                            _P],
     "fasta_microsolve_tv": [_P, _I, _P, _I, _P, _I, _P, _I, _F, _I, _I, _I,
                             _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _I, _P],
+                            _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                            _P],
 }
 
 

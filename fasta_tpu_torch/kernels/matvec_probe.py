@@ -23,6 +23,12 @@ fused pass → (f, g) (``gradmap_fused``), and the relative errors of f
 and g against the float64 formulas.  The TPU probe held them against
 XLA's float32 formulas; float64 is the stricter reference.
 
+``run_barriers(K, device, barrier)`` is the floor under every chained
+operation: K grid barriers in one launch of the probe's grid, with no
+load and no update, of either kind: ``"hand"``, the one written out in
+``csrc/grid_barrier.cuh``, with which every operation ends (the faster on
+an H100), or ``"grid_sync"``, cooperative_groups' ``grid.sync``.
+
 The CUDA source is ``fasta_tpu_torch/csrc/matvec_probe.cu`` (its header
 note gives the design and how each TPU formulation maps to this card).
 The wrappers launch the kernel for CUDA tensors and run the plain
@@ -40,17 +46,22 @@ import torch
 from . import _build
 
 __all__ = ["run_variant", "run_variant_reference", "gradmap_fused",
-           "check_gradmap_correct", "gradmap_reference", "VARIANTS",
-           "LAUNCHES", "CHECK_LAUNCHES"]
+           "check_gradmap_correct", "gradmap_reference", "run_barriers",
+           "VARIANTS", "BARRIERS", "LAUNCHES", "CHECK_LAUNCHES"]
 
-# Launches of K-P1 (run_variant) and of K-P2 (gradmap_fused),
-# each counted where it launches, nowhere else.
+# Launches of K-P1 (run_variant, run_barriers) and of K-P2
+# (gradmap_fused), each counted where it launches, nowhere else.
 LAUNCHES = 0
 CHECK_LAUNCHES = 0
 
 # The formulations, in the order of the kernel's codes
 VARIANTS = ("fwd_vpu", "fwd_mxu", "fwd_strip", "fwd_strip_auto",
             "gradmap_fused", "adj_vpu", "adj_mxu")
+# the kernel's code of the barrier alone
+_BARRIER_CODE = len(VARIANTS)
+# The grid barriers the barrier-alone reading times; operations end with
+# the first.
+BARRIERS = ("hand", "grid_sync")
 
 
 def gradmap_reference(A, x, b):
@@ -94,6 +105,16 @@ def _check(A, x0, b, K, what):
         raise ValueError(f"{what}: no kernel for device {A.device}")
 
 
+def _counter(barrier, dev):
+    """grid_barrier.cuh's zeroed counter for ``barrier="hand"``, else
+    None (grid.sync)."""
+    if barrier not in BARRIERS:
+        raise ValueError(f"unknown barrier {barrier!r} (choose from "
+                         f"{BARRIERS})")
+    return torch.zeros(1, device=dev, dtype=torch.int32) \
+        if barrier == "hand" else None
+
+
 def _launch(code, A, x0, b, K, what):
     """One launch of the kernel; returns (x, d, g, s) of the last
     operation."""
@@ -116,12 +137,14 @@ def _launch(code, A, x0, b, K, what):
     gpart = torch.empty(nb, n, **f32) if VARIANTS[code] == "gradmap_fused" \
         else None
     fpart = torch.empty(2, nb, device=dev, dtype=torch.float64)
+    bar = _counter("hand", dev)
     with _build.on_device(dev) as stream:
         _build.check(_build.library().fasta_matvec_probe(
             code, A.data_ptr(), x0.data_ptr(), b.data_ptr(), m, n, int(K),
             x.data_ptr(), dbuf.data_ptr(), xbuf.data_ptr(), g.data_ptr(),
             None if gpart is None else gpart.data_ptr(), fpart.data_ptr(),
-            scal.data_ptr(), nb, stream), "fasta_matvec_probe")
+            scal.data_ptr(), bar.data_ptr(), nb, stream),
+            "fasta_matvec_probe")
     return x, dbuf[(int(K) - 1) % 2], g, scal[0]
 
 
@@ -145,6 +168,26 @@ def run_variant(A, x0, b, variant: str, K: int):
     if variant.startswith("fwd"):
         return x, d
     return x, ((s, g) if variant == "gradmap_fused" else g)
+
+
+def run_barriers(K: int, device, barrier: str = BARRIERS[0]) -> None:
+    """K grid barriers ``barrier`` in one launch of K-P1's grid on the
+    CUDA ``device``, with no load and no update: the floor under each
+    chained operation.  Nothing runs on the CPU, which has no grid."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"run_barriers: no grid barrier on {dev}")
+    if int(K) < 1:
+        raise ValueError(f"run_barriers needs K >= 1 barriers, got {K}")
+    bar = _counter(barrier, dev)
+    with _build.on_device(dev) as stream:
+        _build.check(_build.library().fasta_matvec_probe(
+            _BARRIER_CODE, None, None, None, 1, 4, int(K), None, None, None,
+            None, None, None, None, None if bar is None else bar.data_ptr(),
+            _grid(dev.index, _BARRIER_CODE, 4), stream),
+            "fasta_matvec_probe")
+    global LAUNCHES
+    LAUNCHES += 1
 
 
 def gradmap_fused(A, x, b):
@@ -183,6 +226,7 @@ def _grid(device_index: int, code: int, n: int) -> int:
         _build.check(_build.library().fasta_matvec_probe_grid(
             code, n, ctypes.byref(nb)), "fasta_matvec_probe_grid")
     if nb.value < 1:
-        raise ValueError(f"the probe's {VARIANTS[code]} kernel cannot be "
-                         f"resident with n = {n} columns on this device")
+        raise ValueError(f"the probe's {(*VARIANTS, 'barrier')[code]} kernel "
+                         f"cannot be resident with n = {n} columns on this "
+                         f"device")
     return nb.value

@@ -13,8 +13,12 @@ weight, each with its own start and τ₀, in one launch; port of
 ``microsolve_tv`` under ``jax.vmap`` (``fasta_tpu/micro.py:435``).
 
 The CUDA source is ``fasta_tpu_torch/csrc/microsolver_tv.cu``; its
-header note gives the design.  Each wrapper launches the kernel for CUDA
-tensors and runs its plain version (``microsolve_tv_reference``,
+header note gives the design.  Each block of the launch owns a band of
+whole rows (``band_plan``); an image whose widest band fits a block's
+shared memory takes the resident route, which keeps the band's state on
+the chip for the whole solve, and a larger one the global route, which
+keeps it in a work buffer in device memory.  Each wrapper launches the
+kernel for CUDA tensors and runs its plain version (``microsolve_tv_reference``,
 ``microsolve_tv_path_reference``, ``microsolve_tv_batch_reference``: K-B1's
 plain loop over the TV stencils, the same phases in PyTorch) for CPU
 tensors.  Outputs are
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -38,15 +43,26 @@ from .microsolver import (MicrosolveOutput, _check_batch, _check_options,
 
 __all__ = ["microsolve_tv", "microsolve_tv_reference", "microsolve_tv_path",
            "microsolve_tv_path_reference", "microsolve_tv_batch",
-           "microsolve_tv_batch_reference", "LAUNCHES", "PATH_LAUNCHES",
-           "BATCH_LAUNCHES"]
+           "microsolve_tv_batch_reference", "band_plan", "BandPlan",
+           "LAUNCHES", "PATH_LAUNCHES", "BATCH_LAUNCHES",
+           "LAUNCHES_RESIDENT", "PATH_LAUNCHES_RESIDENT",
+           "BATCH_LAUNCHES_RESIDENT"]
 
 # Launches of the whole-solve kernel for one solve (K-B6), for a path
 # (K-B6p) and for a batch (K-B6b), each counted where it launches, nowhere
-# else.
+# else; the _RESIDENT counts are the launches among them that took the
+# resident route.
 LAUNCHES = 0
 PATH_LAUNCHES = 0
 BATCH_LAUNCHES = 0
+LAUNCHES_RESIDENT = 0
+PATH_LAUNCHES_RESIDENT = 0
+BATCH_LAUNCHES_RESIDENT = 0
+
+# The kernel's per-pixel state slots and per-block edge rows
+# (csrc/microsolver_tv.cu, StateSlot and EdgeSlot).
+STATE_SLOTS = 12
+EDGE_SLOTS = 14
 
 # The JAX kernel's defaults (microsolver_tv.py:547-552): hp on.
 _DEFAULTS = dict(max_iters=2000, window=10, tol=1e-5, shrink_factor=0.2,
@@ -99,9 +115,11 @@ def microsolve_tv(b, p0, tau0, mu, **options) -> MicrosolveOutput:
     _check(b, p0, "microsolve_tv")
     if b.device.type == "cpu":
         return microsolve_tv_reference(b, p0, tau0, mu, **options)
-    out = _launch(b, p0, tau0, torch.tensor([float(mu)]), 1, False, o)
-    global LAUNCHES
+    out, resident = _launch(b, p0, tau0, torch.tensor([float(mu)]), 1, False,
+                            o)
+    global LAUNCHES, LAUNCHES_RESIDENT
     LAUNCHES += 1
+    LAUNCHES_RESIDENT += resident
     return MicrosolveOutput(*(None if t is None else t[0] for t in out))
 
 
@@ -128,9 +146,10 @@ def microsolve_tv_path(b, p0, tau0, mus, *, warm=True,
     if b.device.type == "cpu":
         return microsolve_tv_path_reference(b, p0, tau0, mus, warm=warm,
                                             **options)
-    out = _launch(b, p0, tau0, mus.cpu(), mus.shape[0], warm, o)
-    global PATH_LAUNCHES
+    out, resident = _launch(b, p0, tau0, mus.cpu(), mus.shape[0], warm, o)
+    global PATH_LAUNCHES, PATH_LAUNCHES_RESIDENT
     PATH_LAUNCHES += 1
+    PATH_LAUNCHES_RESIDENT += resident
     return MicrosolveOutput(*out)
 
 
@@ -147,40 +166,100 @@ def microsolve_tv_batch(bs, p0s, tau0s, mu, **options) -> MicrosolveOutput:
     _check(bs[0], p0s if p0s.ndim == 3 else p0s[0], "microsolve_tv_batch")
     if bs.device.type == "cpu":
         return microsolve_tv_batch_reference(bs, p0s, tau0s, mu, **options)
-    out = _launch(bs, p0s, tau0s, torch.tensor([float(mu)]), B, False, o)
-    global BATCH_LAUNCHES
+    out, resident = _launch(bs, p0s, tau0s, torch.tensor([float(mu)]), B,
+                            False, o)
+    global BATCH_LAUNCHES, BATCH_LAUNCHES_RESIDENT
     BATCH_LAUNCHES += 1
+    BATCH_LAUNCHES_RESIDENT += resident
     return MicrosolveOutput(*out)
 
 
+class BandPlan(NamedTuple):
+    """Which rows each block of a launch owns (``rows[k]`` = (first, end)),
+    the blocks that own the row above and the row below each band (−1:
+    none), the widest band and the route."""
+    rows: tuple
+    above: tuple
+    below: tuple
+    band_rows: int
+    resident: bool
+
+
+def resident_bytes(band_rows: int, W: int) -> int:
+    """Shared memory a block of the resident route takes: the band's
+    state slots, the r row below it and a copy of the neighbours' six edge
+    rows (csrc/microsolver_tv.cu, ``resident_bytes``)."""
+    return 4 * (STATE_SLOTS * band_rows * W + 7 * W)
+
+
+def band_plan(H: int, W: int, nblocks: int, budget: int) -> BandPlan:
+    """The band plan of an (H, W) image over ``nblocks`` blocks: block k
+    owns rows ⌊kH/nblocks⌋ to ⌊(k+1)H/nblocks⌋ (none where the two
+    agree), and the resident route is taken when the widest band's state
+    fits ``budget`` bytes of shared memory.  A pure function of its
+    arguments."""
+    if min(H, W, nblocks) < 1 or budget < 0:
+        raise ValueError(f"band_plan needs H, W, nblocks >= 1 and budget "
+                         f">= 0; got {(H, W, nblocks, budget)}")
+    starts = [k * H // nblocks for k in range(nblocks + 1)]
+    rows = tuple(zip(starts[:-1], starts[1:]))
+    # owner[r]: the block whose band holds row r
+    owner = [k for k, (r0, r1) in enumerate(rows) for _ in range(r0, r1)]
+    above = tuple(owner[r0 - 1] if r1 > r0 > 0 else -1 for r0, r1 in rows)
+    below = tuple(owner[r1] if r0 < r1 < H else -1 for r0, r1 in rows)
+    band_rows = max(r1 - r0 for r0, r1 in rows)
+    return BandPlan(rows, above, below, band_rows,
+                    resident_bytes(band_rows, W) <= budget)
+
+
 @functools.lru_cache(maxsize=None)
-def _grid(device_index: int) -> int:
-    nb = ctypes.c_int()
+def _grid(device_index: int):
+    """(blocks of the cooperative grid, shared-memory budget of a block of
+    the resident route) on the device."""
+    nb, budget = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
         _build.check(_build.library().fasta_microsolve_tv_grid(
-            ctypes.byref(nb)), "fasta_microsolve_tv_grid")
+            ctypes.byref(nb), ctypes.byref(budget)),
+            "fasta_microsolve_tv_grid")
     if nb.value < 1:
         raise RuntimeError("the TV whole-solve kernel cannot be resident on "
                            "this device")
-    return nb.value
+    return nb.value, budget.value
+
+
+@functools.lru_cache(maxsize=64)
+def _bands(device_index: int, H: int, W: int):
+    """The band plan for an (H, W) image on the device and its (4,
+    nblocks) int32 table on the card: first rows, end rows, the blocks
+    above and below."""
+    plan = band_plan(H, W, *_grid(device_index))
+    table = torch.tensor([[r0 for r0, _ in plan.rows],
+                          [r1 for _, r1 in plan.rows], list(plan.above),
+                          list(plan.below)], dtype=torch.int32)
+    return plan, table.to(torch.device("cuda", device_index))
 
 
 def _launch(b, p0, tau0, mus, B, warm, o):
     """One launch over B points: b (H, W) or (B, H, W), p0 (2, H, W) or
-    (B, 2, H, W), τ₀ a number or (B,), mus (1,) shared or (B,)."""
+    (B, 2, H, W), τ₀ a number or (B,), mus (1,) shared or (B,).  Returns
+    the outputs and whether the launch took the resident route."""
     b, p0 = b.contiguous(), p0.contiguous()
     H, W = b.shape[-2:]
     K = o["max_iters"]
     dev = b.device
-    nb = _grid(dev.index)
+    nb = _grid(dev.index)[0]
+    plan, bands = _bands(dev.index, H, W)
     f32 = dict(device=dev, dtype=torch.float32)
     mus_d = mus.to(**f32)
     b_stride, p0_stride, tau0s, tau0 = _points(B, b, 2, p0, 3, tau0, dev)
     x = torch.empty(B, 2, H, W, **f32)
     r = _outputs(B, K, o, dev, nb)
-    # y and x₁, their gradients, x_acc (2 channels each); r, d₁, d_acc —
-    # one buffer that every point of the launch reuses
-    work_f = torch.empty(13 * H * W, **f32)
+    # the band state of the global route; the edge rows of every block;
+    # the grid barrier's counter — one set that every point reuses
+    state = None if plan.resident else torch.empty(STATE_SLOTS * H * W,
+                                                   **f32)
+    edge = torch.empty(EDGE_SLOTS * nb * W, **f32)
+    bar = torch.zeros(1, device=dev, dtype=torch.int32)
 
     flags = (int(bool(o["hp"])) | int(bool(o["accelerate"])) << 1
              | int(bool(o["restart"])) << 2 | int(bool(o["restart_dd"])) << 3
@@ -193,9 +272,12 @@ def _launch(b, p0, tau0, mus, B, warm, o):
             o["max_backtracks"], STOP_RULES.index(o["stop_rule"]), flags,
             x.data_ptr(), r.taus.data_ptr(), r.res.data_ptr(),
             _ptr(r.fvals), _ptr(r.bts), _ptr(r.objs), _ptr(r.nres),
-            r.k.data_ptr(), r.halt.data_ptr(), work_f.data_ptr(),
-            r.work_d.data_ptr(), nb, stream), "fasta_microsolve_tv")
-    return x, r.taus, r.res, r.k, r.halt, r.fvals, r.bts, r.objs, None, r.nres
+            r.k.data_ptr(), r.halt.data_ptr(), bands.data_ptr(),
+            plan.band_rows, int(plan.resident), _ptr(state), edge.data_ptr(),
+            bar.data_ptr(), r.work_d.data_ptr(), nb, stream),
+            "fasta_microsolve_tv")
+    return ((x, r.taus, r.res, r.k, r.halt, r.fvals, r.bts, r.objs, None,
+             r.nres), plan.resident)
 
 
 # --------------------------------------------------------------------------

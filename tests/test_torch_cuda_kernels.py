@@ -384,22 +384,33 @@ def _tv(dev, h=128, w=96):
     return prob.fterm.b, prob.x0, float(prob.instance["mu"])
 
 
+def _resident(dev, h, w):
+    """Whether an (h, w) image takes K-B6's resident route on the card."""
+    return microsolver_tv._bands(dev.index, h, w)[0].resident
+
+
 @pytest.mark.parametrize("accelerate", [False, True])
 @pytest.mark.parametrize("hp", [False, True])
-@pytest.mark.parametrize("h,w", [(128, 96), (7, 300), (300, 5)])
-def test_tv_microsolve_kernel_matches_plain(dev, accelerate, hp, h, w):
-    """K-B6 against its plain version on the card over 40 iterations: the
-    first 10 taus and residuals rtol 1e-3, the backtracks equal, the
-    float64 dual objective rel 1e-5 (the order of float32 sums moves the
-    knife-edge trajectory later on).  Images narrower or shorter than the
-    grid leave blocks without pixels."""
+@pytest.mark.parametrize("h,w,resident", [
+    (128, 96, True), (7, 300, True), (300, 5, True), (512, 512, True),
+    (1024, 1024, False)])
+def test_tv_microsolve_kernel_matches_plain(dev, accelerate, hp, h, w,
+                                            resident):
+    """K-B6 against its plain version on the card over 40 iterations, on
+    the resident route and past its gate on the global route (the route
+    counter shows which ran): the first 10 taus and residuals rtol 1e-3,
+    the backtracks equal, the float64 dual objective rel 1e-5 (the order
+    of float32 sums moves the knife-edge trajectory later on).  Images
+    narrower or shorter than the grid leave blocks without pixels."""
     b, p0, mu = _tv(dev, h, w)
     kw = dict(max_iters=40, tol=0.0, stop_rule="iterations", hp=hp,
               accelerate=accelerate, record_bts=True, record_fvals=True,
               record_objs=True, record_nres=True)
-    before = microsolver_tv.LAUNCHES
+    assert _resident(dev, h, w) == resident
+    before = (microsolver_tv.LAUNCHES, microsolver_tv.LAUNCHES_RESIDENT)
     out = microsolver_tv.microsolve_tv(b, p0, 2.0, mu, **kw)
-    assert microsolver_tv.LAUNCHES == before + 1
+    assert (microsolver_tv.LAUNCHES, microsolver_tv.LAUNCHES_RESIDENT) == \
+        (before[0] + 1, before[1] + resident)
     ref = microsolver_tv.microsolve_tv_reference(b, p0, 2.0, mu, **kw)
     torch.cuda.synchronize()
     assert int(out.iteration_count) == int(ref.iteration_count) == 40
@@ -771,14 +782,23 @@ def test_batch_kernel_dense_is_separate_launches(dev, mode):
 
 
 @pytest.mark.parametrize("accelerate", [False, True])
-def test_batch_kernel_tv_is_separate_launches(dev, accelerate):
-    b, p0, mu = _tv(dev, 64, 48)
+@pytest.mark.parametrize("h,w,resident", [(64, 48, True), (512, 512, True),
+                                          (1024, 1024, False)])
+def test_batch_kernel_tv_is_separate_launches(dev, accelerate, h, w,
+                                              resident):
+    """K-B6b: each image bit-identical to its own K-B6 launch, on either
+    route (the route counter shows which ran)."""
+    b, p0, mu = _tv(dev, h, w)
     bs = _stack(b, 3)
-    kw = dict(max_iters=600, tol=1e-4, accelerate=accelerate,
-              record_bts=True, record_fvals=True)
-    before = microsolver_tv.BATCH_LAUNCHES
+    kw = dict(max_iters=600 if h < 512 else 150, tol=1e-4,
+              accelerate=accelerate, record_bts=True, record_fvals=True)
+    assert _resident(dev, h, w) == resident
+    before = (microsolver_tv.BATCH_LAUNCHES,
+              microsolver_tv.BATCH_LAUNCHES_RESIDENT)
     out = microsolver_tv.microsolve_tv_batch(bs, p0, 2.0, mu, **kw)
-    assert microsolver_tv.BATCH_LAUNCHES == before + 1
+    assert (microsolver_tv.BATCH_LAUNCHES,
+            microsolver_tv.BATCH_LAUNCHES_RESIDENT) == \
+        (before[0] + 1, before[1] + resident)
     _same(out, [microsolver_tv.microsolve_tv(bs[i], p0, 2.0, mu, **kw)
                 for i in range(3)])
 
@@ -1139,6 +1159,18 @@ def test_matvec_probe_kernel_matches_plain(dev, variant, m, n):
     assert all(torch.equal(u, v) for u, v in zip(
         res if variant == "gradmap_fused" else [res],
         res2 if variant == "gradmap_fused" else [res2]))
+
+
+@pytest.mark.parametrize("barrier", matvec_probe.BARRIERS)
+def test_matvec_probe_barriers(dev, barrier):
+    """K-P1's barrier alone, of each kind, launches and returns; an
+    unknown kind raises."""
+    before = matvec_probe.LAUNCHES
+    matvec_probe.run_barriers(50, dev, barrier)
+    torch.cuda.synchronize()
+    assert matvec_probe.LAUNCHES == before + 1
+    with pytest.raises(ValueError, match="unknown barrier"):
+        matvec_probe.run_barriers(2, dev, "spin")
 
 
 @pytest.mark.parametrize("m,n", [(1000, 2048), (37, 100)])

@@ -263,3 +263,94 @@ def test_solve_wrappers_reject_what_they_do_not_take():
     microsolve_tv(bt, pt, 2.0, mu, max_iters=3)
     microsolver_tv.microsolve_tv_path(bt, pt, 2.0, [0.1, 0.2], max_iters=3)
     assert (microsolver_tv.LAUNCHES, microsolver_tv.PATH_LAUNCHES) == before
+
+
+# --------------------------------------------------------------------------
+# K-B6's band plan: which rows each block owns, and the route
+# --------------------------------------------------------------------------
+
+# an H100's grid and a block's dynamic shared-memory budget: the per-block
+# opt-in (232448 bytes) less a few KB of the kernel's static shared memory
+H100_BLOCKS, H100_BUDGET = 132, 232448 - 4096
+PLAN_SHAPES = [(512, 512), (2048, 2048), (7, 300), (300, 5), (1, 5),
+               (16, 16), (133, 3), (1024, 1024)]
+
+
+@pytest.mark.parametrize("nblocks", [1, 8, H100_BLOCKS])
+@pytest.mark.parametrize("h,w", PLAN_SHAPES)
+def test_band_plan_owns_every_row_once(h, w, nblocks):
+    plan = microsolver_tv.band_plan(h, w, nblocks, H100_BUDGET)
+    assert len(plan.rows) == len(plan.above) == len(plan.below) == nblocks
+    owned = [r for r0, r1 in plan.rows for r in range(r0, r1)]
+    assert owned == list(range(h))           # each row once, in block order
+    assert plan.band_rows == max(r1 - r0 for r0, r1 in plan.rows)
+    assert plan.band_rows == -(-h // nblocks)
+    # images shorter than the grid leave blocks without rows
+    assert sum(r1 > r0 for r0, r1 in plan.rows) == min(h, nblocks)
+
+
+@pytest.mark.parametrize("nblocks", [1, 8, H100_BLOCKS])
+@pytest.mark.parametrize("h,w", PLAN_SHAPES)
+def test_band_plan_halo_rows_are_the_neighbours_edge_rows(h, w, nblocks):
+    """The row above a band is the last row of the block named above, the
+    row below it the first row of the block named below; a band at the
+    image's edge, or a block without rows, names none."""
+    plan = microsolver_tv.band_plan(h, w, nblocks, H100_BUDGET)
+    for (r0, r1), up, down in zip(plan.rows, plan.above, plan.below):
+        if r0 == r1:
+            assert up == down == -1
+            continue
+        if r0 == 0:
+            assert up == -1
+        else:
+            assert plan.rows[up][1] == r0 and plan.rows[up][0] < r0
+        if r1 == h:
+            assert down == -1
+        else:
+            assert plan.rows[down][0] == r1 and plan.rows[down][1] > r1
+
+
+def test_band_plan_routes_by_shape():
+    """512×512 keeps its bands in shared memory (4 rows, 110 KB a block);
+    2048×2048 (16 rows, 1.5 MB) and 1024×1024 take the global route; the
+    gate is the widest band's state against the budget."""
+    plan = microsolver_tv.band_plan(512, 512, H100_BLOCKS, H100_BUDGET)
+    assert plan.resident and plan.band_rows == 4
+    assert microsolver_tv.resident_bytes(4, 512) == 4 * (12 * 4 * 512 + 7 * 512)
+    for side in (1024, 2048):
+        assert not microsolver_tv.band_plan(side, side, H100_BLOCKS,
+                                            H100_BUDGET).resident
+    need = microsolver_tv.resident_bytes(4, 512)
+    assert microsolver_tv.band_plan(512, 512, H100_BLOCKS, need).resident
+    assert not microsolver_tv.band_plan(512, 512, H100_BLOCKS,
+                                        need - 1).resident
+    # a single very wide row does not fit; many narrow rows do
+    assert not microsolver_tv.band_plan(1, 10 ** 5, H100_BLOCKS,
+                                        H100_BUDGET).resident
+    assert microsolver_tv.band_plan(10 ** 5, 3, H100_BLOCKS,
+                                    H100_BUDGET).resident
+
+
+def test_band_plan_rejects_what_it_does_not_take():
+    for args in ((0, 5, 132, 1000), (5, 0, 132, 1000), (5, 5, 0, 1000),
+                 (5, 5, 132, -1)):
+        with pytest.raises(ValueError, match="band_plan"):
+            microsolver_tv.band_plan(*args)
+
+
+def test_batch_wrapper_rejects_what_it_does_not_take():
+    b, p0, mu = _tv_data(8, 8)
+    bt, pt = torch.from_numpy(b), torch.from_numpy(p0)
+    bs = torch.stack([bt, bt])
+    with pytest.raises(ValueError, match="leading batch axis"):
+        microsolver_tv.microsolve_tv_batch(bt, pt, 2.0, mu)
+    with pytest.raises(ValueError, match=r"p0 \(2,H,W\)"):
+        microsolver_tv.microsolve_tv_batch(bs, pt[:, :4], 2.0, mu)
+    with pytest.raises(ValueError, match="float32"):
+        microsolver_tv.microsolve_tv_batch(bs.double(), pt.double(), 2.0, mu)
+    before = (microsolver_tv.BATCH_LAUNCHES,
+              microsolver_tv.BATCH_LAUNCHES_RESIDENT)
+    out = microsolver_tv.microsolve_tv_batch(bs, pt, 2.0, mu, max_iters=3)
+    assert out.x.shape == (2, 2, 8, 8)
+    assert (microsolver_tv.BATCH_LAUNCHES,
+            microsolver_tv.BATCH_LAUNCHES_RESIDENT) == before
