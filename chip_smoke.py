@@ -34,7 +34,9 @@ non-zero without the final ``ok`` line):
    K-B1, K-B1p and K-B3p ran; then the it/s of each problem's kernel and
    loop paths at a fixed 2000 iterations;
 10. K-B5 (fused TV gradient map) against its plain version at 512×512,
-    509×517 and 4096×4096 float32, with stream times over 20 runs;
+    509×517 and 4096×4096 float32, with stream times over 20 runs, and
+    at each shape the card time per call (a ``profiling.trace``), the
+    host time per call and the device operations per call (one kernel);
 11. K-B6 (whole TV-dual solve) against its plain version at 512×512 on
     its resident route (the route counter proves it), adaptive and FISTA,
     hp on (to tol 1e-5) and off (300 iterations), and the nonfinite
@@ -71,7 +73,9 @@ non-zero without the final ``ok`` line):
     and loop paths at a fixed 2000 iterations;
 18. K-B4 (fused shrink step) against its plain version at 1×2000,
     1×128, 1×100, 32×2000 and 1×2²⁴, a NaN entry, two calls equal; call
-    and stream times at 1×2000, 32×2000 and 1×2²⁴ against the bound;
+    and stream times at 1×2000, 32×2000 and 1×2²⁴ against the bound, and
+    there the card time, the host time and the device operations per
+    call, as in phase 10;
 19. K-B1b (the dense whole solve over a batch): LASSO 1000×2000, 32
     instances, adaptive and FISTA, per-instance τ₀, each instance
     bit-identical to a separate K-B1 launch, two against the plain batch;
@@ -226,23 +230,32 @@ def graph_ms(fn, calls: int = 200) -> float:
     return cuda_ms(graph.replay, 3, warmup=1) / calls
 
 
-def traced_kernel_us(fn, calls: int = 20):
-    """Mean card time per call of ``fn``'s kernels, read from the Chrome
-    trace that ``profiling.trace`` writes around ``calls`` calls (None when
-    the trace holds no kernel events), and the kernels' names."""
-    fn()
-    torch.cuda.synchronize()
-    with profiling.trace(str(_build._BUILD_DIR.parent / "chip_smoke_trace")) \
-            as logdir:
-        for _ in range(calls):
-            fn()
-    with open(f"{logdir}/trace.json") as fh:
-        events = [e for e in json.load(fh).get("traceEvents", [])
-                  if e.get("cat") == "kernel"]
-    names = sorted({e.get("name", "?")[:60] for e in events})
-    if not events:
-        return None, names
-    return sum(float(e.get("dur", 0.0)) for e in events) / calls, names
+def call_split(tag: str, fn, calls: int = 20) -> tuple:
+    """A call of ``fn`` split: (card ms, host ms) per call — the card's
+    time from a ``profiling.trace`` of ``calls`` calls, and the host clock
+    around 200 calls with no wait — printed with the device operations a
+    call made.  The trace must show no memset and no copy, and no more
+    kernels than calls (K-B4, K-B5: one kernel a call; the profiler may
+    drop an event, so the card time is the mean kernel's).  A trace that
+    holds no kernel event at all gives (None, host ms)."""
+    ops = profiling.device_ops(fn, calls, str(_build._BUILD_DIR.parent /
+                                              "chip_smoke_trace"))
+    host = profiling.host_us(fn, 200) / 1e3
+    n = ops["events"]
+    print(f"{tag} device operations in {calls} calls (trace): "
+          f"{n['kernel']} kernels, {n['gpu_memset']} memsets, "
+          f"{n['gpu_memcpy']} copies; host time per call (200 calls, no "
+          f"wait) {host * 1e3:.2f} us")
+    if n["kernel"] == 0:
+        print(f"{tag} the trace holds no kernel event: card time not "
+              f"measured")
+        return None, host
+    require(n["gpu_memset"] == 0 and n["gpu_memcpy"] == 0
+            and n["kernel"] <= calls, f"{tag} one kernel and nothing else a "
+                                      f"call")
+    card = ops["dur_us"] / n["kernel"] / 1e3
+    print(f"{tag} card time per call (trace) {card * 1e3:.3f} us")
+    return card, host
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -893,6 +906,7 @@ def phase_tv_gradmap() -> dict:
         plain_fn = lambda: tv_fused.tv_gradmap_reference(p, b, 0.1)  # noqa: E731
         kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
         kern_stream, plain_stream = stream_ms(kernel_fn), stream_ms(plain_fn)
+        card, host = call_split(f"[10 K-B5 {h}x{w}]", kernel_fn)
         nbytes = 24.0 * h * w
         print(f"[10 K-B5 {h}x{w}] max|dd| {err_d:.3e} (tol {tol_d:.1e}) "
               f"max|dg| {err_g:.3e} (tol {tol_g:.1e}) rel df {rel_f:.3e} "
@@ -904,7 +918,7 @@ def phase_tv_gradmap() -> dict:
         require(err_d <= tol_d and err_g <= tol_g and rel_f <= 1e-5,
                 f"K-B5 {h}x{w} disagrees with its plain version")
         worst = max(worst, err_d, err_g)
-        ms[(h, w)] = (kern, plain, kern_stream, plain_stream)
+        ms[(h, w)] = (kern, plain, kern_stream, plain_stream, card, host)
         del p, b, d, g, d0, g0
     main, big = ms[(512, 512)], ms[(4096, 4096)]
     # per pixel, from csrc/tv_fused.cu: d = μ·div p (4), r = d − b (1), Σr²
@@ -912,8 +926,12 @@ def phase_tv_gradmap() -> dict:
     return dict(max_abs_err=worst, ms=main[2], plain_ms=main[3],
                 **bound(24.0 * 512 * 512, 11.0 * 512 * 512),
                 library_ms=None, shape="512x512, stream time",
+                card_ms=main[4], host_ms=main[5],
                 call_ms=main[0], plain_call_ms=main[1],
+                card_ms_509x517=ms[(509, 517)][4],
+                host_ms_509x517=ms[(509, 517)][5],
                 stream_ms_4096x4096=big[2], plain_stream_ms_4096x4096=big[3],
+                card_ms_4096x4096=big[4], host_ms_4096x4096=big[5],
                 bound_ms_4096x4096=bound(24.0 * 4096 * 4096,
                                          11.0 * 4096 * 4096)["bound_ms"])
 
@@ -1719,13 +1737,14 @@ def phase_shrink_step() -> dict:
                 x0, g, tau, mu)
             kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
             ks, ps = stream_ms(kernel_fn), stream_ms(plain_fn)
+            card, host = call_split(f"[18 K-B4 {R}x{n}]", kernel_fn)
             bd = bound(12.0 * R * n, 16.0 * R * n)
             line += (f"; call, median of 20: kernel {kern:.4f} ms, plain "
                      f"{plain:.4f} ms; stream time, 20 back-to-back calls: "
                      f"kernel {ks:.4f} ms, plain {ps:.4f} ms; "
                      f"{12.0 * R * n / ks / 1e6:.1f} GB/s of stream time; "
                      f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
-            ms[(R, n)] = (kern, plain, ks, ps, bd["bound_ms"])
+            ms[(R, n)] = (kern, plain, ks, ps, bd["bound_ms"], card, host)
         print(line)
         del x0, g
     x0 = torch.randn(2000, generator=gen, device=DEV)
@@ -1743,11 +1762,14 @@ def phase_shrink_step() -> dict:
     return dict(max_abs_err=worst, ms=main[0], plain_ms=main[1],
                 **bound(12.0 * 32 * 2000, 16.0 * 32 * 2000), library_ms=None,
                 shape="32x2000 (a batch-loop trial), call time",
+                card_ms=main[5], host_ms=main[6],
                 stream_ms=main[2], plain_stream_ms=main[3],
                 ms_1x2000=one[0], plain_ms_1x2000=one[1],
                 stream_ms_1x2000=one[2], plain_stream_ms_1x2000=one[3],
+                card_ms_1x2000=one[5], host_ms_1x2000=one[6],
                 bound_ms_1x2000=one[4], stream_ms_1x2pow24=big[2],
-                plain_stream_ms_1x2pow24=big[3], bound_ms_1x2pow24=big[4])
+                plain_stream_ms_1x2pow24=big[3], bound_ms_1x2pow24=big[4],
+                card_ms_1x2pow24=big[5], host_ms_1x2pow24=big[6])
 
 
 def phase_batch_dense() -> dict:
@@ -2868,12 +2890,19 @@ def phase_matvec_probe() -> dict:
     lib = {k: graph_ms(fn) for k, fn in mv.items()}
     traced = {}
     for k, fn in mv.items():
-        us, names = traced_kernel_us(fn)
+        ops = profiling.device_ops(fn, 20, str(_build._BUILD_DIR.parent /
+                                               "chip_smoke_trace"))
+        # a call is one gemv kernel: its mean, which a dropped event
+        # leaves as it is
+        nk = ops["events"]["kernel"]
+        us = ops["dur_us"] / nk if nk else None
+        names = ops["names"]
         traced[k] = us
         print(f"[29 torch.mv {k}] {lib[k] * 1e3:.3f} us a call in a CUDA "
               f"graph of 200; its kernels in profiling.trace: "
               + ("no kernel events (not measured)" if us is None else
-                 f"{us:.3f} us a call ({', '.join(names)})"))
+                 f"{us:.3f} us a call, the mean of {nk} kernel events for 20 "
+                 f"calls ({', '.join(names)})"))
     reset_launches()
     # the barrier alone, each kind: K barriers and nothing else
     alone = {kind: cuda_ms(lambda kind=kind: matvec_probe.run_barriers(

@@ -20,7 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "library_path", "on_device", "check", "NVCC_FLAGS"]
+__all__ = ["library", "library_path", "on_device", "check", "sm_count",
+           "stream_scratch", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fasta_tpu_torch"
@@ -42,10 +43,9 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _P],
     "fasta_fbs_work_doubles": [_I, _P],
-    "fasta_shrink_step_work": [_I, _I, _P],
-    "fasta_shrink_step": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
-    "fasta_tv_gradmap_work": [_I, _I, _P],
-    "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    "fasta_shrink_step": [_P, _P, _P, _F, _P, _F, _I, _I, _I, _I, _P, _P,
+                          _P, _P],
+    "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "fasta_microsolve_tv_grid": [_P, _P],
     "fasta_planar_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P],
     "fasta_planar_gradmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -165,3 +165,44 @@ def on_device(device):
              device.index else torch.cuda.device(device))
     with guard:
         yield torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# (device index, stream handle) -> [float64 buffer, whether its ticket is
+# known to be zero outside any CUDA graph]
+_SCRATCH = {}
+# buffers replaced by a larger one, kept because a captured graph may
+# still launch on them
+_RETIRED = []
+
+
+def stream_scratch(device, stream: int, ndoubles: int):
+    """A float64 buffer of at least ``ndoubles`` on ``device`` for the
+    launches on ``stream`` (a raw handle) of the kernels that finish with
+    a last-block ticket (K-B4's stream route, K-B5).  Its first double
+    holds the ticket, which every such kernel leaves at zero, so the
+    buffer is zeroed once and never again: launches on one stream run in
+    order and share it, launches on two streams never do (C-2).  Inside a
+    CUDA-graph capture the zeroing of a buffer that eager launches have not
+    yet zeroed is captured too, so that every replay finds the ticket at
+    zero.  Replays of graphs captured on one stream must not overlap."""
+    import torch
+    key = (device.index, stream)
+    entry = _SCRATCH.get(key)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if entry is None or entry[0].numel() < ndoubles:
+        if entry is not None:
+            _RETIRED.append(entry[0])
+        entry = _SCRATCH[key] = [
+            torch.zeros(max(ndoubles, 4096), dtype=torch.float64,
+                        device=device), not capturing]
+    elif not entry[1]:
+        entry[0][:1].zero_()
+        entry[1] = not capturing
+    return entry[0]

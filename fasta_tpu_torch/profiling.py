@@ -6,7 +6,10 @@
     completion wait (CUDA events and a synchronize on the card);
   * ``roofline_report(bytes_per_call, fn, *args)`` — achieved GB/s
     against the card's memory rate;
-  * ``device_memory_stats()`` — ``torch.cuda.memory_stats`` per card.
+  * ``device_memory_stats()`` — ``torch.cuda.memory_stats`` per card;
+  * ``device_ops(fn)`` — the device operations (kernels, memsets, copies)
+    of a run of calls and their card time, read from a trace;
+  * ``host_us(fn)`` — the host's time per call, with no wait for the card.
 
 Per-iteration diagnostics are tensors in the solvers' results, so no
 separate tracer is needed.  Rates are keyed on
@@ -18,6 +21,7 @@ None.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from typing import Optional
@@ -25,7 +29,7 @@ from typing import Optional
 import torch
 
 __all__ = ["trace", "roofline_report", "device_memory_stats",
-           "time_blocking", "H100_HBM_GBPS"]
+           "time_blocking", "device_ops", "host_us", "H100_HBM_GBPS"]
 
 # The H100 SXM's data-sheet HBM3 rate (GB/s), the one card the port is
 # measured on; ``chip_smoke.py``'s bounds read it from here.
@@ -55,6 +59,53 @@ def trace(logdir: str = "build/fasta_tpu_torch_trace"):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# the Chrome trace's categories of the card's own operations
+DEVICE_OP_KINDS = ("kernel", "gpu_memset", "gpu_memcpy")
+
+
+def device_ops(fn, calls: int = 20,
+               logdir: str = "build/fasta_tpu_torch_trace") -> dict:
+    """What ``calls`` calls of ``fn`` did on the card, from the Chrome
+    trace of ``trace(logdir)``: ``events``, how many operations of each
+    kind in ``DEVICE_OP_KINDS``; ``dur_us``, their summed duration; the
+    kernels' ``names``.  One call runs before the trace, so that nothing
+    is built or allocated inside it.  The profiler can drop an event now
+    and then, so a count may fall short of the calls'."""
+    fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    with trace(logdir) as d:
+        for _ in range(calls):
+            fn()
+    with open(os.path.join(d, "trace.json")) as fh:
+        events = [e for e in json.load(fh).get("traceEvents", [])
+                  if e.get("cat") in DEVICE_OP_KINDS]
+    return dict(
+        events={k: sum(e["cat"] == k for e in events)
+                for k in DEVICE_OP_KINDS},
+        dur_us=sum(float(e.get("dur", 0.0)) for e in events),
+        names=sorted({e.get("name", "?")[:80] for e in events
+                      if e["cat"] == "kernel"}))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's time per call of ``fn`` in µs: the host clock around
+    ``calls`` calls with no wait for the card between them (after a
+    warm-up call and a wait).  Where the card finishes a call sooner than
+    the host issues one, this is the call's whole cost to a loop."""
+    card = torch.cuda.is_available()
+    fn()
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    if card:
+        torch.cuda.synchronize()
+    return took / calls * 1e6
 
 
 def time_blocking(fn, *args, repeats: int = 3, warmup: int = 1,

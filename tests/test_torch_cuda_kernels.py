@@ -346,7 +346,10 @@ def test_slice_main_path_on_the_card(dev):
 
 
 @pytest.mark.parametrize("h,w", [(512, 512), (509, 517), (1, 7), (7, 1),
-                                 (1, 1), (130, 70), (2049, 33)])
+                                 (1, 1), (130, 70), (2049, 33),
+                                 # band and strip boundaries, W % 4 != 0
+                                 (4, 4), (5, 1025), (3, 1030), (263, 4099),
+                                 (1, 100000), (66000, 3), (4096, 4096)])
 def test_tv_gradmap_kernel_matches_plain(dev, h, w):
     """K-B5 at aligned, ragged and one-row / one-column shapes: d and g
     round like the plain version (max|Δ| ≤ 1e-6 of the scale), f (an
@@ -726,6 +729,130 @@ def test_shrink_step_kernel_matches_plain(dev, R, n):
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     one = prox_fused.fused_shrink_step(x0[0], gr[0], tau[0], mu[0])
     assert torch.equal(one[0], out[0][0])
+
+
+@pytest.mark.parametrize("R,n,route", [
+    (1, prox_fused.ROW_MAX_N, "row"), (1, prox_fused.ROW_MAX_N + 1, "stream"),
+    (1, prox_fused.ROW_MAX_N + 3, "stream"), (3, prox_fused.ROW_MAX_N + 1,
+                                              "stream"),
+    (2, 1 << 20, "stream"), (4, 65535, "stream"), (600, 40000, "row"),
+    (65535, 8, "row"), (1, 4096, "row"), (7, 8191, "row"),
+    (300, 2000, "row"), (7, 30001, "stream")])
+def test_shrink_step_routes_at_their_boundaries(dev, R, n, route):
+    """Each route of K-B4 at its edges (the plan says which; n % 4 != 0
+    with several rows takes masked scalars): x₁ bit for bit, the sums
+    within rtol 1e-12, a second call equal (the ticket reset)."""
+    assert prox_fused._plan(dev.index or 0, R, n).route == route
+    g = torch.Generator(device=dev).manual_seed(R + n)
+    x0 = torch.randn((R, n), generator=g, device=dev)
+    gr = torch.randn((R, n), generator=g, device=dev)
+    tau = torch.rand(R, generator=g, device=dev, dtype=torch.float64) + 0.05
+    out = prox_fused.fused_shrink_step(x0, gr, tau, 0.4)
+    ref = prox_fused.shrink_step_reference(x0, gr, tau, 0.4)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0])
+    for a, b in zip(out[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    again = prox_fused.fused_shrink_step(x0, gr, tau, 0.4)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def _b4_b5_inputs(dev):
+    g = torch.Generator(device=dev).manual_seed(77)
+    big = [torch.randn((1, 1 << 22), generator=g, device=dev)
+           for _ in range(2)]
+    rows = [torch.randn((32, 2000), generator=g, device=dev)
+            for _ in range(2)]
+    tau = torch.rand(32, generator=g, device=dev) + 0.05
+    p = torch.randn((2, 512, 512), generator=g, device=dev)
+    b = torch.randn((512, 512), generator=g, device=dev)
+    return big, rows, tau, p, b
+
+
+def _b4_b5_calls(big, rows, tau, p, b):
+    """K-B4 on its stream route and its row route, K-B5 with its ticket."""
+    return (prox_fused.fused_shrink_step(big[0], big[1], 0.3, 0.5)
+            + prox_fused.fused_shrink_step(rows[0], rows[1], tau, 0.2)
+            + tv_fused.fused_tv_gradmap(p, b, 0.1))
+
+
+def test_ticket_kernels_on_two_streams_match_one_after_another(dev):
+    """C-2: calls on two streams at once (each stream its own ticket)
+    give what the same calls give one after the other."""
+    data = _b4_b5_inputs(dev)
+    want = _b4_b5_calls(*data)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(4):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(_b4_b5_calls(*data))
+    torch.cuda.synchronize()
+    for outs in got:
+        for out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_ticket_kernels_replay_in_a_cuda_graph(dev):
+    """Two calls of each kernel captured in one CUDA graph and replayed
+    twice equal eager calls: every launch leaves its ticket at zero."""
+    data = _b4_b5_inputs(dev)
+    want = _b4_b5_calls(*data)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _b4_b5_calls(*data)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        first = _b4_b5_calls(*data)
+        second = _b4_b5_calls(*data)
+    for _ in range(2):
+        for t in first + second:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in (first, second):
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+    again = _b4_b5_calls(*data)
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+
+
+@pytest.mark.parametrize("what", ["b4 1x2000", "b4 32x2000", "b4 1x2^22",
+                                  "b4 scalars", "b5 512x512", "b5 1x7"])
+def test_one_device_operation_per_call(dev, what, tmp_path):
+    """A call of K-B4 or K-B5 is one kernel on the card: no memset, no
+    copy (τ and μ by value or read where they lie), in a profiling.trace
+    of 10 calls."""
+    from fasta_tpu_torch import profiling
+    g = torch.Generator(device=dev).manual_seed(5)
+    if what.startswith("b4"):
+        R, n = {"b4 1x2000": (1, 2000), "b4 32x2000": (32, 2000),
+                "b4 1x2^22": (1, 1 << 22), "b4 scalars": (1, 2000)}[what]
+        x0 = torch.randn((R, n), generator=g, device=dev)
+        gr = torch.randn((R, n), generator=g, device=dev)
+        tau = (0.3 if what == "b4 scalars" else
+               torch.rand(R, generator=g, device=dev) + 0.05)
+        mu = (0.5 if what == "b4 scalars" else
+              torch.rand(R, generator=g, device=dev))
+
+        def fn():
+            return prox_fused.fused_shrink_step(x0, gr, tau, mu)
+    else:
+        h, w = {"b5 512x512": (512, 512), "b5 1x7": (1, 7)}[what]
+        p = torch.randn((2, h, w), generator=g, device=dev)
+        b = torch.randn((h, w), generator=g, device=dev)
+
+        def fn():
+            return tv_fused.fused_tv_gradmap(p, b, 0.1)
+    ops = profiling.device_ops(fn, 10, str(tmp_path / "trace"))
+    # the profiler may drop an event, never add one
+    assert 8 <= ops["events"]["kernel"] <= 10, ops
+    assert ops["events"]["gpu_memset"] == 0, ops
+    assert ops["events"]["gpu_memcpy"] == 0, ops
 
 
 def test_shrink_step_kernel_propagates_nan_and_rejects(dev):

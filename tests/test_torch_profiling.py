@@ -43,3 +43,15 @@ def test_trace_context_manager(tmp_path):
 def test_device_memory_stats_shape():
     stats = profiling.device_memory_stats()
     assert len(stats) == max(torch.cuda.device_count(), 1)
+
+
+def test_device_ops_and_host_us_on_the_cpu(tmp_path):
+    """Without a card the trace holds no device operation: no card time,
+    every kind counted zero; the host time per call is positive."""
+    calls = []
+    ops = profiling.device_ops(lambda: calls.append(torch.ones(8).sum()), 3,
+                               str(tmp_path / "trace"))
+    assert len(calls) == 4            # one call before the trace, three in it
+    assert ops["dur_us"] == 0.0 and ops["names"] == []
+    assert ops["events"] == {k: 0 for k in profiling.DEVICE_OP_KINDS}
+    assert profiling.host_us(lambda: torch.ones(8).sum(), 5) > 0.0
