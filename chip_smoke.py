@@ -63,7 +63,10 @@ non-zero without the final ``ok`` line):
     turns; the layout K-B8 uses;
 16. K-B8 (whole planar PhaseMax solve) against its plain version at
     16384×256: adaptive hp to tol 1e-5, adaptive hp off for 300
-    iterations, FISTA hp to tol 1e-5, and the nonfinite abort;
+    iterations, FISTA hp to tol 1e-5, and the nonfinite abort, with µs an
+    iteration and a trial; the tile plan (``tile_plan``) and the route
+    counters show that every launch kept A on the chip (the resident
+    route);
 17. the phase-retrieval main path — ``Problem.microsolve`` (adaptive,
     FISTA), ``Problem.solve`` (adaptive, FISTA) on
     ``problems.build("phase_retrieval", planar=True)`` (16384×256 on the
@@ -82,7 +85,9 @@ non-zero without the final ``ok`` line):
 20. K-B6b: TV 512×512, 8 images, adaptive and FISTA, each bit-identical
     to a separate K-B6 launch, one against the plain version, on the
     resident route;
-21. K-B8b: planar phase retrieval 16384×256, 16 instances, as phase 19;
+21. K-B8b: planar phase retrieval 16384×256, 16 instances, as phase 19,
+    each launch on the resident route (the route counters), µs an
+    iteration and a trial;
 22. the serving main path — ``recommend_path(...).run(bs)`` and
     ``Problem.solve_serving`` on TV 512×512 × 8, LASSO 1000×2000 × 32 and
     planar phase retrieval 16384×256 × 16, one request of each, and
@@ -101,7 +106,9 @@ non-zero without the final ``ok`` line):
 26. K-B8 and K-B8b on the route past n = 512 (C-4) at 8192×640 (to
     tolerance), 2048×1024 and 256×8192 (300 iterations: no bounded
     solution), adaptive and FISTA, against the plain version, each batch
-    instance bit-identical to its own launch, then
+    instance bit-identical to its own launch, µs an iteration and a trial,
+    and the route counters: 2048×1024 and 256×8192 on the resident route,
+    8192×640 on the streamed one (more than half of A on the chip); then
     ``recommend_path(p, 1).run()``, ``Problem.microsolve_batch`` and
     ``recommend_path(p, 4).run(bs)`` with the launch counters;
 27. the bfloat16 main paths: LASSO 8192×16384 through
@@ -129,7 +136,11 @@ over 67 TFLOP/s (the H100 SXM data sheet).  A whole-solve kernel's
 operations are counted from its body for the line-search trials and
 iterations of the measured run; ``hbm_state_ms`` adds, for those
 kernels, the time to move the state of every iteration once through
-device memory (the kernels keep it in L2).  The last line is
+device memory (the kernels keep it in L2); K-B8's entries also give the
+launches by route that its route counters counted over the whole phase,
+its timed runs included (the tile plan itself, computed on the host, is
+printed in the phase's lines).
+The last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script fails at once.  Imports no JAX.
 """
@@ -1507,6 +1518,29 @@ def planar_complex(x) -> np.ndarray:
     return x[..., 0] + 1j * x[..., 1]
 
 
+def planar_plan(m: int, n: int) -> dict:
+    """K-B8's tile plan on this card at m×n, as the host computes it: the
+    kernel, the route, the share of A's rows kept on the chip and the
+    bytes a trial reads from L2 (microsolver_planar.tile_plan).  Printed
+    beside the route counters; not a measurement."""
+    plan = microsolver_planar._tiles(DEV.index, m, (n + 3) // 4 * 4)[0]
+    return dict(tile_kernel=plan.kernel, tile_route=plan.route,
+                resident_share=plan.resident_share,
+                l2_bytes_per_trial=plan.streamed_bytes)
+
+
+def route_counts() -> tuple:
+    return (microsolver_planar.RESIDENT_LAUNCHES,
+            microsolver_planar.STREAMED_LAUNCHES,
+            microsolver_planar.COLUMN_LAUNCHES)
+
+
+def routes_ran(before: tuple) -> dict:
+    """K-B8's launches by route since ``before`` (a ``route_counts()``)."""
+    return dict(zip(("resident", "streamed", "columns"),
+                    (b - a for a, b in zip(before, route_counts()))))
+
+
 def phase_planar_microsolver() -> dict:
     """K-B8 against its plain version on the card at 16384×256 (τ₀ 1.0).
     The first 10 taus and residuals rtol 1e-3 and backtracks equal: the
@@ -1522,6 +1556,8 @@ def phase_planar_microsolver() -> dict:
     A, bm = inst["A"], inst["b"]
     c = inst["delta"] * inst["x0_hat"]
     worst, timed = 0.0, {}
+    plan = planar_plan(16384, 256)
+    before = route_counts()
     for accelerate, hp in ((False, True), (False, False), (True, True)):
         kw = dict(max_iters=2000, tol=1e-5, hp=hp, accelerate=accelerate,
                   restart_dd=hp, record_bts=True)
@@ -1549,6 +1585,7 @@ def phase_planar_microsolver() -> dict:
         status_ok = (out.status == ref.status == "converged" if hp
                      else k1 == k2 == 300)
         mode = "FISTA" if accelerate else "adaptive"
+        tried = trials(out)[0]
         print(f"[16 K-B8 {mode} hp={hp}] iterations kernel {k1} plain {k2}; "
               f"status {out.status}/{ref.status}; taus[:{kt}] max rel "
               f"{tau_err:.2e} (tol 1e-3); residuals[:{kt}] allclose(1e-3) "
@@ -1557,7 +1594,8 @@ def phase_planar_microsolver() -> dict:
               f"{rel_f:.2e} (tol 1e-6); "
               f"{'to tol 1e-5' if hp else '300 iterations'}: kernel "
               f"{kern:.3f} ms (median of 3, {kern / k1 * 1e3:.2f} us per "
-              f"iteration), plain loop on the card {plain:.3f} ms (one run)")
+              f"iteration, {tried} trials, {kern / tried * 1e3:.2f} us per "
+              f"trial), plain loop on the card {plain:.3f} ms (one run)")
         require(status_ok and tau_err <= 1e-3 and res_ok and bt_ok
                 and rel_f <= 1e-6,
                 f"K-B8 {mode} hp={hp} disagrees with its plain version")
@@ -1572,6 +1610,12 @@ def phase_planar_microsolver() -> dict:
           f"after {int(bad_ref.iteration_count)}")
     require(bad.status == bad_ref.status == "nonfinite",
             "K-B8 did not abort a nonfinite solve")
+    ran = routes_ran(before)
+    print(f"[16 K-B8] tile plan at 16384x256: {plan}; launches by route in "
+          f"this phase: {ran}")
+    require(plan["tile_route"] == "resident" and ran["resident"] > 0
+            and ran["streamed"] == ran["columns"] == 0,
+            f"K-B8 at 16384x256 did not keep A on the chip: {plan}, {ran}")
     kern, plain, (tried, k) = timed[(False, True)]
     m, n = 16384, 256
     state = 2.0 * m * n * 4       # the channel matrices, once per trial
@@ -1581,7 +1625,9 @@ def phase_planar_microsolver() -> dict:
                 **bound(4.0 * (2 * m * n + m + 4 * n + 2 * n + 3 * k),
                         planar_flops(m, n, tried, k, False)),
                 hbm_state_ms=tried * state / HBM_BYTES_PER_S * 1e3,
-                library_ms=None, iterations=k, trials=tried,
+                library_ms=None, phase_launches_by_route=ran,
+                us_per_iteration=kern / k * 1e3,
+                us_per_trial=kern / tried * 1e3, iterations=k, trials=tried,
                 ms_hp_off_300=timed[(False, False)][0],
                 plain_ms_hp_off_300=timed[(False, False)][1],
                 ms_fista=timed[(True, True)][0],
@@ -1940,11 +1986,18 @@ def phase_batch_planar() -> dict:
     bs = stack_requests(b, B)
     t0s = torch.tensor([1.0 + (i % 3) / 2.0 for i in range(B)], device=DEV)
     timed, worst = {}, 0.0
+    plan = planar_plan(16384, 256)
+    routes = dict(resident=0, streamed=0, columns=0)
     for accelerate in (False, True):
         kw = dict(max_iters=2000, tol=1e-5, hp=True, accelerate=accelerate,
                   restart_dd=True, record_bts=True)
+        before = route_counts()
         out = microsolver_planar.microsolve_planar_phasemax_batch(
             Ar, Ai, bs, c, x0, t0s, **kw)
+        ran = routes_ran(before)
+        require(ran == dict(resident=1, streamed=0, columns=0),
+                f"K-B8b at 16384x256 did not keep A on the chip: {ran}")
+        routes = {r: routes[r] + ran[r] for r in routes}
         singles = [microsolver_planar.microsolve_planar_phasemax(
             Ar, Ai, bs[i], c, x0, float(t0s[i]), **kw) for i in range(B)]
         same = identical(out, singles)
@@ -1978,12 +2031,16 @@ def phase_batch_planar() -> dict:
                   f"{tau_err:.2e} (tol 1e-3); residuals {res_ok}; backtracks "
                   f"{bt_ok}; objective rel {rel:.2e} (tol 1e-6): {good}")
             ok &= good
+        tried = trials(out)[0]
         print(f"[21 K-B8b {mode}] {B} instances, iterations {min(ks)}-"
-              f"{max(ks)} (total {sum(ks)}); each bit-identical to its own "
-              f"K-B8 launch: {same}; one K-B8b launch {kern:.3f} ms (median "
-              f"of 3, {kern / B:.3f} ms per instance), {B} K-B8 launches "
-              f"{sep:.3f} ms (median of 3), plain batch on the card "
-              f"{plain:.3f} ms (one run)")
+              f"{max(ks)} (total {sum(ks)}, {tried} trials); each "
+              f"bit-identical to its own K-B8 launch: {same}; one K-B8b "
+              f"launch {kern:.3f} ms (median of 3, {kern / B:.3f} ms per "
+              f"instance, {kern / sum(ks) * 1e3:.2f} us per iteration, "
+              f"{kern / tried * 1e3:.2f} us per trial; route {ran}; tile "
+              f"plan {plan}), {B} "
+              f"K-B8 launches {sep:.3f} ms (median of 3), plain batch on the "
+              f"card {plain:.3f} ms (one run)")
         require(ok, f"K-B8b {mode} disagrees with its separate launches or "
                 f"its plain version")
         timed[accelerate] = (kern, plain, sep, trials(out))
@@ -1997,7 +2054,10 @@ def phase_batch_planar() -> dict:
                         planar_flops(m, n, tried, k, False)
                         + (B - 1) * (16.0 * m * n + 10 * m)),
                 hbm_state_ms=tried * 2.0 * m * n * 4 / HBM_BYTES_PER_S * 1e3,
-                library_ms=None, instances=B, iterations=k, trials=tried,
+                library_ms=None, phase_launches_by_route=routes,
+                us_per_iteration=kern / k * 1e3,
+                us_per_trial=kern / tried * 1e3, instances=B, iterations=k,
+                trials=tried,
                 separate_launches_ms=sep, ms_fista=timed[True][0],
                 plain_ms_fista=timed[True][1],
                 separate_launches_ms_fista=timed[True][2])
@@ -2515,12 +2575,14 @@ def phase_wide_planar() -> dict:
     1).run(), Problem.microsolve_batch and recommend_path(p, 4).run(bs) —
     with the launch counters."""
     worst, timed = 0.0, {}
-    probs = {}
+    probs, plans, rans = {}, {}, {}
     for m, n in WIDE_SHAPES:
         p = problems.build("phase_retrieval", m=m, n=n, planar=True,
                            device=DEV)
         p.tau0 = 1.0
         probs[(m, n)] = p
+        plans[(m, n)] = planar_plan(m, n)
+        before = route_counts()
         posed = (m, n) == WIDE_SHAPES[0]
         data = (p.op.Ar, p.op.Ai, p.fterm.b, p.gterm.c, p.x0)
         require(ftt.microsolve_supported(p) == (True, "planar"),
@@ -2570,6 +2632,7 @@ def phase_wide_planar() -> dict:
             if posed:
                 ok &= rel_f <= f_tol
             mode = "FISTA" if accelerate else "adaptive"
+            tried = trials(out)[0]
             print(f"[26 K-B8 wide {m}x{n} {mode}] iterations kernel {k1} plain "
                   f"{k2}; status {out.status}/{ref.status}; taus[:{kt}] max rel "
                   f"{tau_err:.2e} (tol {tol:.2e}: the plain version against "
@@ -2578,7 +2641,8 @@ def phase_wide_planar() -> dict:
                   f"{bt_ok}; objective {f1:.12g} vs {f2:.12g}, rel "
                   f"{rel_f:.2e}{f' (tol {f_tol:.2e})' if posed else ''}; kernel "
                   f"{kern:.3f} ms (median of 3, {kern / k1 * 1e3:.2f} us per "
-                  f"iteration), plain loop on the card {plain:.3f} ms (one "
+                  f"iteration, {tried} trials, {kern / tried * 1e3:.2f} us per "
+                  f"trial), plain loop on the card {plain:.3f} ms (one "
                   f"run)")
             require(ok, f"K-B8 wide {m}x{n} {mode} disagrees with its plain "
                     f"version")
@@ -2597,6 +2661,14 @@ def phase_wide_planar() -> dict:
                   f"bit-identical to its own K-B8 launch: {same}")
             require(same, f"K-B8b wide {m}x{n} {mode} differs from its "
                     f"separate launches")
+        ran = rans[(m, n)] = routes_ran(before)
+        want = "streamed" if (m, n) == (8192, 640) else "resident"
+        print(f"[26 K-B8 wide {m}x{n}] tile plan: {plans[(m, n)]}; launches "
+              f"by route: {ran}")
+        require(plans[(m, n)]["tile_route"] == want and ran[want] > 0
+                and sum(ran.values()) == ran[want],
+                f"K-B8 at {m}x{n} took another route than {want}: "
+                f"{plans[(m, n)]}, {ran}")
 
     # the C-4 routes through the public entry points
     reset_launches()
@@ -2636,7 +2708,11 @@ def phase_wide_planar() -> dict:
                         planar_flops(m, n, tried, k, False)),
                 hbm_state_ms=tried * 2.0 * m * n * 4 / HBM_BYTES_PER_S * 1e3,
                 library_ms=None, shape="2048x1024, 300 iterations, hp",
-                iterations=k, trials=tried,
+                phase_launches_by_route=rans[(m, n)],
+                us_per_iteration=kern / k * 1e3,
+                us_per_trial=kern / tried * 1e3,
+                phase_launches_by_route_8192x640=rans[(8192, 640)],
+                phase_launches_by_route_256x8192=rans[(256, 8192)], iterations=k, trials=tried,
                 ms_fista=timed[(m, n, True)][0],
                 plain_ms_fista=timed[(m, n, True)][1],
                 ms_256x8192=timed[(256, 8192, False)][0],

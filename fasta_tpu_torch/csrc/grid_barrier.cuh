@@ -51,4 +51,19 @@ __device__ __forceinline__ void grid_barrier(unsigned* count, unsigned nblocks, 
   grid_wait(count, nblocks, gen);
 }
 
+// The end of a launch that keeps its counter in a buffer shared by every
+// launch on its stream (the wrapper's stream scratch, zeroed once): after
+// its last barrier each block takes a ticket from count[1]; the last
+// block to take one sets both words back to zero.  Every other block has
+// passed its last grid_wait before taking its ticket, so nothing reads the
+// counter after the reset, and the next launch on the stream finds both
+// at zero.
+__device__ __forceinline__ void grid_exit(unsigned* count, unsigned nblocks) {
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(count + 1, 1u) == nblocks - 1) {
+    count[0] = 0u;
+    count[1] = 0u;
+  }
+}
+
 }  // namespace fasta

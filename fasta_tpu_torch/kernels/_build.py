@@ -60,12 +60,12 @@ _SIGNATURES = {
     "fasta_tail_probe_work": [_I, _I, _I, _P, _P],
     "fasta_tail_probe": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                          _P, _P, _P, _P, _I, _P],
-    "fasta_microsolve_planar_grid": [_I, _P],
-    "fasta_microsolve_planar_work": [_I, _I, _I, _P],
+    "fasta_microsolve_planar_grid": [_I, _P, _P, _P, _P],
+    "fasta_microsolve_planar_work": [_I, _I, _I, _I, _P],
     "fasta_microsolve_planar": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _F,
                                 _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _I, _P],
+                                _P, _I, _I, _P, _P, _P, _I, _P],
     "fasta_planar_probe": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                            _P],
     "fasta_microsolve_tv": [_P, _I, _P, _I, _P, _I, _P, _I, _F, _I, _I, _I,
@@ -185,8 +185,10 @@ _RETIRED = []
 def stream_scratch(device, stream: int, ndoubles: int):
     """A float64 buffer of at least ``ndoubles`` on ``device`` for the
     launches on ``stream`` (a raw handle) of the kernels that finish with
-    a last-block ticket (K-B4's stream route, K-B5).  Its first double
-    holds the ticket, which every such kernel leaves at zero, so the
+    a last-block ticket (K-B4's stream route, K-B5) or keep a grid
+    barrier's counter and exit ticket there (K-B8).  Its first double
+    holds the ticket (or the two counters), which every such kernel leaves
+    at zero, so the
     buffer is zeroed once and never again: launches on one stream run in
     order and share it, launches on two streams never do (C-2).  Inside a
     CUDA-graph capture the zeroing of a buffer that eager launches have not

@@ -13,6 +13,7 @@ import torch
 
 import fasta_tpu_torch as ftt
 from fasta_tpu_torch import problems
+from fasta_tpu_torch.kernels.microsolver import MicrosolveOutput
 from fasta_tpu_torch.kernels import (bf16_probe, lstsq_fused, matvec_probe,
                                      microsolver, microsolver_planar,
                                      microsolver_tv, planar_fused,
@@ -1363,3 +1364,196 @@ def test_probe_kernels_reject_what_they_do_not_take(dev):
         A2, x2, _ = _probe_data(dev, 64, 130, 1.0)
         with pytest.raises(ValueError, match="n % 4"):
             call(A2, x2, b)
+
+
+# --------------------------------------------------------------------------
+# Slice 10: K-B8's routes with the channel matrices on the chip
+# --------------------------------------------------------------------------
+
+# (m, n, budget or None for the card's own, kernel, route): each route of
+# the tile plan at a small shape; a budget forces a streamed remainder.
+# The wide rows run beside the n-sized state in shared memory up to
+# n = 2048 (microsolve_planar_kernel), past it in the wide kernel, whose
+# threads take two slots of a row up to n = 4096 and four past it.
+PLANAR_ROUTES = {
+    "rows, registers": (1000, 37, None, "rows", "resident"),
+    "rows, shared": (2000, 300, None, "rows", "resident"),
+    "rows, streamed": (8192, 256, 0, "rows", "streamed"),
+    "rows past 256, streamed": (2000, 300, 5 * 8 * 300, "rows", "streamed"),
+    "wide rows": (4099, 601, None, "wide", "resident"),
+    "wide rows, streamed": (4099, 601, 9 * 8 * 604, "wide", "streamed"),
+    "wide kernel, two slots": (1000, 2100, None, "wide", "resident"),
+    "wide kernel, streamed": (400, 5000, 8 * 5000, "wide", "streamed"),
+    "columns": (300, 8300, None, "columns", "columns"),
+}
+# m ≥ 4n: a bounded solution, whose objective the kernel must reach
+POSED = {(1000, 37), (2000, 300), (8192, 256), (4099, 601)}
+
+
+@pytest.mark.parametrize("n4", [4, 256, 260, 512, 516, 1024, 2048, 2052,
+                                4096, 5000, 8192, 8196])
+def test_planar_grid_budget_is_row_budget(dev, n4):
+    """The card's shared memory for rows of A (``_grid``) is
+    ``row_budget`` of its opt-in and the kernel's static shared memory; on
+    the H100 those two are the module's H100 numbers, which the CPU tests
+    of the tile plan take."""
+    mp = microsolver_planar
+    nb, budget, optin, static = mp._grid(dev.index, n4)
+    assert nb == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert budget == mp.row_budget(n4, optin, static)
+    if "H100" in torch.cuda.get_device_name(dev):
+        assert optin == mp.H100_SMEM_OPTIN
+        if n4 <= mp.WIDE_MAX_N:
+            assert static == mp.H100_STATIC_SMEM[(n4 > mp.WIDE_N)
+                                                 + (n4 > mp.STATE_MAX_N)]
+        assert budget == mp.row_budget(n4)
+
+
+def _plan(dev, m, n, budget):
+    n4 = (n + 3) // 4 * 4
+    if budget is None:
+        return microsolver_planar._tiles(dev.index, m, n4)[0]
+    nb = microsolver_planar._grid(dev.index, n4)[0]
+    return microsolver_planar.tile_plan(m, n4, nb, budget)
+
+
+def _planar_launch(data, tau0, kw, plan, B=1, record_its=False):
+    """K-B8 (B = 1) or K-B8b on a given tile plan."""
+    Ar, Ai, b, c, x0 = data
+    out = microsolver_planar._launch(Ar, Ai, b, c, x0, tau0, B, record_its,
+                                     microsolver_planar._options(kw), plan)
+    if B == 1:
+        return MicrosolveOutput(*(None if t is None else t[0] for t in out))
+    return MicrosolveOutput(*out)
+
+
+def _route_counts():
+    return (microsolver_planar.RESIDENT_LAUNCHES,
+            microsolver_planar.STREAMED_LAUNCHES,
+            microsolver_planar.COLUMN_LAUNCHES)
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("case", list(PLANAR_ROUTES))
+def test_planar_routes_match_plain(dev, case, hp, accelerate):
+    """Each route of K-B8 against its plain version over 40 iterations
+    (the route counter shows which ran): backtracks equal and the first 10
+    taus and residuals within rtol max(1e-3, twice the plain version's own
+    spread with its columns reversed), every record; where the problem is
+    well posed the float64 objective within max(1e-5, twice that
+    spread)."""
+    m, n, budget, kernel, route = PLANAR_ROUTES[case]
+    p, data = _phase(dev, m, n)
+    plan = _plan(dev, m, n, budget)
+    assert (plan.kernel, plan.route) == (kernel, route)
+    kw = dict(max_iters=40, tol=0.0, stop_rule="iterations", hp=hp,
+              accelerate=accelerate, restart_dd=hp, record_bts=True,
+              record_fvals=True, record_objs=True, record_nres=True)
+    before = np.array(_route_counts())
+    out = _planar_launch(data, 1.0, kw, plan, record_its=True)
+    step = {"resident": (1, 0, 0), "streamed": (0, 1, 0),
+            "columns": (0, 0, 1)}[route]
+    assert tuple(np.array(_route_counts()) - before) == step
+    ref = microsolver_planar.microsolve_planar_phasemax_reference(
+        *data, 1.0, record_its=True, **kw)
+    perm = torch.arange(n - 1, -1, -1, device=dev)
+    rev = microsolver_planar.microsolve_planar_phasemax_reference(
+        *_reordered(data, perm), 1.0, **kw)
+    torch.cuda.synchronize()
+    assert int(out.iteration_count) == int(ref.iteration_count) == 40
+    tol = max(1e-3, 2.0 * _spread(rev.taus[:10], ref.taus[:10]),
+              2.0 * _spread(rev.residuals[:10], ref.residuals[:10]))
+    torch.testing.assert_close(out.taus[:10], ref.taus[:10], rtol=tol,
+                               atol=0.0)
+    torch.testing.assert_close(out.residuals[:10], ref.residuals[:10],
+                               rtol=tol, atol=1e-6)
+    assert torch.equal(out.backtracks[:10], ref.backtracks[:10])
+    torch.testing.assert_close(out.objectives[:10], ref.objectives[:10],
+                               rtol=tol, atol=0.0)
+    assert out.iterates.shape == (40, n, 2)
+    if not accelerate:
+        assert torch.equal(out.iterates[-1], out.x)
+    if (m, n) in POSED:
+        f1, f2 = _phase_objective(p, out.x), _phase_objective(p, ref.x)
+        f_rev = _phase_objective(p, rev.x[perm.argsort()])
+        assert abs(f1 - f2) <= max(1e-5 * abs(f2), 2.0 * abs(f_rev - f2))
+
+
+@pytest.mark.parametrize("case", ["rows, streamed", "rows past 256, streamed",
+                                  "wide rows, streamed",
+                                  "wide kernel, streamed"])
+def test_planar_streamed_remainder_gives_the_resident_bits(dev, case):
+    """Where a row lies — registers, shared memory or L2 — never changes
+    the order of a sum: a plan forced to stream rows gives the same bits
+    as the card's own plan, one solve and a batch, adaptive and FISTA;
+    and the batch on the forced plan is its separate launches."""
+    m, n, budget, _, _ = PLANAR_ROUTES[case]
+    p, data = _phase(dev, m, n)
+    forced = _plan(dev, m, n, budget)
+    own = _plan(dev, m, n, None)
+    assert forced.route == "streamed" and own.route == "resident"
+    assert forced.streamed_rows > 0
+    bs = _stack(data[2], 3)
+    t0s = torch.tensor([1.0, 0.3, 2.0], device=dev)
+    for mode in (dict(), dict(hp=True, accelerate=True, restart_dd=True)):
+        kw = dict(max_iters=200, tol=1e-5, record_bts=True,
+                  record_fvals=True, **mode)
+        one = _planar_launch(data, 1.0, kw, forced)
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(one, _planar_launch(data, 1.0, kw, own)))
+        batched = (data[0], data[1], bs, data[3], data[4])
+        out = _planar_launch(batched, t0s, kw, forced, B=3)
+        _same(out, [_planar_launch((data[0], data[1], bs[i], data[3],
+                                    data[4]), float(t0s[i]), kw, forced)
+                    for i in range(3)])
+
+
+def test_planar_column_fallback_batches_and_halts(dev):
+    """Past 8192 columns the column fallback: a batch of 3 bit-identical
+    to its separate launches (each counted on the route), and a NaN τ₀
+    halts as nonfinite after one iteration."""
+    m, n = 300, 8300
+    p, (Ar, Ai, b, c, x0) = _phase(dev, m, n)
+    bs = _stack(b, 3)
+    t0s = torch.tensor([1.0, 0.3, 2.0], device=dev)
+    kw = dict(max_iters=100, tol=1e-5, record_bts=True, hp=True)
+    before = microsolver_planar.COLUMN_LAUNCHES
+    out = microsolver_planar.microsolve_planar_phasemax_batch(
+        Ar, Ai, bs, c, x0, t0s, **kw)
+    _same(out, [microsolver_planar.microsolve_planar_phasemax(
+        Ar, Ai, bs[i], c, x0, float(t0s[i]), **kw) for i in range(3)])
+    assert microsolver_planar.COLUMN_LAUNCHES == before + 4
+    bad = microsolver_planar.microsolve_planar_phasemax(Ar, Ai, b, c, x0,
+                                                        float("nan"),
+                                                        max_iters=50)
+    assert bad.status == "nonfinite" and int(bad.iteration_count) == 1
+
+
+@pytest.mark.parametrize("case", list(PLANAR_ROUTES))
+def test_planar_routes_halt_nonfinite_and_leave_the_barrier_at_zero(dev,
+                                                                    case):
+    """A NaN τ₀ halts every route as nonfinite after one iteration, in one
+    solve and in a batch beside a finite instance, which the halt leaves
+    intact; after each launch the grid barrier's counter and exit ticket in
+    the stream's scratch are back at zero, so the next launch needs no
+    memset."""
+    m, n, budget, _, _ = PLANAR_ROUTES[case]
+    p, data = _phase(dev, m, n)
+    plan = _plan(dev, m, n, budget)
+    kw = dict(max_iters=50, tol=1e-5)
+    bad = _planar_launch(data, float("nan"), kw, plan)
+    assert bad.status == "nonfinite" and int(bad.iteration_count) == 1
+    bs = _stack(data[2], 2)
+    t0s = torch.tensor([float("nan"), 1.0], device=dev)
+    out = _planar_launch((data[0], data[1], bs, data[3], data[4]), t0s, kw,
+                         plan, B=2)
+    assert out.halt[0].item() == 2
+    good = _planar_launch((data[0], data[1], bs[1], data[3], data[4]), 1.0,
+                          kw, plan)
+    assert torch.equal(out.x[1], good.x)
+    torch.cuda.synchronize()
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    from fasta_tpu_torch.kernels import _build
+    bar = _build.stream_scratch(dev, stream, 1)
+    assert bar[:1].view(torch.int32).tolist() == [0, 0]

@@ -1,7 +1,8 @@
-"""The launch plans of kernels K-B4 (the fused shrink step) and K-B5 (the
-fused TV gradient map), which the wrappers compute on the host and the
-CUDA kernels obey: every shape lands on one route, and every element (K-B4)
-or row (K-B5) is covered exactly once.  The plans are pure functions of
+"""The launch plans of kernels K-B4 (the fused shrink step), K-B5 (the
+fused TV gradient map) and K-B8 (the planar whole solve), which the
+wrappers compute on the host and the CUDA kernels obey: every shape lands
+on one route, and every element (K-B4) or row (K-B5, K-B8) is covered
+exactly once.  The plans are pure functions of
 the shape and the card's SM count, so they are held here, on the CPU, at
 the H100's 132 SMs and at others."""
 
@@ -9,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from fasta_tpu_torch.kernels import prox_fused, tv_fused
+from fasta_tpu_torch.kernels import microsolver_planar, prox_fused, tv_fused
+from fasta_tpu_torch.kernels.microsolver_planar import tile_plan
 from fasta_tpu_torch.kernels.prox_fused import shrink_plan
 from fasta_tpu_torch.kernels.tv_fused import tv_plan
 
@@ -161,3 +163,129 @@ def test_tv_plan_sizes_to_the_card():
 def test_tv_plan_refuses_empty_shapes(H, W, sms):
     with pytest.raises(ValueError, match="tv_plan needs"):
         tv_plan(H, W, sms)
+
+
+# --------------------------------------------------------------------------
+# K-B8's tile plan: which rows of the channel matrices each block keeps on
+# the chip, and which kernel runs
+# --------------------------------------------------------------------------
+
+# The H100's shared memory for rows a block of each kernel has
+# (microsolver_planar.row_budget at the H100's opt-in and static shared
+# memory, which a card test holds against the card's own numbers).
+_budget = microsolver_planar.row_budget
+
+
+def test_row_budget_counts_the_state_of_each_kernel():
+    """The budget is the opt-in less the static shared memory and the
+    block's state: 14 vectors of 2·n4 floats up to WIDE_N, 6 + R − 1 up
+    to STATE_MAX_N, the wide kernel's one past it, none on the column
+    fallback."""
+    rb = microsolver_planar.row_budget
+    assert rb(256, 100000, 1000) == 100000 - 1000 - 8 * 256 * 14
+    assert rb(512, 100000, 1000) == 100000 - 1000 - 8 * 512 * 14
+    assert rb(516, 100000, 1000) == 100000 - 1000 - 8 * 516 * (6 + 2)
+    assert rb(1024, 100000, 1000) == 100000 - 1000 - 8 * 1024 * (6 + 1)
+    assert rb(2048, 200000, 1000) == 200000 - 1000 - 8 * 2048 * 6
+    assert rb(2052, 100000, 1000) == 100000 - 1000 - 8 * 2052
+    assert rb(8192, 100000, 1000) == 100000 - 1000 - 8 * 8192
+    assert rb(8196, 100000, 1000) == 0
+    assert rb(2048, 50000, 1000) == 0
+    optin = microsolver_planar.H100_SMEM_OPTIN
+    static = microsolver_planar.H100_STATIC_SMEM
+    assert rb(256) == optin - static[0] - 8 * 256 * 14
+    assert rb(1024) == optin - static[1] - 8 * 1024 * 7
+    assert rb(4096) == optin - static[2] - 8 * 4096
+    for n4 in (0, 6, -4):
+        with pytest.raises(ValueError, match="row_budget"):
+            rb(n4)
+
+
+@pytest.mark.parametrize("m,n4,nblocks,budget", [
+    (16384, 256, SMS, None), (8192, 640, SMS, None), (1, 4, SMS, None),
+    (100, 8, SMS, 0), (4099, 256, 7, 10000), (2048, 1024, SMS, 3 * 8192),
+    (37, 512, 64, 4096), (12288, 512, SMS, None), (256, 8192, SMS, 65536)])
+def test_tile_plan_places_every_row_once(m, n4, nblocks, budget):
+    budget = _budget(n4) if budget is None else budget
+    plan = tile_plan(m, n4, nblocks, budget)
+    assert plan.kernel in ("rows", "wide") and len(plan.bands) == nblocks
+    # contiguous bands over all m rows, the kernel's own formula
+    assert plan.bands == tuple((k * m // nblocks, (k + 1) * m // nblocks)
+                               for k in range(nblocks))
+    placed = np.zeros(m, np.int64)
+    where = np.zeros(m, np.int64)     # 1 registers, 2 shared, 3 streamed
+    for (r0, r1), g, s in zip(plan.bands, plan.reg_rows, plan.smem_rows):
+        assert 0 <= g and 0 <= s and g + s <= r1 - r0
+        placed[r0:r1] += 1
+        where[r0:r0 + g] = 1
+        where[r0 + g:r0 + g + s] = 2
+        where[r0 + g + s:r1] = 3
+        # the shared-memory rows within the budget
+        assert s * 8 * n4 <= budget
+        # registers hold a band's first rows, up to REG_N columns only
+        want = min(r1 - r0, microsolver_planar.REG_ROWS) \
+            if n4 <= microsolver_planar.REG_N else 0
+        assert g == want
+        # a block streams rows only when its shared memory is full
+        if r1 - r0 > g + s:
+            assert (s + 1) * 8 * n4 > budget
+    assert np.all(placed == 1)
+    streamed = int((where == 3).sum())
+    assert plan.streamed_rows == streamed
+    assert plan.route == ("streamed" if streamed else "resident")
+    assert plan.streamed_bytes == 8 * n4 * streamed
+    assert plan.resident_share == pytest.approx(1 - streamed / m)
+
+
+def test_tile_plan_route_boundaries():
+    """n4 = 512 is the last width of the route whose blocks hold the
+    n-sized state, 516 the first of the wide route; 8192 the last of the
+    wide route, 8196 the column fallback; registers hold rows up to 256
+    columns."""
+    WIDE_N, WIDE_MAX_N = microsolver_planar.WIDE_N, \
+        microsolver_planar.WIDE_MAX_N
+    assert (WIDE_N, WIDE_MAX_N) == (512, 8192)
+    kernels = [tile_plan(2048, n4, SMS, _budget(n4)).kernel
+               for n4 in (256, 260, WIDE_N, WIDE_N + 4, WIDE_MAX_N,
+                          WIDE_MAX_N + 4)]
+    assert kernels == ["rows", "rows", "rows", "wide", "wide", "columns"]
+    assert max(tile_plan(2048, 256, SMS, _budget(256)).reg_rows) == 16
+    assert max(tile_plan(8192, 256, SMS, _budget(256)).reg_rows) == 32
+    assert max(tile_plan(8192, 260, SMS, _budget(260)).reg_rows) == 0
+    cols = tile_plan(300, 9000, SMS, 0)
+    assert (cols.route, cols.bands, cols.streamed_rows) == ("columns", (),
+                                                            300)
+    assert cols.streamed_bytes == 2 * 8 * 9000 * 300
+    assert cols.resident_share == 0.0
+    # the route agrees with the wrappers' width test
+    for n in (512, 513, 516):
+        assert microsolver_planar._wide(n) == (
+            tile_plan(64, (n + 3) // 4 * 4, SMS, 1 << 16).kernel != "rows")
+
+
+@pytest.mark.parametrize("m,n,kernel,route", [
+    (16384, 256, "rows", "resident"), (2048, 1024, "wide", "resident"),
+    (8192, 640, "wide", "streamed"), (256, 8192, "wide", "resident"),
+    (2048, 516, "wide", "resident")])
+def test_tile_plan_on_the_h100_keeps_the_main_shapes_on_the_chip(m, n,
+                                                                 kernel,
+                                                                 route):
+    """At the H100's 132 SMs and its shared memory: 16384×256 keeps all
+    its rows on the chip (32 a block in registers, the rest of its 124 or
+    125 in shared memory), 2048×1024 and 256×8192 too (two rows of 64 KB a
+    block), 8192×640 more than half (62–63 rows of 5 KB a block beside the
+    n-sized state)."""
+    plan = tile_plan(m, n, SMS, _budget(n))
+    assert (plan.kernel, plan.route) == (kernel, route)
+    if route == "streamed":
+        assert 0.5 < plan.resident_share < 0.75
+        assert plan.streamed_bytes == 8 * n * plan.streamed_rows
+
+
+@pytest.mark.parametrize("m,n4,nblocks,budget", [
+    (0, 256, SMS, 1000), (16, 0, SMS, 1000), (16, 6, SMS, 1000),
+    (16, 256, 0, 1000), (16, 256, SMS, -1), (1 << 20, 1 << 12, SMS, 0)])
+def test_tile_plan_refuses_empty_or_impossible_shapes(m, n4, nblocks,
+                                                      budget):
+    with pytest.raises(ValueError, match="tile_plan"):
+        tile_plan(m, n4, nblocks, budget)

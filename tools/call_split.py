@@ -1,5 +1,6 @@
-"""Split each call of K-B4 (the fused shrink step) and K-B5 (the fused TV
-gradient map) into its card time, its host time and its stream time, and
+"""Split each call of K-B4 (the fused shrink step), K-B5 (the fused TV
+gradient map) and K-B7 (the fused planar gradient map, hinge form) into
+its card time, its host time and its stream time, and
 time the PyTorch loop paths that call them, in several checkouts of the
 repository, one fresh process per checkout, in the order given, on one
 CUDA card.
@@ -13,7 +14,9 @@ checkouts on one card, give them as A B B A.  The timing helpers are this
 file's own checkout's ``fasta_tpu_torch/profiling.py``, so every checkout
 is read alike.  Per shape — K-B4 at 1×2000 (a LASSO loop trial), 32×2000
 (a serving batch-loop trial) and 1×2²⁴, a τ and a μ per row on the card;
-K-B5 at 512×512 (a TV loop trial) and 4096×4096 —
+K-B5 at 512×512 (a TV loop trial) and 4096×4096; K-B7's hinge form over
+float32 channels at 16384×256 (a phase-retrieval loop trial, A in L2) and
+16384×4096 (A streamed from device memory) —
 
 * ``card_us``: the card's time per call, summed over the kernels,
   memsets and copies of 20 calls in a ``profiling.trace``, and ``ops``,
@@ -46,6 +49,7 @@ import time
 
 B4_SHAPES = ((1, 2000), (32, 2000), (1, 1 << 24))
 B5_SHAPES = ((512, 512), (4096, 4096))
+B7_SHAPES = ((16384, 256), (16384, 4096))
 LOOP_RUNS = 5
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -104,7 +108,7 @@ def _child(root: str, kernels_only: bool) -> None:
     prof = _profiling()
     import fasta_tpu_torch as ftt
     from fasta_tpu_torch import problems
-    from fasta_tpu_torch.kernels import prox_fused, tv_fused
+    from fasta_tpu_torch.kernels import planar_fused, prox_fused, tv_fused
     dev = torch.device("cuda", 0)
     logdir = os.path.join(root, "build", "call_split_trace")
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -124,6 +128,15 @@ def _child(root: str, kernels_only: bool) -> None:
         out[f"K-B5 {h}x{w}"] = _split(
             prof, lambda: tv_fused.fused_tv_gradmap(p, b, 0.1), logdir)
         del p, b
+    for m, n in B7_SHAPES:
+        Ar = torch.randn((m, n), generator=gen, device=dev) / (2 * m) ** 0.5
+        Ai = torch.randn((m, n), generator=gen, device=dev) / (2 * m) ** 0.5
+        x = torch.randn((n, 2), generator=gen, device=dev)
+        bm = torch.rand(m, generator=gen, device=dev) + 0.1
+        out[f"K-B7 {m}x{n}"] = _split(
+            prof, lambda: planar_fused.fused_planar_hinge_gradmap(
+                Ar, Ai, x, bm), logdir)
+        del Ar, Ai
     if kernels_only:
         print(json.dumps(out), flush=True)
         return
