@@ -10,7 +10,9 @@ non-zero without the final ``ok`` line):
 3. K-B3 (fused least-squares gradient map) against its plain version at
    1000×2000 and 8192×16384 float32, with median times over 20 runs;
 4. K-B1 (whole-solve kernel) against its plain version on the card, on
-   LASSO 1000×2000, hp off and on;
+   LASSO 1000×2000, hp off and on, with its dense plan (``dense_plan``:
+   the route, the share of A kept on the chip) and µs a trial; the route
+   counters show that every launch kept A on the chip;
 5. the LASSO main path through the public entry points —
    ``Problem.microsolve`` and ``Problem.solve`` on
    ``problems.build("lasso", device="cuda")`` — checked against the
@@ -23,10 +25,12 @@ non-zero without the final ``ok`` line):
 7. K-B1 against its plain version for all 12 loss × prox pairs on the
    full-width NNLS, logistic and SVM instances, adaptive (hp off, and hp
    on for one pair per loss) and FISTA with restart (hp on; hp off held
-   to the objective);
+   to the objective), each problem's dense plan and each run's µs a
+   trial;
 8. K-B1p: the cold and the warm path on LASSO 1000×2000 over
    μ = 0.4, 0.2, 0.1, 0.05 against the plain version, the cold points
-   against separate ``Problem.microsolve`` calls;
+   against separate ``Problem.microsolve`` calls, with the dense plan and
+   µs a trial;
 9. the dense family's main path — ``Problem.solve`` in the three modes,
    ``Problem.microsolve`` adaptive and FISTA and ``Problem.microsolve_sweep``
    on ``problems.build("nnls" | "logistic" | "svm", device="cuda")`` —
@@ -81,7 +85,8 @@ non-zero without the final ``ok`` line):
     call, as in phase 10;
 19. K-B1b (the dense whole solve over a batch): LASSO 1000×2000, 32
     instances, adaptive and FISTA, per-instance τ₀, each instance
-    bit-identical to a separate K-B1 launch, two against the plain batch;
+    bit-identical to a separate K-B1 launch, two against the plain batch,
+    with the dense plan, µs a trial and the route counters;
 20. K-B6b: TV 512×512, 8 images, adaptive and FISTA, each bit-identical
     to a separate K-B6 launch, one against the plain version, on the
     resident route;
@@ -127,7 +132,8 @@ non-zero without the final ``ok`` line):
     of calls, and its kernels in a ``profiling.trace``);
 30. K-P3 (the tail-ablation ladder) at 1000×2000: every rung L0…L6 and X
     variant against its plain version at K = 3, then µs per iteration at
-    K = 5000 beside K-B1 (``microsolve_lasso``) at the same K.
+    K = 5000 beside K-B1 (``microsolve_lasso``) at the same K, and the
+    price of the Aᵀ copy that K-B1's wrapper no longer makes.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -136,10 +142,10 @@ over 67 TFLOP/s (the H100 SXM data sheet).  A whole-solve kernel's
 operations are counted from its body for the line-search trials and
 iterations of the measured run; ``hbm_state_ms`` adds, for those
 kernels, the time to move the state of every iteration once through
-device memory (the kernels keep it in L2); K-B8's entries also give the
-launches by route that its route counters counted over the whole phase,
-its timed runs included (the tile plan itself, computed on the host, is
-printed in the phase's lines).
+device memory (the kernels keep it in L2); K-B1's and K-B8's entries also
+give the launches by route that their route counters counted over the
+whole phase, its timed runs included (the dense and tile plans
+themselves, computed on the host, are printed in the phases' lines).
 The last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script fails at once.  Imports no JAX.
@@ -448,6 +454,31 @@ def phase_gradmap() -> dict:
                 plain_stream_ms_1000x2000=small[3])
 
 
+def dense_plan_line(m: int, n: int) -> str:
+    """K-B1's dense plan on this card at m×n, as the host computes it
+    (microsolver.dense_plan): the kernel, the route, the share of A's rows
+    kept on the chip and the bytes of A an adaptive trial reads from L2.
+    Printed beside the route counters; not a measurement."""
+    plan = microsolver._tiles(DEV.index, m, (n + 3) // 4 * 4)[0]
+    return (f"dense plan {plan.kernel}/{plan.route}, "
+            f"{100.0 * plan.resident_share:.1f}% of A on the chip "
+            f"({sum(plan.reg_rows)} rows in registers, "
+            f"{sum(plan.smem_rows)} in shared memory), "
+            f"{plan.streamed_bytes / 1e6:.2f} MB a trial from L2")
+
+
+def dense_route_counts() -> tuple:
+    return (microsolver.RESIDENT_LAUNCHES, microsolver.STREAMED_LAUNCHES,
+            microsolver.COLUMN_LAUNCHES)
+
+
+def dense_routes_ran(before: tuple) -> dict:
+    """K-B1's launches (K-B1, K-B1p, K-B1b) by route since ``before`` (a
+    ``dense_route_counts()``)."""
+    return dict(zip(("resident", "streamed", "columns"),
+                    (b - a for a, b in zip(before, dense_route_counts()))))
+
+
 def phase_microsolver() -> dict:
     """K-B1 against its plain version on the card.  Tolerances: equal
     status; iteration counts within 2; taus rtol 1e-3 on the first 10
@@ -459,6 +490,8 @@ def phase_microsolver() -> dict:
     x0 = torch.zeros(2000, dtype=torch.float32, device=DEV)
     kw = dict(max_iters=5000, tol=1e-6, record_fvals=True, record_bts=True)
     worst, times = 0.0, {}
+    print(f"[4 K-B1 1000x2000] {dense_plan_line(1000, 2000)}")
+    before = dense_route_counts()
     for hp in (False, True):
         out = microsolver.microsolve_lasso(A, b, x0, 0.05, 0.1, hp=hp, **kw)
         ref = microsolver.microsolve_lasso_reference(A, b, x0, 0.05, 0.1,
@@ -475,12 +508,14 @@ def phase_microsolver() -> dict:
             A, b, x0, 0.05, 0.1, hp=hp, **kw), 10)
         plain = cuda_ms(lambda: microsolver.microsolve_lasso_reference(
             A, b, x0, 0.05, 0.1, hp=hp, **kw), 3, warmup=1)
+        tried = trials(out)[0]
         print(f"[4 K-B1 hp={hp}] iterations kernel {k1} plain {k2}; status "
               f"{out.status}/{ref.status}; taus[:{kt}] max rel {tau_err:.2e} "
               f"(tol 1e-3); residuals allclose(1e-3, 1e-6) {res_ok}; "
               f"max|dx| {x_err:.2e} (tol 1e-5); solve to tol 1e-6: kernel "
-              f"{kern:.3f} ms (median of 10), plain loop on the card "
-              f"{plain:.3f} ms (median of 3)")
+              f"{kern:.3f} ms (median of 10; {tried} trials, "
+              f"{kern / tried * 1e3:.3f} us a trial, launch included), plain "
+              f"loop on the card {plain:.3f} ms (median of 3)")
         require(out.status == ref.status == "converged",
                 f"K-B1 hp={hp} status {out.status} vs {ref.status}")
         require(abs(k1 - k2) <= 2, f"K-B1 hp={hp} iterations {k1} vs {k2}")
@@ -488,6 +523,10 @@ def phase_microsolver() -> dict:
                 f"K-B1 hp={hp} disagrees with its plain version")
         worst = max(worst, x_err)
         times[hp] = (kern, plain, trials(out))
+    ran = dense_routes_ran(before)
+    print(f"[4 K-B1] launches by route during the phase: {ran}")
+    require(ran["streamed"] == ran["columns"] == 0 and ran["resident"] > 0,
+            f"K-B1 at 1000x2000 left the resident route: {ran}")
     m, n = 1000, 2000
     tried, k = times[False][2]
     # A, b, x₀ in; x and the k entries of taus, residuals, backtracks and
@@ -499,6 +538,8 @@ def phase_microsolver() -> dict:
                 hbm_state_ms=k * dense_iteration_bytes(m, n)
                 / HBM_BYTES_PER_S * 1e3,
                 library_ms=None, iterations=k, trials=tried,
+                us_per_trial=times[False][0] / tried * 1e3,
+                phase_launches_by_route=ran,
                 ms_hp=times[True][0], plain_ms_hp=times[True][1])
 
 
@@ -652,9 +693,12 @@ def phase_pairs() -> dict:
     first 10 iterations' checks and the objective after 30."""
     worst = 0.0
     timed = {}
+    before = dense_route_counts()
     for loss, (name, tau0, mu) in DENSE.items():
         p = problems.build(name, device=DEV)
         A, x0 = p.op.A, p.x0
+        print(f"[7 K-B1 {name} {A.shape[0]}x{A.shape[1]}] "
+              f"{dense_plan_line(*A.shape)}")
         b = p.fterm.y if loss == "squared_hinge" else p.fterm.b
         runs = [(prox, False, False) for prox in PROXES]
         runs += [("l1", False, True)]
@@ -703,6 +747,7 @@ def phase_pairs() -> dict:
                       and tau_err <= 1e-3 and res_ok and bt_ok
                       and x_err <= x_tol)
             mode = "FISTA" if accelerate else "adaptive"
+            tried = trials(out)[0]
             print(f"[7 K-B1 {loss} x {prox} {mode} hp={hp}] iterations "
                   f"kernel {k1} plain {k2}; status {out.status}/{ref.status}; "
                   f"taus[:{kt}] max rel {tau_err:.2e}; residuals[:{kt}] "
@@ -710,14 +755,19 @@ def phase_pairs() -> dict:
                   f"max|dx| {x_err:.2e} (tol {x_tol:.1e}); objective rel "
                   f"{rel_f:.2e} (tol 1e-5); held to {rule}; "
                   f"{'30 iterations' if fista_f32 else 'to tol 1e-5'}: "
-                  f"kernel {kern:.3f} ms (median of 5), plain loop on the "
-                  f"card {plain:.3f} ms (one run)")
+                  f"kernel {kern:.3f} ms (median of 5; "
+                  f"{kern / tried * 1e3:.3f} us a trial, launch included), "
+                  f"plain loop on the card {plain:.3f} ms (one run)")
             require(ok, f"K-B1 {loss} x {prox} {mode} hp={hp} disagrees "
                     f"with its plain version")
             if not fista_f32 and loss != "logistic":
                 worst = max(worst, x_err)
             timed[(loss, prox, accelerate, hp)] = (kern, plain)
-    return dict(max_abs_err_pairs=worst,
+    ran = dense_routes_ran(before)
+    print(f"[7 K-B1] launches by route during the phase: {ran}")
+    require(ran["streamed"] == ran["columns"] == 0,
+            f"a dense family problem left the resident route: {ran}")
+    return dict(max_abs_err_pairs=worst, phase_launches_by_route_pairs=ran,
                 ms_pairs={f"{k[0]}x{k[1]}{'/fista' if k[2] else ''}"
                           f"{'/hp' if k[3] else ''}": v[0]
                           for k, v in timed.items()},
@@ -739,6 +789,8 @@ def phase_path() -> dict:
     kw = dict(max_iters=3000, tol=1e-5, stop_rule="residual",
               record_bts=True)
     out = {}
+    print(f"[8 K-B1p 1000x2000] {dense_plan_line(1000, 2000)}")
+    before = dense_route_counts()
     for warm in (False, True):
         ker = microsolver.microsolve_lasso_path(A, b, x0, 0.05, PATH_MUS,
                                                 warm=warm, **kw)
@@ -756,11 +808,13 @@ def phase_path() -> dict:
         err = float((ker.x - ref.x).abs().max())
         ks, kr = ker.iteration_count.tolist(), ref.iteration_count.tolist()
         name = "warm" if warm else "cold"
+        tried = trials(ker)[0]
         print(f"[8 K-B1p {name}] iterations per mu kernel {ks} (total "
               f"{sum(ks)}), plain {kr} (total {sum(kr)}); statuses "
               f"{ker.halt.tolist()}; max|dx| {err:.2e}; objective max rel "
               f"{rel:.2e} (tol 1e-5); path: kernel {kern:.3f} ms (median "
-              f"of 5), plain loop on the card {plain:.3f} ms (one run)")
+              f"of 5; {kern / tried * 1e3:.3f} us a trial, launch "
+              f"included), plain loop on the card {plain:.3f} ms (one run)")
         require(bool((ker.halt == 1).all() and (ref.halt == 1).all())
                 and rel <= 1e-5, f"K-B1p {name} disagrees with its plain "
                 f"version")
@@ -781,6 +835,10 @@ def phase_path() -> dict:
           f"cold {total_c}")
     require(same, "a cold path point differs from its separate solve")
     require(total_w < total_c, "the warm path took no fewer iterations")
+    ran = dense_routes_ran(before)
+    print(f"[8 K-B1p] launches by route during the phase: {ran}")
+    require(ran["streamed"] == ran["columns"] == 0,
+            f"K-B1p left the resident route: {ran}")
     m, n, B = 1000, 2000, len(PATH_MUS)
     tried = trials(warm)[0]
     # A, b, x₀ in; each point's x and the entries of taus, residuals and
@@ -792,6 +850,8 @@ def phase_path() -> dict:
                 hbm_state_ms=total_w * dense_iteration_bytes(m, n)
                 / HBM_BYTES_PER_S * 1e3,
                 library_ms=None, trials=tried,
+                us_per_trial=out["warm"][1] / tried * 1e3,
+                phase_launches_by_route=ran,
                 ms_cold=out["cold"][1], plain_ms_cold=out["cold"][2],
                 iterations_warm=total_w, iterations_cold=total_c)
 
@@ -1833,6 +1893,8 @@ def phase_batch_dense() -> dict:
     t0s = torch.tensor([0.05 * (1.0 + (i % 3) / 2.0) for i in range(B)],
                        device=DEV)
     timed, worst = {}, 0.0
+    print(f"[19 K-B1b 1000x2000] {dense_plan_line(1000, 2000)}")
+    before = dense_route_counts()
     for accelerate in (False, True):
         kw = dict(max_iters=5000, tol=1e-6, hp=True, accelerate=accelerate,
                   restart_dd=True, record_bts=True)
@@ -1873,12 +1935,17 @@ def phase_batch_dense() -> dict:
         print(f"[19 K-B1b {mode}] {B} instances, iterations {min(ks)}-"
               f"{max(ks)} (total {sum(ks)}); each bit-identical to its own "
               f"K-B1 launch: {same}; one K-B1b launch {kern:.3f} ms (median "
-              f"of 5, {kern / B:.3f} ms per instance), {B} K-B1 launches "
-              f"{sep:.3f} ms (median of 3), plain batch on the card "
+              f"of 5, {kern / B:.3f} ms per instance, "
+              f"{kern / trials(out)[0] * 1e3:.3f} us a trial), {B} K-B1 "
+              f"launches {sep:.3f} ms (median of 3), plain batch on the card "
               f"{plain:.3f} ms (one run)")
         require(ok, f"K-B1b {mode} disagrees with its separate launches or "
                 f"its plain version")
         timed[accelerate] = (kern, plain, sep, trials(out))
+    ran = dense_routes_ran(before)
+    print(f"[19 K-B1b] launches by route during the phase: {ran}")
+    require(ran["streamed"] == ran["columns"] == 0,
+            f"K-B1b left the resident route: {ran}")
     kern, plain, sep, (tried, k) = timed[False]
     m, n = A.shape
     # A, the B measurement vectors, x₀ and the τ₀s in; each instance's x
@@ -1889,6 +1956,7 @@ def phase_batch_dense() -> dict:
                 hbm_state_ms=k * dense_iteration_bytes(m, n)
                 / HBM_BYTES_PER_S * 1e3,
                 library_ms=None, instances=B, iterations=k, trials=tried,
+                us_per_trial=kern / tried * 1e3, phase_launches_by_route=ran,
                 separate_launches_ms=sep, ms_fista=timed[True][0],
                 plain_ms_fista=timed[True][1],
                 separate_launches_ms_fista=timed[True][2])
@@ -3142,11 +3210,13 @@ def phase_tail_probe() -> dict:
           f"{b1_ms / b1_k * 1e3:.3f} us per iteration, {b1_tried / b1_k:.3f} "
           f"trials per iteration, {b1_ms / b1_tried * 1e3:.3f} us per trial; "
           f"L6 {per['L6'] * 1e3:.3f} us per iteration")
-    print(f"[30 K-P3] the contiguous A^T copy K-B1's wrapper makes per "
-          f"launch: {transpose * 1e3:.3f} us (median of 20); X1 (no copy) "
-          f"against L6: {(per['X1-col'] - per['L6']) * 1e3:+.3f} us per "
-          f"iteration; plain L6 {plain * 1e3:.3f} us per iteration; "
-          f"launches during the timed runs {launches}")
+    print(f"[30 K-P3] K-B1's wrapper makes no A^T copy (its adjoint reads "
+          f"the same rows of A); a contiguous A^T copy, which it made per "
+          f"launch before, costs {transpose * 1e3:.3f} us (median of 20); X1 "
+          f"(no copy) against L6: "
+          f"{(per['X1-col'] - per['L6']) * 1e3:+.3f} us per iteration; plain "
+          f"L6 {plain * 1e3:.3f} us per iteration; launches during the timed "
+          f"runs {launches}")
     bd = bound(4.0 * (m * n + m + 2 * n) / K,
                tail_flops(m, n, tried["L6"]) / K)
     return dict(max_abs_err=worst, ms=per["L6"], plain_ms=plain, **bd,

@@ -1,13 +1,13 @@
 // The control of a whole FASTA solve in one cooperative launch, shared by
-// K-B1 (microsolver.cu, dense operators) and K-B6 (microsolver_tv.cu, the
-// TV stencils): the partial-sum slots, the fixed-order reduction that
-// every block runs on them, and the decisions thread 0 of every block
-// takes from the reduced scalars — nonmonotone backtracking over the
-// window, the stop rules, the Zhou–Gao–Dai BB stepsize or the FISTA
-// momentum with O'Donoghue–Candès restart, the records and the halt code
-// (fasta_tpu/kernels/microsolver.py, microsolver_tv.py: backtrack,
-// resid_stop and the two loop bodies).  The kernels differ only in how a
-// trial's partials are computed.
+// K-B1 (microsolver.cu, dense operators), K-B6 (microsolver_tv.cu, the
+// TV stencils) and K-B8 (microsolver_planar.cu): the partial-sum slots,
+// the fixed-order reduction that every block runs on them, and the
+// decisions thread 0 of every block takes from the reduced scalars —
+// nonmonotone backtracking over the window, the stop rules, the
+// Zhou–Gao–Dai BB stepsize or the FISTA momentum with O'Donoghue–Candès
+// restart, the records and the halt code (fasta_tpu/kernels/microsolver.py,
+// microsolver_tv.py: backtrack, resid_stop and the two loop bodies).  The
+// kernels differ only in how a trial's partials are computed.
 //
 // Every block reduces the same per-block partials in the same order, so
 // every block derives bit-identical decisions: the uniform control flow
@@ -287,6 +287,126 @@ __device__ __forceinline__ void decide(State& s, const double* tot, Acc* fwin, A
     s.alpha = a1;
     s.res = res;
     s.stop = stop;
+    s.post = 1;
+    f1s = f1;
+  }
+}
+
+// decide in two halves, for a kernel that has the step's sums before f
+// and the BB sums (K-B1): decide_prepare takes, from tot's step sums
+// alone, everything an acceptance needs that does not depend on f — the
+// window's maximum, the backtracking test's quadratic term, the residual,
+// the normalized residual, the stop test and (FISTA) the momentum — so
+// that one warp can take it while the block waits for the other blocks;
+// decide_finish then takes f (and the BB sums) and does the rest.  The
+// two together do decide's arithmetic in decide's order: the same bits.
+template <typename Acc>
+struct Prepared {
+  Acc M;
+  float q, res, maxres, nres, alpha, beta;
+  int stop;
+};
+
+// Warp 1 of every block: the window's maximum in decide's semantics —
+// fwin[0] if it is NaN, else the largest of the entries that are not NaN
+// (the lanes take the entries past the first, their maxima meet by a
+// shuffle tree; a maximum is the same in any order) — then lane 0 the
+// rest.
+template <typename Acc, bool ACCEL>
+__device__ __forceinline__ void decide_prepare(const State& s, const double* tot,
+                                               const Acc* fwin, const Control& c,
+                                               Prepared<Acc>& out) {
+  const int lane = threadIdx.x & 31;
+  Acc M = Acc(-CUDART_INF);
+  for (int w = 1 + lane; w < c.window; w += 32) M = fwin[w] > M ? fwin[w] : M;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Acc o = __shfl_xor_sync(0xffffffffu, M, off);
+    M = o > M ? o : M;
+  }
+  if (lane != 0) return;
+  const Acc f0 = fwin[0];
+  Prepared<Acc> p;
+  const float nd2 = float(tot[kNd2]);
+  p.M = isnan(double(f0)) || !(M > f0) ? f0 : M;
+  p.q = __fdiv_rn(nd2, __fmul_rn(2.f, s.tau));
+  p.res = __fdiv_rn(sqrtf(nd2), s.tau);
+  p.maxres = nanmax(s.maxres, p.res);
+  const float nrm = __fadd_rn(
+      nanmax(sqrtf(float(tot[kNg2])), __fdiv_rn(sqrtf(float(tot[kNsm2])), s.tau)), 1e-8f);
+  p.nres = __fdiv_rn(p.res, nrm);
+  p.stop = stop_rule(c.stop_rule, p.res, p.nres, p.maxres, c.tol);
+  p.alpha = p.beta = 0.f;
+  if (ACCEL) {
+    const float rdot = float(tot[kRdot]);
+    const float a0 = (c.restart && rdot > 0.f) ? 1.f : s.alpha;
+    const float a1 =
+        __fdiv_rn(__fadd_rn(1.f, sqrtf(__fadd_rn(1.f, __fmul_rn(__fmul_rn(4.f, a0), a0)))), 2.f);
+    p.beta = __fdiv_rn(__fsub_rn(a0, 1.f), a1);
+    p.alpha = a1;
+  }
+  out = p;
+}
+
+template <typename Acc, bool ACCEL>
+__device__ __forceinline__ void decide_finish(State& s, const double* tot, const Prepared<Acc>& p,
+                                              Acc* fwin, Acc& f1s, float fscale, float gobj,
+                                              const Control& c, const Records& rec, size_t rec0,
+                                              bool write) {
+  constexpr bool hp = sizeof(Acc) == sizeof(double);
+  const Acc f1 = Acc(fscale) * Acc(tot[kF]);
+  const Acc btd = Acc(tot[kBtDot]);
+  const Acc M = p.M;
+  bool viol;
+  if (hp) {
+    const double slack = 1e-12 + (64.0 * double(kEps32)) * (fabs(double(M)) + fabs(double(f1)));
+    viol = (double(f1) - (double(M) + (double(btd) + double(p.q)))) > slack;
+  } else {
+    const float suff = __fadd_rn(__fadd_rn(float(M), float(btd)), p.q);
+    viol = __fsub_rn(float(f1), 1e-12f) > suff;
+  }
+  s.accepted = 0;
+  if (viol && s.cnt < c.max_backtracks) {
+    s.tau = __fmul_rn(s.tau, c.shrink);
+    s.cnt += 1;
+    return;
+  }
+  s.accepted = 1;
+  const float res = p.res;
+  s.maxres = p.maxres;
+  if (s.cnt < c.max_backtracks) s.tau_acc = s.tau;
+  const size_t r = rec0 + s.k;
+  if (write) {
+    rec.taus[r] = s.tau;
+    rec.res[r] = res;
+    if (rec.bts) rec.bts[r] = s.cnt;
+    if (rec.nres) rec.nres[r] = p.nres;
+    if (rec.objs) rec.objs[r] = __fadd_rn(float(f1), gobj);
+  }
+  s.krec = s.k;
+  if (!ACCEL) {
+    const float nd2 = float(tot[kNd2]);
+    const float dot = float(Acc(tot[kBbDot]));
+    const float ndg2 = float(tot[kNdg2]);
+    const float tau_s = dot != 0.f ? __fdiv_rn(nd2, dot) : CUDART_INF_F;
+    const float tau_m = nanmax(ndg2 > 0.f ? __fdiv_rn(dot, ndg2) : 0.f, 0.f);
+    float tau_n =
+        __fmul_rn(2.f, tau_m) > tau_s ? tau_m : __fsub_rn(tau_s, __fmul_rn(0.5f, tau_m));
+    if (tau_n <= 0.f || isinf(tau_n) || isnan(tau_n)) tau_n = __fmul_rn(s.tau, 1.5f);
+    const bool finite = isfinite(res) && isfinite(tau_n) && isfinite(double(f1));
+    s.status = !finite ? 2 : (p.stop ? 1 : 0);
+    if (write && rec.fvals) rec.fvals[r] = float(f1);
+    fwin[(s.k + 1) % c.window] = f1;
+    s.k += 1;
+    s.cur ^= 1;
+    s.tau = tau_n;
+    s.cnt = 0;
+    s.done = (s.k >= c.max_iters) || (s.status != 0);
+  } else {
+    s.beta = p.beta;
+    s.alpha = p.alpha;
+    s.res = res;
+    s.stop = p.stop;
     s.post = 1;
     f1s = f1;
   }

@@ -13,104 +13,118 @@
 // microsolve_lasso under jax.vmap (fasta_tpu/micro.py:435), which Pallas
 // lowers to a leading grid axis of instances.
 //
-// Bound on this card: latency.  One iteration moves A and Aᵀ once from L2
-// (16 MB at 1000×2000, which fits the 50 MB L2) and is otherwise a chain
-// of dependent phases; launching a kernel per phase from the host would
-// cost more than the phases themselves.
+// Bound on this card: latency.  A trial is 4·m·n operations on A (the
+// forward and the adjoint product) and otherwise a chain of dependent
+// phases — the grid barriers, the reductions over blocks and the
+// decision — whose floor a tiny shape measures (tools/dense_split.py;
+// the times are in PERF.md).  As the TPU kernel pins A in VMEM, the row
+// kernel below keeps A on the chip for the whole launch, and the adjoint
+// comes from the same rows: there is no transposed copy.
 //
-// Design:
-//  * One persistent cooperative launch, at most one block per SM.  The
-//    phases of a line-search trial are separated by grid-wide barriers
-//    (cooperative_groups::this_grid().sync()), in the order of the TPU
-//    kernel's loop body (microsolver.py:474-678):
-//      1. the prox step over each block's columns, with partial ‖Δx‖²,
-//         ⟨Δx,g⟩, ‖g‖², ‖x₁−x̂₁‖², and when asked Σ|x₁| or Σx₁² (the
-//         objective's g) and the FISTA restart dot ⟨y−x₁, x₁−x_acc⟩;
-//      2. d = A x₁ over each block's rows (one warp per row), with the
-//         loss's gradient weight ℓ′(d) and partial f;
-//      3. adaptive: g₁ = Aᵀ ℓ′(d) over each block's columns (one warp per
-//         row of a contiguous Aᵀ copy), with partial ⟨Δx,Δg⟩ and ‖Δg‖²;
-//         FISTA needs no adjoint during the trials;
-//      4. every block reduces all blocks' partials and takes the decisions.
-//    After a FISTA acceptance two more phases follow: A. the extrapolated
-//    d_n = d₁ + β(d₁ − d_acc) over the rows (A is linear: no matvec),
-//    with ℓ′(d_n) and partial f(d_n); B. g_n = Aᵀ ℓ′(d_n), y_n and x_acc
-//    over the columns; then the window takes f(d_n), or f(x₁) on a stop.
-//  * Uniform control flow.  The backtracking loop, the stop test, the
-//    halt code, the mode, the loss and the prox branch around grid
-//    barriers, so every block must take the same branch.  Loss, prox and
-//    mode are runtime codes fixed for the launch; the decisions come from
-//    the same per-block partials, which each block reduces from global
-//    memory in the same fixed order (fbs_control.cuh, shared with K-B6),
-//    so every block derives bit-identical scalars.  No atomics; no
-//    fast-math.  The FP64
-//    accumulation type (hp off / on) and the mode are template
-//    parameters, so the adaptive instantiations carry no FISTA code: four
-//    instantiations.
-//  * State (the nonmonotone window, τ, α, the max residual, k, the
-//    status, the warm carry) is replicated in each block's shared memory;
-//    block 0 alone writes the records, the iteration count and the status.
-//  * Partials are double-buffered by trial parity, so a fast block's
-//    next trial never overwrites partials a slow block is still reading;
-//    a third buffer serves each path point's start.
+// The dense plan (kernels/microsolver.py, dense_plan) reaches the kernel
+// as a (4, nblocks) int32 table: block k owns the band of rows [r0, r1)
+// and keeps its first nreg rows in registers and the next nsm in shared
+// memory for the whole launch; the rest of its band (the streamed
+// remainder) it reads from L2 once a pass, each thread with its own
+// 16-byte loads as it comes to a row.  Two kernels:
+//  * dense_rows_kernel, n ≤ 8192 (padded to a multiple of 4, kStateMax):
+//    rows on the chip, every block holding the whole n-sized state;
+//  * dense_columns_kernel past it (the column fallback): nothing of A on
+//    the chip, the state in device memory, A read from L2 twice a trial.
+// Each kernel's note follows below.  Common to both:
+//  * One persistent cooperative launch, one block of 512 threads per SM.
+//  * The grid barrier is grid_barrier.cuh's, its counter and exit ticket
+//    in the wrapper's stream scratch, left at zero by the last block out
+//    (grid_exit): no memset a call.  The records past a point's last
+//    iteration are zeroed by the kernel, so a call is one device
+//    operation.
+//  * Uniform control flow: the backtracking loop, the stop test, the halt
+//    code, the mode, the loss and the prox branch around grid barriers,
+//    so every block takes the same branch.  Loss, prox and mode are fixed
+//    for the launch; every block derives bit-identical decisions from the
+//    same sums, each taken in one fixed order (fbs_control.cuh).  No
+//    atomics on values, no fast math: two runs give the same bits.  The
+//    FP64 accumulation type (hp off / on) and the mode are template
+//    parameters.
 //  * K-B1p runs the path points one after another inside the launch (the
-//    TPU's sequential grid), a grid barrier between them.  Point i's
-//    solution is its row of the output, from which point i+1 starts when
-//    the path is warm; adaptive mode also carries the last genuinely
-//    accepted τ.  A single solve is a path of one point.
-//  * K-B1b is the same loop over cold points that each take their own b,
-//    x₀ and τ₀ (Points in fbs_control.cuh; a path shares b and x₀, a
-//    batch shares μ).  Every point runs over the whole grid exactly as a
-//    single launch runs it, from state that start_point resets (window,
-//    τ, counts, halt code) and partials that each trial overwrites, so an
-//    instance is bit-identical to its own K-B1 launch, and A stays in L2
-//    from one instance to the next.
-//  * With hp, the decision scalars (f, the window, ⟨Δx,∇f⟩, ⟨Δx,Δg⟩, and
-//    with restart_dd the restart dot) accumulate in FP64 (K-B2); positive
-//    sums stay in float32.
+//    TPU's sequential grid); point i+1 starts from point i's solution
+//    when the path is warm, adaptive mode also from its last genuinely
+//    accepted τ.  A single solve is a path of one point.  K-B1b is the
+//    same loop over cold points that each take their own b, x₀ and τ₀
+//    (Points in fbs_control.cuh); start_point resets the window, τ, the
+//    counts and the halt code, so each instance is bit-identical to its
+//    own K-B1 launch, and A is staged on the chip once a launch.
+//  * With hp, f, the window, ⟨Δx,∇f⟩, ⟨Δx,Δg⟩ and (restart_dd) the
+//    restart dot accumulate in FP64 (K-B2); positive sums in float32.
 //  * Elementwise formulas use the _rn intrinsics, which the compiler never
 //    contracts into FMAs, so they round exactly like the plain PyTorch
 //    version's separate operations.
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "fbs_control.cuh"
+#include "grid_barrier.cuh"
 #include "losses.cuh"
-#include "prox.cuh"
 #include "reduce.cuh"
 
-namespace cg = cooperative_groups;
 using namespace fasta;
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kChains = kWarps;              // chains per column of a reduction over blocks
+constexpr int kStateMax = 8192;              // the widest n4 of dense_rows_kernel
+constexpr int kChunks = kStateMax / 32;      // column chunks of g (their BB sums)
+constexpr int kBandMax = 1024;               // the most rows of b a block stages
+constexpr int kStepMax = 8 * kWarps;         // rows a step takes at most (R·TB, S = 1)
 
 // proxes, in the order of kernels.microsolver.PROXES
 enum Prox { kL1, kNonneg, kBox, kRidge };
+// the kernels, as the wrapper's plan names them
+enum Route { kRouteRows, kRouteColumns };
 
 struct Args {
-  const float* A;    // (m, n)
-  const float* At;   // (n, m), contiguous transpose of A
-  Points pts;        // each point's b (m,), cold x₀ (n,), μ and τ₀
-  float* x_out;      // (npath, n)
+  const float* A;      // (m, n) row-major, 16-byte aligned
+  Points pts;          // each point's b (m,), cold x₀ (n,) and τ₀
+  const float* mus;    // (npoints,) the path's weights, or null: mu0 for every point
+  float mu0;
+  float* x_out;        // (npoints, n)
   Records rec;
-  float* its;        // (npath, max_iters, n) or null
-  int* k_out;        // (npath,)
-  int* status_out;   // (npath,)
-  float* xbuf;       // (2, pn): current and trial iterate (FISTA: y and x₁)
-  float* gbuf;       // (2, pn): their gradients
-  float* xacc;       // (n,) FISTA: the last prox point
-  float* rbuf;       // (m,) the gradient weights ℓ′(d)
-  float* dbuf;       // (m,) FISTA: A x₁ of the trial
-  double* part;      // (3, kSlots, nblocks)
-  float* dacc;       // (m,) FISTA: A x_acc
+  float* its;          // (npoints, max_iters, n) or null
+  int* k_out;          // (npoints,)
+  int* status_out;     // (npoints,)
+  const int* tiles;    // (4, nblocks) rows: first row, end row, rows in registers, in shared memory
+  unsigned* bar;       // grid_barrier's counter and grid_exit's ticket, zero at launch
+  float* gpart;        // (nblocks, n4) rows: the blocks' shares of Aᵀℓ′
+  float* gvec;         // (n4,) rows: the reduced g
+  double* ftot;        // rows: the reduced f of the last pass, beside g
+  double* bbp;         // (kChunks, 2) rows: each column chunk's ⟨Δx,Δg⟩, ‖Δg‖²
+  float* xbuf;         // (2, n4) columns: current and trial iterate (FISTA: y and x₁)
+  float* gbuf;         // (2, n4) columns: their gradients
+  float* xacc;         // (n4,) columns, FISTA: the last prox point
+  float* rbuf;         // (m,) columns: the gradient weights ℓ′(d)
+  float* dbuf;         // (m,) FISTA: A x₁ of the trial
+  float* dacc;         // (m,) FISTA: A x_acc
+  double* part;        // (3, kSlots, nblocks)
   Control ctl;
-  int npath, m, n, pn, loss, prox;
-  int rdd, warm;
+  int npoints, m, n, n4, loss, prox, rdd, warm;
+  int adj_w;           // columns: warps that split the rows of a column chunk
 };
+
+__device__ __forceinline__ float point_mu(const Args& a, int p) {
+  return a.mus ? __ldg(a.mus + p) : a.mu0;
+}
+
+// shrink(z, t) of prox.cuh with the quotient of a zero numerator taken as
+// +0 without dividing: the same bits (0 / d = +0 for every d ≥ 1e-30),
+// but an IEEE division of zero leaves the fast path for a slow
+// subroutine, and most entries of a sparse solution shrink to zero
+__device__ __forceinline__ float shrink_sparse(float z, float t) {
+  const float mag = fabsf(z);
+  const float num = nanmax(__fsub_rn(mag, t), 0.f);
+  return __fmul_rn(z, num == 0.f ? 0.f : __fdiv_rn(num, nanmax(mag, 1e-30f)));
+}
 
 // the prox of g at z with t = τμ (ridge: z/(1+τλ), μ carrying λ)
 __device__ __forceinline__ float prox_eval(int prox, float z, float t) {
@@ -118,9 +132,850 @@ __device__ __forceinline__ float prox_eval(int prox, float z, float t) {
     case kNonneg: return nanmax(z, 0.f);
     case kBox: return nanmin(nanmax(z, -1.f), 1.f);
     case kRidge: return __fdiv_rn(z, __fadd_rn(1.f, t));
-    default: return shrink(z, t);
+    default: return shrink_sparse(z, t);
   }
 }
+
+// x₁ = prox(x − τg) at a slot's four entries, the prox's branch taken once
+__device__ __forceinline__ float4 prox4(int prox, float4 x, float4 g, float tau, float t) {
+  const float4 h = make_float4(step_hat(x.x, g.x, tau), step_hat(x.y, g.y, tau),
+                               step_hat(x.z, g.z, tau), step_hat(x.w, g.w, tau));
+  switch (prox) {
+    case kNonneg:
+      return make_float4(nanmax(h.x, 0.f), nanmax(h.y, 0.f), nanmax(h.z, 0.f), nanmax(h.w, 0.f));
+    case kBox:
+      return make_float4(nanmin(nanmax(h.x, -1.f), 1.f), nanmin(nanmax(h.y, -1.f), 1.f),
+                         nanmin(nanmax(h.z, -1.f), 1.f), nanmin(nanmax(h.w, -1.f), 1.f));
+    case kRidge: {
+      const float d = __fadd_rn(1.f, t);
+      return make_float4(__fdiv_rn(h.x, d), __fdiv_rn(h.y, d), __fdiv_rn(h.z, d),
+                         __fdiv_rn(h.w, d));
+    }
+    default:
+      return make_float4(shrink_sparse(h.x, t), shrink_sparse(h.y, t), shrink_sparse(h.z, t),
+                         shrink_sparse(h.w, t));
+  }
+}
+
+// One entry's terms of the step's sums (rows kernel): v = ‖Δx‖², ‖g‖²,
+// ‖x₁ − x̂‖², g's sum (Σ|x₁| for the l1 norm, else Σx₁²) and the float32
+// restart dot; w = ⟨Δx, g⟩ and the FP64 restart dot (restart_dd, which
+// comes with hp: Acc is double), x₁ being xn, FISTA's x_acc xa.
+template <typename Acc, bool ACCEL>
+__device__ __forceinline__ void step_sums(float xv, float gv, float xn, float xa, float tau,
+                                          int prox, int rdd, float (&v)[5], Acc (&w)[2]) {
+  const float xh = step_hat(xv, gv, tau);
+  const float dx = __fsub_rn(xn, xv), sm = __fsub_rn(xn, xh);
+  v[0] = fmaf(dx, dx, v[0]);
+  v[1] = fmaf(gv, gv, v[1]);
+  v[2] = fmaf(sm, sm, v[2]);
+  v[3] = prox == kL1 ? __fadd_rn(v[3], fabsf(xn)) : fmaf(xn, xn, v[3]);
+  w[0] += Acc(dx) * Acc(gv);
+  if (ACCEL) {
+    // the restart dot ⟨y − x₁, x₁ − x_acc⟩
+    const float ra = __fsub_rn(xv, xn), rb = __fsub_rn(xn, xa);
+    if (rdd)
+      w[1] += Acc(ra) * Acc(rb);
+    else
+      v[4] = fmaf(ra, rb, v[4]);
+  }
+}
+
+// g's objective term at the prox point from its sum gx (Σ|x₁| for the
+// l1 norm, Σx₁² for the ridge)
+__device__ __forceinline__ float g_objective(int prox, float mu, float gx) {
+  return prox == kL1 ? __fmul_rn(mu, gx)
+                     : prox == kRidge ? __fmul_rn(__fmul_rn(0.5f, mu), gx) : 0.f;
+}
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// The float4 slot q (columns 4q … 4q+3) of row i of A (n columns), zero
+// past column n: one 16-byte load where rows are 16-byte aligned.
+__device__ __forceinline__ float4 load_a(const float* __restrict__ A, int n, int i, int q) {
+  const float* row = A + (size_t)i * n;
+  if ((n & 3) == 0) return __ldg(reinterpret_cast<const float4*>(row) + q);
+  const int j = 4 * q;
+  return make_float4(j < n ? __ldg(row + j) : 0.f, j + 1 < n ? __ldg(row + j + 1) : 0.f,
+                     j + 2 < n ? __ldg(row + j + 2) : 0.f, j + 3 < n ? __ldg(row + j + 3) : 0.f);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 x, float s) {
+  s = fmaf(a.x, x.x, s);
+  s = fmaf(a.y, x.y, s);
+  s = fmaf(a.z, x.z, s);
+  return fmaf(a.w, x.w, s);
+}
+
+__device__ __forceinline__ void axpy4(float w, float4 a, float4& g) {
+  g.x = fmaf(w, a.x, g.x);
+  g.y = fmaf(w, a.y, g.y);
+  g.z = fmaf(w, a.z, g.z);
+  g.w = fmaf(w, a.w, g.w);
+}
+
+__device__ __forceinline__ float4 add4(float4 u, float4 v) {
+  return make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
+}
+
+// Sum of `count` doubles in global memory (per-block partials written
+// before a grid barrier) in T by one warp: lane l adds entries l, l + 32,
+// … in order, eight loads a lane in flight; the result is valid in lane 0.
+template <typename T>
+__device__ __forceinline__ T warp_sum_blocks(const double* p, int count) {
+  const int lane = threadIdx.x & 31;
+  T v = T(0);
+  for (int i0 = 0; i0 < count; i0 += 32 * 8) {
+    double u[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = i0 + lane + 32 * k;
+      u[k] = i < count ? __ldcg(p + i) : 0.0;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v += static_cast<T>(u[k]);
+  }
+  return warp_sum(v);
+}
+
+// The block's sum of v, valid in thread 0: the warps' shuffle trees, one
+// barrier, then warp 0's tree over the warps' sums.
+template <typename T>
+__device__ __forceinline__ T block_total(T v, T* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  return warp == 0 ? warp_sum(lane < kWarps ? scratch[lane] : T(0)) : T(0);
+}
+
+// Sums over the block of NF floats and NA values of type T at once: the
+// warps' shuffle trees, one barrier, then warp k < NF + NA adds the warps'
+// sums of the k-th value (the floats first) by a shuffle tree.  Lane 0 of
+// warp k returns that total as a double; every other thread 0.  No thread
+// may write fs or ts again before the block has passed another barrier.
+template <int NF, int NA, typename T>
+__device__ __forceinline__ double block_sums_warp(float (&f)[NF], T (&t)[NA], float* fs, T* ts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < NF; ++k) f[k] = warp_sum(f[k]);
+#pragma unroll
+  for (int k = 0; k < NA; ++k) t[k] = warp_sum(t[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) fs[warp * NF + k] = f[k];
+#pragma unroll
+    for (int k = 0; k < NA; ++k) ts[warp * NA + k] = t[k];
+  }
+  __syncthreads();
+  double r = 0.0;
+  if (warp < NF)
+    r = warp_sum(lane < kWarps ? fs[lane * NF + warp] : 0.f);
+  else if (warp < NF + NA)
+    r = double(warp_sum(lane < kWarps ? ts[lane * NA + warp - NF] : T(0)));
+  return lane == 0 ? r : 0.0;
+}
+
+// ---------------------------------------------------------------------------
+// dense_rows_kernel: n ≤ 8192 (padded to a multiple of 4).
+//  * Every block keeps the whole n-sized state in shared memory — x
+//    (FISTA: y), g, the trial x₁ and FISTA's x_acc — and takes the prox
+//    step and every n-sized sum itself, in the same order as every other
+//    block: no barrier for the prox step.
+//  * A row is spread over tg threads (whole warps: the row's float4 slots
+//    rounded up to a warp, at most 512), R = 512 / tg row lanes side by
+//    side each taking the band's rows rl, rl + R, … in order, a thread
+//    owning the slots q = gl + tg·s (s < S ≤ 4) of every row it meets.
+//    Row lane 0 forms x₁ at its slots from x and g in shared memory
+//    (the other row lanes read it back) and every thread keeps it in
+//    registers for the pass.  A step takes TB = 8 / S rows a row lane:
+//    each thread loads their slots once (from registers, shared memory or
+//    L2) and forms its share of each row dot; one transposed shuffle sum
+//    (transpose_sum) takes the step's TB dots over the warp, the warps'
+//    sums meet in shared memory, one thread a row adds them in warp order
+//    and applies the loss, and after a second block barrier the threads
+//    add the rows' share of Aᵀℓ′ from the values they hold, in registers:
+//    one read of A a pass.  The row lanes' shares meet in shared memory
+//    in lane order and the block writes one (n4,) share.  The pass is
+//    bound by the instructions its 16 warps issue, not by A's bytes:
+//    code that a row lane or a step does not need is branched around,
+//    never only predicated off.
+//  * The band stays on the chip: at S = 1 (n4 ≤ 2048) a thread keeps the
+//    rows of its first step in registers (R·8 rows a block); the next
+//    rows, as many as the plan's budget holds, sit in shared memory; the
+//    rest each thread reads from L2 with its own 16-byte loads.  Where a
+//    row lies never changes the order of a sum: the band does, so a plan
+//    forced to stream gives the card's own plan's bits.
+//  * After the first barrier each block reduces its chunks of 32 columns
+//    over the blocks' shares (16 chains a column, all loads of a chain in
+//    flight, a fixed order) into g and takes the chunks' BB sums there;
+//    the last block sums the f partials meanwhile, so the second barrier
+//    publishes g, f and the BB sums at once: every block copies g while
+//    warp 0 loads the chunks' sums a lane a chunk and decides.
+//  * The step's sums need no other block: they run between the halves of
+//    the first barrier (grid_arrive, grid_wait), and warp 1 takes from
+//    them the half of the decision that needs no f (decide_prepare,
+//    fbs_control.cuh); thread 0 finishes it after the last barrier.
+//  * Grid barriers per adaptive trial: 2 (publish the rows' partials;
+//    the reduced g).  FISTA: 1 per trial (the trials need only f) plus 2
+//    per acceptance (d_n = d₁ + β(d₁ − d_acc) on the owned rows, A being
+//    linear, with its adjoint; the reduced g_n).  A path point's start
+//    takes 2.
+// ---------------------------------------------------------------------------
+
+// Column and row lanes at width n4: tg threads on a row's float4 slots
+// (whole warps), R row lanes, S slots a thread (the instantiation takes
+// 1, 2 or 4).
+struct Lanes {
+  int tg, R, S;
+};
+
+__host__ __device__ constexpr Lanes lanes_of(int n4) {
+  const int nq = n4 / 4;
+  const int w = (nq + 31) / 32 * 32;
+  const int tg = w < kThreads ? w : kThreads;
+  return Lanes{tg, kThreads / tg, (nq + tg - 1) / tg};
+}
+
+__host__ __device__ constexpr int slots_of(int n4) {
+  return lanes_of(n4).S <= 1 ? 1 : lanes_of(n4).S <= 2 ? 2 : 4;
+}
+
+static_assert(slots_of(kStateMax) == 4, "a thread takes at most four slots of a row");
+
+// A block's rows: its band [r0, r0 + rows) of A, the first nreg kept in
+// registers, the next nsm in shared memory, the rest read from L2.
+struct Tile {
+  int r0, rows, nreg, nsm;
+};
+
+__device__ __forceinline__ Tile tile_of(const int* tiles, int nb, int blk) {
+  Tile t;
+  t.r0 = __ldg(tiles + blk);
+  t.rows = __ldg(tiles + nb + blk) - t.r0;
+  t.nreg = __ldg(tiles + 2 * nb + blk);
+  t.nsm = __ldg(tiles + 3 * nb + blk);
+  return t;
+}
+
+// What a pass over the band does on each row.
+enum Pass {
+  kStart,     // d = A x, ℓ′, f, Aᵀℓ′; FISTA: d_acc = d
+  kAdaptive,  // d = A x₁, ℓ′, f, Aᵀℓ′
+  kFista,     // d = A x₁, ℓ′, f; d₁ stored
+  kExtrap     // d_n = d₁ + β(d₁ − d_acc), d_acc = d₁, ℓ′, f, Aᵀℓ′
+};
+
+// Copies `count` rows of A from row i0 into dst (n4 floats a row, zero
+// past n) and waits for the block.
+__device__ void stage_rows(const Args& a, int i0, int count, float* dst) {
+  const int nq = a.n4 / 4;
+  for (int e = threadIdx.x; e < count * nq; e += kThreads) {
+    const int l = e / nq, q = e - l * nq;
+    reinterpret_cast<float4*>(dst)[e] = load_a(a.A, a.n, i0 + l, q);
+  }
+  __syncthreads();
+}
+
+// The block's band of b (rows r0 … r0 + rows), staged in bsh when it
+// holds at most kBandMax rows (no barrier: the caller's follows), else
+// read where it lies; either way indexed by the band's row.
+__device__ __forceinline__ const float* stage_b(const float* bp, const Tile& t, float* bsh) {
+  if (t.rows > kBandMax) return bp + t.r0;
+  for (int l = threadIdx.x; l < t.rows; l += kThreads) bsh[l] = __ldg(bp + t.r0 + l);
+  return bsh;
+}
+
+// The sums over the warp of V = 2^k values at once (V ≤ 16), as K-B8's
+// rows take them: halving steps hand half of a lane's values to the lane
+// `o` away (o = 16, 8, …) and keep the other half, until each lane holds
+// one value — value L >> (5 − k) in lane L — which the lanes that share
+// it complete by a butterfly.  2V − 2 + 5 − k shuffles where V separate
+// trees take 5V; a fixed order, the same in every run.
+template <int V>
+__device__ __forceinline__ float transpose_sum(float (&v)[V]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = V, o = 16; c > 1; c >>= 1, o >>= 1) {
+    const bool hi = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < c / 2; ++i) {
+      const float send = hi ? v[i] : v[c / 2 + i];
+      const float keep = hi ? v[c / 2 + i] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (int o = 16 / V; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// This thread's place in a block of the row kernel, fixed for the launch:
+// nq float4 slots a row, R row lanes of tg threads, its row lane rl and
+// column lane gl (active: rl < R), the warps a row takes (wpr), and as
+// the finishing thread of a step's row, that row's place: the fu-th row
+// of row lane fr.
+struct Lane {
+  int nq, tg, R, rl, gl, wpr, fu, fr;
+  bool active;
+};
+
+__device__ __forceinline__ Lane lane_of(int n4) {
+  const Lanes ln = lanes_of(n4);
+  Lane L;
+  L.nq = n4 / 4;
+  L.tg = ln.tg;
+  L.R = ln.R;
+  L.rl = threadIdx.x / ln.tg;
+  L.gl = threadIdx.x - L.rl * ln.tg;
+  L.wpr = ln.tg / 32;
+  L.fu = threadIdx.x / ln.R;
+  L.fr = threadIdx.x - L.fu * ln.R;
+  L.active = L.rl < ln.R;
+  return L;
+}
+
+// One pass over the block's band (see Pass) in `steps` steps at the
+// thread's slots xs of x (kStart) or x₁ (unused by kExtrap), bb the
+// band's b, sA the band's rows in shared memory, ra the thread's register
+// rows (S = 1).  Returns the block's f sum in Acc (valid in thread 0);
+// with the adjoint, writes the block's (n4,) share of Aᵀℓ′ to gpart, the
+// row lanes' shares meeting in aux.
+template <typename Acc, int S, int PASS>
+__device__ __forceinline__ Acc rows_pass(const Args& a, const Tile& t, const Lane& L, int steps,
+                                         const float* sA, const float* bb,
+                                         const float4 (&xs)[S], float beta,
+                                         const float4 (&ra)[S == 1 ? 8 : 1][S], float* aux,
+                                         Acc* acc_scratch, float (*rowred)[kWarps], float* lrow) {
+  constexpr int TB = 8 / S;  // rows a row lane takes a step
+  constexpr bool kAdj = PASS != kFista;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nq = L.nq;
+  const float4* sA4 = reinterpret_cast<const float4*>(sA);
+  float4 gs[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) gs[s] = zero4();
+  Acc fsum = Acc(0);
+  const int per = L.R * TB;  // rows a step
+  for (int b = 0; b < steps; ++b) {  // uniform per block
+    float4 v[TB][S];
+    if (S == 1 && b == 0 && t.nreg == min(t.rows, per)) {
+      // the first step's rows, all in registers (zero past the band)
+#pragma unroll
+      for (int u = 0; u < TB; ++u) v[u][0] = ra[S == 1 ? u : 0][0];
+    } else {
+#pragma unroll
+      for (int u = 0; u < TB; ++u) {
+        const int l = (b * TB + u) * L.R + L.rl;
+        const bool on = L.active && l < t.rows;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int q = L.gl + L.tg * s;
+          if (on && q < nq) {
+            if (S == 1 && l < t.nreg)
+              v[u][s] = ra[S == 1 ? u : 0][s];
+            else if (l < t.nreg + t.nsm)
+              v[u][s] = sA4[(size_t)(l - t.nreg) * nq + q];
+            else
+              v[u][s] = load_a(a.A, a.n, t.r0 + l, q);
+          } else {
+            v[u][s] = zero4();
+          }
+        }
+      }
+    }
+    if (PASS != kExtrap) {
+      // the warp's share of each row dot, the TB of them summed over the
+      // warp at once: row u lands in lanes u·32/TB …
+      float d[TB];
+#pragma unroll
+      for (int u = 0; u < TB; ++u) {
+        d[u] = 0.f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) d[u] = dot4(v[u][s], xs[s], d[u]);
+      }
+      const float mine = transpose_sum<TB>(d);
+      if ((lane & (32 / TB - 1)) == 0) rowred[lane / (32 / TB)][warp] = mine;
+    }
+    __syncthreads();  // the warps' row sums are in
+    // thread k < R·TB takes row k of the step (the fu-th row of row lane
+    // fr): its total in warp order, the loss, f's term and the stores; the
+    // weights reach the row lanes through shared memory
+    if (tid < per) {
+      const int l = b * per + tid, i = t.r0 + l;
+      float w = 0.f;
+      if (l < t.rows) {
+        float dv = 0.f;
+        if (PASS == kExtrap) {
+          const float d1 = a.dbuf[i], da = a.dacc[i];
+          dv = __fadd_rn(d1, __fmul_rn(beta, __fsub_rn(d1, da)));
+          a.dacc[i] = d1;
+        } else {
+          const float* rr = rowred[L.fu] + L.fr * L.wpr;
+          float d[kWarps];
+#pragma unroll
+          for (int k = 0; k < kWarps; ++k) d[k] = k < L.wpr ? rr[k] : 0.f;
+#pragma unroll
+          for (int k = 0; k < kWarps; ++k)
+            if (k < L.wpr) dv += d[k];
+        }
+        float e;
+        loss_eval(a.loss, dv, bb[l], w, e);
+        fsum += loss_term<Acc>(a.loss, e);
+        if (PASS == kFista) a.dbuf[i] = dv;
+        if (PASS == kStart && a.dacc != nullptr) a.dacc[i] = dv;
+      }
+      lrow[tid] = w;
+    }
+    __syncthreads();  // the step's weights are in
+    if (kAdj && L.active)
+#pragma unroll
+      for (int u = 0; u < TB; ++u) {
+        const float w = lrow[u * L.R + L.rl];
+#pragma unroll
+        for (int s = 0; s < S; ++s) axpy4(w, v[u][s], gs[s]);
+      }
+  }
+  fsum = block_total(fsum, acc_scratch);
+  if (kAdj) {
+    float4* out = reinterpret_cast<float4*>(a.gpart + (size_t)blockIdx.x * a.n4);
+    if (S == 1 && L.R > 1) {  // R > 1 only at one slot a thread
+      // the row lanes' shares: lanes 1…R−1 park theirs in aux, lane 0
+      // adds them in lane order (four loads in flight) and writes the
+      // block's share
+      float4* aux4 = reinterpret_cast<float4*>(aux);
+      const int q = L.gl;
+      if (L.active && L.rl > 0 && q < nq) aux4[(size_t)(L.rl - 1) * nq + q] = gs[0];
+      __syncthreads();
+      if (L.rl == 0 && q < nq) {
+        float4 g = gs[0];
+#pragma unroll
+        for (int k0 = 1; k0 < kWarps; k0 += 4) {
+          float4 o[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            o[k] = k0 + k < L.R ? aux4[(size_t)(k0 + k - 1) * nq + q] : zero4();
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (k0 + k < L.R) g = add4(g, o[k]);
+        }
+        out[q] = g;
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int q = L.gl + L.tg * s;
+        if (q < nq) out[q] = gs[s];
+      }
+    }
+  }
+  return fsum;
+}
+
+// Σ over blocks of their shares at column j of gpart (row stride n4),
+// chain c adding blocks c, c + kChains, … in order with up to 16 loads in
+// flight at once.
+__device__ __forceinline__ float chain_sum(const float* gpart, int n4, int nb, int chain, int j) {
+  float s = 0.f;
+  for (int p0 = chain; p0 < nb; p0 += 16 * kChains) {
+    float u[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int p = p0 + kChains * k;
+      u[k] = p < nb ? __ldcg(gpart + (size_t)p * n4 + j) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) s += u[k];
+  }
+  return s;
+}
+
+// After a grid barrier: g = Σ over blocks of their shares, each column by
+// kChains chains (a warp each, lanes on neighbouring columns) in a fixed
+// order, into gvec, a block taking chunks of 32 columns; meanwhile the
+// last block's last warp sums the blocks' f partials fp into ftot, so that
+// the next barrier publishes f with g.  With BB (the adaptive trial) the
+// warp that finishes a chunk also takes the chunk's ⟨Δx,Δg⟩ and ‖Δg‖² from
+// x (xc), its gradient gc and the trial x₁ (the block's shared memory) at
+// stepsize tau, and publishes them in bbp.
+template <typename Acc, bool BB>
+__device__ __forceinline__ void reduce_shares(const Args& a, const double* fp, float (*red)[32],
+                                              const float* xc, const float* gc, const float* x1,
+                                              float tau) {
+  const int tid = threadIdx.x, lane = tid & 31, chain = tid >> 5;
+  const int n4 = a.n4, nb = gridDim.x;
+  if ((int)blockIdx.x == nb - 1 && chain == kWarps - 1) {
+    const Acc f = warp_sum_blocks<Acc>(fp, nb);
+    if (lane == 0) *a.ftot = double(f);
+  }
+  for (int c0 = blockIdx.x * 32; c0 < n4; c0 += nb * 32) {  // uniform per block
+    const int j = c0 + lane;
+    red[chain][lane] = j < n4 ? chain_sum(a.gpart, n4, nb, chain, j) : 0.f;
+    __syncthreads();
+    if (chain == 0) {
+      float g = 0.f;
+      for (int k = 0; k < kChains; ++k) g += red[k][lane];
+      if (j < n4) a.gvec[j] = g;
+      if (BB) {
+        Acc w = Acc(0);
+        float v = 0.f;
+        if (j < n4) {
+          const float xv = xc[j];
+          const float z = step_hat(xv, gc[j], tau);
+          const float dx = __fsub_rn(x1[j], xv);
+          // Δg = g₁ + (x̂₁ − x)/τ  (== g₁ − g, in the TPU kernel's rounding;
+          // a zero numerator's quotient is itself, without the division's
+          // slow path)
+          const float num = __fsub_rn(z, xv);
+          const float dg = __fadd_rn(g, (num == 0.f && tau > 0.f) ? num : __fdiv_rn(num, tau));
+          w = Acc(dx) * Acc(dg);
+          v = dg * dg;
+        }
+        w = warp_sum(w);
+        v = warp_sum(v);
+        if (lane == 0) {
+          a.bbp[2 * (c0 / 32)] = double(w);
+          a.bbp[2 * (c0 / 32) + 1] = double(v);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// After a grid barrier: the reduced g (nq float4s in device memory) into
+// the block's shared memory, every thread's loads in flight at once.
+__device__ __forceinline__ void copy_g(const float* gvec, float* dst, int nq) {
+  constexpr int kMax = kStateMax / 4 / kThreads;
+  const float4* src = reinterpret_cast<const float4*>(gvec);
+  float4 v[kMax];
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) {
+    const int q = threadIdx.x + kThreads * k;
+    v[k] = q < nq ? __ldcg(src + q) : zero4();
+  }
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) {
+    const int q = threadIdx.x + kThreads * k;
+    if (q < nq) reinterpret_cast<float4*>(dst)[q] = v[k];
+  }
+}
+
+template <typename Acc, bool ACCEL, int S>
+__global__ void __launch_bounds__(kThreads, 1) dense_rows_kernel(Args a) {
+  constexpr int TB = 8 / S;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Acc fwin[kWinMax];
+  __shared__ Acc acc_scratch[kWarps];
+  __shared__ float fs[kWarps * 5];
+  __shared__ Acc ts[kWarps * 2];
+  __shared__ float red[kChains][32];
+  __shared__ float rowred[8][kWarps];
+  __shared__ float lrow[kStepMax];
+  __shared__ float bsh[kBandMax];
+  __shared__ double tot[kReduced];
+  __shared__ float gobj;
+  __shared__ State st;
+  __shared__ Prepared<Acc> prep;  // the decision's half that needs no f
+  __shared__ Acc f1s;        // FISTA: f(x₁) of the accepted trial
+  __shared__ int carry_ok;   // the previous point ended finite
+  __shared__ float tprev;    // its warm τ carry
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nb = gridDim.x, blk = blockIdx.x;
+  const int n4 = a.n4, nq = n4 / 4, n = a.n;
+  const Lane L = lane_of(n4);
+  const float fscale = loss_scale(a.loss);
+  // x (FISTA: y) and the trial x₁ at X(cur) and X(cur ^ 1), their
+  // gradients at G(·), FISTA's x_acc, the row lanes' shares (R − 1, n4),
+  // then the band's rows
+  auto X = [&](int k) { return smem + k * n4; };
+  auto G = [&](int k) { return smem + (2 + k) * n4; };
+  float* xacc = smem + 4 * n4;
+  float* aux = smem + 5 * n4;
+  float* sA = aux + (size_t)(L.R - 1) * n4;
+  const Tile tile = tile_of(a.tiles, nb, blk);
+  const int steps = (tile.rows + L.R * TB - 1) / (L.R * TB);
+  double* P0 = a.part;  // each point's start
+  int trial = 0;
+  unsigned gen = 0;
+  auto barrier = [&]() { grid_barrier(a.bar, nb, gen); };
+
+  // the band on the chip for the whole launch: at S = 1 each thread's
+  // first step of rows in registers, the next rows in shared memory
+  float4 ra[S == 1 ? 8 : 1][S];
+#pragma unroll
+  for (int u = 0; u < (S == 1 ? TB : 1); ++u) {
+    const int l = u * L.R + L.rl;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int q = L.gl + L.tg * s;
+      ra[u][s] = (S == 1 && L.active && l < tile.nreg && q < nq)
+                     ? load_a(a.A, n, tile.r0 + l, q)
+                     : zero4();
+    }
+  }
+  stage_rows(a, tile.r0 + tile.nreg, tile.nsm, sA);
+  if (tid == 0) {
+    carry_ok = 0;
+    tprev = 0.f;
+  }
+
+  for (int p = 0; p < a.npoints; ++p) {
+    const float mu = point_mu(a, p);
+    const size_t rec0 = (size_t)p * a.ctl.max_iters;
+    __syncthreads();  // the last point's readers of bsh, st and the state are done
+    const float* bb = stage_b(a.pts.b_at(p), tile, bsh);
+    // the start: point p−1's solution when the path is warm and it ended
+    // finite (every block holds it), else the point's own cold start;
+    // adaptive mode also takes the carried τ
+    const bool carry = a.warm && p > 0 && carry_ok;
+    const float* xw = !carry ? nullptr : (ACCEL && st.status == 1) ? xacc : X(st.cur);
+    const float* x0 = a.pts.x0_at(p);
+    const float tau_start =
+        (a.warm && !ACCEL && p > 0 && tprev > 0.f) ? tprev : a.pts.tau0_at(p);
+    for (int j = tid; j < n4; j += kThreads) {
+      const float v = carry ? xw[j] : (j < n ? __ldg(x0 + j) : 0.f);
+      X(0)[j] = v;
+      if (ACCEL) xacc[j] = v;
+    }
+    __syncthreads();
+
+    // ---- start: d₀ = A x₀, f₀, g₀ = Aᵀℓ′(d₀); FISTA: d_acc = d₀
+    {
+      float4 xs[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int q = L.gl + L.tg * s;
+        xs[s] = L.active && q < nq ? reinterpret_cast<const float4*>(X(0))[q] : zero4();
+      }
+      const Acc f = rows_pass<Acc, S, kStart>(a, tile, L, steps, sA, bb, xs, 0.f, ra, aux,
+                                              acc_scratch, rowred, lrow);
+      if (tid == 0) P0[kF * nb + blk] = double(f);
+      barrier();
+      reduce_shares<Acc, false>(a, P0 + kF * nb, red, nullptr, nullptr, nullptr, 0.f);
+      barrier();
+      const double f0 = tid == 0 ? __ldcg(a.ftot) : 0.0;
+      copy_g(a.gvec, G(0), nq);
+      if (tid == 0) start_point(st, fwin, Acc(fscale) * Acc(f0), tau_start);
+      __syncthreads();
+    }
+
+    for (;;) {
+      ++trial;
+      double* P = a.part + (size_t)(1 + (trial & 1)) * kSlots * nb;
+      const float tau = st.tau;
+      const int cur = st.cur;
+      const float* xc = X(cur);
+      const float* gc = G(cur);
+      float* x1 = X(cur ^ 1);
+
+      // ---- the trial step at this thread's slots: x₁ in registers, formed
+      // once a slot by row lane 0, which stores it, and shared with the
+      // other row lanes through shared memory
+      float4 xs[S];
+      {
+        const float tm = __fmul_rn(tau, mu);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int q = L.gl + L.tg * s;
+          xs[s] = zero4();
+          if (L.rl == 0 && q < nq) {
+            xs[s] = prox4(a.prox, reinterpret_cast<const float4*>(xc)[q],
+                          reinterpret_cast<const float4*>(gc)[q], tau, tm);
+            reinterpret_cast<float4*>(x1)[q] = xs[s];
+          }
+        }
+        if (L.R > 1) {
+          __syncthreads();
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const int q = L.gl + L.tg * s;
+            if (L.rl > 0 && L.active && q < nq) xs[s] = reinterpret_cast<const float4*>(x1)[q];
+          }
+        }
+      }
+
+      // ---- the rows at x₁: f (and the adaptive gradient's shares)
+      {
+        const Acc f = ACCEL ? rows_pass<Acc, S, kFista>(a, tile, L, steps, sA, bb, xs, 0.f, ra,
+                                                         aux, acc_scratch, rowred, lrow)
+                            : rows_pass<Acc, S, kAdaptive>(a, tile, L, steps, sA, bb, xs, 0.f,
+                                                           ra, aux, acc_scratch, rowred, lrow);
+        if (tid == 0) P[kF * nb + blk] = double(f);
+      }
+      grid_arrive(a.bar, gen);
+      // ---- while the others arrive: the step's sums over the block —
+      // ‖Δx‖², ‖g‖², ‖x₁ − x̂‖², g's sum and the float32 restart dot;
+      // ⟨Δx, g⟩ and the FP64 restart dot, row lane 0 a slot — and from them
+      // the half of the decision that needs no f (warp 1)
+      {
+        float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+        Acc w[2] = {Acc(0), Acc(0)};
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int q = L.gl + L.tg * s;
+          if (L.rl == 0 && q < nq) {
+            const float4 x4 = reinterpret_cast<const float4*>(xc)[q];
+            const float4 g4 = reinterpret_cast<const float4*>(gc)[q];
+            const float4 a4 = ACCEL ? reinterpret_cast<const float4*>(xacc)[q] : zero4();
+            step_sums<Acc, ACCEL>(x4.x, g4.x, xs[s].x, a4.x, tau, a.prox, a.rdd, v, w);
+            step_sums<Acc, ACCEL>(x4.y, g4.y, xs[s].y, a4.y, tau, a.prox, a.rdd, v, w);
+            step_sums<Acc, ACCEL>(x4.z, g4.z, xs[s].z, a4.z, tau, a.prox, a.rdd, v, w);
+            step_sums<Acc, ACCEL>(x4.w, g4.w, xs[s].w, a4.w, tau, a.prox, a.rdd, v, w);
+          }
+        }
+        const double r = block_sums_warp<5, 2, Acc>(v, w, fs, ts);
+        if (lane == 0) {
+          if (warp == 0) tot[kNd2] = r;
+          if (warp == 1) tot[kNg2] = r;
+          if (warp == 2) tot[kNsm2] = r;
+          if (warp == 3) gobj = g_objective(a.prox, mu, float(r));
+          if (warp == 4 && !a.rdd) tot[kRdot] = r;
+          if (warp == 5) tot[kBtDot] = r;
+          if (warp == 6 && a.rdd) tot[kRdot] = r;
+        }
+        __syncthreads();
+        if (warp == 1) decide_prepare<Acc, ACCEL>(st, tot, fwin, a.ctl, prep);
+      }
+      grid_wait(a.bar, nb, gen);
+
+      if (!ACCEL) {
+        // ---- g₁ reduced with f and the BB sums by chunks; every block
+        // copies g₁ while warp 0 sums the chunks' BB sums in chunk order
+        // and decides
+        reduce_shares<Acc, true>(a, P + kF * nb, red, xc, gc, x1, tau);
+        barrier();
+        // warp 0's loads of the chunks' BB sums (lane l: chunks l, l + 32,
+        // …) and f first, so that they travel with its share of g₁
+        const int chunks = (n4 + 31) / 32;
+        double bw[kChunks / 32], bv[kChunks / 32];
+#pragma unroll
+        for (int k = 0; k < kChunks / 32; ++k) {
+          const int c = tid + 32 * k;
+          const bool on = tid < 32 && c < chunks;
+          bw[k] = on ? __ldcg(a.bbp + 2 * c) : 0.0;
+          bv[k] = on ? __ldcg(a.bbp + 2 * c + 1) : 0.0;
+        }
+        const double f = tid == 0 ? __ldcg(a.ftot) : 0.0;
+        copy_g(a.gvec, G(cur ^ 1), nq);
+        if (tid < 32) {
+          Acc bw_s = Acc(0);
+          float bv_s = 0.f;
+#pragma unroll
+          for (int k = 0; k < kChunks / 32; ++k) {
+            bw_s += Acc(bw[k]);
+            bv_s += float(bv[k]);
+          }
+          bw_s = warp_sum(bw_s);
+          bv_s = warp_sum(bv_s);
+          if (tid == 0) {
+            tot[kF] = f;
+            tot[kBbDot] = double(bw_s);
+            tot[kNdg2] = bv_s;
+            State s = st;
+            decide_finish<Acc, ACCEL>(s, tot, prep, fwin, f1s, fscale, gobj, a.ctl, a.rec, rec0,
+                                      blk == 0);
+            st = s;
+          }
+        }
+      } else if (tid < 32) {
+        // ---- the decision, the same in every block
+        const Acc f = warp_sum_blocks<Acc>(P + kF * nb, nb);
+        if (tid == 0) {
+          tot[kF] = double(f);
+          State s = st;
+          decide_finish<Acc, ACCEL>(s, tot, prep, fwin, f1s, fscale, gobj, a.ctl, a.rec, rec0,
+                                    blk == 0);
+          st = s;
+        }
+      }
+      __syncthreads();
+      if (a.its && st.accepted && (int)(st.krec % nb) == blk) {
+        float* row = a.its + (rec0 + st.krec) * n;
+        for (int j = tid; j < n; j += kThreads) row[j] = x1[j];
+      }
+
+      if (ACCEL && st.post) {
+        const float beta = st.beta;
+        // ---- the rows at d_n = d₁ + β(d₁ − d_acc): f(d_n) and g_n's
+        // shares; y_n = x₁ + β(x₁ − x_acc), x_acc = x₁ over all of x
+        const Acc fn = rows_pass<Acc, S, kExtrap>(a, tile, L, steps, sA, bb, xs, beta, ra, aux,
+                                                  acc_scratch, rowred, lrow);
+        if (tid == 0) P[kFn * nb + blk] = double(fn);
+        float* y = X(cur);
+        for (int j = tid; j < n4; j += kThreads) {
+          const float xv1 = x1[j], xa = xacc[j];
+          y[j] = __fadd_rn(xv1, __fmul_rn(beta, __fsub_rn(xv1, xa)));
+          xacc[j] = xv1;
+        }
+        barrier();
+        reduce_shares<Acc, false>(a, P + kFn * nb, red, nullptr, nullptr, nullptr, 0.f);
+        barrier();
+        const double fpub = tid == 0 ? __ldcg(a.ftot) : 0.0;
+        copy_g(a.gvec, G(cur), nq);
+        if (tid == 0) {
+          State s = st;
+          finish_fista(s, Acc(fscale) * Acc(fpub), f1s, fwin, a.ctl, a.rec, rec0, blk == 0);
+          st = s;
+        }
+        __syncthreads();
+      }
+      if (st.done) break;
+    }
+
+    // ---- point end: the solution (FISTA: x₁ on a converged stop, else
+    // the extrapolated y), the counts, the records past the last
+    // iteration zeroed, and the warm carry
+    const int K = a.ctl.max_iters, k = st.k;
+    if (blk == 0) {
+      const float* xf = (ACCEL && st.status == 1) ? xacc : X(st.cur);
+      float* xo = a.x_out + (size_t)p * n;
+      for (int j = tid; j < n; j += kThreads) xo[j] = xf[j];
+      if (tid == 0) {
+        a.k_out[p] = k;
+        a.status_out[p] = st.status;
+      }
+      for (int r = k + tid; r < K; r += kThreads) {
+        a.rec.taus[rec0 + r] = 0.f;
+        a.rec.res[rec0 + r] = 0.f;
+        if (a.rec.fvals) a.rec.fvals[rec0 + r] = 0.f;
+        if (a.rec.bts) a.rec.bts[rec0 + r] = 0;
+        if (a.rec.objs) a.rec.objs[rec0 + r] = 0.f;
+        if (a.rec.nres) a.rec.nres[rec0 + r] = 0.f;
+      }
+    }
+    if (a.its)
+      for (int r = k + (((blk - k) % nb) + nb) % nb; r < K; r += nb) {
+        float* row = a.its + (rec0 + r) * n;
+        for (int j = tid; j < n; j += kThreads) row[j] = 0.f;
+      }
+    if (tid == 0) {
+      const bool ok = st.status != 2;
+      carry_ok = ok;
+      tprev = (ok && st.k > 0 && st.tau_acc > 0.f) ? st.tau_acc : st.tau_start;
+    }
+  }
+  grid_exit(a.bar, nb);
+}
+
+// ---------------------------------------------------------------------------
+// dense_columns_kernel: the column fallback past n = 8192, the state in
+// device memory and nothing of A on the chip (A read from L2 twice a
+// trial).  The phases of a trial:
+//   1. the prox step over each thread's columns of the grid, with the
+//      step's partial sums;
+//   2. d = A x₁ over each block's rows (a warp a row), with ℓ′(d) and
+//      partial f;
+//   3. adaptive: g₁ = Aᵀℓ′ by column chunks of 32 (a lane a column, the
+//      rows split over adj_w warps of a block, their sums met in shared
+//      memory in warp order), with partial ⟨Δx,Δg⟩ and ‖Δg‖²;
+//   4. every block reduces all blocks' partials and decides.
+// Grid barriers per adaptive trial: 3; FISTA: 2 per trial plus 2 per
+// acceptance (d_n over the rows; g_n = Aᵀℓ′(d_n), y_n and x_acc over the
+// column chunks).  Partials are double-buffered by trial parity.
+// ---------------------------------------------------------------------------
 
 // row · v over L entries by one warp (fixed order); result in lane 0.  v
 // is written by other blocks, so it is read past L1.
@@ -130,43 +985,79 @@ __device__ __forceinline__ float row_dot(const float* __restrict__ row, const fl
   if ((L & 3) == 0) {
     const float4* r4 = reinterpret_cast<const float4*>(row);
     const float4* v4 = reinterpret_cast<const float4*>(v);
-    for (int q = lane; q < (L >> 2); q += 32) {
-      const float4 a = __ldg(r4 + q), w = __ldcg(v4 + q);
-      s = fmaf(a.x, w.x, s);
-      s = fmaf(a.y, w.y, s);
-      s = fmaf(a.z, w.z, s);
-      s = fmaf(a.w, w.w, s);
-    }
+    for (int q = lane; q < (L >> 2); q += 32) s = dot4(__ldg(r4 + q), __ldcg(v4 + q), s);
   } else {
     for (int j = lane; j < L; j += 32) s = fmaf(__ldg(row + j), __ldcg(v + j), s);
   }
-  return fasta::warp_sum(s);
+  return warp_sum(s);
+}
+
+// g = Aᵀ r (r written by other blocks) by column chunks of 32: a block's
+// kWarps / W groups of W warps each take chunks blk·G + group, … ; warp
+// wi of a group adds rows wi, wi + W, … of its chunk in order (eight
+// loads in flight), and the group's sums meet in shared memory in warp
+// order.  each(j, g) runs once a column, in the group's first warp.
+template <typename F>
+__device__ __forceinline__ void adjoint_chunks(const Args& a, const float* r, float (*red)[32],
+                                               F&& each) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = a.adj_w, G = kWarps / W, grp = warp / W, wi = warp - grp * W;
+  const int m = a.m, n = a.n, nb = gridDim.x;
+  const int chunks = (n + 31) / 32;
+  for (int c0 = blockIdx.x * G; c0 < chunks; c0 += nb * G) {  // uniform per block
+    const int c = c0 + grp, j = c * 32 + lane;
+    const bool on = c < chunks && j < n;
+    float s = 0.f;
+    if (on) {
+      for (int i0 = wi; i0 < m; i0 += 8 * W) {
+        float u[8], q[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int i = i0 + k * W;
+          u[k] = i < m ? __ldg(a.A + (size_t)i * n + j) : 0.f;
+          q[k] = i < m ? __ldcg(r + i) : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s = fmaf(u[k], q[k], s);
+      }
+    }
+    red[warp][lane] = s;
+    __syncthreads();
+    if (wi == 0 && on) {
+      float g = 0.f;
+      for (int k = 0; k < W; ++k) g += red[grp * W + k][lane];
+      each(j, g);
+    }
+    __syncthreads();
+  }
 }
 
 template <typename Acc, bool ACCEL>
-__global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
-  cg::grid_group grid = cg::this_grid();
+__global__ void __launch_bounds__(kThreads, 1) dense_columns_kernel(Args a) {
   __shared__ Acc fwin[kWinMax];
   __shared__ Acc acc_scratch[kWarps];
   __shared__ float f32_scratch[kWarps];
   __shared__ double f64_scratch[kWarps];
+  __shared__ float red[kWarps][32];
   __shared__ double tot[kReduced];
   __shared__ State st;
-  __shared__ Acc f1s;        // FISTA: f(x₁) of the accepted trial
-  __shared__ int carry_ok;   // the previous path point ended finite
-  __shared__ float tprev;    // its warm τ carry
+  __shared__ Acc f1s;
+  __shared__ int carry_ok;
+  __shared__ float tprev;
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int nb = gridDim.x, blk = blockIdx.x;
   const int gtid = blk * kThreads + tid, gthreads = nb * kThreads;
   const int gwarp = blk * kWarps + (tid >> 5), gwarps = nb * kWarps;
   const int m = a.m, n = a.n;
-  const float fscale = fasta::loss_scale(a.loss);
+  const float fscale = loss_scale(a.loss);
   const bool need_gx = a.rec.objs != nullptr && (a.prox == kL1 || a.prox == kRidge);
-  float* X[2] = {a.xbuf, a.xbuf + a.pn};
-  float* G[2] = {a.gbuf, a.gbuf + a.pn};
-  double* P0 = a.part;  // each point's start
+  float* X[2] = {a.xbuf, a.xbuf + a.n4};
+  float* G[2] = {a.gbuf, a.gbuf + a.n4};
+  double* P0 = a.part;
   int trial = 0;
+  unsigned gen = 0;
+  auto barrier = [&]() { grid_barrier(a.bar, nb, gen); };
 
   if (tid == 0) {
     carry_ok = 0;
@@ -174,29 +1065,26 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
   }
   __syncthreads();
 
-  for (int p = 0; p < a.npath; ++p) {
-    const float mu = a.pts.mu_at(p);
+  for (int p = 0; p < a.npoints; ++p) {
+    const float mu = point_mu(a, p);
     const float* bp = a.pts.b_at(p);
     const size_t rec0 = (size_t)p * a.ctl.max_iters;
-    // the start: point p−1's solution when the path is warm and it ended
-    // finite, else the point's own cold start; adaptive mode also takes
-    // the carried τ
     const float* xs =
         (a.warm && p > 0 && carry_ok) ? a.x_out + (size_t)(p - 1) * n : a.pts.x0_at(p);
     const float tau_start =
         (a.warm && !ACCEL && p > 0 && tprev > 0.f) ? tprev : a.pts.tau0_at(p);
 
-    // ---- point start: d₀ = A x₀, f₀, g₀ = Aᵀ ℓ′(d₀)
+    // ---- point start: d₀ = A x₀, f₀, g₀ = Aᵀℓ′(d₀)
     {
       Acc fpart = Acc(0);
       for (int i = gwarp; i < m; i += gwarps) {
         const float d = row_dot(a.A + (size_t)i * n, xs, n, lane);
         if (lane == 0) {
           float w, e;
-          fasta::loss_eval(a.loss, d, __ldg(bp + i), w, e);
+          loss_eval(a.loss, d, __ldg(bp + i), w, e);
           a.rbuf[i] = w;
           if (ACCEL) a.dacc[i] = d;
-          fpart += fasta::loss_term<Acc>(a.loss, e);
+          fpart += loss_term<Acc>(a.loss, e);
         }
       }
       for (int j = gtid; j < n; j += gthreads) {
@@ -204,18 +1092,15 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
         X[0][j] = v;
         if (ACCEL) a.xacc[j] = v;
       }
-      fpart = fasta::block_sum(fpart, acc_scratch);
+      fpart = block_sum(fpart, acc_scratch);
       if (tid == 0) P0[kF * nb + blk] = double(fpart);
-      grid.sync();
-      for (int j = gwarp; j < n; j += gwarps) {
-        const float g = row_dot(a.At + (size_t)j * m, a.rbuf, m, lane);
-        if (lane == 0) G[0][j] = g;
-      }
+      barrier();
+      adjoint_chunks(a, a.rbuf, red, [&](int j, float g) { G[0][j] = g; });
       if (tid < 32) {
-        const Acc f = fasta::warp_sum_global<Acc>(P0 + kF * nb, nb);
+        const Acc f = warp_sum_global<Acc>(P0 + kF * nb, nb);
         if (tid == 0) start_point(st, fwin, Acc(fscale) * f, tau_start);
       }
-      grid.sync();
+      barrier();
     }
 
     for (;;) {
@@ -227,7 +1112,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
       const float* gc = G[cur];
       float* x1 = X[cur ^ 1];
 
-      // ---- phase 1: trial step over this block's columns
+      // ---- phase 1: the trial step over this thread's columns
       {
         const float t = __fmul_rn(tau, mu);
         float nd2 = 0.f, ng2 = 0.f, nsm2 = 0.f, gx = 0.f, rdot = 0.f;
@@ -253,16 +1138,16 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
               rdot = fmaf(ra, rb, rdot);
           }
         }
-        nd2 = fasta::block_sum(nd2, f32_scratch);
-        ng2 = fasta::block_sum(ng2, f32_scratch);
-        nsm2 = fasta::block_sum(nsm2, f32_scratch);
-        btd = fasta::block_sum(btd, acc_scratch);
-        if (need_gx) gx = fasta::block_sum(gx, f32_scratch);
+        nd2 = block_sum(nd2, f32_scratch);
+        ng2 = block_sum(ng2, f32_scratch);
+        nsm2 = block_sum(nsm2, f32_scratch);
+        btd = block_sum(btd, acc_scratch);
+        if (need_gx) gx = block_sum(gx, f32_scratch);
         if (ACCEL) {
           if (a.rdd)
-            rdot64 = fasta::block_sum(rdot64, f64_scratch);
+            rdot64 = block_sum(rdot64, f64_scratch);
           else
-            rdot = fasta::block_sum(rdot, f32_scratch);
+            rdot = block_sum(rdot, f32_scratch);
         }
         if (tid == 0) {
           P[kNd2 * nb + blk] = nd2;
@@ -273,7 +1158,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
           P[kRdot * nb + blk] = a.rdd ? rdot64 : double(rdot);
         }
       }
-      grid.sync();
+      barrier();
 
       // ---- phase 2: d = A x₁ over this block's rows, ℓ′(d), partial f
       {
@@ -282,45 +1167,41 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
           const float d = row_dot(a.A + (size_t)i * n, x1, n, lane);
           if (lane == 0) {
             float w, e;
-            fasta::loss_eval(a.loss, d, __ldg(bp + i), w, e);
+            loss_eval(a.loss, d, __ldg(bp + i), w, e);
             if (ACCEL)
               a.dbuf[i] = d;
             else
               a.rbuf[i] = w;
-            fpart += fasta::loss_term<Acc>(a.loss, e);
+            fpart += loss_term<Acc>(a.loss, e);
           }
         }
-        fpart = fasta::block_sum(fpart, acc_scratch);
+        fpart = block_sum(fpart, acc_scratch);
         if (tid == 0) P[kF * nb + blk] = double(fpart);
       }
-      grid.sync();
+      barrier();
 
-      // ---- phase 3 (adaptive): g₁ = Aᵀ ℓ′(d) over this block's columns,
-      // BB partials
+      // ---- phase 3 (adaptive): g₁ = Aᵀℓ′(d) by column chunks, BB partials
       if (!ACCEL) {
         float* g1 = G[cur ^ 1];
         Acc bbd = Acc(0);
         float ndg2 = 0.f;
-        for (int j = gwarp; j < n; j += gwarps) {
-          const float g = row_dot(a.At + (size_t)j * m, a.rbuf, m, lane);
-          if (lane == 0) {
-            g1[j] = g;
-            const float xv = __ldcg(xc + j), gv = __ldcg(gc + j);
-            const float xh = step_hat(xv, gv, tau);
-            const float dx = __fsub_rn(__ldcg(x1 + j), xv);
-            // Δg = g₁ + (x̂₁ − x)/τ  (== g₁ − g, in the TPU kernel's rounding)
-            const float dg = __fadd_rn(g, __fdiv_rn(__fsub_rn(xh, xv), tau));
-            bbd += Acc(dx) * Acc(dg);
-            ndg2 = fmaf(dg, dg, ndg2);
-          }
-        }
-        bbd = fasta::block_sum(bbd, acc_scratch);
-        ndg2 = fasta::block_sum(ndg2, f32_scratch);
+        adjoint_chunks(a, a.rbuf, red, [&](int j, float g) {
+          g1[j] = g;
+          const float xv = __ldcg(xc + j), gv = __ldcg(gc + j);
+          const float xh = step_hat(xv, gv, tau);
+          const float dx = __fsub_rn(__ldcg(x1 + j), xv);
+          // Δg = g₁ + (x̂₁ − x)/τ  (== g₁ − g, in the TPU kernel's rounding)
+          const float dg = __fadd_rn(g, __fdiv_rn(__fsub_rn(xh, xv), tau));
+          bbd += Acc(dx) * Acc(dg);
+          ndg2 = fmaf(dg, dg, ndg2);
+        });
+        bbd = block_sum(bbd, acc_scratch);
+        ndg2 = block_sum(ndg2, f32_scratch);
         if (tid == 0) {
           P[kBbDot * nb + blk] = double(bbd);
           P[kNdg2 * nb + blk] = ndg2;
         }
-        grid.sync();
+        barrier();
       }
 
       // ---- phase 4: every block reduces the same partials in the same
@@ -328,10 +1209,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
       if (tid < 32) reduce_partials<Acc, ACCEL>(P, nb, need_gx, a.rdd, tot);
       __syncthreads();
       if (tid == 0) {
-        const float gx = float(tot[kGx]);
-        const float gobj = a.prox == kL1     ? __fmul_rn(mu, gx)
-                           : a.prox == kRidge ? __fmul_rn(__fmul_rn(0.5f, mu), gx)
-                                              : 0.f;
+        const float gobj = g_objective(a.prox, mu, float(tot[kGx]));
         State s = st;
         decide<Acc, ACCEL>(s, tot, fwin, f1s, fscale, gobj, a.ctl, a.rec, rec0, blk == 0);
         st = s;
@@ -353,31 +1231,28 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
             const float dn = __fadd_rn(d1, __fmul_rn(beta, __fsub_rn(d1, da)));
             a.dacc[i] = d1;
             float w, e;
-            fasta::loss_eval(a.loss, dn, __ldg(bp + i), w, e);
+            loss_eval(a.loss, dn, __ldg(bp + i), w, e);
             a.rbuf[i] = w;
-            fpart += fasta::loss_term<Acc>(a.loss, e);
+            fpart += loss_term<Acc>(a.loss, e);
           }
-          fpart = fasta::block_sum(fpart, acc_scratch);
+          fpart = block_sum(fpart, acc_scratch);
           if (tid == 0) P[kFn * nb + blk] = double(fpart);
         }
-        grid.sync();
-        // ---- phase B: g_n = Aᵀ ℓ′(d_n), y_n = x₁ + β(x₁ − x_acc), x_acc = x₁
+        barrier();
+        // ---- phase B: g_n = Aᵀℓ′(d_n), y_n = x₁ + β(x₁ − x_acc), x_acc = x₁
         {
           float* y = X[cur];
           float* gy = G[cur];
-          for (int j = gwarp; j < n; j += gwarps) {
-            const float g = row_dot(a.At + (size_t)j * m, a.rbuf, m, lane);
-            if (lane == 0) {
-              const float xv1 = __ldcg(x1 + j), xa = __ldcg(a.xacc + j);
-              gy[j] = g;
-              y[j] = __fadd_rn(xv1, __fmul_rn(beta, __fsub_rn(xv1, xa)));
-              a.xacc[j] = xv1;
-            }
-          }
+          adjoint_chunks(a, a.rbuf, red, [&](int j, float g) {
+            const float xv1 = __ldcg(x1 + j), xa = __ldcg(a.xacc + j);
+            gy[j] = g;
+            y[j] = __fadd_rn(xv1, __fmul_rn(beta, __fsub_rn(xv1, xa)));
+            a.xacc[j] = xv1;
+          });
         }
-        grid.sync();
+        barrier();
         if (tid < 32) {
-          const Acc fn = Acc(fscale) * fasta::warp_sum_global<Acc>(P + kFn * nb, nb);
+          const Acc fn = Acc(fscale) * warp_sum_global<Acc>(P + kFn * nb, nb);
           if (tid == 0) {
             State s = st;
             finish_fista(s, fn, f1s, fwin, a.ctl, a.rec, rec0, blk == 0);
@@ -389,106 +1264,229 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_kernel(Args a) {
       if (st.done) break;
     }
 
-    // ---- point end: the solution (FISTA: x₁ on a converged stop, else
-    // the extrapolated y), its counts, and the warm carry
+    // ---- point end: the solution, its counts, the records past the last
+    // iteration zeroed, and the warm carry
+    const int K = a.ctl.max_iters, k = st.k;
     const float* xf = (ACCEL && st.status == 1) ? a.xacc : X[st.cur];
     float* xo = a.x_out + (size_t)p * n;
     for (int j = gtid; j < n; j += gthreads) xo[j] = __ldcg(xf + j);
-    if (blk == 0 && tid == 0) {
-      a.k_out[p] = st.k;
-      a.status_out[p] = st.status;
+    if (blk == 0) {
+      if (tid == 0) {
+        a.k_out[p] = k;
+        a.status_out[p] = st.status;
+      }
+      for (int r = k + tid; r < K; r += kThreads) {
+        a.rec.taus[rec0 + r] = 0.f;
+        a.rec.res[rec0 + r] = 0.f;
+        if (a.rec.fvals) a.rec.fvals[rec0 + r] = 0.f;
+        if (a.rec.bts) a.rec.bts[rec0 + r] = 0;
+        if (a.rec.objs) a.rec.objs[rec0 + r] = 0.f;
+        if (a.rec.nres) a.rec.nres[rec0 + r] = 0.f;
+      }
     }
+    if (a.its)
+      for (int r = k; r < K; ++r) {
+        float* row = a.its + (rec0 + r) * n;
+        for (int j = gtid; j < n; j += gthreads) row[j] = 0.f;
+      }
     if (tid == 0) {
       const bool ok = st.status != 2;
       carry_ok = ok;
       tprev = (ok && st.k > 0 && st.tau_acc > 0.f) ? st.tau_acc : st.tau_start;
     }
-    if (p + 1 < a.npath) grid.sync();  // the next point may start from xo
+    if (p + 1 < a.npoints) barrier();  // the next point may start from xo
   }
+  grid_exit(a.bar, nb);
 }
 
-cudaError_t max_blocks(int* nblocks) {
-  const void* fns[] = {(const void*)microsolve_kernel<float, false>,
-                       (const void*)microsolve_kernel<double, false>,
-                       (const void*)microsolve_kernel<float, true>,
-                       (const void*)microsolve_kernel<double, true>};
-  return cooperative_blocks(fns, 4, kThreads, nblocks);
+using Kernel = void (*)(Args);
+
+template <typename Acc, bool ACCEL>
+Kernel pick_t(int route, int n4) {
+  if (route == kRouteColumns) return dense_columns_kernel<Acc, ACCEL>;
+  const int S = slots_of(n4);
+  return S == 1 ? dense_rows_kernel<Acc, ACCEL, 1>
+                : S == 2 ? dense_rows_kernel<Acc, ACCEL, 2> : dense_rows_kernel<Acc, ACCEL, 4>;
+}
+
+Kernel pick(int route, int n4, bool hp, bool accel) {
+  return hp ? (accel ? pick_t<double, true>(route, n4) : pick_t<double, false>(route, n4))
+            : (accel ? pick_t<float, true>(route, n4) : pick_t<float, false>(route, n4));
+}
+
+// the kernel the wrapper's plan takes at padded width n4
+int route_of(int n4) { return n4 <= kStateMax ? kRouteRows : kRouteColumns; }
+
+// dynamic shared memory of a row block besides its rows of A, in bytes:
+// the n-sized state (x, g, each twice, and x_acc) and the R − 1 row
+// lanes' shares
+size_t state_bytes(int n4) {
+  return (size_t)(5 + lanes_of(n4).R - 1) * n4 * sizeof(float);
 }
 
 size_t pad4(int v) { return ((size_t)v + 3) / 4 * 4; }
 
+// the warps of a block that split a column chunk's rows on the column
+// fallback: as many as the grid has to spare for each chunk, a power of
+// two up to kWarps
+int adjoint_warps(int n, int nblocks) {
+  const long long chunks = (n + 31) / 32, spare = (long long)nblocks * kWarps / chunks;
+  int w = 1;
+  while (2 * w <= kWarps && 2 * w <= spare) w *= 2;
+  return w;
+}
+
 }  // namespace
 
-// The cooperative grid size on the current device: one block per SM
-// (0 if the kernel cannot be resident at all).
-extern "C" int fasta_microsolve_grid(int* nblocks) { return max_blocks(nblocks); }
+// The cooperative grid at padded width n4 (a multiple of 4) on the
+// current device — one block per SM, 0 blocks if one cannot be resident —
+// and the shared memory a block of the row kernel has for rows of A: the
+// device's per-block opt-in (optin) less the kernels' static shared memory
+// (fixed, the most of the four instantiations that may run at n4) and the
+// block's state (0 on the column fallback; kernels/microsolver.py,
+// dense_budget, is the same arithmetic).  Raises every instantiation's
+// dynamic shared-memory cap to what it may take.
+extern "C" int fasta_microsolve_grid(int n4, int* nblocks, int* budget, int* optin_out,
+                                     int* fixed_out) {
+  if (n4 < 4 || n4 % 4) return cudaErrorInvalidValue;
+  const int route = route_of(n4);
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  size_t fixed = 0;
+  for (int k = 0; k < 4 && err == cudaSuccess; ++k) {
+    cudaFuncAttributes attr{};
+    err = cudaFuncGetAttributes(&attr, (const void*)pick(route, n4, k & 1, k & 2));
+    fixed = attr.sharedSizeBytes > fixed ? attr.sharedSizeBytes : fixed;
+  }
+  const int cap = optin > (int)fixed ? optin - (int)fixed : 0;
+  const int dyn = route == kRouteColumns ? 0 : cap;
+  int per_sm = 1 << 30;
+  for (int k = 0; k < 4 && err == cudaSuccess; ++k) {
+    const void* fn = (const void*)pick(route, n4, k & 1, k & 2);
+    if (route != kRouteColumns)
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    int per = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, kThreads, dyn);
+    per_sm = per < per_sm ? per : per_sm;
+  }
+  if (err != cudaSuccess) return err;
+  const long long left = (long long)dyn - (long long)state_bytes(n4);
+  *nblocks = per_sm < 1 ? 0 : sms;
+  *budget = route == kRouteColumns || left < 0 ? 0 : (int)left;
+  *optin_out = optin;
+  *fixed_out = (int)fixed;
+  return cudaSuccess;
+}
 
-// The doubles of work_d that a launch of K-B1 or K-B6 over nblocks needs.
+// The floats of work_f a launch needs on a route.  Rows: the blocks'
+// shares, g, f and the chunks' BB sums, d₁ and d_acc; columns: x, g (two
+// each), x_acc, ℓ′, d₁ and d_acc.
+extern "C" int fasta_microsolve_work(int m, int n4, int nblocks, int route, int* nfloats) {
+  if (m < 1 || n4 < 4 || n4 % 4 || nblocks < 1 || route != route_of(n4))
+    return cudaErrorInvalidValue;
+  const size_t pm = pad4(m);
+  const size_t nf = route == kRouteRows ? (size_t)nblocks * n4 + n4 + 4 + 4 * kChunks + 2 * pm
+                                        : 5 * (size_t)n4 + 3 * pm;
+  if (nf > (size_t)0x7fffffff) return cudaErrorInvalidValue;
+  *nfloats = (int)nf;
+  return cudaSuccess;
+}
+
+// The doubles of work_d that a launch of K-B1, K-B6 or K-B8 over nblocks
+// needs.
 extern "C" int fasta_fbs_work_doubles(int nblocks, int* ndoubles) {
   if (nblocks < 1) return cudaErrorInvalidValue;
   *ndoubles = (int)work_doubles(nblocks);
   return cudaSuccess;
 }
 
-// Run npath solves on `stream`: point p takes b + p·b_stride, the cold
-// start x0 + p·x0_stride, the weight mus[p·mu_stride] and τ₀ tau0s[p]
-// (tau0 when tau0s is null); see the option bits in Flag (a warm path
-// takes strides 0 for b and x0).  Outputs have a leading axis of npath.  work_f holds
-// 5·pad4(n) + 3·pad4(m) floats, work_d fasta_fbs_work_doubles(nblocks)
+// Run npoints solves on `stream`: point p takes b + p·b_stride, the cold
+// start x0 + p·x0_stride, the weight mus[p] (mu when mus is null) and τ₀
+// tau0s[p] (tau0 when tau0s is null); see the option bits in Flag (a warm
+// path takes strides 0 for b and x0).  A is (m, n), 16-byte aligned, n4
+// its width padded to a multiple of 4; outputs have a leading axis of
+// npoints; the records past each point's last iteration come back zero.
+// route is the plan's kernel, the one for n4 (0: n4 ≤ 8192, rows; 1: the
+// column fallback past it), tiles its (4, nblocks) table on the device
+// (first row, end row, rows in registers, rows in shared memory; null on
+// route 1) and smem_rows the most rows a block keeps in shared memory;
+// bar two zeroed unsigned words that the launch leaves zeroed; work_f
+// holds fasta_microsolve_work floats, work_d fasta_fbs_work_doubles
 // doubles.  fvals, bts, objs, nres and its may be null.
-extern "C" int fasta_microsolve(const float* A, const float* At, const float* b, int b_stride,
-                                const float* x0, int x0_stride, const float* mus, int mu_stride,
-                                const float* tau0s, int npath, float tau0, int m,
-                                int n, int max_iters, int window, float tol, float shrink_factor,
-                                int max_backtracks, int stop_rule_code, int loss, int prox,
-                                int flags, float* x_out, float* taus, float* res, float* fvals,
-                                int* bts, float* objs, float* nres, float* its, int* k_out,
-                                int* status_out, float* work_f, double* work_d, int nblocks,
-                                void* stream) {
-  if (m < 1 || n < 1 || npath < 1 || max_iters < 1 || window < 1 || window > kWinMax ||
-      max_backtracks < 0 || stop_rule_code < kResidual || stop_rule_code > kIterations ||
-      loss < fasta::kLstsq || loss > fasta::kSquaredHinge || prox < kL1 || prox > kRidge ||
-      b_stride < 0 || x0_stride < 0 || mu_stride < 0)
+extern "C" int fasta_microsolve(const float* A, const float* b, int b_stride, const float* x0,
+                                int x0_stride, const float* mus, float mu, const float* tau0s,
+                                int npoints, float tau0, int m, int n, int n4, int max_iters,
+                                int window, float tol, float shrink_factor, int max_backtracks,
+                                int stop_rule_code, int loss, int prox, int flags, float* x_out,
+                                float* taus, float* res, float* fvals, int* bts, float* objs,
+                                float* nres, float* its, int* k_out, int* status_out,
+                                const int* tiles, int route, int smem_rows, unsigned* bar,
+                                float* work_f, double* work_d, int nblocks, void* stream) {
+  if (m < 1 || n < 1 || n4 < n || n4 % 4 || n4 - n > 3 || npoints < 1 || max_iters < 1 ||
+      window < 1 || window > kWinMax || max_backtracks < 0 || stop_rule_code < kResidual ||
+      stop_rule_code > kIterations || loss < kLstsq || loss > kSquaredHinge || prox < kL1 ||
+      prox > kRidge || b_stride < 0 || x0_stride < 0 || route != route_of(n4) ||
+      (route == kRouteRows && !tiles) || smem_rows < 0 || !bar)
     return cudaErrorInvalidValue;
-  int limit = 0;
-  cudaError_t err = max_blocks(&limit);
-  if (err != cudaSuccess) return err;
+  int limit = 0, budget = 0, optin = 0, fixed = 0;
+  if (fasta_microsolve_grid(n4, &limit, &budget, &optin, &fixed) != cudaSuccess)
+    return cudaErrorInvalidConfiguration;
   if (nblocks < 1 || nblocks > limit) return cudaErrorCooperativeLaunchTooLarge;
-  const size_t pn = pad4(n), pm = pad4(m);
+  const bool hp = (flags & kHp) != 0, accel = (flags & kAccel) != 0;
   Args args{};
   args.A = A;
-  args.At = At;
-  args.pts = Points{b, x0, mus, tau0s, b_stride, x0_stride, mu_stride, tau0};
+  args.pts = Points{b, x0, nullptr, tau0s, b_stride, x0_stride, 0, tau0};
+  args.mus = mus;
+  args.mu0 = mu;
   args.x_out = x_out;
   args.rec = Records{taus, res, fvals, bts, objs, nres};
   args.its = its;
   args.k_out = k_out;
   args.status_out = status_out;
-  args.xbuf = work_f;
-  args.gbuf = work_f + 2 * pn;
-  args.xacc = work_f + 4 * pn;
-  args.rbuf = work_f + 5 * pn;
-  args.dbuf = args.rbuf + pm;
-  args.dacc = args.dbuf + pm;
+  args.tiles = tiles;
+  args.bar = bar;
   args.part = work_d;
-  args.npath = npath;
-  args.m = m;
-  args.n = n;
-  args.pn = (int)pn;
   args.ctl = Control{max_iters, window, max_backtracks, stop_rule_code,
                      (flags & kRestart) != 0, tol, shrink_factor};
+  args.npoints = npoints;
+  args.m = m;
+  args.n = n;
+  args.n4 = n4;
   args.loss = loss;
   args.prox = prox;
-  args.rdd = (flags & kHp) && (flags & kRestartDd);
+  args.rdd = hp && (flags & kRestartDd);
   args.warm = (flags & kWarm) != 0;
+  args.adj_w = adjoint_warps(n, nblocks);
+  const size_t pm = pad4(m);
+  float* w = work_f;
+  if (route == kRouteRows) {
+    args.gpart = w;
+    args.gvec = w + (size_t)nblocks * n4;
+    args.ftot = reinterpret_cast<double*>(args.gvec + n4);
+    args.bbp = args.ftot + 2;
+    w = args.gvec + n4 + 4 + 4 * kChunks;
+  } else {
+    args.xbuf = w;
+    args.gbuf = w + 2 * (size_t)n4;
+    args.xacc = w + 4 * (size_t)n4;
+    args.rbuf = w + 5 * (size_t)n4;
+    w = args.rbuf + pm;
+  }
+  args.dbuf = w;
+  args.dacc = accel ? w + pm : nullptr;
+  size_t smem = 0;
+  if (route == kRouteRows) {
+    smem = state_bytes(n4) + (size_t)smem_rows * n4 * sizeof(float);
+    if ((size_t)budget + state_bytes(n4) < smem) return cudaErrorInvalidValue;
+  }
   void* params[] = {&args};
-  const bool hp = (flags & kHp) != 0, accel = (flags & kAccel) != 0;
-  const void* fn = hp ? (accel ? (const void*)microsolve_kernel<double, true>
-                               : (const void*)microsolve_kernel<double, false>)
-                      : (accel ? (const void*)microsolve_kernel<float, true>
-                               : (const void*)microsolve_kernel<float, false>);
-  err = cudaLaunchCooperativeKernel(fn, dim3(nblocks), dim3(kThreads), params, 0,
-                                    static_cast<cudaStream_t>(stream));
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel((const void*)pick(route, n4, hp, accel), dim3(nblocks),
+                                  dim3(kThreads), params, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

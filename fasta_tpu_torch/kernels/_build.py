@@ -37,11 +37,12 @@ _SIGNATURES = {
     "fasta_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P],
     "fasta_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
-    "fasta_microsolve_grid": [_P],
-    "fasta_microsolve": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _F,
-                         _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
+    "fasta_microsolve_grid": [_I, _P, _P, _P, _P],
+    "fasta_microsolve_work": [_I, _I, _I, _I, _P],
+    "fasta_microsolve": [_P, _P, _I, _P, _I, _P, _F, _P, _I, _F,
+                         _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _I, _P],
+                         _P, _I, _I, _P, _P, _P, _I, _P],
     "fasta_fbs_work_doubles": [_I, _P],
     "fasta_shrink_step": [_P, _P, _P, _F, _P, _F, _I, _I, _I, _I, _P, _P,
                           _P, _P],
@@ -186,7 +187,7 @@ def stream_scratch(device, stream: int, ndoubles: int):
     """A float64 buffer of at least ``ndoubles`` on ``device`` for the
     launches on ``stream`` (a raw handle) of the kernels that finish with
     a last-block ticket (K-B4's stream route, K-B5) or keep a grid
-    barrier's counter and exit ticket there (K-B8).  Its first double
+    barrier's counter and exit ticket there (K-B1, K-B8).  Its first double
     holds the ticket (or the two counters), which every such kernel leaves
     at zero, so the
     buffer is zeroed once and never again: launches on one stream run in

@@ -15,11 +15,16 @@ K-B2, the fixed-order FP64 reduction of the hp decision scalars
 (``kernels/ddreduce.py``), is inlined.
 
 The CUDA source is ``fasta_tpu_torch/csrc/microsolver.cu`` (with
-``csrc/reduce.cuh`` and ``csrc/losses.cuh``); its header note gives the
-design.  Each wrapper launches the kernel for CUDA tensors and runs its
-plain version (``microsolve_lasso_reference``,
-``microsolve_lasso_path_reference``, ``microsolve_lasso_batch_reference``)
-for CPU tensors.
+``csrc/fbs_control.cuh``, ``csrc/grid_barrier.cuh``, ``csrc/reduce.cuh``
+and ``csrc/losses.cuh``); its header note gives the design.
+``dense_plan`` decides, on the host, which rows of A each block of a
+launch keeps on the chip for the whole solve (registers, shared memory)
+and which it reads from L2 every pass: up to ``STATE_MAX_N`` columns the
+row kernel, past it the column fallback, which keeps none.  There is no
+transposed copy of A: the adjoint comes from the same rows.  Each wrapper
+launches the kernel for CUDA tensors and runs its plain version
+(``microsolve_lasso_reference``, ``microsolve_lasso_path_reference``,
+``microsolve_lasso_batch_reference``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -40,8 +45,10 @@ __all__ = ["microsolve_lasso", "microsolve_lasso_reference",
            "microsolve_lasso_path", "microsolve_lasso_path_reference",
            "microsolve_lasso_batch", "microsolve_lasso_batch_reference",
            "MicrosolveOutput", "STATUS_NAMES", "LOSSES", "PROXES",
-           "supports_microsolver", "LAUNCHES", "PATH_LAUNCHES",
-           "BATCH_LAUNCHES"]
+           "supports_microsolver", "dense_plan", "DensePlan", "dense_budget",
+           "dense_lanes", "STATE_MAX_N", "H100_SMEM_OPTIN",
+           "H100_STATIC_SMEM", "LAUNCHES", "PATH_LAUNCHES", "BATCH_LAUNCHES",
+           "RESIDENT_LAUNCHES", "STREAMED_LAUNCHES", "COLUMN_LAUNCHES"]
 
 # Launches of the whole-solve kernel for one solve (K-B1), for a path
 # (K-B1p) and for a batch (K-B1b), each counted where it launches, nowhere
@@ -49,6 +56,12 @@ __all__ = ["microsolve_lasso", "microsolve_lasso_reference",
 LAUNCHES = 0
 PATH_LAUNCHES = 0
 BATCH_LAUNCHES = 0
+# The same launches (K-B1, K-B1p and K-B1b) by the dense plan's route:
+# every row of A on the chip for the whole launch ("resident"), some rows
+# read from L2 every pass ("streamed"), or the column fallback.
+RESIDENT_LAUNCHES = 0
+STREAMED_LAUNCHES = 0
+COLUMN_LAUNCHES = 0
 
 # The kernel's int32 halt codes, in order.
 STATUS_NAMES = ("max_iters", "converged", "nonfinite")
@@ -62,9 +75,25 @@ _WINDOW_MAX = 128
 
 # The reference's residency gate (fasta_tpu/kernels/microsolver.py:79,
 # sized for the TPU's VMEM), kept so that the port's dispatch decisions
-# match the reference's.  Not measured on the H100, where A and its
-# transpose stream from L2 and device memory.
+# match the reference's.  On the H100 every shape it admits runs: the row
+# kernel keeps as much of A on the chip as the plan's budget holds and
+# reads the rest from L2.
 _DENSE_VMEM_BYTES = 24 << 20
+
+# The widest padded width whose n-sized state every block of the row
+# kernel keeps in shared memory; wider, the column fallback
+# (csrc/microsolver.cu, kStateMax).
+STATE_MAX_N = 8192
+# Rows a row lane takes a step at one float4 slot a thread; at S slots,
+# 8 / S (csrc/microsolver.cu, rows_pass).
+_STEP_ROWS = 8
+# The H100's shared memory a block may opt into, and the static shared
+# memory of the row kernel as nvcc lays it out for sm_90a (the most of
+# its instantiations).  What ``dense_budget`` takes by default; the
+# card's own numbers come from ``_grid``, which a card test holds against
+# these.
+H100_SMEM_OPTIN = 232448
+H100_STATIC_SMEM = 9072
 
 _EPS32 = 1.1920928955078125e-07
 # The kernel's eps_r of the ratio and hybrid stop rules (FastaOptions'
@@ -156,15 +185,15 @@ def microsolve_lasso(A, b, x0, tau0, mu, *, record_its=False,
     objective), ``record_its`` (iterate rows) and ``record_nres``
     (normalized residuals) add series to the output.
 
-    CUDA tensors launch kernel K-B1 (A, b, x0 float32; a contiguous Aᵀ
-    is made once per call); CPU tensors run the plain version."""
+    CUDA tensors launch kernel K-B1 (A, b, x0 float32), with the rows of
+    A on the chip that ``dense_plan`` gives for the card: one device
+    operation a call, no copy of A; CPU tensors run the plain version."""
     opts = _options(options)
     _check_tensors(A, b, x0, "microsolve_lasso")
     if A.device.type == "cpu":
         return microsolve_lasso_reference(A, b, x0, tau0, mu,
                                           record_its=record_its, **opts)
-    out = _launch(A, b, x0, tau0, torch.tensor([float(mu)]), 1, False,
-                  record_its, opts)
+    out = _launch(A, b, x0, tau0, float(mu), 1, False, record_its, opts)
     global LAUNCHES
     LAUNCHES += 1
     return MicrosolveOutput(*(None if t is None else t[0] for t in out))
@@ -196,7 +225,7 @@ def microsolve_lasso_path(A, b, x0, tau0, mus, *, warm=True,
     if A.device.type == "cpu":
         return microsolve_lasso_path_reference(A, b, x0, tau0, mus,
                                                warm=warm, **opts)
-    out = _launch(A, b, x0, tau0, mus.cpu(), mus.shape[0], warm, False, opts)
+    out = _launch(A, b, x0, tau0, mus, mus.shape[0], warm, False, opts)
     global PATH_LAUNCHES
     PATH_LAUNCHES += 1
     return MicrosolveOutput(*out)
@@ -219,8 +248,7 @@ def microsolve_lasso_batch(A, bs, x0s, tau0s, mu,
     if A.device.type == "cpu":
         return microsolve_lasso_batch_reference(A, bs, x0s, tau0s, mu,
                                                 **opts)
-    out = _launch(A, bs, x0s, tau0s, torch.tensor([float(mu)]), B, False,
-                  False, opts)
+    out = _launch(A, bs, x0s, tau0s, float(mu), B, False, False, opts)
     global BATCH_LAUNCHES
     BATCH_LAUNCHES += 1
     return MicrosolveOutput(*out)
@@ -269,18 +297,6 @@ def _options(options):
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(device_index: int) -> int:
-    nb = ctypes.c_int()
-    with torch.cuda.device(device_index):
-        _build.check(_build.library().fasta_microsolve_grid(ctypes.byref(nb)),
-                     "fasta_microsolve_grid")
-    if nb.value < 1:
-        raise RuntimeError("the whole-solve kernel cannot be resident on "
-                           "this device")
-    return nb.value
-
-
-@functools.lru_cache(maxsize=None)
 def _work_doubles(nblocks: int) -> int:
     """The FP64 scratch of a K-B1 or K-B6 launch over ``nblocks``
     (csrc/fbs_control.cuh)."""
@@ -305,9 +321,12 @@ class _Outputs(NamedTuple):
     work_d: torch.Tensor
 
 
-def _outputs(B, K, o, dev, nblocks) -> _Outputs:
+def _outputs(B, K, o, dev, nblocks, fill=torch.zeros) -> _Outputs:
+    """The outputs of a launch over B points of K iterations, the records
+    made by ``fill`` (K-B1 zeroes its records' tail itself and takes
+    ``torch.empty``)."""
     def series(flag, dtype=torch.float32):
-        return torch.zeros(B, K, device=dev, dtype=dtype) if flag else None
+        return fill(B, K, device=dev, dtype=dtype) if flag else None
 
     return _Outputs(
         series(True), series(True), series(o["record_fvals"]),
@@ -326,43 +345,217 @@ def _pad4(v: int) -> int:
     return (v + 3) // 4 * 4
 
 
-def _launch(A, b, x0, tau0, mus, B, warm, record_its, o):
+def dense_lanes(n4: int):
+    """(tg, R, S) of the row kernel at padded width n4: tg threads on a
+    row's float4 slots (whole warps, at most 512), R = 512 // tg row lanes
+    and S slots a thread, as instantiated (1, 2 or 4;
+    csrc/microsolver.cu, lanes_of and slots_of)."""
+    nq = n4 // 4
+    tg = min(512, -(-nq // 32) * 32)
+    s = -(-nq // tg)
+    return tg, 512 // tg, 1 if s <= 1 else 2 if s <= 2 else 4
+
+
+def dense_budget(n4: int, optin: int = H100_SMEM_OPTIN,
+                 static: int = H100_STATIC_SMEM) -> int:
+    """The shared memory, in bytes, that a block of the row kernel at
+    padded width n4 has for rows of A: the per-block opt-in ``optin`` less
+    the kernel's static shared memory ``static`` (by default the H100's)
+    and the block's n-sized state (x and g twice, x_acc, and the R − 1
+    other row lanes' shares of g, n4 floats each); 0 on the column
+    fallback or where the state alone does not fit.  The arithmetic of
+    ``state_bytes`` in csrc/microsolver.cu; the card's ``_grid`` gives the
+    same number."""
+    if n4 < 4 or n4 % 4:
+        raise ValueError(f"dense_budget needs n4 a positive multiple of 4, "
+                         f"got {n4}")
+    if n4 > STATE_MAX_N:
+        return 0
+    R = dense_lanes(n4)[1]
+    return max(0, optin - static - 4 * n4 * (4 + R))
+
+
+class DensePlan(NamedTuple):
+    """Where a launch over an (m, n4) matrix keeps it: ``kernel`` ("rows"
+    up to STATE_MAX_N, "columns" past it), for each block its band of rows
+    (``bands[k]`` = (first, end)) and how many of them it keeps in
+    registers (``reg_rows``) and in shared memory (``smem_rows``), the
+    rest being read from L2 once a pass; ``route`` is "resident" when no
+    block reads rows from L2, "streamed" when some do, "columns" on the
+    column fallback (no bands)."""
+    kernel: str
+    route: str
+    m: int
+    n4: int
+    bands: tuple
+    reg_rows: tuple
+    smem_rows: tuple
+
+    @property
+    def streamed_rows(self) -> int:
+        """Rows of A read from L2 once a pass (all m on the column
+        fallback)."""
+        if self.kernel == "columns":
+            return self.m
+        return self.m - sum(self.reg_rows) - sum(self.smem_rows)
+
+    @property
+    def resident_share(self) -> float:
+        """The share of A's rows kept on the chip for the whole launch."""
+        return 1.0 - self.streamed_rows / self.m
+
+    @property
+    def streamed_bytes(self) -> int:
+        """Bytes of A an adaptive trial reads from L2 (4 bytes a padded
+        column): the streamed rows once, or on the column fallback all of
+        A twice, by rows and by column chunks."""
+        reads = 2 if self.kernel == "columns" else 1
+        return 4 * self.n4 * self.streamed_rows * reads
+
+
+def dense_plan(m: int, n4: int, nblocks: int, budget: int) -> DensePlan:
+    """The dense plan of an (m, n4) matrix (n4 the padded width, a
+    multiple of 4) over ``nblocks`` blocks whose shared memory holds
+    ``budget`` bytes of rows each (the device's, from ``_grid``, or
+    smaller to force a streamed remainder).  Up to STATE_MAX_N columns
+    block k owns rows ⌊km/nblocks⌋ to ⌊(k+1)m/nblocks⌋ (a band may be
+    empty); at one slot a thread (n4 ≤ 2048) it keeps its first step's
+    rows in registers, min(rows, 8R) with R the row lanes; the next rows,
+    as many as ``budget`` holds at 4·n4 bytes a row, in shared memory; the
+    rest it reads from L2.  Past STATE_MAX_N the column fallback keeps
+    none.  A pure function of its arguments; raises on a shape no kernel
+    takes."""
+    if min(m, n4, nblocks) < 1 or n4 % 4 or budget < 0:
+        raise ValueError(f"dense_plan needs m, nblocks >= 1, n4 a positive "
+                         f"multiple of 4 and budget >= 0; got "
+                         f"{(m, n4, nblocks, budget)}")
+    if m * n4 >= 1 << 31:
+        raise ValueError(f"dense_plan: a {m}x{n4} matrix is past the "
+                         f"kernel's 32-bit offsets")
+    if n4 > STATE_MAX_N:
+        return DensePlan("columns", "columns", m, n4, (), (), ())
+    starts = [k * m // nblocks for k in range(nblocks + 1)]
+    bands = tuple(zip(starts[:-1], starts[1:]))
+    _, R, S = dense_lanes(n4)
+    per_reg = _STEP_ROWS * R if S == 1 else 0
+    cap = budget // (4 * n4)
+    reg = tuple(min(r1 - r0, per_reg) for r0, r1 in bands)
+    smem = tuple(min(r1 - r0 - g, cap) for (r0, r1), g in zip(bands, reg))
+    streamed = any(r1 - r0 > g + s
+                   for (r0, r1), g, s in zip(bands, reg, smem))
+    return DensePlan("rows", "streamed" if streamed else "resident", m, n4,
+                     bands, reg, smem)
+
+
+_KERNELS = ("rows", "columns")
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(device_index: int, n4: int):
+    """(blocks of the cooperative grid, shared-memory bytes a block has
+    for rows of A, the device's per-block opt-in, the kernel's static
+    shared memory) at padded width n4 on the device."""
+    nb, budget, optin, static = (ctypes.c_int() for _ in range(4))
+    with torch.cuda.device(device_index):
+        _build.check(_build.library().fasta_microsolve_grid(
+            n4, ctypes.byref(nb), ctypes.byref(budget), ctypes.byref(optin),
+            ctypes.byref(static)), "fasta_microsolve_grid")
+    if nb.value < 1:
+        raise RuntimeError("the whole-solve kernel cannot be resident on "
+                           "this device")
+    return nb.value, budget.value, optin.value, static.value
+
+
+def _table(plan: DensePlan, device):
+    """The plan's (4, nblocks) int32 table on the card: first rows, end
+    rows, rows in registers, rows in shared memory (None on the column
+    fallback)."""
+    if plan.kernel == "columns":
+        return None
+    return torch.tensor([[r0 for r0, _ in plan.bands],
+                         [r1 for _, r1 in plan.bands], list(plan.reg_rows),
+                         list(plan.smem_rows)],
+                        dtype=torch.int32).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _tiles(device_index: int, m: int, n4: int):
+    """The dense plan for (m, n4) on the device, its table on the card and
+    its grid."""
+    nb, budget = _grid(device_index, n4)[:2]
+    plan = dense_plan(m, n4, nb, budget)
+    return plan, _table(plan, torch.device("cuda", device_index)), nb
+
+
+@functools.lru_cache(maxsize=None)
+def _work(m: int, n4: int, nblocks: int, kernel: int) -> int:
+    nf = ctypes.c_int()
+    _build.check(_build.library().fasta_microsolve_work(
+        m, n4, nblocks, kernel, ctypes.byref(nf)), "fasta_microsolve_work")
+    return nf.value
+
+
+def _count(plan: DensePlan) -> None:
+    global RESIDENT_LAUNCHES, STREAMED_LAUNCHES, COLUMN_LAUNCHES
+    if plan.route == "resident":
+        RESIDENT_LAUNCHES += 1
+    elif plan.route == "streamed":
+        STREAMED_LAUNCHES += 1
+    else:
+        COLUMN_LAUNCHES += 1
+
+
+def _launch(A, b, x0, tau0, mu, B, warm, record_its, o, plan=None):
     """One launch over B points: b (m,) or (B, m), x0 (n,) or (B, n), τ₀
-    a number or (B,), mus (1,) shared or (B,)."""
+    a number or (B,), ``mu`` a number shared by the points or a (B,)
+    tensor of the path's weights; ``plan`` the dense plan, by default the
+    device's (``_tiles``).  Allocates its outputs and scratch with
+    ``torch.empty`` (the kernel zeroes the records past each point's last
+    iteration) and counts the launch by its route."""
     for name, t in (("A", A), ("b", b), ("x0", x0)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"microsolve_lasso: {name} must be contiguous "
                              f"and 16-byte aligned")
     m, n = A.shape
+    n4 = _pad4(n)
     K = o["max_iters"]
     dev = A.device
-    nb = _grid(dev.index)
+    if plan is None:
+        plan, tiles, nb = _tiles(dev.index, m, n4)
+    else:
+        if (plan.m, plan.n4) != (m, n4):
+            raise ValueError(f"the dense plan is for {plan.m}x{plan.n4}, not "
+                             f"{m}x{n4}")
+        tiles = _table(plan, dev)
+        nb = len(plan.bands) if plan.bands else _grid(dev.index, n4)[0]
+    kernel = _KERNELS.index(plan.kernel)
     f32 = dict(device=dev, dtype=torch.float32)
-    At = A.t().contiguous()
-    mus_d = mus.to(**f32)
+    mus_d = (mu.to(**f32) if torch.is_tensor(mu) else None)
     b_stride, x0_stride, tau0s, tau0 = _points(B, b, 1, x0, 1, tau0, dev)
     x = torch.empty(B, n, **f32)
-    r = _outputs(B, K, o, dev, nb)
-    its = torch.zeros(B, K, n, **f32) if record_its else None
-    # the kernel carves five n-vectors and three m-vectors, each padded
-    # to 4 floats so that every one stays 16-byte aligned
-    work_f = torch.empty(5 * _pad4(n) + 3 * _pad4(m), **f32)
+    r = _outputs(B, K, o, dev, nb, torch.empty)
+    its = torch.empty(B, K, n, **f32) if record_its else None
+    work_f = torch.empty(_work(m, n4, nb, kernel), **f32)
     flags = (int(bool(o["hp"])) | int(bool(o["accelerate"])) << 1
              | int(bool(o["restart"])) << 2 | int(bool(o["restart_dd"])) << 3
              | int(bool(warm)) << 4)
     with _build.on_device(dev) as stream:
+        # the grid barrier's counter and exit ticket, left at zero by every
+        # launch on the stream
+        bar = _build.stream_scratch(dev, stream, 1)
         _build.check(_build.library().fasta_microsolve(
-            A.data_ptr(), At.data_ptr(), b.data_ptr(), b_stride,
-            x0.data_ptr(), x0_stride, mus_d.data_ptr(),
-            int(mus_d.numel() > 1), _ptr(tau0s), B, tau0, m, n, K,
-            o["window"],
+            A.data_ptr(), b.data_ptr(), b_stride, x0.data_ptr(), x0_stride,
+            _ptr(mus_d), 0.0 if mus_d is not None else float(mu),
+            _ptr(tau0s), B, tau0, m, n, n4, K, o["window"],
             float(o["tol"]), float(o["shrink_factor"]), o["max_backtracks"],
             STOP_RULES.index(o["stop_rule"]), LOSSES.index(o["loss"]),
             PROXES.index(o["prox"]), flags, x.data_ptr(), r.taus.data_ptr(),
             r.res.data_ptr(), _ptr(r.fvals), _ptr(r.bts), _ptr(r.objs),
             _ptr(r.nres), _ptr(its), r.k.data_ptr(), r.halt.data_ptr(),
-            work_f.data_ptr(), r.work_d.data_ptr(), nb, stream),
-            "fasta_microsolve")
+            _ptr(tiles), kernel, max(plan.smem_rows, default=0),
+            bar.data_ptr(), work_f.data_ptr(), r.work_d.data_ptr(), nb,
+            stream), "fasta_microsolve")
+    _count(plan)
     return x, r.taus, r.res, r.k, r.halt, r.fvals, r.bts, r.objs, its, r.nres
 
 

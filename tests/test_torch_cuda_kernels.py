@@ -823,14 +823,35 @@ def test_ticket_kernels_replay_in_a_cuda_graph(dev):
 
 
 @pytest.mark.parametrize("what", ["b4 1x2000", "b4 32x2000", "b4 1x2^22",
-                                  "b4 scalars", "b5 512x512", "b5 1x7"])
+                                  "b4 scalars", "b5 512x512", "b5 1x7",
+                                  "b1 1000x2000", "b1 fista 3000x1000",
+                                  "b1 columns 100x9000", "b1b 300x600x4"])
 def test_one_device_operation_per_call(dev, what, tmp_path):
-    """A call of K-B4 or K-B5 is one kernel on the card: no memset, no
-    copy (τ and μ by value or read where they lie), in a profiling.trace
-    of 10 calls."""
+    """A call of K-B4, K-B5 or K-B1 (one solve or a batch) is one kernel on
+    the card: no memset, no copy (τ and μ by value or read where they lie;
+    K-B1 makes no copy of A and zeroes its own records), in a
+    profiling.trace of 10 calls."""
     from fasta_tpu_torch import profiling
     g = torch.Generator(device=dev).manual_seed(5)
-    if what.startswith("b4"):
+    if what.startswith("b1"):
+        m, n = {"b1 1000x2000": (1000, 2000), "b1 fista 3000x1000":
+                (3000, 1000), "b1 columns 100x9000": (100, 9000),
+                "b1b 300x600x4": (300, 600)}[what]
+        p = problems.build("lasso", m=m, n=n, k=max(1, m // 10), device=dev)
+        A, b, x0 = p.op.A, p.fterm.b, p.x0
+        kw = dict(max_iters=50, tol=1e-6, record_bts=True, record_fvals=True,
+                  accelerate="fista" in what)
+        if what.startswith("b1b"):
+            bs = _stack(b, 4)
+            t0s = torch.tensor([0.02, 0.05, 0.09, 0.05], device=dev)
+
+            def fn():
+                return microsolver.microsolve_lasso_batch(A, bs, x0, t0s, 0.1,
+                                                          **kw)
+        else:
+            def fn():
+                return microsolver.microsolve_lasso(A, b, x0, 0.05, 0.1, **kw)
+    elif what.startswith("b4"):
         R, n = {"b4 1x2000": (1, 2000), "b4 32x2000": (32, 2000),
                 "b4 1x2^22": (1, 1 << 22), "b4 scalars": (1, 2000)}[what]
         x0 = torch.randn((R, n), generator=g, device=dev)
@@ -1374,7 +1395,8 @@ def test_probe_kernels_reject_what_they_do_not_take(dev):
 # the tile plan at a small shape; a budget forces a streamed remainder.
 # The wide rows run beside the n-sized state in shared memory up to
 # n = 2048 (microsolve_planar_kernel), past it in the wide kernel, whose
-# threads take two slots of a row up to n = 4096 and four past it.
+# threads take two slots of a row up to n = 4096 and four past it; each
+# of the two has a streamed case.
 PLANAR_ROUTES = {
     "rows, registers": (1000, 37, None, "rows", "resident"),
     "rows, shared": (2000, 300, None, "rows", "resident"),
@@ -1384,6 +1406,8 @@ PLANAR_ROUTES = {
     "wide rows, streamed": (4099, 601, 9 * 8 * 604, "wide", "streamed"),
     "wide kernel, two slots": (1000, 2100, None, "wide", "resident"),
     "wide kernel, streamed": (400, 5000, 8 * 5000, "wide", "streamed"),
+    "wide kernel, two slots, streamed": (400, 3000, 8 * 3000, "wide",
+                                         "streamed"),
     "columns": (300, 8300, None, "columns", "columns"),
 }
 # m ≥ 4n: a bounded solution, whose objective the kernel must reach
@@ -1482,7 +1506,8 @@ def test_planar_routes_match_plain(dev, case, hp, accelerate):
 
 @pytest.mark.parametrize("case", ["rows, streamed", "rows past 256, streamed",
                                   "wide rows, streamed",
-                                  "wide kernel, streamed"])
+                                  "wide kernel, streamed",
+                                  "wide kernel, two slots, streamed"])
 def test_planar_streamed_remainder_gives_the_resident_bits(dev, case):
     """Where a row lies — registers, shared memory or L2 — never changes
     the order of a sum: a plan forced to stream rows gives the same bits
@@ -1551,6 +1576,234 @@ def test_planar_routes_halt_nonfinite_and_leave_the_barrier_at_zero(dev,
     assert out.halt[0].item() == 2
     good = _planar_launch((data[0], data[1], bs[1], data[3], data[4]), 1.0,
                           kw, plan)
+    assert torch.equal(out.x[1], good.x)
+    torch.cuda.synchronize()
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    from fasta_tpu_torch.kernels import _build
+    bar = _build.stream_scratch(dev, stream, 1)
+    assert bar[:1].view(torch.int32).tolist() == [0, 0]
+
+
+# --------------------------------------------------------------------------
+# Slice 11: K-B1's routes with A on the chip
+# --------------------------------------------------------------------------
+
+# (m, n, budget or None for the card's own, kernel, route): each route of
+# the dense plan at a small shape; a budget forces a streamed remainder.
+# A thread takes one float4 slot of a row up to n = 2048 (its first step's
+# rows in registers), two up to 4096 and four up to 8192; past it the
+# column fallback.
+DENSE_ROUTES = {
+    "rows, registers": (1000, 500, None, "rows", "resident"),
+    "rows, shared": (3000, 1000, None, "rows", "resident"),
+    "rows, streamed": (3000, 1000, 0, "rows", "streamed"),
+    "rows, ragged": (301, 699, None, "rows", "resident"),
+    "rows, two slots": (500, 3000, None, "rows", "resident"),
+    "rows, two slots, streamed": (500, 3000, 4 * 3000, "rows", "streamed"),
+    "rows, four slots, streamed": (300, 7000, None, "rows", "streamed"),
+    "columns": (100, 9000, None, "columns", "columns"),
+}
+
+
+def _dense_plan(dev, m, n, budget):
+    n4 = (n + 3) // 4 * 4
+    if budget is None:
+        return microsolver._tiles(dev.index, m, n4)[0]
+    nb = microsolver._grid(dev.index, n4)[0]
+    return microsolver.dense_plan(m, n4, nb, budget)
+
+
+def _dense_launch(data, tau0, kw, plan, B=1, record_its=False):
+    """K-B1 (B = 1) or K-B1b on a given dense plan."""
+    A, b, x0 = data
+    out = microsolver._launch(A, b, x0, tau0, 0.1, B, False, record_its,
+                              microsolver._options(kw), plan)
+    if B == 1:
+        return MicrosolveOutput(*(None if t is None else t[0] for t in out))
+    return MicrosolveOutput(*out)
+
+
+def _dense_routes():
+    return (microsolver.RESIDENT_LAUNCHES, microsolver.STREAMED_LAUNCHES,
+            microsolver.COLUMN_LAUNCHES)
+
+
+def _lasso_data(dev, m, n):
+    p = problems.build("lasso", m=m, n=n, k=max(1, m // 10), device=dev)
+    return p.op.A, p.fterm.b, p.x0
+
+
+@pytest.mark.parametrize("n4", [4, 16, 100, 500, 1000, 2000, 2048, 2052,
+                                4096, 6000, 8192, 8196])
+def test_dense_grid_budget_is_dense_budget(dev, n4):
+    """The card's shared memory for rows of A (``_grid``) is
+    ``dense_budget`` of its opt-in and the row kernel's static shared
+    memory; on the H100 those two are the module's H100 numbers, which
+    the CPU tests of the dense plan take."""
+    nb, budget, optin, static = microsolver._grid(dev.index, n4)
+    assert nb == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert budget == microsolver.dense_budget(n4, optin, static)
+    if "H100" in torch.cuda.get_device_name(dev):
+        assert optin == microsolver.H100_SMEM_OPTIN
+        if n4 <= microsolver.STATE_MAX_N:
+            assert static == microsolver.H100_STATIC_SMEM
+        assert budget == microsolver.dense_budget(n4)
+
+
+@pytest.mark.parametrize("accelerate", [False, True])
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("case", list(DENSE_ROUTES))
+def test_dense_routes_match_plain(dev, case, hp, accelerate):
+    """Each route of K-B1 against its plain version on LASSO over 40
+    iterations (the route counter shows which ran): the first 10 taus
+    rtol 1e-3, residuals rtol 1e-3 / atol 1e-6, objectives rtol 1e-4 and
+    backtracks equal, every record, and where the problem is well posed
+    (m ≥ n) the float64 objective after 40 iterations within max(rel
+    1e-5, twice the plain version's own spread with its columns reversed),
+    K-B8's route test's rule.  (At 100×9000 the plain version's objective
+    after 40 iterations moves by 3% when only its columns are reversed:
+    the BB trajectories of the underdetermined shapes part with the order
+    of float32 sums.)"""
+    m, n, budget, kernel, route = DENSE_ROUTES[case]
+    data = _lasso_data(dev, m, n)
+    plan = _dense_plan(dev, m, n, budget)
+    assert (plan.kernel, plan.route) == (kernel, route)
+    kw = dict(max_iters=40, tol=0.0, stop_rule="iterations", hp=hp,
+              accelerate=accelerate, restart_dd=hp, record_bts=True,
+              record_fvals=True, record_objs=True, record_nres=True)
+    before = np.array(_dense_routes())
+    out = _dense_launch(data, 0.05, kw, plan, record_its=True)
+    step = {"resident": (1, 0, 0), "streamed": (0, 1, 0),
+            "columns": (0, 0, 1)}[route]
+    assert tuple(np.array(_dense_routes()) - before) == step
+    ref = microsolver.microsolve_lasso_reference(*data, 0.05, 0.1,
+                                                 record_its=True, **kw)
+    torch.cuda.synchronize()
+    assert int(out.iteration_count) == int(ref.iteration_count) == 40
+    torch.testing.assert_close(out.taus[:10], ref.taus[:10], rtol=1e-3,
+                               atol=0.0)
+    torch.testing.assert_close(out.residuals[:10], ref.residuals[:10],
+                               rtol=1e-3, atol=1e-6)
+    assert torch.equal(out.backtracks[:10], ref.backtracks[:10])
+    torch.testing.assert_close(out.objectives[:10], ref.objectives[:10],
+                               rtol=1e-4, atol=0.0)
+    assert torch.isfinite(out.norm_residuals).all()
+    assert out.iterates.shape == (40, n)
+    if not accelerate:
+        assert torch.equal(out.iterates[-1], out.x)
+    if m < n:
+        return
+    perm = torch.arange(n - 1, -1, -1, device=dev)
+    rev = microsolver.microsolve_lasso_reference(
+        data[0][:, perm].contiguous(), data[1], data[2][perm].contiguous(),
+        0.05, 0.1, **kw)
+    f1 = _objective(data[0], data[1], out.x, "lstsq", "l1", 0.1)
+    f2 = _objective(data[0], data[1], ref.x, "lstsq", "l1", 0.1)
+    f_rev = _objective(data[0], data[1], rev.x[perm.argsort()], "lstsq",
+                       "l1", 0.1)
+    assert abs(f1 - f2) <= max(1e-5 * abs(f2), 2.0 * abs(f_rev - f2))
+
+
+@pytest.mark.parametrize("case", ["rows, streamed",
+                                  "rows, two slots, streamed"])
+def test_dense_streamed_remainder_gives_the_resident_bits(dev, case):
+    """Where a row lies — registers, shared memory or L2 — never changes
+    the order of a sum: plans forced to stream rows (the case's budget and
+    half the card's) give the same bits as the card's own plan, one solve
+    and a batch, adaptive and FISTA; and the batch on the forced plan is
+    its separate launches."""
+    m, n, budget, _, _ = DENSE_ROUTES[case]
+    data = _lasso_data(dev, m, n)
+    own = _dense_plan(dev, m, n, None)
+    half = _dense_plan(dev, m, n, microsolver._grid(dev.index, own.n4)[1] // 2)
+    forced = _dense_plan(dev, m, n, budget)
+    assert forced.route == "streamed" and own.route == "resident"
+    assert forced.streamed_rows > 0
+    bs = _stack(data[1], 3)
+    t0s = torch.tensor([0.02, 0.05, 0.09], device=dev)
+    for mode in (dict(), dict(hp=True, accelerate=True, restart_dd=True)):
+        kw = dict(max_iters=200, tol=1e-6, record_bts=True,
+                  record_fvals=True, **mode)
+        want = _dense_launch(data, 0.05, kw, own)
+        for plan in (forced, half):
+            got = _dense_launch(data, 0.05, kw, plan)
+            assert all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(got, want))
+        out = _dense_launch((data[0], bs, data[2]), t0s, kw, forced, B=3)
+        _same(out, [_dense_launch((data[0], bs[i], data[2]), float(t0s[i]),
+                                  kw, forced) for i in range(3)])
+
+
+def test_dense_kernel_on_two_streams_and_in_a_cuda_graph(dev):
+    """K-B1 calls on two streams at once (each stream its own barrier
+    counter), and two calls captured in one CUDA graph and replayed twice,
+    give what the same calls give one after the other: every launch leaves
+    its counter at zero and allocates nothing on the card."""
+    small = _lasso_data(dev, 300, 600)
+    big = _lasso_data(dev, 1000, 2000)
+    kw = dict(max_iters=300, tol=1e-6, record_bts=True)
+
+    def calls():
+        return (microsolver.microsolve_lasso(*small, 0.05, 0.1, **kw)
+                + microsolver.microsolve_lasso(*big, 0.05, 0.1,
+                                               accelerate=True, **kw))
+    want = calls()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(3):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(calls())
+    torch.cuda.synchronize()
+    for outs in got:
+        for out in outs:
+            assert all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(out, want))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        first = calls()
+        second = calls()
+    for _ in range(2):
+        for t in first + second:
+            if t is not None:
+                t.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in (first, second):
+            assert all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("case", list(DENSE_ROUTES))
+def test_dense_routes_halt_nonfinite_and_leave_the_barrier_at_zero(dev,
+                                                                   case):
+    """A NaN τ₀ halts every route as nonfinite after one iteration, in one
+    solve and in a batch beside a finite instance, which the halt leaves
+    intact, and the kernel zeroes the records past that iteration; after
+    each launch the grid barrier's counter and exit ticket in the stream's
+    scratch are back at zero."""
+    m, n, budget, _, _ = DENSE_ROUTES[case]
+    data = _lasso_data(dev, m, n)
+    plan = _dense_plan(dev, m, n, budget)
+    kw = dict(max_iters=50, tol=1e-6)
+    bad = _dense_launch(data, float("nan"), dict(kw, record_fvals=True),
+                        plan, record_its=True)
+    assert bad.status == "nonfinite" and int(bad.iteration_count) == 1
+    assert not bad.taus[1:].any() and not bad.fvals[1:].any()
+    assert not bad.iterates[1:].any()
+    bs = _stack(data[1], 2)
+    t0s = torch.tensor([float("nan"), 0.05], device=dev)
+    out = _dense_launch((data[0], bs, data[2]), t0s, kw, plan, B=2)
+    assert out.halt[0].item() == 2
+    good = _dense_launch((data[0], bs[1].clone(), data[2]), 0.05, kw, plan)
     assert torch.equal(out.x[1], good.x)
     torch.cuda.synchronize()
     stream = torch._C._cuda_getCurrentRawStream(dev.index)

@@ -1,8 +1,8 @@
-"""The launch plans of kernels K-B4 (the fused shrink step), K-B5 (the
-fused TV gradient map) and K-B8 (the planar whole solve), which the
-wrappers compute on the host and the CUDA kernels obey: every shape lands
-on one route, and every element (K-B4) or row (K-B5, K-B8) is covered
-exactly once.  The plans are pure functions of
+"""The launch plans of kernels K-B1 (the dense whole solve), K-B4 (the
+fused shrink step), K-B5 (the fused TV gradient map) and K-B8 (the planar
+whole solve), which the wrappers compute on the host and the CUDA kernels
+obey: every shape lands on one route, and every element (K-B4) or row
+(K-B1, K-B5, K-B8) is covered exactly once.  The plans are pure functions of
 the shape and the card's SM count, so they are held here, on the CPU, at
 the H100's 132 SMs and at others."""
 
@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from fasta_tpu_torch.kernels import microsolver_planar, prox_fused, tv_fused
+from fasta_tpu_torch.kernels import (microsolver, microsolver_planar,
+                                     prox_fused, tv_fused)
+from fasta_tpu_torch.kernels.microsolver import dense_plan
 from fasta_tpu_torch.kernels.microsolver_planar import tile_plan
 from fasta_tpu_torch.kernels.prox_fused import shrink_plan
 from fasta_tpu_torch.kernels.tv_fused import tv_plan
@@ -289,3 +291,172 @@ def test_tile_plan_refuses_empty_or_impossible_shapes(m, n4, nblocks,
                                                       budget):
     with pytest.raises(ValueError, match="tile_plan"):
         tile_plan(m, n4, nblocks, budget)
+
+
+# --------------------------------------------------------------------------
+# K-B1's dense plan: the rows each block keeps on the chip
+# --------------------------------------------------------------------------
+
+_dense_budget = microsolver.dense_budget
+
+
+def test_dense_lanes_spread_a_row_over_whole_warps():
+    """A row takes its float4 slots rounded up to a warp (at most 512
+    threads), the block's other threads are further row lanes, and a
+    thread takes 1, 2 or 4 slots (the instantiations)."""
+    lanes = microsolver.dense_lanes
+    assert lanes(4) == (32, 16, 1) and lanes(16) == (32, 16, 1)
+    assert lanes(100) == (32, 16, 1) and lanes(500) == (128, 4, 1)
+    assert lanes(1000) == (256, 2, 1) and lanes(2000) == (512, 1, 1)
+    assert lanes(2048) == (512, 1, 1) and lanes(2052) == (512, 1, 2)
+    assert lanes(4096) == (512, 1, 2) and lanes(6000) == (512, 1, 4)
+    assert lanes(8192) == (512, 1, 4)
+    for n4 in range(4, 8196, 4):
+        tg, R, S = lanes(n4)
+        assert tg % 32 == 0 and tg * R <= 512 and tg * S >= n4 // 4
+
+
+def test_dense_budget_counts_the_state_of_the_row_kernel():
+    """The budget is the opt-in less the static shared memory and the
+    block's state: x and g twice, x_acc and the R − 1 other row lanes'
+    shares, n4 floats each; none past STATE_MAX_N or where the state
+    alone does not fit."""
+    db = microsolver.dense_budget
+    assert db(16, 100000, 1000) == 100000 - 1000 - 4 * 16 * (4 + 16)
+    assert db(500, 100000, 1000) == 100000 - 1000 - 4 * 500 * (4 + 4)
+    assert db(1000, 100000, 1000) == 100000 - 1000 - 4 * 1000 * (4 + 2)
+    assert db(2000, 100000, 1000) == 100000 - 1000 - 4 * 2000 * 5
+    assert db(8192, 200000, 1000) == 200000 - 1000 - 4 * 8192 * 5
+    assert db(8196, 200000, 1000) == 0
+    assert db(8192, 100000, 1000) == 0
+    optin, static = microsolver.H100_SMEM_OPTIN, microsolver.H100_STATIC_SMEM
+    assert db(2000) == optin - static - 4 * 2000 * 5
+    for n4 in (0, 6, -4):
+        with pytest.raises(ValueError, match="dense_budget"):
+            db(n4)
+
+
+@pytest.mark.parametrize("m,n4,nblocks,budget", [
+    (1000, 2000, SMS, None), (1000, 500, SMS, None), (800, 100, SMS, None),
+    (500, 1000, SMS, None), (6000, 1000, SMS, None), (1000, 6000, SMS, None),
+    (128, 16, SMS, None), (1, 4, SMS, None), (6000, 1000, SMS, 0),
+    (6000, 1000, SMS, 50000), (4099, 256, 7, 10000), (37, 8192, 64, 4096),
+    (1500000, 4, SMS, None)])
+def test_dense_plan_places_every_row_once(m, n4, nblocks, budget):
+    budget = _dense_budget(n4) if budget is None else budget
+    plan = dense_plan(m, n4, nblocks, budget)
+    assert plan.kernel == "rows" and len(plan.bands) == nblocks
+    # contiguous bands over all m rows, the kernel's own formula
+    assert plan.bands == tuple((k * m // nblocks, (k + 1) * m // nblocks)
+                               for k in range(nblocks))
+    _, R, S = microsolver.dense_lanes(n4)
+    placed = np.zeros(m, np.int64)
+    where = np.zeros(m, np.int64)     # 1 registers, 2 shared, 3 streamed
+    for (r0, r1), g, s in zip(plan.bands, plan.reg_rows, plan.smem_rows):
+        assert 0 <= g and 0 <= s and g + s <= r1 - r0
+        placed[r0:r1] += 1
+        where[r0:r0 + g] = 1
+        where[r0 + g:r0 + g + s] = 2
+        where[r0 + g + s:r1] = 3
+        assert s * 4 * n4 <= budget
+        # registers hold a band's first step of rows, at one slot a thread
+        assert g == (min(r1 - r0, 8 * R) if S == 1 else 0)
+        # a block streams rows only when its shared memory is full
+        if r1 - r0 > g + s:
+            assert (s + 1) * 4 * n4 > budget
+    assert np.all(placed == 1)
+    streamed = int((where == 3).sum())
+    assert plan.streamed_rows == streamed
+    assert plan.route == ("streamed" if streamed else "resident")
+    assert plan.streamed_bytes == 4 * n4 * streamed
+    assert plan.resident_share == pytest.approx(1 - streamed / m)
+
+
+def test_dense_plan_gives_empty_bands_nothing():
+    """128 rows over 132 blocks: four blocks own no row, keep none, and
+    the other bands hold one row each, in registers."""
+    plan = dense_plan(128, 16, SMS, _dense_budget(16))
+    sizes = [r1 - r0 for r0, r1 in plan.bands]
+    assert sizes.count(0) == 4 and sizes.count(1) == 128
+    assert all(g == r1 - r0 and s == 0 for (r0, r1), g, s in
+               zip(plan.bands, plan.reg_rows, plan.smem_rows))
+    assert plan.route == "resident" and plan.streamed_bytes == 0
+
+
+def test_dense_plan_route_boundaries():
+    """n4 = 8192 is the last width of the row kernel, 8196 the column
+    fallback; registers hold rows up to 2048 columns (one slot a
+    thread)."""
+    assert microsolver.STATE_MAX_N == 8192
+    kernels = [dense_plan(500, n4, SMS, _dense_budget(n4)).kernel
+               for n4 in (4, 2048, 2052, 8192, 8196)]
+    assert kernels == ["rows", "rows", "rows", "rows", "columns"]
+    assert max(dense_plan(2000, 2048, SMS, 0).reg_rows) == 8
+    assert max(dense_plan(2000, 2052, SMS, 1 << 20).reg_rows) == 0
+    assert max(dense_plan(8000, 500, SMS, 0).reg_rows) == 32
+    cols = dense_plan(100, 60000, SMS, 0)
+    assert (cols.route, cols.bands, cols.streamed_rows) == ("columns", (),
+                                                            100)
+    assert cols.streamed_bytes == 2 * 4 * 60000 * 100
+    assert cols.resident_share == 0.0
+
+
+@pytest.mark.parametrize("m,n,route", [
+    (1000, 2000, "resident"), (1000, 500, "resident"),
+    (800, 100, "resident"), (500, 1000, "resident"),
+    (6000, 1000, "resident"), (1000, 6000, "streamed"),
+    (100, 60000, "columns")])
+def test_dense_plan_on_the_h100_keeps_the_main_shapes_on_the_chip(m, n,
+                                                                  route):
+    """At the H100's 132 SMs and its shared memory: LASSO 1000×2000,
+    NNLS and logistic 1000×500, SVM 800×100 and 500×1000 keep every row
+    in registers; 6000×1000 keeps 16 rows a block in registers and the
+    rest of its 45–46 in shared memory; 1000×6000, at the gate, streams
+    what does not fit beside the n-sized state; 100×60000 takes the
+    column fallback."""
+    n4 = (n + 3) // 4 * 4
+    plan = dense_plan(m, n4, SMS, _dense_budget(n4))
+    assert plan.route == route
+    if (m, n) in ((1000, 2000), (1000, 500), (800, 100), (500, 1000)):
+        assert sum(plan.smem_rows) == 0 and sum(plan.reg_rows) == m
+    if route == "streamed":
+        assert 0.4 < plan.resident_share < 0.75
+
+
+def _gate_shapes():
+    """Shapes at and below the reference's 24 MB gate: for widths from 1
+    to 6·2²⁰ the tallest m the gate admits, and a quarter of it."""
+    cap = (24 << 20) // 4
+    widths = sorted({1, 3, 4, 5, 16, 100, 500, 513, 1000, 2000, 2047, 2048,
+                     2049, 4096, 6000, 8189, 8192, 8193, 8196, 20000,
+                     60000, 1 << 20, cap} | {int(1.6 ** k) for k in
+                                             range(34)})
+    return [(m, n) for n in widths if n <= cap
+            for m in {max(1, cap // n), max(1, cap // n // 4)}]
+
+
+def test_every_shape_the_gate_admits_has_a_plan_on_the_h100():
+    """Every shape inside ``supports_microsolver``'s 24 MB gate has a plan
+    at the H100's budget whose shared memory fits the opt-in; the widths
+    that fit beside the state take the row kernel."""
+    optin, static = microsolver.H100_SMEM_OPTIN, microsolver.H100_STATIC_SMEM
+    for m, n in _gate_shapes():
+        assert microsolver.supports_microsolver(m, n)
+        n4 = (n + 3) // 4 * 4
+        plan = dense_plan(m, n4, SMS, _dense_budget(n4))
+        if n4 > microsolver.STATE_MAX_N:
+            assert plan.kernel == "columns", (m, n)
+            continue
+        R = microsolver.dense_lanes(n4)[1]
+        dyn = 4 * n4 * (4 + R) + 4 * n4 * max(plan.smem_rows)
+        assert plan.kernel == "rows" and static + dyn <= optin, (m, n)
+    assert not microsolver.supports_microsolver(1000, 6292)
+
+
+@pytest.mark.parametrize("m,n4,nblocks,budget", [
+    (0, 256, SMS, 1000), (16, 0, SMS, 1000), (16, 6, SMS, 1000),
+    (16, 256, 0, 1000), (16, 256, SMS, -1), (1 << 20, 1 << 12, SMS, 0)])
+def test_dense_plan_refuses_empty_or_impossible_shapes(m, n4, nblocks,
+                                                       budget):
+    with pytest.raises(ValueError, match="dense_plan"):
+        dense_plan(m, n4, nblocks, budget)
