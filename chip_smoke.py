@@ -60,8 +60,10 @@ non-zero without the final ``ok`` line):
     kernel and loop paths at a fixed 2000 iterations;
 14. K-B7 (fused planar gradient map) against its plain version, the
     least-squares and hinge forms, at 16384×256 (33.6 MB, in L2), 1000×37
-    and 16384×4096 (537 MB, streaming from HBM), with call and stream
-    times over 20 runs;
+    and 16384×4096 (537 MB, streaming from HBM), a second call's bits,
+    with call and stream times over 20 runs, and the hinge form at
+    16384×256 and 16384×4096 split into card time (a ``profiling.trace``),
+    host time and device operations per call (one kernel, no memset);
 15. K-P5 (planar layout probe): every layout at 16384×256 against its
     plain version, then µs per chained pair and the implied GB/s, in
     turns; the layout K-B8 uses;
@@ -105,7 +107,8 @@ non-zero without the final ``ok`` line):
     8192×16384, 1000×1003 (ragged) and 1024×200000 (the wide route), with
     call and stream times beside K-B3 over the float32 A;
 24. K-B7 over bfloat16 channels at 16384×256, 16384×4096 and 1024×16384
-    (the wide route), both losses;
+    (the wide route), both losses, the hinge form at 16384×256 and
+    16384×4096 split as in phase 14;
 25. K-P4 (the bfloat16-storage probe) at 1000×2000, float32 against
     bfloat16 storage: µs per chained pair in turns;
 26. K-B8 and K-B8b on the route past n = 512 (C-4) at 8192×640 (to
@@ -124,7 +127,8 @@ non-zero without the final ``ok`` line):
     16384×256 over bfloat16 channels (K-B7 bf16), its float32 resume
     against the float64 oracle and ``Problem.microsolve`` on it;
 28. K-P2 (the one-pass gradient-map check) at 1000×2048 against its plain
-    version and float64;
+    version and float64, a second call's bits, the call's time and its
+    split into card time, host time and device operations (one kernel);
 29. K-P1 (the GEMV formulation probe): every formulation at 1000×2048
     against its plain version, two runs equal, then the barrier alone (K
     grid barriers of each kind, nothing else) and µs per chained
@@ -248,13 +252,14 @@ def graph_ms(fn, calls: int = 200) -> float:
 
 
 def call_split(tag: str, fn, calls: int = 20) -> tuple:
-    """A call of ``fn`` split: (card ms, host ms) per call — the card's
-    time from a ``profiling.trace`` of ``calls`` calls, and the host clock
-    around 200 calls with no wait — printed with the device operations a
-    call made.  The trace must show no memset and no copy, and no more
-    kernels than calls (K-B4, K-B5: one kernel a call; the profiler may
-    drop an event, so the card time is the mean kernel's).  A trace that
-    holds no kernel event at all gives (None, host ms)."""
+    """A call of ``fn`` split: (card ms, host ms, device operations) — the
+    card's time per call from a ``profiling.trace`` of ``calls`` calls, the
+    host clock around 200 calls with no wait, and the calls with the
+    kernels, memsets and copies the trace counted in them — printed.  The trace
+    must show no memset and no copy, and no more kernels than calls (K-B4,
+    K-B5, K-B7, K-P2: one kernel a call; the profiler may drop an event,
+    so the card time is the mean kernel's).  A trace that holds no kernel
+    event at all gives (None, host ms, 0)."""
     ops = profiling.device_ops(fn, calls, str(_build._BUILD_DIR.parent /
                                               "chip_smoke_trace"))
     host = profiling.host_us(fn, 200) / 1e3
@@ -266,13 +271,22 @@ def call_split(tag: str, fn, calls: int = 20) -> tuple:
     if n["kernel"] == 0:
         print(f"{tag} the trace holds no kernel event: card time not "
               f"measured")
-        return None, host
+        return None, host, dict(calls=calls, **n)
     require(n["gpu_memset"] == 0 and n["gpu_memcpy"] == 0
             and n["kernel"] <= calls, f"{tag} one kernel and nothing else a "
                                       f"call")
     card = ops["dur_us"] / n["kernel"] / 1e3
     print(f"{tag} card time per call (trace) {card * 1e3:.3f} us")
-    return card, host
+    return card, host, dict(calls=calls, **n)
+
+
+def split_keys(split: tuple, suffix: str = "") -> dict:
+    """The kernels line's keys of a ``call_split``: card and host µs per
+    call, and the device operations its trace counted in its calls (the
+    profiler may drop a kernel event, never add one)."""
+    card, host, ops = split
+    return {f"card_us{suffix}": None if card is None else card * 1e3,
+            f"host_us{suffix}": host * 1e3, f"device_ops{suffix}": ops}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -977,7 +991,7 @@ def phase_tv_gradmap() -> dict:
         plain_fn = lambda: tv_fused.tv_gradmap_reference(p, b, 0.1)  # noqa: E731
         kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
         kern_stream, plain_stream = stream_ms(kernel_fn), stream_ms(plain_fn)
-        card, host = call_split(f"[10 K-B5 {h}x{w}]", kernel_fn)
+        card, host, _ = call_split(f"[10 K-B5 {h}x{w}]", kernel_fn)
         nbytes = 24.0 * h * w
         print(f"[10 K-B5 {h}x{w}] max|dd| {err_d:.3e} (tol {tol_d:.1e}) "
               f"max|dg| {err_g:.3e} (tol {tol_g:.1e}) rel df {rel_f:.3e} "
@@ -1411,14 +1425,26 @@ def planar_gradmap_bytes(m: int, n: int, hinge: bool) -> float:
                   + 2 * n)
 
 
+def planar_plan_line(phase: int, m: int, n: int, bf16: bool) -> str:
+    """K-B7's launch plan for an m×n call (``gradmap_plan``) and the
+    clusters of 8 blocks the card holds at once for its kernel."""
+    return (f"[{phase} K-B7 {m}x{n}{' bf16' if bf16 else ''}] plan "
+            f"{planar_fused._plan(0, m, n, bf16)}; the card holds "
+            f"{planar_fused._card_plan(0, m, n, bf16)[-1]} clusters of "
+            f"{planar_fused.CLUSTER} blocks of this kernel at once")
+
+
 def phase_planar_gradmap() -> dict:
     """K-B7 against the plain two-pass form on the same seeded inputs,
     both losses, with phase 3's tolerance: max|Δd|, max|Δg| ≤
     1e-5·max(1, max|ref|) and |Δf| ≤ 1e-5·|f| (float32 sums in another
-    order).  Operations: 16·m·n for the two products."""
-    worst, ms = 0.0, {}
+    order), and a second call's bits.  Operations: 16·m·n for the two
+    products.  The hinge form at 16384×256 and 16384×4096 split into card
+    time, host time and device operations (one kernel a call)."""
+    worst, ms, splits = 0.0, {}, {}
     for i, (m, n) in enumerate(((16384, 256), (1000, 37), (16384, 4096))):
         Ar, Ai, x, bl, bh = planar_data(m, n, 10 + i)
+        print(planar_plan_line(14, m, n, False))
         for loss, fused, ref, b in (
                 ("hinge", planar_fused.fused_planar_hinge_gradmap,
                  planar_fused.planar_hinge_gradmap_reference, bh),
@@ -1432,6 +1458,8 @@ def phase_planar_gradmap() -> dict:
             rel_f = abs(float(f) - float(f0)) / abs(float(f0))
             tol_d = 1e-5 * max(1.0, float(d0.abs().max()))
             tol_g = 1e-5 * max(1.0, float(g0.abs().max()))
+            same = all(torch.equal(u, v) for u, v in
+                       zip((d, f, g), fused(Ar, Ai, x, b)))
             kernel_fn = lambda: fused(Ar, Ai, x, b)  # noqa: E731
             plain_fn = lambda: ref(Ar, Ai, x, b)  # noqa: E731
             kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
@@ -1445,9 +1473,14 @@ def phase_planar_gradmap() -> dict:
                   f"back-to-back runs: kernel {kern_stream:.4f} ms, plain "
                   f"{plain_stream:.4f} ms; kernel reads Ar and Ai once: "
                   f"{2 * m * n * 4 / kern_stream / 1e6:.1f} GB/s of stream "
-                  f"time; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-            require(err_d <= tol_d and err_g <= tol_g and rel_f <= 1e-5,
+                  f"time; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+                  f"second call equal {same}")
+            require(err_d <= tol_d and err_g <= tol_g and rel_f <= 1e-5
+                    and same,
                     f"K-B7 {loss} {m}x{n} disagrees with its plain version")
+            if loss == "hinge" and m == 16384:
+                splits[n] = call_split(f"[14 K-B7 {loss} {m}x{n}]",
+                                       kernel_fn)
             worst = max(worst, err_d, err_g)
             ms[(loss, m, n)] = (kern, plain, kern_stream, plain_stream,
                                 bd["bound_ms"])
@@ -1458,6 +1491,8 @@ def phase_planar_gradmap() -> dict:
     return dict(max_abs_err=worst, ms=main[0], plain_ms=main[1],
                 **bound(planar_gradmap_bytes(m, n, True), 16.0 * m * n),
                 library_ms=None, shape="hinge 16384x256",
+                **split_keys(splits[256]),
+                **split_keys(splits[4096], "_16384x4096"),
                 stream_ms=main[2], plain_stream_ms=main[3],
                 lstsq_ms=lsq[0], lstsq_plain_ms=lsq[1],
                 lstsq_stream_ms=lsq[2], lstsq_plain_stream_ms=lsq[3],
@@ -1843,7 +1878,7 @@ def phase_shrink_step() -> dict:
                 x0, g, tau, mu)
             kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
             ks, ps = stream_ms(kernel_fn), stream_ms(plain_fn)
-            card, host = call_split(f"[18 K-B4 {R}x{n}]", kernel_fn)
+            card, host, _ = call_split(f"[18 K-B4 {R}x{n}]", kernel_fn)
             bd = bound(12.0 * R * n, 16.0 * R * n)
             line += (f"; call, median of 20: kernel {kern:.4f} ms, plain "
                      f"{plain:.4f} ms; stream time, 20 back-to-back calls: "
@@ -2485,12 +2520,15 @@ def phase_bf16_planar_gradmap() -> dict:
     upcast, x float32), both losses, at 16384×256, 16384×4096 (268.4 MB of
     channels) and 1024×16384 (the wide route), with phase 3's tolerance;
     call and stream times, GB/s against the byte bound of one bfloat16
-    read of Ar and Ai."""
-    worst, ms = 0.0, {}
+    read of Ar and Ai; the hinge form at 16384×256 and 16384×4096 split
+    into card time, host time and device operations (one kernel a
+    call)."""
+    worst, ms, splits = 0.0, {}, {}
     for i, (m, n) in enumerate(((16384, 256), (16384, 4096), (1024, 16384))):
         Ar, Ai, x, bl, bh = planar_data(m, n, 24 + i)
         Ar, Ai = Ar.to(torch.bfloat16), Ai.to(torch.bfloat16)
-        route = planar_fused._plan(0, m, n, True)[0]
+        route = planar_fused._plan(0, m, n, True).route
+        print(planar_plan_line(24, m, n, True))
         for loss, fused, ref, b in (
                 ("hinge", planar_fused.fused_planar_hinge_gradmap,
                  planar_fused.planar_hinge_gradmap_reference, bh),
@@ -2514,6 +2552,8 @@ def phase_bf16_planar_gradmap() -> dict:
                   f"time; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
             ms[(loss, m, n)] = (kern, plain, kern_stream, plain_stream,
                                 bd["bound_ms"])
+            if loss == "hinge" and m == 16384:
+                splits[n] = call_split(f"{tag}", kernel_fn)
         del Ar, Ai
     m, n = 16384, 4096
     big = ms[("hinge", m, n)]
@@ -2521,6 +2561,8 @@ def phase_bf16_planar_gradmap() -> dict:
                 **bound(planar_gradmap_bytes(m, n, True) - 4.0 * m * n,
                         16.0 * m * n),
                 library_ms=None, shape="hinge 16384x4096 bfloat16",
+                **split_keys(splits[4096]),
+                **split_keys(splits[256], "_16384x256"),
                 stream_ms=big[2], plain_stream_ms=big[3],
                 stream_ms_16384x256=ms[("hinge", 16384, 256)][2],
                 plain_stream_ms_16384x256=ms[("hinge", 16384, 256)][3],
@@ -2966,18 +3008,22 @@ def rel_err(got, ref) -> float:
 def phase_gradmap_check() -> dict:
     """K-P2 at 1000×2048 (A/40, seed 0): the kernel's (f, g) against its
     plain version (rel 1e-5: float32 sums in another order) and against
-    float64 (rel 1e-5, the kernel's own report); call times, median of
-    20."""
+    float64 (rel 1e-5, the kernel's own report), and a second call's bits;
+    call times, median of 20; a call split into card time, host time and
+    device operations (one kernel a call)."""
     A, x, b = probe_matrix()
     m, n = A.shape
     f, g, ferr, gerr = matvec_probe.check_gradmap_correct(A, x, b)
     f0, g0 = matvec_probe.gradmap_reference(A, x, b)
     torch.cuda.synchronize()
     err_f, err_g = rel_err(f, f0), rel_err(g, g0)
+    same = all(torch.equal(u, v) for u, v in
+               zip((f, g), matvec_probe.gradmap_fused(A, x, b)))
     print(f"[28 K-P2 {m}x{n}] against float64: f rel {ferr:.3e}, g rel "
           f"{gerr:.3e} (tol 1e-5); against its plain version: f rel "
-          f"{err_f:.3e}, max|dg|/max|g| {err_g:.3e} (tol 1e-5)")
-    require(max(ferr, gerr, err_f, err_g) <= 1e-5,
+          f"{err_f:.3e}, max|dg|/max|g| {err_g:.3e} (tol 1e-5); second "
+          f"call equal {same}")
+    require(max(ferr, gerr, err_f, err_g) <= 1e-5 and same,
             "K-P2 disagrees with float64 or its plain version")
     reset_launches()
     kern = cuda_ms(lambda: matvec_probe.gradmap_fused(A, x, b), 20)
@@ -2986,8 +3032,10 @@ def phase_gradmap_check() -> dict:
     bd = bound(4.0 * (m * n + 2 * n + m + 1), 4.0 * m * n)
     print(f"[28 K-P2] call, median of 20: {kern:.4f} ms, plain {plain:.4f} ms; bound "
           f"{bd['bound_ms']:.5f} ms ({bd['bound_by']}); launches {launches}")
+    split = call_split("[28 K-P2]",
+                       lambda: matvec_probe.gradmap_fused(A, x, b))
     return dict(max_abs_err=float((g - g0).abs().max()), ms=kern,
-                plain_ms=plain, **bd, library_ms=None,
+                plain_ms=plain, **bd, library_ms=None, **split_keys(split),
                 launches_timed=launches, f_rel_f64=ferr, g_rel_f64=gerr,
                 shape="1000x2048 float32, A/40")
 

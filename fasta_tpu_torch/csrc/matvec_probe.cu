@@ -8,7 +8,8 @@
 //     gradmap    r = A x − b, f = ½‖r‖², g = Aᵀr,  x ← (x + g·1e-12) + f·1e-12
 //     adj_*      g = Aᵀ(x₀·1),      x ← x + g·1e-9     (x₀: x's first entry)
 // It returns x and the last operation's result (d, s, (f, g) or g).  K-P2
-// is the gradmap operation once (K = 1): f and g of one pass over A.
+// is the gradmap pass once, as its own form of the kernel: f and g of one
+// pass over A.
 //
 // Replaces: benchmarks/matvec_kernels.py, run_variant (pallas_call at :158,
 // body _body_factory at :41) and check_gradmap_correct (pallas_call at
@@ -60,12 +61,20 @@
 //    left to the compiler (no hand-written vector loads or shuffles in
 //    its row sums).  Lane sums meet in the block sum; block partials are
 //    summed by every block in block order.
-//  * gradmap (K-P2's pass): a warp per row computes rᵢ = aᵢᵀx − bᵢ and at
-//    once adds rᵢ·aᵢ into its warp's share of g in shared memory (the row
-//    is read from L2 once; its second touch hits L1); the warps' shares
-//    make a per-block partial of g, and after a grid barrier each column's
-//    owner sums the block partials in block order — no atomics.  A second
+//  * gradmap: a warp per row computes rᵢ = aᵢᵀx − bᵢ and at once adds
+//    rᵢ·aᵢ into its warp's share of g in shared memory (the row is read
+//    from L2 once; its second touch hits L1); the warps' shares make a
+//    per-block partial of g, and after a grid barrier each column's owner
+//    sums the block partials in block order — no atomics.  A second
 //    barrier publishes the new x.
+//  * check (K-P2): the gradmap pass once, its rows dealt out block by
+//    block (row i to block i mod nb), its end spread over the grid:
+//    after the barrier block k adds the block partials of columns
+//    ⌊k·n/nb⌋ to ⌊(k+1)·n/nb⌋, several chains a column, eight partials in
+//    flight a chain, the chains then in order; block 0 adds the f
+//    partials.  One barrier, no x to publish.  The barrier stays: it lets
+//    every block take a share of the partials, where a last-block ticket
+//    would leave them all to one SM.
 //  * adj_vpu: tiles of 16 columns; threads are (row lane, column group)
 //    pairs, the row lanes' sums added by a fixed pairwise tree (as K-P4's
 //    adjoint).  The adjoint variants keep x in device memory, double-
@@ -75,7 +84,12 @@
 //    or, when the wrapper passes no counter, cooperative_groups'
 //    grid.sync (1.06 against 1.19 µs on an H100).  Every form ends its
 //    operations with grid_barrier.cuh's.
-//  * No atomics anywhere: the same result on every run.  Values other
+//  * The barrier's counter and exit ticket live in the stream's scratch
+//    (kernels/_build.py, stream_scratch), zero at launch; every launch
+//    sets them back to zero at its end (grid_exit).  The dynamic shared
+//    memory cap is raised once, to the most a block can take, so no later
+//    grid query lowers it under another launch.
+//  * No float atomics: the same result on every run.  Values other
 //    blocks wrote are read past L1 (__ldcg).  Elementwise updates use the
 //    _rn intrinsics, so they round as the plain PyTorch version does.
 #include <cooperative_groups.h>
@@ -95,7 +109,7 @@ constexpr int kRowLanes = kThreads / (kTileCols / 4);
 
 // in the order of kernels.matvec_probe.VARIANTS, then the barrier alone
 enum Variant {
-  kFwdVpu, kFwdMxu, kFwdStrip, kFwdStripAuto, kGradmap, kAdjVpu, kAdjMxu, kBarrier, kCount
+  kFwdVpu, kFwdMxu, kFwdStrip, kFwdStripAuto, kGradmap, kAdjVpu, kAdjMxu, kBarrier, kCheck, kCount
 };
 
 struct Args {
@@ -110,7 +124,7 @@ struct Args {
   float* gpart;   // (nblocks, n): gradmap's per-block partial g
   double* fpart;  // (2, nblocks): strip sums or f partials by parity
   float* scal;    // (1,): the last strip sum or f
-  unsigned* bar;  // grid_barrier's counter, zero at launch; null: grid.sync
+  unsigned* bar;  // grid_barrier's counter and exit ticket, zero at launch; null: grid.sync
 };
 
 // rows (strips, tiles) ⌊k·count/nb⌋ to ⌊(k+1)·count/nb⌋ of block k
@@ -240,6 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
 
   if (V == kBarrier) {
     for (int k = 0; k < a.K; ++k) sync();
+    if (a.bar) fasta::grid_exit(a.bar, nb);
     return;
   }
   if (STAGED && V != kGradmap) {
@@ -410,14 +425,16 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
       for (int j = tid; j < n; j += kThreads) xs[j] = __fadd_rn(xs[j], step);
       if (last && gtid == 0) a.scal[0] = s;
       __syncthreads();
-    } else if (V == kGradmap) {
+    } else if (V == kGradmap || V == kCheck) {
       // ---- phase A: r = A x − b, each warp's share of g = Σ rᵢ aᵢ, f
       for (int j = tid; j < n; j += kThreads) xs[j] = __ldcg(xk + j);
       for (int e = tid; e < kWarps * n; e += kThreads) gw[e] = 0.f;
       __syncthreads();
       float4* gw4 = reinterpret_cast<float4*>(gw + (size_t)warp * n);
       float fp = 0.f;
-      for (int i = gwarp; i < m; i += gwarps) {
+      // the check deals the rows out block by block, so that every SM
+      // takes a share when there are fewer rows than warps
+      for (int i = V == kCheck ? warp * nb + blk : gwarp; i < m; i += gwarps) {
         const float4* r4 = reinterpret_cast<const float4*>(a.A + (size_t)i * n);
         float s = 0.f;
 #pragma unroll 4
@@ -450,6 +467,43 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
       fp = fasta::block_sum(fp, fscr);
       if (tid == 0) a.fpart[blk] = fp;
       sync();
+      if (V == kCheck) {
+        // ---- the check's end: block blk adds columns [c0, c1) of the
+        // block partials, Y chains a column (thread (y, x) adds partials
+        // y, y + Y, …, eight in flight), the chains in y order in `tree`
+        const int c0 = share(blk, n, nb), c1 = share(blk + 1, n, nb);
+        float* red2 = &tree[0][0];
+        int P = 1;
+        while (P < c1 - c0 && P < kThreads) P <<= 1;
+        const int Y = kThreads / P, y = tid / P, x = tid - y * P;
+        for (int base = c0; base < c1; base += P) {
+          const int j = base + x;
+          float s = 0.f;
+          if (j < c1)
+            for (int p0 = y; p0 < nb; p0 += 8 * Y) {
+              float v[8];
+#pragma unroll
+              for (int u = 0; u < 8; ++u)
+                v[u] = p0 + u * Y < nb ? __ldcg(a.gpart + (size_t)(p0 + u * Y) * n + j) : 0.f;
+#pragma unroll
+              for (int u = 0; u < 8; ++u)
+                if (p0 + u * Y < nb) s += v[u];
+            }
+          red2[tid] = s;
+          __syncthreads();
+          if (y == 0 && j < c1) {
+            float t = 0.f;
+            for (int c = 0; c < Y; ++c) t += red2[c * P + x];
+            a.gout[j] = t;
+          }
+          __syncthreads();
+        }
+        if (blk == 0) {
+          const float f = __fmul_rn(0.5f, grid_total(a.fpart, nb, &bcast));
+          if (tid == 0) a.scal[0] = f;
+        }
+        continue;
+      }
       // ---- phase B: g by columns from the block partials, f, the new x
       const float f = __fmul_rn(0.5f, grid_total(a.fpart, nb, &bcast));
       const float fstep = __fmul_rn(f, 1e-12f);
@@ -529,6 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
   }
   if (STAGED && V != kGradmap && blk == 0)
     for (int j = tid; j < n; j += kThreads) a.x_out[j] = xs[j];
+  if (a.bar) fasta::grid_exit(a.bar, nb);
 }
 
 const void* pick(int v) {
@@ -540,23 +595,25 @@ const void* pick(int v) {
     case kGradmap: return (const void*)matvec_probe_kernel<kGradmap>;
     case kAdjVpu: return (const void*)matvec_probe_kernel<kAdjVpu>;
     case kAdjMxu: return (const void*)matvec_probe_kernel<kAdjMxu>;
+    case kCheck: return (const void*)matvec_probe_kernel<kCheck>;
     default: return (const void*)matvec_probe_kernel<kBarrier>;
   }
 }
 
-// dynamic shared memory: x for the staged variants, and gradmap's warp
-// shares of g
+// dynamic shared memory: x for the staged variants, and the gradmap
+// passes' warp shares of g
 size_t smem_bytes(int v, int n) {
-  if (v == kGradmap) return (size_t)(kWarps + 1) * n * sizeof(float);
+  if (v == kGradmap || v == kCheck) return (size_t)(kWarps + 1) * n * sizeof(float);
   return v < kGradmap ? (size_t)n * sizeof(float) : 0;  // adjoints, the barrier: none
 }
 
 }  // namespace
 
 // The cooperative grid of `variant` for n columns on the current device,
-// after raising its dynamic shared-memory cap: one block per SM (0 if a
-// block cannot be resident: gradmap takes n up to about 3400 columns, the
-// forward variants about 58000).
+// after raising its dynamic shared-memory cap to the most a block can take
+// (a cap for this n could be lower than another launch needs): one block
+// per SM (0 if a block cannot be resident: gradmap and the check take n up
+// to about 3400 columns, the forward variants about 58000).
 extern "C" int fasta_matvec_probe_grid(int variant, int n, int* nblocks) {
   if (variant < 0 || variant >= kCount || n < 4 || n % 4) return cudaErrorInvalidValue;
   const void* fn = pick(variant);
@@ -573,7 +630,8 @@ extern "C" int fasta_matvec_probe_grid(int variant, int n, int* nblocks) {
     *nblocks = 0;
     return cudaSuccess;
   }
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - (int)attr.sharedSizeBytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
   if (err != cudaSuccess) return err;
@@ -581,27 +639,26 @@ extern "C" int fasta_matvec_probe_grid(int variant, int n, int* nblocks) {
   return cudaSuccess;
 }
 
-// Run K operations of `variant` on `stream`.  dbuf holds 2m floats, xbuf
-// 2n, gout n, gpart nblocks·n (gradmap only, else may be null), fpart
-// 2·nblocks doubles, scal 1 float.  n % 4 == 0 and A, x0 16-byte aligned.
-// bar is a zeroed counter for grid_barrier.cuh, or null for grid.sync.
-// The barrier alone (variant kBarrier) reads no operand: they may be null.
+// Run K operations of `variant` on `stream` (the check: K = 1), after a
+// grid query for its n.  dbuf holds 2m floats, xbuf 2n, gout n, gpart
+// nblocks·n (the gradmap passes only, else may be null), fpart 2·nblocks
+// doubles, scal 1 float; the check writes only gout and scal (x_out,
+// dbuf, xbuf may be null).  n % 4 == 0 and A, x0 16-byte aligned.  bar
+// holds grid_barrier.cuh's counter and exit ticket, both zero (and left
+// so), or is null for grid.sync.  The barrier alone (variant kBarrier)
+// reads no operand: they may be null.
 extern "C" int fasta_matvec_probe(int variant, const float* A, const float* x0, const float* b,
                                   int m, int n, int K, float* x_out, float* dbuf, float* xbuf,
                                   float* gout, float* gpart, double* fpart, float* scal,
                                   unsigned* bar, int nblocks, void* stream) {
   if (variant < 0 || variant >= kCount || m < 1 || n < 4 || n % 4 || K < 1 || nblocks < 1)
     return cudaErrorInvalidValue;
+  if (variant == kCheck && K != 1) return cudaErrorInvalidValue;
   Args args{A, x0, b, m, n, K, x_out, dbuf, xbuf, gout, gpart, fpart, scal, bar};
   void* params[] = {&args};
-  const void* fn = pick(variant);
-  const size_t smem = smem_bytes(variant, n);
-  // the cap is the kernel's, not the launch's: a grid query for another n
-  // may have lowered it since
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaLaunchCooperativeKernel(fn, dim3(nblocks), dim3(kThreads), params, smem,
-                                      static_cast<cudaStream_t>(stream));
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel(pick(variant), dim3(nblocks), dim3(kThreads), params,
+                                  smem_bytes(variant, n), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves no error for the next call
     return err;

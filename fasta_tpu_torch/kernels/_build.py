@@ -48,9 +48,9 @@ _SIGNATURES = {
                           _P, _P],
     "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "fasta_microsolve_tv_grid": [_P, _P],
-    "fasta_planar_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P],
+    "fasta_planar_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
     "fasta_planar_gradmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P, _P, _P, _P, _P, _P],
+                             _I, _I, _P, _P, _P, _P, _P],
     "fasta_planar_probe_grid": [_I, _I, _P],
     "fasta_bf16_probe_grid": [_I, _I, _P],
     "fasta_bf16_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
@@ -186,8 +186,9 @@ _RETIRED = []
 def stream_scratch(device, stream: int, ndoubles: int):
     """A float64 buffer of at least ``ndoubles`` on ``device`` for the
     launches on ``stream`` (a raw handle) of the kernels that finish with
-    a last-block ticket (K-B4's stream route, K-B5) or keep a grid
-    barrier's counter and exit ticket there (K-B1, K-B8).  Its first double
+    a last-block ticket (K-B4's stream route, K-B5), a last-cluster
+    ticket (K-B7) or keep a grid barrier's counter and exit ticket there
+    (K-B1, K-B8, K-P1, K-P2).  Its first double
     holds the ticket (or the two counters), which every such kernel leaves
     at zero, so the
     buffer is zeroed once and never again: launches on one stream run in

@@ -19,9 +19,10 @@ most entries of x, so x alone barely moves: the result carries the check.
 
 ``check_gradmap_correct(A, x, b)`` is K-P2, port of
 ``matvec_kernels.py:169`` (``pallas_call`` at :199): one launch of the
-fused pass → (f, g) (``gradmap_fused``), and the relative errors of f
-and g against the float64 formulas.  The TPU probe held them against
-XLA's float32 formulas; float64 is the stricter reference.
+fused pass, the kernel's check form → (f, g) (``gradmap_fused``), and the
+relative errors of f and g against the float64 formulas.  The TPU probe
+held them against XLA's float32 formulas; float64 is the stricter
+reference.
 
 ``run_barriers(K, device, barrier)`` is the floor under every chained
 operation: K grid barriers in one launch of the probe's grid, with no
@@ -57,8 +58,9 @@ CHECK_LAUNCHES = 0
 # The formulations, in the order of the kernel's codes
 VARIANTS = ("fwd_vpu", "fwd_mxu", "fwd_strip", "fwd_strip_auto",
             "gradmap_fused", "adj_vpu", "adj_mxu")
-# the kernel's code of the barrier alone
+# the kernel's codes of the barrier alone and of K-P2's check
 _BARRIER_CODE = len(VARIANTS)
+_CHECK_CODE = _BARRIER_CODE + 1
 # The grid barriers the barrier-alone reading times; operations end with
 # the first.
 BARRIERS = ("hand", "grid_sync")
@@ -105,45 +107,52 @@ def _check(A, x0, b, K, what):
         raise ValueError(f"{what}: no kernel for device {A.device}")
 
 
-def _counter(barrier, dev):
-    """grid_barrier.cuh's zeroed counter for ``barrier="hand"``, else
-    None (grid.sync)."""
-    if barrier not in BARRIERS:
-        raise ValueError(f"unknown barrier {barrier!r} (choose from "
-                         f"{BARRIERS})")
-    return torch.zeros(1, device=dev, dtype=torch.int32) \
-        if barrier == "hand" else None
+def _scratch(dev, stream, nb, n):
+    """Addresses in the stream's scratch (kernels/_build.py): the grid
+    barrier's counter and exit ticket (zero, and left so by every launch)
+    alone in the first 128 bytes, which every block polls, then the blocks'
+    FP64 partials (2, nb), x by operation parity (2, n) and the blocks'
+    partial g (nb, n)."""
+    head = 16 + 2 * nb              # doubles: the counters' line, partials
+    work = _build.stream_scratch(dev, stream,
+                                 head + (2 * n + nb * n + 1) // 2)
+    base = work.data_ptr()
+    xbuf = base + 8 * head
+    return base, base + 128, xbuf, xbuf + 8 * n
 
 
-def _launch(code, A, x0, b, K, what):
-    """One launch of the kernel; returns (x, d, g, s) of the last
-    operation."""
+def _checked(A, x0, b, what):
+    """(m, n, addresses of A, x, b) of kernel operands: contiguous, 16-byte
+    aligned float32 with n % 4 == 0, or raise."""
+    ptrs = []
     for name, t in (("A", A), ("x", x0), ("b", b)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous float32 "
                              f"tensor, got {t.dtype}")
-        if t.data_ptr() % 16:
+        ptrs.append(t.data_ptr())
+        if ptrs[-1] % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     m, n = A.shape
     if n % 4:
         raise ValueError(f"{what}: the kernel takes n % 4 == 0 (16-byte "
                          f"rows), got n = {n}")
+    return m, n, ptrs
+
+
+def _launch(code, A, x0, b, K, what):
+    """One launch of the kernel; returns (x, d, g, s) of the last
+    operation."""
+    m, n, ptrs = _checked(A, x0, b, what)
     dev = A.device
     nb = _grid(dev.index, code, n)
     f32 = dict(device=dev, dtype=torch.float32)
-    x, dbuf, xbuf = torch.empty(n, **f32), torch.empty(2, m, **f32), \
-        torch.empty(2, n, **f32)
+    x, dbuf = torch.empty(n, **f32), torch.empty(2, m, **f32)
     g, scal = torch.empty(n, **f32), torch.empty(1, **f32)
-    gpart = torch.empty(nb, n, **f32) if VARIANTS[code] == "gradmap_fused" \
-        else None
-    fpart = torch.empty(2, nb, device=dev, dtype=torch.float64)
-    bar = _counter("hand", dev)
     with _build.on_device(dev) as stream:
+        bar, fpart, xbuf, gpart = _scratch(dev, stream, nb, n)
         _build.check(_build.library().fasta_matvec_probe(
-            code, A.data_ptr(), x0.data_ptr(), b.data_ptr(), m, n, int(K),
-            x.data_ptr(), dbuf.data_ptr(), xbuf.data_ptr(), g.data_ptr(),
-            None if gpart is None else gpart.data_ptr(), fpart.data_ptr(),
-            scal.data_ptr(), bar.data_ptr(), nb, stream),
+            code, *ptrs, m, n, int(K), x.data_ptr(), dbuf.data_ptr(), xbuf,
+            g.data_ptr(), gpart, fpart, scal.data_ptr(), bar, nb, stream),
             "fasta_matvec_probe")
     return x, dbuf[(int(K) - 1) % 2], g, scal[0]
 
@@ -179,12 +188,15 @@ def run_barriers(K: int, device, barrier: str = BARRIERS[0]) -> None:
         raise ValueError(f"run_barriers: no grid barrier on {dev}")
     if int(K) < 1:
         raise ValueError(f"run_barriers needs K >= 1 barriers, got {K}")
-    bar = _counter(barrier, dev)
+    if barrier not in BARRIERS:
+        raise ValueError(f"unknown barrier {barrier!r} (choose from "
+                         f"{BARRIERS})")
+    nb = _grid(dev.index, _BARRIER_CODE, 4)
     with _build.on_device(dev) as stream:
+        bar = _scratch(dev, stream, nb, 4)[0] if barrier == "hand" else None
         _build.check(_build.library().fasta_matvec_probe(
             _BARRIER_CODE, None, None, None, 1, 4, int(K), None, None, None,
-            None, None, None, None, None if bar is None else bar.data_ptr(),
-            _grid(dev.index, _BARRIER_CODE, 4), stream),
+            None, None, None, None, bar, nb, stream),
             "fasta_matvec_probe")
     global LAUNCHES
     LAUNCHES += 1
@@ -193,13 +205,27 @@ def run_barriers(K: int, device, barrier: str = BARRIERS[0]) -> None:
 def gradmap_fused(A, x, b):
     """(f, g) = (½‖Ax − b‖², Aᵀ(Ax − b)) in float32 from one fused pass
     over A.  CUDA tensors launch kernel K-P2 (the gradmap pass of K-P1
-    once; the same rules as ``run_variant``); CPU tensors run the plain
+    once, in the kernel's check form: the same rules as ``run_variant``,
+    and nothing allocated but f and g); CPU tensors run the plain
     version."""
     _check(A, x, b, 1, "gradmap_fused")
     if A.device.type == "cpu":
         return gradmap_reference(A, x, b)
-    _, _, g, f = _launch(VARIANTS.index("gradmap_fused"), A, x, b, 1,
-                         "gradmap_fused")
+    m, n, ptrs = _checked(A, x, b, "gradmap_fused")
+    dev = A.device
+    if torch.cuda.current_device() != dev.index:
+        with torch.cuda.device(dev):
+            return gradmap_fused(A, x, b)
+    nb = _grid(dev.index, _CHECK_CODE, n)
+    f = torch.empty((), device=dev, dtype=torch.float32)
+    g = torch.empty(n, device=dev, dtype=torch.float32)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    bar, fpart, _, gpart = _scratch(dev, stream, nb, n)
+    err = _build.library().fasta_matvec_probe(
+        _CHECK_CODE, *ptrs, m, n, 1, None, None, None, g.data_ptr(), gpart,
+        fpart, f.data_ptr(), bar, nb, stream)
+    if err:
+        _build.check(err, "fasta_matvec_probe")
     global CHECK_LAUNCHES
     CHECK_LAUNCHES += 1
     return f, g
@@ -226,7 +252,8 @@ def _grid(device_index: int, code: int, n: int) -> int:
         _build.check(_build.library().fasta_matvec_probe_grid(
             code, n, ctypes.byref(nb)), "fasta_matvec_probe_grid")
     if nb.value < 1:
-        raise ValueError(f"the probe's {(*VARIANTS, 'barrier')[code]} kernel "
+        form = (*VARIANTS, "barrier", "check")[code]
+        raise ValueError(f"the probe's {form} kernel "
                          f"cannot be resident with n = {n} columns on this "
                          f"device")
     return nb.value

@@ -568,6 +568,23 @@ def test_planar_gradmap_kernel_matches_plain(dev, loss, m, n, route):
     assert torch.equal(d, d2) and torch.equal(g, g2) and torch.equal(f, f2)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_planar_gradmap_card_plan_is_the_pure_plan(dev, bf16):
+    """K-B7's plan on the card (csrc/planar_fused.cu: route, column slots,
+    blocks, shared bytes, tile rows) is ``gradmap_plan`` at the card's
+    cluster slots, on every route, aligned and ragged, small and past the
+    card's slots."""
+    for m, n in [(16384, 256), (1000, 37), (5, 3), (1000, 512),
+                 (1000, 511), (1000, 1024), (300, 2046), (16384, 4096),
+                 (1000, 8192), (40, 9000), (1024, 16384), (33, 3001),
+                 (100000, 9000), (64, 8)]:
+        card = planar_fused._card_plan(dev.index or 0, m, n, bf16)
+        plan = planar_fused.gradmap_plan(m, n, bf16, card[-1])
+        assert card[:-1] == (plan.route, plan.cpt, plan.blocks,
+                             plan.smem_bytes, plan.tile_rows), (m, n)
+        assert planar_fused._plan(dev.index or 0, m, n, bf16) == plan
+
+
 def test_planar_kernels_reject_what_they_do_not_take(dev):
     Ar, Ai, x, bl, bh = _planar_data(dev, 8, 8)
     with pytest.raises(ValueError, match="float32"):
@@ -758,7 +775,7 @@ def test_shrink_step_routes_at_their_boundaries(dev, R, n, route):
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
-def _b4_b5_inputs(dev):
+def _ticket_inputs(dev):
     g = torch.Generator(device=dev).manual_seed(77)
     big = [torch.randn((1, 1 << 22), generator=g, device=dev)
            for _ in range(2)]
@@ -767,21 +784,33 @@ def _b4_b5_inputs(dev):
     tau = torch.rand(32, generator=g, device=dev) + 0.05
     p = torch.randn((2, 512, 512), generator=g, device=dev)
     b = torch.randn((512, 512), generator=g, device=dev)
-    return big, rows, tau, p, b
+    planar = _planar_data(dev, 4099, 256)
+    wide = _planar_data(dev, 40, 9000)
+    probe = _probe_data(dev, 1000, 2048, 1 / 40)
+    return big, rows, tau, p, b, planar, wide, probe
 
 
-def _b4_b5_calls(big, rows, tau, p, b):
-    """K-B4 on its stream route and its row route, K-B5 with its ticket."""
+def _ticket_calls(big, rows, tau, p, b, planar, wide, probe):
+    """K-B4 on its stream route and its row route, K-B5 with its ticket,
+    K-B7 on routes 1 and 3 with its last-cluster ticket, K-P2 with its
+    barrier's counter and exit ticket: every one keeps them in the
+    stream's scratch."""
+    Ar, Ai, x, bl, bh = planar
+    Wr, Wi, wx, _, wb = wide
     return (prox_fused.fused_shrink_step(big[0], big[1], 0.3, 0.5)
             + prox_fused.fused_shrink_step(rows[0], rows[1], tau, 0.2)
-            + tv_fused.fused_tv_gradmap(p, b, 0.1))
+            + tv_fused.fused_tv_gradmap(p, b, 0.1)
+            + planar_fused.fused_planar_hinge_gradmap(Ar, Ai, x, bh)
+            + planar_fused.fused_planar_lstsq_gradmap(Ar, Ai, x, bl)
+            + planar_fused.fused_planar_hinge_gradmap(Wr, Wi, wx, wb)
+            + matvec_probe.gradmap_fused(*probe))
 
 
 def test_ticket_kernels_on_two_streams_match_one_after_another(dev):
     """C-2: calls on two streams at once (each stream its own ticket)
     give what the same calls give one after the other."""
-    data = _b4_b5_inputs(dev)
-    want = _b4_b5_calls(*data)
+    data = _ticket_inputs(dev)
+    want = _ticket_calls(*data)
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream() for _ in range(2)]
     for s in streams:
@@ -790,7 +819,7 @@ def test_ticket_kernels_on_two_streams_match_one_after_another(dev):
     for _ in range(4):
         for i, s in enumerate(streams):
             with torch.cuda.stream(s):
-                got[i].append(_b4_b5_calls(*data))
+                got[i].append(_ticket_calls(*data))
     torch.cuda.synchronize()
     for outs in got:
         for out in outs:
@@ -800,17 +829,17 @@ def test_ticket_kernels_on_two_streams_match_one_after_another(dev):
 def test_ticket_kernels_replay_in_a_cuda_graph(dev):
     """Two calls of each kernel captured in one CUDA graph and replayed
     twice equal eager calls: every launch leaves its ticket at zero."""
-    data = _b4_b5_inputs(dev)
-    want = _b4_b5_calls(*data)
+    data = _ticket_inputs(dev)
+    want = _ticket_calls(*data)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        _b4_b5_calls(*data)
+        _ticket_calls(*data)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        first = _b4_b5_calls(*data)
-        second = _b4_b5_calls(*data)
+        first = _ticket_calls(*data)
+        second = _ticket_calls(*data)
     for _ in range(2):
         for t in first + second:
             t.fill_(float("nan"))
@@ -818,22 +847,41 @@ def test_ticket_kernels_replay_in_a_cuda_graph(dev):
         torch.cuda.synchronize()
         for out in (first, second):
             assert all(torch.equal(a, b) for a, b in zip(out, want))
-    again = _b4_b5_calls(*data)
+    again = _ticket_calls(*data)
     assert all(torch.equal(a, b) for a, b in zip(again, want))
 
 
 @pytest.mark.parametrize("what", ["b4 1x2000", "b4 32x2000", "b4 1x2^22",
                                   "b4 scalars", "b5 512x512", "b5 1x7",
                                   "b1 1000x2000", "b1 fista 3000x1000",
-                                  "b1 columns 100x9000", "b1b 300x600x4"])
+                                  "b1 columns 100x9000", "b1b 300x600x4",
+                                  "b7 16384x256", "b7 bf16 16384x4096",
+                                  "b7 wide 64x9000", "p2 1000x2048"])
 def test_one_device_operation_per_call(dev, what, tmp_path):
-    """A call of K-B4, K-B5 or K-B1 (one solve or a batch) is one kernel on
-    the card: no memset, no copy (τ and μ by value or read where they lie;
-    K-B1 makes no copy of A and zeroes its own records), in a
-    profiling.trace of 10 calls."""
+    """A call of K-B4, K-B5, K-B1 (one solve or a batch), K-B7 (routes 1,
+    2 and 3) or K-P2 is one kernel on the card: no memset, no copy (τ and
+    μ by value or read where they lie; K-B1 makes no copy of A and zeroes
+    its own records; K-B7 and K-P2 keep their tickets and partials in the
+    stream's scratch), in a profiling.trace of 10 calls."""
     from fasta_tpu_torch import profiling
     g = torch.Generator(device=dev).manual_seed(5)
-    if what.startswith("b1"):
+    if what.startswith("b7"):
+        m, n = {"b7 16384x256": (16384, 256), "b7 bf16 16384x4096":
+                (16384, 4096), "b7 wide 64x9000": (64, 9000)}[what]
+        Ar, Ai, x, bl, bh = _planar_data(dev, m, n)
+        if "bf16" in what:
+            Ar, Ai = Ar.to(torch.bfloat16), Ai.to(torch.bfloat16)
+        assert planar_fused._plan(dev.index or 0, m, n, "bf16" in what
+                                  ).route == {16384: 1 + (n > 512)}.get(m, 3)
+
+        def fn():
+            return planar_fused.fused_planar_hinge_gradmap(Ar, Ai, x, bh)
+    elif what.startswith("p2"):
+        A, x, b = _probe_data(dev, 1000, 2048, 1 / 40)
+
+        def fn():
+            return matvec_probe.gradmap_fused(A, x, b)
+    elif what.startswith("b1"):
         m, n = {"b1 1000x2000": (1000, 2000), "b1 fista 3000x1000":
                 (3000, 1000), "b1 columns 100x9000": (100, 9000),
                 "b1b 300x600x4": (300, 600)}[what]

@@ -1,8 +1,9 @@
 """The launch plans of kernels K-B1 (the dense whole solve), K-B4 (the
-fused shrink step), K-B5 (the fused TV gradient map) and K-B8 (the planar
-whole solve), which the wrappers compute on the host and the CUDA kernels
-obey: every shape lands on one route, and every element (K-B4) or row
-(K-B1, K-B5, K-B8) is covered exactly once.  The plans are pure functions of
+fused shrink step), K-B5 (the fused TV gradient map), K-B7 (the fused
+planar gradient map) and K-B8 (the planar whole solve), which the wrappers
+compute on the host and the CUDA kernels obey: every shape lands on one
+route, and every element (K-B4) or row (K-B1, K-B5, K-B7, K-B8) is covered
+exactly once.  The plans are pure functions of
 the shape and the card's SM count, so they are held here, on the CPU, at
 the H100's 132 SMs and at others."""
 
@@ -11,8 +12,9 @@ import pytest
 import torch
 
 from fasta_tpu_torch.kernels import (microsolver, microsolver_planar,
-                                     prox_fused, tv_fused)
+                                     planar_fused, prox_fused, tv_fused)
 from fasta_tpu_torch.kernels.microsolver import dense_plan
+from fasta_tpu_torch.kernels.planar_fused import gradmap_plan
 from fasta_tpu_torch.kernels.microsolver_planar import tile_plan
 from fasta_tpu_torch.kernels.prox_fused import shrink_plan
 from fasta_tpu_torch.kernels.tv_fused import tv_plan
@@ -460,3 +462,118 @@ def test_dense_plan_refuses_empty_or_impossible_shapes(m, n4, nblocks,
                                                        budget):
     with pytest.raises(ValueError, match="dense_plan"):
         dense_plan(m, n4, nblocks, budget)
+
+
+# --------------------------------------------------------------------------
+# K-B7's plan: one kernel a call over whole clusters of blocks
+# --------------------------------------------------------------------------
+
+# cluster slots of the H100 (cudaOccupancyMaxActiveClusters, clusters of
+# 8 blocks of 512 threads): 15 at one block an SM, 30 at two
+H100_SLOTS = (15, 30)
+
+
+def _gradmap_rows(plan, m):
+    """How often the kernel's grid-stride walk (csrc/planar_fused.cu)
+    visits each row: route 1 warp w of block k rows k·WARPS + w, + blocks·
+    WARPS, …; route 2 block k rows k, k + blocks, …; route 3 block k tiles
+    k, k + blocks, … of tile_rows rows.  Returns (visits, rows a block)."""
+    visits = np.zeros(m, np.int64)
+    per_block = np.zeros(plan.blocks, np.int64)
+    for k in range(plan.blocks):
+        if plan.route == 1:
+            for w in range(planar_fused.WARPS):
+                rows = np.arange(k * planar_fused.WARPS + w, m,
+                                 plan.blocks * planar_fused.WARPS)
+                visits[rows] += 1
+                per_block[k] += rows.size
+        elif plan.route == 2:
+            rows = np.arange(k, m, plan.blocks)
+            visits[rows] += 1
+            per_block[k] = rows.size
+        else:
+            ntiles = -(-m // plan.tile_rows)
+            for t in range(k, ntiles, plan.blocks):
+                r0 = t * plan.tile_rows
+                visits[r0:min(m, r0 + plan.tile_rows)] += 1
+                per_block[k] += min(m, r0 + plan.tile_rows) - r0
+    return visits, per_block
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("slots", H100_SLOTS + (1, 7))
+@pytest.mark.parametrize("m,n", [
+    (16384, 256), (1000, 37), (4099, 256), (5, 3), (1, 1), (1000, 1024),
+    (300, 2046), (40, 9000), (33, 3001), (16384, 4096), (1024, 16384),
+    (64, 9000), (1000, 511), (1000, 512), (7, 8193), (129, 8)])
+def test_gradmap_plan_places_every_row_once(m, n, slots, bf16):
+    """Every row once on every route; the grid a whole number of clusters,
+    no more than the card holds at once, and no whole cluster without
+    rows; the scratch holds the ticket, the clusters' f partials and,
+    16-byte aligned, their gradient partials (and route 3's block rows)."""
+    plan = gradmap_plan(m, n, bf16, slots)
+    C = planar_fused.CLUSTER
+    assert plan.blocks % C == 0 and C <= plan.blocks <= C * slots
+    visits, per_block = _gradmap_rows(plan, m)
+    assert np.all(visits == 1)
+    clusters = plan.blocks // C
+    assert per_block.reshape(clusters, C).sum(axis=1).min() >= 1
+    if plan.route != 3 and plan.blocks < C * slots:
+        # fewer clusters only for want of rows
+        rows = planar_fused.WARPS if plan.route == 1 else 1
+        assert plan.blocks == C * -(-m // (rows * C))
+    head = (clusters + 2) & ~1        # doubles: ticket, f partials, pad
+    assert head % 2 == 0 and head >= 1 + clusters
+    floats = 2 * n * (clusters + (plan.blocks if plan.route == 3 else 0))
+    assert 2 * (plan.scratch_doubles - head) >= floats
+    assert 2 * (plan.scratch_doubles - head) - floats <= 1
+    if plan.route == 3:
+        assert 1 <= plan.tile_rows <= planar_fused.WIDE_TILE
+        # the tiles as even as the tile size allows
+        rounds = -(-m // (plan.blocks * planar_fused.WIDE_TILE))
+        assert per_block.max() <= rounds * plan.tile_rows
+    else:
+        assert plan.tile_rows == 1
+
+
+@pytest.mark.parametrize("bf16,edges", [
+    # (n, route, vec, cpt) at each boundary: 16-byte rows take 512 columns
+    # a warp and 8192 a block; other rows 512 and 2048, a value a group
+    (False, [(4, 1, 4, 1), (128, 1, 4, 1), (132, 1, 4, 2), (512, 1, 4, 4),
+             (516, 2, 4, 1), (2048, 2, 4, 1), (2052, 2, 4, 2),
+             (8192, 2, 4, 4), (8196, 3, 4, 0), (511, 1, 1, 16),
+             (513, 2, 1, 2), (2047, 2, 1, 4), (2049, 3, 1, 0),
+             (37, 1, 1, 2), (3, 1, 1, 1)]),
+    (True, [(8, 1, 8, 1), (256, 1, 8, 1), (264, 1, 8, 2), (512, 1, 8, 2),
+            (520, 2, 8, 1), (4096, 2, 8, 1), (4104, 2, 8, 2),
+            (8192, 2, 8, 2), (8200, 3, 8, 0), (516, 2, 1, 2),
+            (2044, 2, 1, 4), (2052, 3, 1, 0), (500, 1, 1, 16)])])
+def test_gradmap_plan_route_boundaries(bf16, edges):
+    for n, route, vec, cpt in edges:
+        plan = gradmap_plan(1000, n, bf16, 30)
+        assert (plan.route, plan.vec, plan.cpt) == (route, vec, cpt), n
+        # route 1 the warps' shares and the block's; route 2 the block's
+        assert plan.smem_bytes == 4 * 2 * n * {1: 17, 2: 1, 3: 0}[route]
+
+
+def test_gradmap_plan_on_the_h100_main_shapes():
+    """The phase-retrieval loop's 16384×256 takes route 1 on 30 clusters
+    of 8 (two blocks an SM), 16384×4096 route 2 on 30, 1024×16384 in
+    bfloat16 route 3 on 15 (one block an SM) with tiles of 5 rows."""
+    loop = gradmap_plan(16384, 256, False, 30)
+    assert (loop.route, loop.vec, loop.cpt, loop.blocks) == (1, 4, 2, 240)
+    big = gradmap_plan(16384, 4096, False, 30)
+    assert (big.route, big.cpt, big.blocks) == (2, 2, 240)
+    wide = gradmap_plan(1024, 16384, True, 15)
+    assert (wide.route, wide.vec, wide.blocks, wide.tile_rows) == \
+        (3, 8, 104, 5)
+    # 5 rows a tile: 205 tiles, at most two a block (10 rows), where 8-row
+    # tiles on 15 clusters would leave 8 blocks 16
+    assert _gradmap_rows(wide, 1024)[1].max() == 10
+
+
+@pytest.mark.parametrize("m,n,slots", [(0, 256, 30), (16, 0, 30),
+                                       (16, 256, 0), (-1, 4, 30)])
+def test_gradmap_plan_refuses_empty_shapes(m, n, slots):
+    with pytest.raises(ValueError, match="gradmap_plan"):
+        gradmap_plan(m, n, False, slots)

@@ -1,9 +1,9 @@
 """Split each call of K-B4 (the fused shrink step), K-B5 (the fused TV
-gradient map) and K-B7 (the fused planar gradient map, hinge form) into
-its card time, its host time and its stream time, and
-time the PyTorch loop paths that call them, in several checkouts of the
-repository, one fresh process per checkout, in the order given, on one
-CUDA card.
+gradient map), K-B7 (the fused planar gradient map, hinge form) and K-P2
+(the one-pass gradient-map check) into its card time, its host time and
+its stream time, and time the PyTorch loop paths that call the first
+three, in several checkouts of the repository, one fresh process per
+checkout, in the order given, on one CUDA card.
 
     python3 tools/call_split.py [--kernels] ROOT [ROOT ...]
     python3 tools/call_split.py --sweep
@@ -16,23 +16,34 @@ is read alike.  Per shape — K-B4 at 1×2000 (a LASSO loop trial), 32×2000
 (a serving batch-loop trial) and 1×2²⁴, a τ and a μ per row on the card;
 K-B5 at 512×512 (a TV loop trial) and 4096×4096; K-B7's hinge form over
 float32 channels at 16384×256 (a phase-retrieval loop trial, A in L2) and
-16384×4096 (A streamed from device memory) —
+16384×4096 (A streamed from device memory) and 1000×37 (rows not 16-byte
+aligned), and over bfloat16 channels at 16384×4096 and 1024×16384 (the
+wide route); K-P2 at 1000×2048 (A/40, seed 0, as ``chip_smoke.py``) —
 
 * ``card_us``: the card's time per call, summed over the kernels,
   memsets and copies of 20 calls in a ``profiling.trace``, and ``ops``,
   how many of each a call made;
 * ``host_us``: the host clock around 200 calls with no wait for the card
-  (where the card is faster than the host, a call's cost to a loop);
-* ``stream_ms``: CUDA events around 20 back-to-back calls.
+  (where the card is faster than the host, a call's cost to a loop), the
+  median of five such runs;
+* ``stream_ms``: CUDA events around 20 back-to-back calls, the median of
+  five such runs;
+* ``call_ms``: CUDA events around one call, the median of 20 (the
+  host's work inside, as ``chip_smoke.py`` times a call).
+
+Beside K-P2, K-P1's µs per chained operation over the same A (fwd_vpu,
+gradmap_fused, adj_vpu at K = 2000, and the grid barrier alone; CUDA
+events around one launch, median of 3), which shares K-P2's kernel.
 
 ``--sweep`` sets the two kernels' plans from the card: in this checkout
 alone, K-B4's routes against each other over n and K-B5's bands and
 blocks per SM, card µs per call from a CUDA graph of 50 calls.
 
-Then, unless ``--kernels`` is given, the it/s of the loop path (``Problem.solve_device``) at 2000
-iterations on LASSO 1000×2000 (K-B4 on every trial) and TV 512×512 (K-B5
-on every trial): host clock, the median of five runs after a
-200-iteration warm-up, every run printed.  Prints the card's name and
+Then, unless ``--kernels`` is given, the it/s of the loop path
+(``Problem.solve_device``, adaptive) at 2000 iterations on LASSO
+1000×2000 (K-B4 on every trial), TV 512×512 (K-B5 on every trial) and
+planar phase retrieval 16384×256 (K-B7 on every trial): host clock, the
+median of five runs after a 200-iteration warm-up, every run printed.  Prints the card's name and
 power limit, then one JSON line per checkout.  Fails without a CUDA
 device.
 """
@@ -47,9 +58,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 B4_SHAPES = ((1, 2000), (32, 2000), (1, 1 << 24))
 B5_SHAPES = ((512, 512), (4096, 4096))
-B7_SHAPES = ((16384, 256), (16384, 4096))
+B7_SHAPES = ((16384, 256, "float32"), (16384, 4096, "float32"),
+             (16384, 4096, "bfloat16"), (1024, 16384, "bfloat16"),
+             (1000, 37, "float32"))
 LOOP_RUNS = 5
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -78,12 +93,32 @@ def _stream_ms(fn, runs=20):
     return start.elapsed_time(end) / runs
 
 
-def _split(prof, fn, logdir, calls=20) -> dict:
+def _call_ms(fn, runs=20):
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _split(prof, fn, logdir, calls=20, runs=5) -> dict:
     ops = prof.device_ops(fn, calls, logdir)
     return dict(card_us=ops["dur_us"] / calls,
                 ops={k: n / calls for k, n in ops["events"].items()},
-                names=ops["names"], host_us=prof.host_us(fn, 200),
-                stream_ms=_stream_ms(fn))
+                names=ops["names"],
+                host_us=statistics.median(prof.host_us(fn, 200)
+                                          for _ in range(runs)),
+                stream_ms=statistics.median(_stream_ms(fn)
+                                            for _ in range(runs)),
+                call_ms=_call_ms(fn))
 
 
 def _loop_its(p, opts_cls):
@@ -108,7 +143,8 @@ def _child(root: str, kernels_only: bool) -> None:
     prof = _profiling()
     import fasta_tpu_torch as ftt
     from fasta_tpu_torch import problems
-    from fasta_tpu_torch.kernels import planar_fused, prox_fused, tv_fused
+    from fasta_tpu_torch.kernels import (matvec_probe, planar_fused,
+                                         prox_fused, tv_fused)
     dev = torch.device("cuda", 0)
     logdir = os.path.join(root, "build", "call_split_trace")
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -128,15 +164,33 @@ def _child(root: str, kernels_only: bool) -> None:
         out[f"K-B5 {h}x{w}"] = _split(
             prof, lambda: tv_fused.fused_tv_gradmap(p, b, 0.1), logdir)
         del p, b
-    for m, n in B7_SHAPES:
-        Ar = torch.randn((m, n), generator=gen, device=dev) / (2 * m) ** 0.5
-        Ai = torch.randn((m, n), generator=gen, device=dev) / (2 * m) ** 0.5
+    for m, n, dtype in B7_SHAPES:
+        dt = getattr(torch, dtype)
+        Ar = (torch.randn((m, n), generator=gen, device=dev)
+              / (2 * m) ** 0.5).to(dt)
+        Ai = (torch.randn((m, n), generator=gen, device=dev)
+              / (2 * m) ** 0.5).to(dt)
         x = torch.randn((n, 2), generator=gen, device=dev)
         bm = torch.rand(m, generator=gen, device=dev) + 0.1
-        out[f"K-B7 {m}x{n}"] = _split(
+        tag = f"K-B7 {m}x{n}" + ("" if dtype == "float32" else f" {dtype}")
+        out[tag] = _split(
             prof, lambda: planar_fused.fused_planar_hinge_gradmap(
                 Ar, Ai, x, bm), logdir)
         del Ar, Ai
+    rng = np.random.default_rng(0)
+    A, xp, bp = (torch.from_numpy(v).to(dev) for v in (
+        rng.standard_normal((1000, 2048)).astype(np.float32) / 40,
+        rng.standard_normal(2048).astype(np.float32),
+        rng.standard_normal(1000).astype(np.float32)))
+    out["K-P2 1000x2048"] = _split(
+        prof, lambda: matvec_probe.gradmap_fused(A, xp, bp), logdir)
+    K = 2000
+    per_op = {v: _call_ms(lambda v=v: matvec_probe.run_variant(
+        A, xp, bp, v, K), 3) / K * 1e3
+        for v in ("fwd_vpu", "gradmap_fused", "adj_vpu")}
+    per_op["barrier"] = _call_ms(lambda: matvec_probe.run_barriers(
+        K, dev), 3) / K * 1e3
+    out["K-P1 us_per_op"] = per_op
     if kernels_only:
         print(json.dumps(out), flush=True)
         return
@@ -144,13 +198,17 @@ def _child(root: str, kernels_only: bool) -> None:
     lasso.tau0 = 0.05
     tv = problems.build("tv", device="cuda")
     tv.tau0 = 2.0
-    for name, p in (("lasso", lasso), ("tv", tv)):
-        before = (prox_fused.LAUNCHES, tv_fused.LAUNCHES)
+    pr = problems.build("phase_retrieval", planar=True, device="cuda")
+    pr.tau0 = 1.0
+    for name, p in (("lasso", lasso), ("tv", tv), ("phase_retrieval", pr)):
+        before = (prox_fused.LAUNCHES, tv_fused.LAUNCHES,
+                  planar_fused.LAUNCHES)
         its, runs = _loop_its(p, ftt.FastaOptions)
         out[f"loop_its_{name}"] = its
         out[f"loop_its_{name}_runs"] = runs
         out[f"loop_launches_{name}"] = [
-            prox_fused.LAUNCHES - before[0], tv_fused.LAUNCHES - before[1]]
+            prox_fused.LAUNCHES - before[0], tv_fused.LAUNCHES - before[1],
+            planar_fused.LAUNCHES - before[2]]
     print(json.dumps(out), flush=True)
 
 
