@@ -110,7 +110,11 @@ non-zero without the final ``ok`` line):
     (the wide route), both losses, the hinge form at 16384×256 and
     16384×4096 split as in phase 14;
 25. K-P4 (the bfloat16-storage probe) at 1000×2000, float32 against
-    bfloat16 storage: µs per chained pair in turns;
+    bfloat16 storage: its plan, a call's device operations, µs per chained
+    pair in turns beside the bound (A once a launch) and the former
+    reckoning (A once a pair); then, printed, the same at n = 2000 and the
+    smallest m at which the float32 plan streams a remainder and the
+    bfloat16 plan does not;
 26. K-B8 and K-B8b on the route past n = 512 (C-4) at 8192×640 (to
     tolerance), 2048×1024 and 256×8192 (300 iterations: no bounded
     solution), adaptive and FISTA, against the plain version, each batch
@@ -134,10 +138,13 @@ non-zero without the final ``ok`` line):
     grid barriers of each kind, nothing else) and µs per chained
     operation at K = 2000 beside ``torch.mv``'s card time (a CUDA graph
     of calls, and its kernels in a ``profiling.trace``);
-30. K-P3 (the tail-ablation ladder) at 1000×2000: every rung L0…L6 and X
-    variant against its plain version at K = 3, then µs per iteration at
-    K = 5000 beside K-B1 (``microsolve_lasso``) at the same K, and the
-    price of the Aᵀ copy that K-B1's wrapper no longer makes.
+30. K-P3 (the tail-ablation ladder, L6 K-B1's adaptive trial) at
+    1000×2000: every rung L0…L6 and X variant against its plain version at
+    K = 3, X2–X5 bit-identical to L6, a call's device operations, then µs
+    per iteration and per trial at K = 5000 beside K-B1
+    (``microsolve_lasso``) at the same K (L6 / K-B1), X1's adjoint from A
+    in L2 against the rows on the chip, and the rungs at 16×16 beside
+    K-B1's floor (128×16).
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -2570,75 +2577,126 @@ def phase_bf16_planar_gradmap() -> dict:
                 plain_stream_ms_1024x16384=ms[("hinge", 1024, 16384)][3])
 
 
+def pair_ms(A, x0, K: int) -> float:
+    """One K-P4 launch of K pairs: CUDA events around it, best of 3."""
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        bf16_probe.bf16_probe(A, x0, K)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
 def phase_bf16_probe() -> dict:
     """K-P4 at the probe's 1000×2000, float32 and bfloat16 storage: the
     last of 3 chained pairs' g within 1e-5 of its largest entry of the
-    plain loop's and x equal to x₀; then µs per pair as the difference of
-    a 1100- and a 100-pair launch over 1000, best of 3, in turns (float32,
-    bfloat16, bfloat16, float32).  A pair reads A twice: 16.0 MB in
-    float32, 8.0 MB in bfloat16, both inside the 50 MB L2."""
-    m, n = 1000, 2000
+    plain loop's and x equal to x₀; a call's device operations (one
+    kernel, a ``profiling.trace``); then µs per pair as the difference of a
+    1100- and a 100-pair launch over 1000, best of 3, in turns (float32,
+    bfloat16, bfloat16, float32).  Then the same, printed and not gated,
+    at the second shape: n = 2000 and the smallest m at which the card's
+    float32 plan (``bf16_probe_plan``) must stream a remainder from L2
+    while its bfloat16 plan keeps every row on the chip.  The bound
+    reckons the work: A read once a launch (spread over the timed
+    launch's 1100 pairs), x₀ read and x, g written once, 4mn operations a
+    pair; the former reckoning, one read of A a pair, is printed beside
+    it."""
+    n = 2000
+    grids = {bf16: bf16_probe._grid(0, bf16, n)[:2] for bf16 in (False, True)}
+
+    def card_plan(m, bf16):
+        nb, budget = grids[bf16]
+        return bf16_probe.bf16_probe_plan(m, n, bf16, nb, budget)
+
+    m2 = next(m for m in range(1000, 40000)
+              if card_plan(m, False).route == "streamed")
+    require(card_plan(m2, True).route == "resident",
+            f"K-P4 at {m2}x{n}: the bfloat16 plan streams too")
     gen = torch.Generator(device=DEV).manual_seed(25)
-    A32 = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
-    x0 = torch.randn(n, generator=gen, device=DEV)
-    mats = {"float32": A32, "bfloat16": A32.to(torch.bfloat16)}
-    worst = 0.0
-    for name, A in mats.items():
-        x, g = bf16_probe.bf16_probe(A, x0, 3)
-        xr, gr = bf16_probe.bf16_probe_reference(A, x0, 3)
-        torch.cuda.synchronize()
-        err = float((g - gr).abs().max())
-        tol = 1e-5 * float(gr.abs().max())
-        print(f"[25 K-P4 {name}] last of 3 pairs max|dg| {err:.3e} (tol "
-              f"{tol:.1e}); x equal to x0: {torch.equal(x, x0)}")
-        require(err <= tol and torch.equal(x, x0) and torch.equal(xr, x0),
-                f"K-P4 {name} disagrees with its plain version")
-        worst = max(worst, err)
-
-    def launch_ms(A, K):
-        best = float("inf")
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            bf16_probe.bf16_probe(A, x0, K)
-            end.record()
-            end.synchronize()
-            best = min(best, start.elapsed_time(end))
-        return best
-
+    shapes, worst = {}, 0.0
+    for m in (1000, m2):
+        A32 = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
+        x0 = torch.randn(n, generator=gen, device=DEV)
+        shapes[m] = ({"float32": A32, "bfloat16": A32.to(torch.bfloat16)}, x0)
+        for name, A in shapes[m][0].items():
+            plan = card_plan(m, name == "bfloat16")
+            x, g = bf16_probe.bf16_probe(A, x0, 3)
+            xr, gr = bf16_probe.bf16_probe_reference(A, x0, 3)
+            torch.cuda.synchronize()
+            err = float((g - gr).abs().max())
+            tol = 1e-5 * float(gr.abs().max())
+            print(f"[25 K-P4 {m}x{n} {name}] plan {plan.route}, "
+                  f"{plan.resident_share:.3f} of A on the chip "
+                  f"({max(plan.reg_rows)} rows a block in registers, "
+                  f"{max(plan.smem_rows)} in shared memory), "
+                  f"{plan.streamed_bytes / 1e6:.2f} MB a pass from L2; last "
+                  f"of 3 pairs max|dg| {err:.3e} (tol {tol:.1e}); x equal to "
+                  f"x0: {torch.equal(x, x0)}")
+            require(err <= tol and torch.equal(x, x0) and torch.equal(xr, x0),
+                    f"K-P4 {m}x{n} {name} disagrees with its plain version")
+            worst = max(worst, err)
+    mats, x0 = shapes[1000]
+    splits = {name: call_split(f"[25 K-P4 1000x{n} {name}, 3 pairs]",
+                               lambda A=A: bf16_probe.bf16_probe(A, x0, 3),
+                               10) for name, A in mats.items()}
+    print(f"[25 K-P4] grid barriers a pair: "
+          f"{bf16_probe.GRID_BARRIERS_PER_PAIR}")
     plain = {k: cuda_ms(lambda A=A: bf16_probe.bf16_probe_reference(A, x0, 10),
                         5) / 10 for k, A in mats.items()}
-    reset_launches()
-    turns = {k: [] for k in mats}
-    for name in ("float32", "bfloat16", "bfloat16", "float32"):
-        launch_ms(mats[name], 100)                       # warm-up
-        turns[name].append((launch_ms(mats[name], 1100)
-                            - launch_ms(mats[name], 100)) / 1000)
-    launches = read_launches()["K-P4"]
-    per = {k: statistics.mean(t) for k, t in turns.items()}
-    for name in mats:
-        nbytes = 2.0 * m * n * (4 if name == "float32" else 2)
-        print(f"[25 K-P4 {name}] {per[name] * 1e3:.3f} us per pair (turns "
-              f"{', '.join(f'{u * 1e3:.3f}' for u in turns[name])}); "
-              f"{nbytes / 1e6:.1f} MB read per pair, "
-              f"{nbytes / (per[name] * 1e-3) / 1e9:.1f} GB/s implied; plain "
-              f"pair {plain[name] * 1e3:.3f} us")
-    print(f"[25 K-P4] bfloat16 storage against float32: "
-          f"{per['float32'] / per['bfloat16']:.3f}x; launches during the "
-          f"timed runs: {launches}")
+    per, launches = {}, 0
+    for m, (mats_m, x0_m) in shapes.items():
+        reset_launches()
+        turns = {k: [] for k in mats_m}
+        for name in ("float32", "bfloat16", "bfloat16", "float32"):
+            A = mats_m[name]
+            pair_ms(A, x0_m, 100)                        # warm-up
+            turns[name].append((pair_ms(A, x0_m, 1100)
+                                - pair_ms(A, x0_m, 100)) / 1000)
+        launches += read_launches()["K-P4"]
+        per[m] = {k: statistics.mean(t) for k, t in turns.items()}
+        for name in mats_m:
+            item = 4 if name == "float32" else 2
+            work = bound((item * m * n + 12.0 * n) / 1100, 4.0 * m * n)
+            old = bound(item * m * n + 8.0 * n, 4.0 * m * n)
+            print(f"[25 K-P4 {m}x{n} {name}] {per[m][name] * 1e3:.3f} us per "
+                  f"pair (turns {', '.join(f'{u * 1e3:.3f}' for u in turns[name])}); "
+                  f"bound {work['bound_ms'] * 1e3:.4f} us ({work['bound_by']}: "
+                  f"A once a launch of 1100 pairs, 4mn operations a pair), "
+                  f"{per[m][name] / work['bound_ms']:.1f}x; the former "
+                  f"reckoning (A read once a pair, {item * m * n / 1e6:.1f} MB) "
+                  f"{old['bound_ms'] * 1e3:.4f} us, "
+                  f"{per[m][name] / old['bound_ms']:.2f}x"
+                  + (f"; plain pair {plain[name] * 1e3:.3f} us" if m == 1000
+                     else ""))
+        print(f"[25 K-P4 {m}x{n}] bfloat16 storage against float32: "
+              f"{per[m]['float32'] / per[m]['bfloat16']:.3f}x")
+    print(f"[25 K-P4] launches during the timed runs: {launches}")
     require(launches >= 1, "the probe's timed runs launched no K-P4")
-    # per pair: A read once, x in, g out; 4mn operations
-    return dict(max_abs_err=worst, ms=per["bfloat16"],
+    m = 1000
+    return dict(max_abs_err=worst, ms=per[m]["bfloat16"],
                 plain_ms=plain["bfloat16"],
-                **bound(2.0 * m * n + 8.0 * n, 4.0 * m * n),
+                **bound((2.0 * m * n + 12.0 * n) / 1100, 4.0 * m * n),
                 library_ms=None, launches_timed=launches,
                 shape="1000x2000, per chained pair, bfloat16 storage",
-                us_per_pair={k: v * 1e3 for k, v in per.items()},
-                f32_ms=per["float32"], f32_plain_ms=plain["float32"],
-                f32_bound_ms=bound(4.0 * m * n + 8.0 * n,
+                us_per_pair={f"{mm}x{n} {k}": v * 1e3
+                             for mm, p in per.items() for k, v in p.items()},
+                f32_ms=per[m]["float32"], f32_plain_ms=plain["float32"],
+                f32_bound_ms=bound((4.0 * m * n + 12.0 * n) / 1100,
                                    4.0 * m * n)["bound_ms"],
-                bf16_speedup=per["float32"] / per["bfloat16"])
+                bound_ms_one_read_a_pair=bound(2.0 * m * n + 8.0 * n,
+                                               4.0 * m * n)["bound_ms"],
+                f32_bound_ms_one_read_a_pair=bound(4.0 * m * n + 8.0 * n,
+                                                   4.0 * m * n)["bound_ms"],
+                second_shape=f"{m2}x{n}",
+                bf16_speedup={f"{mm}x{n}": p["float32"] / p["bfloat16"]
+                              for mm, p in per.items()},
+                grid_barriers_per_pair=bf16_probe.GRID_BARRIERS_PER_PAIR,
+                **split_keys(splits["bfloat16"]),
+                **split_keys(splits["float32"], "_f32"))
 
 
 def phase_objective_t(p, x) -> float:
@@ -3142,9 +3200,9 @@ def phase_matvec_probe() -> dict:
 
 def tail_flops(m: int, n: int, tried: int) -> float:
     """float32 operations of a K-P3 L6 run, counted as ``dense_flops``
-    counts K-B1's: per trial, phase P per column x̂ (2), the shrink (6),
-    Δx and x₁ − x̂ (2), ‖Δx‖² twice, ⟨Δx,g⟩, ‖g‖², ‖x₁ − x̂‖² (10); phase
-    F A x₁ (2mn), r and Σr² (3 per row); phase G Aᵀr (2mn), Δg (3),
+    counts K-B1's: per trial, the step per column x̂ (2), the shrink (6),
+    Δx and x₁ − x̂ (2), ‖Δx‖² twice, ⟨Δx,g⟩, ‖g‖², ‖x₁ − x̂‖² (10); the
+    pass A x₁ (2mn), r and Σr² (3 per row) and Aᵀr (2mn); Δg (3),
     ⟨Δx,Δg⟩ and ‖Δg‖² (4) per column; at the start A x₀, r₀, Aᵀr₀."""
     return float(tried * (4 * m * n + 27 * n + 3 * m) + 4 * m * n + 3 * m)
 
@@ -3154,14 +3212,18 @@ def phase_tail_probe() -> dict:
     rung and X variant against its plain version at K = 3 — τ and residual
     records, g and τ within 1e-5 of their largest entry (float32 sums in
     another order; the trajectory is chaotic, so only short runs are
-    compared), trials equal; X2 and X5 bit-identical to L6.  Then µs per
-    iteration at K = 5000 (CUDA events around one launch, median of 3;
-    each X variant in turns with L6, L6 X X L6;
-    records finite — L1 and L2 keep τ = 0.05 against ‖AᵀA‖ ≈ 5.8e3, so
-    their g overflows, as in the TPU probe), the step between rungs, X1…X5 against L6, the plain
-    L6 per iteration, the rungs over a 16×16 corner of A (a trial without
-    its passes over A), and the fidelity row: K-B1 (microsolve_lasso, hp
-    off, stop_rule="iterations", tol 0) at the same K."""
+    compared), trials equal; X2, X3, X4 and X5 bit-identical to L6; a
+    call's device operations (one kernel, a ``profiling.trace``) and the
+    grid barriers a trial.  Then µs per iteration and per trial at
+    K = 5000 (CUDA events around one launch, median of 3; each X variant
+    in turns with L6, L6 X X L6; records finite — L1 and L2 keep τ = 0.05
+    against ‖AᵀA‖ ≈ 5.8e3, so their g overflows, as in the TPU probe), the
+    step between rungs, X1…X5 against L6 (X1: the adjoint from A in L2
+    against the rows on the chip), the plain L6 per iteration; the
+    fidelity row: K-B1 (microsolve_lasso, hp off, stop_rule="iterations",
+    tol 0) on the same A, b, x₀ at the same K, each rung's µs a trial
+    beside K-B1's and L6 / K-B1; and the rungs over a 16×16 corner of A (a
+    trial without its pass over A) beside K-B1's floor, LASSO 128×16."""
     rng = np.random.default_rng(0)
     m, n = 1000, 2000
     A, b, x0 = [torch.from_numpy(v).to(DEV) for v in (
@@ -3190,15 +3252,20 @@ def phase_tail_probe() -> dict:
                 f"K-P3 {name} disagrees with its plain version")
         worst = max(worst, err)
         outs[name] = out
-    for name in ("X2-thread", "X5-condbt"):
+    same_bits = ("X2-thread", "X3-vecscal", "X4-fusedred", "X5-condbt")
+    for name in same_bits:
         require(all(torch.equal(a, c) for a, c in zip(outs[name],
                                                       outs["L6"])),
                 f"K-P3 {name} is not bit-identical to L6")
-    print("[30 K-P3] X2-thread and X5-condbt bit-identical to L6: True")
+    print(f"[30 K-P3] {', '.join(same_bits)} bit-identical to L6: True")
+    l6 = tail_probe.make(6)
+    split = call_split("[30 K-P3 L6 1000x2000, K = 3]",
+                       lambda: l6(A, b, x0, 3), 10)
+    print(f"[30 K-P3] grid barriers a trial: "
+          f"{tail_probe.GRID_BARRIERS_PER_TRIAL} (the start: 2)")
     K = 5000
     reset_launches()
     per, tried, finite, beside = {}, {}, {}, {}
-    l6 = tail_probe.make(6)
 
     def launch_ms(run) -> float:
         return cuda_ms(lambda: run(A, b, x0, K), 3, warmup=0) / K
@@ -3218,7 +3285,7 @@ def phase_tail_probe() -> dict:
             per[name], beside[name] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
         else:
             per[name] = launch_ms(run)
-    # the same rungs over a 16×16 corner of A: a trial is then its three
+    # the same rungs over a 16×16 corner of A: a trial is then its two
     # grid barriers, its reductions and decisions, and almost no pass
     As, bs, xs = (A[:16, :16].contiguous(), b[:16].contiguous(),
                   x0[:16].contiguous())
@@ -3229,6 +3296,24 @@ def phase_tail_probe() -> dict:
         small[name] = cuda_ms(lambda run=run: run(As, bs, xs, K), 3,
                               warmup=0) / tr
     launches = read_launches()["K-P3"]
+
+    # K-B1 itself at the same K: on the ladder's data, and its floor
+    def kb1(A_, b_, x0_):
+        return lambda: microsolver.microsolve_lasso(  # noqa: E731
+            A_, b_, x0_, tail_probe.TAU0, tail_probe.MU, max_iters=K,
+            tol=0.0, stop_rule="iterations", hp=False, record_bts=True)
+    floor = problems.build("lasso", m=128, n=16, k=12, device=DEV)
+    b1 = {}
+    for key, fn in (("1000x2000", kb1(A, b, x0)),
+                    ("128x16", kb1(floor.op.A, floor.fterm.b, floor.x0))):
+        b1_tried, b1_k = trials(fn())
+        b1_ms = cuda_ms(fn, 3, warmup=1)
+        b1[key] = dict(us_per_trial=b1_ms / b1_tried * 1e3,
+                       us_per_iteration=b1_ms / b1_k * 1e3,
+                       trials_per_iteration=b1_tried / b1_k)
+    plain = cuda_ms(lambda: tail_probe.tail_reference(A, b, x0, 50, 6), 3,
+                    warmup=1) / 50
+    trial_us = {k: per[k] * K / tried[k] * 1e3 for k in per}
     prev = None
     for name, _ in rungs:
         us = per[name] * 1e3
@@ -3241,41 +3326,39 @@ def phase_tail_probe() -> dict:
             prev = us
         print(f"[30 K-P3 {name}] {us:.3f} us per iteration, "
               f"{tried[name] / K:.3f} trials per iteration, "
-              f"{per[name] * K / tried[name] * 1e3:.3f} us per trial{step}; "
-              f"g finite {finite[name]}" + ("" if name not in small else
-                                           f"; at 16x16 {small[name] * 1e3:.3f}"
-                                           f" us per trial"))
-    # the fidelity row: K-B1 itself at the same K
-    kb1 = lambda: microsolver.microsolve_lasso(  # noqa: E731
-        A, b, x0, tail_probe.TAU0, tail_probe.MU, max_iters=K, tol=0.0,
-        stop_rule="iterations", hp=False, record_bts=True)
-    b1_ms = cuda_ms(kb1, 3, warmup=1)
-    b1_tried, b1_k = trials(kb1())
-    transpose = cuda_ms(lambda: A.t().contiguous(), 20)
-    plain = cuda_ms(lambda: tail_probe.tail_reference(A, b, x0, 50, 6), 3,
-                    warmup=1) / 50
-    print(f"[30 K-B1 fidelity] microsolve_lasso hp off, {b1_k} iterations: "
-          f"{b1_ms / b1_k * 1e3:.3f} us per iteration, {b1_tried / b1_k:.3f} "
-          f"trials per iteration, {b1_ms / b1_tried * 1e3:.3f} us per trial; "
-          f"L6 {per['L6'] * 1e3:.3f} us per iteration")
-    print(f"[30 K-P3] K-B1's wrapper makes no A^T copy (its adjoint reads "
-          f"the same rows of A); a contiguous A^T copy, which it made per "
-          f"launch before, costs {transpose * 1e3:.3f} us (median of 20); X1 "
-          f"(no copy) against L6: "
-          f"{(per['X1-col'] - per['L6']) * 1e3:+.3f} us per iteration; plain "
-          f"L6 {plain * 1e3:.3f} us per iteration; launches during the timed "
-          f"runs {launches}")
+              f"{trial_us[name]:.3f} us per trial "
+              f"({trial_us[name] / b1['1000x2000']['us_per_trial']:.3f}x "
+              f"K-B1's){step}; g finite {finite[name]}"
+              + ("" if name not in small else
+                 f"; at 16x16 {small[name] * 1e3:.3f} us per trial"))
+    fid = trial_us["L6"] / b1["1000x2000"]["us_per_trial"]
+    print(f"[30 K-B1 fidelity] microsolve_lasso hp off on the ladder's "
+          f"data, K = {K}: {b1['1000x2000']['us_per_trial']:.3f} us per "
+          f"trial, {b1['1000x2000']['trials_per_iteration']:.3f} trials per "
+          f"iteration; L6 {trial_us['L6']:.3f} us per trial, L6 / K-B1 "
+          f"{fid:.3f}; its floor (LASSO 128x16) "
+          f"{b1['128x16']['us_per_trial']:.3f} us per trial beside the "
+          f"rungs at 16x16 (L0 {small['L0'] * 1e3:.3f}, L6 "
+          f"{small['L6'] * 1e3:.3f})")
+    print(f"[30 K-P3] X1, A from L2 against A on the chip: the adjoint by "
+          f"column chunks of A from L2 {trial_us['X1-col']:.3f} us per trial "
+          f"against the rows on the chip (L6 in turns) "
+          f"{beside['X1-col'] * K / tried['L6'] * 1e3:.3f}: "
+          f"{(per['X1-col'] - beside['X1-col']) * 1e3:+.3f} us per iteration;"
+          f" plain L6 {plain * 1e3:.3f} us per iteration; launches during "
+          f"the timed runs {launches}")
     bd = bound(4.0 * (m * n + m + 2 * n) / K,
                tail_flops(m, n, tried["L6"]) / K)
     return dict(max_abs_err=worst, ms=per["L6"], plain_ms=plain, **bd,
                 library_ms=None, launches_timed=launches,
                 us_per_iteration={k: v * 1e3 for k, v in per.items()},
+                us_per_trial=trial_us,
                 trials_per_iteration={k: v / K for k, v in tried.items()},
                 l6_in_turns_us={k: v * 1e3 for k, v in beside.items()},
-                kb1_us_per_iteration=b1_ms / b1_k * 1e3,
-                kb1_trials_per_iteration=b1_tried / b1_k,
+                kb1=b1, l6_over_kb1=fid,
                 us_per_trial_16x16={k: v * 1e3 for k, v in small.items()},
-                transpose_us=transpose * 1e3,
+                grid_barriers_per_trial=tail_probe.GRID_BARRIERS_PER_TRIAL,
+                **split_keys(split),
                 shape="1000x2000 float32, L6, per iteration (K = 5000)")
 
 

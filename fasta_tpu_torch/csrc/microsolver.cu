@@ -62,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "dense_rows.cuh"
 #include "fbs_control.cuh"
 #include "grid_barrier.cuh"
 #include "losses.cuh"
@@ -70,14 +71,6 @@
 using namespace fasta;
 
 namespace {
-
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChains = kWarps;              // chains per column of a reduction over blocks
-constexpr int kStateMax = 8192;              // the widest n4 of dense_rows_kernel
-constexpr int kChunks = kStateMax / 32;      // column chunks of g (their BB sums)
-constexpr int kBandMax = 1024;               // the most rows of b a block stages
-constexpr int kStepMax = 8 * kWarps;         // rows a step takes at most (R·TB, S = 1)
 
 // proxes, in the order of kernels.microsolver.PROXES
 enum Prox { kL1, kNonneg, kBox, kRidge };
@@ -114,16 +107,6 @@ struct Args {
 
 __device__ __forceinline__ float point_mu(const Args& a, int p) {
   return a.mus ? __ldg(a.mus + p) : a.mu0;
-}
-
-// shrink(z, t) of prox.cuh with the quotient of a zero numerator taken as
-// +0 without dividing: the same bits (0 / d = +0 for every d ≥ 1e-30),
-// but an IEEE division of zero leaves the fast path for a slow
-// subroutine, and most entries of a sparse solution shrink to zero
-__device__ __forceinline__ float shrink_sparse(float z, float t) {
-  const float mag = fabsf(z);
-  const float num = nanmax(__fsub_rn(mag, t), 0.f);
-  return __fmul_rn(z, num == 0.f ? 0.f : __fdiv_rn(num, nanmax(mag, 1e-30f)));
 }
 
 // the prox of g at z with t = τμ (ridge: z/(1+τλ), μ carrying λ)
@@ -188,94 +171,6 @@ __device__ __forceinline__ float g_objective(int prox, float mu, float gx) {
                      : prox == kRidge ? __fmul_rn(__fmul_rn(0.5f, mu), gx) : 0.f;
 }
 
-__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-
-// The float4 slot q (columns 4q … 4q+3) of row i of A (n columns), zero
-// past column n: one 16-byte load where rows are 16-byte aligned.
-__device__ __forceinline__ float4 load_a(const float* __restrict__ A, int n, int i, int q) {
-  const float* row = A + (size_t)i * n;
-  if ((n & 3) == 0) return __ldg(reinterpret_cast<const float4*>(row) + q);
-  const int j = 4 * q;
-  return make_float4(j < n ? __ldg(row + j) : 0.f, j + 1 < n ? __ldg(row + j + 1) : 0.f,
-                     j + 2 < n ? __ldg(row + j + 2) : 0.f, j + 3 < n ? __ldg(row + j + 3) : 0.f);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 x, float s) {
-  s = fmaf(a.x, x.x, s);
-  s = fmaf(a.y, x.y, s);
-  s = fmaf(a.z, x.z, s);
-  return fmaf(a.w, x.w, s);
-}
-
-__device__ __forceinline__ void axpy4(float w, float4 a, float4& g) {
-  g.x = fmaf(w, a.x, g.x);
-  g.y = fmaf(w, a.y, g.y);
-  g.z = fmaf(w, a.z, g.z);
-  g.w = fmaf(w, a.w, g.w);
-}
-
-__device__ __forceinline__ float4 add4(float4 u, float4 v) {
-  return make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
-}
-
-// Sum of `count` doubles in global memory (per-block partials written
-// before a grid barrier) in T by one warp: lane l adds entries l, l + 32,
-// … in order, eight loads a lane in flight; the result is valid in lane 0.
-template <typename T>
-__device__ __forceinline__ T warp_sum_blocks(const double* p, int count) {
-  const int lane = threadIdx.x & 31;
-  T v = T(0);
-  for (int i0 = 0; i0 < count; i0 += 32 * 8) {
-    double u[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int i = i0 + lane + 32 * k;
-      u[k] = i < count ? __ldcg(p + i) : 0.0;
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v += static_cast<T>(u[k]);
-  }
-  return warp_sum(v);
-}
-
-// The block's sum of v, valid in thread 0: the warps' shuffle trees, one
-// barrier, then warp 0's tree over the warps' sums.
-template <typename T>
-__device__ __forceinline__ T block_total(T v, T* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  return warp == 0 ? warp_sum(lane < kWarps ? scratch[lane] : T(0)) : T(0);
-}
-
-// Sums over the block of NF floats and NA values of type T at once: the
-// warps' shuffle trees, one barrier, then warp k < NF + NA adds the warps'
-// sums of the k-th value (the floats first) by a shuffle tree.  Lane 0 of
-// warp k returns that total as a double; every other thread 0.  No thread
-// may write fs or ts again before the block has passed another barrier.
-template <int NF, int NA, typename T>
-__device__ __forceinline__ double block_sums_warp(float (&f)[NF], T (&t)[NA], float* fs, T* ts) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NF; ++k) f[k] = warp_sum(f[k]);
-#pragma unroll
-  for (int k = 0; k < NA; ++k) t[k] = warp_sum(t[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NF; ++k) fs[warp * NF + k] = f[k];
-#pragma unroll
-    for (int k = 0; k < NA; ++k) ts[warp * NA + k] = t[k];
-  }
-  __syncthreads();
-  double r = 0.0;
-  if (warp < NF)
-    r = warp_sum(lane < kWarps ? fs[lane * NF + warp] : 0.f);
-  else if (warp < NF + NA)
-    r = double(warp_sum(lane < kWarps ? ts[lane * NA + warp - NF] : T(0)));
-  return lane == 0 ? r : 0.0;
-}
-
 // ---------------------------------------------------------------------------
 // dense_rows_kernel: n ≤ 8192 (padded to a multiple of 4).
 //  * Every block keeps the whole n-sized state in shared memory — x
@@ -323,41 +218,6 @@ __device__ __forceinline__ double block_sums_warp(float (&f)[NF], T (&t)[NA], fl
 //    takes 2.
 // ---------------------------------------------------------------------------
 
-// Column and row lanes at width n4: tg threads on a row's float4 slots
-// (whole warps), R row lanes, S slots a thread (the instantiation takes
-// 1, 2 or 4).
-struct Lanes {
-  int tg, R, S;
-};
-
-__host__ __device__ constexpr Lanes lanes_of(int n4) {
-  const int nq = n4 / 4;
-  const int w = (nq + 31) / 32 * 32;
-  const int tg = w < kThreads ? w : kThreads;
-  return Lanes{tg, kThreads / tg, (nq + tg - 1) / tg};
-}
-
-__host__ __device__ constexpr int slots_of(int n4) {
-  return lanes_of(n4).S <= 1 ? 1 : lanes_of(n4).S <= 2 ? 2 : 4;
-}
-
-static_assert(slots_of(kStateMax) == 4, "a thread takes at most four slots of a row");
-
-// A block's rows: its band [r0, r0 + rows) of A, the first nreg kept in
-// registers, the next nsm in shared memory, the rest read from L2.
-struct Tile {
-  int r0, rows, nreg, nsm;
-};
-
-__device__ __forceinline__ Tile tile_of(const int* tiles, int nb, int blk) {
-  Tile t;
-  t.r0 = __ldg(tiles + blk);
-  t.rows = __ldg(tiles + nb + blk) - t.r0;
-  t.nreg = __ldg(tiles + 2 * nb + blk);
-  t.nsm = __ldg(tiles + 3 * nb + blk);
-  return t;
-}
-
 // What a pass over the band does on each row.
 enum Pass {
   kStart,     // d = A x, ℓ′, f, Aᵀℓ′; FISTA: d_acc = d
@@ -375,65 +235,6 @@ __device__ void stage_rows(const Args& a, int i0, int count, float* dst) {
     reinterpret_cast<float4*>(dst)[e] = load_a(a.A, a.n, i0 + l, q);
   }
   __syncthreads();
-}
-
-// The block's band of b (rows r0 … r0 + rows), staged in bsh when it
-// holds at most kBandMax rows (no barrier: the caller's follows), else
-// read where it lies; either way indexed by the band's row.
-__device__ __forceinline__ const float* stage_b(const float* bp, const Tile& t, float* bsh) {
-  if (t.rows > kBandMax) return bp + t.r0;
-  for (int l = threadIdx.x; l < t.rows; l += kThreads) bsh[l] = __ldg(bp + t.r0 + l);
-  return bsh;
-}
-
-// The sums over the warp of V = 2^k values at once (V ≤ 16), as K-B8's
-// rows take them: halving steps hand half of a lane's values to the lane
-// `o` away (o = 16, 8, …) and keep the other half, until each lane holds
-// one value — value L >> (5 − k) in lane L — which the lanes that share
-// it complete by a butterfly.  2V − 2 + 5 − k shuffles where V separate
-// trees take 5V; a fixed order, the same in every run.
-template <int V>
-__device__ __forceinline__ float transpose_sum(float (&v)[V]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c = V, o = 16; c > 1; c >>= 1, o >>= 1) {
-    const bool hi = (lane & o) != 0;
-#pragma unroll
-    for (int i = 0; i < c / 2; ++i) {
-      const float send = hi ? v[i] : v[c / 2 + i];
-      const float keep = hi ? v[c / 2 + i] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
-  float s = v[0];
-#pragma unroll
-  for (int o = 16 / V; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
-// This thread's place in a block of the row kernel, fixed for the launch:
-// nq float4 slots a row, R row lanes of tg threads, its row lane rl and
-// column lane gl (active: rl < R), the warps a row takes (wpr), and as
-// the finishing thread of a step's row, that row's place: the fu-th row
-// of row lane fr.
-struct Lane {
-  int nq, tg, R, rl, gl, wpr, fu, fr;
-  bool active;
-};
-
-__device__ __forceinline__ Lane lane_of(int n4) {
-  const Lanes ln = lanes_of(n4);
-  Lane L;
-  L.nq = n4 / 4;
-  L.tg = ln.tg;
-  L.R = ln.R;
-  L.rl = threadIdx.x / ln.tg;
-  L.gl = threadIdx.x - L.rl * ln.tg;
-  L.wpr = ln.tg / 32;
-  L.fu = threadIdx.x / ln.R;
-  L.fr = threadIdx.x - L.fu * ln.R;
-  L.active = L.rl < ln.R;
-  return L;
 }
 
 // One pass over the block's band (see Pass) in `steps` steps at the
@@ -566,29 +367,11 @@ __device__ __forceinline__ Acc rows_pass(const Args& a, const Tile& t, const Lan
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int q = L.gl + L.tg * s;
-        if (q < nq) out[q] = gs[s];
+        if (L.active && q < nq) out[q] = gs[s];
       }
     }
   }
   return fsum;
-}
-
-// Σ over blocks of their shares at column j of gpart (row stride n4),
-// chain c adding blocks c, c + kChains, … in order with up to 16 loads in
-// flight at once.
-__device__ __forceinline__ float chain_sum(const float* gpart, int n4, int nb, int chain, int j) {
-  float s = 0.f;
-  for (int p0 = chain; p0 < nb; p0 += 16 * kChains) {
-    float u[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int p = p0 + kChains * k;
-      u[k] = p < nb ? __ldcg(gpart + (size_t)p * n4 + j) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < 16; ++k) s += u[k];
-  }
-  return s;
 }
 
 // After a grid barrier: g = Σ over blocks of their shares, each column by
@@ -641,24 +424,6 @@ __device__ __forceinline__ void reduce_shares(const Args& a, const double* fp, f
       }
     }
     __syncthreads();
-  }
-}
-
-// After a grid barrier: the reduced g (nq float4s in device memory) into
-// the block's shared memory, every thread's loads in flight at once.
-__device__ __forceinline__ void copy_g(const float* gvec, float* dst, int nq) {
-  constexpr int kMax = kStateMax / 4 / kThreads;
-  const float4* src = reinterpret_cast<const float4*>(gvec);
-  float4 v[kMax];
-#pragma unroll
-  for (int k = 0; k < kMax; ++k) {
-    const int q = threadIdx.x + kThreads * k;
-    v[k] = q < nq ? __ldcg(src + q) : zero4();
-  }
-#pragma unroll
-  for (int k = 0; k < kMax; ++k) {
-    const int q = threadIdx.x + kThreads * k;
-    if (q < nq) reinterpret_cast<float4*>(dst)[q] = v[k];
   }
 }
 

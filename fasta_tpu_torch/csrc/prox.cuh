@@ -1,6 +1,6 @@
-// The soft threshold shared by K-B4 (prox_fused.cu) and K-P3
-// (tail_probe.cu); K-B1 (microsolver.cu) keeps a form that skips the
-// division of a zero numerator: the prox of t·‖·‖₁ in the reference's form
+// The soft threshold of K-B4 (prox_fused.cu); K-B1 and K-P3 take a form
+// that skips the division of a zero numerator (dense_rows.cuh,
+// shrink_sparse): the prox of t·‖·‖₁ in the reference's form
 // z·max(|z|−t, 0)/max(|z|, 1e-30), rounded like the plain PyTorch
 // version's separate operations (_rn intrinsics), NaN propagating as
 // torch.clamp_min and jnp.maximum do.

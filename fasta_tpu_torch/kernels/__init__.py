@@ -7,10 +7,10 @@ version beside it.
 * K-B1 ``microsolve_lasso``, K-B1p ``microsolve_lasso_path`` and K-B1b
   ``microsolve_lasso_batch`` (``microsolver.py``, ``csrc/microsolver.cu``),
   with K-B2, the FP64 decision-scalar reduction (``csrc/reduce.cuh``),
-  inlined.  The losses both sources share are in ``csrc/losses.cuh``.
+  inlined.  The losses both sources share are in ``csrc/losses.cuh``; the
+  row machinery K-B1 shares with K-P3 and K-P4 in ``csrc/dense_rows.cuh``.
 * K-B4 ``fused_shrink_step``, the L1 trial step (``prox_fused.py``,
-  ``csrc/prox_fused.cu``; the soft threshold it shares with K-B1 is in
-  ``csrc/prox.cuh``)
+  ``csrc/prox_fused.cu``; its soft threshold is in ``csrc/prox.cuh``)
 * K-B5 ``fused_tv_gradmap`` (``tv_fused.py``, ``csrc/tv_fused.cu``)
 * K-B6 ``microsolve_tv``, K-B6p ``microsolve_tv_path`` and K-B6b
   ``microsolve_tv_batch`` (``microsolver_tv.py``, ``csrc/microsolver_tv.cu``)

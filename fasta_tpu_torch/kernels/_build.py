@@ -52,15 +52,17 @@ _SIGNATURES = {
     "fasta_planar_gradmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P, _P, _P, _P, _P],
     "fasta_planar_probe_grid": [_I, _I, _P],
-    "fasta_bf16_probe_grid": [_I, _I, _P],
-    "fasta_bf16_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "fasta_bf16_probe_grid": [_I, _I, _P, _P, _P, _P],
+    "fasta_bf16_probe_work": [_I, _I, _I, _P],
+    "fasta_bf16_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I,
+                         _P],
     "fasta_matvec_probe_grid": [_I, _I, _P],
     "fasta_matvec_probe": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P, _P, _P, _I, _P],
-    "fasta_tail_probe_grid": [_P],
-    "fasta_tail_probe_work": [_I, _I, _I, _P, _P],
-    "fasta_tail_probe": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _I, _P],
+    "fasta_tail_probe_grid": [_I, _P, _P, _P, _P],
+    "fasta_tail_probe_work": [_I, _I, _I, _P],
+    "fasta_tail_probe": [_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _P, _P, _I, _P, _I, _P],
     "fasta_microsolve_planar_grid": [_I, _P, _P, _P, _P],
     "fasta_microsolve_planar_work": [_I, _I, _I, _I, _P],
     "fasta_microsolve_planar": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _F,
@@ -188,7 +190,7 @@ def stream_scratch(device, stream: int, ndoubles: int):
     launches on ``stream`` (a raw handle) of the kernels that finish with
     a last-block ticket (K-B4's stream route, K-B5), a last-cluster
     ticket (K-B7) or keep a grid barrier's counter and exit ticket there
-    (K-B1, K-B8, K-P1, K-P2).  Its first double
+    (K-B1, K-B8, K-P1, K-P2, K-P3, K-P4).  Its first double
     holds the ticket (or the two counters), which every such kernel leaves
     at zero, so the
     buffer is zeroed once and never again: launches on one stream run in

@@ -27,9 +27,14 @@ finite, as the TPU kernel's output), the final g and τ, the first 128 τ
 and residual records (L6 only, else zeros; the TPU kernel keeps them in
 scratch) and the number of line-search trials.
 
-The CUDA source is ``fasta_tpu_torch/csrc/tail_probe.cu``.  ``run``
-launches the kernel for CUDA tensors and runs the plain version
-(``tail_reference``, the same body in PyTorch) for CPU tensors.
+The CUDA source is ``fasta_tpu_torch/csrc/tail_probe.cu``: L6 is K-B1's
+adaptive trial (the rows of A on the chip for the whole launch, the
+adjoint from the same rows, two grid barriers a trial), each lower rung
+that trial with the later pieces left out.  ``tail_plan`` places the rows
+(``dense_plan`` at the probe's shared-memory budget, ``tail_budget``).
+``run`` launches the kernel for CUDA tensors — one device operation a
+call — and runs the plain version (``tail_reference``, the same body in
+PyTorch) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -42,9 +47,13 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .microsolver import (H100_SMEM_OPTIN, STATE_MAX_N, DensePlan, _table,
+                          dense_lanes, dense_plan)
 
-__all__ = ["make", "tail_reference", "TailOutput", "VARIANTS", "LAUNCHES",
-           "MU", "TAU0", "WINDOW", "SHRINK", "MAX_BACKTRACKS", "RECORDS"]
+__all__ = ["make", "tail_reference", "tail_plan", "tail_budget",
+           "TailOutput", "VARIANTS", "LAUNCHES", "MU", "TAU0", "WINDOW",
+           "SHRINK", "MAX_BACKTRACKS", "RECORDS", "GRID_BARRIERS_PER_TRIAL",
+           "H100_STATIC_SMEM"]
 
 # Launches of the ladder kernel, counted where it launches, nowhere else.
 LAUNCHES = 0
@@ -52,6 +61,16 @@ LAUNCHES = 0
 # The probe's constants (micro_tail_probe.py:83-87) and record length
 MU, TAU0, WINDOW, SHRINK, MAX_BACKTRACKS = 0.1, 0.05, 10, 0.2, 20
 RECORDS = 128
+
+# Grid barriers an iteration's trial takes (csrc/tail_probe.cu; the start
+# takes two more)
+GRID_BARRIERS_PER_TRIAL = 2
+
+# The static shared memory of the ladder's kernels as nvcc lays them out
+# for sm_90a (the most of the twelve at a width): what ``tail_budget``
+# takes by default; the card's own number comes from ``_grid``, which a
+# card test holds against it.
+H100_STATIC_SMEM = 7856
 
 # make()'s flags, in the order of the kernel's variant codes 1..5 (0: the
 # ladder itself)
@@ -157,13 +176,43 @@ def _check(A, b, x0, K):
         raise ValueError(f"the tail probe: no kernel for device {A.device}")
 
 
+def tail_budget(n4: int, optin: int = H100_SMEM_OPTIN,
+                static: int = H100_STATIC_SMEM) -> int:
+    """The shared memory, in bytes, that a block of the ladder's kernel at
+    width n4 has for rows of A: the per-block opt-in ``optin`` less the
+    kernels' static shared memory ``static`` (by default the H100's) and
+    the block's n-sized state (x, x₁, g twice, and the R − 1 other row
+    lanes' shares, n4 floats each; K-B1 keeps x_acc besides); 0 where the
+    state alone does not fit.  The arithmetic of ``state_bytes`` in
+    csrc/tail_probe.cu; the card's ``_grid`` gives the same number."""
+    if n4 < 4 or n4 % 4 or n4 > STATE_MAX_N:
+        raise ValueError(f"tail_budget needs n4 a multiple of 4 in 4.."
+                         f"{STATE_MAX_N}, got {n4}")
+    R = dense_lanes(n4)[1]
+    return max(0, optin - static - 4 * n4 * (3 + R))
+
+
+def tail_plan(m: int, n4: int, nblocks: int, budget: int) -> DensePlan:
+    """Where a ladder launch over an (m, n4) matrix keeps its rows: K-B1's
+    ``dense_plan`` (bands of rows, the first step's rows in registers up
+    to 2048 columns, then shared memory up to ``budget`` bytes a block,
+    the rest read from L2 once a pass), with the probe's budget
+    (``tail_budget``).  The probe holds the n-sized state in every block,
+    so past ``STATE_MAX_N`` columns there is no plan: raises."""
+    if n4 > STATE_MAX_N:
+        raise ValueError(f"tail_plan: the ladder holds at most {STATE_MAX_N} "
+                         f"columns in every block, got n4 = {n4}")
+    return dense_plan(m, n4, nblocks, budget)
+
+
 def make(level: int, col: bool = False, thread: bool = False,
          vecscal: bool = False, fusedred: bool = False,
          condbt: bool = False):
-    """``run(A, b, x0, K) -> TailOutput`` for rung ``level`` (0..6) or,
-    with one flag, that X variant of L6.  CUDA tensors launch kernel K-P3
-    (contiguous, 16-byte aligned float32, n % 4 == 0; anything else
-    raises); CPU tensors run the plain version."""
+    """``run(A, b, x0, K, plan=None) -> TailOutput`` for rung ``level``
+    (0..6) or, with one flag, that X variant of L6.  CUDA tensors launch
+    kernel K-P3 (contiguous, 16-byte aligned float32, n % 4 == 0 and
+    n ≤ 8192; anything else raises) on ``plan`` (``tail_plan``'s, by
+    default at the card's budget); CPU tensors run the plain version."""
     flags = dict(zip(VARIANTS, (col, thread, vecscal, fusedred, condbt)))
     on = [i + 1 for i, f in enumerate(flags.values()) if f]
     if not 0 <= int(level) <= 6:
@@ -173,11 +222,11 @@ def make(level: int, col: bool = False, thread: bool = False,
                          "level 6")
     variant = on[0] if on else 0
 
-    def run(A, b, x0, K: int) -> TailOutput:
+    def run(A, b, x0, K: int, plan: DensePlan | None = None) -> TailOutput:
         _check(A, b, x0, K)
         if A.device.type == "cpu":
             return tail_reference(A, b, x0, int(K), int(level))
-        out = _launch(int(level), variant, A, b, x0, int(K))
+        out = _launch(int(level), variant, A, b, x0, int(K), plan)
         global LAUNCHES
         LAUNCHES += 1
         return out
@@ -185,7 +234,9 @@ def make(level: int, col: bool = False, thread: bool = False,
     return run
 
 
-def _launch(level, variant, A, b, x0, K) -> TailOutput:
+def _launch(level, variant, A, b, x0, K, plan) -> TailOutput:
+    """One launch; allocates nothing but the outputs (the partials, g and
+    the barrier's counter live in the stream's scratch)."""
     for name, t in (("A", A), ("b", b), ("x0", x0)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"the tail probe: {name} must be a contiguous "
@@ -197,40 +248,61 @@ def _launch(level, variant, A, b, x0, K) -> TailOutput:
     if n % 4:
         raise ValueError(f"the tail probe kernel takes n % 4 == 0 (16-byte "
                          f"rows), got n = {n}")
+    if n > STATE_MAX_N:
+        raise ValueError(f"the tail probe kernel holds at most "
+                         f"{STATE_MAX_N} columns in every block, got n = {n}")
     dev = A.device
-    nb = _grid(dev.index)
-    nf, np_ = ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.library().fasta_tail_probe_work(
-        m, n, nb, ctypes.byref(nf), ctypes.byref(np_)),
-        "fasta_tail_probe_work")
-    # X1 reads A by columns; the others a contiguous Aᵀ, made per call as
-    # K-B1's wrapper makes it
-    At = None if variant == 1 else A.t().contiguous()
+    if plan is None:
+        plan, tiles, nb = _tiles(dev.index, m, n)
+    else:
+        if (plan.m, plan.n4) != (m, n):
+            raise ValueError(f"the plan is for {plan.m}x{plan.n4}, not "
+                             f"{m}x{n}")
+        _grid(dev.index, n)      # sets the kernels' shared-memory cap
+        tiles, nb = _table(plan, dev), len(plan.bands)
     f32 = dict(device=dev, dtype=torch.float32)
     x, g, tau = torch.empty(n, **f32), torch.empty(n, **f32), \
         torch.empty(1, **f32)
-    taus, res = torch.zeros(RECORDS, **f32), torch.zeros(RECORDS, **f32)
-    trials = torch.zeros(1, device=dev, dtype=torch.int32)
-    work_f, work_p = torch.empty(nf.value, **f32), torch.empty(np_.value,
-                                                                **f32)
+    taus, res = torch.empty(RECORDS, **f32), torch.empty(RECORDS, **f32)
+    trials = torch.empty(1, device=dev, dtype=torch.int32)
     with _build.on_device(dev) as stream:
+        work = _build.stream_scratch(dev, stream, _work(m, n, nb))
         _build.check(_build.library().fasta_tail_probe(
-            level, variant, A.data_ptr(), None if At is None else
-            At.data_ptr(), b.data_ptr(), x0.data_ptr(), m, n, K,
-            x.data_ptr(), g.data_ptr(), tau.data_ptr(),
-            taus.data_ptr(), res.data_ptr(), trials.data_ptr(),
-            work_f.data_ptr(), work_p.data_ptr(), nb, stream),
+            level, variant, A.data_ptr(), b.data_ptr(), x0.data_ptr(), m, n,
+            K, x.data_ptr(), g.data_ptr(), tau.data_ptr(), taus.data_ptr(),
+            res.data_ptr(), trials.data_ptr(), tiles.data_ptr(),
+            max(plan.smem_rows), work.data_ptr(), nb, stream),
             "fasta_tail_probe")
     return TailOutput(x, g, tau[0], taus, res, trials[0])
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(device_index: int) -> int:
-    nb = ctypes.c_int()
+def _grid(device_index: int, n: int):
+    """(blocks of the cooperative grid, shared-memory bytes a block has
+    for rows of A, the device's per-block opt-in, the kernels' static
+    shared memory) at width n on the device."""
+    nb, budget, optin, static = (ctypes.c_int() for _ in range(4))
     with torch.cuda.device(device_index):
         _build.check(_build.library().fasta_tail_probe_grid(
-            ctypes.byref(nb)), "fasta_tail_probe_grid")
+            n, ctypes.byref(nb), ctypes.byref(budget), ctypes.byref(optin),
+            ctypes.byref(static)), "fasta_tail_probe_grid")
     if nb.value < 1:
         raise RuntimeError("the tail probe kernel cannot be resident on "
                            "this device")
-    return nb.value
+    return nb.value, budget.value, optin.value, static.value
+
+
+@functools.lru_cache(maxsize=64)
+def _tiles(device_index: int, m: int, n: int):
+    """The card's plan for (m, n), its table on the card and its grid."""
+    nb, budget = _grid(device_index, n)[:2]
+    plan = tail_plan(m, n, nb, budget)
+    return plan, _table(plan, torch.device("cuda", device_index)), nb
+
+
+@functools.lru_cache(maxsize=None)
+def _work(m: int, n: int, nblocks: int) -> int:
+    nd = ctypes.c_int()
+    _build.check(_build.library().fasta_tail_probe_work(
+        m, n, nblocks, ctypes.byref(nd)), "fasta_tail_probe_work")
+    return nd.value

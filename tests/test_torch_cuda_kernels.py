@@ -856,16 +856,34 @@ def test_ticket_kernels_replay_in_a_cuda_graph(dev):
                                   "b1 1000x2000", "b1 fista 3000x1000",
                                   "b1 columns 100x9000", "b1b 300x600x4",
                                   "b7 16384x256", "b7 bf16 16384x4096",
-                                  "b7 wide 64x9000", "p2 1000x2048"])
+                                  "b7 wide 64x9000", "p2 1000x2048",
+                                  "p3 1000x2000", "p3 x1 200x300",
+                                  "p4 1000x2000", "p4 bf16 37x1003"])
 def test_one_device_operation_per_call(dev, what, tmp_path):
     """A call of K-B4, K-B5, K-B1 (one solve or a batch), K-B7 (routes 1,
-    2 and 3) or K-P2 is one kernel on the card: no memset, no copy (τ and
-    μ by value or read where they lie; K-B1 makes no copy of A and zeroes
-    its own records; K-B7 and K-P2 keep their tickets and partials in the
+    2 and 3), K-P2, K-P3 (L6 and X1) or K-P4 (float32, bfloat16) is one
+    kernel on the card: no memset, no copy (τ and μ by value or read where
+    they lie; K-B1 and K-P3 make no copy of A and write their own records;
+    K-B7, K-P2, K-P3 and K-P4 keep their tickets and partials in the
     stream's scratch), in a profiling.trace of 10 calls."""
     from fasta_tpu_torch import profiling
     g = torch.Generator(device=dev).manual_seed(5)
-    if what.startswith("b7"):
+    if what.startswith("p3"):
+        m, n = (200, 300) if "x1" in what else (1000, 2000)
+        A, x0, b = _probe_data(dev, m, n, 1.0)
+        run = tail_probe.make(6, col="x1" in what)
+
+        def fn():
+            return run(A, b, x0, 3)
+    elif what.startswith("p4"):
+        m, n = (37, 1003) if "bf16" in what else (1000, 2000)
+        A, x0, _ = _probe_data(dev, m, n, 1 / m ** 0.5)
+        if "bf16" in what:
+            A = A.to(torch.bfloat16)
+
+        def fn():
+            return bf16_probe.bf16_probe(A, x0, 3)
+    elif what.startswith("b7"):
         m, n = {"b7 16384x256": (16384, 256), "b7 bf16 16384x4096":
                 (16384, 4096), "b7 wide 64x9000": (64, 9000)}[what]
         Ar, Ai, x, bl, bh = _planar_data(dev, m, n)
@@ -1165,7 +1183,8 @@ def test_bf16_planar_gradmap_kernel_matches_plain(dev, loss, m, n, route):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n", [(1000, 2000), (37, 1003), (64, 8)])
+@pytest.mark.parametrize("m,n", [(1000, 2000), (37, 1003), (64, 8),
+                                 (500, 1500), (300, 2052)])
 def test_bf16_probe_kernel_matches_plain(dev, dtype, m, n):
     """K-P4: the last of 3 chained pairs' g within 1e-5 of its largest
     entry of the plain loop's, and x equal to x₀."""
@@ -1387,7 +1406,7 @@ TAIL_RUNGS = [(f"L{i}", dict(level=i)) for i in range(7)] + [
 
 
 @pytest.mark.parametrize("name,kw", TAIL_RUNGS, ids=[r[0] for r in TAIL_RUNGS])
-@pytest.mark.parametrize("m,n", [(1000, 2000), (200, 300)])
+@pytest.mark.parametrize("m,n", [(1000, 2000), (200, 300), (300, 1500)])
 def test_tail_probe_kernel_matches_plain(dev, name, kw, m, n):
     """K-P3 at K = 3: records, g and τ within 1e-5 of their largest entry
     of the plain version's (float32 sums in another order), the same
@@ -1415,6 +1434,83 @@ def test_tail_probe_variants_keep_l6_sums(dev):
     for flag in ("thread", "vecscal", "fusedred", "condbt"):
         out = tail_probe.make(6, **{flag: True})(A, b, x0, 200)
         assert all(torch.equal(u, v) for u, v in zip(out, l6)), flag
+
+
+@pytest.mark.parametrize("n4", [16, 300, 2000, 2048, 2052, 4100, 8192])
+def test_tail_grid_budget_is_tail_budget(dev, n4):
+    """The card's shared memory for rows of A in the ladder's kernels
+    (``_grid``) is ``tail_budget`` of its opt-in and the kernels' static
+    shared memory; on the H100 those two are the module's H100 numbers,
+    which the CPU tests of the plan take."""
+    nb, budget, optin, static = tail_probe._grid(dev.index, n4)
+    assert nb == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert budget == tail_probe.tail_budget(n4, optin, static)
+    if "H100" in torch.cuda.get_device_name(dev):
+        assert optin == microsolver.H100_SMEM_OPTIN
+        assert static == tail_probe.H100_STATIC_SMEM
+        assert budget == tail_probe.tail_budget(n4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n", [8, 1003, 2000, 4096, 8192])
+def test_bf16_probe_grid_budget_is_bf16_probe_budget(dev, n, bf16):
+    """The same for K-P4 in each storage type."""
+    nb, budget, optin, static = bf16_probe._grid(dev.index, bf16, n)
+    assert nb == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert budget == bf16_probe.bf16_probe_budget(n, bf16, optin, static)
+    if "H100" in torch.cuda.get_device_name(dev):
+        assert static == bf16_probe.H100_STATIC_SMEM
+        assert budget == bf16_probe.bf16_probe_budget(n, bf16)
+
+
+@pytest.mark.parametrize("m,n", [(3000, 2000), (600, 2052), (2000, 1500)])
+def test_tail_probe_streamed_plan_gives_the_card_plan_bits(dev, m, n):
+    """Where a row lies — registers, shared memory or L2 — never changes
+    the order of a sum: L6 and X1 on plans forced to stream rows (budget
+    0 and half the card's) give the card's own plan's bits over 20
+    iterations."""
+    A, x0, b = _probe_data(dev, m, n, 1.0)
+    own = tail_probe._tiles(dev.index, m, n)[0]
+    nb, budget = tail_probe._grid(dev.index, n)[:2]
+    assert own.route == "resident" and max(own.smem_rows) > 0
+    assert tail_probe.tail_plan(m, n, nb, 0).route == "streamed"
+    for kw in (dict(), dict(col=True)):
+        run = tail_probe.make(6, **kw)
+        want = run(A, b, x0, 20)
+        for forced in (0, budget // 2):
+            plan = tail_probe.tail_plan(m, n, nb, forced)
+            got = run(A, b, x0, 20, plan=plan)
+            assert all(torch.equal(u, v) for u, v in zip(got, want)), forced
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(3000, 2000), (2000, 2052), (5000, 1003),
+                                 (4000, 1500)])
+def test_bf16_probe_streamed_plan_gives_the_card_plan_bits(dev, dtype, m, n):
+    """K-P4 on plans forced to stream rows (budget 0 and half the card's)
+    gives the card's own plan's bits, in either storage type."""
+    A, x0, _ = _probe_data(dev, m, n, 1 / m ** 0.5)
+    A = A.to(dtype)
+    bf16 = dtype == torch.bfloat16
+    own = bf16_probe._tiles(dev.index, m, n, bf16)[0]
+    nb, budget = bf16_probe._grid(dev.index, bf16, n)[:2]
+    assert max(own.smem_rows) > 0
+    assert bf16_probe.bf16_probe_plan(m, n, bf16, nb, 0).route == "streamed"
+    want = bf16_probe.bf16_probe(A, x0, 5)
+    for forced in (0, budget // 2):
+        plan = bf16_probe.bf16_probe_plan(m, n, bf16, nb, forced)
+        got = bf16_probe.bf16_probe(A, x0, 5, plan=plan)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), forced
+
+
+def test_probe_kernels_refuse_wide_rows(dev):
+    """Past 8192 columns neither K-P3 nor K-P4 has a kernel on the card:
+    every block keeps the n-sized state or its share of g."""
+    A, x, b = _probe_data(dev, 8, 8196, 1.0)
+    with pytest.raises(ValueError, match="8192"):
+        tail_probe.make(6)(A, b, x, 2)
+    with pytest.raises(ValueError, match="8192"):
+        bf16_probe.bf16_probe(A.to(torch.bfloat16), x, 2)
 
 
 def test_probe_kernels_reject_what_they_do_not_take(dev):
@@ -1649,6 +1745,10 @@ DENSE_ROUTES = {
     "rows, two slots": (500, 3000, None, "rows", "resident"),
     "rows, two slots, streamed": (500, 3000, 4 * 3000, "rows", "streamed"),
     "rows, four slots, streamed": (300, 7000, None, "rows", "streamed"),
+    # one row lane of 12 warps: the block's last 4 warps hold no slot
+    "rows, one short row lane": (600, 1500, None, "rows", "resident"),
+    "rows, one short row lane, streamed": (2000, 1500, 0, "rows",
+                                           "streamed"),
     "columns": (100, 9000, None, "columns", "columns"),
 }
 
@@ -1753,7 +1853,8 @@ def test_dense_routes_match_plain(dev, case, hp, accelerate):
 
 
 @pytest.mark.parametrize("case", ["rows, streamed",
-                                  "rows, two slots, streamed"])
+                                  "rows, two slots, streamed",
+                                  "rows, one short row lane, streamed"])
 def test_dense_streamed_remainder_gives_the_resident_bits(dev, case):
     """Where a row lies — registers, shared memory or L2 — never changes
     the order of a sum: plans forced to stream rows (the case's budget and

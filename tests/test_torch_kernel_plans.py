@@ -1,9 +1,10 @@
 """The launch plans of kernels K-B1 (the dense whole solve), K-B4 (the
 fused shrink step), K-B5 (the fused TV gradient map), K-B7 (the fused
-planar gradient map) and K-B8 (the planar whole solve), which the wrappers
-compute on the host and the CUDA kernels obey: every shape lands on one
-route, and every element (K-B4) or row (K-B1, K-B5, K-B7, K-B8) is covered
-exactly once.  The plans are pure functions of
+planar gradient map), K-B8 (the planar whole solve) and the probes K-P3
+(the tail ladder) and K-P4 (the bfloat16-storage probe), which the
+wrappers compute on the host and the CUDA kernels obey: every shape lands
+on one route, and every element (K-B4) or row (K-B1, K-B5, K-B7, K-B8,
+K-P3, K-P4) is covered exactly once.  The plans are pure functions of
 the shape and the card's SM count, so they are held here, on the CPU, at
 the H100's 132 SMs and at others."""
 
@@ -11,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from fasta_tpu_torch.kernels import (microsolver, microsolver_planar,
-                                     planar_fused, prox_fused, tv_fused)
+from fasta_tpu_torch.kernels import (bf16_probe, microsolver,
+                                     microsolver_planar, planar_fused,
+                                     prox_fused, tail_probe, tv_fused)
 from fasta_tpu_torch.kernels.microsolver import dense_plan
 from fasta_tpu_torch.kernels.planar_fused import gradmap_plan
 from fasta_tpu_torch.kernels.microsolver_planar import tile_plan
@@ -577,3 +579,128 @@ def test_gradmap_plan_on_the_h100_main_shapes():
 def test_gradmap_plan_refuses_empty_shapes(m, n, slots):
     with pytest.raises(ValueError, match="gradmap_plan"):
         gradmap_plan(m, n, False, slots)
+
+
+# --------------------------------------------------------------------------
+# K-P3's and K-P4's plans: K-B1's dense plan at each probe's own budget
+# --------------------------------------------------------------------------
+
+def _held_once(plan, m, budget, row_bytes):
+    """Every row in exactly one band, each band's rows in registers, then
+    shared memory within the budget, then streamed; returns the streamed
+    count."""
+    placed = np.zeros(m, np.int64)
+    streamed = 0
+    for (r0, r1), g, s in zip(plan.bands, plan.reg_rows, plan.smem_rows):
+        assert 0 <= g and 0 <= s and g + s <= r1 - r0
+        assert s * row_bytes <= budget
+        if r1 - r0 > g + s:
+            assert (s + 1) * row_bytes > budget
+        placed[r0:r1] += 1
+        streamed += r1 - r0 - g - s
+    assert np.all(placed == 1)
+    assert plan.streamed_rows == streamed
+    assert plan.route == ("streamed" if streamed else "resident")
+    return streamed
+
+
+@pytest.mark.parametrize("m,n4,nblocks,budget", [
+    (1000, 2000, SMS, None), (200, 300, SMS, None), (16, 16, SMS, None),
+    (3000, 2000, SMS, None), (3000, 2000, SMS, 0), (600, 2052, SMS, None),
+    (600, 2052, SMS, 0), (1000, 8192, SMS, None), (4099, 256, 7, 10000)])
+def test_tail_plan_places_every_row_once(m, n4, nblocks, budget):
+    """The ladder's plan is K-B1's dense plan at the probe's budget: the
+    same bands, every row placed once, 8R rows a band in registers at one
+    slot a thread."""
+    budget = tail_probe.tail_budget(n4) if budget is None else budget
+    plan = tail_probe.tail_plan(m, n4, nblocks, budget)
+    assert plan == dense_plan(m, n4, nblocks, budget)
+    _, R, S = microsolver.dense_lanes(n4)
+    for (r0, r1), g in zip(plan.bands, plan.reg_rows):
+        assert g == (min(r1 - r0, 8 * R) if S == 1 else 0)
+    _held_once(plan, m, budget, 4 * n4)
+
+
+def test_tail_budget_counts_the_probe_state():
+    """The ladder's state is K-B1's less x_acc: x, x₁, g twice and the
+    R − 1 other row lanes' shares, n4 floats each — 4 n4 bytes more room
+    for rows than K-B1 has; none past STATE_MAX_N."""
+    tb = tail_probe.tail_budget
+    assert tb(16, 100000, 1000) == 100000 - 1000 - 4 * 16 * (3 + 16)
+    assert tb(300, 100000, 1000) == 100000 - 1000 - 4 * 300 * (3 + 5)
+    assert tb(2000, 100000, 1000) == 100000 - 1000 - 4 * 2000 * 4
+    assert tb(2000, 100000, 0) == microsolver.dense_budget(2000, 100000, 0) \
+        + 4 * 2000
+    assert tb(8192, 100000, 1000) == 0
+    assert tb(2000) == (microsolver.H100_SMEM_OPTIN
+                        - tail_probe.H100_STATIC_SMEM - 4 * 2000 * 4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,n,nblocks,budget", [
+    (1000, 2000, SMS, None), (37, 1003, SMS, None), (64, 8, SMS, None),
+    (4753, 2000, SMS, None), (5000, 2000, SMS, 0), (3000, 2000, SMS, 40000),
+    (300, 8192, SMS, None), (1, 1, SMS, None), (4099, 260, 7, 10000)])
+def test_bf16_probe_plan_places_every_row_once(m, n, nblocks, budget, bf16):
+    """K-P4's plan is K-B1's dense plan at the width of a row in 16-byte
+    slots (``probe_width``: a bfloat16 row takes half the slots of a
+    float32 one) and the probe's budget: every row placed once, a row's
+    bytes on the chip its slots' 16 each."""
+    w = bf16_probe.probe_width(n, bf16)
+    assert w == 4 * -(-n // (8 if bf16 else 4))
+    budget = bf16_probe.bf16_probe_budget(n, bf16) if budget is None \
+        else budget
+    plan = bf16_probe.bf16_probe_plan(m, n, bf16, nblocks, budget)
+    assert plan == dense_plan(m, w, nblocks, budget)
+    _held_once(plan, m, budget, 4 * w)
+
+
+def test_bf16_probe_budget_bf16_against_float32():
+    """Shares of g are float32 either way (one a padded column); a
+    bfloat16 row takes half a float32 row's threads and bytes, so at
+    n = 2000 a block keeps twice the register rows (two row lanes) and
+    about twice the shared-memory rows."""
+    bb = bf16_probe.bf16_probe_budget
+    # n = 2000: float32 one row lane (no shares), bfloat16 two
+    assert bb(2000, False, 100000, 1000) == 100000 - 1000
+    assert bb(2000, True, 100000, 1000) == 100000 - 1000 - 4 * 2000
+    # n = 1003 pads to 1004 (float32) or 1008 (bfloat16) columns
+    assert bb(1003, False, 100000, 1000) == 100000 - 1000 - 4 * 1004 * 1
+    assert bb(1003, True, 100000, 1000) == 100000 - 1000 - 4 * 1008 * 3
+    f32 = bf16_probe.bf16_probe_plan(9000, 2000, False, SMS, bb(2000, False))
+    b16 = bf16_probe.bf16_probe_plan(9000, 2000, True, SMS, bb(2000, True))
+    assert max(f32.reg_rows) == 8 and max(b16.reg_rows) == 16
+    cap32 = bb(2000, False) // (4 * 2000)
+    cap16 = bb(2000, True) // (4 * 1000)
+    assert 1.9 < cap16 / cap32 < 2.0
+
+
+def test_bf16_probe_second_shape_on_the_h100():
+    """At n = 2000 on the H100 the smallest m whose float32 plan streams a
+    remainder keeps every row on the chip in bfloat16: 36 rows a block in
+    float32 (8 in registers, 28 in shared memory), 71 in bfloat16 (16 and
+    55), so the first streamed float32 shape is 36·132 + 1 = 4753 rows."""
+    def plan(m, bf16):
+        return bf16_probe.bf16_probe_plan(
+            m, 2000, bf16, SMS, bf16_probe.bf16_probe_budget(2000, bf16))
+    assert plan(4752, False).route == "resident"
+    assert plan(4753, False).route == "streamed"
+    assert plan(4753, True).route == "resident"
+    assert plan(71 * SMS, True).route == "resident"
+    assert plan(71 * SMS + 1, True).route == "streamed"
+
+
+@pytest.mark.parametrize("what,args", [
+    ("tail_plan", (100, 8196, SMS, 0)), ("tail_plan", (0, 16, SMS, 0)),
+    ("tail_plan", (16, 18, SMS, 0)), ("tail_budget", (8196,)),
+    ("tail_budget", (6,)), ("bf16_probe_plan", (100, 8193, True, SMS, 0)),
+    ("bf16_probe_plan", (100, 8193, False, SMS, 0)),
+    ("bf16_probe_plan", (0, 100, False, SMS, 0)),
+    ("bf16_probe_plan", (100, 0, True, SMS, 0)),
+    ("bf16_probe_budget", (9000, True))])
+def test_probe_plans_refuse_what_the_kernels_do_not_take(what, args):
+    """Past 8192 columns neither probe has a plan (every block keeps the
+    n-sized state or its share of g), nor for empty or unpadded shapes."""
+    fn = getattr(tail_probe if what.startswith("tail") else bf16_probe, what)
+    with pytest.raises(ValueError):
+        fn(*args)

@@ -1,5 +1,6 @@
 """The probes K-P1, K-P2 and K-P3: the port's plain versions against the
-TPU probes run on the CPU as the probes themselves run there.
+TPU probes run on the CPU as the probes themselves run there; and what
+the K-P3 and K-P4 kernels refuse, before anything reaches the card.
 
 * K-P3 (``benchmarks/micro_tail_probe.py``) through ``make(...,
   interpret=True)`` at its ``--check`` shape (M, N, K = 128, 256, 3).  Its
@@ -27,7 +28,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from fasta_tpu_torch.kernels import matvec_probe, tail_probe
+from fasta_tpu_torch.kernels import bf16_probe, matvec_probe, tail_probe
 
 torch.set_num_threads(1)
 
@@ -224,6 +225,42 @@ def test_tail_wrapper_checks():
         tail_probe.make(6, col=True, thread=True)
     with pytest.raises(ValueError, match="one flag"):
         tail_probe.make(5, condbt=True)
+
+
+def _tail_call(m, n, dtype=torch.float32, plan=None):
+    A, b, x0 = torch.zeros((m, n), dtype=dtype), torch.zeros(m, dtype=dtype), \
+        torch.zeros(n, dtype=dtype)
+    return lambda: tail_probe._launch(6, 0, A, b, x0, 2, plan)
+
+
+def _bf16_call(m, n, dtype, plan=None):
+    A, x0 = torch.zeros((m, n), dtype=dtype), torch.zeros(n)
+    return lambda: bf16_probe._launch(A, x0, 2, plan)
+
+
+@pytest.mark.parametrize("what,call,match", [
+    ("tail past 8192 columns", _tail_call(4, 8196), "8192"),
+    ("tail n % 4", _tail_call(4, 130), "n % 4"),
+    ("tail float64", _tail_call(4, 16, torch.float64), "float32"),
+    ("tail another shape's plan",
+     _tail_call(4, 16, plan=tail_probe.tail_plan(8, 16, 132, 0)),
+     "plan is for"),
+    ("bf16 probe past 8192 columns, float32",
+     _bf16_call(4, 8193, torch.float32), "8192"),
+    ("bf16 probe past 8192 columns, bfloat16",
+     _bf16_call(4, 8200, torch.bfloat16), "8192"),
+    ("bf16 probe float16", _bf16_call(4, 8, torch.float16), "bfloat16"),
+    ("bf16 probe the float32 plan for bfloat16 rows",
+     _bf16_call(4, 2000, torch.bfloat16,
+                bf16_probe.bf16_probe_plan(4, 2000, False, 132, 0)),
+     "plan is for")])
+def test_probe_kernel_launches_refuse_before_the_card(what, call, match):
+    """What the K-P3 and K-P4 kernels do not take — more than 8192
+    columns (every block keeps the n-sized state or its share of g),
+    another storage type, a plan for another shape or storage — raises
+    before anything reaches the card."""
+    with pytest.raises(ValueError, match=match):
+        call()
 
 
 # --------------------------------------------------------------------------
