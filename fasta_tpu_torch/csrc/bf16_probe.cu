@@ -109,8 +109,8 @@ __global__ void __launch_bounds__(kThreads, 1) bf16_probe_kernel(Args a) {
         }
       }
     }
-    probe_rows<E, S, true>(A, n, tile, ln, steps, sA, xs, ra, aux, rowred, lrow, share,
-                           [](int, float d) { return d; });
+    band_pass<E, S, true>(A, n, tile, ln, steps, sA, xs, ra, aux, rowred, lrow, share,
+                          [](int, float d) { return d; });
     grid_barrier(a.bar, nb, gen);
     reduce_chunks(a.gpart, w, red, [&](int, int j, float g) {
       if (j < n) {

@@ -257,13 +257,14 @@ __device__ __forceinline__ void copy_g(const float* gvec, float* dst, int nq) {
 }
 
 // ---------------------------------------------------------------------------
-// The probes' pass (K-P3, K-P4): K-B1's adaptive pass (rows_pass in
-// microsolver.cu) over rows stored as E — float32, or bfloat16 upcast in
-// registers — with each row's weight given by the caller.  A slot is 16
-// bytes of a row, kVec = 4 float32 or 8 bfloat16 values, kept raw
-// wherever the row lies (registers, shared memory or L2); lanes_of,
-// lane_of and the plan take the width 4·nq of a row of nq slots, which
-// lays out the same threads and shared-memory bytes a row.
+// The pass over a block's band (band_pass), shared by K-B1's passes
+// (rows_pass in microsolver.cu), K-P3 and K-P4, over rows stored as E —
+// float32, or bfloat16 upcast in registers — with each row's weight given
+// by the caller.  A slot is 16 bytes of a row, kVec = 4 float32 or 8
+// bfloat16 values, kept raw wherever the row lies (registers, shared
+// memory or L2); lanes_of, lane_of and the plan take the width 4·nq of a
+// row of nq slots, which lays out the same threads and shared-memory
+// bytes a row.
 // ---------------------------------------------------------------------------
 
 template <typename E>
@@ -343,21 +344,25 @@ __device__ __forceinline__ void load_reg_rows(const E* __restrict__ A, int n, co
 }
 
 // One pass over the block's band in `steps` steps at the thread's slots
-// xs of x: each row's dot d, summed as K-B1's rows_pass sums it; then the
-// step's finishing threads (one a row, l the row's place in the band)
-// take the row's weight w = row(l, d); with ADJ every thread adds the
-// rows' w·a at its slots from the values it holds, and the block's share
-// of Aᵀw goes to `share` (nq·kVec floats), the row lanes meeting in aux in
-// lane order.  sA holds the band's rows kept in shared memory, ra the
-// thread's register rows.
-template <typename E, int S, bool ADJ, typename RowFn>
-__device__ __forceinline__ void probe_rows(const E* __restrict__ A, int n, const Tile& t,
-                                           const Lane& L, int steps,
-                                           const typename Stored<E>::Raw* sA,
-                                           const float (&xs)[S][Stored<E>::kVec],
-                                           const typename Stored<E>::Raw (&ra)[S == 1 ? 8 : 1][S],
-                                           float* aux, float (*rowred)[kWarps], float* lrow,
-                                           float* share, RowFn&& row) {
+// xs of x.  A step takes TB = 8 / S rows a row lane: each thread loads
+// their slots once (from registers, shared memory or L2) and, with DOT,
+// forms its share of each row dot; one transposed shuffle sum takes the
+// step's TB dots over the warp, the warps' sums meet in rowred, and the
+// step's finishing threads (one a row, l the row's place in the band) add
+// them in warp order and take the row's weight w = row(l, d) (without
+// DOT, row(l, 0), the caller forming the row's value itself).  With ADJ
+// every thread then adds the rows' w·a at its slots from the values it
+// holds, and the block's share of Aᵀw goes to `share` (nq·kVec floats),
+// the row lanes meeting in aux in lane order.  sA holds the band's rows
+// kept in shared memory, ra the thread's register rows.
+template <typename E, int S, bool ADJ, bool DOT = true, typename RowFn>
+__device__ __forceinline__ void band_pass(const E* __restrict__ A, int n, const Tile& t,
+                                          const Lane& L, int steps,
+                                          const typename Stored<E>::Raw* sA,
+                                          const float (&xs)[S][Stored<E>::kVec],
+                                          const typename Stored<E>::Raw (&ra)[S == 1 ? 8 : 1][S],
+                                          float* aux, float (*rowred)[kWarps], float* lrow,
+                                          float* share, RowFn&& row) {
   using T = Stored<E>;
   using Raw = typename T::Raw;
   constexpr int V = T::kVec, TB = 8 / S;
@@ -395,33 +400,42 @@ __device__ __forceinline__ void probe_rows(const E* __restrict__ A, int n, const
         }
       }
     }
-    float d[TB];
+    if (DOT) {
+      // the warp's share of each row dot, the TB of them summed over the
+      // warp at once: row u lands in lanes u·32/TB …
+      float d[TB];
 #pragma unroll
-    for (int u = 0; u < TB; ++u) {
-      d[u] = 0.f;
+      for (int u = 0; u < TB; ++u) {
+        d[u] = 0.f;
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        float a[V];
-        T::unpack(v[u][s], a);
+        for (int s = 0; s < S; ++s) {
+          float a[V];
+          T::unpack(v[u][s], a);
 #pragma unroll
-        for (int c = 0; c < V; ++c) d[u] = fmaf(a[c], xs[s][c], d[u]);
+          for (int c = 0; c < V; ++c) d[u] = fmaf(a[c], xs[s][c], d[u]);
+        }
       }
+      const float mine = transpose_sum<TB>(d);
+      if ((lane & (32 / TB - 1)) == 0) rowred[lane / (32 / TB)][warp] = mine;
     }
-    const float mine = transpose_sum<TB>(d);
-    if ((lane & (32 / TB - 1)) == 0) rowred[lane / (32 / TB)][warp] = mine;
     __syncthreads();  // the warps' row sums are in
+    // thread k < R·TB takes row k of the step (the fu-th row of row lane
+    // fr): its total in warp order and its weight; the weights reach the
+    // row lanes through shared memory
     if (tid < per) {
       const int l = b * per + tid;
       float w = 0.f;
       if (l < t.rows) {
-        const float* rr = rowred[L.fu] + L.fr * L.wpr;
-        float dk[kWarps];
-#pragma unroll
-        for (int k = 0; k < kWarps; ++k) dk[k] = k < L.wpr ? rr[k] : 0.f;
         float dv = 0.f;
+        if (DOT) {
+          const float* rr = rowred[L.fu] + L.fr * L.wpr;
+          float dk[kWarps];
 #pragma unroll
-        for (int k = 0; k < kWarps; ++k)
-          if (k < L.wpr) dv += dk[k];
+          for (int k = 0; k < kWarps; ++k) dk[k] = k < L.wpr ? rr[k] : 0.f;
+#pragma unroll
+          for (int k = 0; k < kWarps; ++k)
+            if (k < L.wpr) dv += dk[k];
+        }
         w = row(l, dv);
       }
       lrow[tid] = w;
@@ -444,6 +458,8 @@ __device__ __forceinline__ void probe_rows(const E* __restrict__ A, int n, const
   constexpr int H = V / 4;  // float4s a slot of g
   float4* out = reinterpret_cast<float4*>(share);
   if (S == 1 && L.R > 1) {  // R > 1 only at one slot a thread
+    // the row lanes' shares: lanes 1…R−1 park theirs in aux, lane 0 adds
+    // them in lane order (four loads in flight) and writes the block's
     float4* aux4 = reinterpret_cast<float4*>(aux);
     const int q = L.gl;
     if (L.active && L.rl > 0 && q < nq)

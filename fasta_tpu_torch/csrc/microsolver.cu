@@ -226,152 +226,45 @@ enum Pass {
   kExtrap     // d_n = d₁ + β(d₁ − d_acc), d_acc = d₁, ℓ′, f, Aᵀℓ′
 };
 
-// Copies `count` rows of A from row i0 into dst (n4 floats a row, zero
-// past n) and waits for the block.
-__device__ void stage_rows(const Args& a, int i0, int count, float* dst) {
-  const int nq = a.n4 / 4;
-  for (int e = threadIdx.x; e < count * nq; e += kThreads) {
-    const int l = e / nq, q = e - l * nq;
-    reinterpret_cast<float4*>(dst)[e] = load_a(a.A, a.n, i0 + l, q);
-  }
-  __syncthreads();
-}
-
 // One pass over the block's band (see Pass) in `steps` steps at the
-// thread's slots xs of x (kStart) or x₁ (unused by kExtrap), bb the
-// band's b, sA the band's rows in shared memory, ra the thread's register
-// rows (S = 1).  Returns the block's f sum in Acc (valid in thread 0);
-// with the adjoint, writes the block's (n4,) share of Aᵀℓ′ to gpart, the
-// row lanes' shares meeting in aux.
+// thread's slots xs of x (kStart) or x₁ (unused by kExtrap):
+// dense_rows.cuh's band_pass with the loss at each row, bb the band's b,
+// sA the band's rows in shared memory, ra the thread's register rows
+// (S = 1).  Returns the block's f sum in Acc (valid in thread 0); with
+// the adjoint, writes the block's (n4,) share of Aᵀℓ′ to gpart, the row
+// lanes' shares meeting in aux.
 template <typename Acc, int S, int PASS>
 __device__ __forceinline__ Acc rows_pass(const Args& a, const Tile& t, const Lane& L, int steps,
-                                         const float* sA, const float* bb,
+                                         const float4* sA, const float* bb,
                                          const float4 (&xs)[S], float beta,
                                          const float4 (&ra)[S == 1 ? 8 : 1][S], float* aux,
                                          Acc* acc_scratch, float (*rowred)[kWarps], float* lrow) {
-  constexpr int TB = 8 / S;  // rows a row lane takes a step
-  constexpr bool kAdj = PASS != kFista;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nq = L.nq;
-  const float4* sA4 = reinterpret_cast<const float4*>(sA);
-  float4 gs[S];
+  float xv[S][4];
 #pragma unroll
-  for (int s = 0; s < S; ++s) gs[s] = zero4();
+  for (int s = 0; s < S; ++s) {
+    xv[s][0] = xs[s].x;
+    xv[s][1] = xs[s].y;
+    xv[s][2] = xs[s].z;
+    xv[s][3] = xs[s].w;
+  }
   Acc fsum = Acc(0);
-  const int per = L.R * TB;  // rows a step
-  for (int b = 0; b < steps; ++b) {  // uniform per block
-    float4 v[TB][S];
-    if (S == 1 && b == 0 && t.nreg == min(t.rows, per)) {
-      // the first step's rows, all in registers (zero past the band)
-#pragma unroll
-      for (int u = 0; u < TB; ++u) v[u][0] = ra[S == 1 ? u : 0][0];
-    } else {
-#pragma unroll
-      for (int u = 0; u < TB; ++u) {
-        const int l = (b * TB + u) * L.R + L.rl;
-        const bool on = L.active && l < t.rows;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const int q = L.gl + L.tg * s;
-          if (on && q < nq) {
-            if (S == 1 && l < t.nreg)
-              v[u][s] = ra[S == 1 ? u : 0][s];
-            else if (l < t.nreg + t.nsm)
-              v[u][s] = sA4[(size_t)(l - t.nreg) * nq + q];
-            else
-              v[u][s] = load_a(a.A, a.n, t.r0 + l, q);
-          } else {
-            v[u][s] = zero4();
-          }
-        }
-      }
-    }
-    if (PASS != kExtrap) {
-      // the warp's share of each row dot, the TB of them summed over the
-      // warp at once: row u lands in lanes u·32/TB …
-      float d[TB];
-#pragma unroll
-      for (int u = 0; u < TB; ++u) {
-        d[u] = 0.f;
-#pragma unroll
-        for (int s = 0; s < S; ++s) d[u] = dot4(v[u][s], xs[s], d[u]);
-      }
-      const float mine = transpose_sum<TB>(d);
-      if ((lane & (32 / TB - 1)) == 0) rowred[lane / (32 / TB)][warp] = mine;
-    }
-    __syncthreads();  // the warps' row sums are in
-    // thread k < R·TB takes row k of the step (the fu-th row of row lane
-    // fr): its total in warp order, the loss, f's term and the stores; the
-    // weights reach the row lanes through shared memory
-    if (tid < per) {
-      const int l = b * per + tid, i = t.r0 + l;
-      float w = 0.f;
-      if (l < t.rows) {
-        float dv = 0.f;
+  band_pass<float, S, PASS != kFista, PASS != kExtrap>(
+      a.A, a.n, t, L, steps, sA, xv, ra, aux, rowred, lrow, a.gpart + (size_t)blockIdx.x * a.n4,
+      [&](int l, float dv) {
+        const int i = t.r0 + l;
         if (PASS == kExtrap) {
           const float d1 = a.dbuf[i], da = a.dacc[i];
           dv = __fadd_rn(d1, __fmul_rn(beta, __fsub_rn(d1, da)));
           a.dacc[i] = d1;
-        } else {
-          const float* rr = rowred[L.fu] + L.fr * L.wpr;
-          float d[kWarps];
-#pragma unroll
-          for (int k = 0; k < kWarps; ++k) d[k] = k < L.wpr ? rr[k] : 0.f;
-#pragma unroll
-          for (int k = 0; k < kWarps; ++k)
-            if (k < L.wpr) dv += d[k];
         }
-        float e;
+        float w, e;
         loss_eval(a.loss, dv, bb[l], w, e);
         fsum += loss_term<Acc>(a.loss, e);
         if (PASS == kFista) a.dbuf[i] = dv;
         if (PASS == kStart && a.dacc != nullptr) a.dacc[i] = dv;
-      }
-      lrow[tid] = w;
-    }
-    __syncthreads();  // the step's weights are in
-    if (kAdj && L.active)
-#pragma unroll
-      for (int u = 0; u < TB; ++u) {
-        const float w = lrow[u * L.R + L.rl];
-#pragma unroll
-        for (int s = 0; s < S; ++s) axpy4(w, v[u][s], gs[s]);
-      }
-  }
-  fsum = block_total(fsum, acc_scratch);
-  if (kAdj) {
-    float4* out = reinterpret_cast<float4*>(a.gpart + (size_t)blockIdx.x * a.n4);
-    if (S == 1 && L.R > 1) {  // R > 1 only at one slot a thread
-      // the row lanes' shares: lanes 1…R−1 park theirs in aux, lane 0
-      // adds them in lane order (four loads in flight) and writes the
-      // block's share
-      float4* aux4 = reinterpret_cast<float4*>(aux);
-      const int q = L.gl;
-      if (L.active && L.rl > 0 && q < nq) aux4[(size_t)(L.rl - 1) * nq + q] = gs[0];
-      __syncthreads();
-      if (L.rl == 0 && q < nq) {
-        float4 g = gs[0];
-#pragma unroll
-        for (int k0 = 1; k0 < kWarps; k0 += 4) {
-          float4 o[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            o[k] = k0 + k < L.R ? aux4[(size_t)(k0 + k - 1) * nq + q] : zero4();
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (k0 + k < L.R) g = add4(g, o[k]);
-        }
-        out[q] = g;
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const int q = L.gl + L.tg * s;
-        if (L.active && q < nq) out[q] = gs[s];
-      }
-    }
-  }
-  return fsum;
+        return w;
+      });
+  return block_total(fsum, acc_scratch);
 }
 
 // After a grid barrier: g = Σ over blocks of their shares, each column by
@@ -459,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1) dense_rows_kernel(Args a) {
   auto G = [&](int k) { return smem + (2 + k) * n4; };
   float* xacc = smem + 4 * n4;
   float* aux = smem + 5 * n4;
-  float* sA = aux + (size_t)(L.R - 1) * n4;
+  float4* sA = reinterpret_cast<float4*>(aux + (size_t)(L.R - 1) * n4);
   const Tile tile = tile_of(a.tiles, nb, blk);
   const int steps = (tile.rows + L.R * TB - 1) / (L.R * TB);
   double* P0 = a.part;  // each point's start
@@ -470,18 +363,8 @@ __global__ void __launch_bounds__(kThreads, 1) dense_rows_kernel(Args a) {
   // the band on the chip for the whole launch: at S = 1 each thread's
   // first step of rows in registers, the next rows in shared memory
   float4 ra[S == 1 ? 8 : 1][S];
-#pragma unroll
-  for (int u = 0; u < (S == 1 ? TB : 1); ++u) {
-    const int l = u * L.R + L.rl;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int q = L.gl + L.tg * s;
-      ra[u][s] = (S == 1 && L.active && l < tile.nreg && q < nq)
-                     ? load_a(a.A, n, tile.r0 + l, q)
-                     : zero4();
-    }
-  }
-  stage_rows(a, tile.r0 + tile.nreg, tile.nsm, sA);
+  load_reg_rows<float, S>(a.A, n, tile, L, ra);
+  stage_slots<float>(a.A, n, nq, tile.r0 + tile.nreg, tile.nsm, sA);
   if (tid == 0) {
     carry_ok = 0;
     tprev = 0.f;

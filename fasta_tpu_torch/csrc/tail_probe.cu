@@ -282,8 +282,8 @@ __global__ void __launch_bounds__(kThreads, 1) tail_kernel(Args a) {
   // (thread 0) and its share of Aᵀr (X1: r to rbuf instead).
   auto pass = [&](const float (&xs)[S][4]) -> float {
     float fsum = 0.f;
-    probe_rows<float, S, !COL>(a.A, n, tile, ln, steps, sA, xs, ra, aux, rowred, lrow, share,
-                               [&](int l, float dv) {
+    band_pass<float, S, !COL>(a.A, n, tile, ln, steps, sA, xs, ra, aux, rowred, lrow, share,
+                              [&](int l, float dv) {
                                  const float r = __fsub_rn(dv, bb[l]);
                                  fsum = fmaf(r, r, fsum);
                                  if (COL) a.rbuf[tile.r0 + l] = r;

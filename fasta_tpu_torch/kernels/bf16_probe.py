@@ -114,23 +114,24 @@ def _check(A, x0, K):
         raise ValueError(f"bf16_probe: no kernel for device {A.device}")
 
 
-def bf16_probe(A: torch.Tensor, x0: torch.Tensor, K: int,
-               plan: DensePlan | None = None):
+def bf16_probe(A: torch.Tensor, x0: torch.Tensor, K: int):
     """(x, g) after K chained pairs.  CUDA tensors launch kernel K-P4 on
-    ``plan`` (``bf16_probe_plan``'s, by default at the card's budget) and
-    must be contiguous and 16-byte aligned, A float32 or bfloat16 with at
-    most 8192 columns and x0 float32; anything else raises.  Nothing is
+    ``bf16_probe_plan``'s plan at the card's budget and must be
+    contiguous and 16-byte aligned, A float32 or bfloat16 with at most
+    8192 columns and x0 float32; anything else raises.  Nothing is
     allocated but x and g.  CPU tensors run the plain version."""
     _check(A, x0, K)
     if A.device.type == "cpu":
         return bf16_probe_reference(A, x0, K)
-    out = _launch(A, x0, int(K), plan)
+    out = _launch(A, x0, int(K))
     global LAUNCHES
     LAUNCHES += 1
     return out
 
 
-def _launch(A, x0, K, plan):
+def _launch(A, x0, K, plan=None):
+    """One launch on ``plan`` (``bf16_probe_plan``'s at the card's budget
+    when None)."""
     for name, t, types in (("A", A, DTYPES), ("x0", x0, DTYPES[:1])):
         if t.dtype not in types or not t.is_contiguous():
             kinds = " or ".join(str(d).removeprefix("torch.") for d in types)

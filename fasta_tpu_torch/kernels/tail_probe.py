@@ -208,11 +208,11 @@ def tail_plan(m: int, n4: int, nblocks: int, budget: int) -> DensePlan:
 def make(level: int, col: bool = False, thread: bool = False,
          vecscal: bool = False, fusedred: bool = False,
          condbt: bool = False):
-    """``run(A, b, x0, K, plan=None) -> TailOutput`` for rung ``level``
-    (0..6) or, with one flag, that X variant of L6.  CUDA tensors launch
-    kernel K-P3 (contiguous, 16-byte aligned float32, n % 4 == 0 and
-    n ≤ 8192; anything else raises) on ``plan`` (``tail_plan``'s, by
-    default at the card's budget); CPU tensors run the plain version."""
+    """``run(A, b, x0, K) -> TailOutput`` for rung ``level`` (0..6) or,
+    with one flag, that X variant of L6.  CUDA tensors launch kernel K-P3
+    (contiguous, 16-byte aligned float32, n % 4 == 0 and n ≤ 8192;
+    anything else raises) on ``tail_plan``'s plan at the card's budget;
+    CPU tensors run the plain version."""
     flags = dict(zip(VARIANTS, (col, thread, vecscal, fusedred, condbt)))
     on = [i + 1 for i, f in enumerate(flags.values()) if f]
     if not 0 <= int(level) <= 6:
@@ -222,11 +222,11 @@ def make(level: int, col: bool = False, thread: bool = False,
                          "level 6")
     variant = on[0] if on else 0
 
-    def run(A, b, x0, K: int, plan: DensePlan | None = None) -> TailOutput:
+    def run(A, b, x0, K: int) -> TailOutput:
         _check(A, b, x0, K)
         if A.device.type == "cpu":
             return tail_reference(A, b, x0, int(K), int(level))
-        out = _launch(int(level), variant, A, b, x0, int(K), plan)
+        out = _launch(int(level), variant, A, b, x0, int(K))
         global LAUNCHES
         LAUNCHES += 1
         return out
@@ -234,9 +234,10 @@ def make(level: int, col: bool = False, thread: bool = False,
     return run
 
 
-def _launch(level, variant, A, b, x0, K, plan) -> TailOutput:
-    """One launch; allocates nothing but the outputs (the partials, g and
-    the barrier's counter live in the stream's scratch)."""
+def _launch(level, variant, A, b, x0, K, plan=None) -> TailOutput:
+    """One launch on ``plan`` (``tail_plan``'s at the card's budget when
+    None); allocates nothing but the outputs (the partials, g and the
+    barrier's counter live in the stream's scratch)."""
     for name, t in (("A", A), ("b", b), ("x0", x0)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"the tail probe: {name} must be a contiguous "

@@ -1474,12 +1474,11 @@ def test_tail_probe_streamed_plan_gives_the_card_plan_bits(dev, m, n):
     nb, budget = tail_probe._grid(dev.index, n)[:2]
     assert own.route == "resident" and max(own.smem_rows) > 0
     assert tail_probe.tail_plan(m, n, nb, 0).route == "streamed"
-    for kw in (dict(), dict(col=True)):
-        run = tail_probe.make(6, **kw)
-        want = run(A, b, x0, 20)
+    for variant, kw in ((0, dict()), (1, dict(col=True))):
+        want = tail_probe.make(6, **kw)(A, b, x0, 20)
         for forced in (0, budget // 2):
             plan = tail_probe.tail_plan(m, n, nb, forced)
-            got = run(A, b, x0, 20, plan=plan)
+            got = tail_probe._launch(6, variant, A, b, x0, 20, plan)
             assert all(torch.equal(u, v) for u, v in zip(got, want)), forced
 
 
@@ -1499,7 +1498,7 @@ def test_bf16_probe_streamed_plan_gives_the_card_plan_bits(dev, dtype, m, n):
     want = bf16_probe.bf16_probe(A, x0, 5)
     for forced in (0, budget // 2):
         plan = bf16_probe.bf16_probe_plan(m, n, bf16, nb, forced)
-        got = bf16_probe.bf16_probe(A, x0, 5, plan=plan)
+        got = bf16_probe._launch(A, x0, 5, plan)
         assert all(torch.equal(u, v) for u, v in zip(got, want)), forced
 
 

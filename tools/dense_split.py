@@ -29,7 +29,9 @@ Then the kernel path of NNLS, logistic and SVM at their problems' sizes
 1e-6 (hp off, ms a launch and iterations); K-B1b over 32 instances
 (b·(1 + 0.02i), τ₀ 0.05, 0.075, 0.1 by i mod 3, tol 1e-6, hp, restart_dd:
 ms a launch); K-B1p over μ = 0.4, 0.2, 0.1, 0.05, warm (tol 1e-5,
-``stop_rule="residual"``: ms a launch).
+``stop_rule="residual"``: ms a launch).  These three also give
+``traced_ms``, the kernel's own time in a trace of one launch: a launch
+this short also times the host's work around it.
 
 Where the checkout has a dense plan, the streamed sweep prices the
 residency at a fixed shape: 2500×2000 and 6000×1000 (300 iterations
@@ -211,8 +213,8 @@ def _child(root: str, sweep_only: bool = False) -> None:
                                    record_bts=True)
     res = solve()
     out["1000x2000 to tol 1e-6"] = dict(
-        ms=_median_ms(solve, 10), iterations=int(res.iteration_count),
-        status=res.status)
+        ms=_median_ms(solve, 10), traced_ms=_traced_ms(solve, logdir),
+        iterations=int(res.iteration_count), status=res.status)
     bs = torch.stack([b * (1.0 + 0.02 * i) for i in range(BATCH)])
     t0s = torch.tensor([0.05 * (1.0 + (i % 3) / 2.0) for i in range(BATCH)],
                        device="cuda")
@@ -223,7 +225,8 @@ def _child(root: str, sweep_only: bool = False) -> None:
                                          record_bts=True)
     res = batch()
     out[f"K-B1b 1000x2000 x {BATCH}"] = dict(
-        ms=_median_ms(batch), iterations=int(res.iteration_count.sum()))
+        ms=_median_ms(batch), traced_ms=_traced_ms(batch, logdir),
+        iterations=int(res.iteration_count.sum()))
 
     def path_mus():
         return ms.microsolve_lasso_path(A, b, x0, 0.05, MUS, warm=True,
@@ -231,7 +234,8 @@ def _child(root: str, sweep_only: bool = False) -> None:
                                         stop_rule="residual", record_bts=True)
     res = path_mus()
     out["K-B1p 4 mu warm"] = dict(
-        ms=_median_ms(path_mus), iterations=int(res.iteration_count.sum()))
+        ms=_median_ms(path_mus), traced_ms=_traced_ms(path_mus, logdir),
+        iterations=int(res.iteration_count.sum()))
     if hasattr(ms, "dense_plan"):
         out["streamed sweep"] = _sweep(ms, probs)
     print(json.dumps(out), flush=True)
