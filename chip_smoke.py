@@ -137,7 +137,13 @@ non-zero without the final ``ok`` line):
     against its plain version, two runs equal, then the barrier alone (K
     grid barriers of each kind, nothing else) and µs per chained
     operation at K = 2000 beside ``torch.mv``'s card time (a CUDA graph
-    of calls, and its kernels in a ``profiling.trace``);
+    of calls, and its kernels in a ``profiling.trace``); then the
+    ``gradmap_fused`` form's own kernel (``csrc/gradmap_probe.cu``) at
+    1000×2048, 16×16 and the first shape whose plan streams rows at
+    n = 2048: its plan, the checks of K = 3 at each, a call's device
+    operations (a ``profiling.trace`` of K = 3), µs per op at K = 2000
+    beside the bound and the four-call library chain (two GEMVs, a
+    subtraction and a dot in one CUDA graph);
 30. K-P3 (the tail-ablation ladder, L6 K-B1's adaptive trial) at
     1000×2000: every rung L0…L6 and X variant against its plain version at
     K = 3, X2–X5 bit-identical to L6, a call's device operations, then µs
@@ -3164,6 +3170,8 @@ def phase_matvec_probe() -> dict:
         f"{matvec_probe.BARRIERS[0]}")
     per = {}
     for v in matvec_probe.VARIANTS:
+        if v == "gradmap_fused":   # its own kernel, timed by phase_gradmap_probe
+            continue
         ms = cuda_ms(lambda v=v: matvec_probe.run_variant(A, x0, b, v, K), 3,
                      warmup=1) / K
         per[v] = ms
@@ -3196,6 +3204,123 @@ def phase_matvec_probe() -> dict:
                 torch_mv_us={k: t * 1e3 for k, t in lib.items()},
                 torch_mv_traced_kernel_us=traced,
                 floor_16x16_us={k: t * 1e3 for k, t in floor.items()},
+                shape="1000x2048 float32, A/40, per chained op (K = 2000)")
+
+
+def gradmap_probe_plan_line(m: int, n: int) -> str:
+    """The card's plan of K-P1's gradmap kernel for (m, n), printed."""
+    plan = matvec_probe._gradmap_tiles(0, m, n)[0]
+    return (f"plan {plan.route}: {sum(plan.reg_rows)} rows in registers "
+            f"(at most {max(plan.reg_rows)} a block), {sum(plan.smem_rows)} "
+            f"in shared memory (at most {max(plan.smem_rows)}), "
+            f"{plan.streamed_rows} read from L2 once a pass; "
+            f"{plan.resident_share:.4f} of A on the chip")
+
+
+def phase_gradmap_probe() -> dict:
+    """K-P1's ``gradmap_fused`` form on its own kernel (rows on the chip,
+    ``gradmap_probe_plan``): at 1000×2048 (the probe's data), its 16×16
+    corner and the smallest m at which the card's plan streams rows at
+    n = 2048 (A/40, seed 29), the plan printed; the result of K = 3
+    within rel 1e-5 of its largest entry of the plain version's, x within
+    1e-6 and equal to the plain version's (each update rounds as the
+    plain version's does, far below x's spacing), two runs equal; from
+    x₀ = 0, where each update moves x, x after 3 ops within rel 1e-5 of
+    the plain version's and far (rel ≥ 0.1) from x after one, which a
+    kernel that did not chain its ops would return; a call's device operations (one kernel, no
+    memset, a ``profiling.trace`` of 10 calls of K = 3); µs per op at
+    K = 2000 (CUDA events around one launch, median of 3) beside the bound
+    (A once a launch and 4mn operations an op; the former reckoning, one
+    read of A an op, printed) and beside the four-call library chain
+    torch.mv(A, x), sub b, dot, torch.mv(A.mT, r) — two library GEMVs,
+    not one call — in a CUDA graph of 200 chains (``graph_ms``)."""
+    A, x0, b = probe_matrix()
+    n = A.shape[1]
+    nb, budget = matvec_probe._gradmap_grid(0, n)[:2]
+    m_s = (8 + budget // (4 * n)) * nb + 1
+    plan = matvec_probe.gradmap_probe_plan
+    require(plan(m_s - 1, n, nb, budget).route == "resident"
+            and plan(m_s, n, nb, budget).route == "streamed",
+            f"K-P1 gradmap: {m_s}x{n} is not the first streamed shape")
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    shapes = {"1000x2048": (A, x0, b),
+              "16x16": (A[:16, :16].contiguous(), x0[:16].contiguous(),
+                        b[:16].contiguous()),
+              f"{m_s}x{n}": (torch.randn((m_s, n), generator=gen,
+                                         device=DEV) / 40, x0,
+                             torch.randn(m_s, generator=gen, device=DEV))}
+    worst = 0.0
+    for tag, (Am, xm, bm) in shapes.items():
+        x, (f, g) = matvec_probe.run_variant(Am, xm, bm, "gradmap_fused", 3)
+        x2, (f2, g2) = matvec_probe.run_variant(Am, xm, bm, "gradmap_fused", 3)
+        xr, (fr, gr) = matvec_probe.run_variant_reference(
+            Am, xm, bm, "gradmap_fused", 3)
+        torch.cuda.synchronize()
+        err = max(rel_err(f, fr), rel_err(g, gr))
+        err_x, eq_x = rel_err(x, xr), torch.equal(x, xr)
+        same = torch.equal(x, x2) and torch.equal(f, f2) and torch.equal(g, g2)
+        xs = torch.zeros_like(xm)
+        xc = matvec_probe.run_variant(Am, xs, bm, "gradmap_fused", 3)[0]
+        xcr = matvec_probe.run_variant_reference(Am, xs, bm, "gradmap_fused",
+                                                 3)[0]
+        xc1 = matvec_probe.run_variant_reference(Am, xs, bm, "gradmap_fused",
+                                                 1)[0]
+        err_c, apart = rel_err(xc, xcr), rel_err(xc1, xcr)
+        print(f"[29 K-P1 gradmap_fused {tag}] "
+              f"{gradmap_probe_plan_line(*Am.shape)}; last of 3 ops rel "
+              f"{err:.3e} (tol 1e-5); x rel {err_x:.3e} (tol 1e-6), equal "
+              f"{eq_x}; two runs equal {same}; from x0 = 0: x rel "
+              f"{err_c:.3e} (tol 1e-5), after 1 op {apart:.3f} away (>= 0.1)")
+        require(f.shape == () and err <= 1e-5 and err_x <= 1e-6 and eq_x
+                and same and err_c <= 1e-5 and apart >= 0.1,
+                f"K-P1 gradmap_fused {tag} disagrees with its plain version "
+                f"or itself, or does not chain its ops")
+        worst = max(worst, float((f - fr).abs()), float((g - gr).abs().max()))
+    print(f"[29 K-P1 gradmap_fused] grid barriers an op: "
+          f"{matvec_probe.GRID_BARRIERS_PER_OP}")
+    split = call_split("[29 K-P1 gradmap_fused 1000x2048, K = 3]",
+                       lambda: matvec_probe.run_variant(
+                           A, x0, b, "gradmap_fused", 3), 10, traced=True)
+    K = 2000
+    reset_launches()
+    per = {tag: cuda_ms(lambda d=d: matvec_probe.run_variant(
+        *d, "gradmap_fused", K), 3, warmup=1) / K for tag, d in shapes.items()}
+    launches = read_launches()["K-P1"]
+    m = A.shape[0]
+    dv, rv, gv, fv = (torch.empty(m, device=DEV), torch.empty(m, device=DEV),
+                      torch.empty(n, device=DEV), torch.empty((), device=DEV))
+
+    def chain():
+        torch.mv(A, x0, out=dv)
+        torch.sub(dv, b, out=rv)
+        torch.dot(rv, rv, out=fv)
+        torch.mv(A.mT, rv, out=gv)
+    chain_ms = graph_ms(chain)
+    plain = cuda_ms(lambda: matvec_probe.run_variant_reference(
+        A, x0, b, "gradmap_fused", 100), 3, warmup=1) / 100
+    flops = 4.0 * m * n + 3.0 * m + 3.0 * n
+    bd = bound((4.0 * m * n + 4.0 * m + 12.0 * n + 4.0) / K, flops)
+    once = bound(4.0 * m * n + 4.0 * m + 12.0 * n + 4.0, flops)
+    for tag, ms in per.items():
+        print(f"[29 K-P1 gradmap_fused {tag}] {ms * 1e3:.3f} us per op (K = "
+              f"{K}, median of 3)" + (
+                  f"; bound {bd['bound_ms'] * 1e3:.4f} us ({bd['bound_by']}: A "
+                  f"once a launch, 4mn operations an op), "
+                  f"{ms / bd['bound_ms']:.1f}x; the former reckoning (A read "
+                  f"once an op) {once['bound_ms'] * 1e3:.3f} us, "
+                  f"{ms / once['bound_ms']:.2f}x; the four-call library chain "
+                  f"(two library GEMVs, not one call) {chain_ms * 1e3:.3f} us, "
+                  f"{chain_ms / ms:.2f}x the kernel; plain op "
+                  f"{plain * 1e3:.3f} us" if tag == "1000x2048" else ""))
+    print(f"[29 K-P1 gradmap_fused] launches during the timed runs {launches}")
+    require(launches >= 1, "the timed runs launched no gradmap kernel")
+    return dict(max_abs_err=worst, ms=per["1000x2048"], plain_ms=plain, **bd,
+                library_ms=None, launches_timed=launches,
+                chain4_graph_ms=chain_ms,
+                chain4_note="torch.mv(A, x), sub b, dot, torch.mv(A.mT, r) in "
+                            "one CUDA graph: two library GEMVs, not one call",
+                us_per_op={tag: t * 1e3 for tag, t in per.items()},
+                **split_keys(split),
                 shape="1000x2048 float32, A/40, per chained op (K = 2000)")
 
 
@@ -3392,6 +3517,7 @@ def main() -> None:
     bf16 = phase_bf16_main_path()
     p2 = phase_gradmap_check()
     p1 = phase_matvec_probe()
+    p1g = phase_gradmap_probe()
     p3 = phase_tail_probe()
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
                 + serving["launches"][k] + b8w["launches"][k]
@@ -3399,7 +3525,8 @@ def main() -> None:
     del b8w["launches"]
     launches["K-P5"] = p5.pop("launches_timed")
     launches["K-P4"] = p4.pop("launches_timed")
-    for key, p in (("K-P1", p1), ("K-P2", p2), ("K-P3", p3)):
+    for key, p in (("K-P1", p1), ("K-P1 gradmap", p1g), ("K-P2", p2),
+                   ("K-P3", p3)):
         launches[key] = p.pop("launches_timed")
     kernels = [
         dict(name="K-B3 fused_lstsq_gradmap", route="cuda",
@@ -3487,11 +3614,16 @@ def main() -> None:
              source="fasta_tpu_torch/csrc/matvec_probe.cu",
              replaces="benchmarks/matvec_kernels.py:199",
              launches=launches["K-P2"], **p2),
-        dict(name="K-P1 run_variant (launches: phase 29's timed runs; ms: "
-                  "fwd_vpu per op)", route="cuda",
+        dict(name="K-P1 run_variant, fwd and adj forms (launches: phase "
+                  "29's timed runs; ms: fwd_vpu per op)", route="cuda",
              source="fasta_tpu_torch/csrc/matvec_probe.cu",
              replaces="benchmarks/matvec_kernels.py:158",
              launches=launches["K-P1"], **p1),
+        dict(name="K-P1 run_variant, gradmap_fused form (launches: phase "
+                  "29's timed runs; ms: per op at 1000x2048)", route="cuda",
+             source="fasta_tpu_torch/csrc/gradmap_probe.cu",
+             replaces="benchmarks/matvec_kernels.py:158",
+             launches=launches["K-P1 gradmap"], **p1g),
         dict(name="K-P3 tail_probe ladder (launches: phase 30's timed runs; "
                   "ms: L6 per iteration)", route="cuda",
              source="fasta_tpu_torch/csrc/tail_probe.cu",

@@ -85,30 +85,9 @@ __global__ void __launch_bounds__(kThreads, 1) bf16_probe_kernel(Args a) {
 
   for (int k = 0; k < a.K; ++k) {
     // x at the thread's slots: x₀ for the first pair, then the last
-    // pair's x, which other blocks wrote (read past L1)
+    // pair's x, which other blocks wrote
     float xs[S][V];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int q = ln.gl + ln.tg * s, j0 = q * V;
-      const bool on = ln.active && q < nq;
-      if (on && j0 + V <= n) {
-#pragma unroll
-        for (int h = 0; h < V / 4; ++h) {
-          const float4 v = k == 0 ? __ldg(reinterpret_cast<const float4*>(a.x0 + j0) + h)
-                                  : __ldcg(reinterpret_cast<const float4*>(a.x + j0) + h);
-          xs[s][4 * h] = v.x;
-          xs[s][4 * h + 1] = v.y;
-          xs[s][4 * h + 2] = v.z;
-          xs[s][4 * h + 3] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < V; ++c) {
-          const int j = j0 + c;
-          xs[s][c] = !(on && j < n) ? 0.f : k == 0 ? __ldg(a.x0 + j) : __ldcg(a.x + j);
-        }
-      }
-    }
+    load_x_slots<V, S>(a.x0, a.x, k == 0, n, nq, ln, xs);
     band_pass<E, S, true>(A, n, tile, ln, steps, sA, xs, ra, aux, rowred, lrow, share,
                           [](int, float d) { return d; });
     grid_barrier(a.bar, nb, gen);
@@ -162,26 +141,7 @@ extern "C" int fasta_bf16_probe_grid(int bf16, int n, int* nblocks, int* budget,
   const int nq = slots_for(bf16, n);
   if (nq < 1) return cudaErrorInvalidValue;
   const void* fn = pick(bf16, nq);
-  int dev = 0, sms = 0, optin = 0, per_sm = 0;
-  cudaFuncAttributes attr{};
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  const int fixed = (int)attr.sharedSizeBytes;
-  const int cap = optin > fixed ? optin - fixed : 0;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, cap);
-  if (err != cudaSuccess) return err;
-  const long long left = (long long)cap - (long long)state_bytes(bf16, nq);
-  *nblocks = per_sm < 1 ? 0 : sms;
-  *budget = left < 0 ? 0 : (int)left;
-  *optin_out = optin;
-  *fixed_out = fixed;
-  return cudaSuccess;
+  return rows_grid(&fn, 1, state_bytes(bf16, nq), nblocks, budget, optin_out, fixed_out);
 }
 
 // The doubles of the stream scratch a launch over nblocks needs: the

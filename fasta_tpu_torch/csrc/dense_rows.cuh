@@ -1,14 +1,15 @@
 // The row machinery of the dense kernels that keep a matrix's rows on the
 // chip for a whole launch: K-B1 (microsolver.cu, the dense whole solve)
 // and the probes that take its design, K-P3 (tail_probe.cu, the
-// tail-ablation ladder) and K-P4 (bf16_probe.cu, the bfloat16-storage
-// probe).  A block of kThreads threads owns a band of rows (Tile, from the
-// wrapper's plan), spreads a row over tg threads of whole warps (Lanes),
-// keeps its first step of rows in registers and the next in shared memory,
-// and sums a step's row dots by one transposed shuffle sum; the blocks'
-// shares of Aᵀw meet over the grid by chain sums in a fixed order.  Every
-// sum runs in one fixed order, so two runs, and a plan that streams rows
-// where another keeps them, give the same bits.
+// tail-ablation ladder), K-P4 (bf16_probe.cu, the bfloat16-storage
+// probe) and K-P1's gradmap_fused form (gradmap_probe.cu).  A block of
+// kThreads threads owns a band of rows (Tile, from the wrapper's plan),
+// spreads a row over tg threads of whole warps (Lanes), keeps its first
+// step of rows in registers and the next in shared memory, and sums a
+// step's row dots by one transposed shuffle sum; the blocks' shares of
+// Aᵀw meet over the grid by chain sums in a fixed order.  Every sum runs
+// in one fixed order, so two runs, and a plan that streams rows where
+// another keeps them, give the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -218,6 +219,37 @@ __device__ __forceinline__ Lane lane_of(int n4) {
   L.fr = threadIdx.x - L.fu * ln.R;
   L.active = L.rl < ln.R;
   return L;
+}
+
+// x at this thread's slots of a row of n columns, nq slots of V values
+// (zero past column n and on an idle row lane): x0 on a launch's first
+// pass (`first`), else x, which other blocks wrote (read past L1).  With
+// WHOLE, n is a whole number of slots (n = V·nq): no slot is ragged.
+template <int V, int S, bool WHOLE = false>
+__device__ __forceinline__ void load_x_slots(const float* x0, const float* x, bool first, int n,
+                                             int nq, const Lane& ln, float (&xs)[S][V]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int q = ln.gl + ln.tg * s, j0 = q * V;
+    const bool on = ln.active && q < nq;
+    if (on && (WHOLE || j0 + V <= n)) {
+#pragma unroll
+      for (int h = 0; h < V / 4; ++h) {
+        const float4 v = first ? __ldg(reinterpret_cast<const float4*>(x0 + j0) + h)
+                               : __ldcg(reinterpret_cast<const float4*>(x + j0) + h);
+        xs[s][4 * h] = v.x;
+        xs[s][4 * h + 1] = v.y;
+        xs[s][4 * h + 2] = v.z;
+        xs[s][4 * h + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const int j = j0 + c;
+        xs[s][c] = WHOLE || !(on && j < n) ? 0.f : first ? __ldg(x0 + j) : __ldcg(x + j);
+      }
+    }
+  }
 }
 
 // Σ over blocks of their shares at column j of gpart (row stride n4),
@@ -520,6 +552,46 @@ __device__ __forceinline__ void reduce_chunks(const float* gpart, int w, float (
     }
     __syncthreads();
   }
+}
+
+// The cooperative grid of a kernel that keeps rows on the chip, on the
+// current device, for the `count` instantiations `fns` that may run at
+// one width: one block per SM (0 blocks if one of them cannot be
+// resident), and the shared memory a block has for rows of A — the
+// device's per-block opt-in (optin) less the instantiations' largest
+// static shared memory (fixed) and the block's state (`state` bytes).
+// Raises each instantiation's dynamic shared-memory cap to the most a
+// block may take, so that no later query lowers it.  The wrappers'
+// budget functions (kernels/*.py) are the same arithmetic.
+inline cudaError_t rows_grid(const void* const* fns, int count, size_t state, int* nblocks,
+                             int* budget, int* optin_out, int* fixed_out) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  size_t fixed = 0;
+  for (int k = 0; k < count && err == cudaSuccess; ++k) {
+    cudaFuncAttributes attr{};
+    err = cudaFuncGetAttributes(&attr, fns[k]);
+    fixed = attr.sharedSizeBytes > fixed ? attr.sharedSizeBytes : fixed;
+  }
+  const int cap = optin > (int)fixed ? optin - (int)fixed : 0;
+  int per_sm = 1 << 30;
+  for (int k = 0; k < count && err == cudaSuccess; ++k) {
+    err = cudaFuncSetAttribute(fns[k], cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+    int per = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fns[k], kThreads, cap);
+    per_sm = per < per_sm ? per : per_sm;
+  }
+  if (err != cudaSuccess) return err;
+  const long long left = (long long)cap - (long long)state;
+  *nblocks = per_sm < 1 ? 0 : sms;
+  *budget = left < 0 ? 0 : (int)left;
+  *optin_out = optin;
+  *fixed_out = (int)fixed;
+  return cudaSuccess;
 }
 
 }  // namespace fasta

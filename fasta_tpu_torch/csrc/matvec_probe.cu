@@ -5,11 +5,11 @@
 // TPU probe's, so every operation depends on the one before:
 //     fwd_*      d = A x,           x ← x + d₀·1e-9
 //     fwd_strip* s = Σᵢ (A x)ᵢ,     x ← x + s·1e-9
-//     gradmap    r = A x − b, f = ½‖r‖², g = Aᵀr,  x ← (x + g·1e-12) + f·1e-12
 //     adj_*      g = Aᵀ(x₀·1),      x ← x + g·1e-9     (x₀: x's first entry)
-// It returns x and the last operation's result (d, s, (f, g) or g).  K-P2
-// is the gradmap pass once, as its own form of the kernel: f and g of one
-// pass over A.
+// It returns x and the last operation's result (d, s or g).  The gradmap
+// form (r = A x − b, f = ½‖r‖², g = Aᵀr) has its own kernel on K-B1's rows
+// on the chip, gradmap_probe.cu.  K-P2 is the gradmap pass once, as its
+// own form of the kernel here: f and g of one pass over A.
 //
 // Replaces: benchmarks/matvec_kernels.py, run_variant (pallas_call at :158,
 // body _body_factory at :41) and check_gradmap_correct (pallas_call at
@@ -61,14 +61,11 @@
 //    left to the compiler (no hand-written vector loads or shuffles in
 //    its row sums).  Lane sums meet in the block sum; block partials are
 //    summed by every block in block order.
-//  * gradmap: a warp per row computes rᵢ = aᵢᵀx − bᵢ and at once adds
-//    rᵢ·aᵢ into its warp's share of g in shared memory (the row is read
-//    from L2 once; its second touch hits L1); the warps' shares make a
-//    per-block partial of g, and after a grid barrier each column's owner
-//    sums the block partials in block order — no atomics.  A second
-//    barrier publishes the new x.
-//  * check (K-P2): the gradmap pass once, its rows dealt out block by
-//    block (row i to block i mod nb), its end spread over the grid:
+//  * check (K-P2): a warp per row computes rᵢ = aᵢᵀx − bᵢ and at once
+//    adds rᵢ·aᵢ into its warp's share of g in shared memory (the row is
+//    read from L2 once; its second touch hits L1); the warps' shares make
+//    a per-block partial of g.  The rows are dealt out block by block
+//    (row i to block i mod nb), and the end is spread over the grid:
 //    after the barrier block k adds the block partials of columns
 //    ⌊k·n/nb⌋ to ⌊(k+1)·n/nb⌋, several chains a column, eight partials in
 //    flight a chain, the chains then in order; block 0 adds the f
@@ -107,9 +104,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileCols = 16;
 constexpr int kRowLanes = kThreads / (kTileCols / 4);
 
-// in the order of kernels.matvec_probe.VARIANTS, then the barrier alone
+// in the order of kernels.matvec_probe._FORMS, then the barrier alone and
+// the check
 enum Variant {
-  kFwdVpu, kFwdMxu, kFwdStrip, kFwdStripAuto, kGradmap, kAdjVpu, kAdjMxu, kBarrier, kCheck, kCount
+  kFwdVpu, kFwdMxu, kFwdStrip, kFwdStripAuto, kAdjVpu, kAdjMxu, kBarrier, kCheck, kCount
 };
 
 struct Args {
@@ -119,10 +117,10 @@ struct Args {
   int m, n, K;
   float* x_out;   // (n,)
   float* dbuf;    // (2, m): the forward's d by operation parity
-  float* xbuf;    // (2, n): gradmap and adjoint: x by operation parity
+  float* xbuf;    // (2, n): adjoints: x by operation parity
   float* gout;    // (n,): the last operation's g
-  float* gpart;   // (nblocks, n): gradmap's per-block partial g
-  double* fpart;  // (2, nblocks): strip sums or f partials by parity
+  float* gpart;   // (nblocks, n): the check's per-block partial g
+  double* fpart;  // (2, nblocks): strip sums by parity, or the check's f partials
   float* scal;    // (1,): the last strip sum or f
   unsigned* bar;  // grid_barrier's counter and exit ticket, zero at launch; null: grid.sync
 };
@@ -227,15 +225,14 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
   __shared__ float tree[kRowLanes][kTileCols];         // adj_vpu: the row lanes' sums
   __shared__ float fscr[kWarps];
   __shared__ float bcast;
-  constexpr bool STAGED = V <= kGradmap;  // x staged in shared memory
+  constexpr bool STAGED = V < kAdjVpu;  // x staged in shared memory
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nb = gridDim.x, blk = blockIdx.x;
-  const int gtid = blk * kThreads + tid, gthreads = nb * kThreads;
-  const int gwarp = blk * kWarps + warp, gwarps = nb * kWarps;
+  const int gtid = blk * kThreads + tid, gwarps = nb * kWarps;
   const int m = a.m, n = a.n, n4 = n >> 2;
   const int g8 = lane >> 2, tq = lane & 3;  // mma fragment coordinates
   float* xs = dyn;                          // (n,)
-  float* gw = dyn + n;                      // gradmap: (kWarps, n)
+  float* gw = dyn + n;                      // check: (kWarps, n)
   const float4* xs4 = reinterpret_cast<const float4*>(xs);
   unsigned gen = 0;
   // the grid barrier; with grid_barrier.cuh's, `during` runs between the
@@ -257,7 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
     if (a.bar) fasta::grid_exit(a.bar, nb);
     return;
   }
-  if (STAGED && V != kGradmap) {
+  if (STAGED) {
     for (int j = tid; j < n; j += kThreads) xs[j] = __ldg(a.x0 + j);
     __syncthreads();
   }
@@ -294,7 +291,7 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
   for (int k = 0; k < a.K; ++k) {
     const int par = k & 1;
     const bool last = k + 1 == a.K;
-    const float* xk = k == 0 ? a.x0 : a.xbuf + (size_t)par * n;  // gradmap, adjoints
+    const float* xk = k == 0 ? a.x0 : a.xbuf + (size_t)par * n;  // check, adjoints
     float* xn = a.xbuf + (size_t)(par ^ 1) * n;
 
     if (V == kFwdVpu || V == kFwdMxu) {
@@ -425,16 +422,16 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
       for (int j = tid; j < n; j += kThreads) xs[j] = __fadd_rn(xs[j], step);
       if (last && gtid == 0) a.scal[0] = s;
       __syncthreads();
-    } else if (V == kGradmap || V == kCheck) {
+    } else if (V == kCheck) {
       // ---- phase A: r = A x − b, each warp's share of g = Σ rᵢ aᵢ, f
       for (int j = tid; j < n; j += kThreads) xs[j] = __ldcg(xk + j);
       for (int e = tid; e < kWarps * n; e += kThreads) gw[e] = 0.f;
       __syncthreads();
       float4* gw4 = reinterpret_cast<float4*>(gw + (size_t)warp * n);
       float fp = 0.f;
-      // the check deals the rows out block by block, so that every SM
-      // takes a share when there are fewer rows than warps
-      for (int i = V == kCheck ? warp * nb + blk : gwarp; i < m; i += gwarps) {
+      // the rows dealt out block by block, so that every SM takes a share
+      // when there are fewer rows than warps
+      for (int i = warp * nb + blk; i < m; i += gwarps) {
         const float4* r4 = reinterpret_cast<const float4*>(a.A + (size_t)i * n);
         float s = 0.f;
 #pragma unroll 4
@@ -467,58 +464,40 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
       fp = fasta::block_sum(fp, fscr);
       if (tid == 0) a.fpart[blk] = fp;
       sync();
-      if (V == kCheck) {
-        // ---- the check's end: block blk adds columns [c0, c1) of the
-        // block partials, Y chains a column (thread (y, x) adds partials
-        // y, y + Y, …, eight in flight), the chains in y order in `tree`
-        const int c0 = share(blk, n, nb), c1 = share(blk + 1, n, nb);
-        float* red2 = &tree[0][0];
-        int P = 1;
-        while (P < c1 - c0 && P < kThreads) P <<= 1;
-        const int Y = kThreads / P, y = tid / P, x = tid - y * P;
-        for (int base = c0; base < c1; base += P) {
-          const int j = base + x;
-          float s = 0.f;
-          if (j < c1)
-            for (int p0 = y; p0 < nb; p0 += 8 * Y) {
-              float v[8];
+      // ---- the check's end: block blk adds columns [c0, c1) of the
+      // block partials, Y chains a column (thread (y, x) adds partials
+      // y, y + Y, …, eight in flight), the chains in y order in `tree`
+      const int c0 = share(blk, n, nb), c1 = share(blk + 1, n, nb);
+      float* red2 = &tree[0][0];
+      int P = 1;
+      while (P < c1 - c0 && P < kThreads) P <<= 1;
+      const int Y = kThreads / P, y = tid / P, x = tid - y * P;
+      for (int base = c0; base < c1; base += P) {
+        const int j = base + x;
+        float s = 0.f;
+        if (j < c1)
+          for (int p0 = y; p0 < nb; p0 += 8 * Y) {
+            float v[8];
 #pragma unroll
-              for (int u = 0; u < 8; ++u)
-                v[u] = p0 + u * Y < nb ? __ldcg(a.gpart + (size_t)(p0 + u * Y) * n + j) : 0.f;
+            for (int u = 0; u < 8; ++u)
+              v[u] = p0 + u * Y < nb ? __ldcg(a.gpart + (size_t)(p0 + u * Y) * n + j) : 0.f;
 #pragma unroll
-              for (int u = 0; u < 8; ++u)
-                if (p0 + u * Y < nb) s += v[u];
-            }
-          red2[tid] = s;
-          __syncthreads();
-          if (y == 0 && j < c1) {
-            float t = 0.f;
-            for (int c = 0; c < Y; ++c) t += red2[c * P + x];
-            a.gout[j] = t;
+            for (int u = 0; u < 8; ++u)
+              if (p0 + u * Y < nb) s += v[u];
           }
-          __syncthreads();
+        red2[tid] = s;
+        __syncthreads();
+        if (y == 0 && j < c1) {
+          float t = 0.f;
+          for (int c = 0; c < Y; ++c) t += red2[c * P + x];
+          a.gout[j] = t;
         }
-        if (blk == 0) {
-          const float f = __fmul_rn(0.5f, grid_total(a.fpart, nb, &bcast));
-          if (tid == 0) a.scal[0] = f;
-        }
-        continue;
+        __syncthreads();
       }
-      // ---- phase B: g by columns from the block partials, f, the new x
-      const float f = __fmul_rn(0.5f, grid_total(a.fpart, nb, &bcast));
-      const float fstep = __fmul_rn(f, 1e-12f);
-      for (int j = gtid; j < n; j += gthreads) {
-        float g = 0.f;
-        for (int p = 0; p < nb; ++p) g += __ldcg(a.gpart + (size_t)p * n + j);
-        const float x1 = __fadd_rn(__fadd_rn(__ldcg(xk + j), __fmul_rn(g, 1e-12f)), fstep);
-        xn[j] = x1;
-        if (last) {
-          a.gout[j] = g;
-          a.x_out[j] = x1;
-        }
+      if (blk == 0) {
+        const float f = __fmul_rn(0.5f, grid_total(a.fpart, nb, &bcast));
+        if (tid == 0) a.scal[0] = f;
       }
-      if (last && gtid == 0) a.scal[0] = f;
-      sync();
     } else {
       // ---- adjoints: g = Aᵀ(x₀·1) by tiles of 16 columns
       const float xr = __ldcg(xk);
@@ -581,7 +560,7 @@ __global__ void __launch_bounds__(kThreads, 1) matvec_probe_kernel(Args a) {
       sync();
     }
   }
-  if (STAGED && V != kGradmap && blk == 0)
+  if (STAGED && blk == 0)
     for (int j = tid; j < n; j += kThreads) a.x_out[j] = xs[j];
   if (a.bar) fasta::grid_exit(a.bar, nb);
 }
@@ -592,7 +571,6 @@ const void* pick(int v) {
     case kFwdMxu: return (const void*)matvec_probe_kernel<kFwdMxu>;
     case kFwdStrip: return (const void*)matvec_probe_kernel<kFwdStrip>;
     case kFwdStripAuto: return (const void*)matvec_probe_kernel<kFwdStripAuto>;
-    case kGradmap: return (const void*)matvec_probe_kernel<kGradmap>;
     case kAdjVpu: return (const void*)matvec_probe_kernel<kAdjVpu>;
     case kAdjMxu: return (const void*)matvec_probe_kernel<kAdjMxu>;
     case kCheck: return (const void*)matvec_probe_kernel<kCheck>;
@@ -600,11 +578,11 @@ const void* pick(int v) {
   }
 }
 
-// dynamic shared memory: x for the staged variants, and the gradmap
-// passes' warp shares of g
+// dynamic shared memory: x for the staged variants, and the check's warp
+// shares of g
 size_t smem_bytes(int v, int n) {
-  if (v == kGradmap || v == kCheck) return (size_t)(kWarps + 1) * n * sizeof(float);
-  return v < kGradmap ? (size_t)n * sizeof(float) : 0;  // adjoints, the barrier: none
+  if (v == kCheck) return (size_t)(kWarps + 1) * n * sizeof(float);
+  return v < kAdjVpu ? (size_t)n * sizeof(float) : 0;  // adjoints, the barrier: none
 }
 
 }  // namespace
@@ -612,8 +590,8 @@ size_t smem_bytes(int v, int n) {
 // The cooperative grid of `variant` for n columns on the current device,
 // after raising its dynamic shared-memory cap to the most a block can take
 // (a cap for this n could be lower than another launch needs): one block
-// per SM (0 if a block cannot be resident: gradmap and the check take n up
-// to about 3400 columns, the forward variants about 58000).
+// per SM (0 if a block cannot be resident: the check takes n up to about
+// 3400 columns, the forward variants about 58000).
 extern "C" int fasta_matvec_probe_grid(int variant, int n, int* nblocks) {
   if (variant < 0 || variant >= kCount || n < 4 || n % 4) return cudaErrorInvalidValue;
   const void* fn = pick(variant);
@@ -641,7 +619,7 @@ extern "C" int fasta_matvec_probe_grid(int variant, int n, int* nblocks) {
 
 // Run K operations of `variant` on `stream` (the check: K = 1), after a
 // grid query for its n.  dbuf holds 2m floats, xbuf 2n, gout n, gpart
-// nblocks·n (the gradmap passes only, else may be null), fpart 2·nblocks
+// nblocks·n (the check only, else may be null), fpart 2·nblocks
 // doubles, scal 1 float; the check writes only gout and scal (x_out,
 // dbuf, xbuf may be null).  n % 4 == 0 and A, x0 16-byte aligned.  bar
 // holds grid_barrier.cuh's counter and exit ticket, both zero (and left

@@ -664,33 +664,7 @@ extern "C" int fasta_tail_probe_grid(int n, int* nblocks, int* budget, int* opti
   int c = 0;
   for (int l = 0; l <= 6; ++l) fns[c++] = pick(l, kLadder, n);
   for (int v = kCol; v < kVariants; ++v) fns[c++] = pick(6, v, n);
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  size_t fixed = 0;
-  for (int k = 0; k < c && err == cudaSuccess; ++k) {
-    cudaFuncAttributes attr{};
-    err = cudaFuncGetAttributes(&attr, fns[k]);
-    fixed = attr.sharedSizeBytes > fixed ? attr.sharedSizeBytes : fixed;
-  }
-  const int cap = optin > (int)fixed ? optin - (int)fixed : 0;
-  int per_sm = 1 << 30;
-  for (int k = 0; k < c && err == cudaSuccess; ++k) {
-    err = cudaFuncSetAttribute(fns[k], cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
-    int per = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fns[k], kThreads, cap);
-    per_sm = per < per_sm ? per : per_sm;
-  }
-  if (err != cudaSuccess) return err;
-  const long long left = (long long)cap - (long long)state_bytes(n);
-  *nblocks = per_sm < 1 ? 0 : sms;
-  *budget = left < 0 ? 0 : (int)left;
-  *optin_out = optin;
-  *fixed_out = (int)fixed;
-  return cudaSuccess;
+  return rows_grid(fns, c, state_bytes(n), nblocks, budget, optin_out, fixed_out);
 }
 
 // The doubles of the stream scratch a launch over nblocks needs.

@@ -8,7 +8,8 @@ version beside it.
   ``microsolve_lasso_batch`` (``microsolver.py``, ``csrc/microsolver.cu``),
   with K-B2, the FP64 decision-scalar reduction (``csrc/reduce.cuh``),
   inlined.  The losses both sources share are in ``csrc/losses.cuh``; the
-  row machinery K-B1 shares with K-P3 and K-P4 in ``csrc/dense_rows.cuh``.
+  row machinery K-B1 shares with K-P3, K-P4 and K-P1's gradmap form in
+  ``csrc/dense_rows.cuh``.
 * K-B4 ``fused_shrink_step``, the L1 trial step (``prox_fused.py``,
   ``csrc/prox_fused.cu``; its soft threshold is in ``csrc/prox.cuh``)
 * K-B5 ``fused_tv_gradmap`` (``tv_fused.py``, ``csrc/tv_fused.cu``)
@@ -25,9 +26,11 @@ version beside it.
   ``csrc/planar_probe.cu``)
 * K-P4 ``bf16_probe``, the bfloat16-storage probe (``bf16_probe.py``,
   ``csrc/bf16_probe.cu``)
-* K-P1 ``run_variant``, the GEMV formulation probe, and K-P2
-  ``gradmap_fused`` / ``check_gradmap_correct``, the one-pass gradient-map
-  check (``matvec_probe.py``, ``csrc/matvec_probe.cu``)
+* K-P1 ``run_variant``, the GEMV formulation probe (``matvec_probe.py``,
+  ``csrc/matvec_probe.cu``; its ``gradmap_fused`` form on K-B1's rows on
+  the chip, ``csrc/gradmap_probe.cu``), and K-P2 ``gradmap_fused`` /
+  ``check_gradmap_correct``, the one-pass gradient-map check
+  (``matvec_probe.py``, ``csrc/matvec_probe.cu``)
 * K-P3 ``make(level, ...)`` → ``run``, the tail-ablation ladder of the
   dense whole-solve iteration (``tail_probe.py``, ``csrc/tail_probe.cu``)
 

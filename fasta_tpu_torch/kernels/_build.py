@@ -20,8 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "library_path", "on_device", "check", "sm_count",
-           "stream_scratch", "NVCC_FLAGS"]
+__all__ = ["library", "library_path", "on_device", "check", "ints",
+           "sm_count", "stream_scratch", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fasta_tpu_torch"
@@ -56,6 +56,10 @@ _SIGNATURES = {
     "fasta_bf16_probe_work": [_I, _I, _I, _P],
     "fasta_bf16_probe": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I,
                          _P],
+    "fasta_gradmap_probe_grid": [_I, _P, _P, _P, _P],
+    "fasta_gradmap_probe_work": [_I, _I, _P],
+    "fasta_gradmap_probe": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                            _I, _P],
     "fasta_matvec_probe_grid": [_I, _I, _P],
     "fasta_matvec_probe": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P, _P, _P, _I, _P],
@@ -155,6 +159,15 @@ def check(err: int, what: str) -> None:
     if err != 0:
         name = library().fasta_error_string(err).decode()
         raise RuntimeError(f"{what} failed with cudaError_t {err} ({name})")
+
+
+def ints(what: str, *args, count: int = 1) -> list:
+    """The ``count`` ints that the C entry point ``what``, called with
+    ``args``, writes through its last ``count`` pointers; raises as
+    ``check``."""
+    out = [ctypes.c_int() for _ in range(count)]
+    check(getattr(library(), what)(*args, *map(ctypes.byref, out)), what)
+    return [v.value for v in out]
 
 
 @contextlib.contextmanager

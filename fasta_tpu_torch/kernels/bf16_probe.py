@@ -18,14 +18,13 @@ CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from . import _build
-from .microsolver import (H100_SMEM_OPTIN, STATE_MAX_N, DensePlan, _table,
-                          dense_lanes, dense_plan)
+from .microsolver import (H100_SMEM_OPTIN, STATE_MAX_N, DensePlan,
+                          _rows_grid, _table, dense_lanes, dense_plan)
 
 __all__ = ["bf16_probe", "bf16_probe_reference", "bf16_probe_plan",
            "bf16_probe_budget", "probe_width", "LAUNCHES", "DTYPES",
@@ -167,16 +166,7 @@ def _grid(device_index: int, bf16: bool, n: int):
     """(blocks of the cooperative grid, shared-memory bytes a block has
     for rows of A, the device's per-block opt-in, the kernel's static
     shared memory) for n columns stored as bfloat16 or float32."""
-    nb, budget, optin, static = (ctypes.c_int() for _ in range(4))
-    with torch.cuda.device(device_index):
-        _build.check(_build.library().fasta_bf16_probe_grid(
-            int(bf16), n, ctypes.byref(nb), ctypes.byref(budget),
-            ctypes.byref(optin), ctypes.byref(static)),
-            "fasta_bf16_probe_grid")
-    if nb.value < 1:
-        raise RuntimeError("the probe kernel cannot be resident on this "
-                           "device")
-    return nb.value, budget.value, optin.value, static.value
+    return _rows_grid(device_index, "fasta_bf16_probe_grid", int(bf16), n)
 
 
 @functools.lru_cache(maxsize=64)
@@ -190,7 +180,4 @@ def _tiles(device_index: int, m: int, n: int, bf16: bool):
 
 @functools.lru_cache(maxsize=None)
 def _work(bf16: bool, n: int, nblocks: int) -> int:
-    nd = ctypes.c_int()
-    _build.check(_build.library().fasta_bf16_probe_work(
-        int(bf16), n, nblocks, ctypes.byref(nd)), "fasta_bf16_probe_work")
-    return nd.value
+    return _build.ints("fasta_bf16_probe_work", int(bf16), n, nblocks)[0]

@@ -31,39 +31,59 @@ load and no update, of either kind: ``"hand"``, the one written out in
 an H100), or ``"grid_sync"``, cooperative_groups' ``grid.sync``.
 
 The CUDA source is ``fasta_tpu_torch/csrc/matvec_probe.cu`` (its header
-note gives the design and how each TPU formulation maps to this card).
-The wrappers launch the kernel for CUDA tensors and run the plain
+note gives the design and how each TPU formulation maps to this card),
+but for ``gradmap_fused``, whose kernel is ``csrc/gradmap_probe.cu``:
+K-B1's design, the rows of A staged on the chip once a launch as
+``gradmap_probe_plan`` places them (``dense_plan`` at the kernel's budget,
+``gradmap_probe_budget``), one pass over them an operation for both
+products, two grid barriers an operation, one device operation a call.
+The wrappers launch the kernels for CUDA tensors and run the plain
 versions (``run_variant_reference``, ``gradmap_reference``) for CPU
 tensors.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from . import _build
+from .bf16_probe import bf16_probe_budget
+from .microsolver import (H100_SMEM_OPTIN, STATE_MAX_N, DensePlan,
+                          _rows_grid, _table, dense_plan)
 
 __all__ = ["run_variant", "run_variant_reference", "gradmap_fused",
            "check_gradmap_correct", "gradmap_reference", "run_barriers",
-           "VARIANTS", "BARRIERS", "LAUNCHES", "CHECK_LAUNCHES"]
+           "gradmap_probe_plan", "gradmap_probe_budget", "VARIANTS",
+           "BARRIERS", "LAUNCHES", "CHECK_LAUNCHES",
+           "GRID_BARRIERS_PER_OP", "H100_STATIC_SMEM"]
 
 # Launches of K-P1 (run_variant, run_barriers) and of K-P2
 # (gradmap_fused), each counted where it launches, nowhere else.
 LAUNCHES = 0
 CHECK_LAUNCHES = 0
 
-# The formulations, in the order of the kernel's codes
+# The formulations
 VARIANTS = ("fwd_vpu", "fwd_mxu", "fwd_strip", "fwd_strip_auto",
             "gradmap_fused", "adj_vpu", "adj_mxu")
-# the kernel's codes of the barrier alone and of K-P2's check
-_BARRIER_CODE = len(VARIANTS)
+# the forms of csrc/matvec_probe.cu in the order of its codes, then the
+# codes of the barrier alone and of K-P2's check; gradmap_fused is
+# csrc/gradmap_probe.cu
+_FORMS = tuple(v for v in VARIANTS if v != "gradmap_fused")
+_BARRIER_CODE = len(_FORMS)
 _CHECK_CODE = _BARRIER_CODE + 1
 # The grid barriers the barrier-alone reading times; operations end with
 # the first.
 BARRIERS = ("hand", "grid_sync")
+
+# Grid barriers a gradmap_fused operation takes (csrc/gradmap_probe.cu)
+GRID_BARRIERS_PER_OP = 2
+
+# The gradmap kernel's static shared memory as nvcc lays it out for
+# sm_90a: what ``gradmap_probe_budget`` takes by default; the card's own
+# number comes from ``_gradmap_grid``, which a card test holds against it.
+H100_STATIC_SMEM = 7248
 
 
 def gradmap_reference(A, x, b):
@@ -91,6 +111,39 @@ def run_variant_reference(A, x0, b, variant: str, K: int):
             out = torch.mv(A.mT, x[0].expand(A.shape[0]))
             x = x + out * 1e-9
     return x, out
+
+
+def _width(n4: int) -> int:
+    if n4 < 4 or n4 % 4 or n4 > STATE_MAX_N:
+        raise ValueError(f"the gradmap kernel takes n % 4 == 0 and "
+                         f"4 <= n <= {STATE_MAX_N} columns (every block "
+                         f"keeps its share of g), got n = {n4}")
+    return n4
+
+
+def gradmap_probe_budget(n4: int, optin: int = H100_SMEM_OPTIN,
+                         static: int = H100_STATIC_SMEM) -> int:
+    """The shared memory, in bytes, that a block of the gradmap kernel has
+    for rows of A with n4 columns (n4 % 4 == 0, at most 8192): the
+    per-block opt-in ``optin`` less the kernel's static shared memory
+    ``static`` (by default the H100's, the band's b among it) and the
+    R − 1 other row lanes' shares of g (n4 floats each); 0 where those
+    alone do not fit: K-P4's float32 budget (``bf16_probe_budget``) at
+    this kernel's static shared memory, the arithmetic of ``state_bytes``
+    in csrc/gradmap_probe.cu; the card's ``_gradmap_grid`` gives the same
+    number."""
+    return bf16_probe_budget(_width(n4), False, optin, static)
+
+
+def gradmap_probe_plan(m: int, n4: int, nblocks: int,
+                       budget: int) -> DensePlan:
+    """Where a gradmap launch over an (m, n4) matrix keeps its rows:
+    K-B1's ``dense_plan`` at the kernel's budget
+    (``gradmap_probe_budget``) — bands of rows, the first step's rows in
+    registers up to 2048 columns, the next in shared memory, the rest
+    read from L2 once a pass.  Raises past 8192 columns or where n4 % 4
+    != 0."""
+    return dense_plan(m, _width(n4), nblocks, budget)
 
 
 def _check(A, x0, b, K, what):
@@ -140,8 +193,8 @@ def _checked(A, x0, b, what):
 
 
 def _launch(code, A, x0, b, K, what):
-    """One launch of the kernel; returns (x, d, g, s) of the last
-    operation."""
+    """One launch of a form of csrc/matvec_probe.cu; returns (x, d, g, s)
+    of the last operation."""
     m, n, ptrs = _checked(A, x0, b, what)
     dev = A.device
     nb = _grid(dev.index, code, n)
@@ -160,23 +213,56 @@ def _launch(code, A, x0, b, K, what):
 def run_variant(A, x0, b, variant: str, K: int):
     """(x, result) after K chained operations of ``variant`` (see the
     module note).  CUDA tensors launch kernel K-P1 and must be contiguous,
-    16-byte aligned float32 with n % 4 == 0; anything else raises.  CPU
-    tensors run the plain version."""
+    16-byte aligned float32 with n % 4 == 0, for ``gradmap_fused`` at most
+    8192 columns (one launch of csrc/gradmap_probe.cu on
+    ``gradmap_probe_plan``'s plan at the card's budget, f a 0-d tensor);
+    anything else raises.  CPU tensors run the plain version."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r} (choose from "
                          f"{VARIANTS})")
     _check(A, x0, b, K, "run_variant")
     if A.device.type == "cpu":
         return run_variant_reference(A, x0, b, variant, int(K))
-    x, d, g, s = _launch(VARIANTS.index(variant), A, x0, b, K,
-                         "run_variant")
     global LAUNCHES
+    if variant == "gradmap_fused":
+        x, g, f = _gradmap_launch(A, x0, b, int(K))
+        LAUNCHES += 1
+        return x, (f, g)
+    x, d, g, s = _launch(_FORMS.index(variant), A, x0, b, K, "run_variant")
     LAUNCHES += 1
     if variant.startswith("fwd_strip"):
         return x, s
     if variant.startswith("fwd"):
         return x, d
-    return x, ((s, g) if variant == "gradmap_fused" else g)
+    return x, g
+
+
+def _gradmap_launch(A, x0, b, K, plan=None):
+    """One launch of the gradmap kernel on ``plan``
+    (``gradmap_probe_plan``'s at the card's budget when None); returns
+    (x, g, f) of the last operation.  Nothing is allocated but x, g and
+    f."""
+    m, n, ptrs = _checked(A, x0, b, "run_variant")
+    _width(n)
+    dev = A.device
+    if plan is None:
+        plan, tiles, nb = _gradmap_tiles(dev.index, m, n)
+    else:
+        if (plan.m, plan.n4) != (m, n):
+            raise ValueError(f"the plan is for {plan.m} rows of width "
+                             f"{plan.n4}, not {m} of {n}")
+        _gradmap_grid(dev.index, n)   # sets the kernel's shared-memory cap
+        tiles, nb = _table(plan, dev), len(plan.bands)
+    f32 = dict(device=dev, dtype=torch.float32)
+    x, g, f = torch.empty(n, **f32), torch.empty(n, **f32), \
+        torch.empty((), **f32)
+    with _build.on_device(dev) as stream:
+        work = _build.stream_scratch(dev, stream, _gradmap_work(n, nb))
+        _build.check(_build.library().fasta_gradmap_probe(
+            *ptrs, m, n, K, x.data_ptr(), g.data_ptr(), f.data_ptr(),
+            tiles.data_ptr(), max(plan.smem_rows), work.data_ptr(), nb,
+            stream), "fasta_gradmap_probe")
+    return x, g, f
 
 
 def run_barriers(K: int, device, barrier: str = BARRIERS[0]) -> None:
@@ -247,13 +333,33 @@ def check_gradmap_correct(A, x, b):
 
 @functools.lru_cache(maxsize=None)
 def _grid(device_index: int, code: int, n: int) -> int:
-    nb = ctypes.c_int()
     with torch.cuda.device(device_index):
-        _build.check(_build.library().fasta_matvec_probe_grid(
-            code, n, ctypes.byref(nb)), "fasta_matvec_probe_grid")
-    if nb.value < 1:
-        form = (*VARIANTS, "barrier", "check")[code]
+        nb = _build.ints("fasta_matvec_probe_grid", code, n)[0]
+    if nb < 1:
+        form = (*_FORMS, "barrier", "check")[code]
         raise ValueError(f"the probe's {form} kernel "
                          f"cannot be resident with n = {n} columns on this "
                          f"device")
-    return nb.value
+    return nb
+
+
+@functools.lru_cache(maxsize=None)
+def _gradmap_grid(device_index: int, n: int):
+    """(blocks of the gradmap kernel's cooperative grid, shared-memory
+    bytes a block has for rows of A, the device's per-block opt-in, the
+    kernel's static shared memory) for n columns."""
+    return _rows_grid(device_index, "fasta_gradmap_probe_grid", n)
+
+
+@functools.lru_cache(maxsize=64)
+def _gradmap_tiles(device_index: int, m: int, n: int):
+    """The card's gradmap plan for (m, n), its table on the card and its
+    grid."""
+    nb, budget = _gradmap_grid(device_index, n)[:2]
+    plan = gradmap_probe_plan(m, n, nb, budget)
+    return plan, _table(plan, torch.device("cuda", device_index)), nb
+
+
+@functools.lru_cache(maxsize=None)
+def _gradmap_work(n: int, nblocks: int) -> int:
+    return _build.ints("fasta_gradmap_probe_work", n, nblocks)[0]

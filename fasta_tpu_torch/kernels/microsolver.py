@@ -29,7 +29,6 @@ launches the kernel for CUDA tensors and runs its plain version
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -300,10 +299,7 @@ def _options(options):
 def _work_doubles(nblocks: int) -> int:
     """The FP64 scratch of a K-B1 or K-B6 launch over ``nblocks``
     (csrc/fbs_control.cuh)."""
-    nd = ctypes.c_int()
-    _build.check(_build.library().fasta_fbs_work_doubles(
-        nblocks, ctypes.byref(nd)), "fasta_fbs_work_doubles")
-    return nd.value
+    return _build.ints("fasta_fbs_work_doubles", nblocks)[0]
 
 
 class _Outputs(NamedTuple):
@@ -455,15 +451,21 @@ def _grid(device_index: int, n4: int):
     """(blocks of the cooperative grid, shared-memory bytes a block has
     for rows of A, the device's per-block opt-in, the kernel's static
     shared memory) at padded width n4 on the device."""
-    nb, budget, optin, static = (ctypes.c_int() for _ in range(4))
+    return _rows_grid(device_index, "fasta_microsolve_grid", n4)
+
+
+def _rows_grid(device_index: int, query: str, *args):
+    """(blocks, budget, opt-in, static shared memory), as ``_grid`` gives
+    them, from ``query``, the C grid query of a kernel that keeps rows on
+    the chip (K-B1's; the probes' are csrc/dense_rows.cuh's ``rows_grid``),
+    called with ``args`` on the device; raises where a block cannot be
+    resident."""
     with torch.cuda.device(device_index):
-        _build.check(_build.library().fasta_microsolve_grid(
-            n4, ctypes.byref(nb), ctypes.byref(budget), ctypes.byref(optin),
-            ctypes.byref(static)), "fasta_microsolve_grid")
-    if nb.value < 1:
-        raise RuntimeError("the whole-solve kernel cannot be resident on "
-                           "this device")
-    return nb.value, budget.value, optin.value, static.value
+        nb, budget, optin, static = _build.ints(query, *args, count=4)
+    if nb < 1:
+        raise RuntimeError(f"{query}: the kernel cannot be resident on this "
+                           f"device")
+    return nb, budget, optin, static
 
 
 def _table(plan: DensePlan, device):
@@ -489,10 +491,7 @@ def _tiles(device_index: int, m: int, n4: int):
 
 @functools.lru_cache(maxsize=None)
 def _work(m: int, n4: int, nblocks: int, kernel: int) -> int:
-    nf = ctypes.c_int()
-    _build.check(_build.library().fasta_microsolve_work(
-        m, n4, nblocks, kernel, ctypes.byref(nf)), "fasta_microsolve_work")
-    return nf.value
+    return _build.ints("fasta_microsolve_work", m, n4, nblocks, kernel)[0]
 
 
 def _count(plan: DensePlan) -> None:

@@ -39,7 +39,6 @@ PyTorch) for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -47,8 +46,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .microsolver import (H100_SMEM_OPTIN, STATE_MAX_N, DensePlan, _table,
-                          dense_lanes, dense_plan)
+from .microsolver import (H100_SMEM_OPTIN, STATE_MAX_N, DensePlan,
+                          _rows_grid, _table, dense_lanes, dense_plan)
 
 __all__ = ["make", "tail_reference", "tail_plan", "tail_budget",
            "TailOutput", "VARIANTS", "LAUNCHES", "MU", "TAU0", "WINDOW",
@@ -282,15 +281,7 @@ def _grid(device_index: int, n: int):
     """(blocks of the cooperative grid, shared-memory bytes a block has
     for rows of A, the device's per-block opt-in, the kernels' static
     shared memory) at width n on the device."""
-    nb, budget, optin, static = (ctypes.c_int() for _ in range(4))
-    with torch.cuda.device(device_index):
-        _build.check(_build.library().fasta_tail_probe_grid(
-            n, ctypes.byref(nb), ctypes.byref(budget), ctypes.byref(optin),
-            ctypes.byref(static)), "fasta_tail_probe_grid")
-    if nb.value < 1:
-        raise RuntimeError("the tail probe kernel cannot be resident on "
-                           "this device")
-    return nb.value, budget.value, optin.value, static.value
+    return _rows_grid(device_index, "fasta_tail_probe_grid", n)
 
 
 @functools.lru_cache(maxsize=64)
@@ -303,7 +294,4 @@ def _tiles(device_index: int, m: int, n: int):
 
 @functools.lru_cache(maxsize=None)
 def _work(m: int, n: int, nblocks: int) -> int:
-    nd = ctypes.c_int()
-    _build.check(_build.library().fasta_tail_probe_work(
-        m, n, nblocks, ctypes.byref(nd)), "fasta_tail_probe_work")
-    return nd.value
+    return _build.ints("fasta_tail_probe_work", m, n, nblocks)[0]

@@ -792,12 +792,13 @@ def _ticket_inputs(dev):
 
 def _ticket_calls(big, rows, tau, p, b, planar, wide, probe):
     """K-B4 on its stream route and its row route, K-B5 with its ticket,
-    K-B7 on routes 1 and 3 with its last-cluster ticket, K-P2 with its
-    barrier's counter and exit ticket: every one keeps them in the
-    stream's scratch."""
+    K-B7 on routes 1 and 3 with its last-cluster ticket, K-P2 and K-P1's
+    gradmap kernel with their barrier's counter and exit ticket: every one
+    keeps them in the stream's scratch."""
     Ar, Ai, x, bl, bh = planar
     Wr, Wi, wx, _, wb = wide
-    return (prox_fused.fused_shrink_step(big[0], big[1], 0.3, 0.5)
+    xg, (fg, gg) = matvec_probe.run_variant(*probe, "gradmap_fused", 3)
+    return (xg, fg, gg) + (prox_fused.fused_shrink_step(big[0], big[1], 0.3, 0.5)
             + prox_fused.fused_shrink_step(rows[0], rows[1], tau, 0.2)
             + tv_fused.fused_tv_gradmap(p, b, 0.1)
             + planar_fused.fused_planar_hinge_gradmap(Ar, Ai, x, bh)
@@ -857,14 +858,16 @@ def test_ticket_kernels_replay_in_a_cuda_graph(dev):
                                   "b1 columns 100x9000", "b1b 300x600x4",
                                   "b7 16384x256", "b7 bf16 16384x4096",
                                   "b7 wide 64x9000", "p2 1000x2048",
+                                  "p1 gradmap 1000x2048",
                                   "p3 1000x2000", "p3 x1 200x300",
                                   "p4 1000x2000", "p4 bf16 37x1003"])
 def test_one_device_operation_per_call(dev, what, tmp_path):
     """A call of K-B4, K-B5, K-B1 (one solve or a batch), K-B7 (routes 1,
-    2 and 3), K-P2, K-P3 (L6 and X1) or K-P4 (float32, bfloat16) is one
+    2 and 3), K-P2, K-P1's gradmap form (K = 3), K-P3 (L6 and X1) or K-P4
+    (float32, bfloat16) is one
     kernel on the card: no memset, no copy (τ and μ by value or read where
     they lie; K-B1 and K-P3 make no copy of A and write their own records;
-    K-B7, K-P2, K-P3 and K-P4 keep their tickets and partials in the
+    K-B7, K-P1, K-P2, K-P3 and K-P4 keep their tickets and partials in the
     stream's scratch), in a profiling.trace of 10 calls."""
     from fasta_tpu_torch import profiling
     g = torch.Generator(device=dev).manual_seed(5)
@@ -899,6 +902,11 @@ def test_one_device_operation_per_call(dev, what, tmp_path):
 
         def fn():
             return matvec_probe.gradmap_fused(A, x, b)
+    elif what.startswith("p1"):
+        A, x, b = _probe_data(dev, 1000, 2048, 1 / 40)
+
+        def fn():
+            return matvec_probe.run_variant(A, x, b, "gradmap_fused", 3)
     elif what.startswith("b1"):
         m, n = {"b1 1000x2000": (1000, 2000), "b1 fista 3000x1000":
                 (3000, 1000), "b1 columns 100x9000": (100, 9000),
@@ -1399,6 +1407,105 @@ def test_gradmap_check_kernel_matches_plain_and_float64(dev, m, n):
     f0, g0 = matvec_probe.gradmap_reference(A, x, b)
     assert max(ferr, gerr) <= 1e-5
     assert _rel(f, f0) <= 1e-5 and _rel(g, g0) <= 1e-5
+
+
+def _gradmap_streamed_m(dev, n=2048):
+    """The smallest m at which the card's gradmap plan streams rows at
+    n ≤ 2048 columns: every block full, 8 rows in registers and its
+    budget's in shared memory."""
+    nb, budget = matvec_probe._gradmap_grid(dev.index, n)[:2]
+    m = (8 + budget // (4 * n)) * nb + 1
+    plan = matvec_probe.gradmap_probe_plan
+    assert plan(m - 1, n, nb, budget).route == "resident"
+    assert plan(m, n, nb, budget).route == "streamed"
+    return m
+
+
+@pytest.mark.parametrize("m,n", [(2000, 1500), (500, 4096), (300, 8192),
+                                 (16, 16), (None, 2048)])
+def test_gradmap_probe_kernel_matches_plain(dev, m, n):
+    """K-P1's gradmap kernel (csrc/gradmap_probe.cu) where
+    test_matvec_probe_kernel_matches_plain does not take it: a short row
+    lane (1500), two and four slots a thread (4096, 8192, which the former
+    form refused), 16×16 and the first shape whose plan streams rows at
+    n = 2048 (None).  At K = 3 the result within 1e-5 of its largest entry
+    of the plain version's, x within 1e-6 and equal to the plain version's
+    (each update rounds as the plain version's does, and sits far below
+    x's spacing), one launch, two runs equal."""
+    m = _gradmap_streamed_m(dev, n) if m is None else m
+    A, x0, b = _probe_data(dev, m, n, 1 / 40)
+    before = matvec_probe.LAUNCHES
+    x, (f, g) = matvec_probe.run_variant(A, x0, b, "gradmap_fused", 3)
+    assert matvec_probe.LAUNCHES == before + 1
+    xr, (fr, gr) = matvec_probe.run_variant_reference(A, x0, b,
+                                                      "gradmap_fused", 3)
+    torch.cuda.synchronize()
+    assert f.shape == () and _rel(f, fr) <= 1e-5 and _rel(g, gr) <= 1e-5
+    assert _rel(x, xr) <= 1e-6 and torch.equal(x, xr)
+    x2, (f2, g2) = matvec_probe.run_variant(A, x0, b, "gradmap_fused", 3)
+    assert torch.equal(x, x2) and torch.equal(f, f2) and torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("m,n", [(1000, 2048), (2000, 1500), (300, 8192),
+                                 (16, 16), (None, 2048)])
+def test_gradmap_probe_kernel_chains_its_ops(dev, m, n):
+    """Each gradmap operation starts from the x the one before wrote: from
+    x₀ = 0 each update (about f·1e-12) moves x, so x after 3 operations,
+    within 1e-5 of its largest entry of the plain version's, is far (2/3
+    of it) from x after one operation, which a kernel that read x₀ on
+    every operation would return."""
+    m = _gradmap_streamed_m(dev, n) if m is None else m
+    A, x0, b = _probe_data(dev, m, n, 1 / 40)
+    x0 = torch.zeros_like(x0)
+    x = matvec_probe.run_variant(A, x0, b, "gradmap_fused", 3)[0]
+    xr = matvec_probe.run_variant_reference(A, x0, b, "gradmap_fused", 3)[0]
+    x1 = matvec_probe.run_variant_reference(A, x0, b, "gradmap_fused", 1)[0]
+    torch.cuda.synchronize()
+    assert _rel(x, xr) <= 1e-5
+    assert _rel(x1, xr) >= 0.1
+
+
+@pytest.mark.parametrize("m,n", [(3000, 2048), (2000, 1500), (500, 4096),
+                                 (300, 8192)])
+def test_gradmap_probe_streamed_plan_gives_the_card_plan_bits(dev, m, n):
+    """Where a row lies never changes the order of a sum: the gradmap
+    kernel on plans forced to stream rows (budget 0 and half the card's)
+    gives the card's own plan's x, g and f bits over 5 operations."""
+    A, x0, b = _probe_data(dev, m, n, 1 / 40)
+    own = matvec_probe._gradmap_tiles(dev.index, m, n)[0]
+    nb, budget = matvec_probe._gradmap_grid(dev.index, n)[:2]
+    assert own.route == "resident" and max(own.smem_rows) > 0
+    assert matvec_probe.gradmap_probe_plan(m, n, nb, 0).route == "streamed"
+    x, (f, g) = matvec_probe.run_variant(A, x0, b, "gradmap_fused", 5)
+    for forced in (0, budget // 2):
+        plan = matvec_probe.gradmap_probe_plan(m, n, nb, forced)
+        got = matvec_probe._gradmap_launch(A, x0, b, 5, plan)
+        assert all(torch.equal(u, v) for u, v in zip(got, (x, g, f))), forced
+
+
+@pytest.mark.parametrize("n", [16, 1500, 2048, 4096, 8192])
+def test_gradmap_probe_grid_budget_is_gradmap_probe_budget(dev, n):
+    """The card's shared memory for rows of A in the gradmap kernel
+    (``_gradmap_grid``) is ``gradmap_probe_budget`` of its opt-in and the
+    kernel's static shared memory; on the H100 those are the module's H100
+    numbers, which the CPU tests of the plan take."""
+    nb, budget, optin, static = matvec_probe._gradmap_grid(dev.index, n)
+    assert nb == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert budget == matvec_probe.gradmap_probe_budget(n, optin, static)
+    if "H100" in torch.cuda.get_device_name(dev):
+        assert optin == microsolver.H100_SMEM_OPTIN
+        assert static == matvec_probe.H100_STATIC_SMEM
+        assert budget == matvec_probe.gradmap_probe_budget(n)
+
+
+def test_gradmap_probe_refuses_wide_rows(dev):
+    """Past 8192 columns K-P1's gradmap form has no kernel on the card
+    (every block keeps its share of g) and no fallback: it raises."""
+    A, x, b = _probe_data(dev, 8, 8196, 1.0)
+    before = matvec_probe.LAUNCHES
+    with pytest.raises(ValueError, match="8192"):
+        matvec_probe.run_variant(A, x, b, "gradmap_fused", 2)
+    assert matvec_probe.LAUNCHES == before
 
 
 TAIL_RUNGS = [(f"L{i}", dict(level=i)) for i in range(7)] + [

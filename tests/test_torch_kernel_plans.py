@@ -1,10 +1,10 @@
 """The launch plans of kernels K-B1 (the dense whole solve), K-B4 (the
 fused shrink step), K-B5 (the fused TV gradient map), K-B7 (the fused
 planar gradient map), K-B8 (the planar whole solve) and the probes K-P3
-(the tail ladder) and K-P4 (the bfloat16-storage probe), which the
-wrappers compute on the host and the CUDA kernels obey: every shape lands
-on one route, and every element (K-B4) or row (K-B1, K-B5, K-B7, K-B8,
-K-P3, K-P4) is covered exactly once.  The plans are pure functions of
+(the tail ladder), K-P4 (the bfloat16-storage probe) and K-P1's gradmap
+form, which the wrappers compute on the host and the CUDA kernels obey:
+every shape lands on one route, and every element (K-B4) or row (K-B1,
+K-B5, K-B7, K-B8, K-P3, K-P4, K-P1) is covered exactly once.  The plans are pure functions of
 the shape and the card's SM count, so they are held here, on the CPU, at
 the H100's 132 SMs and at others."""
 
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from fasta_tpu_torch.kernels import (bf16_probe, microsolver,
+from fasta_tpu_torch.kernels import (bf16_probe, matvec_probe, microsolver,
                                      microsolver_planar, planar_fused,
                                      prox_fused, tail_probe, tv_fused)
 from fasta_tpu_torch.kernels.microsolver import dense_plan
@@ -704,3 +704,83 @@ def test_probe_plans_refuse_what_the_kernels_do_not_take(what, args):
     fn = getattr(tail_probe if what.startswith("tail") else bf16_probe, what)
     with pytest.raises(ValueError):
         fn(*args)
+
+
+# --------------------------------------------------------------------------
+# K-P1's gradmap form: K-B1's dense plan at the kernel's own budget
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n4,nblocks,budget", [
+    (1000, 2048, SMS, None), (16, 16, SMS, None), (4621, 2048, SMS, None),
+    (6000, 2048, SMS, None), (6000, 2048, SMS, 0), (2000, 1500, SMS, None),
+    (500, 4096, SMS, None), (300, 8192, SMS, None), (37, 100, SMS, None),
+    (4099, 260, 7, 10000)])
+def test_gradmap_probe_plan_places_every_row_once(m, n4, nblocks, budget):
+    """The gradmap form's plan is K-B1's dense plan at the kernel's budget:
+    the same bands, every row placed once, 8R rows a band in registers at
+    one slot a thread (n ≤ 2048), none past it."""
+    budget = matvec_probe.gradmap_probe_budget(n4) if budget is None \
+        else budget
+    plan = matvec_probe.gradmap_probe_plan(m, n4, nblocks, budget)
+    assert plan == dense_plan(m, n4, nblocks, budget)
+    _, R, S = microsolver.dense_lanes(n4)
+    for (r0, r1), g in zip(plan.bands, plan.reg_rows):
+        assert g == (min(r1 - r0, 8 * R) if S == 1 else 0)
+    _held_once(plan, m, budget, 4 * n4)
+
+
+def test_gradmap_probe_budget_counts_the_kernel_state():
+    """The kernel's state is the R − 1 other row lanes' shares of g, n4
+    floats each (b and the rest are static): a row lane alone from 1024
+    columns up, 16 at 16 columns, nothing past 8192."""
+    gb = matvec_probe.gradmap_probe_budget
+    assert gb(2048, 100000, 1000) == 100000 - 1000
+    assert gb(8192, 100000, 1000) == 100000 - 1000
+    assert gb(1500, 100000, 1000) == 100000 - 1000
+    assert gb(300, 100000, 1000) == 100000 - 1000 - 4 * 300 * 4
+    assert gb(16, 100000, 1000) == 100000 - 1000 - 4 * 16 * 15
+    assert gb(16, 1000, 1000) == 0
+    assert gb(2048) == (microsolver.H100_SMEM_OPTIN
+                        - matvec_probe.H100_STATIC_SMEM)
+    # the same arithmetic as K-P4's float32 budget but for the static part
+    for n in (16, 300, 1500, 2048, 4096, 8192):
+        assert gb(n, 100000, 3000) == \
+            bf16_probe.bf16_probe_budget(n, False, 100000, 3000)
+
+
+def test_gradmap_probe_plan_on_the_h100():
+    """On the H100 (132 SMs) 1000×2048 keeps every row in registers (bands
+    of 7 or 8 rows, 8 a block); at n = 2048 a block keeps 8 rows in
+    registers and 27 in shared memory, so the plan first streams at
+    35·132 + 1 = 4621 rows; 500×4096 and 300×8192 keep their rows in
+    shared memory (no register rows past 2048 columns)."""
+    def plan(m, n):
+        return matvec_probe.gradmap_probe_plan(
+            m, n, SMS, matvec_probe.gradmap_probe_budget(n))
+    main = plan(1000, 2048)
+    assert main.route == "resident" and sum(main.smem_rows) == 0
+    assert {r1 - r0 for r0, r1 in main.bands} == {7, 8}
+    assert max(main.reg_rows) == 8
+    assert (matvec_probe.gradmap_probe_budget(2048) // (4 * 2048)) == 27
+    assert plan(4620, 2048).route == "resident"
+    streamed = plan(4621, 2048)
+    assert streamed.route == "streamed" and streamed.streamed_rows == 1
+    assert max(streamed.smem_rows) == 27
+    for m, n in ((500, 4096), (300, 8192)):
+        p = plan(m, n)
+        assert p.route == "resident" and max(p.reg_rows) == 0
+
+
+@pytest.mark.parametrize("what,args", [
+    ("gradmap_probe_plan", (100, 8196, SMS, 0)),
+    ("gradmap_probe_plan", (100, 8192 + 4, SMS, 10 ** 6)),
+    ("gradmap_probe_plan", (16, 18, SMS, 0)),
+    ("gradmap_probe_plan", (0, 16, SMS, 0)),
+    ("gradmap_probe_plan", (16, 0, SMS, 0)),
+    ("gradmap_probe_budget", (8196,)), ("gradmap_probe_budget", (6,)),
+    ("gradmap_probe_budget", (0,))])
+def test_gradmap_probe_plan_refuses_what_the_kernel_does_not_take(what, args):
+    """Past 8192 columns the gradmap kernel has no plan (every block keeps
+    its share of g), nor for empty or unpadded widths; the limit is named."""
+    with pytest.raises(ValueError, match="8192|dense_plan"):
+        getattr(matvec_probe, what)(*args)

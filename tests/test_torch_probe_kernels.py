@@ -338,6 +338,41 @@ def test_gradmap_check_plain_version_matches_tpu_probe_interpret(probes,
     _close(g.numpy(), g_ref)
 
 
+def _gradmap_call(m, n, dtype=torch.float32, plan=None):
+    A, x0, b = torch.zeros((m, n), dtype=dtype), torch.zeros(n, dtype=dtype), \
+        torch.zeros(m, dtype=dtype)
+    return lambda: matvec_probe._gradmap_launch(A, x0, b, 2, plan)
+
+
+@pytest.mark.parametrize("what,call,match", [
+    ("past 8192 columns", _gradmap_call(4, 8196), "8192"),
+    ("n % 4", _gradmap_call(4, 130), "n % 4"),
+    ("float64", _gradmap_call(4, 16, torch.float64), "float32"),
+    ("another shape's plan",
+     _gradmap_call(4, 16, plan=matvec_probe.gradmap_probe_plan(8, 16, 132, 0)),
+     "plan is for")])
+def test_gradmap_kernel_launch_refuses_before_the_card(what, call, match):
+    """What K-P1's gradmap kernel does not take — more than 8192 columns
+    (every block keeps its share of g), ragged rows, another type, a plan
+    for another shape — raises before anything reaches the card."""
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_gradmap_on_the_cpu_runs_the_plain_version_and_keeps_its_shape():
+    """On CPU tensors ``run_variant(..., "gradmap_fused", K)`` is the plain
+    loop, launches nothing and returns (x, (f, g)) with f a 0-d tensor, as
+    the card's wrapper returns it."""
+    A, x0, b = (torch.from_numpy(v) for v in _matvec_data(16, 16))
+    before = matvec_probe.LAUNCHES
+    x, (f, g) = matvec_probe.run_variant(A, x0, b, "gradmap_fused", 3)
+    assert matvec_probe.LAUNCHES == before
+    assert f.shape == () and g.shape == (16,) and x.shape == (16,)
+    xr, (fr, gr) = matvec_probe.run_variant_reference(A, x0, b,
+                                                      "gradmap_fused", 3)
+    assert torch.equal(x, xr) and torch.equal(f, fr) and torch.equal(g, gr)
+
+
 def test_matvec_wrapper_checks():
     A, x, b = torch.zeros((4, 8)), torch.zeros(8), torch.zeros(4)
     with pytest.raises(ValueError, match="unknown variant"):

@@ -1,8 +1,8 @@
-"""Check that the dense kernels K-B1 (and K-B1b, K-B1p), K-P3 and K-P4
-give the same bits in several checkouts of the repository, one fresh
-process per checkout, on one CUDA card.
+"""Check that the dense kernels K-B1 (and K-B1b, K-B1p), K-P3, K-P4, K-P2
+and K-P1 give the same bits in several checkouts of the repository, one
+fresh process per checkout, on one CUDA card.
 
-    python3 tools/dense_bits.py ROOT [ROOT ...]
+    python3 tools/dense_bits.py [--gradmap] ROOT [ROOT ...]
 
 Each ROOT is the top of a checkout: its ``fasta_tpu_torch`` is imported
 from there and its kernels are built into ROOT/build/.  A change that
@@ -20,7 +20,14 @@ from fixed seeds:
 * K-B1p (three weights, warm) and K-B1b (four instances) at 1000×2000;
 * every K-P3 rung and X variant (K = 20) at 1000×2000, 200×300, 16×16
   and 600×1500; K-P4 (5 pairs) in float32 and bfloat16 at 1000×2000,
-  37×1003, 64×8 and 4753×2000.
+  37×1003, 64×8 and 4753×2000;
+* K-P2 (``gradmap_fused``, the check form) and the K-P1 formulations of
+  csrc/matvec_probe.cu (K = 5; not ``gradmap_fused``, whose own kernel
+  sums in another order than the form it replaced) at 1000×2048, 37×100
+  and 300×516;
+* with ``--gradmap``, for checkouts that all hold K-P1's own gradmap
+  kernel (csrc/gradmap_probe.cu), ``gradmap_fused`` (K = 5) at those
+  shapes and at 2000×1500, 500×4096, 300×8192, 16×16 and 4621×2048.
 
 Every output tensor of a case is hashed.  Prints the card's name and
 power limit, one JSON line per checkout (the number of cases and the
@@ -43,6 +50,9 @@ PAIRS = (("lstsq", "l1"), ("logistic", "l1"), ("squared_hinge", "box"),
 STREAMED = ((3000, 1000), (2000, 1500), (500, 3000))
 TAIL_SHAPES = ((1000, 2000), (200, 300), (16, 16), (600, 1500))
 P4_SHAPES = ((1000, 2000), (37, 1003), (64, 8), (4753, 2000))
+P1_SHAPES = ((1000, 2048), (37, 100), (300, 516))
+GRADMAP_SHAPES = P1_SHAPES[:1] + ((2000, 1500), (500, 4096), (300, 8192),
+                                  (16, 16), (4621, 2048))
 
 
 def _digest(outputs) -> str:
@@ -58,12 +68,13 @@ def _digest(outputs) -> str:
     return h.hexdigest()[:16]
 
 
-def _child(root: str) -> None:
+def _child(root: str, gradmap: bool) -> None:
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("dense_bits needs a CUDA device")
-    from fasta_tpu_torch.kernels import bf16_probe, microsolver, tail_probe
+    from fasta_tpu_torch.kernels import (bf16_probe, matvec_probe,
+                                         microsolver, tail_probe)
     dev = torch.device("cuda")
     out = {}
 
@@ -130,11 +141,28 @@ def _child(root: str) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             out[f"K-P4 {m}x{n} {dtype}"] = _digest(bf16_probe.bf16_probe(
                 A.to(dtype).contiguous(), x0, 5))
+    for m, n in P1_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(m + n)
+        A, x, b = (torch.randn((m, n), generator=g, device=dev) / 40,
+                   torch.randn(n, generator=g, device=dev),
+                   torch.randn(m, generator=g, device=dev))
+        out[f"K-P2 {m}x{n}"] = _digest(matvec_probe.gradmap_fused(A, x, b))
+        for v in matvec_probe.VARIANTS:
+            if v != "gradmap_fused":
+                out[f"K-P1 {v} {m}x{n}"] = _digest(
+                    matvec_probe.run_variant(A, x, b, v, 5))
+    for m, n in GRADMAP_SHAPES if gradmap else ():
+        g = torch.Generator(device=dev).manual_seed(m + n)
+        A, x, b = (torch.randn((m, n), generator=g, device=dev) / 40,
+                   torch.randn(n, generator=g, device=dev),
+                   torch.randn(m, generator=g, device=dev))
+        x, (f, g) = matvec_probe.run_variant(A, x, b, "gradmap_fused", 5)
+        out[f"K-P1 gradmap_fused {m}x{n}"] = _digest((x, f, g))
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
 
 
-def main(roots) -> int:
+def main(roots, gradmap: bool) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -143,7 +171,8 @@ def main(roots) -> int:
         root = os.path.abspath(root)
         env = dict(os.environ, PYTHONPATH=root)
         got = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", root], cwd=root, env=env,
+                              "--child", root, *["--gradmap"] * gradmap],
+                             cwd=root, env=env,
                              check=True, stdout=subprocess.PIPE, text=True)
         hashes = json.loads(got.stdout.strip().splitlines()[-1])
         first = first or hashes
@@ -157,9 +186,11 @@ def main(roots) -> int:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
+    with_gradmap = "--gradmap" in args
+    args = [a for a in args if a != "--gradmap"]
     if args[:1] == ["--child"] and len(args) == 2:
-        _child(args[1])
+        _child(args[1], with_gradmap)
     elif args and not args[0].startswith("-"):
-        sys.exit(main(args))
+        sys.exit(main(args, with_gradmap))
     else:
         raise SystemExit(__doc__)

@@ -1,6 +1,7 @@
-"""Time the probes K-P3 (the tail-ablation ladder) and K-P4 (the
-bfloat16-storage probe) in several checkouts of the repository, one fresh
-process per checkout, in the order given, on one CUDA card.
+"""Time the probes K-P3 (the tail-ablation ladder), K-P4 (the
+bfloat16-storage probe) and K-P1 (the GEMV formulation probe) in several
+checkouts of the repository, one fresh process per checkout, in the order
+given, on one CUDA card.
 
     python3 tools/probe_split.py ROOT [ROOT ...]
 
@@ -8,7 +9,10 @@ Each ROOT is the top of a checkout: its ``fasta_tpu_torch`` is imported
 from there and its kernels are built into ROOT/build/.  To compare two
 checkouts on one card, give them as A B B A.  Per checkout, through the
 probes' public calls only (``tail_probe.make(...)(A, b, x0, K)``,
-``bf16_probe.bf16_probe(A, x0, K)``, ``microsolver.microsolve_lasso``):
+``bf16_probe.bf16_probe(A, x0, K)``, ``microsolver.microsolve_lasso``,
+``matvec_probe.run_variant(A, x0, b, variant, K)``,
+``matvec_probe.run_barriers(K, device)``), so that a checkout whose
+kernels differ behind those calls times alike:
 
 * K-P3 at 1000×2000 (seed 0, as micro_tail_probe.py:429-432): every rung
   L0…L6 and X variant for K = 2000 iterations — µs an iteration and a
@@ -21,7 +25,13 @@ probes' public calls only (``tail_probe.make(...)(A, b, x0, K)``,
   the K-P4 plan streams float32 rows from L2 and keeps every
   bfloat16 row on the chip), float32 and bfloat16 storage: µs a pair as
   the difference of a 1100- and a 100-pair launch over 1000, each the
-  best of 3, in turns (float32, bfloat16, bfloat16, float32).
+  best of 3, in turns (float32, bfloat16, bfloat16, float32);
+* K-P1: ``gradmap_fused`` at 1000×2048 (A/40, seed 0, as
+  matvec_kernels.py:219-225), its 16×16 corner and 4621×2048 (on the H100
+  the smallest m at which the gradmap kernel's plan streams rows at
+  n = 2048), µs an op at K = 2000 (CUDA events around one launch, median
+  of 3); at 1000×2048 every other formulation and the barrier alone
+  (``hand``) the same way.
 
 Prints the card's name and power limit, then one JSON line per checkout.
 Fails without a CUDA device.
@@ -37,6 +47,8 @@ import sys
 
 K_TAIL = 2000
 P4_SHAPES = ((1000, 2000), (4753, 2000))
+K_P1 = 2000
+P1_STREAMED = (4621, 2048)
 
 
 def _median_ms(fn, runs=3):
@@ -121,6 +133,31 @@ def _pairs(m, n):
             for k, t in turns.items()}
 
 
+def _p1(A, x0, b):
+    import torch
+    from fasta_tpu_torch.kernels import matvec_probe
+    dev = A.device
+
+    def per_op(A, x0, b, v):
+        return _median_ms(lambda: matvec_probe.run_variant(
+            A, x0, b, v, K_P1)) / K_P1 * 1e3
+    gen = torch.Generator(device=dev).manual_seed(29)
+    m, n = P1_STREAMED
+    shapes = {"1000x2048": (A, x0, b),
+              "16x16": (A[:16, :16].contiguous(), x0[:16].contiguous(),
+                        b[:16].contiguous()),
+              f"{m}x{n}": (torch.randn((m, n), generator=gen, device=dev) / 40,
+                           x0, torch.randn(m, generator=gen, device=dev))}
+    out = {f"gradmap_fused {k}": per_op(*d, "gradmap_fused")
+           for k, d in shapes.items()}
+    for v in matvec_probe.VARIANTS:
+        if v != "gradmap_fused":
+            out[v] = per_op(A, x0, b, v)
+    out["barrier"] = _median_ms(lambda: matvec_probe.run_barriers(
+        K_P1, dev)) / K_P1 * 1e3
+    return out
+
+
 def _child(root: str) -> None:
     import numpy as np
     import torch
@@ -133,6 +170,11 @@ def _child(root: str) -> None:
         rng.standard_normal(2000).astype(np.float32))]
     out = dict(root=root, tail=_tail(A, b, x0))
     out["pairs"] = {f"{m}x{n}": _pairs(m, n) for m, n in P4_SHAPES}
+    rng = np.random.default_rng(0)
+    out["p1_us_per_op"] = _p1(*[torch.from_numpy(v).to(dev) for v in (
+        rng.standard_normal((1000, 2048)).astype(np.float32) / 40,
+        rng.standard_normal(2048).astype(np.float32),
+        rng.standard_normal(1000).astype(np.float32))])
     print(json.dumps(out), flush=True)
 
 
