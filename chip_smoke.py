@@ -8,7 +8,8 @@ non-zero without the final ``ok`` line):
 1. device: the card's name and power limit, TF32 off;
 2. build: compile the CUDA kernels from ``fasta_tpu_torch/csrc``;
 3. K-B3 (fused least-squares gradient map) against its plain version at
-   1000×2000 and 8192×16384 float32, with median times over 20 runs;
+   1000×2000, 256×1024 (phase 31's democratic) and 8192×16384 float32,
+   with median times over 20 runs;
 4. K-B1 (whole-solve kernel) against its plain version on the card, on
    LASSO 1000×2000, hp off and on, with its dense plan (``dense_plan``:
    the route, the share of A kept on the chip) and µs a trial; the route
@@ -81,7 +82,8 @@ non-zero without the final ``ok`` line):
     K-B8 ran and no dense or TV kernel did; then the it/s of the kernel
     and loop paths at a fixed 2000 iterations;
 18. K-B4 (fused shrink step) against its plain version at 1×2000,
-    1×128, 1×100, 32×2000 and 1×2²⁴, a NaN entry, two calls equal; call
+    1×128, 1×100, 1×3000 (phase 31's sparse LASSO), 32×2000 and 1×2²⁴,
+    a NaN entry, two calls equal; call
     and stream times at 1×2000, 32×2000 and 1×2²⁴ against the bound, and
     there the card time, the host time and the device operations per
     call, as in phase 10;
@@ -150,7 +152,26 @@ non-zero without the final ``ok`` line):
     per iteration and per trial at K = 5000 beside K-B1
     (``microsolve_lasso``) at the same K (L6 / K-B1), X1's adjoint from A
     in L2 against the rows on the chip, and the rungs at 16×16 beside
-    K-B1's floor (128×16).
+    K-B1's floor (128×16);
+31. the seven later example problems at the JAX modules' default sizes,
+    built with ``problems.build(name, device="cuda")`` — sparse LASSO
+    1500×3000 at density 2%, democratic 256×1024, MMV 400×800×10, 1-bit
+    matrix completion 200×200, max-norm 300×60, NMF 80×60 rank 5 and
+    coded-diffraction phase retrieval n = 256, K = 8 (complex64) —
+    through ``Problem.solve`` in plain, adaptive and FISTA mode (tol
+    1e-6, 2000 iterations), each final objective against the float64
+    oracle's run in the same mode within ``LATER_BAND`` (rtol 1e-5,
+    democratic 1e-3), converged where the same instance's float32 run on
+    the host converges (on the convex problems within max(5, 20%) of its
+    iterations), and ``fasta()`` through each ``as_linear_op`` form
+    on democratic (the matrix, a closure pair, a scipy
+    ``LinearOperator``) and sparse LASSO (the scipy matrix); the launch
+    counters show K-B3 on democratic and K-B4 on sparse LASSO, no
+    whole-solve kernel and no plain version; two sparse LASSO solves are
+    bit-identical; each problem's wall time to tolerance and it/s at a
+    fixed 2000 iterations; then ROADMAP M4, ``SparseOp`` at density 0.5%,
+    2% and 10% against the densified ``DenseOp``: matvec and adjoint
+    card time (a CUDA graph) and GB/s, and the loop's it/s.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -184,6 +205,7 @@ if not torch.cuda.is_available():
 
 import fasta_tpu_torch as ftt  # noqa: E402
 from fasta_tpu_torch import checkpoint, problems, profiling  # noqa: E402
+from fasta_tpu_torch.harness import MODE_OPTIONS  # noqa: E402
 from fasta_tpu_torch.kernels import (_build, bf16_probe, lstsq_fused,  # noqa: E402
                                      matvec_probe, microsolver,
                                      microsolver_planar, microsolver_tv,
@@ -416,15 +438,19 @@ def read_launches() -> dict:
             "K-P3": tail_probe.LAUNCHES}
 
 
+def smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
     name = torch.cuda.get_device_name(0)
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name} count {torch.cuda.device_count()}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi)
+    print(smi_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[1 device] TF32 off for matmul and cuDNN: float32 products run "
@@ -446,7 +472,7 @@ def phase_gradmap() -> dict:
     |Δf| ≤ 1e-5·|f| — float32 sums taken in another order."""
     gen = torch.Generator(device=DEV).manual_seed(0)
     worst, ms = 0.0, {}
-    for m, n in ((1000, 2000), (8192, 16384)):
+    for m, n in ((1000, 2000), (256, 1024), (8192, 16384)):
         A = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
         x = torch.randn(n, generator=gen, device=DEV)
         b = torch.randn(m, generator=gen, device=DEV)
@@ -1871,7 +1897,8 @@ def phase_shrink_step() -> dict:
     bytes per entry (x₀ and g read, x₁ written) over 3.35 TB/s."""
     gen = torch.Generator(device=DEV).manual_seed(18)
     worst, ms = 0.0, {}
-    for R, n in ((1, 2000), (1, 128), (1, 100), (32, 2000), (1, 1 << 24)):
+    for R, n in ((1, 2000), (1, 128), (1, 100), (1, 3000), (32, 2000),
+                 (1, 1 << 24)):
         x0 = torch.randn((R, n), generator=gen, device=DEV)
         g = torch.randn((R, n), generator=gen, device=DEV)
         tau = torch.rand(R, generator=gen, device=DEV) + 0.05
@@ -2193,7 +2220,8 @@ PLAIN = {"K-B4": (prox_fused, "shrink_step_reference"),
          "K-B8b": (microsolver_planar,
                    "microsolve_planar_phasemax_batch_reference"),
          "K-B1": (microsolver, "microsolve_lasso_reference"),
-         "K-B6": (microsolver_tv, "microsolve_tv_reference")}
+         "K-B6": (microsolver_tv, "microsolve_tv_reference"),
+         "K-B3": (lstsq_fused, "lstsq_gradmap_reference")}
 
 
 @contextlib.contextmanager
@@ -3487,6 +3515,234 @@ def phase_tail_probe() -> dict:
                 shape="1000x2000 float32, L6, per iteration (K = 5000)")
 
 
+# --------------------------------------------------------------------------
+# Slice 15: the seven later example problems
+# --------------------------------------------------------------------------
+
+# τ₀ of each instance, near the (2/L)/10 that ``estimate_stepsize`` gives
+# for it, so that the float64 oracle and the port start alike
+LATER_TAU0 = {"sparse_lasso": 0.1, "democratic": 0.1, "mmv": 0.1,
+              "matrix_completion": 1.7, "max_norm": 0.2, "nmf": 0.0026,
+              "phase_retrieval_cdp": 0.07}
+# Each final objective's band against the float64 oracle's run in the
+# same mode (tol 1e-6, 2000 iterations): PERF.md §2's rtol 1e-5, and
+# democratic's 1e-3 (the L∞ prox's degenerate vertices: its band in
+# tests/parity/test_parity.py, which its float32 FISTA run on the CPU
+# needs).  Set before the first card run.
+LATER_BAND = {name: 1e-5 for name in LATER_TAU0}
+LATER_BAND["democratic"] = 1e-3
+# Where the float32 run of the same instance on the host converges, the
+# card's must too; on the convex problems its iteration count within
+# tests/parity/test_parity.py's drift, max(5, 20%) of the host run's.
+# NMF and coded diffraction are nonconvex: their float32 host runs already
+# drift from the float64 runs by more than that (NMF adaptive 794 against
+# the oracle's 654, CDP FISTA 313 against 517), so their counts are printed, not held.
+LATER_DRIFT = ("sparse_lasso", "democratic", "mmv", "matrix_completion",
+               "max_norm")
+
+
+def instance_objective(inst, x) -> float:
+    """f(Ax) + g(x) of a generator instance in float64 (complex128) on the
+    host, through the instance's own operator: a matrix, a function or
+    none."""
+    x = np.asarray(x)
+    x = x.astype(np.complex128 if np.iscomplexobj(x) else np.float64)
+    op = inst["op"]
+    d = x if op is None else (op @ x if isinstance(op, np.ndarray)
+                              else op(x))
+    return float(inst["f"](d)) + float(inst["g"](x))
+
+
+def csr_bytes(M: torch.Tensor) -> int:
+    """The bytes of a CSR tensor: values, column indices, row offsets."""
+    return sum(t.numel() * t.element_size() for t in
+               (M.values(), M.col_indices(), M.crow_indices()))
+
+
+def sparse_against_dense() -> dict:
+    """ROADMAP M4: sparse LASSO 1500×3000 at density 0.5%, 2% and 10%,
+    ``SparseOp``'s product and adjoint (cuSPARSE through ``torch``)
+    against the densified ``DenseOp``'s (cuBLAS): the card time a call
+    (200 calls in a CUDA graph, ``graph_ms``) and its GB/s (the CSR or the
+    matrix, x and y each moved once), the ms a call of 100 back-to-back
+    calls (``stream_ms``, the host's rate where it is the slower), and the
+    loop's it/s at 1000 iterations (the dense loop takes K-B3)."""
+    out = {}
+    iters = 1000
+    opts = ftt.FastaOptions(max_iters=iters, stop_rule="iterations")
+    for density in (0.005, 0.02, 0.1):
+        sp_p = problems.build("sparse_lasso", density=density, device=DEV)
+        sp_p.tau0 = LATER_TAU0["sparse_lasso"]
+        A = torch.tensor(sp_p.instance["A_sparse"].toarray(),
+                         dtype=torch.float32, device=DEV)
+        dn_p = sp_p.with_parts(op=ftt.DenseOp(A))
+        m, n = A.shape
+        x = torch.randn(n, device=DEV)
+        y = torch.randn(m, device=DEV)
+        vec = 4 * (m + n)
+        row = {"nnz": int(sp_p.op.M.values().numel())}
+        for what, prob in (("sparse", sp_p), ("dense", dn_p)):
+            op = prob.op
+            nbytes = (csr_bytes(op.M) if what == "sparse"
+                      else A.numel() * 4) + vec
+            r = dict(bytes=nbytes)
+            for way, fn in (("matvec", lambda: op(x)),
+                            ("adjoint", lambda: op.rmatvec(y))):
+                card = graph_ms(fn) * 1e3
+                r[f"{way}_card_us"] = card
+                r[f"{way}_gbps"] = nbytes / card / 1e3
+                r[f"{way}_stream_ms"] = stream_ms(fn, 100)
+            solve = cuda_ms(lambda: prob.solve_device(opts), 1, warmup=1)
+            r["solve_it_s"] = iters / solve * 1e3
+            row[what] = r
+
+        def fmt(r, way):
+            return (f"card {r[f'{way}_card_us']:.2f} us "
+                    f"({r[f'{way}_gbps']:.1f} GB/s), stream "
+                    f"{r[f'{way}_stream_ms'] * 1e3:.2f} us")
+        for what in ("sparse", "dense"):
+            r = row[what]
+            print(f"[31 M4 sparse_lasso 1500x3000 @ {density}] "
+                  f"{'SparseOp' if what == 'sparse' else 'densified DenseOp'}"
+                  f" (A of {row['nnz']} nonzeros, {r['bytes']} bytes): matvec "
+                  f"{fmt(r, 'matvec')}; adjoint {fmt(r, 'adjoint')}; loop "
+                  f"{r['solve_it_s']:.1f} it/s")
+        out[str(density)] = row
+    return out
+
+
+def phase_later_problems() -> dict:
+    """The seven later example problems through the public entry points on
+    the card at the JAX modules' default sizes: ``Problem.solve`` in the
+    three modes (tol 1e-6, 2000 iterations) held against the float64
+    oracle's run in the same mode, objective by objective within
+    ``LATER_BAND``, and beside the float32 run of the same instance on
+    the host: where that converges the card's must, within
+    ``LATER_DRIFT``'s iteration drift on the convex problems;
+    ``fasta()`` through each operator form on democratic (the matrix, a
+    closure pair, a scipy ``LinearOperator``) and sparse LASSO (the scipy
+    matrix); the launch counters show K-B3 on democratic and K-B4 on
+    sparse LASSO, no whole-solve kernel and no plain version; two sparse
+    LASSO solves give the same bits.  Then each problem's wall
+    time to tolerance and it/s at a fixed 2000 iterations, and M4."""
+    import scipy.sparse.linalg as spla
+    print(f"[31] card: {smi_line()}")
+    probs, refs, host = {}, {}, {}
+    for name, tau0 in LATER_TAU0.items():
+        prob = problems.build(name, device=DEV)
+        prob.tau0 = tau0
+        on_host = problems.build(name, device="cpu")
+        on_host.tau0 = tau0
+        inst = prob.instance
+        refs[name], host[name] = {}, {}
+        for mode, kw in MODE_OPTIONS.items():
+            r = fasta_np(inst["op"], inst.get("op_t"), inst["f"],
+                         inst["gradf"], inst["g"], inst["proxg"], inst["x0"],
+                         tau0=tau0, tol=1e-6, max_iters=2000, **kw)
+            refs[name][mode] = (instance_objective(inst, r.solution),
+                                r.iteration_count)
+            host[name][mode] = on_host.solve(tol=1e-6, max_iters=2000, **kw)
+        probs[name] = prob
+
+    dem, sl = probs["democratic"], probs["sparse_lasso"]
+    A32 = dem.instance["A"].astype(np.float32)
+    A_t = torch.as_tensor(A32, device=DEV)
+    forms = {
+        ("democratic", "fasta(matrix)"): (A32, None),
+        ("democratic", "fasta(closure pair)"): ((lambda v: A_t @ v),
+                                                (lambda v: A_t.mT @ v)),
+        ("democratic", "fasta(LinearOperator)"): (
+            spla.aslinearoperator(A32), None),
+        ("sparse_lasso", "fasta(scipy sparse)"): (
+            sl.instance["A_sparse"].astype(np.float32), None),
+    }
+    results, by_problem = [], {}
+    with counting_plain() as plain_calls:
+        reset_launches()
+        for name, prob in probs.items():
+            before = read_launches()
+            for mode, kw in MODE_OPTIONS.items():
+                results.append((name, mode, f"solve {mode}",
+                                prob.solve(tol=1e-6, max_iters=2000, **kw)))
+            for (owner, what), (A, At) in forms.items():
+                if owner == name:
+                    results.append((name, "adaptive", what, ftt.fasta(
+                        A, At, prob.fterm, None, prob.gterm, None,
+                        prob.instance["x0"].astype(np.float32),
+                        tau0=prob.tau0, tol=1e-6, max_iters=2000)))
+            after = read_launches()
+            by_problem[name] = {k: after[k] - before[k] for k in after}
+        again = sl.solve(tol=1e-6, max_iters=2000)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    plain = dict(plain_calls)
+
+    for name, mode, what, r in results:
+        ref, k_ref = refs[name][mode]
+        h = host[name][mode]
+        obj = instance_objective(probs[name].instance, r.solution)
+        rel = abs(obj - ref) / abs(ref)
+        drift = abs(r.iteration_count - h.iteration_count)
+        limit = max(5, int(0.2 * h.iteration_count))
+        print(f"[31 {name}] {what}: converged={r.converged} in "
+              f"{r.iteration_count} iterations ({r.solve_time * 1e3:.1f} ms "
+              f"wall), objective {obj:.9g} against the float64 oracle's "
+              f"{ref:.9g} ({mode}, {k_ref} iterations): rel {rel:.2e} (band "
+              f"{LATER_BAND[name]:g}); the host's float32 run: converged="
+              f"{h.converged} in {h.iteration_count} iterations"
+              + (f", drift {drift} (limit {limit})"
+                 if h.converged and name in LATER_DRIFT else ""))
+        require(np.isfinite(obj) and r.solution.shape
+                == np.shape(probs[name].instance["x0"]),
+                f"{name} {what}: solution not finite or of the wrong shape")
+        require(rel <= LATER_BAND[name], f"{name} {what}: objective "
+                f"disagrees with the float64 oracle")
+        require(r.converged or not h.converged, f"{name} {what}: the "
+                f"host's float32 run converges, the card's does not")
+        require(not h.converged or name not in LATER_DRIFT
+                or drift <= limit, f"{name} {what}: {r.iteration_count} "
+                f"iterations against the host's {h.iteration_count}")
+    first = next(r for n, _, w, r in results
+                 if n == "sparse_lasso" and w == "solve adaptive")
+    same = (np.array_equal(first.solution, again.solution)
+            and first.iteration_count == again.iteration_count)
+    print(f"[31 sparse_lasso] two adaptive solves bit-identical: {same}")
+    require(same, "two sparse LASSO solves differ")
+    print(f"[31] launches during the solves: {launches}; by problem: K-B3 "
+          f"{ {k: v['K-B3'] for k, v in by_problem.items()} }, K-B4 "
+          f"{ {k: v['K-B4'] for k, v in by_problem.items()} }; plain "
+          f"versions called: {plain}")
+    require(by_problem["democratic"]["K-B3"] >= 1,
+            "K-B3 never launched on democratic")
+    require(by_problem["sparse_lasso"]["K-B4"] >= 1,
+            "K-B4 never launched on sparse LASSO")
+    whole = [k for k in launches if k.split()[0] in
+             ("K-B1", "K-B1p", "K-B1b", "K-B6", "K-B6p", "K-B6b", "K-B8",
+              "K-B8b", "K-B8w", "K-B8bw")]
+    require(not any(launches[k] for k in whole),
+            f"a whole-solve kernel launched in phase 31: {launches}")
+    require(not any(plain.values()),
+            f"a plain version ran in phase 31: {plain}")
+
+    iters = 2000
+    opts = ftt.FastaOptions(max_iters=iters, stop_rule="iterations")
+    rates = {}
+    for name, prob in probs.items():
+        # the solves above warmed every path up
+        ms = cuda_ms(lambda: prob.solve_device(opts), 1, warmup=0)
+        to_tol = next(r for n, _, w, r in results
+                      if n == name and w == "solve adaptive")
+        rates[name] = iters / ms * 1e3
+        reached = (f"{to_tol.solve_time * 1e3:.1f} ms wall "
+                   f"({to_tol.iteration_count} iterations)" if to_tol.converged
+                   else f"not reached in {to_tol.iteration_count} iterations")
+        print(f"[31 {name}] {iters} iterations: PyTorch loop path "
+              f"{rates[name]:.1f} it/s ({ms:.3f} ms); adaptive to tol 1e-6: "
+              f"{reached}")
+    m4 = sparse_against_dense()
+    return dict(launches=launches, it_s=rates, m4=m4)
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -3519,9 +3775,10 @@ def main() -> None:
     p1 = phase_matvec_probe()
     p1g = phase_gradmap_probe()
     p3 = phase_tail_probe()
+    later = phase_later_problems()
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
                 + serving["launches"][k] + b8w["launches"][k]
-                + bf16["launches"][k] for k in lasso}
+                + bf16["launches"][k] + later["launches"][k] for k in lasso}
     del b8w["launches"]
     launches["K-P5"] = p5.pop("launches_timed")
     launches["K-P4"] = p4.pop("launches_timed")

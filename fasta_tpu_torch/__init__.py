@@ -1,9 +1,12 @@
 """fasta_tpu_torch — FASTA in PyTorch with hand-written CUDA kernels for
 NVIDIA Hopper, ported from ``fasta_tpu`` (which stays the reference).
 
-Ported so far: the dense problem family — LASSO, NNLS, sparse logistic
-regression and the SVM — TV denoising on the dual and phase retrieval
-(PhaseMax, complex or planar), in plain, adaptive and FISTA mode, through
+Ported so far: the 13 example problems — the dense family (LASSO, NNLS,
+sparse logistic regression, the SVM), TV denoising on the dual, phase
+retrieval (PhaseMax, complex or planar, and coded diffraction), sparse
+LASSO, democratic representations, MMV, 1-bit matrix completion,
+max-norm and NMF — with the operator, term and prox library, in plain,
+adaptive and FISTA mode, through
 ``fasta()`` / ``Problem.solve`` (the PyTorch loop with the one-read
 gradient-map kernels), ``Problem.microsolve`` (the whole-solve kernels),
 ``solve_path`` and ``Problem.microsolve_sweep`` (the regularization
@@ -13,7 +16,8 @@ route a request to the whole-solve kernels, their batched forms
 (``microsolve_batch``) or the batch solver (``make_batch_solver``);
 bfloat16 storage (``LowPrecDenseOp``, bfloat16 ``PlanarDenseOp``) with
 float32 refinement through ``checkpoint.resume``, and ``checkpoint``'s
-``save_pytree`` / ``load_pytree``, whose files both packages read.
+``save_pytree`` / ``load_pytree``, whose files both packages read; the
+mode-comparison harness (``compare_modes``, ``format_comparison``).
 Entry points place data that carries no device on the card unless the
 caller passes ``device="cpu"``.
 Only what is ported is exported.  Importing this package imports no JAX
@@ -21,35 +25,48 @@ and compiles nothing.
 """
 
 from . import checkpoint
+from .harness import MODE_OPTIONS, compare_modes, format_comparison
 from .micro import (MicroBatchResult, MicroResult, microsolve,
                     microsolve_batch, microsolve_supported, microsolve_sweep)
-from .operators import (AdjointOp, DenseOp, LinearOp, LowPrecDenseOp,
-                        PlanarDenseOp, ScaledOp, TVDiv2D, TVGrad2D,
-                        as_linear_op, check_adjoint)
+from .operators import (AdjointOp, ComposeOp, DenseOp, DiagonalOp,
+                        FunctionOp, IdentityOp, LinearOp, LowPrecDenseOp,
+                        MaskedFourierOp, PlanarDenseOp, ScaledOp, SparseOp,
+                        StackedOp, TVDiv2D, TVGrad2D, as_linear_op,
+                        check_adjoint)
 from .options import STOP_RULES, FastaOptions
 from .problem import Problem
-from .prox import project_box, project_nonneg, shrink
+from .prox import (project_box, project_l1_ball, project_linf_ball,
+                   project_nonneg, prox_l1, prox_l21, prox_linear, prox_linf,
+                   prox_zero, shrink, shrink_rows, svt)
 from .serving import BATCH_CROSSOVER_UNKNOWNS, ServingPlan, recommend_path
 from .solver import (DeviceResult, FastaResult, estimate_stepsize, fasta,
                      make_batch_solver, make_solver, solve, solve_path)
 from .terms import (BoxIndicator, FunctionProx, FunctionSmooth, L1Norm,
-                    L2Norm2, LeastSquares, LinearAnchor, Logistic,
-                    NonnegIndicator, PhaseHinge, PlanarLinearAnchor,
-                    PlanarPhaseHinge, ProxTerm, SmoothTerm, SquaredHinge,
+                    L2Norm2, L21Norm, LeastSquares, LinearAnchor,
+                    LinfBallIndicator, LinfNorm, Logistic, MaskedLogistic,
+                    MaxRowNormBall, NMFLoss, NonnegIndicator, NuclearNorm,
+                    PhaseHinge, PlanarLinearAnchor, PlanarPhaseHinge,
+                    ProxTerm, SmoothTerm, SquaredHinge, ZeroTerm,
                     as_prox_term, as_smooth_term)
 
 __all__ = [
     "fasta", "solve", "make_solver", "make_batch_solver", "solve_path",
     "estimate_stepsize",
     "FastaResult", "DeviceResult", "FastaOptions", "STOP_RULES", "Problem",
-    "LinearOp", "AdjointOp", "DenseOp", "LowPrecDenseOp", "PlanarDenseOp",
-    "ScaledOp",
+    "LinearOp", "AdjointOp", "DenseOp", "SparseOp", "LowPrecDenseOp",
+    "PlanarDenseOp", "IdentityOp", "FunctionOp", "MaskedFourierOp",
+    "DiagonalOp", "ScaledOp", "ComposeOp", "StackedOp",
     "TVGrad2D", "TVDiv2D", "as_linear_op", "check_adjoint",
     "SmoothTerm", "LeastSquares", "Logistic", "SquaredHinge", "PhaseHinge",
-    "PlanarPhaseHinge", "FunctionSmooth", "ProxTerm", "L1Norm",
-    "NonnegIndicator", "BoxIndicator", "L2Norm2", "LinearAnchor",
-    "PlanarLinearAnchor", "FunctionProx", "as_smooth_term",
-    "as_prox_term", "shrink", "project_nonneg", "project_box",
+    "PlanarPhaseHinge", "MaskedLogistic", "NMFLoss", "FunctionSmooth",
+    "ProxTerm", "L1Norm", "LinfNorm", "L21Norm", "NuclearNorm",
+    "NonnegIndicator", "BoxIndicator", "LinfBallIndicator",
+    "MaxRowNormBall", "L2Norm2", "LinearAnchor", "PlanarLinearAnchor",
+    "ZeroTerm", "FunctionProx", "as_smooth_term", "as_prox_term",
+    "shrink", "prox_l1", "project_nonneg", "project_box",
+    "project_linf_ball", "project_l1_ball", "prox_linf", "svt",
+    "shrink_rows", "prox_l21", "prox_linear", "prox_zero",
+    "compare_modes", "format_comparison", "MODE_OPTIONS",
     "MicroResult", "MicroBatchResult", "microsolve", "microsolve_supported",
     "microsolve_sweep", "microsolve_batch", "recommend_path", "ServingPlan",
     "BATCH_CROSSOVER_UNKNOWNS", "checkpoint",

@@ -17,13 +17,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .operators import (DenseOp, LowPrecDenseOp, PlanarDenseOp, ScaledOp,
-                        TVDiv2D, tv_div_2d)
+from .operators import (ComposeOp, DenseOp, DiagonalOp, IdentityOp,
+                        LowPrecDenseOp, MaskedFourierOp, PlanarDenseOp,
+                        ScaledOp, SparseOp, StackedOp, TVDiv2D, tv_div_2d)
 from .precision import real_dtype
 from .problem import Problem
-from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares,
-                    LinearAnchor, Logistic, NonnegIndicator, PhaseHinge,
-                    PlanarLinearAnchor, PlanarPhaseHinge, SquaredHinge)
+from .terms import (BoxIndicator, L1Norm, L2Norm2, L21Norm, LeastSquares,
+                    LinearAnchor, LinfNorm, Logistic, MaskedLogistic,
+                    MaxRowNormBall, NMFLoss, NonnegIndicator, NuclearNorm,
+                    PhaseHinge, PlanarLinearAnchor, PlanarPhaseHinge,
+                    SquaredHinge)
 
 __all__ = ["problem_from_instance", "problem_from_arrays",
            "result_to_numpy", "bf16_tensor", "lowprec_op_from_arrays",
@@ -83,54 +86,111 @@ def problem_from_arrays(A, b, mu: float, x0, tau0: Optional[float] = None,
     )
 
 
-# instance name -> (smooth term, prox term from the instance)
+# instance name -> (smooth term, prox term from the instance) over the
+# instance's dense matrix A
 _DENSE = {
     "lasso": (LeastSquares, lambda inst: L1Norm(float(inst["mu"]))),
     "nnls": (LeastSquares, lambda inst: NonnegIndicator()),
     "logistic": (Logistic, lambda inst: L1Norm(float(inst["mu"]))),
     "svm": (SquaredHinge, lambda inst: L2Norm2(float(inst["lam"]))),
+    "democratic": (LeastSquares, lambda inst: LinfNorm(float(inst["mu"]))),
+    "mmv": (LeastSquares, lambda inst: L21Norm(float(inst["mu"]))),
 }
-
 
 def problem_from_instance(inst: dict, *, device, dtype: torch.dtype,
                           planar: bool = False) -> Problem:
     """A port ``Problem`` from a generator instance dict (the JAX
-    ``Problem.instance``) of one of the dense problems — LASSO, NNLS,
-    sparse logistic regression or the SVM, whose instances hold the
-    matrix ``A``, the measurements or labels ``b`` and ``x0`` — of TV
-    denoising, whose instance holds the image ``b``, the dual start
-    ``x0`` (2, H, W) and the TV weight ``mu``, and no matrix, or of phase
-    retrieval (complex ``A``, magnitudes ``b``, anchor ``x0_hat``, weight
-    ``delta``), as complex tensors or, with ``planar``, in planar layout
-    (``dtype`` then names the channels' real type)."""
-    name = inst.get("name")
-    ported = sorted(_DENSE) + ["phase_retrieval", "tv"]
-    if name not in ported:
-        raise NotImplementedError(
-            f"instance {name!r} is not ported yet (ROADMAP Queue A items 2 "
-            f"and 7); the port carries {ported}")
-    if name == "phase_retrieval":
-        return _phase_retrieval(inst, device, dtype, planar)
+    ``Problem.instance``) of any of the 13 example problems, with the
+    operator, terms, name and ``recover`` of the JAX problem module
+    (``problems/<name>.py``), its tensors ``dtype`` on ``device``:
 
+    * the dense family — LASSO, NNLS, sparse logistic regression, the
+      SVM — and democratic representations and MMV: ``DenseOp(A)``, the
+      smooth term over ``b``;
+    * sparse LASSO: ``SparseOp`` over the instance's scipy matrix;
+    * TV denoising: the image ``b``, the dual start (2, H, W), the TV
+      weight ``mu``, no matrix;
+    * matrix completion, max-norm and NMF: ``IdentityOp`` over a matrix
+      variable (NMF's ``recover`` the product W Hᵀ);
+    * phase retrieval (complex ``A``, magnitudes ``b``, anchor
+      ``x0_hat``, weight ``delta``) as complex tensors or, with
+      ``planar``, in planar layout (``dtype`` then names the channels'
+      real type), and its coded-diffraction form (a stack of modulated
+      FFTs, ``dtype`` complex)."""
+    name = inst.get("name")
+    if name not in _BUILDERS:
+        raise ValueError(f"instance {name!r} names no example problem; "
+                         f"the port carries {sorted(_BUILDERS)}")
+    return _BUILDERS[name](inst, device, dtype, planar)
+
+
+def _tensors(device, dtype):
+    """``t(a)``: a NumPy array as a ``dtype`` tensor on ``device``."""
     def t(a):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+    return t
 
-    if name == "tv":
-        mu = float(inst["mu"])
-        h, w = np.shape(inst["b"])
-        return Problem(name=f"tv[{h}x{w}]", op=ScaledOp(mu, TVDiv2D()),
-                       fterm=LeastSquares(t(inst["b"])),
-                       gterm=BoxIndicator(-1.0, 1.0), x0=t(inst["x0"]),
-                       x_true=inst.get("x_true"), instance=inst,
-                       recover=_tv_recover(np.asarray(inst["b"]), mu))
-    smooth, prox = _DENSE[name]
 
+def _common(inst, t) -> dict:
+    return dict(x0=t(inst["x0"]), x_true=inst.get("x_true"), instance=inst)
+
+
+def _dense(inst, device, dtype, planar):
+    smooth, prox = _DENSE[inst["name"]]
+    t = _tensors(device, dtype)
     A = t(inst["A"])
     m, n = A.shape
-    return Problem(name=f"{name}[{m}x{n}]", op=DenseOp(A),
-                   fterm=smooth(t(inst["b"])), gterm=prox(inst),
-                   x0=t(inst["x0"]), x_true=inst.get("x_true"),
-                   instance=inst)
+    label = (f"mmv[{m}x{n}x{np.shape(inst['b'])[1]}]"
+             if inst["name"] == "mmv" else f"{inst['name']}[{m}x{n}]")
+    return Problem(name=label, op=DenseOp(A), fterm=smooth(t(inst["b"])),
+                   gterm=prox(inst), **_common(inst, t))
+
+
+def _tv(inst, device, dtype, planar):
+    t = _tensors(device, dtype)
+    mu = float(inst["mu"])
+    h, w = np.shape(inst["b"])
+    return Problem(name=f"tv[{h}x{w}]", op=ScaledOp(mu, TVDiv2D()),
+                   fterm=LeastSquares(t(inst["b"])),
+                   gterm=BoxIndicator(-1.0, 1.0),
+                   recover=_tv_recover(np.asarray(inst["b"]), mu),
+                   **_common(inst, t))
+
+
+def _sparse_lasso(inst, device, dtype, planar):
+    t = _tensors(device, dtype)
+    m, n = inst["A_sparse"].shape
+    return Problem(
+        name=f"sparse_lasso[{m}x{n}@{inst['density']}]",
+        op=SparseOp.from_scipy(inst["A_sparse"], dtype, device=device),
+        fterm=LeastSquares(t(inst["b"])),
+        gterm=L1Norm(float(inst["mu"])), **_common(inst, t))
+
+
+def _matrix_completion(inst, device, dtype, planar):
+    t = _tensors(device, dtype)
+    d1, d2 = np.shape(inst["b"])
+    return Problem(name=f"matrix_completion[{d1}x{d2}]", op=IdentityOp(),
+                   fterm=MaskedLogistic(t(inst["b"]), t(inst["mask"])),
+                   gterm=NuclearNorm(float(inst["mu"])), **_common(inst, t))
+
+
+def _max_norm(inst, device, dtype, planar):
+    t = _tensors(device, dtype)
+    d1, d2 = np.shape(inst["b"])
+    return Problem(name=f"max_norm[{d1}x{d2}]", op=IdentityOp(),
+                   fterm=LeastSquares(t(inst["b"])),
+                   gterm=MaxRowNormBall(float(inst["radius"])),
+                   **_common(inst, t))
+
+
+def _nmf(inst, device, dtype, planar):
+    """The stacked factor [W; H], the clean product as x_true."""
+    t = _tensors(device, dtype)
+    d1, d2 = np.shape(inst["b"])
+    return Problem(name=f"nmf[{d1}x{d2},r{inst['rank']}]", op=IdentityOp(),
+                   fterm=NMFLoss(t(inst["b"])), gterm=NonnegIndicator(),
+                   recover=lambda X: X[:d1] @ X[d1:].T, **_common(inst, t))
 
 
 def _phase_retrieval(inst, device, dtype, planar):
@@ -163,6 +223,25 @@ def _phase_retrieval(inst, device, dtype, planar):
                    instance=inst)
 
 
+def _phase_retrieval_cdp(inst, device, dtype, planar):
+    """Coded-diffraction phase retrieval (``problems/phase_retrieval_cdp.py``):
+    ``StackedOp`` of K ``ComposeOp(MaskedFourierOp(ones), DiagonalOp(mask))``
+    (a unitary FFT of each modulated signal), ``PhaseHinge`` over the
+    magnitudes and ``LinearAnchor`` δ·x̂₀, ``dtype`` complex."""
+    K, n = np.shape(inst["masks"])
+
+    def t(a, dt=dtype):
+        return torch.tensor(np.asarray(a), device=device, dtype=dt)
+    ones = torch.ones(n, device=device, dtype=dtype)
+    op = StackedOp([ComposeOp(MaskedFourierOp(ones), DiagonalOp(t(m)))
+                    for m in inst["masks"]])
+    return Problem(name=f"phase_retrieval_cdp[{K}x{n}]", op=op,
+                   fterm=PhaseHinge(t(inst["b"], real_dtype(dtype))),
+                   gterm=LinearAnchor(inst["delta"] * t(inst["x0_hat"])),
+                   x0=t(inst["x0"]), x_true=inst.get("x_true"),
+                   instance=inst)
+
+
 def _planar_recover(xp):
     """The complex signal of a planar (…, 2) vector, on its device."""
     xp = torch.as_tensor(xp)
@@ -177,6 +256,15 @@ def _tv_recover(b: np.ndarray, mu: float):
         b64 = torch.as_tensor(b, dtype=torch.float64, device=p.device)
         return b64 - mu * tv_div_2d(p.to(torch.float64))
     return recover
+
+
+# instance name -> builder(inst, device, dtype, planar)
+_BUILDERS = {**{name: _dense for name in _DENSE}, "tv": _tv,
+             "sparse_lasso": _sparse_lasso,
+             "matrix_completion": _matrix_completion,
+             "max_norm": _max_norm, "nmf": _nmf,
+             "phase_retrieval": _phase_retrieval,
+             "phase_retrieval_cdp": _phase_retrieval_cdp}
 
 
 def result_to_numpy(result) -> dict:

@@ -1,18 +1,18 @@
-"""Linear operators (port of ``fasta_tpu/operators.py:47-132, 215-264,
-301-343, 391-410, 464-544``).
+"""Linear operators (port of ``fasta_tpu/operators.py``; its sharded
+operators are ROADMAP Queue A item 13).
 
-The dense problems need the explicit matrix: ``LinearOp``, ``AdjointOp``,
-``DenseOp``, ``as_linear_op`` and ``check_adjoint``, and ``LowPrecDenseOp``
-for bfloat16 storage (port of ``operators.py:170-212``); TV denoising
-needs the stencil pair ``TVGrad2D`` / ``TVDiv2D`` and ``ScaledOp``;
-planar phase retrieval needs ``PlanarDenseOp`` (float32 or bfloat16
-channels).  The other operators (identity,
-closures, FFTs, sparse) come with their problems (ROADMAP Queue A item
-2).  Operators are plain data holders; their tensors stay on whatever
-device the caller put them.  ``lanes`` and ``rmatvec_lanes`` apply an
-operator to every lane of a leading lane axis (the batch dimension of
-``solver.make_batch_solver``; ``jax.vmap`` in the JAX package): one call
-per lane by default, one batched call where the operator has one.
+``LinearOp``, ``AdjointOp``, ``DenseOp`` (the explicit matrix),
+``SparseOp`` (torch sparse CSR), ``LowPrecDenseOp`` (bfloat16 storage),
+``PlanarDenseOp`` (float32 or bfloat16 channels), ``IdentityOp``,
+``FunctionOp`` (a closure pair), the TV stencil pair ``TVGrad2D`` /
+``TVDiv2D``, ``MaskedFourierOp`` (a unitary FFT), ``DiagonalOp``,
+``ScaledOp``, ``ComposeOp`` and ``StackedOp``, with ``as_linear_op`` and
+``check_adjoint``.  Operators are plain data holders; their tensors stay
+on whatever device the caller put them.  ``lanes`` and ``rmatvec_lanes``
+apply an operator to every lane of a leading lane axis (the batch
+dimension of ``solver.make_batch_solver``; ``jax.vmap`` in the JAX
+package): one call per lane by default, one batched call where the
+operator has one.
 
 All adjoints are conjugate transposes, so complex data is handled
 exactly.
@@ -20,17 +20,18 @@ exactly.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .precision import real_dtype
 
-__all__ = ["LinearOp", "AdjointOp", "DenseOp", "LowPrecDenseOp",
-           "PlanarDenseOp", "TVGrad2D",
-           "TVDiv2D", "ScaledOp", "tv_grad_2d", "tv_div_2d", "as_linear_op",
-           "check_adjoint", "default_device"]
+__all__ = ["LinearOp", "AdjointOp", "DenseOp", "SparseOp",
+           "LowPrecDenseOp", "PlanarDenseOp", "IdentityOp", "FunctionOp",
+           "TVGrad2D", "TVDiv2D", "MaskedFourierOp", "DiagonalOp",
+           "ScaledOp", "ComposeOp", "StackedOp", "tv_grad_2d", "tv_div_2d",
+           "as_linear_op", "check_adjoint", "default_device"]
 
 
 class LinearOp:
@@ -121,6 +122,71 @@ class DenseOp(LinearOp):
     @property
     def shape(self):
         return tuple(self.A.shape)
+
+
+class SparseOp(LinearOp):
+    """Sparse matrix M ∈ 𝔽^{m×n} as a torch sparse CSR tensor, with its
+    adjoint Mᴴ stored once as a second CSR tensor (port of
+    ``fasta_tpu/operators.py:133-170``, whose BCOO transposes on every
+    adjoint).  Products are ``torch`` sparse × dense (cuSPARSE on the
+    card) in the type the two operands promote to; they sum in another
+    order than BCOO's, so they agree with the JAX operator to rounding.
+    A lane axis is one product with an (n, B) right side."""
+
+    def __init__(self, M: torch.Tensor, Mh: torch.Tensor):
+        self.M = M
+        self.Mh = Mh
+
+    @classmethod
+    def from_scipy(cls, sp_matrix, dtype: Optional[torch.dtype] = None, *,
+                   device=None) -> "SparseOp":
+        """The scipy sparse matrix as ``dtype`` CSR tensors (scipy's own
+        type when None) on ``device`` (the card when None: see
+        :func:`default_device`); the adjoint from ``M.T.tocsr()``,
+        conjugated for complex data."""
+        device = default_device(device, "SparseOp.from_scipy")
+        M = sp_matrix.tocsr()
+        Mh = M.T.tocsr()
+        if np.iscomplexobj(M.data):
+            Mh = Mh.conj()
+        return cls(_csr(M, dtype, device), _csr(Mh, dtype, device))
+
+    @staticmethod
+    def _apply(M, x):
+        dt = torch.promote_types(M.dtype, x.dtype)
+        M = M if M.dtype == dt else M.to(dt)
+        return torch.matmul(M, x.to(dt))
+
+    def __call__(self, x):
+        return self._apply(self.M, x)
+
+    def rmatvec(self, y):
+        return self._apply(self.Mh, y)
+
+    def lanes(self, x):
+        """Vector lanes (B, n) as one product M·Xᵀ (one lane: M x)."""
+        if x.shape[0] == 1 or x.ndim != 2:
+            return super().lanes(x)
+        return self._apply(self.M, x.mT).mT
+
+    def rmatvec_lanes(self, y):
+        if y.shape[0] == 1 or y.ndim != 2:
+            return super().rmatvec_lanes(y)
+        return self._apply(self.Mh, y.mT).mT
+
+    @property
+    def shape(self):
+        return tuple(self.M.shape)
+
+
+def _csr(M, dtype, device) -> torch.Tensor:
+    """A scipy CSR matrix as a torch sparse CSR tensor."""
+    values = torch.as_tensor(M.data)
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(M.indptr, dtype=torch.int64),
+        torch.as_tensor(M.indices, dtype=torch.int64),
+        values if dtype is None else values.to(dtype),
+        size=M.shape, device=device, check_invariants=True)
 
 
 class LowPrecDenseOp(LinearOp):
@@ -238,6 +304,35 @@ class PlanarDenseOp(LinearOp):
         return tuple(self.Ar.shape)
 
 
+class IdentityOp(LinearOp):
+    """The identity, the operator of a problem with no explicit A
+    (``fasta_tpu/operators.py:268``)."""
+
+    def __call__(self, x):
+        return x
+
+    def rmatvec(self, y):
+        return y
+
+    lanes, rmatvec_lanes = __call__, rmatvec
+
+
+class FunctionOp(LinearOp):
+    """An arbitrary (forward, adjoint) closure pair, the reference's
+    function-operator mode (``fasta_tpu/operators.py:277``).  Lanes take
+    one call each."""
+
+    def __init__(self, fwd: Callable, adj: Callable):
+        self.fwd = fwd
+        self.adj = adj
+
+    def __call__(self, x):
+        return self.fwd(x)
+
+    def rmatvec(self, y):
+        return self.adj(y)
+
+
 def tv_grad_2d(x: torch.Tensor) -> torch.Tensor:
     """2-D forward differences (..., H, W) → (..., 2, H, W): channel 0
     vertical, channel 1 horizontal, the last row / column of each channel
@@ -289,6 +384,40 @@ class TVDiv2D(LinearOp):
     lanes, rmatvec_lanes = __call__, rmatvec      # leading axes are lanes
 
 
+class MaskedFourierOp(LinearOp):
+    """Subsampled unitary FFT y = mask ⊙ FFT(x)/√n over the last axis, the
+    adjoint IFFT(conj(mask) ⊙ y)·√n (``torch.fft`` with ``norm="ortho"``,
+    cuFFT on the card; ``fasta_tpu/operators.py:346``).  Leading axes are
+    lanes."""
+
+    def __init__(self, mask: torch.Tensor):
+        self.mask = mask
+
+    def __call__(self, x):
+        return self.mask * torch.fft.fft(x, norm="ortho")
+
+    def rmatvec(self, y):
+        return torch.fft.ifft(torch.conj(self.mask) * y, norm="ortho")
+
+    lanes, rmatvec_lanes = __call__, rmatvec
+
+
+class DiagonalOp(LinearOp):
+    """Elementwise scaling by d, the adjoint by conj(d)
+    (``fasta_tpu/operators.py:373``).  Leading axes are lanes."""
+
+    def __init__(self, d: torch.Tensor):
+        self.d = d
+
+    def __call__(self, x):
+        return self.d * x
+
+    def rmatvec(self, y):
+        return torch.conj(self.d) * y
+
+    lanes, rmatvec_lanes = __call__, rmatvec
+
+
 class ScaledOp(LinearOp):
     """c · op with a real scalar c (so the adjoint is c · opᴴ)."""
 
@@ -309,6 +438,54 @@ class ScaledOp(LinearOp):
         return self.c * self.op.rmatvec_lanes(y)
 
 
+class ComposeOp(LinearOp):
+    """outer ∘ inner: x ↦ outer(inner(x)) (``fasta_tpu/operators.py:414``)."""
+
+    def __init__(self, outer: LinearOp, inner: LinearOp):
+        self.outer = outer
+        self.inner = inner
+
+    def __call__(self, x):
+        return self.outer(self.inner(x))
+
+    def rmatvec(self, y):
+        return self.inner.rmatvec(self.outer.rmatvec(y))
+
+    def lanes(self, x):
+        return self.outer.lanes(self.inner.lanes(x))
+
+    def rmatvec_lanes(self, y):
+        return self.inner.rmatvec_lanes(self.outer.rmatvec_lanes(y))
+
+
+class StackedOp(LinearOp):
+    """Vertical stack x ↦ [op₁x; op₂x; …] along a new leading axis; the
+    members' outputs share a shape and the adjoint sums the members'
+    adjoints in order (``fasta_tpu/operators.py:436``).  Over lanes the
+    stack axis follows the lane axis: (B, K, ...)."""
+
+    def __init__(self, ops: Sequence[LinearOp]):
+        self.ops = tuple(ops)
+
+    def __call__(self, x):
+        return torch.stack([op(x) for op in self.ops])
+
+    def rmatvec(self, y):
+        out = self.ops[0].rmatvec(y[0])
+        for i, op in enumerate(self.ops[1:], start=1):
+            out = out + op.rmatvec(y[i])
+        return out
+
+    def lanes(self, x):
+        return torch.stack([op.lanes(x) for op in self.ops], dim=1)
+
+    def rmatvec_lanes(self, y):
+        out = self.ops[0].rmatvec_lanes(y[:, 0])
+        for i, op in enumerate(self.ops[1:], start=1):
+            out = out + op.rmatvec_lanes(y[:, i])
+        return out
+
+
 def default_device(device, what: str) -> torch.device:
     """The device an entry point places data that carries none on:
     ``device``, or the card when None.  With no card present the default
@@ -324,10 +501,23 @@ def default_device(device, what: str) -> torch.device:
 
 
 def as_linear_op(A: Any, At: Any = None, device=None) -> LinearOp:
-    """Normalize an operator argument: a tensor becomes a ``DenseOp`` on
-    the tensor's own device, a NumPy matrix a ``DenseOp`` on ``device``
-    (the card when None: see :func:`default_device`), a ``LinearOp``
-    itself.  ``At`` must be None for those forms."""
+    """Normalize the reference's operator forms into a ``LinearOp``
+    (``fasta_tpu/operators.py:464-514``):
+
+    * None → :class:`IdentityOp`;
+    * a ``LinearOp`` → itself;
+    * a tensor → a ``DenseOp`` on the tensor's own device, a NumPy matrix
+      → a ``DenseOp`` on ``device`` (the card when None: see
+      :func:`default_device`); ``At`` must be None;
+    * a scipy sparse matrix → a :class:`SparseOp` on ``device``;
+    * an object with ``matvec``, ``rmatvec`` and ``shape`` (a scipy
+      ``LinearOperator``) → a :class:`FunctionOp` that applies it on the
+      host in NumPy, one round trip to the host a product, as the JAX
+      package's ``pure_callback`` does: a compatibility path;
+    * a callable with its adjoint callable ``At`` → a :class:`FunctionOp`.
+    """
+    if A is None:
+        return IdentityOp()
     if isinstance(A, LinearOp):
         return A
     if isinstance(A, (torch.Tensor, np.ndarray)):
@@ -337,10 +527,32 @@ def as_linear_op(A: Any, At: Any = None, device=None) -> LinearOp:
             return DenseOp(torch.as_tensor(
                 A, device=default_device(device, "as_linear_op")))
         return DenseOp(A)
-    raise NotImplementedError(
-        f"operator type {type(A).__name__} is not ported yet: identity, "
-        f"closure-pair and structured operators are ROADMAP Queue A "
-        f"item 2")
+    import scipy.sparse as sp
+    if sp.issparse(A):
+        return SparseOp.from_scipy(A, device=default_device(device,
+                                                            "as_linear_op"))
+    if (callable(getattr(A, "matvec", None))
+            and callable(getattr(A, "rmatvec", None))
+            and hasattr(A, "shape")):
+        # checked before the bare callable: scipy's LinearOperator has
+        # __call__ too
+        return FunctionOp(_on_host(A.matvec), _on_host(A.rmatvec))
+    if callable(A):
+        if not callable(At):
+            raise ValueError("A is a callable; At must be its adjoint "
+                             "callable")
+        return FunctionOp(A, At)
+    raise TypeError(f"unsupported operator type: {type(A)}")
+
+
+def _on_host(fn: Callable) -> Callable:
+    """``fn`` over NumPy arrays as a function of a tensor: the tensor
+    copied to the host, ``fn`` applied there, its result cast to the
+    tensor's dtype and copied back to the tensor's device."""
+    def apply(v):
+        out = np.asarray(fn(v.detach().cpu().numpy()))
+        return torch.as_tensor(out).to(device=v.device, dtype=v.dtype)
+    return apply
 
 
 def check_adjoint(op: LinearOp, x_like: torch.Tensor,

@@ -1,6 +1,6 @@
 """Objective terms: smooth f(A·) and prox-friendly g(·) (port of
-``fasta_tpu/terms.py:45-260, 330-439, 443-482, 543-625, 693-720, 777-838,
-854-889``).
+``fasta_tpu/terms.py``; the sharded operators' fused maps are ROADMAP
+Queue A item 13).
 
 Smooth terms implement ``value(d)`` and ``grad(d)`` (evaluated at
 d = A x); prox terms implement ``value(x)`` and ``prox(z, t)``.  Terms
@@ -12,12 +12,8 @@ terms give ``value_lanes``, ``value_f64_lanes`` and ``grad_lanes`` and
 prox terms ``value_lanes`` and ``prox_lanes`` (one stepsize per lane), one
 value per lane.  A term's one data tensor (``lane_field``: b, y, μ, λ or
 c) is either shared by every lane or carries the lane axis itself.
-
-The port has the terms of the dense problems (LASSO, NNLS, sparse
-logistic regression, SVM), of TV denoising (``LeastSquares`` over a 2-D
-image, ``BoxIndicator``) and of phase retrieval (``PhaseHinge`` and
-``LinearAnchor``, and their planar forms); the other terms come with
-their problems (ROADMAP Queue A item 7).
+A matrix variable (MMV, matrix completion, max-norm, NMF) keeps its rows
+on the last axis of a lane.
 """
 
 from __future__ import annotations
@@ -31,9 +27,11 @@ from .precision import lane, lane_dot64, lane_sum
 
 __all__ = [
     "SmoothTerm", "LeastSquares", "Logistic", "SquaredHinge", "PhaseHinge",
-    "PlanarPhaseHinge", "FunctionSmooth", "ProxTerm", "L1Norm",
-    "NonnegIndicator", "BoxIndicator", "L2Norm2", "LinearAnchor",
-    "PlanarLinearAnchor", "FunctionProx", "as_smooth_term", "as_prox_term",
+    "PlanarPhaseHinge", "MaskedLogistic", "NMFLoss", "FunctionSmooth",
+    "ProxTerm", "L1Norm", "LinfNorm", "L21Norm", "NuclearNorm",
+    "NonnegIndicator", "BoxIndicator", "LinfBallIndicator",
+    "MaxRowNormBall", "L2Norm2", "LinearAnchor", "PlanarLinearAnchor",
+    "ZeroTerm", "FunctionProx", "as_smooth_term", "as_prox_term",
     "logistic_ell", "logistic_grad", "hinge_residual", "phase_hinge_parts",
 ]
 
@@ -347,6 +345,72 @@ class PlanarPhaseHinge(SmoothTerm):
         return lambda x: fused_planar_hinge_gradmap(op.Ar, op.Ai, x, b)
 
 
+class MaskedLogistic(SmoothTerm):
+    """Masked logistic loss of 1-bit matrix completion
+    (``fasta_tpu/terms.py:293``):
+    f(D) = Σ_{(i,j)∈Ω} log(1+exp(D_ij)) − Y_ij·D_ij, Y ∈ {0,1} on the
+    observed set Ω (``mask`` ∈ {0,1}).  Two data tensors, so no lane field:
+    the batch routes do not batch it (as the reference's serving plan
+    refuses a term of two leaves)."""
+
+    def __init__(self, Y: torch.Tensor, mask: torch.Tensor):
+        self.Y = Y
+        self.mask = mask
+
+    def _loss(self, d):
+        return self.mask * logistic_ell(d, self.Y)
+
+    def value_lanes(self, d):
+        return lane_sum(self._loss(d))
+
+    def value_f64_lanes(self, d):
+        """A float64 sum of the working-precision masked ℓ (the
+        counterpart of ``value_dd``)."""
+        return lane_sum(self._loss(d).to(torch.float64))
+
+    def grad(self, d):
+        return self.mask * logistic_grad(d, self.Y)
+
+
+class NMFLoss(SmoothTerm):
+    """Joint nonnegative-matrix-factorization loss on the stacked factor
+    X = [W; H] ∈ ℝ^{(d1+d2)×r} under the identity operator
+    (``fasta_tpu/terms.py:486``):
+
+        f(X) = ½‖W Hᵀ − Y‖²_F,   ∇f = [R H; Rᵀ W],  R = W Hᵀ − Y.
+
+    Leading axes of X are lanes (batched products).  The products run in
+    full float32 on the card only while TF32 is off (the JAX package pins
+    ``Precision.HIGHEST`` for them)."""
+
+    lane_field = "Y"
+
+    def __init__(self, Y: torch.Tensor):
+        self.Y = Y
+
+    def _factors(self, X):
+        d1 = self.Y.shape[-2]
+        return X[..., :d1, :], X[..., d1:, :]
+
+    def _residual(self, X):
+        W, H = self._factors(X)
+        return torch.matmul(W, H.mT) - self.Y
+
+    def value_lanes(self, X):
+        R = self._residual(X)
+        return 0.5 * lane_sum(R * R)
+
+    def value_f64_lanes(self, X):
+        R = self._residual(X)
+        return 0.5 * lane_dot64(R, R)
+
+    def grad(self, X):
+        W, H = self._factors(X)
+        R = self._residual(X)
+        return torch.cat([torch.matmul(R, H), torch.matmul(R.mT, W)],
+                         dim=-2)
+
+
 class FunctionSmooth(SmoothTerm):
     """Wrap raw (f, gradf) callables — reference-style closures.
     ``gradf=None`` derives the gradient with ``torch.func.grad`` (the
@@ -429,15 +493,85 @@ class L1Norm(ProxTerm):
         return _prox.shrink(z, lane(t * _weight(self.mu, t), z))
 
 
-class NonnegIndicator(ProxTerm):
-    """g = indicator{x ≥ 0}; prox = orthant projection (NNLS)."""
+class LinfNorm(ProxTerm):
+    """g = μ‖·‖∞; prox by Moreau decomposition through the L1-ball
+    projection, each lane's whole variable (democratic representations;
+    ``fasta_tpu/terms.py:627``)."""
+
+    lane_field = "mu"
+
+    def __init__(self, mu: float = 1.0):
+        self.mu = mu
+
+    def value(self, x):
+        return self.mu * torch.amax(torch.abs(x))
+
+    def prox(self, z, t):
+        return _prox.prox_linf(z, t * self.mu)
+
+    def value_lanes(self, x):
+        m = torch.amax(torch.abs(x).reshape(x.shape[0], -1), dim=1)
+        return _weight(self.mu, m) * m
+
+    def prox_lanes(self, z, t):
+        return _prox.prox_linf_lanes(z, t * _weight(self.mu, t))
+
+
+class L21Norm(ProxTerm):
+    """g = μ‖·‖_{2,1} (the sum of the row norms, rows the last axis);
+    prox = row-wise group shrink (MMV; ``fasta_tpu/terms.py:649``)."""
+
+    lane_field = "mu"
+
+    def __init__(self, mu: float = 1.0):
+        self.mu = mu
+
+    def value(self, X):
+        return self.mu * torch.sum(torch.linalg.vector_norm(X, dim=-1))
+
+    def prox(self, Z, t):
+        return _prox.shrink_rows(Z, t * self.mu)
+
+    def value_lanes(self, X):
+        s = lane_sum(torch.linalg.vector_norm(X, dim=-1))
+        return _weight(self.mu, s) * s
+
+    def prox_lanes(self, Z, t):
+        return _prox.shrink_rows(Z, lane(t * _weight(self.mu, t), Z))
+
+
+class NuclearNorm(ProxTerm):
+    """g = μ‖·‖_*; prox = singular-value thresholding of each lane's
+    matrix (matrix completion; ``fasta_tpu/terms.py:671``).  The SVD is
+    ``torch.linalg``'s (cuSOLVER on the card), batched over lanes."""
+
+    lane_field = "mu"
+
+    def __init__(self, mu: float = 1.0):
+        self.mu = mu
+
+    def value(self, X):
+        return self.mu * torch.sum(torch.linalg.svdvals(X))
+
+    def prox(self, Z, t):
+        return _prox.svt(Z, t * self.mu)
+
+    def value_lanes(self, X):
+        s = torch.sum(torch.linalg.svdvals(X), dim=-1)
+        return _weight(self.mu, s) * s
+
+    def prox_lanes(self, Z, t):
+        # one threshold per lane, broadcast against σ (B, k)
+        return _prox.svt(Z, lane(t * _weight(self.mu, t), Z[..., 0]))
+
+
+class _ZeroValue(ProxTerm):
+    """A term whose value is 0 wherever it is finite (an indicator, or
+    g ≡ 0): ``value`` and ``value_lanes`` give zeros, and ``prox`` takes
+    no stepsize, so ``prox_lanes`` is ``prox`` over the whole stack."""
 
     def value(self, x):
         return torch.zeros((), dtype=torch.real(x).dtype, device=x.device)
-
-    def prox(self, z, t):
-        del t
-        return _prox.project_nonneg(z)
 
     def value_lanes(self, x):
         return torch.zeros(x.shape[0], dtype=torch.real(x).dtype,
@@ -447,26 +581,49 @@ class NonnegIndicator(ProxTerm):
         return self.prox(z, t)
 
 
-class BoxIndicator(ProxTerm):
+class NonnegIndicator(_ZeroValue):
+    """g = indicator{x ≥ 0}; prox = orthant projection (NNLS)."""
+
+    def prox(self, z, t):
+        del t
+        return _prox.project_nonneg(z)
+
+
+class BoxIndicator(_ZeroValue):
     """g = indicator{lo ≤ x ≤ hi}; prox = clamp (real)."""
 
     def __init__(self, lo: float = -1.0, hi: float = 1.0):
         self.lo = lo
         self.hi = hi
 
-    def value(self, x):
-        return torch.zeros((), dtype=torch.real(x).dtype, device=x.device)
-
     def prox(self, z, t):
         del t
         return _prox.project_box(z, self.lo, self.hi)
 
-    def value_lanes(self, x):
-        return torch.zeros(x.shape[0], dtype=torch.real(x).dtype,
-                           device=x.device)
 
-    def prox_lanes(self, z, t):
-        return self.prox(z, t)
+class LinfBallIndicator(_ZeroValue):
+    """g = indicator{‖x‖∞ ≤ r}; prox = the complex-safe magnitude clip
+    (``fasta_tpu/terms.py:729``)."""
+
+    def __init__(self, radius: float = 1.0):
+        self.radius = radius
+
+    def prox(self, z, t):
+        del t
+        return _prox.project_linf_ball(z, self.radius)
+
+
+class MaxRowNormBall(_ZeroValue):
+    """g = indicator{max_i ‖row_i‖₂ ≤ r}, the max-norm factorization
+    constraint; prox = each row (the last axis) scaled onto the L2 ball
+    (``fasta_tpu/terms.py:752``)."""
+
+    def __init__(self, radius: float = 1.0):
+        self.radius = radius
+
+    def prox(self, Z, t):
+        del t
+        return _prox.project_max_row_norm(Z, self.radius)
 
 
 class L2Norm2(ProxTerm):
@@ -537,6 +694,14 @@ class PlanarLinearAnchor(ProxTerm):
         return z + lane(t, z) * self.c
 
 
+class ZeroTerm(_ZeroValue):
+    """g ≡ 0 (smooth-only minimization; ``fasta_tpu/terms.py:842``)."""
+
+    def prox(self, z, t):
+        del t
+        return z
+
+
 class FunctionProx(ProxTerm):
     """Wrap raw (g, proxg) callables — reference-style closures.  ``g``
     may be None (value 0)."""
@@ -561,10 +726,10 @@ def as_smooth_term(f, gradf=None) -> SmoothTerm:
 
 
 def as_prox_term(g, proxg=None) -> ProxTerm:
-    """A ``ProxTerm`` as itself, callables wrapped; (None, None) is g ≡ 0
-    with the identity prox."""
+    """A ``ProxTerm`` as itself, callables wrapped; (None, None) is
+    :class:`ZeroTerm` (``fasta_tpu/terms.py:884-889``)."""
     if isinstance(g, ProxTerm):
         return g
     if g is None and proxg is None:
-        return FunctionProx(None, lambda z, t: z)
+        return ZeroTerm()
     return FunctionProx(g, proxg)

@@ -2065,3 +2065,21 @@ def test_dense_routes_halt_nonfinite_and_leave_the_barrier_at_zero(dev,
     from fasta_tpu_torch.kernels import _build
     bar = _build.stream_scratch(dev, stream, 1)
     assert bar[:1].view(torch.int32).tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("name", ["sparse_lasso", "democratic"])
+def test_later_problem_loops_take_their_kernels_and_repeat_bits(dev, name):
+    """Sparse LASSO (``SparseOp``, cuSPARSE) takes K-B4 on its loop path
+    and democratic (the L∞ prox) K-B3, float32 at their default sizes;
+    two solves give the same bits (count, taus and solution)."""
+    p = problems.build(name, device=dev)
+    p.tau0 = 0.1
+    counter = (prox_fused, "LAUNCHES") if name == "sparse_lasso" else \
+        (lstsq_fused, "LAUNCHES")
+    before = getattr(*counter)
+    runs = [p.solve(tol=1e-6, max_iters=500) for _ in range(2)]
+    assert getattr(*counter) > before
+    assert runs[0].iteration_count == runs[1].iteration_count
+    np.testing.assert_array_equal(runs[0].taus, runs[1].taus)
+    np.testing.assert_array_equal(runs[0].solution, runs[1].solution)
+    assert np.isfinite(runs[0].solution).all()

@@ -19,6 +19,7 @@ import fasta_tpu_torch as ftt
 import problems as jax_problems
 from fasta_tpu.solver import solve_path as jax_solve_path
 from fasta_tpu_torch.convert import problem_from_instance
+from fasta_tpu_torch.harness import MODE_OPTIONS as MODES
 from reference_oracle.fasta_numpy import fasta as fasta_np
 
 torch.set_num_threads(1)
@@ -29,11 +30,6 @@ CASES = {
     "nnls": (dict(m=120, n=60), 0.08, dict(tol=1e-9, max_iters=200)),
     "logistic": (dict(m=150, n=80), 1.0, dict(tol=1e-8, max_iters=150)),
     "svm": (dict(m=120, n=30), 0.3, dict(tol=1e-8, max_iters=150)),
-}
-MODES = {
-    "plain": dict(adaptive=False, accelerate=False),
-    "adaptive": dict(adaptive=True, accelerate=False),
-    "accelerated": dict(adaptive=False, accelerate=True),
 }
 
 

@@ -205,16 +205,17 @@ def test_estimate_stepsize_points_parity():
 
 
 def test_unported_modes_raise():
-    """The three modes run; what is still unported raises, naming its
-    ROADMAP item."""
+    """The three modes run; every example problem is ported, so only a
+    name that is none raises (the builder's registry, the converter's
+    list)."""
     pt = problems.build("lasso", device="cpu", **SMALL)
     for mode in (dict(adaptive=False), dict(accelerate=True)):
         r = pt.solve(tau0=TAU0, max_iters=5, **mode)
         assert r.iteration_count == 5
-    with pytest.raises(NotImplementedError, match="Queue A items 2 and 7"):
-        problems.build("phase_retrieval_cdp", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A items 2 and 7"):
-        problem_from_instance({"name": "mmv"}, device="cpu",
+    with pytest.raises(KeyError, match="no problem named"):
+        problems.build("phase_retrieval_cdpx", device="cpu")
+    with pytest.raises(ValueError, match="names no example problem"):
+        problem_from_instance({"name": "mmvx"}, device="cpu",
                               dtype=torch.float32)
 
 

@@ -61,8 +61,7 @@ def test_as_linear_op_forms():
     op = ftt.as_linear_op(A, device="cpu")   # NumPy: on the asked device
     assert op.A.device.type == "cpu"
     assert ftt.as_linear_op(op) is op
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        ftt.as_linear_op(None)
+    assert isinstance(ftt.as_linear_op(None), ftt.IdentityOp)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

@@ -25,17 +25,12 @@ import problems as jax_problems
 from fasta_tpu.micro import _dispatch as jax_dispatch
 from fasta_tpu_torch import problems
 from fasta_tpu_torch.convert import problem_from_instance, result_to_numpy
+from fasta_tpu_torch.harness import MODE_OPTIONS as MODES
 from fasta_tpu_torch.kernels import microsolver_planar, planar_fused
 from fasta_tpu_torch.micro import _dispatch
 from reference_oracle.fasta_numpy import fasta as fasta_np
 
 torch.set_num_threads(1)
-
-MODES = {
-    "plain": dict(adaptive=False, accelerate=False),
-    "adaptive": dict(adaptive=True, accelerate=False),
-    "accelerated": dict(adaptive=False, accelerate=True),
-}
 
 
 def _complex(xp):
