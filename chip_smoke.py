@@ -171,7 +171,20 @@ non-zero without the final ``ok`` line):
     bit-identical; each problem's wall time to tolerance and it/s at a
     fixed 2000 iterations; then ROADMAP M4, ``SparseOp`` at density 0.5%,
     2% and 10% against the densified ``DenseOp``: matvec and adjoint
-    card time (a CUDA graph) and GB/s, and the loop's it/s.
+    card time (a CUDA graph) and GB/s, and the loop's it/s;
+32. exact mid-run resume on LASSO 1000×2000 (BASELINE config 1) in
+    plain, adaptive and FISTA mode: ``make_stateful_solver`` for 50
+    iterations, ``checkpoint.save_pytree`` to a file under ``build/``,
+    ``load_pytree``, ``resume_state`` to 100, the resumed solution and
+    τ, residual, f and backtrack series ``torch.equal`` to the
+    uninterrupted run's, K-B3 and K-B4 one launch a trial in the resumed
+    part and no plain version, the objective at 100 within rtol 1e-5 of
+    the float64 oracle's; ``make_batch_solver`` over a batched
+    ``DenseOp`` of 4 instances 1000×2000, each lane's objective within
+    rtol 1e-5 of its own solve's; the suite runner's ``lasso`` (quick
+    size) on the card ("figure skipped" without matplotlib); then K-B3's
+    card time at 1000×2000 and 256×1024 (200 calls in a CUDA graph)
+    beside its plain version's and the byte bound.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -3743,6 +3756,159 @@ def phase_later_problems() -> dict:
     return dict(launches=launches, it_s=rates, m4=m4)
 
 
+# --------------------------------------------------------------------------
+# phase 32: exact mid-run resume, the batched operator and the runner
+# --------------------------------------------------------------------------
+
+RESUME_FIELDS = ("solution", "taus", "residuals", "fvals", "backtracks")
+
+
+def phase_exact_resume() -> dict:
+    """The exact-resume path on LASSO 1000×2000 float32 (BASELINE config 1:
+    seed 1, μ 0.1, τ₀ 0.05; hp decisions), in plain, adaptive and FISTA
+    mode: ``make_stateful_solver`` for 50 iterations, ``save_pytree`` to a
+    file under ``build/``, ``load_pytree``, ``resume_state`` to 100; the
+    resumed ``solution``, ``taus``, ``residuals``, ``fvals`` and
+    ``backtracks`` ``torch.equal`` to the uninterrupted 100-iteration
+    run's, K-B3 and K-B4 launched once a trial in the resumed part and no
+    plain version called, the 100-iteration objective within rtol 1e-5 of
+    the float64 oracle's at the same count.  Then ``make_batch_solver``
+    over a batched ``DenseOp`` of 4 LASSO instances 1000×2000 (seeds
+    1-4, A and b a lane; tol 1e-6), each lane's objective within rtol 1e-5
+    of its own solve's, and the suite runner's ``lasso`` at its quick size
+    on the card (where matplotlib is missing it says "figure skipped").
+    The counts are read over all of that; then, outside them, K-B3's card
+    time at 1000×2000 and 256×1024 (200 calls in a CUDA graph, the plain
+    version's beside it) against the byte bound."""
+    from fasta_tpu_torch.problems import __main__ as runner
+    print(f"[32] card: {smi_line()}")
+    prob = problems.build("lasso", device=DEV)      # 1000×2000 float32
+    inst = prob.instance
+    args = (prob.op, prob.fterm, prob.gterm, prob.x0, 0.05)
+    state_dir = _build._BUILD_DIR.parent
+    state_dir.mkdir(parents=True, exist_ok=True)
+    refs = {}
+    for mode, kw in MODE_OPTIONS.items():
+        r = fasta_np(inst["op"], None, inst["f"], inst["gradf"], inst["g"],
+                     inst["proxg"], inst["x0"], tau0=0.05, max_iters=100,
+                     stop_rule="iterations", **kw)
+        refs[mode] = objective64(inst, r.solution)
+    seeds = (1, 2, 3, 4)
+    lanes = [problems.build("lasso", seed=s, device=DEV) for s in seeds]
+    batch_opts = ftt.FastaOptions(tol=1e-6, max_iters=5000)
+
+    rows = {}
+    with counting_plain() as plain_calls:
+        reset_launches()
+        for mode, kw in MODE_OPTIONS.items():
+            o50 = ftt.FastaOptions(max_iters=50, stop_rule="iterations", **kw)
+            o100 = o50.replace(max_iters=100)
+            _, s50 = ftt.make_stateful_solver(o50)(*args)
+            path = str(state_dir / f"chip_smoke_state_{mode}.npz")
+            checkpoint.save_pytree(s50, path)
+            loaded = checkpoint.load_pytree(s50, path)
+            before, plain_before = read_launches(), dict(plain_calls)
+            r_res, s100 = ftt.resume_state(*args[:3], loaded, o100)
+            torch.cuda.synchronize()
+            after = read_launches()
+            plain_resumed = {k: plain_calls[k] - plain_before[k]
+                             for k in plain_calls}
+            r_full, _ = ftt.make_stateful_solver(o100)(*args)
+            same = {f: torch.equal(getattr(r_res, f), getattr(r_full, f))
+                    for f in RESUME_FIELDS}
+            tried = 50 + int(r_res.backtracks[50:].sum())
+            b3 = after["K-B3"] - before["K-B3"]
+            b4 = after["K-B4"] - before["K-B4"]
+            obj = objective64(inst, r_full.solution.cpu().numpy())
+            rel = abs(obj - refs[mode]) / abs(refs[mode])
+            rows[mode] = dict(equal=all(same.values()), trials=tried,
+                              k_b3=b3, k_b4=b4, rel=rel,
+                              k=int(s100.k), plain=plain_resumed)
+            print(f"[32 resume {mode}] 50 iterations, save_pytree to "
+                  f"{path}, load_pytree, resume_state to {int(s100.k)}: "
+                  f"torch.equal to the uninterrupted run {same}; resumed "
+                  f"part {tried} trials, K-B3 {b3} launches, K-B4 {b4}, "
+                  f"plain versions {plain_resumed}; objective at 100 "
+                  f"{obj:.9g} against the float64 oracle's "
+                  f"{refs[mode]:.9g}: rel {rel:.2e} (tol 1e-5)")
+            require(all(same.values()), f"resume {mode}: the resumed run "
+                                        f"differs from the uninterrupted "
+                                        f"one: {same}")
+            require(int(s100.k) == 100 and r_res.iteration_count == 100,
+                    f"resume {mode}: not at 100 iterations")
+            require(b3 == tried and b4 == tried,
+                    f"resume {mode}: K-B3 {b3} and K-B4 {b4} launches for "
+                    f"{tried} trials")
+            require(not any(plain_resumed.values()),
+                    f"resume {mode}: a plain version ran: {plain_resumed}")
+            require(np.isfinite(obj) and rel <= 1e-5,
+                    f"resume {mode}: objective against the float64 oracle")
+
+        before = read_launches()
+        out = ftt.make_batch_solver(batch_opts, (0, 0, None, None, None))(
+            ftt.DenseOp(torch.stack([p.op.A for p in lanes])),
+            ftt.LeastSquares(torch.stack([p.fterm.b for p in lanes])),
+            lanes[0].gterm, lanes[0].x0, 0.05)
+        torch.cuda.synchronize()
+        batch_launches = {k: v - before[k] for k, v in read_launches().items()
+                          if v != before[k]}
+        batch = []
+        for i, p in enumerate(lanes):
+            single = p.solve_device(batch_opts, tau0=0.05)
+            o_lane = objective64(p.instance, out.solution[i].cpu().numpy())
+            o_single = objective64(p.instance,
+                                   single.solution.cpu().numpy())
+            rel = abs(o_lane - o_single) / abs(o_single)
+            batch.append(rel)
+            print(f"[32 batch seed {seeds[i]}] lane: {out.iteration_count[i]} "
+                  f"iterations, converged={out.converged[i]}, objective "
+                  f"{o_lane:.9g}; own solve: {single.iteration_count}, "
+                  f"converged={single.converged}, {o_single:.9g}: rel "
+                  f"{rel:.2e} (tol 1e-5)")
+            require(out.converged[i] and single.converged and rel <= 1e-5,
+                    f"batch lane {i} against its own solve")
+        print(f"[32 batch] 4 lanes 1000x2000 over a batched DenseOp, launches "
+              f"{batch_launches}")
+        require(batch_launches.get("K-B4", 0) >= 1,
+                "the batch's L1 trials did not take K-B4")
+
+        quick = runner.run_problem("lasso", quick=True, device=DEV,
+                                   out_dir=str(state_dir / "figures"))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    plain = dict(plain_calls)
+    for mode, r in quick["results"].items():
+        obj = objective64(quick["problem"].instance, r.solution)
+        require(r.converged and np.isfinite(obj)
+                and r.solution.shape == (400,),
+                f"runner lasso {mode}: not converged or not finite")
+    print(f"[32 runner] lasso 200x400 on the card: figure "
+          f"{quick['figure'] or 'skipped'}")
+    print(f"[32] launches during the phase: {launches}; plain versions "
+          f"called: {plain}")
+    require(not any(plain.values()), f"a plain version ran: {plain}")
+
+    card = {}
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for m, n in ((1000, 2000), (256, 1024)):
+        A = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
+        x = torch.randn(n, generator=gen, device=DEV)
+        b = torch.randn(m, generator=gen, device=DEV)
+        kern = graph_ms(lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b))
+        plain_ms = graph_ms(
+            lambda: lstsq_fused.lstsq_gradmap_reference(A, x, b))
+        bnd = bound(4.0 * (m * n + 2 * n + 2 * m), 4.0 * m * n)
+        card[f"card_ms_{m}x{n}"] = kern
+        card[f"plain_card_ms_{m}x{n}"] = plain_ms
+        card[f"bound_ms_{m}x{n}"] = bnd["bound_ms"]
+        print(f"[32 K-B3 {m}x{n}] card time per call (200 calls in a CUDA "
+              f"graph): kernel {kern * 1e3:.3f} us, plain {plain_ms * 1e3:.3f}"
+              f" us; bound {bnd['bound_ms'] * 1e3:.3f} us "
+              f"({bnd['bound_by']}), {kern / bnd['bound_ms']:.1f}x")
+    return dict(launches=launches, resume=rows, batch_rel=batch,
+                k_b3_card=card)
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -3776,9 +3942,11 @@ def main() -> None:
     p1g = phase_gradmap_probe()
     p3 = phase_tail_probe()
     later = phase_later_problems()
+    resume = phase_exact_resume()
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
                 + serving["launches"][k] + b8w["launches"][k]
-                + bf16["launches"][k] + later["launches"][k] for k in lasso}
+                + bf16["launches"][k] + later["launches"][k]
+                + resume["launches"][k] for k in lasso}
     del b8w["launches"]
     launches["K-P5"] = p5.pop("launches_timed")
     launches["K-P4"] = p4.pop("launches_timed")
@@ -3789,7 +3957,7 @@ def main() -> None:
         dict(name="K-B3 fused_lstsq_gradmap", route="cuda",
              source="fasta_tpu_torch/csrc/lstsq_fused.cu",
              replaces="fasta_tpu/kernels/lstsq_fused.py:407",
-             launches=launches["K-B3"], **b3),
+             launches=launches["K-B3"], **b3, **resume["k_b3_card"]),
         dict(name="K-B3p fused_pointwise_gradmap", route="cuda",
              source="fasta_tpu_torch/csrc/lstsq_fused.cu",
              replaces="fasta_tpu/kernels/lstsq_fused.py:331",

@@ -16,15 +16,22 @@ route a request to the whole-solve kernels, their batched forms
 (``microsolve_batch``) or the batch solver (``make_batch_solver``);
 bfloat16 storage (``LowPrecDenseOp``, bfloat16 ``PlanarDenseOp``) with
 float32 refinement through ``checkpoint.resume``, and ``checkpoint``'s
-``save_pytree`` / ``load_pytree``, whose files both packages read; the
-mode-comparison harness (``compare_modes``, ``format_comparison``).
+``save_pytree`` / ``load_pytree``, whose files both packages read; exact
+mid-run resume (``make_stateful_solver`` → ``SolverState`` →
+``resume_state``); the batch solver over a stacked operator; the
+mode-comparison harness (``compare_modes``, ``format_comparison``), the
+closure builders of ``smooth``, the figures of ``plotting`` (matplotlib
+imported when a figure is drawn) and the suite's runner
+``python -m fasta_tpu_torch.problems``.
 Entry points place data that carries no device on the card unless the
 caller passes ``device="cpu"``.
-Only what is ported is exported.  Importing this package imports no JAX
-and compiles nothing.
+It exports every name of ``fasta_tpu.__all__`` (the sharded operators of
+``fasta_tpu.sharding`` are not ported yet).  Importing this package
+imports no JAX and no matplotlib, and compiles nothing.
 """
 
-from . import checkpoint
+from . import (checkpoint, operators, plotting, profiling, prox, smooth,
+               terms)
 from .harness import MODE_OPTIONS, compare_modes, format_comparison
 from .micro import (MicroBatchResult, MicroResult, microsolve,
                     microsolve_batch, microsolve_supported, microsolve_sweep)
@@ -39,8 +46,9 @@ from .prox import (project_box, project_l1_ball, project_linf_ball,
                    project_nonneg, prox_l1, prox_l21, prox_linear, prox_linf,
                    prox_zero, shrink, shrink_rows, svt)
 from .serving import BATCH_CROSSOVER_UNKNOWNS, ServingPlan, recommend_path
-from .solver import (DeviceResult, FastaResult, estimate_stepsize, fasta,
-                     make_batch_solver, make_solver, solve, solve_path)
+from .solver import (DeviceResult, Diagnostics, FastaResult, SolverState,
+                     estimate_stepsize, fasta, make_batch_solver, make_solver,
+                     make_stateful_solver, resume_state, solve, solve_path)
 from .terms import (BoxIndicator, FunctionProx, FunctionSmooth, L1Norm,
                     L2Norm2, L21Norm, LeastSquares, LinearAnchor,
                     LinfBallIndicator, LinfNorm, Logistic, MaskedLogistic,
@@ -50,9 +58,10 @@ from .terms import (BoxIndicator, FunctionProx, FunctionSmooth, L1Norm,
                     as_prox_term, as_smooth_term)
 
 __all__ = [
-    "fasta", "solve", "make_solver", "make_batch_solver", "solve_path",
-    "estimate_stepsize",
-    "FastaResult", "DeviceResult", "FastaOptions", "STOP_RULES", "Problem",
+    "fasta", "solve", "make_solver", "make_stateful_solver", "resume_state",
+    "make_batch_solver", "solve_path", "estimate_stepsize",
+    "FastaResult", "DeviceResult", "SolverState", "Diagnostics",
+    "FastaOptions", "STOP_RULES", "Problem",
     "LinearOp", "AdjointOp", "DenseOp", "SparseOp", "LowPrecDenseOp",
     "PlanarDenseOp", "IdentityOp", "FunctionOp", "MaskedFourierOp",
     "DiagonalOp", "ScaledOp", "ComposeOp", "StackedOp",
@@ -69,5 +78,6 @@ __all__ = [
     "compare_modes", "format_comparison", "MODE_OPTIONS",
     "MicroResult", "MicroBatchResult", "microsolve", "microsolve_supported",
     "microsolve_sweep", "microsolve_batch", "recommend_path", "ServingPlan",
-    "BATCH_CROSSOVER_UNKNOWNS", "checkpoint",
+    "BATCH_CROSSOVER_UNKNOWNS", "checkpoint", "operators", "plotting",
+    "profiling", "prox", "smooth", "terms",
 ]

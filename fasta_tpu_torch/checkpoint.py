@@ -14,7 +14,17 @@
 * ``resume(problem, result, ...)`` warm-restarts a solve from a previous
   result at its last iterate and last stepsize: the second half of the
   mixed-precision workflow (solve over a ``LowPrecDenseOp`` to a loose
-  tolerance, then resume the float32 problem).
+  tolerance, then resume the float32 problem).  It rebuilds the
+  nonmonotone window and the FISTA momentum.
+
+For BIT-EXACT mid-run resume — window, momentum, BB stepsize and the
+records' cursor all continued — take the whole ``SolverState`` from
+``fasta_tpu_torch.make_stateful_solver``, ``save_pytree`` /
+``load_pytree`` it (its keys are the JAX package's, so either package's
+state file loads in the other), and continue with
+``fasta_tpu_torch.resume_state``: the resumed trajectory equals the
+uninterrupted run bit for bit (``tests/test_torch_exact_resume.py``).
+The state's counts are 0-d tensors, so they load as tensors.
 
 No JAX import: the tree walk is written out here.
 """

@@ -22,6 +22,7 @@ from .operators import (ComposeOp, DenseOp, DiagonalOp, IdentityOp,
                         ScaledOp, SparseOp, StackedOp, TVDiv2D, tv_div_2d)
 from .precision import real_dtype
 from .problem import Problem
+from .solver import Diagnostics, SolverState
 from .terms import (BoxIndicator, L1Norm, L2Norm2, L21Norm, LeastSquares,
                     LinearAnchor, LinfNorm, Logistic, MaskedLogistic,
                     MaxRowNormBall, NMFLoss, NonnegIndicator, NuclearNorm,
@@ -30,7 +31,8 @@ from .terms import (BoxIndicator, L1Norm, L2Norm2, L21Norm, LeastSquares,
 
 __all__ = ["problem_from_instance", "problem_from_arrays",
            "result_to_numpy", "bf16_tensor", "lowprec_op_from_arrays",
-           "planar_op_from_arrays"]
+           "planar_op_from_arrays", "solver_state_from_arrays",
+           "solver_state_to_arrays"]
 
 
 def bf16_tensor(a, *, device) -> torch.Tensor:
@@ -265,6 +267,57 @@ _BUILDERS = {**{name: _dense for name in _DENSE}, "tv": _tv,
              "max_norm": _max_norm, "nmf": _nmf,
              "phase_retrieval": _phase_retrieval,
              "phase_retrieval_cdp": _phase_retrieval_cdp}
+
+
+def _field_dict(node) -> dict:
+    """A state's (or its records') fields by name: a NamedTuple's or a
+    mapping's."""
+    return dict(node._asdict() if hasattr(node, "_asdict") else node)
+
+
+def solver_state_from_arrays(fields, *, device) -> SolverState:
+    """A port :class:`~fasta_tpu_torch.solver.SolverState` on ``device``
+    from the JAX package's ``SolverState`` with NumPy leaves
+    (``np.asarray`` of each field, None kept), or a mapping of its field
+    names, ``diags`` likewise, ``accel`` a sequence or None.  A state that
+    ``fasta_tpu.make_stateful_solver`` returned (or that
+    ``fasta_tpu.checkpoint.load_pytree`` read) then resumes in the port's
+    ``resume_state`` with no port run to give an example.  Each array
+    keeps its type; a double-word window (the JAX package's float32 hp
+    ``fwin``, a (hi, lo) pair) becomes the port's float64 window hi + lo."""
+    f = _field_dict(fields)
+
+    def t(a):
+        return None if a is None else torch.tensor(np.asarray(a),
+                                                    device=device)
+    fwin = f["fwin"]
+    if isinstance(fwin, (tuple, list)):          # (hi, lo)
+        hi, lo = (np.asarray(p, np.float64) for p in fwin)
+        fwin = hi + lo
+    accel = f["accel"]
+    diags = _field_dict(f["diags"])
+    return SolverState(**{
+        **{k: t(v) for k, v in f.items() if k not in ("accel", "diags")},
+        "fwin": t(fwin),
+        "accel": None if accel is None else tuple(t(a) for a in accel),
+        "diags": Diagnostics(**{k: t(v) for k, v in diags.items()})})
+
+
+def solver_state_to_arrays(state: SolverState) -> dict:
+    """The inverse of :func:`solver_state_from_arrays`: the port state's
+    fields by name as NumPy arrays (``accel`` a tuple or None, ``diags`` a
+    dict), the JAX package's ``SolverState`` fields, so that
+    ``fasta_tpu.SolverState(**d, diags=fasta_tpu.Diagnostics(**d["diags"]))``
+    rebuilds it.  Its window stays the port's: float64 under hp, where
+    the JAX package keeps a double-word pair."""
+    def host(v):
+        return None if v is None else v.detach().cpu().numpy()
+    out = {k: host(v) for k, v in state._asdict().items()
+           if k not in ("accel", "diags")}
+    out["accel"] = (None if state.accel is None
+                    else tuple(host(a) for a in state.accel))
+    out["diags"] = {k: host(v) for k, v in state.diags._asdict().items()}
+    return out
 
 
 def result_to_numpy(result) -> dict:

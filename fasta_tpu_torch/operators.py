@@ -87,6 +87,15 @@ def _promoted(A: torch.Tensor, x: torch.Tensor):
     return A.to(dt), x.to(dt)
 
 
+def _stacked_matmul(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Lane i of ``x`` (B, n) or (B, n, l) times matrix i of ``A``
+    (B, m, n): one batched ``torch.matmul``."""
+    A, x = _promoted(A, x)
+    if x.ndim == 2:
+        return torch.matmul(A, x[..., None])[..., 0]
+    return torch.matmul(A, x)
+
+
 class DenseOp(LinearOp):
     """Explicit dense matrix A ∈ 𝔽^{m×n}.  Matvecs are ``torch.matmul``
     (the JAX package leaves them to XLA outside Pallas too) in the type
@@ -94,6 +103,10 @@ class DenseOp(LinearOp):
     same matrix is kernel K-B3 (``LeastSquares.fused_gradmap``).  A
     float32 product on the card runs in full float32 unless the caller
     enables TF32."""
+
+    # the matrix that make_batch_solver's batched operator stacks, one a
+    # lane: A (B, m, n)
+    lane_fields = ("A",)
 
     def __init__(self, A: torch.Tensor):
         self.A = A
@@ -106,7 +119,10 @@ class DenseOp(LinearOp):
 
     def lanes(self, x):
         """Vector lanes (B, n) as one product X·Aᵀ (one lane: A x, the
-        single solve's product)."""
+        single solve's product); with a stack of matrices (B, m, n), lane
+        i's product through matrix i."""
+        if self.A.ndim == 3:
+            return _stacked_matmul(self.A, x)
         if x.shape[0] == 1 or x.ndim != 2:
             return super().lanes(x)
         A, x = _promoted(self.A, x)
@@ -114,6 +130,8 @@ class DenseOp(LinearOp):
 
     def rmatvec_lanes(self, y):
         """Vector lanes (B, m) as one product Y·Ā (one lane: Aᴴ y)."""
+        if self.A.ndim == 3:
+            return _stacked_matmul(self.A.mH, y)
         if y.shape[0] == 1 or y.ndim != 2:
             return super().rmatvec_lanes(y)
         A, y = _promoted(self.A, y)
@@ -266,6 +284,10 @@ class PlanarDenseOp(LinearOp):
     complex ones, so the real solver drives complex problems unchanged.
     The fused gradient map over the same matrices is kernel K-B7."""
 
+    # the channels that make_batch_solver's batched operator stacks, one
+    # pair a lane: Ar, Ai (B, m, n)
+    lane_fields = ("Ar", "Ai")
+
     def __init__(self, Ar: torch.Tensor, Ai: torch.Tensor):
         self.Ar = Ar
         self.Ai = Ai
@@ -293,11 +315,16 @@ class PlanarDenseOp(LinearOp):
 
     def lanes(self, x):
         """Lanes (B, n, 2) in two batched products (one lane: the single
-        solve's products)."""
-        return super().lanes(x) if x.shape[0] == 1 else self(x)
+        solve's products); stacked channels (B, m, n) take lane i through
+        pair i."""
+        if x.shape[0] == 1 and self.Ar.ndim == 2:
+            return super().lanes(x)
+        return self(x)
 
     def rmatvec_lanes(self, y):
-        return super().rmatvec_lanes(y) if y.shape[0] == 1 else self.rmatvec(y)
+        if y.shape[0] == 1 and self.Ar.ndim == 2:
+            return super().rmatvec_lanes(y)
+        return self.rmatvec(y)
 
     @property
     def shape(self):

@@ -1,18 +1,20 @@
-"""FASTA solver core (port of ``fasta_tpu/solver.py:58-191, 194-603,
-664-672, 745-765, 771-930``).
+"""FASTA solver core (port of ``fasta_tpu/solver.py``).
 
 Forward-backward splitting in the three modes of the reference — plain
 (fixed stepsize), adaptive (the Zhou–Gao–Dai BB stepsize) and FISTA with
 O'Donoghue–Candès restart — with nonmonotone backtracking, the five
 stopping rules plus a custom ``stop_fn``, the nonfinite guard,
 best-iterate tracking and full per-iteration diagnostics, the
-warm-started regularization path ``solve_path`` and the batch solver
-``make_batch_solver``.  The iteration math is the JAX solver's — same
-update order, formulas and guard constants — so trajectories agree within
-floating-point tolerance.
+warm-started regularization path ``solve_path``, the batch solver
+``make_batch_solver`` and exact mid-run resume (``make_stateful_solver``,
+``resume_state``: the loop's carry is a ``SolverState``).  The iteration
+math is the JAX solver's — same update order, formulas and guard
+constants — so trajectories agree within floating-point tolerance.
 
 The loop runs eagerly in PyTorch on the device of the data, over a
-leading lane axis: one solve is one lane, a batch many.  Decisions
+leading lane axis: one solve is one lane, a batch many.  A solve is a
+set-up, which builds the state from (x0, τ₀), and the loop, which runs
+from a state.  Decisions
 (backtracking, stopping) read one device value each, so an iteration
 synchronises with the device; the whole-solve kernels
 (``fasta_tpu_torch.micro``) keep them on the card.  An L1 trial step of
@@ -25,6 +27,7 @@ from __future__ import annotations
 import copy
 import math
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional, Union
 
@@ -39,8 +42,10 @@ from .precision import (lane, lane_dot64, lane_norm2, lane_redot, norm2,
 from .terms import (L1Norm, ProxTerm, SmoothTerm, as_prox_term,
                     as_smooth_term)
 
-__all__ = ["fasta", "solve", "make_solver", "make_batch_solver",
-           "solve_path", "estimate_stepsize", "FastaResult", "DeviceResult"]
+__all__ = ["fasta", "solve", "make_solver", "make_stateful_solver",
+           "resume_state", "make_batch_solver", "solve_path",
+           "estimate_stepsize", "FastaResult", "DeviceResult", "SolverState",
+           "Diagnostics"]
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -115,6 +120,44 @@ def estimate_stepsize(op: LinearOp, fterm: SmoothTerm, x0: torch.Tensor,
     return 2.0 / L / 10.0, L
 
 
+class Diagnostics(NamedTuple):
+    """Per-iteration records, one row per iteration up to ``max_iters``
+    (``fasta_tpu/solver.py:75-83``); None where the option is off."""
+    residuals: Any
+    norm_residuals: Any
+    taus: Any
+    fvals: Any
+    objectives: Any        # None unless record_objective
+    backtracks: Any
+    iterates: Any          # None unless record_iterates
+
+
+class SolverState(NamedTuple):
+    """The loop's carry between two iterations — the whole solver state,
+    with the reference's fields in its order (``fasta_tpu/solver.py:86-104``),
+    so that ``checkpoint.save_pytree`` writes the same ``.npz`` keys in
+    both packages.  One solve's state has no lane axis: ``k`` (int32) and
+    ``stop`` (bool) are 0-d tensors, ``fwin`` (W,) in the decision
+    precision (float64 under hp, where the JAX package keeps a double-word
+    pair), the records (``max_iters``, ...).  ``accel`` is the FISTA carry
+    — (x, A x, Aᴴ∇f, α) when the one-pass gradient map serves an affine
+    loss, else (x, A x, α) — or None outside FISTA."""
+    k: Any
+    stop: Any
+    x1: Any                # the next search point (y in FISTA terms)
+    gradf1: Any            # Aᴴ ∇f(A x1)
+    tau1: Any              # the stepsize entering the next iteration
+    fwin: Any              # the nonmonotone window's ring (W,)
+    solution: Any
+    best_x: Any
+    min_objective: Any
+    max_residual: Any
+    total_bt: Any
+    accel: Any
+    nonfinite: Any
+    diags: Diagnostics
+
+
 class _Trial(NamedTuple):
     """One line-search trial over the lanes: the prox point, A x₁, f(A x₁)
     in the decision precision, the fused pass's gradient (or None), ‖Δx‖²
@@ -131,9 +174,103 @@ class _Trial(NamedTuple):
     Dx: Any
 
 
-def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
-           gterm: ProxTerm, x0, tau0, lanes: bool = False) -> DeviceResult:
-    """The FASTA loop over a leading lane axis.
+class _Setting(NamedTuple):
+    """What the set-up and the loop derive from the options, the terms and
+    the lanes of the iterate x (B, ...)."""
+    B: int
+    dev: torch.device
+    rdt: torch.dtype
+    hp: bool
+    sdt: torch.dtype          # decision-scalar dtype
+    fused: Optional[Callable]
+    affine_accel: bool
+    mu_b4: Optional[torch.Tensor]
+
+
+def _setting(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
+             gterm: ProxTerm, x) -> _Setting:
+    B = x.shape[0]
+    rdt = real_dtype(x.dtype)
+    hp = use_high_precision(opts.precision, x.dtype)
+    # the one-pass gradient map serves one lane (the JAX batch solver runs
+    # none either at this slice's sizes: supports_fusion's 64 MB gate)
+    fused = fterm.fused_gradmap(op) if opts.fuse and B == 1 else None
+    # zero-matvec FISTA gradient extrapolation: valid when ∇f is affine in
+    # d and the gradient at the prox point comes free from the fused pass
+    affine_accel = (opts.effective_mode == "accelerated"
+                    and fused is not None and fterm.grad_affine)
+    # kernel K-B4 takes the L1 trial step of real float32 lanes; complex
+    # and float64 keep the composition, as in the reference
+    mu_b4 = (torch.as_tensor(gterm.mu, dtype=torch.float32, device=x.device)
+             if isinstance(gterm, L1Norm) and x.dtype == torch.float32
+             else None)
+    return _Setting(B, x.device, rdt, hp, torch.float64 if hp else rdt,
+                    fused, affine_accel, mu_b4)
+
+
+def _fval(st: _Setting, fterm: SmoothTerm, d):
+    """f(d) per lane in the decision precision."""
+    return (fterm.value_f64_lanes(d) if st.hp
+            else fterm.value_lanes(d).to(st.rdt))
+
+
+def _setup(opts: FastaOptions, st: _Setting, op: LinearOp,
+           fterm: SmoothTerm, x0, tau0) -> SolverState:
+    """The state before the first iteration, over the lanes of x0 (B, ...):
+    A x0, the window holding f(A x0), the first gradient map, the FISTA
+    carry and zeroed records.  The counts are host ints for one lane and
+    tensors for several; ``stop`` is None (every lane live)."""
+    B, dev, rdt = st.B, st.dev, st.rdt
+    W, N = opts.window, opts.max_iters
+    tau = torch.as_tensor(tau0, dtype=rdt).to(dev).expand(B).clone()
+    d0 = op.lanes(x0)
+    fwin = torch.full((B, W), -math.inf, dtype=st.sdt, device=dev)
+    fwin[:, 0] = _fval(st, fterm, d0)
+    gradf = op.rmatvec_lanes(fterm.grad_lanes(d0))
+    # FISTA carry: the last prox point, A·(it), its gradient map (affine
+    # case only) and the momentum α
+    one = torch.ones(B, dtype=rdt, device=dev)
+    accel = (((x0, d0, gradf, one) if st.affine_accel else (x0, d0, one))
+             if opts.effective_mode == "accelerated" else None)
+
+    rec = opts.record_diagnostics
+
+    def zeros(dtype=rdt, shape=()):
+        return torch.zeros((B, N) + shape, dtype=dtype, device=dev)
+
+    diags = Diagnostics(
+        residuals=zeros() if rec else None,
+        norm_residuals=zeros() if rec else None,
+        taus=zeros() if rec else None,
+        fvals=zeros() if rec else None,
+        objectives=zeros() if opts.record_objective else None,
+        backtracks=zeros(torch.int32) if rec else None,
+        iterates=(zeros(x0.dtype, tuple(x0.shape[1:]))
+                  if opts.record_iterates else None))
+    # a single lane keeps its counts on the host: its iteration count is
+    # the loop's and its backtracks are the trials made
+    counts = (0 if B == 1
+              else torch.zeros(B, dtype=torch.int64, device=dev))
+    return SolverState(
+        k=counts, stop=None, x1=x0, gradf1=gradf, tau1=tau, fwin=fwin,
+        solution=x0, best_x=x0,
+        min_objective=torch.full((B,), math.inf, dtype=rdt, device=dev),
+        max_residual=torch.full((B,), -math.inf, dtype=rdt, device=dev),
+        total_bt=(0 if B == 1
+                  else torch.zeros(B, dtype=torch.int64, device=dev)),
+        accel=accel,
+        nonfinite=torch.zeros(B, dtype=torch.bool, device=dev),
+        diags=diags)
+
+
+def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
+         gterm: ProxTerm, s: SolverState, it: int, lanes: bool,
+         with_state: bool = False):
+    """The FASTA loop over a leading lane axis, from the lane state ``s``
+    (of :func:`_setup`, or of :func:`_lane_state` on resume) and the loop
+    count ``it``, up to ``opts.max_iters``.  Returns ``(DeviceResult,
+    SolverState)``: the lane state after the last iteration when
+    ``with_state``, else None.
 
     ``lanes=False`` is one solve: one lane, and a result without the lane
     axis.  ``lanes=True`` is ``make_batch_solver``'s batch: x0 (B, ...)
@@ -147,17 +284,10 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
     device value (one ``any()`` per trial and per iteration)."""
     mode = opts.effective_mode      # the oracle's precedence
     accelerated = mode == "accelerated"
-    x0 = torch.as_tensor(x0)
-    if not lanes:
-        x0 = x0[None]
-    B = x0.shape[0]
-    dev = x0.device
-    rdt = real_dtype(x0.dtype)
-    hp = use_high_precision(opts.precision, x0.dtype)
-    sdt = torch.float64 if hp else rdt       # decision-scalar dtype
+    B, dev, rdt, hp = st.B, st.dev, st.rdt, st.hp
+    fused, affine_accel, mu_b4 = st.fused, st.affine_accel, st.mu_b4
     W, N = opts.window, opts.max_iters
     shrink_f = opts.shrink_factor
-    tau = torch.as_tensor(tau0, dtype=rdt).to(dev).expand(B).clone()
 
     def keep(new, old, live):
         """``new`` in the live lanes, ``old`` in the stopped ones (one lane
@@ -173,60 +303,23 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
         return bool(m) if B == 1 else bool(m.any())
 
     def fval(d):
-        """f(d) per lane in the decision precision."""
-        return (fterm.value_f64_lanes(d) if hp
-                else fterm.value_lanes(d).to(rdt))
+        return _fval(st, fterm, d)
 
-    # the one-pass gradient map serves one lane (the JAX batch solver runs
-    # none either at this slice's sizes: supports_fusion's 64 MB gate)
-    fused = fterm.fused_gradmap(op) if opts.fuse and B == 1 else None
-    # zero-matvec FISTA gradient extrapolation: valid when ∇f is affine in
-    # d and the gradient at the prox point comes free from the fused pass
-    affine_accel = accelerated and fused is not None and fterm.grad_affine
-    # kernel K-B4 takes the L1 trial step of real float32 lanes; complex
-    # and float64 keep the composition, as in the reference
-    if isinstance(gterm, L1Norm) and x0.dtype == torch.float32:
-        mu_b4 = torch.as_tensor(gterm.mu, dtype=torch.float32, device=dev)
-    else:
-        mu_b4 = None
-
-    d0 = op.lanes(x0)
-    fwin = torch.full((B, W), -math.inf, dtype=sdt, device=dev)
-    fwin[:, 0] = fval(d0)
-    gradf = op.rmatvec_lanes(fterm.grad_lanes(d0))
-    # FISTA carry: the last prox point, A·(it), its gradient map (affine
-    # case only) and the momentum α
-    one = torch.ones(B, dtype=rdt, device=dev)
-    accel = (((x0, d0, gradf, one) if affine_accel else (x0, d0, one))
-             if accelerated else None)
-
+    x, gradf, tau, fwin = s.x1, s.gradf1, s.tau1, s.fwin
+    solution, best_x = s.solution, s.best_x
+    min_obj, max_res = s.min_objective, s.max_residual
+    k, total_bt, accel, nonfinite = s.k, s.total_bt, s.accel, s.nonfinite
+    (residuals, norm_residuals, taus, fvals, objectives, backtracks,
+     iterates) = s.diags
     rec = opts.record_diagnostics
-
-    def zeros(dtype=rdt, shape=()):
-        return torch.zeros((B, N) + shape, dtype=dtype, device=dev)
-
-    residuals = zeros() if rec else None
-    norm_residuals = zeros() if rec else None
-    taus = zeros() if rec else None
-    fvals = zeros() if rec else None
-    objectives = zeros() if opts.record_objective else None
-    backtracks = zeros(torch.int32) if rec else None
-    iterates = (zeros(x0.dtype, tuple(x0.shape[1:])) if opts.record_iterates
-                else None)
-
-    x = x0
-    solution = x0
-    best_x = x0
-    min_obj = torch.full((B,), math.inf, dtype=rdt, device=dev)
-    max_res = torch.full((B,), -math.inf, dtype=rdt, device=dev)
-    # a single lane keeps its counts on the host: its iteration count is
-    # the loop's and its backtracks are the trials made
-    k = None if B == 1 else torch.zeros(B, dtype=torch.int64, device=dev)
-    total_bt = 0 if B == 1 else torch.zeros(B, dtype=torch.int64, device=dev)
-    nonfinite = torch.zeros(B, dtype=torch.bool, device=dev)
-    live = torch.ones(B, dtype=torch.bool, device=dev)
-    it = 0              # every live lane's iteration count
-    while it < N:
+    if s.stop is None:
+        live, running = torch.ones(B, dtype=torch.bool, device=dev), True
+    else:
+        # a resumed state that has stopped runs no iteration (one device
+        # read at the state's edge; a fresh solve reads none)
+        live = ~s.stop
+        running = any_lane(live)
+    while running and it < N:
         x_, g_ = x, gradf
 
         def fb_step(tau):
@@ -328,7 +421,7 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
             print(f"[fasta-torch] iter {it}  lanes live {int(live.sum())}  "
                   f"tau {float(tau[0]):.3e}  resid {float(res[0]):.3e}  "
                   f"nresid {float(nres[0]):.3e}  f {float(f1_f[0]):.6e}  "
-                  f"bt {int(bt[0])}")
+                  f"bt {int(bt[0]) if torch.is_tensor(bt) else bt}")
 
         # the mode's next point and stepsize; computed on the stopping
         # iteration too, as in the reference
@@ -404,18 +497,26 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
         if not any_lane(live):
             break
 
+    if B == 1:
+        k = it
+    diags = Diagnostics(residuals, norm_residuals, taus, fvals, objectives,
+                        backtracks, iterates)
+    state = (SolverState(
+        k=k, stop=~live, x1=x, gradf1=gradf, tau1=tau, fwin=fwin,
+        solution=solution, best_x=best_x, min_objective=min_obj,
+        max_residual=max_res, total_bt=total_bt, accel=accel,
+        nonfinite=nonfinite, diags=diags) if with_state else None)
     converged = ~live & ~nonfinite
     if lanes:
         def host(v):
             return v.cpu().numpy() if torch.is_tensor(v) else np.full(B, v)
         return DeviceResult(
             solution=solution, best_iterate=best_x,
-            iteration_count=host(it if B == 1 else k),
-            converged=host(converged),
+            iteration_count=host(k), converged=host(converged),
             residuals=residuals, norm_residuals=norm_residuals, taus=taus,
             fvals=fvals, objectives=objectives, backtracks=backtracks,
             total_backtracks=host(total_bt), iterates=iterates,
-            nonfinite=host(nonfinite))
+            nonfinite=host(nonfinite)), state
 
     def one_lane(v):
         return None if v is None else v[0]
@@ -425,15 +526,189 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
         norm_residuals=one_lane(norm_residuals), taus=one_lane(taus),
         fvals=one_lane(fvals), objectives=one_lane(objectives),
         backtracks=one_lane(backtracks), total_backtracks=total_bt,
-        iterates=one_lane(iterates), nonfinite=bool(nonfinite[0]))
+        iterates=one_lane(iterates), nonfinite=bool(nonfinite[0])), state
+
+
+def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
+           gterm: ProxTerm, x0, tau0, lanes: bool = False,
+           with_state: bool = False):
+    """Set-up from (x0, τ₀), then the loop: ``(DeviceResult, SolverState
+    or None)``.  ``lanes=False``: one solve, x0 without a lane axis."""
+    x0 = torch.as_tensor(x0)
+    if not lanes:
+        x0 = x0[None]
+    st = _setting(opts, op, fterm, gterm, x0)
+    s = _setup(opts, st, op, fterm, x0, tau0)
+    return _run(opts, st, op, fterm, gterm, s, 0, lanes, with_state)
+
+
+def _single_state(s: SolverState) -> SolverState:
+    """One lane's loop state as the public state: no lane axis; the host
+    counts and the flag as 0-d tensors (int32, bool), as in the JAX
+    package."""
+    dev = s.x1.device
+
+    def one(v):
+        return None if v is None else v[0]
+    return SolverState(
+        k=torch.tensor(s.k, dtype=torch.int32, device=dev),
+        stop=s.stop[0], x1=s.x1[0], gradf1=s.gradf1[0], tau1=s.tau1[0],
+        fwin=s.fwin[0], solution=s.solution[0], best_x=s.best_x[0],
+        min_objective=s.min_objective[0], max_residual=s.max_residual[0],
+        total_bt=torch.tensor(s.total_bt, dtype=torch.int32, device=dev),
+        accel=None if s.accel is None else tuple(a[0] for a in s.accel),
+        nonfinite=s.nonfinite[0],
+        diags=Diagnostics(*(one(v) for v in s.diags)))
+
+
+def _lane_state(state: SolverState, max_iters: int) -> SolverState:
+    """A public state as the loop's one-lane state: the counts read to the
+    host (the one device read of a resume), the window and the records
+    copied — the loop writes them in place — and the records zero-padded
+    to ``max_iters``."""
+    def rows(a):
+        if a is None:
+            return None
+        if a.shape[0] > max_iters:
+            raise ValueError(
+                f"resume_state: opts.max_iters={max_iters} is shorter than "
+                f"the checkpoint's recorded diagnostics ({a.shape[0]}); "
+                f"max_iters is the TOTAL budget including completed "
+                f"iterations")
+        pad = a.new_zeros((max_iters - a.shape[0],) + tuple(a.shape[1:]))
+        return torch.cat([a, pad])[None]
+    return SolverState(
+        k=int(state.k), stop=state.stop.reshape(1), x1=state.x1[None],
+        gradf1=state.gradf1[None], tau1=state.tau1.reshape(1),
+        fwin=state.fwin[None].clone(), solution=state.solution[None],
+        best_x=state.best_x[None],
+        min_objective=state.min_objective.reshape(1),
+        max_residual=state.max_residual.reshape(1),
+        total_bt=int(state.total_bt),
+        accel=(None if state.accel is None
+               else tuple(a[None] for a in state.accel)),
+        nonfinite=state.nonfinite.reshape(1),
+        diags=Diagnostics(*(rows(a) for a in state.diags)))
+
+
+class _LRUCache:
+    """A bounded cache of solve functions, one per option set
+    (``fasta_tpu/solver.py:606-638``): the least recently used entry goes
+    when a new one would pass ``capacity``."""
+
+    def __init__(self, capacity: int = 32):
+        self.capacity = capacity
+        self._d = OrderedDict()
+
+    def get(self, key):
+        fn = self._d.get(key)
+        if fn is not None:
+            self._d.move_to_end(key)
+        return fn
+
+    def put(self, key, fn):
+        self._d[key] = fn
+        self._d.move_to_end(key)
+        while len(self._d) > self.capacity:
+            self._d.popitem(last=False)
+
+    def __len__(self):
+        return len(self._d)
+
+    def clear(self):
+        self._d.clear()
+
+
+_SOLVER_CACHE = _LRUCache()
+
+
+def _cached(kind: str, opts: FastaOptions, build: Callable) -> Callable:
+    # keyed by the options alone: the JAX package adds the environment
+    # variables its tracing reads, and the port reads none at solve time
+    key = (kind, opts)
+    fn = _SOLVER_CACHE.get(key)
+    if fn is None:
+        fn = build()
+        _SOLVER_CACHE.put(key, fn)
+    return fn
 
 
 def make_solver(opts: FastaOptions) -> Callable:
     """Return ``solve(op, fterm, gterm, x0, tau0) -> DeviceResult`` for
-    one option set."""
-    def solve_fn(op, fterm, gterm, x0, tau0):
-        return _solve(opts, op, fterm, gterm, x0, tau0)
-    return solve_fn
+    one option set; one function per option set, from a bounded cache."""
+    def build():
+        def solve_fn(op, fterm, gterm, x0, tau0):
+            return _solve(opts, op, fterm, gterm, x0, tau0)[0]
+        return solve_fn
+    return _cached("solve", opts, build)
+
+
+def make_stateful_solver(opts: FastaOptions) -> Callable:
+    """Like :func:`make_solver`, but ``solve`` returns ``(DeviceResult,
+    SolverState)``: the state after the last iteration, which
+    ``checkpoint.save_pytree`` writes and :func:`resume_state` continues
+    bit for bit (``fasta_tpu/solver.py:675-683``)."""
+    def build():
+        def solve_fn(op, fterm, gterm, x0, tau0):
+            out, s = _solve(opts, op, fterm, gterm, x0, tau0,
+                            with_state=True)
+            return out, _single_state(s)
+        return solve_fn
+    return _cached("solve_state", opts, build)
+
+
+def _check_resume_diags(state: SolverState, opts: FastaOptions):
+    d = state.diags
+    for optname, arr, want in (("record_diagnostics", d.taus,
+                                opts.record_diagnostics),
+                               ("record_objective", d.objectives,
+                                opts.record_objective),
+                               ("record_iterates", d.iterates,
+                                opts.record_iterates)):
+        if (arr is None) == bool(want):
+            raise ValueError(
+                f"resume_state: options.{optname}={want} does not match "
+                f"the checkpointed state (which "
+                f"{'has' if arr is not None else 'lacks'} that "
+                f"recording); resume with the recording options the run "
+                f"was saved under")
+
+
+def resume_state(op: LinearOp, fterm: SmoothTerm, gterm: ProxTerm,
+                 state: SolverState, opts: Optional[FastaOptions] = None):
+    """Continue a solve exactly from its ``SolverState``
+    (``fasta_tpu/solver.py:703-742``).
+
+    ``state`` is what :func:`make_stateful_solver` or an earlier
+    ``resume_state`` returned, or one loaded back with
+    ``checkpoint.load_pytree`` (or built from the JAX package's state by
+    ``convert.solver_state_from_arrays``), its tensors on the device of
+    the problem.  The window, the FISTA momentum, the stepsize, the best
+    iterate and the records' cursor all continue, so the resumed
+    trajectory equals the uninterrupted run bit for bit (unlike
+    ``checkpoint.resume``, which restarts from (x, τ)).
+
+    ``opts.max_iters`` is the TOTAL budget (the count continues from
+    ``state.k``); the records are zero-padded up to it, and a budget
+    shorter than the records raises.  The other options must be the
+    run's: they choose the loop, and a recording option or a FISTA carry
+    that does not match the state raises.  A stopped state resumes as a
+    no-op.  Returns ``(DeviceResult, SolverState)``."""
+    opts = opts or FastaOptions()
+    _check_resume_diags(state, opts)
+    s = _lane_state(state, opts.max_iters)
+    st = _setting(opts, op, fterm, gterm, s.x1)
+    accelerated = opts.effective_mode == "accelerated"
+    want = (4 if st.affine_accel else 3) if accelerated else None
+    have = None if s.accel is None else len(s.accel)
+    if want != have:
+        raise ValueError(
+            f"resume_state: the options' mode ({opts.effective_mode}) takes "
+            f"a FISTA carry of {want} fields, the state holds {have}; "
+            f"resume with the mode and the fuse option of the run")
+    out, s = _run(opts, st, op, fterm, gterm, s, s.k, False,
+                  with_state=True)
+    return out, _single_state(s)
 
 
 def make_batch_solver(opts: FastaOptions, in_axes) -> Callable:
@@ -444,22 +719,21 @@ def make_batch_solver(opts: FastaOptions, in_axes) -> Callable:
     stepsizes; port of ``fasta_tpu/solver.py:751-765``.
 
     ``in_axes`` names, for (op, fterm, gterm, x0, tau0), ``None`` (shared
-    by every lane) or ``0``: the term's one data tensor (b, y, μ, λ or c),
-    x0 or τ₀ carries the lane axis.  The lanes run the loop of
-    :func:`make_solver` with ``jax.vmap``'s semantics (see ``_solve``): a
+    by every lane) or ``0``: the operator's matrix (a ``DenseOp``'s A, a
+    ``PlanarDenseOp``'s Ar and Ai: one matrix a lane, their products
+    ``torch.matmul`` over the lanes), the term's one data tensor (b, y, μ,
+    λ or c), x0 or τ₀ carries the lane axis.  The lanes run the loop of
+    :func:`make_solver` with ``jax.vmap``'s semantics (see ``_run``): a
     stopped lane is frozen until the last one stops, and each lane's
     trajectory is a separate solve's, up to the rounding of the batched
-    products.  With more than one lane the gradient map is the plain
-    composition (no fused pass).  The result's tensors gain a leading lane
-    axis; its counts and flags are NumPy arrays."""
+    products.  With more than one lane, or a batched operator, the
+    gradient map is the plain composition (no fused pass).  The result's
+    tensors gain a leading lane axis; its counts and flags are NumPy
+    arrays."""
     axes = tuple(in_axes)
     if len(axes) != 5 or any(a not in (None, 0) for a in axes):
         raise ValueError(f"in_axes names None or 0 for each of (op, fterm, "
                          f"gterm, x0, tau0), got {in_axes!r}")
-    if axes[0] == 0:
-        raise NotImplementedError(
-            "a batched operator (one per lane) is not ported: ROADMAP Queue "
-            "A item 5 (make_batch_solver) batches terms, x0 and tau0")
 
     def solve_fn(op, fterm, gterm, x0, tau0):
         x0 = torch.as_tensor(x0)
@@ -468,6 +742,9 @@ def make_batch_solver(opts: FastaOptions, in_axes) -> Callable:
         tau0 = (tau0 if torch.is_tensor(tau0)
                 else torch.as_tensor(np.asarray(tau0, np.float64)))
         sizes = {}
+        if axes[0] == 0:
+            op = _lane_op(op, x0.device)
+            sizes["op"] = getattr(op, op.lane_fields[0]).shape[0]
         terms = []
         for axis, term, what in ((axes[1], fterm, "fterm"),
                                  (axes[2], gterm, "gterm")):
@@ -481,7 +758,7 @@ def make_batch_solver(opts: FastaOptions, in_axes) -> Callable:
             sizes["tau0"] = tau0.shape[0]
         if not sizes:
             raise ValueError("in_axes batches nothing: name 0 for at least "
-                             "one of fterm, gterm, x0 and tau0")
+                             "one of op, fterm, gterm, x0 and tau0")
         if len(set(sizes.values())) != 1:
             raise ValueError(f"the batched inputs disagree on the number of "
                              f"lanes: {sizes}")
@@ -489,8 +766,27 @@ def make_batch_solver(opts: FastaOptions, in_axes) -> Callable:
         xs = (x0 if axes[3] == 0
               else x0.expand((B,) + tuple(x0.shape))).clone()
         t0 = tau0 if axes[4] == 0 else tau0.expand(B)
-        return _solve(opts, op, terms[0], terms[1], xs, t0, lanes=True)
+        return _solve(opts, op, terms[0], terms[1], xs, t0, lanes=True)[0]
     return solve_fn
+
+
+def _lane_op(op, device):
+    """A copy of ``op`` whose matrices, their leading axis the lanes, lie on
+    ``device``; raises for an operator without a matrix to batch."""
+    fields = getattr(op, "lane_fields", None)
+    if fields is None:
+        raise ValueError(f"in_axes batches op, but {type(op).__name__} has "
+                         f"no matrix to batch (DenseOp and PlanarDenseOp "
+                         f"have)")
+    out = copy.copy(op)
+    for field in fields:
+        data = torch.as_tensor(getattr(op, field), device=device)
+        if data.ndim != 3:
+            raise ValueError(f"in_axes batches op, but its {field} of shape "
+                             f"{tuple(data.shape)} is not a stack of "
+                             f"matrices (lanes, m, n)")
+        setattr(out, field, data)
+    return out
 
 
 def _lane_term(term, what, device):
@@ -559,7 +855,7 @@ def solve_path(op: LinearOp, fterm: SmoothTerm, gterms, x0, tau0,
     x, tau = torch.as_tensor(x0), tau0
     runs = []
     for g in _path_terms(gterms):
-        r = _solve(opts, op, fterm, g, x, tau)
+        r = _solve(opts, op, fterm, g, x, tau)[0]
         runs.append(r)
         if not tau_monotone:
             k = r.iteration_count
@@ -612,7 +908,8 @@ def fasta(
     options: Optional[FastaOptions] = None,
     tau0: Optional[float] = None,
     L: Optional[float] = None,
-    generator: Union[torch.Generator, int] = 0,
+    key: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
     est_points: Optional[tuple] = None,
     check_adjoint_first: bool = False,
     device: Union[str, torch.device, None] = None,
@@ -630,9 +927,16 @@ def fasta(
     ``device`` raises ``ValueError``; nothing is moved in silence.  With
     no CUDA device present the default raises instead of solving on the
     CPU: pass ``device="cpu"`` for that.  The solve runs on ``x0``'s
-    device.  ``generator`` draws the random points of the stepsize
-    estimate and the adjoint check: a ``torch.Generator`` on that device,
-    or an int seed for one."""
+    device.  ``key`` (an int, 0 when neither it nor ``generator`` is
+    given) seeds the ``torch.Generator`` that draws the random points of
+    the stepsize estimate and the adjoint check: the reference's
+    ``key`` in the same role, not the same random points (torch's
+    generator is not JAX's PRNG; ``est_points`` gives both packages one
+    pair).  ``generator`` passes a ``torch.Generator`` on that device
+    instead; passing both raises ``ValueError``."""
+    if key is not None and generator is not None:
+        raise ValueError("fasta: pass key (an int seed) or generator (a "
+                         "torch.Generator), not both")
     opts = options or FastaOptions()
     if opt_kwargs:
         opts = opts.replace(**opt_kwargs)
@@ -642,8 +946,9 @@ def fasta(
     gterm = as_prox_term(g, proxg)
     x0 = torch.as_tensor(x0, device=None if isinstance(x0, torch.Tensor)
                          else target)
-    if isinstance(generator, int):
-        generator = torch.Generator(device=x0.device).manual_seed(generator)
+    if generator is None:
+        generator = torch.Generator(device=x0.device).manual_seed(
+            0 if key is None else int(key))
 
     if check_adjoint_first:
         check_adjoint(op, x0, generator)

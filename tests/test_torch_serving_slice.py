@@ -175,8 +175,14 @@ def test_backtracking_lanes_count_their_own_trials(taus):
 
 def test_batch_solver_rejects_what_it_does_not_take():
     pt = problems.build("lasso", m=20, n=30, k=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ftt.make_batch_solver(ftt.FastaOptions(), (0, None, None, None, None))
+    # a batched operator is a stack of matrices; an operator without one
+    # and a lone matrix are refused
+    by_op = ftt.make_batch_solver(ftt.FastaOptions(max_iters=5),
+                                  (0, None, None, None, None))
+    with pytest.raises(ValueError, match="no matrix to batch"):
+        by_op(ftt.IdentityOp(), pt.fterm, pt.gterm, pt.x0, 0.1)
+    with pytest.raises(ValueError, match="not a stack of matrices"):
+        by_op(pt.op, pt.fterm, pt.gterm, pt.x0, 0.1)
     with pytest.raises(ValueError, match="None or 0"):
         ftt.make_batch_solver(ftt.FastaOptions(), (None, 1, None, None, None))
     solve = ftt.make_batch_solver(ftt.FastaOptions(max_iters=5),
