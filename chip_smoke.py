@@ -9,7 +9,11 @@ non-zero without the final ``ok`` line):
 2. build: compile the CUDA kernels from ``fasta_tpu_torch/csrc``;
 3. K-B3 (fused least-squares gradient map) against its plain version at
    1000×2000, 256×1024 (phase 31's democratic) and 8192×16384 float32,
-   with median times over 20 runs;
+   with median times over 20 runs; at each shape the call's plan (route,
+   blocks, threads, cluster, rows at once), one device operation a call (a
+   ``profiling.trace``), and the same bits on a second call, on two
+   replays of one captured CUDA graph and right after a K-B4 and a K-B7
+   launch on the same stream (the stream scratch they share);
 4. K-B1 (whole-solve kernel) against its plain version on the card, on
    LASSO 1000×2000, hp off and on, with its dense plan (``dense_plan``:
    the route, the share of A kept on the chip) and µs a trial; the route
@@ -22,7 +26,7 @@ non-zero without the final ``ok`` line):
    a fixed 2000 iterations;
 6. K-B3p (fused pointwise gradient map) against its plain version for the
    logistic loss and the squared hinge at 1000×500, 997×1999 and
-   8192×16384 float32;
+   8192×16384 float32, with phase 3's plan, device operations and bits;
 7. K-B1 against its plain version for all 12 loss × prox pairs on the
    full-width NNLS, logistic and SVM instances, adaptive (hp off, and hp
    on for one pair per loss) and FISTA with restart (hp on; hp off held
@@ -107,7 +111,8 @@ non-zero without the final ``ok`` line):
     against separate calls on both batch routes;
 23. K-B3 and K-B3p over a bfloat16 A against their plain versions at
     8192×16384, 1000×1003 (ragged) and 1024×200000 (the wide route), with
-    call and stream times beside K-B3 over the float32 A;
+    call and stream times beside K-B3 over the float32 A, and phase 3's
+    plan, device operations and bits;
 24. K-B7 over bfloat16 channels at 16384×256, 16384×4096 and 1024×16384
     (the wide route), both losses, the hinge form at 16384×256 and
     16384×4096 split as in phase 14;
@@ -182,9 +187,11 @@ non-zero without the final ``ok`` line):
     the float64 oracle's; ``make_batch_solver`` over a batched
     ``DenseOp`` of 4 instances 1000×2000, each lane's objective within
     rtol 1e-5 of its own solve's; the suite runner's ``lasso`` (quick
-    size) on the card ("figure skipped" without matplotlib); then K-B3's
-    card time at 1000×2000 and 256×1024 (200 calls in a CUDA graph)
-    beside its plain version's and the byte bound.
+    size) on the card ("figure skipped" without matplotlib); then the
+    card time of K-B3 at 256×1024, 1000×500 and 1000×2000 and of K-B3p
+    (logistic, squared hinge) at 1000×500 and 800×100 — the main paths'
+    shapes — (200 calls in a CUDA graph) beside the plain version's and
+    the byte bound.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -285,7 +292,10 @@ def graph_ms(fn, calls: int = 200) -> float:
     """Card time per call of ``fn``: ``calls`` calls captured in one CUDA
     graph, the replay timed by CUDA events (median of 3) and divided by
     ``calls``.  The graph takes the host's enqueueing out of the time;
-    stream order still runs each call after the last."""
+    stream order still runs each call after the last.  The capture runs
+    on the stream the warm-up calls ran on, so a kernel's stream scratch
+    (``_build.stream_scratch``) is made and zeroed before the capture:
+    on a fresh stream every captured call would capture a zeroing too."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -293,7 +303,7 @@ def graph_ms(fn, calls: int = 200) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     return cuda_ms(graph.replay, 3, warmup=1) / calls
@@ -307,14 +317,18 @@ def call_split(tag: str, fn, calls: int = 20, traced: bool = False) -> tuple:
     must show no memset and no copy, and no more kernels than calls (K-B4,
     K-B5, K-B7, K-P2: one kernel a call; the profiler may drop an event,
     so the card time is the mean kernel's).  A trace that holds no kernel
-    event at all is taken again, up to twice; if none holds one, the split
-    gives (None, host ms, 0 kernels), and with ``traced`` the phase fails:
-    its device operations were not measured."""
-    for _ in range(3):
+    event at all is taken again, of four times the calls, up to five times
+    (the profiler has dropped every kernel event of three traces of 10
+    calls in a row); if none holds one, the split gives (None, host ms, 0
+    kernels), and with ``traced`` the phase fails: its device operations
+    were not measured."""
+    for attempt in range(6):
         ops = profiling.device_ops(fn, calls, str(_build._BUILD_DIR.parent /
                                                   "chip_smoke_trace"))
         if ops["events"]["kernel"]:
             break
+        if attempt == 0:
+            calls *= 4
     host = profiling.host_us(fn, 200) / 1e3
     n = ops["events"]
     print(f"{tag} device operations in {calls} calls (trace): "
@@ -322,7 +336,7 @@ def call_split(tag: str, fn, calls: int = 20, traced: bool = False) -> tuple:
           f"{n['gpu_memcpy']} copies; host time per call (200 calls, no "
           f"wait) {host * 1e3:.2f} us")
     if n["kernel"] == 0:
-        print(f"{tag} three traces held no kernel event: card time and "
+        print(f"{tag} six traces held no kernel event: card time and "
               f"device operations not measured")
         require(not traced, f"{tag} no trace held a kernel event")
         return None, host, dict(calls=calls, **n)
@@ -341,6 +355,72 @@ def split_keys(split: tuple, suffix: str = "") -> dict:
     card, host, ops = split
     return {f"card_us{suffix}": None if card is None else card * 1e3,
             f"host_us{suffix}": host * 1e3, f"device_ops{suffix}": ops}
+
+
+def gradmap_plan_line(tag: str, m: int, n: int, bf16: bool) -> str:
+    """K-B3's launch plan for an m×n call (``gradmap_plan`` at the card's
+    slots)."""
+    plan = lstsq_fused._plan(0, m, n, bf16)
+    return (f"{tag} plan: route {plan.route}, {plan.blocks} blocks of "
+            f"{plan.threads} threads in clusters of {plan.cluster}, "
+            f"{plan.tile_rows} rows a group at once or a tile; slots "
+            f"{lstsq_fused._card_plan(0, m, n, bf16)[-1]}")
+
+
+# K-B4's and K-B7's inputs for ``gradmap_bits``, made once
+_NEIGHBOURS = []
+
+
+def gradmap_bits(tag: str, fn) -> None:
+    """A K-B3 / K-B3p call gives the same bits on a second call, on two
+    replays of one captured CUDA graph of two calls, and right after a
+    K-B4 and a K-B7 launch on the same stream (whose tickets share the
+    stream's scratch); fails otherwise.  The graph is captured on the side
+    stream its warm-up ran on, whose scratch was zeroed before the
+    capture, and must hold its two kernels and no memset or copy
+    (``profiling.graph_node_kinds``), so that its replays pass only if
+    every launch leaves its counters at zero."""
+    if not _NEIGHBOURS:
+        gen = torch.Generator(device=DEV).manual_seed(77)
+        _NEIGHBOURS.extend([
+            torch.randn((1, 1 << 20), generator=gen, device=DEV),
+            torch.randn((1, 1 << 20), generator=gen, device=DEV),
+            *planar_data(4099, 256, 78)])
+    x0, g0, Ar, Ai, xp, _, bh = _NEIGHBOURS
+
+    def same(u, v):
+        return all(torch.equal(a, b) for a, b in zip(u, v))
+
+    want = fn()
+    second = same(fn(), want)
+    prox_fused.fused_shrink_step(x0, g0, 0.3, 0.5)
+    planar_fused.fused_planar_hinge_gradmap(Ar, Ai, xp, bh)
+    neighbours = same(fn(), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn(), fn()]
+    kinds = profiling.graph_node_kinds(graph)
+    replays = []
+    for _ in range(2):
+        for out in outs:
+            for t in out:
+                t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(all(same(out, want) for out in outs))
+    del graph
+    print(f"{tag} bits: second call equal {second}, after K-B4 and K-B7 on "
+          f"the stream equal {neighbours}, two replays of a graph of two "
+          f"calls equal {replays}; the graph's nodes {kinds}")
+    require(second and neighbours and all(replays),
+            f"{tag} gives other bits from call to call")
+    require((kinds["kernel"], kinds["memset"], kinds["memcpy"]) == (2, 0, 0),
+            f"{tag} graph holds a memset, a copy or not its two kernels")
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -484,11 +564,12 @@ def phase_gradmap() -> dict:
     Tolerance: max|Δd|, max|Δg| ≤ 1e-5·max(1, max|ref|) and
     |Δf| ≤ 1e-5·|f| — float32 sums taken in another order."""
     gen = torch.Generator(device=DEV).manual_seed(0)
-    worst, ms = 0.0, {}
+    worst, ms, splits = 0.0, {}, {}
     for m, n in ((1000, 2000), (256, 1024), (8192, 16384)):
         A = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
         x = torch.randn(n, generator=gen, device=DEV)
         b = torch.randn(m, generator=gen, device=DEV)
+        print(gradmap_plan_line(f"[3 K-B3 {m}x{n}]", m, n, False))
         d, f, g = lstsq_fused.fused_lstsq_gradmap(A, x, b)
         d0, f0, g0 = lstsq_fused.lstsq_gradmap_reference(A, x, b)
         torch.cuda.synchronize()
@@ -499,6 +580,9 @@ def phase_gradmap() -> dict:
         tol_g = 1e-5 * max(1.0, float(g0.abs().max()))
         kernel_fn = lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b)  # noqa: E731
         plain_fn = lambda: lstsq_fused.lstsq_gradmap_reference(A, x, b)  # noqa: E731
+        gradmap_bits(f"[3 K-B3 {m}x{n}]", kernel_fn)
+        splits[(m, n)] = call_split(f"[3 K-B3 {m}x{n}]", kernel_fn,
+                                    traced=True)
         kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
         kern_stream = stream_ms(kernel_fn)
         plain_stream = stream_ms(plain_fn)
@@ -520,6 +604,9 @@ def phase_gradmap() -> dict:
     return dict(max_abs_err=worst, ms=big[0], plain_ms=big[1],
                 **bound(4.0 * (m * n + 2 * n + 2 * m), 4.0 * m * n),
                 library_ms=None,
+                **split_keys(splits[(256, 1024)], "_256x1024"),
+                **split_keys(splits[(1000, 2000)], "_1000x2000"),
+                **split_keys(splits[(8192, 16384)], "_8192x16384"),
                 shape="8192x16384", stream_ms=big[2], plain_stream_ms=big[3],
                 ms_1000x2000=small[0], plain_ms_1000x2000=small[1],
                 stream_ms_1000x2000=small[2],
@@ -682,11 +769,12 @@ def phase_pointwise() -> dict:
     """K-B3p against the plain two-pass form on the same seeded inputs,
     with phase 3's tolerance."""
     gen = torch.Generator(device=DEV).manual_seed(1)
-    worst, ms = 0.0, {}
+    worst, ms, splits = 0.0, {}, {}
     for m, n in ((1000, 500), (997, 1999), (8192, 16384)):
         A = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
         x = 3.0 * torch.randn(n, generator=gen, device=DEV)
         labels = (torch.rand(m, generator=gen, device=DEV) < 0.5).float()
+        print(gradmap_plan_line(f"[6 K-B3p {m}x{n}]", m, n, False))
         for loss, y in (("logistic", labels),
                         ("squared_hinge", 2.0 * labels - 1.0)):
             d, f, g = lstsq_fused.fused_pointwise_gradmap(A, x, y, loss)
@@ -702,6 +790,10 @@ def phase_pointwise() -> dict:
                 A, x, y, loss)
             plain_fn = lambda: lstsq_fused.pointwise_gradmap_reference(  # noqa: E731
                 A, x, y, loss)
+            gradmap_bits(f"[6 K-B3p {loss} {m}x{n}]", kernel_fn)
+            if loss == "logistic":
+                splits[(m, n)] = call_split(f"[6 K-B3p {loss} {m}x{n}]",
+                                            kernel_fn, traced=True)
             kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
             kern_stream = stream_ms(kernel_fn)
             plain_stream = stream_ms(plain_fn)
@@ -723,6 +815,8 @@ def phase_pointwise() -> dict:
     return dict(max_abs_err=worst, ms=big[0], plain_ms=big[1],
                 **bound(4.0 * (m * n + 2 * n + 2 * m), 4.0 * m * n),
                 library_ms=None,
+                **split_keys(splits[(1000, 500)], "_1000x500"),
+                **split_keys(splits[(8192, 16384)], "_8192x16384"),
                 shape="logistic 8192x16384", stream_ms=big[2],
                 plain_stream_ms=big[3], ms_1000x500=small[0],
                 plain_ms_1000x500=small[1], stream_ms_1000x500=small[2],
@@ -2516,14 +2610,15 @@ def phase_bf16_gradmap() -> tuple:
     K-B3 over the float32 A at the same shape, and GB/s against the
     0.0801 ms byte bound of one bfloat16 read."""
     gen = torch.Generator(device=DEV).manual_seed(23)
-    worst, ms = {"lstsq": 0.0, "pointwise": 0.0}, {}
+    worst, ms, splits = {"lstsq": 0.0, "pointwise": 0.0}, {}, {}
     for m, n in ((8192, 16384), (1000, 1003), (1024, 200000)):
         A32 = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
         A = A32.to(torch.bfloat16)
         x = torch.randn(n, generator=gen, device=DEV)
         b = torch.randn(m, generator=gen, device=DEV)
         labels = (b > 0).float()
-        route = lstsq_fused._plan(0, m, n, True)[0]
+        route = lstsq_fused._plan(0, m, n, True).route
+        print(gradmap_plan_line(f"[23 K-B3 bf16 {m}x{n}]", m, n, True))
         cases = [("lstsq", lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b),
                   lambda: lstsq_fused.lstsq_gradmap_reference(A, x, b))]
         for loss, y in (("logistic", labels),
@@ -2535,12 +2630,15 @@ def phase_bf16_gradmap() -> tuple:
         for loss, kernel_fn, plain_fn in cases:
             tag = f"[23 K-B3{'' if loss == 'lstsq' else 'p'} bf16 {loss} {m}x{n}]"
             err = check_map(tag, kernel_fn(), plain_fn())
+            gradmap_bits(tag, kernel_fn)
+            if loss == "lstsq":
+                splits[(m, n)] = call_split(tag, kernel_fn, traced=True)
             key = "lstsq" if loss == "lstsq" else "pointwise"
             worst[key] = max(worst[key], err)
             kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
             kern_stream, plain_stream = stream_ms(kernel_fn), stream_ms(plain_fn)
             bd = bound(gradmap_bytes(m, n, 2), 4.0 * m * n)
-            print(f"{tag} route {'wide' if route == 0 else f'cluster {route}'}; "
+            print(f"{tag} route {route}; "
                   f"call, median of 20: kernel {kern:.4f} ms, plain "
                   f"{plain:.4f} ms; stream time, 20 back-to-back runs: kernel "
                   f"{kern_stream:.4f} ms, plain {plain_stream:.4f} ms; "
@@ -2563,6 +2661,8 @@ def phase_bf16_gradmap() -> tuple:
               shape="8192x16384 bfloat16", stream_ms=big[2],
               plain_stream_ms=big[3], f32_ms=ms[("f32", m, n)][0],
               f32_stream_ms=ms[("f32", m, n)][1],
+              **split_keys(splits[(8192, 16384)], "_8192x16384"),
+              **split_keys(splits[(1024, 200000)], "_1024x200000"),
               stream_ms_1024x200000=wide[2],
               plain_stream_ms_1024x200000=wide[3],
               f32_stream_ms_1024x200000=ms[("f32", 1024, 200000)][1],
@@ -3888,25 +3988,38 @@ def phase_exact_resume() -> dict:
           f"called: {plain}")
     require(not any(plain.values()), f"a plain version ran: {plain}")
 
-    card = {}
+    card = {"K-B3": {}, "K-B3p": {}}
     gen = torch.Generator(device=DEV).manual_seed(0)
-    for m, n in ((1000, 2000), (256, 1024)):
+    for loss, m, n in (("lstsq", 1000, 2000), ("lstsq", 256, 1024),
+                       ("lstsq", 1000, 500), ("logistic", 1000, 500),
+                       ("squared_hinge", 1000, 500), ("logistic", 800, 100),
+                       ("squared_hinge", 800, 100)):
         A = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
         x = torch.randn(n, generator=gen, device=DEV)
         b = torch.randn(m, generator=gen, device=DEV)
-        kern = graph_ms(lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b))
-        plain_ms = graph_ms(
-            lambda: lstsq_fused.lstsq_gradmap_reference(A, x, b))
+        if loss == "lstsq":
+            kernel_fn = lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b)  # noqa: E731
+            plain_fn = lambda: lstsq_fused.lstsq_gradmap_reference(  # noqa: E731
+                A, x, b)
+            key, name = "K-B3", f"{m}x{n}"
+        else:
+            y = (b > 0).float() if loss == "logistic" else torch.sign(b)
+            kernel_fn = lambda: lstsq_fused.fused_pointwise_gradmap(  # noqa: E731
+                A, x, y, loss)
+            plain_fn = lambda: lstsq_fused.pointwise_gradmap_reference(  # noqa: E731
+                A, x, y, loss)
+            key, name = "K-B3p", f"{loss}_{m}x{n}"
+        kern, plain_ms = graph_ms(kernel_fn), graph_ms(plain_fn)
         bnd = bound(4.0 * (m * n + 2 * n + 2 * m), 4.0 * m * n)
-        card[f"card_ms_{m}x{n}"] = kern
-        card[f"plain_card_ms_{m}x{n}"] = plain_ms
-        card[f"bound_ms_{m}x{n}"] = bnd["bound_ms"]
-        print(f"[32 K-B3 {m}x{n}] card time per call (200 calls in a CUDA "
-              f"graph): kernel {kern * 1e3:.3f} us, plain {plain_ms * 1e3:.3f}"
-              f" us; bound {bnd['bound_ms'] * 1e3:.3f} us "
+        card[key][f"card_ms_{name}"] = kern
+        card[key][f"plain_card_ms_{name}"] = plain_ms
+        card[key][f"bound_ms_{name}"] = bnd["bound_ms"]
+        print(f"[32 {key} {loss} {m}x{n}] card time per call (200 calls in "
+              f"a CUDA graph): kernel {kern * 1e3:.3f} us, plain "
+              f"{plain_ms * 1e3:.3f} us; bound {bnd['bound_ms'] * 1e3:.3f} us "
               f"({bnd['bound_by']}), {kern / bnd['bound_ms']:.1f}x")
     return dict(launches=launches, resume=rows, batch_rel=batch,
-                k_b3_card=card)
+                k_b3_card=card["K-B3"], k_b3p_card=card["K-B3p"])
 
 
 def main() -> None:
@@ -3961,7 +4074,7 @@ def main() -> None:
         dict(name="K-B3p fused_pointwise_gradmap", route="cuda",
              source="fasta_tpu_torch/csrc/lstsq_fused.cu",
              replaces="fasta_tpu/kernels/lstsq_fused.py:331",
-             launches=launches["K-B3p"], **b3p),
+             launches=launches["K-B3p"], **b3p, **resume["k_b3p_card"]),
         dict(name="K-B1 microsolve_lasso (with K-B2 reduce.cuh)",
              route="cuda", source="fasta_tpu_torch/csrc/microsolver.cu",
              replaces="fasta_tpu/kernels/microsolver.py:810",

@@ -34,9 +34,9 @@ _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 
 # C entry points: name -> argtypes (every one returns a cudaError_t)
 _SIGNATURES = {
-    "fasta_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P],
-    "fasta_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P],
+    "fasta_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "fasta_gradmap": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _P, _P, _P, _P, _P],
     "fasta_microsolve_grid": [_I, _P, _P, _P, _P],
     "fasta_microsolve_work": [_I, _I, _I, _I, _P],
     "fasta_microsolve": [_P, _P, _I, _P, _I, _P, _F, _P, _I, _F,
@@ -203,14 +203,19 @@ def stream_scratch(device, stream: int, ndoubles: int):
     launches on ``stream`` (a raw handle) of the kernels that finish with
     a last-block ticket (K-B4's stream route, K-B5), a last-cluster
     ticket (K-B7) or keep a grid barrier's counter and exit ticket there
-    (K-B1, K-B8, K-P1, K-P2, K-P3, K-P4).  Its first double
+    (K-B1, K-B3, K-B8, K-P1, K-P2, K-P3, K-P4).  Its first double
     holds the ticket (or the two counters), which every such kernel leaves
     at zero, so the
     buffer is zeroed once and never again: launches on one stream run in
     order and share it, launches on two streams never do (C-2).  Inside a
     CUDA-graph capture the zeroing of a buffer that eager launches have not
     yet zeroed is captured too, so that every replay finds the ticket at
-    zero.  Replays of graphs captured on one stream must not overlap."""
+    zero.  Replays of graphs captured on one stream must not overlap.
+    A stream's buffer lives as long as the process and only grows, and a
+    smaller one it replaces is kept (captured graphs may still point at
+    it).  K-B3's gradient partials make it the largest, parts × n floats:
+    132 × 16384 × 4 B, 8.7 MB, at 8192×16384; 128 × 200000 × 4 B, 102 MB,
+    at 1024×200000 (its route 4), a stream."""
     import torch
     key = (device.index, stream)
     entry = _SCRATCH.get(key)

@@ -9,7 +9,9 @@
   * ``device_memory_stats()`` — ``torch.cuda.memory_stats`` per card;
   * ``device_ops(fn)`` — the device operations (kernels, memsets, copies)
     of a run of calls and their card time, read from a trace;
-  * ``host_us(fn)`` — the host's time per call, with no wait for the card.
+  * ``host_us(fn)`` — the host's time per call, with no wait for the card;
+  * ``graph_node_kinds(graph)`` — the kinds of a captured CUDA graph's
+    nodes (kernels, memsets, copies), read from the CUDA driver.
 
 Per-iteration diagnostics are tensors in the solvers' results, so no
 separate tracer is needed.  Rates are keyed on
@@ -21,6 +23,7 @@ None.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import time
@@ -29,7 +32,8 @@ from typing import Optional
 import torch
 
 __all__ = ["trace", "roofline_report", "device_memory_stats",
-           "time_blocking", "device_ops", "host_us", "H100_HBM_GBPS"]
+           "time_blocking", "device_ops", "host_us", "graph_node_kinds",
+           "H100_HBM_GBPS"]
 
 # The H100 SXM's data-sheet HBM3 rate (GB/s), the one card the port is
 # measured on; ``chip_smoke.py``'s bounds read it from here.
@@ -106,6 +110,38 @@ def host_us(fn, calls: int = 200) -> float:
     if card:
         torch.cuda.synchronize()
     return took / calls * 1e6
+
+
+# The CUDA driver's CUgraphNodeType codes of the kinds ``graph_node_kinds`` names
+_GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_node_kinds(graph) -> dict:
+    """How many nodes of each kind (``kernel``, ``memcpy``, ``memset``,
+    ``other``) a captured CUDA graph holds, read through the CUDA driver's
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType``.  The graph must keep
+    its captured form: ``torch.cuda.CUDAGraph(keep_graph=True)``."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what} failed with CUDA driver error {err}")
+
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    kinds = dict.fromkeys((*_GRAPH_NODE_KINDS.values(), "other"), 0)
+    for node in nodes[:count.value]:
+        code = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(code)),
+              "cuGraphNodeGetType")
+        kinds[_GRAPH_NODE_KINDS.get(code.value, "other")] += 1
+    return kinds
 
 
 def time_blocking(fn, *args, repeats: int = 3, warmup: int = 1,

@@ -32,17 +32,21 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("m,n,cluster", [
-    (1000, 2000, 1), (997, 1999, 1), (3, 5, 1), (4096, 8192, 1),
-    # rows wider than one block holds (16384 floats) are split over a
-    # cluster of up to 8 blocks; wider still, the wide kernel (0)
-    (4096, 32768, 2), (37, 16385, 2), (300, 100000, 7), (9, 70001, 5),
-    (64, 131072, 8), (40, 200000, 0), (7, 150001, 0)])
-def test_gradmap_kernel_matches_plain(dev, m, n, cluster):
+@pytest.mark.parametrize("m,n,route,cluster", [
+    # rows of up to 8192 values (2048 ragged): a warp (route 1) or a
+    # group of threads (route 2) a row, no clusters
+    (1000, 2000, 2, 1), (997, 1999, 2, 1), (3, 5, 1, 1), (4096, 8192, 2, 1),
+    # wider rows stream over a cluster of up to 8 blocks of 16384 columns
+    # each (route 3); wider still, the wide kernel (route 4)
+    (4096, 32768, 3, 2), (37, 16385, 3, 2), (300, 100000, 3, 7),
+    (9, 70001, 3, 5), (64, 131072, 3, 8), (40, 200000, 4, 1),
+    (7, 150001, 4, 1)])
+def test_gradmap_kernel_matches_plain(dev, m, n, route, cluster):
     """Aligned and ragged shapes (n % 4 != 0 takes the scalar path), each
-    on the kernel variant its width selects; tolerance 1e-5 of the
-    largest entry — float32 sums in another order."""
-    assert lstsq_fused._plan(dev.index or 0, m, n)[0] == cluster
+    on the route its width selects; tolerance 1e-5 of the largest entry —
+    float32 sums in another order."""
+    plan = lstsq_fused._plan(dev.index or 0, m, n)
+    assert (plan.route, plan.cluster) == (route, cluster)
     g = torch.Generator(device=dev).manual_seed(m + n)
     A = torch.randn((m, n), generator=g, device=dev) / m ** 0.5
     x = torch.randn(n, generator=g, device=dev)
@@ -67,6 +71,153 @@ def test_gradmap_kernel_rejects_what_it_does_not_take(dev):
         lstsq_fused.fused_lstsq_gradmap(A.double(), x.double(), b.double())
     with pytest.raises(ValueError, match="contiguous"):
         lstsq_fused.fused_lstsq_gradmap(A.t(), x, b)
+
+
+def _gradmap_data(dev, m, n, loss, bf16=False):
+    g = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    A = torch.randn((m, n), generator=g, device=dev) / m ** 0.5
+    if bf16:
+        A = A.to(torch.bfloat16)
+    x = 3.0 * torch.randn(n, generator=g, device=dev)
+    y = torch.randn(m, generator=g, device=dev)
+    if loss == "logistic":
+        y = (y > 0).float()
+    elif loss == "squared_hinge":
+        y = torch.where(y > 0, 1.0, -1.0)
+    return A, x, y
+
+
+def _gradmap_call(A, x, y, loss):
+    if loss == "lstsq":
+        return lstsq_fused.fused_lstsq_gradmap(A, x, y)
+    return lstsq_fused.fused_pointwise_gradmap(A, x, y, loss)
+
+
+def _gradmap_ref(A, x, y, loss):
+    if loss == "lstsq":
+        return lstsq_fused.lstsq_gradmap_reference(A, x, y)
+    return lstsq_fused.pointwise_gradmap_reference(A, x, y, loss)
+
+
+def _close(got, ref):
+    (d, f, g), (d0, f0, g0) = got, ref
+    torch.cuda.synchronize()
+    assert (d - d0).abs().max() <= 1e-5 * max(1.0, float(d0.abs().max()))
+    assert (g - g0).abs().max() <= 1e-5 * max(1.0, float(g0.abs().max()))
+    assert abs(float(f) - float(f0)) <= 1e-5 * abs(float(f0))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gradmap_card_plan_is_the_pure_plan(dev, bf16):
+    """K-B3's plan on the card (csrc/lstsq_fused.cu: route, column slots,
+    threads, blocks, cluster, shared bytes, rows at once or a tile) is
+    ``gradmap_plan`` at the card's slots, on every route, aligned and
+    ragged, at the main paths' shapes and past the card's slots; the rows
+    routes' slots are BLOCKS_PER_SM blocks an SM, which the card holds at
+    once (the grid barrier needs it)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, n in [(256, 1024), (1000, 2000), (1000, 500), (800, 100),
+                 (3, 5), (1000, 1003), (997, 1999), (4096, 8192),
+                 (100000, 512), (50000, 2048), (37, 16385), (4096, 32768),
+                 (300, 100000), (64, 131072), (40, 200000), (7, 150001),
+                 (8192, 16384), (1024, 200000)]:
+        card = lstsq_fused._card_plan(dev.index or 0, m, n, bf16)
+        plan = lstsq_fused.gradmap_plan(m, n, bf16, card[-1])
+        assert card[:-1] == (plan.route, plan.cpt, plan.threads, plan.blocks,
+                             plan.cluster, plan.smem_bytes,
+                             plan.tile_rows), (m, n)
+        assert lstsq_fused._plan(dev.index or 0, m, n, bf16) == plan
+        if plan.route in (1, 2):
+            assert card[-1] == lstsq_fused.BLOCKS_PER_SM * sms, (m, n)
+
+
+@pytest.mark.parametrize("loss", ["lstsq", "logistic", "squared_hinge"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,n", [(800, 100), (1000, 500), (256, 1024),
+                                 (1000, 2000), (333, 511), (50, 6000)])
+def test_gradmap_rows_routes_match_plain(dev, loss, bf16, m, n):
+    """Routes 1 and 2 against the plain version, within 1e-5 of the
+    largest entry, a second call bit for bit; the call leaves the
+    stream's counters at zero."""
+    A, x, y = _gradmap_data(dev, m, n, loss, bf16)
+    assert lstsq_fused._plan(dev.index or 0, m, n, bf16).route in (1, 2)
+    got = _gradmap_call(A, x, y, loss)
+    _close(got, _gradmap_ref(A, x, y, loss))
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, _gradmap_call(A, x, y, loss)))
+    stream = torch.cuda.current_stream().cuda_stream
+    from fasta_tpu_torch.kernels import _build
+    work = _build.stream_scratch(dev, stream, 1)
+    torch.cuda.synchronize()
+    assert float(work[0]) == 0.0
+
+
+def _gradmap_cases(dev):
+    """One call a route: 800×100 (route 1), 256×1024 and 1000×2000 (route
+    2), 300×20000 (route 3), 24×140000 (route 4), the three losses among
+    them, one over a bfloat16 A."""
+    cases = []
+    for m, n, loss, bf16 in [(800, 100, "squared_hinge", False),
+                             (256, 1024, "lstsq", False),
+                             (1000, 2000, "logistic", False),
+                             (300, 20000, "lstsq", True),
+                             (24, 140000, "lstsq", False)]:
+        A, x, y = _gradmap_data(dev, m, n, loss, bf16)
+        cases.append(lambda A=A, x=x, y=y, loss=loss: _gradmap_call(
+            A, x, y, loss))
+    routes = sorted({lstsq_fused._plan(dev.index or 0, *shape).route
+                     for shape in [(800, 100), (256, 1024), (1000, 2000),
+                                   (24, 140000)]}
+                    | {lstsq_fused._plan(dev.index or 0, 300, 20000,
+                                         True).route})
+    assert routes == [1, 2, 3, 4]
+    return cases
+
+
+def test_gradmap_graph_replay_and_shared_ticket_are_deterministic(dev):
+    """Every route gives the same bits on two calls, on two replays of one
+    captured CUDA graph of two calls each, and on a call right after a
+    K-B4 and a K-B7 launch on the same stream (the kernels that share the
+    stream's scratch and its first word).  The graph is captured on the
+    side stream its warm-up ran on, so its scratch was zeroed before the
+    capture: the graph holds the kernels and no memset, and its replays
+    pass only if every launch leaves its counters at zero."""
+    cases = _gradmap_cases(dev)
+    want = [fn() for fn in cases]
+    again = [fn() for fn in cases]
+    for u, v in zip(want, again):
+        assert all(torch.equal(a, b) for a, b in zip(u, v))
+    g = torch.Generator(device=dev).manual_seed(17)
+    x0 = torch.randn((1, 1 << 22), generator=g, device=dev)
+    gr = torch.randn((1, 1 << 22), generator=g, device=dev)
+    Ar, Ai, xp, _, bh = _planar_data(dev, 4099, 256)
+    for fn, ref in zip(cases, want):
+        prox_fused.fused_shrink_step(x0, gr, 0.3, 0.5)
+        planar_fused.fused_planar_hinge_gradmap(Ar, Ai, xp, bh)
+        assert all(torch.equal(a, b) for a, b in zip(fn(), ref))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in cases:
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        first = [fn() for fn in cases]
+        second = [fn() for fn in cases]
+    from fasta_tpu_torch import profiling
+    kinds = profiling.graph_node_kinds(graph)
+    assert (kinds["kernel"], kinds["memset"], kinds["memcpy"]) == \
+        (2 * len(cases), 0, 0), kinds
+    for _ in range(2):
+        for out in first + second:
+            for t in out:
+                t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for outs in (first, second):
+            for u, v in zip(outs, want):
+                assert all(torch.equal(a, b) for a, b in zip(u, v))
 
 
 @pytest.mark.parametrize("hp", [False, True])
@@ -787,18 +938,25 @@ def _ticket_inputs(dev):
     planar = _planar_data(dev, 4099, 256)
     wide = _planar_data(dev, 40, 9000)
     probe = _probe_data(dev, 1000, 2048, 1 / 40)
-    return big, rows, tau, p, b, planar, wide, probe
+    gradmaps = [_gradmap_data(dev, m, n, "lstsq") for m, n in
+                ((1000, 2000), (300, 20000))]
+    assert [lstsq_fused._plan(dev.index or 0, m, n).route
+            for m, n in ((1000, 2000), (300, 20000))] == [2, 3]
+    return big, rows, tau, p, b, planar, wide, probe, gradmaps
 
 
-def _ticket_calls(big, rows, tau, p, b, planar, wide, probe):
+def _ticket_calls(big, rows, tau, p, b, planar, wide, probe, gradmaps):
     """K-B4 on its stream route and its row route, K-B5 with its ticket,
-    K-B7 on routes 1 and 3 with its last-cluster ticket, K-P2 and K-P1's
-    gradmap kernel with their barrier's counter and exit ticket: every one
-    keeps them in the stream's scratch."""
+    K-B7 on routes 1 and 3 with its last-cluster ticket, K-P2, K-P1's
+    gradmap kernel and K-B3 on routes 2 and 3 with their barrier's counter
+    and exit ticket: every one keeps them in the stream's scratch."""
     Ar, Ai, x, bl, bh = planar
     Wr, Wi, wx, _, wb = wide
     xg, (fg, gg) = matvec_probe.run_variant(*probe, "gradmap_fused", 3)
-    return (xg, fg, gg) + (prox_fused.fused_shrink_step(big[0], big[1], 0.3, 0.5)
+    b3 = tuple(t for A3, x3, y3 in gradmaps
+               for t in lstsq_fused.fused_lstsq_gradmap(A3, x3, y3))
+    return (xg, fg, gg) + b3 + (
+            prox_fused.fused_shrink_step(big[0], big[1], 0.3, 0.5)
             + prox_fused.fused_shrink_step(rows[0], rows[1], tau, 0.2)
             + tv_fused.fused_tv_gradmap(p, b, 0.1)
             + planar_fused.fused_planar_hinge_gradmap(Ar, Ai, x, bh)
@@ -829,16 +987,18 @@ def test_ticket_kernels_on_two_streams_match_one_after_another(dev):
 
 def test_ticket_kernels_replay_in_a_cuda_graph(dev):
     """Two calls of each kernel captured in one CUDA graph and replayed
-    twice equal eager calls: every launch leaves its ticket at zero."""
+    twice equal eager calls: every launch leaves its ticket at zero.  The
+    graph is captured on the side stream its warm-up ran on, whose
+    scratch was zeroed before the capture, so it holds no memset."""
     data = _ticket_inputs(dev)
     want = _ticket_calls(*data)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         _ticket_calls(*data)
-    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         first = _ticket_calls(*data)
         second = _ticket_calls(*data)
     for _ in range(2):
@@ -860,18 +1020,29 @@ def test_ticket_kernels_replay_in_a_cuda_graph(dev):
                                   "b7 wide 64x9000", "p2 1000x2048",
                                   "p1 gradmap 1000x2048",
                                   "p3 1000x2000", "p3 x1 200x300",
-                                  "p4 1000x2000", "p4 bf16 37x1003"])
+                                  "p4 1000x2000", "p4 bf16 37x1003",
+                                  "b3 256x1024", "b3 1000x2000",
+                                  "b3p 800x100", "b3 bf16 300x20000",
+                                  "b3 wide 24x140000"])
 def test_one_device_operation_per_call(dev, what, tmp_path):
     """A call of K-B4, K-B5, K-B1 (one solve or a batch), K-B7 (routes 1,
-    2 and 3), K-P2, K-P1's gradmap form (K = 3), K-P3 (L6 and X1) or K-P4
-    (float32, bfloat16) is one
+    2 and 3), K-B3 / K-B3p (routes 1 to 4, either end), K-P2, K-P1's
+    gradmap form (K = 3), K-P3 (L6 and X1) or K-P4 (float32, bfloat16) is
+    one
     kernel on the card: no memset, no copy (τ and μ by value or read where
     they lie; K-B1 and K-P3 make no copy of A and write their own records;
     K-B7, K-P1, K-P2, K-P3 and K-P4 keep their tickets and partials in the
     stream's scratch), in a profiling.trace of 10 calls."""
     from fasta_tpu_torch import profiling
     g = torch.Generator(device=dev).manual_seed(5)
-    if what.startswith("p3"):
+    if what.startswith("b3"):
+        m, n = (int(v) for v in what.split()[-1].split("x"))
+        loss = "squared_hinge" if what.startswith("b3p") else "lstsq"
+        A, x, y = _gradmap_data(dev, m, n, loss, "bf16" in what)
+
+        def fn():
+            return _gradmap_call(A, x, y, loss)
+    elif what.startswith("p3"):
         m, n = (200, 300) if "x1" in what else (1000, 2000)
         A, x0, b = _probe_data(dev, m, n, 1.0)
         run = tail_probe.make(6, col="x1" in what)
@@ -1094,16 +1265,17 @@ def _bf16_data(dev, m, n):
 
 
 @pytest.mark.parametrize("loss", ["lstsq", "logistic", "squared_hinge"])
-@pytest.mark.parametrize("m,n,cluster", [
-    (1000, 2000, 1), (1000, 1003, 1), (3, 5, 1), (4096, 8192, 1),
-    (37, 16385, 2), (300, 100000, 7), (64, 131072, 8), (40, 200000, 0),
-    (7, 150001, 0)])
-def test_bf16_gradmap_kernel_matches_plain(dev, loss, m, n, cluster):
+@pytest.mark.parametrize("m,n,route,cluster", [
+    (1000, 2000, 2, 1), (1000, 1003, 2, 1), (3, 5, 1, 1), (4096, 8192, 2, 1),
+    (37, 16385, 3, 2), (300, 100000, 3, 7), (64, 131072, 3, 8),
+    (40, 200000, 4, 1), (7, 150001, 4, 1)])
+def test_bf16_gradmap_kernel_matches_plain(dev, loss, m, n, route, cluster):
     """K-B3 and K-B3p over a bfloat16 A against the plain version (A
     upcast to float32, x float32) on every route, aligned (n % 8 == 0:
     16-byte groups) and ragged: 1e-5 of the largest entry, float32 sums
     in another order; deterministic; counted as bfloat16 launches."""
-    assert lstsq_fused._plan(dev.index or 0, m, n, True)[0] == cluster
+    plan = lstsq_fused._plan(dev.index or 0, m, n, True)
+    assert (plan.route, plan.cluster) == (route, cluster)
     A, x, b = _bf16_data(dev, m, n)
     if loss == "lstsq":
         fused = lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b)  # noqa: E731

@@ -1,10 +1,11 @@
-"""The launch plans of kernels K-B1 (the dense whole solve), K-B4 (the
-fused shrink step), K-B5 (the fused TV gradient map), K-B7 (the fused
-planar gradient map), K-B8 (the planar whole solve) and the probes K-P3
-(the tail ladder), K-P4 (the bfloat16-storage probe) and K-P1's gradmap
-form, which the wrappers compute on the host and the CUDA kernels obey:
-every shape lands on one route, and every element (K-B4) or row (K-B1,
-K-B5, K-B7, K-B8, K-P3, K-P4, K-P1) is covered exactly once.  The plans are pure functions of
+"""The launch plans of kernels K-B1 (the dense whole solve), K-B3 / K-B3p
+(the fused gradient maps), K-B4 (the fused shrink step), K-B5 (the fused
+TV gradient map), K-B7 (the fused planar gradient map), K-B8 (the planar
+whole solve) and the probes K-P3 (the tail ladder), K-P4 (the
+bfloat16-storage probe) and K-P1's gradmap form, which the wrappers
+compute on the host and the CUDA kernels obey: every shape lands on one
+route, and every element (K-B4) or row (K-B1, K-B3, K-B5, K-B7, K-B8,
+K-P3, K-P4, K-P1) is covered exactly once.  The plans are pure functions of
 the shape and the card's SM count, so they are held here, on the CPU, at
 the H100's 132 SMs and at others."""
 
@@ -12,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from fasta_tpu_torch.kernels import (bf16_probe, matvec_probe, microsolver,
-                                     microsolver_planar, planar_fused,
-                                     prox_fused, tail_probe, tv_fused)
+from fasta_tpu_torch.kernels import (bf16_probe, lstsq_fused, matvec_probe,
+                                     microsolver, microsolver_planar,
+                                     planar_fused, prox_fused, tail_probe,
+                                     tv_fused)
 from fasta_tpu_torch.kernels.microsolver import dense_plan
 from fasta_tpu_torch.kernels.planar_fused import gradmap_plan
 from fasta_tpu_torch.kernels.microsolver_planar import tile_plan
@@ -579,6 +581,147 @@ def test_gradmap_plan_on_the_h100_main_shapes():
 def test_gradmap_plan_refuses_empty_shapes(m, n, slots):
     with pytest.raises(ValueError, match="gradmap_plan"):
         gradmap_plan(m, n, False, slots)
+
+
+# --------------------------------------------------------------------------
+# K-B3's plan: one kernel a call, routes by row width
+# --------------------------------------------------------------------------
+
+# slots of the H100 (132 SMs): routes 1 and 2 BLOCKS_PER_SM blocks an SM;
+# route 3 at 16384 float32 columns one 192 KB block an SM; route 4 the SMs
+B3_ROW_SLOTS = lstsq_fused.BLOCKS_PER_SM * SMS
+
+
+def _b3_rows(plan, m):
+    """How often the kernel's walk (csrc/lstsq_fused.cu) visits each row:
+    routes 1 and 2 block k steps k, k + blocks, … of R·tr rows, group r <
+    R the tr rows from r·tr in each (tr = tile_rows);
+    route 3 cluster c tiles c, c + clusters, …; route 4 block k tiles k,
+    k + blocks, ….  Returns (visits, rows a block — a cluster on route
+    3)."""
+    visits = np.zeros(m, np.int64)
+    if plan.route in (1, 2):
+        R = plan.threads // (32 if plan.route == 1 else plan.threads)
+        step, tr = R * plan.tile_rows, plan.tile_rows
+        per = np.zeros(plan.blocks, np.int64)
+        for k in range(plan.blocks):
+            for base in range(k * step, m, plan.blocks * step):
+                for r in range(R):
+                    rows = np.arange(base + r * tr, min(m, base + r * tr + tr))
+                    visits[rows] += 1
+                    per[k] += rows.size
+        return visits, per
+    parts = plan.blocks // plan.cluster
+    per = np.zeros(parts, np.int64)
+    ntiles = -(-m // plan.tile_rows)
+    for c in range(parts):
+        for t in range(c, ntiles, parts):
+            r0 = t * plan.tile_rows
+            visits[r0:min(m, r0 + plan.tile_rows)] += 1
+            per[c] += min(m, r0 + plan.tile_rows) - r0
+    return visits, per
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("slots", [B3_ROW_SLOTS, 132, 1, 7])
+@pytest.mark.parametrize("m,n", [
+    (256, 1024), (1000, 2000), (1000, 500), (800, 100), (3, 5), (1, 1),
+    (1000, 1003), (997, 1999), (333, 511), (4096, 8192), (50, 6000),
+    (37, 16385), (300, 20000), (64, 131072), (9, 70001), (40, 200000),
+    (7, 150001), (1000, 131073)])
+def test_lstsq_gradmap_plan_places_every_row_once(m, n, slots, bf16):
+    """Every row once on every route; the grid a whole number of
+    clusters, no more units than the slots, none without rows; the
+    scratch holds the grid barrier's counters, an f partial a part and,
+    16-byte aligned, an (n,) gradient partial a part."""
+    plan = lstsq_fused.gradmap_plan(m, n, bf16, slots)
+    assert plan.blocks % plan.cluster == 0
+    parts = plan.blocks // plan.cluster
+    assert 1 <= parts <= slots
+    visits, per = _b3_rows(plan, m)
+    assert np.all(visits == 1)
+    assert per.min() >= 1
+    if plan.route in (1, 2):
+        assert plan.cluster == 1
+        assert plan.tile_rows == lstsq_fused.rows_at_once(
+            plan.cpt, plan.vec, plan.threads)
+    else:
+        assert 1 <= plan.tile_rows <= lstsq_fused.TILE_MAX
+    head = (parts + 2) & ~1            # doubles: counters, f partials, pad
+    assert head % 2 == 0 and head >= 1 + parts
+    assert 2 * (plan.scratch_doubles - head) >= parts * n
+    assert 2 * (plan.scratch_doubles - head) - parts * n <= 1
+
+
+@pytest.mark.parametrize("bf16,edges", [
+    # (n, route, vec, cpt, threads) at each boundary: 16-byte float32
+    # rows take 512 columns a warp, 2048 a group of 128 and 8192 of 512;
+    # ragged rows 512 a warp and 2048 a group of 512, a value a slot
+    (False, [(4, 1, 4, 1, 128), (128, 1, 4, 1, 128), (132, 1, 4, 2, 128),
+             (512, 1, 4, 4, 128), (516, 2, 4, 2, 128), (1024, 2, 4, 2, 128),
+             (1028, 2, 4, 4, 128), (2048, 2, 4, 4, 128),
+             (2052, 2, 4, 2, 512), (4096, 2, 4, 2, 512),
+             (4100, 2, 4, 4, 512), (8192, 2, 4, 4, 512),
+             (8196, 3, 4, 8, 512), (16384, 3, 4, 8, 512),
+             (16388, 3, 4, 8, 512), (131072, 3, 4, 8, 512),
+             (131076, 4, 4, 0, 512), (3, 1, 1, 1, 128), (37, 1, 1, 2, 128),
+             (511, 1, 1, 16, 128), (513, 2, 1, 2, 512),
+             (2047, 2, 1, 4, 512), (2049, 3, 1, 8, 512),
+             (16385, 3, 1, 32, 512), (131073, 4, 1, 0, 512)]),
+    (True, [(8, 1, 8, 1, 128), (256, 1, 8, 1, 128), (264, 1, 8, 2, 128),
+            (512, 1, 8, 2, 128), (520, 2, 8, 1, 128), (1024, 2, 8, 1, 128),
+            (1032, 2, 8, 2, 128), (2048, 2, 8, 2, 128),
+            (2056, 2, 8, 1, 512), (4096, 2, 8, 1, 512),
+            (4104, 2, 8, 2, 512), (8192, 2, 8, 2, 512),
+            (8200, 3, 8, 4, 512), (16384, 3, 8, 4, 512),
+            (500, 1, 1, 16, 128), (1003, 2, 1, 2, 512),
+            (2052, 3, 1, 8, 512)])])
+def test_lstsq_gradmap_plan_route_boundaries(bf16, edges):
+    for n, route, vec, cpt, threads in edges:
+        plan = lstsq_fused.gradmap_plan(1000, n, bf16, 30)
+        assert (plan.route, plan.vec, plan.cpt, plan.threads) == \
+            (route, vec, cpt, threads), n
+        if route == 1:    # the four warps' shares
+            assert plan.smem_bytes == 4 * 4 * n
+        elif route == 2:  # the threads' own columns straight to the scratch
+            assert plan.smem_bytes == 0
+        elif route == 4:
+            assert plan.smem_bytes == 0 and plan.cluster == 1
+
+
+def test_lstsq_gradmap_plan_on_the_h100_main_shapes():
+    """At the main paths' shapes a group takes 4 rows at once and the grid
+    is the fewest blocks that hold the rows in one step, at most one an
+    SM: democratic's 256×1024 a row a group of 128 threads on 64 blocks,
+    NNLS's and logistic's 1000×500 and SVM's 800×100 a warp a row on 63
+    and 50, LASSO's 1000×2000 on all 132 SMs in two steps — fewer blocks,
+    fewer partials to sum at the end (on the card, 64 blocks of 4 rows at
+    256×1024 4.65 µs a call against 132 of 1 row 5.58 µs; PERF.md §6);
+    the 8192×16384 stream on route 3, one tile row a block a step on the
+    132 SMs, 192 KB of ring each; 1024×200000 in bfloat16 on route 4."""
+    want = {(256, 1024): (2, 2, 128, 4, 64), (1000, 2000): (2, 4, 128, 4, 132),
+            (1000, 500): (1, 4, 128, 4, 63), (800, 100): (1, 1, 128, 4, 50)}
+    for (m, n), got in want.items():
+        plan = lstsq_fused.gradmap_plan(m, n, False, B3_ROW_SLOTS)
+        assert (plan.route, plan.cpt, plan.threads, plan.tile_rows,
+                plan.blocks) == got, (m, n)
+        rows = plan.threads // (32 if plan.route == 1 else plan.threads)
+        step = rows * plan.tile_rows
+        assert plan.blocks == min(SMS, -(-m // step))
+        # every block has a row at every step but the last
+        assert plan.blocks * step * (-(-m // (plan.blocks * step)) - 1) < m
+    big = lstsq_fused.gradmap_plan(8192, 16384, False, SMS)
+    assert (big.route, big.cluster, big.blocks, big.tile_rows,
+            big.smem_bytes) == (3, 1, 132, 1, 3 * 16384 * 4)
+    wide = lstsq_fused.gradmap_plan(1024, 200000, True, SMS)
+    assert (wide.route, wide.blocks, wide.tile_rows) == (4, 128, 8)
+
+
+@pytest.mark.parametrize("m,n,slots", [(0, 256, 30), (16, 0, 30),
+                                       (16, 256, 0), (-1, 4, 30)])
+def test_lstsq_gradmap_plan_refuses_empty_shapes(m, n, slots):
+    with pytest.raises(ValueError, match="gradmap_plan"):
+        lstsq_fused.gradmap_plan(m, n, False, slots)
 
 
 # --------------------------------------------------------------------------
