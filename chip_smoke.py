@@ -191,7 +191,23 @@ non-zero without the final ``ok`` line):
     card time of K-B3 at 256×1024, 1000×500 and 1000×2000 and of K-B3p
     (logistic, squared hinge) at 1000×500 and 800×100 — the main paths'
     shapes — (200 calls in a CUDA graph) beside the plain version's and
-    the byte bound.
+    the byte bound;
+33. row-sharded FASTA over ``torch.distributed``: K-B3, K-B3p and K-B7
+    at a rank's block (500×2000, 500×500, 8192×256) against their plain
+    versions, with their plans; two ranks on the one card over gloo
+    (``shard_problem`` on ``sharding.make_mesh()``, processes spawned,
+    rendezvous through a ``FileStore`` under ``build/``) on LASSO
+    1000×2000 in plain (500 iterations), adaptive and FISTA mode,
+    logistic 1000×500 and planar phase retrieval 16384×256, each
+    objective within rtol 1e-5 of the float64 reference's (phase
+    retrieval's solution, phase aligned, within rel 1e-3), the ranks' τ,
+    residual and solution series bit-identical, each rank's kernel one
+    launch a trial and its all-reduces on the budget (2 at the set-up,
+    one a trial, FISTA one more an iteration), no plain version, the
+    iteration counts and the wall per iteration beside the unsharded card
+    solve's; then a one-rank NCCL group (``make_mesh`` with no process
+    group) on the same LASSO in the three modes, ``torch.equal`` to the
+    unsharded card solve, with the same budget.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -2332,9 +2348,10 @@ PLAIN = {"K-B4": (prox_fused, "shrink_step_reference"),
 
 
 @contextlib.contextmanager
-def counting_plain():
-    counts = dict.fromkeys(PLAIN, 0)
-    saved = {k: getattr(mod, name) for k, (mod, name) in PLAIN.items()}
+def counting_plain(table=PLAIN):
+    """The calls of each plain version of ``table`` in the block."""
+    counts = dict.fromkeys(table, 0)
+    saved = {k: getattr(mod, name) for k, (mod, name) in table.items()}
 
     def counted(k):
         def fn(*a, **kw):
@@ -2342,12 +2359,12 @@ def counting_plain():
             return saved[k](*a, **kw)
         return fn
 
-    for k, (mod, name) in PLAIN.items():
+    for k, (mod, name) in table.items():
         setattr(mod, name, counted(k))
     try:
         yield counts
     finally:
-        for k, (mod, name) in PLAIN.items():
+        for k, (mod, name) in table.items():
             setattr(mod, name, saved[k])
 
 
@@ -4022,6 +4039,344 @@ def phase_exact_resume() -> dict:
                 k_b3_card=card["K-B3"], k_b3p_card=card["K-B3p"])
 
 
+# --------------------------------------------------------------------------
+# phase 33: row-sharded FASTA over torch.distributed
+# --------------------------------------------------------------------------
+
+# (tag, problem, build keywords, τ₀, solve keywords) of the two-rank
+# solves: LASSO 1000×2000 (BASELINE config 1) in the three modes — plain
+# mode 500 iterations, held to the oracle's run of the same length as
+# phase 9 holds it — logistic 1000×500 and planar phase retrieval
+# 16384×256
+SHARDED_RUNS = (
+    ("lasso adaptive", "lasso", {}, 0.05,
+     dict(tol=1e-6, max_iters=5000, **MODE_OPTIONS["adaptive"])),
+    ("lasso plain", "lasso", {}, 0.05,
+     dict(tol=1e-6, max_iters=500, **MODE_OPTIONS["plain"])),
+    ("lasso FISTA", "lasso", {}, 0.05,
+     dict(tol=1e-6, max_iters=5000, **MODE_OPTIONS["accelerated"])),
+    ("logistic adaptive", "logistic", {}, 1.0,
+     dict(tol=1e-6, max_iters=5000)),
+    ("planar adaptive", "phase_retrieval", dict(planar=True), 1.0,
+     dict(tol=1e-5, max_iters=2000)),
+)
+# the kernel each run's rank blocks take, and its launch counter
+SHARDED_KERNEL = {"lasso": "K-B3", "logistic": "K-B3p",
+                  "phase_retrieval": "K-B7"}
+# the plain versions a sharded solve could reach, counted in the ranks
+SHARDED_PLAIN = {"K-B3": (lstsq_fused, "lstsq_gradmap_reference"),
+                 "K-B3p": (lstsq_fused, "pointwise_gradmap_reference"),
+                 "K-B7": (planar_fused, "planar_hinge_gradmap_reference"),
+                 "K-B4": (prox_fused, "shrink_step_reference")}
+SHARDED_SERIES = ("taus", "residuals", "solution")
+
+
+def sharded_solves(mesh) -> dict:
+    """Each of ``SHARDED_RUNS`` built on this rank's device, ``shard_problem`` on
+    ``mesh`` and ``Problem.solve``, after a 3-iteration warm-up: its
+    series, counts, launches, collectives, plain calls and wall time."""
+    from fasta_tpu_torch import sharding
+    dev = sharding.mesh_device(mesh)
+    rows = {}
+    for tag, name, kw, tau0, solve_kw in SHARDED_RUNS:
+        sp = sharding.shard_problem(problems.build(name, device=dev, **kw),
+                                    mesh)
+        sp.solve(tau0=tau0, **dict(solve_kw, max_iters=3))
+        with counting_plain(SHARDED_PLAIN) as plain:
+            reset_launches()
+            sharding.reset_collective_counts()
+            t0 = time.perf_counter()
+            r = sp.solve(tau0=tau0, **solve_kw)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            colls = sharding.collective_counts()
+        rows[tag] = dict(
+            k=r.iteration_count, bt=r.total_backtracks,
+            converged=r.converged, wall=wall, launches=launches,
+            collectives=colls, plain=dict(plain), op=type(sp.op).__name__,
+            block=tuple(getattr(sp.op, "A", getattr(sp.op, "Ar", None))
+                        .shape),
+            **{key: np.asarray(getattr(r, key)) for key in SHARDED_SERIES})
+    return rows
+
+
+def sharded_rank(rank: int, world: int, store_path: str, out) -> None:
+    """One rank of phase 33: a gloo group through a ``FileStore``, the mesh
+    on this rank's card (``make_mesh``'s default), the solves; its rows,
+    or its traceback, to ``out``."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from fasta_tpu_torch import sharding
+    try:
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                store=dist.FileStore(store_path, world),
+                                timeout=timedelta(seconds=300))
+        mesh = sharding.make_mesh()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _build.library()
+        out.put((rank, True, sharded_solves(mesh)))
+    except Exception:                  # the parent fails the phase
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(world: int, timeout: float = 900.0) -> list:
+    """``world`` processes of :func:`sharded_rank` (the ``spawn`` start
+    method), rendezvous through a ``FileStore`` under ``build/``; their
+    rows in rank order.  A failed or silent rank fails the phase; every
+    process is stopped before this returns."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+    ctx = mp.get_context("spawn")
+    root = _build._BUILD_DIR.parent
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sharded_store_", dir=root)
+    out = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, f"{tmp}/store", out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            try:
+                rank, ok, rows = out.get(timeout=2.0)
+            except queue.Empty:
+                require(time.monotonic() < deadline
+                        and all(p.is_alive() or p.exitcode == 0
+                                for p in procs),
+                        f"a rank of phase 33 died or overran {timeout} s "
+                        f"(exit codes {[p.exitcode for p in procs]})")
+                continue
+            require(ok, f"rank {rank} of phase 33 failed:\n{rows}")
+            results[rank] = rows
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(all(p.exitcode == 0 for p in procs),
+            f"phase 33's ranks exited {[p.exitcode for p in procs]}")
+    return [results[r] for r in range(world)]
+
+
+def sharded_budget(tag: str, row: dict) -> int:
+    """The all-reduces of a sharded solve: 2 at the set-up (f(A x0) and the
+    first gradient's adjoint), one a line-search trial (the fused map's),
+    and in FISTA one an iteration (f at the extrapolated point)."""
+    return (2 + row["k"] + row["bt"]
+            + (row["k"] if tag.endswith("FISTA") else 0))
+
+
+def sharded_references() -> dict:
+    """The float64 references of phase 33's runs (objective, and for
+    planar phase retrieval the solution), with the problems the parent
+    holds: the oracle in each mode on LASSO (plain mode its 500
+    iterations), the converged oracle on logistic and phase 17's on
+    planar phase retrieval (run here when phase 17 did not)."""
+    refs = {}
+    lasso = problems.build("lasso", device=DEV)
+    inst = lasso.instance
+    for tag, name, _, tau0, kw in SHARDED_RUNS[:3]:
+        r = fasta_np(inst["op"], None, inst["f"], inst["gradf"], inst["g"],
+                     inst["proxg"], inst["x0"], tau0=tau0, **kw)
+        refs[tag] = (lasso, objective64(inst, r.solution), None)
+    logistic = problems.build("logistic", device=DEV)
+    inst = logistic.instance
+    r = fasta_np(inst["op"], None, inst["f"], inst["gradf"], inst["g"],
+                 inst["proxg"], inst["x0"], tau0=1.0, tol=1e-10,
+                 max_iters=20000)
+    refs["logistic adaptive"] = (logistic, objective64(inst, r.solution),
+                                 None)
+    planar = problems.build("phase_retrieval", planar=True, device=DEV)
+    inst = planar.instance
+    oracle = fasta_np(inst["op"], None, inst["f"], inst["gradf"], inst["g"],
+                      inst["proxg"], inst["x0"], tau0=1.0, tol=1e-8,
+                      max_iters=5000)
+    c = inst["delta"] * inst["x0_hat"]
+    x_ref = np.asarray(oracle.solution)
+    refs["planar adaptive"] = (planar, phase_objective(inst["A"], inst["b"],
+                                                       c, x_ref), x_ref)
+    return refs
+
+
+def sharded_objective(tag: str, prob, sol) -> float:
+    inst = prob.instance
+    if tag.startswith("planar"):
+        return phase_objective(inst["A"], inst["b"],
+                               inst["delta"] * inst["x0_hat"],
+                               planar_complex(sol))
+    return objective64(inst, sol)
+
+
+def sharded_blocks_against_plain() -> None:
+    """K-B3, K-B3p and K-B7 on a rank's block of the two-rank runs —
+    500×2000, 500×500 (logistic) and 8192×256 (hinge) — against their
+    plain versions with phase 3's tolerance, and their plans."""
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    for key, m, n in (("K-B3", 500, 2000), ("K-B3p", 500, 500),
+                      ("K-B7", 8192, 256)):
+        if key == "K-B7":
+            Ar, Ai = (torch.randn((m, n), generator=gen, device=DEV)
+                      / (2 * m) ** 0.5 for _ in range(2))
+            x = torch.randn((n, 2), generator=gen, device=DEV)
+            b = torch.rand(m, generator=gen, device=DEV)
+            got = planar_fused.fused_planar_hinge_gradmap(Ar, Ai, x, b)
+            ref = planar_fused.planar_hinge_gradmap_reference(Ar, Ai, x, b)
+            print(planar_plan_line(33, m, n, False))
+        else:
+            A = torch.randn((m, n), generator=gen, device=DEV) / m ** 0.5
+            x = torch.randn(n, generator=gen, device=DEV)
+            b = torch.randn(m, generator=gen, device=DEV)
+            if key == "K-B3":
+                got = lstsq_fused.fused_lstsq_gradmap(A, x, b)
+                ref = lstsq_fused.lstsq_gradmap_reference(A, x, b)
+            else:
+                y = (b > 0).float()
+                got = lstsq_fused.fused_pointwise_gradmap(A, x, y,
+                                                          "logistic")
+                ref = lstsq_fused.pointwise_gradmap_reference(A, x, y,
+                                                              "logistic")
+            print(gradmap_plan_line(f"[33 {key} {m}x{n}]", m, n, False))
+        torch.cuda.synchronize()
+        errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+        tols = [1e-5 * max(1.0, float(r.abs().max())) for r in ref]
+        print(f"[33 {key} {m}x{n}] a rank's block against the plain version: "
+              f"max|dd| {errs[0]:.3e} (tol {tols[0]:.1e}), |df| {errs[1]:.3e} "
+              f"(tol {tols[1]:.1e}), max|dg| {errs[2]:.3e} "
+              f"(tol {tols[2]:.1e})")
+        require(all(e <= t for e, t in zip(errs, tols)),
+                f"{key} at {m}x{n} disagrees with its plain version")
+
+
+def phase_sharded() -> dict:
+    """Row-sharded FASTA over ``torch.distributed`` on the card: two ranks
+    on the one card over gloo (NCCL puts no two ranks on one card; gloo
+    all-reduces the CUDA tensors through the host), each rank's block
+    through K-B3, K-B3p or K-B7, against the float64 references and the
+    unsharded card solves; then a one-rank NCCL group through
+    ``shard_problem``, ``torch.equal`` to the unsharded solve."""
+    import torch.distributed as dist
+
+    from fasta_tpu_torch import sharding
+    print(f"[33] card: {smi_line()}")
+    sharded_blocks_against_plain()
+    refs = sharded_references()
+    single = {}
+    for tag, name, _, tau0, kw in SHARDED_RUNS:
+        prob = refs[tag][0]
+        prob.solve(tau0=tau0, **dict(kw, max_iters=3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = prob.solve(tau0=tau0, **kw)
+        single[tag] = (r.iteration_count, time.perf_counter() - t0)
+
+    world = 2
+    ranks = run_ranks(world)
+    launches = dict.fromkeys(read_launches(), 0)
+    for tag, name, _, _, _ in SHARDED_RUNS:
+        rows = [rk[tag] for rk in ranks]
+        row = rows[0]
+        same = all(r["k"] == row["k"] and r["bt"] == row["bt"]
+                   and all(np.array_equal(r[key], row[key])
+                           for key in SHARDED_SERIES) for r in rows[1:])
+        trials = row["k"] + row["bt"]
+        kernel = SHARDED_KERNEL[name]
+        prob, goal, x_ref = refs[tag]
+        obj = sharded_objective(tag, prob, row["solution"])
+        rel = abs(obj - goal) / abs(goal)
+        k1, wall1 = single[tag]
+        print(f"[33 gloo x{world} {tag}] {row['op']}, {row['block']} a rank: "
+              f"converged={row['converged']} in {row['k']} iterations "
+              f"(unsharded card solve: {k1}), {row['bt']} backtracks; "
+              f"objective {obj:.12g} against the float64 reference's "
+              f"{goal:.12g}: rel {rel:.2e} (tol 1e-5); ranks bit-identical "
+              f"{same}; wall per iteration {row['wall'] / row['k'] * 1e3:.3f}"
+              f" ms (unsharded {wall1 / k1 * 1e3:.3f} ms)")
+        for r, rk in enumerate(rows):
+            print(f"[33 gloo x{world} {tag}] rank {r}: {kernel} "
+                  f"{rk['launches'][kernel]} launches, K-B4 "
+                  f"{rk['launches']['K-B4']}, for {trials} trials; "
+                  f"collectives {rk['collectives']} (budget "
+                  f"{sharded_budget(tag, rk)}); plain versions "
+                  f"{rk['plain']}")
+            require(rk["launches"][kernel] == trials,
+                    f"{tag} rank {r}: {kernel} not one launch a trial")
+            require(rk["collectives"] == {
+                "all_reduce": sharded_budget(tag, rk)},
+                f"{tag} rank {r}: collectives off the budget")
+            require(not any(rk["plain"].values()),
+                    f"{tag} rank {r}: a plain version ran")
+            for key, v in rk["launches"].items():
+                launches[key] += v
+        require(same, f"{tag}: the ranks' series differ")
+        require(row["converged"] or tag == "lasso plain",
+                f"{tag} did not converge")
+        require(np.isfinite(obj) and rel <= 1e-5,
+                f"{tag}: objective against the float64 reference")
+        if x_ref is not None:
+            x = planar_complex(row["solution"])
+            phase = np.vdot(x, x_ref)
+            x_rel = float(np.linalg.norm(x * phase / abs(phase) - x_ref)
+                          / np.linalg.norm(x_ref))
+            print(f"[33 gloo x{world} {tag}] phase-aligned solution rel L2 "
+                  f"{x_rel:.2e} (tol 1e-3)")
+            require(x_rel <= 1e-3, f"{tag}: solution against the oracle's")
+
+    require(not dist.is_initialized(), "a process group exists already")
+    mesh = sharding.make_mesh()           # a one-rank NCCL group
+    backend = dist.get_backend()
+    try:
+        require(backend == "nccl", f"the one-rank group is {backend}")
+        lasso = refs["lasso adaptive"][0]
+        sp = sharding.shard_problem(lasso, mesh)
+        for tag, _, _, tau0, kw in SHARDED_RUNS[:3]:
+            opts = ftt.FastaOptions(**kw)
+            reset_launches()
+            sharding.reset_collective_counts()
+            got = ftt.make_solver(opts)(sp.op, sp.fterm, sp.gterm, sp.x0,
+                                        tau0)
+            torch.cuda.synchronize()
+            run = read_launches()
+            colls = sharding.collective_counts()
+            ref = ftt.make_solver(opts)(lasso.op, lasso.fterm, lasso.gterm,
+                                        lasso.x0, tau0)
+            same = {key: torch.equal(getattr(got, key), getattr(ref, key))
+                    for key in ("solution", "taus", "residuals", "fvals",
+                                "backtracks")}
+            row = dict(k=got.iteration_count, bt=got.total_backtracks)
+            trials = row["k"] + row["bt"]
+            print(f"[33 {backend} x1 {tag}] {got.iteration_count} iterations "
+                  f"(unsharded {ref.iteration_count}); torch.equal to the "
+                  f"unsharded card solve {same}; K-B3 {run['K-B3']} launches "
+                  f"for {trials} trials; collectives {colls} (budget "
+                  f"{sharded_budget(tag, row)})")
+            require(all(same.values())
+                    and got.iteration_count == ref.iteration_count,
+                    f"{tag}: the one-rank group differs from the unsharded "
+                    f"solve")
+            require(run["K-B3"] == trials and colls == {
+                "all_reduce": sharded_budget(tag, row)},
+                f"{tag}: the one-rank group's launches or collectives")
+            for key, v in run.items():
+                launches[key] += v
+    finally:
+        dist.destroy_process_group()
+    print(f"[33] launches of the sharded runs (both ranks and the one-rank "
+          f"group): {launches}")
+    return dict(launches=launches)
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -4056,10 +4411,12 @@ def main() -> None:
     p3 = phase_tail_probe()
     later = phase_later_problems()
     resume = phase_exact_resume()
+    sharded = phase_sharded()
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
                 + serving["launches"][k] + b8w["launches"][k]
                 + bf16["launches"][k] + later["launches"][k]
-                + resume["launches"][k] for k in lasso}
+                + resume["launches"][k] + sharded["launches"][k]
+                for k in lasso}
     del b8w["launches"]
     launches["K-P5"] = p5.pop("launches_timed")
     launches["K-P4"] = p4.pop("launches_timed")

@@ -23,15 +23,18 @@ mode-comparison harness (``compare_modes``, ``format_comparison``), the
 closure builders of ``smooth``, the figures of ``plotting`` (matplotlib
 imported when a figure is drawn) and the suite's runner
 ``python -m fasta_tpu_torch.problems``.
+Row-sharded solves over ``torch.distributed`` (``sharding``: the row
+layouts of ``fasta_tpu.sharding`` on a ``DeviceMesh``, one all-reduce a
+gradient map; ``distributed``: the process group); the layouts that shard
+x itself (the TV halo exchange, the 2-D meshes) are not ported yet.
 Entry points place data that carries no device on the card unless the
 caller passes ``device="cpu"``.
-It exports every name of ``fasta_tpu.__all__`` (the sharded operators of
-``fasta_tpu.sharding`` are not ported yet).  Importing this package
+It exports every name of ``fasta_tpu.__all__``.  Importing this package
 imports no JAX and no matplotlib, and compiles nothing.
 """
 
-from . import (checkpoint, operators, plotting, profiling, prox, smooth,
-               terms)
+from . import (checkpoint, distributed, operators, plotting, profiling,
+               prox, sharding, smooth, terms)
 from .harness import MODE_OPTIONS, compare_modes, format_comparison
 from .micro import (MicroBatchResult, MicroResult, microsolve,
                     microsolve_batch, microsolve_supported, microsolve_sweep)
@@ -78,6 +81,6 @@ __all__ = [
     "compare_modes", "format_comparison", "MODE_OPTIONS",
     "MicroResult", "MicroBatchResult", "microsolve", "microsolve_supported",
     "microsolve_sweep", "microsolve_batch", "recommend_path", "ServingPlan",
-    "BATCH_CROSSOVER_UNKNOWNS", "checkpoint", "operators", "plotting",
-    "profiling", "prox", "smooth", "terms",
+    "BATCH_CROSSOVER_UNKNOWNS", "checkpoint", "distributed", "operators",
+    "plotting", "profiling", "prox", "sharding", "smooth", "terms",
 ]

@@ -32,7 +32,8 @@ from .terms import (BoxIndicator, L1Norm, L2Norm2, L21Norm, LeastSquares,
 __all__ = ["problem_from_instance", "problem_from_arrays",
            "result_to_numpy", "bf16_tensor", "lowprec_op_from_arrays",
            "planar_op_from_arrays", "solver_state_from_arrays",
-           "solver_state_to_arrays"]
+           "solver_state_to_arrays", "sharded_op_arrays",
+           "sharded_op_from_arrays"]
 
 
 def bf16_tensor(a, *, device) -> torch.Tensor:
@@ -66,6 +67,56 @@ def planar_op_from_arrays(Ar, Ai, *, device) -> PlanarDenseOp:
     """The port's ``PlanarDenseOp`` over the channels of a JAX one
     (``op.Ar``, ``op.Ai``)."""
     return PlanarDenseOp(_stored(Ar, device), _stored(Ai, device))
+
+
+def sharded_op_arrays(op) -> dict:
+    """The global arrays of a JAX row-sharded operator
+    (``fasta_tpu.sharding``'s ``RowShardedDenseOp``,
+    ``RowShardedPlanarDenseOp``, ``ShardedCDPOp`` or ``RowShardedSparseOp``)
+    as NumPy, with its ``kind``: what :func:`sharded_op_from_arrays` takes
+    on each rank.  The sparse blocks' padding (zero entries at row 0)
+    is dropped and their rows offset to the whole matrix's."""
+    kind = type(op).__name__
+    if kind == "RowShardedDenseOp":
+        return {"kind": "dense", "A": np.asarray(op.A)}
+    if kind == "RowShardedPlanarDenseOp":
+        return {"kind": "planar", "Ar": np.asarray(op.Ar),
+                "Ai": np.asarray(op.Ai)}
+    if kind == "ShardedCDPOp":
+        return {"kind": "cdp", "mods": np.asarray(op.mods),
+                "wins": np.asarray(op.wins)}
+    if kind == "RowShardedSparseOp":
+        data, idx = np.asarray(op.data), np.asarray(op.indices)
+        rows = idx[..., 0] + op.block_rows * np.arange(len(data))[:, None]
+        keep = data != 0
+        return {"kind": "sparse", "data": data[keep], "rows": rows[keep],
+                "cols": idx[..., 1][keep],
+                "shape": (len(data) * op.block_rows, op.n)}
+    raise TypeError(f"no row-sharded counterpart of {kind}")
+
+
+def sharded_op_from_arrays(arrays: dict, mesh):
+    """This rank's port operator (``sharding``'s row-sharded classes) over
+    the global arrays of :func:`sharded_op_arrays`; the rank, the world
+    and the device are the mesh's.  Both packages then hold the same
+    numbers."""
+    from . import sharding as sh
+    kind = arrays["kind"]
+    if kind == "dense":
+        return sh.RowShardedDenseOp(sh.shard_rows(arrays["A"], mesh), mesh)
+    if kind == "planar":
+        return sh.RowShardedPlanarDenseOp(sh.shard_rows(arrays["Ar"], mesh),
+                                          sh.shard_rows(arrays["Ai"], mesh),
+                                          mesh)
+    if kind == "cdp":
+        return sh.ShardedCDPOp(sh.shard_rows(arrays["mods"], mesh),
+                               sh.shard_rows(arrays["wins"], mesh), mesh)
+    if kind == "sparse":
+        import scipy.sparse as sp
+        M = sp.coo_matrix((arrays["data"], (arrays["rows"], arrays["cols"])),
+                          shape=arrays["shape"])
+        return sh.RowShardedSparseOp.from_scipy(M, mesh)
+    raise ValueError(f"no row-sharded operator of kind {kind!r}")
 
 
 def problem_from_arrays(A, b, mu: float, x0, tau0: Optional[float] = None,

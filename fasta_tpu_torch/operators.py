@@ -1,5 +1,5 @@
-"""Linear operators (port of ``fasta_tpu/operators.py``; its sharded
-operators are ROADMAP Queue A item 13).
+"""Linear operators (port of ``fasta_tpu/operators.py``; the row-sharded
+operators are in ``sharding.py``).
 
 ``LinearOp``, ``AdjointOp``, ``DenseOp`` (the explicit matrix),
 ``SparseOp`` (torch sparse CSR), ``LowPrecDenseOp`` (bfloat16 storage),
@@ -56,6 +56,19 @@ class LinearOp:
     def H(self) -> "LinearOp":
         """The adjoint as a first-class operator."""
         return AdjointOp(self)
+
+    # Measurement-space hooks of ``check_adjoint``.  A row-sharded operator
+    # (``sharding.py``) holds this rank's rows of d = A x and overrides
+    # both; an operator that holds every row keeps these.
+
+    def measurement_draw(self, d, generator: torch.Generator):
+        """Standard normal draws for the measurement vector ``d``."""
+        return randn_like(d, generator)
+
+    def measurement_sum(self, s):
+        """A sum over ``d``'s entries completed over the measurement space:
+        ``s`` itself here."""
+        return s
 
 
 class AdjointOp(LinearOp):
@@ -592,8 +605,9 @@ def check_adjoint(op: LinearOp, x_like: torch.Tensor,
     worst = 0.0
     for _ in range(n_trials):
         x = randn_like(x_like, generator)
-        y = randn_like(d_like, generator)
-        lhs = complex(torch.vdot(y.reshape(-1), op(x).reshape(-1)))
+        y = op.measurement_draw(d_like, generator)
+        lhs = complex(op.measurement_sum(
+            torch.vdot(y.reshape(-1), op(x).reshape(-1))))
         rhs = complex(torch.vdot(op.rmatvec(y).reshape(-1), x.reshape(-1)))
         scale = max(abs(lhs), abs(rhs), 1e-30)
         worst = max(worst, abs(lhs - rhs) / scale)

@@ -183,6 +183,7 @@ class _Setting(NamedTuple):
     hp: bool
     sdt: torch.dtype          # decision-scalar dtype
     fused: Optional[Callable]
+    fused_f64: bool           # the fused map's f is the hp decision value
     affine_accel: bool
     mu_b4: Optional[torch.Tensor]
 
@@ -195,6 +196,12 @@ def _setting(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
     # the one-pass gradient map serves one lane (the JAX batch solver runs
     # none either at this slice's sizes: supports_fusion's 64 MB gate)
     fused = fterm.fused_gradmap(op) if opts.fuse and B == 1 else None
+    # a map that gives f in the decision precision itself (the row-sharded
+    # maps, whose one all-reduce then carries it): hp takes that f rather
+    # than evaluate f(d) again, which would be a second collective
+    fused_f64 = hp and hasattr(fused, "decision_precision")
+    if fused_f64:
+        fused = fused.decision_precision()
     # zero-matvec FISTA gradient extrapolation: valid when ∇f is affine in
     # d and the gradient at the prox point comes free from the fused pass
     affine_accel = (opts.effective_mode == "accelerated"
@@ -205,7 +212,7 @@ def _setting(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
              if isinstance(gterm, L1Norm) and x.dtype == torch.float32
              else None)
     return _Setting(B, x.device, rdt, hp, torch.float64 if hp else rdt,
-                    fused, affine_accel, mu_b4)
+                    fused, fused_f64, affine_accel, mu_b4)
 
 
 def _fval(st: _Setting, fterm: SmoothTerm, d):
@@ -345,7 +352,8 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
             if fused is not None:
                 d1, f1, grad1 = fused(x1[0])
                 d1, grad1 = d1[None], grad1[None]
-                f1 = fval(d1) if hp else f1.to(rdt).reshape(1)
+                f1 = (fval(d1) if hp and not st.fused_f64
+                      else f1.to(st.sdt).reshape(1))
             else:
                 d1 = op.lanes(x1)
                 f1, grad1 = fval(d1), None

@@ -1,6 +1,6 @@
 """Objective terms: smooth f(A·) and prox-friendly g(·) (port of
-``fasta_tpu/terms.py``; the sharded operators' fused maps are ROADMAP
-Queue A item 13).
+``fasta_tpu/terms.py``; the row-sharded operators' fused maps are
+``sharding.RowShardedSmooth``'s).
 
 Smooth terms implement ``value(d)`` and ``grad(d)`` (evaluated at
 d = A x); prox terms implement ``value(x)`` and ``prox(z, t)``.  Terms
@@ -282,8 +282,9 @@ def phase_hinge_parts(mag, b):
 class PhaseHinge(SmoothTerm):
     """Smooth circular hinge for PhaseMax phase retrieval:
     f(d) = ½ Σ max(|d|−b, 0)², Wirtinger gradient max(|d|−b,0)·d/|d|.
-    No fused map: the JAX package fuses it only on its sharded operators
-    (``fasta_tpu/terms.py:358-366``, ROADMAP Queue A item 13)."""
+    No fused map on one device: the JAX package fuses it only on its
+    sharded operators (``fasta_tpu/terms.py:358-366``; in the port
+    ``sharding.sharded_phase_hinge_gradmap``)."""
 
     lane_field = "b"
 

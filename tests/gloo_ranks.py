@@ -1,0 +1,283 @@
+"""Gloo ranks on the CPU for the port's sharding tests (a helper module, not
+a test file).
+
+``Ranks(world)`` spawns ``world`` processes (the ``spawn`` start method),
+which rendezvous through a ``FileStore`` in a temporary directory (no TCP
+port, so concurrent test processes cannot collide), form one gloo group
+and a 1-D ``DeviceMesh`` on the CPU, and then run cases by name until
+closed: ``ranks.run("solve", ...)`` returns each rank's result, in rank
+order, as NumPy.  A rank that raises, dies or overruns the timeout fails
+the call.  The ranks import torch and the port, never JAX: the cases
+below are the ranks' side, and the test files hold them against the JAX
+package in the pytest process.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+
+import numpy as np
+
+
+class Ranks:
+    """``world`` gloo ranks on the CPU, alive until :meth:`close`."""
+
+    def __init__(self, world: int = 4, timeout: float = 240.0):
+        ctx = mp.get_context("spawn")
+        self.world, self.timeout = world, timeout
+        self._dir = tempfile.mkdtemp(prefix="gloo_ranks_")
+        store = os.path.join(self._dir, "store")
+        self._inboxes = [ctx.Queue() for _ in range(world)]
+        self._outbox = ctx.Queue()
+        self._procs = [ctx.Process(target=_rank_main,
+                                   args=(r, world, store, self._inboxes[r],
+                                         self._outbox), daemon=True)
+                       for r in range(world)]
+        for p in self._procs:
+            p.start()
+
+    def run(self, case: str, *args) -> list:
+        """Every rank runs ``CASES[case](mesh, *args)``; their results in
+        rank order."""
+        for q in self._inboxes:
+            q.put((case, args))
+        results, deadline = {}, time.monotonic() + self.timeout
+        while len(results) < self.world:
+            try:
+                rank, ok, value = self._outbox.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(self._procs)
+                        if not p.is_alive()]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"case {case!r}: ranks {dead} died or the case ran "
+                        f"past {self.timeout} s; results from "
+                        f"{sorted(results)}")
+                continue
+            results[rank] = (ok, value)
+        failed = {r: v for r, (ok, v) in results.items() if not ok}
+        if failed:
+            raise AssertionError(f"case {case!r} failed on ranks "
+                                 f"{sorted(failed)}:\n"
+                                 f"{next(iter(failed.values()))}")
+        return [results[r][1] for r in range(self.world)]
+
+    def close(self) -> None:
+        for q in self._inboxes:
+            q.put(None)
+        for p in self._procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(self._dir, ignore_errors=True)
+        alive = [p.pid for p in self._procs if p.is_alive()]
+        if alive:
+            raise RuntimeError(f"ranks {alive} did not stop")
+
+
+def _rank_main(rank, world, store_path, inbox, outbox):
+    import torch
+    import torch.distributed as dist
+
+    from fasta_tpu_torch import sharding
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = sharding.make_mesh(device="cpu")
+        while True:
+            msg = inbox.get()
+            if msg is None:
+                break
+            case, args = msg
+            try:
+                outbox.put((rank, True, CASES[case](mesh, *args)))
+            except Exception:           # reported to the test, which fails
+                outbox.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# The ranks' side of the cases
+# --------------------------------------------------------------------------
+
+SERIES = ("solution", "taus", "residuals", "fvals", "backtracks")
+
+
+def host_result(r) -> dict:
+    """A solve's result (``FastaResult`` or ``DeviceResult``) as NumPy."""
+    from fasta_tpu_torch import convert
+    out = convert.result_to_numpy(r)
+    return {k: out[k] for k in SERIES + ("iteration_count", "converged",
+                                         "total_backtracks")}
+
+
+def _dtype(name: str):
+    import torch
+    return getattr(torch, name)
+
+
+def case_mesh(mesh):
+    from fasta_tpu_torch import distributed
+    whole = distributed.global_mesh(device="cpu")
+    return dict(names=mesh.mesh_dim_names, size=mesh.size(),
+                device=mesh.device_type, rank=mesh.get_local_rank("rows"),
+                distributed=distributed.is_distributed(),
+                global_size=whole.size())
+
+
+def case_fasta(mesh, key):
+    """``fasta()`` on the sharded LASSO 240×96 float64 with no τ₀ (the
+    stepsize estimate) and the adjoint check first."""
+    import torch
+
+    import fasta_tpu_torch as ftt
+    from fasta_tpu_torch import problems
+    from fasta_tpu_torch import sharding as sh
+    p = problems.build("lasso", m=240, n=96, k=10, dtype=torch.float64,
+                       device="cpu")
+    sp = sh.shard_problem(p, mesh)
+    r = ftt.fasta(sp.op, None, sp.fterm, None, sp.gterm, None, sp.x0,
+                  key=key, check_adjoint_first=True, tol=1e-9,
+                  max_iters=120)
+    out = host_result(r)
+    out.update(L=r.L_estimate, tau0=r.initial_tau)
+    return out
+
+
+def case_solve(mesh, name, build_kw, tau0, solve_kw):
+    """``name`` built by the port at ``build_kw`` (``dtype`` named as a
+    string), ``shard_problem``, ``Problem.solve``: the result, the
+    operator's class and the collectives the solve made."""
+    from fasta_tpu_torch import problems
+    from fasta_tpu_torch import sharding as sh
+    kw = dict(build_kw, dtype=_dtype(build_kw["dtype"]), device="cpu")
+    explicit = solve_kw.pop("explicit", True)
+    sp = sh.shard_problem(problems.build(name, **kw), mesh,
+                          explicit=explicit)
+    sh.reset_collective_counts()
+    r = sp.solve(tau0=tau0, **solve_kw)
+    out = host_result(r)
+    out.update(counts=sh.collective_counts(), op=type(sp.op).__name__,
+               name=sp.name)
+    return out
+
+
+def case_op(mesh, arrays, x, y):
+    """The operator of ``convert.sharded_op_from_arrays``: this rank's
+    block of A x, Aᴴ y (y whole; the rank takes its rows) and the adjoint
+    check's error."""
+    import torch
+
+    from fasta_tpu_torch import check_adjoint, convert
+    from fasta_tpu_torch import sharding as sh
+    op = convert.sharded_op_from_arrays(arrays, mesh)
+    x, y = torch.as_tensor(x), sh.shard_rows(y, mesh)
+    err = check_adjoint(op, torch.zeros_like(x),
+                        torch.Generator().manual_seed(0), rtol=1e-10)
+    return dict(d=op(x).numpy(), g=op.rmatvec(y).numpy(), err=err,
+                op=type(op).__name__, shape=op.shape)
+
+
+def case_blocks(mesh, build_kw):
+    """The shapes and devices of what ``shard_problem`` placed, and whether
+    they hold this rank's rows of the whole problem's (x0 all of it)."""
+    import torch
+
+    from fasta_tpu_torch import problems
+    from fasta_tpu_torch import sharding as sh
+    kw = dict(build_kw, dtype=_dtype(build_kw["dtype"]), device="cpu")
+    p = problems.build("lasso", **kw)
+    sp = sh.shard_problem(p, mesh)
+    rank = mesh.get_local_rank("rows")
+    rows = slice(rank * sp.op.A.shape[0], (rank + 1) * sp.op.A.shape[0])
+    return dict(A=tuple(sp.op.A.shape), b=tuple(sp.fterm.term.b.shape),
+                x0=tuple(sp.x0.shape), shape=sp.op.shape,
+                A_rows=torch.equal(sp.op.A, p.op.A[rows]),
+                b_rows=torch.equal(sp.fterm.term.b, p.fterm.b[rows]),
+                x0_whole=torch.equal(sp.x0, p.x0),
+                devices={str(t.device) for t in (sp.op.A, sp.fterm.term.b,
+                                                 sp.x0)})
+
+
+def case_raises(mesh, name, build_kw):
+    """What ``shard_problem`` raises on ``name``: (class name, message)."""
+    from fasta_tpu_torch import problems
+    from fasta_tpu_torch import sharding as sh
+    kw = dict(build_kw, dtype=_dtype(build_kw["dtype"]), device="cpu")
+    try:
+        sh.shard_problem(problems.build(name, **kw), mesh)
+    except (ValueError, NotImplementedError) as e:
+        return type(e).__name__, str(e)
+    return None, ""
+
+
+def case_batch(mesh, mus, path):
+    """The μ sweep through ``make_batch_solver`` (``path=False``) or
+    ``solve_path`` over the sharded LASSO 240×96 float64."""
+    import torch
+
+    import fasta_tpu_torch as ftt
+    from fasta_tpu_torch import problems
+    from fasta_tpu_torch import sharding as sh
+    p = problems.build("lasso", m=240, n=96, k=10, dtype=torch.float64,
+                       device="cpu")
+    sp = sh.shard_problem(p, mesh)
+    opts = ftt.FastaOptions(max_iters=400, tol=1e-9)
+    mus = torch.as_tensor(np.asarray(mus))
+    if path:
+        r = ftt.solve_path(sp.op, sp.fterm, ftt.L1Norm(mus), sp.x0, 0.05,
+                           opts)
+    else:
+        batch = ftt.make_batch_solver(opts, (None, None, 0, None, None))
+        r = batch(sp.op, sp.fterm, ftt.L1Norm(mus), sp.x0, 0.05)
+    return dict(solution=r.solution.numpy(), taus=r.taus.numpy(),
+                iteration_count=np.asarray(r.iteration_count),
+                converged=np.asarray(r.converged))
+
+
+def case_resume(mesh, state_dir, dtype):
+    """The sharded exact resume: LASSO 64×48 row-sharded, 30 iterations,
+    each rank's ``SolverState`` through ``checkpoint.save_pytree`` /
+    ``load_pytree`` (one file a rank), ``resume_state`` to 60, against
+    the uninterrupted 60-iteration run, in the three modes."""
+    import torch
+
+    import fasta_tpu_torch as ftt
+    from fasta_tpu_torch import checkpoint, problems
+    from fasta_tpu_torch import sharding as sh
+    rank = mesh.get_local_rank("rows")
+    p = problems.build("lasso", m=64, n=48, k=6, dtype=_dtype(dtype),
+                       device="cpu")
+    sp = sh.shard_problem(p, mesh)
+    args = (sp.op, sp.fterm, sp.gterm, sp.x0, 0.05)
+    out = {}
+    for mode, kw in ftt.MODE_OPTIONS.items():
+        o30 = ftt.FastaOptions(max_iters=30, stop_rule="iterations", **kw)
+        o60 = o30.replace(max_iters=60)
+        _, s30 = ftt.make_stateful_solver(o30)(*args)
+        path = os.path.join(state_dir, f"state_{mode}_{dtype}_{rank}.npz")
+        checkpoint.save_pytree(s30, path)
+        loaded = checkpoint.load_pytree(s30, path)
+        r_res, s60 = ftt.resume_state(*args[:3], loaded, o60)
+        r_full, _ = ftt.make_stateful_solver(o60)(*args)
+        out[mode] = dict(
+            resumed=host_result(r_res), full=host_result(r_full),
+            k=int(s60.k), d_rows=(None if s30.accel is None
+                                  else tuple(s30.accel[1].shape)))
+    return out
+
+
+CASES = {"mesh": case_mesh, "fasta": case_fasta, "solve": case_solve, "op": case_op,
+         "blocks": case_blocks, "raises": case_raises, "batch": case_batch,
+         "resume": case_resume}

@@ -1,10 +1,11 @@
 """Exact mid-run resume in the port (the counterpart of
-``tests/unit/test_exact_resume.py`` but its sharded case): 50 iterations
-→ ``SolverState`` → ``checkpoint.save_pytree`` / ``load_pytree`` →
-``resume_state`` to 100 equals the uninterrupted 100-iteration run BIT
-FOR BIT (solution, τ, residual, f and backtrack series, counts) in the
-three modes in float64, in float32 with hp, in lean mode and with the
-records continued.
+``tests/unit/test_exact_resume.py``): 50 iterations → ``SolverState`` →
+``checkpoint.save_pytree`` / ``load_pytree`` → ``resume_state`` to 100
+equals the uninterrupted 100-iteration run BIT FOR BIT (solution, τ,
+residual, f and backtrack series, counts) in the three modes in float64,
+in float32 with hp, in lean mode and with the records continued; and row
+sharded over four gloo ranks (``test_resume_bitwise_sharded``), each
+rank's state saved to a file of its own.
 
 Across packages, on the same seeded LASSO 48×80 float64 instance: a state
 saved by ``fasta_tpu.make_stateful_solver`` resumes in the port, and a
@@ -31,6 +32,8 @@ import fasta_tpu as ft
 import fasta_tpu_torch as ftt
 import problems as jax_problems
 from fasta_tpu_torch import checkpoint, convert, problems
+from gloo_ranks import SERIES as RANK_SERIES
+from gloo_ranks import Ranks
 
 torch.set_num_threads(1)
 
@@ -154,6 +157,37 @@ def test_resume_leaves_the_state_as_it_was():
     np.testing.assert_array_equal(after["fwin"], before["fwin"])
     np.testing.assert_array_equal(after["diags"]["taus"],
                                   before["diags"]["taus"])
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    r = Ranks(4)
+    yield r
+    r.close()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_resume_bitwise_sharded(ranks, dtype, tmp_path):
+    """The port of ``test_resume_bitwise_sharded``: LASSO 64×48 row-sharded
+    over four gloo ranks, 30 iterations, each rank's ``SolverState``
+    (its FISTA carry holds the rank's 16 rows of A x) through its own
+    ``.npz``, ``resume_state`` to 60: on every rank, in the three modes,
+    the uninterrupted run's bits; and the same bits on every rank."""
+    outs = ranks.run("resume", str(tmp_path), dtype)
+    assert len(list(tmp_path.glob("state_*.npz"))) == 4 * len(MODES)
+    for mode in MODES:
+        for out in outs:
+            got, full = out[mode]["resumed"], out[mode]["full"]
+            for key in RANK_SERIES:
+                np.testing.assert_array_equal(got[key], full[key])
+            assert got["iteration_count"] == full["iteration_count"] == 60
+            assert got["total_backtracks"] == full["total_backtracks"]
+            assert out[mode]["k"] == 60
+            assert out[mode]["d_rows"] == (None if mode != "accelerated"
+                                           else (16,))
+            for key in RANK_SERIES:
+                np.testing.assert_array_equal(got[key],
+                                              outs[0][mode]["resumed"][key])
 
 
 # --------------------------------------------------------------------------

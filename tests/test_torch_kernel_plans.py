@@ -717,6 +717,24 @@ def test_lstsq_gradmap_plan_on_the_h100_main_shapes():
     assert (wide.route, wide.blocks, wide.tile_rows) == (4, 128, 8)
 
 
+def test_gradmap_plans_at_the_sharded_blocks():
+    """Two ranks of the row-sharded main paths each hold half the rows:
+    LASSO's 500×2000 takes K-B3's route 2 on 125 blocks (one step of 4
+    rows a block), logistic's 500×500 K-B3p's route 1 on 32 blocks (a warp
+    a row, 4 rows at once), planar phase retrieval's 8192×256 K-B7's route
+    1 on 30 clusters of 8, as the whole 16384×256 does; every row once."""
+    want = {(500, 2000): (2, 4, 128, 4, 125), (500, 500): (1, 4, 128, 4, 32)}
+    for (m, n), got in want.items():
+        plan = lstsq_fused.gradmap_plan(m, n, False, B3_ROW_SLOTS)
+        assert (plan.route, plan.cpt, plan.threads, plan.tile_rows,
+                plan.blocks) == got, (m, n)
+        assert np.all(_b3_rows(plan, m)[0] == 1)
+    half = gradmap_plan(8192, 256, False, 30)
+    assert (half.route, half.vec, half.cpt, half.blocks) == (1, 4, 2, 240)
+    assert half == gradmap_plan(16384, 256, False, 30)
+    assert np.all(_gradmap_rows(half, 8192)[0] == 1)
+
+
 @pytest.mark.parametrize("m,n,slots", [(0, 256, 30), (16, 0, 30),
                                        (16, 256, 0), (-1, 4, 30)])
 def test_lstsq_gradmap_plan_refuses_empty_shapes(m, n, slots):

@@ -4,6 +4,7 @@ tests/unit/test_profiling.py): the API surface; rates come from the card.
 
 import json
 import os
+import types
 
 import torch
 
@@ -12,13 +13,30 @@ from fasta_tpu_torch import profiling
 torch.set_num_threads(1)
 
 
-def test_time_blocking_positive_and_barrier_subtracted():
+def test_time_blocking_positive_and_barrier_subtracted(monkeypatch):
+    """The subtraction, checked exactly against a stubbed host clock (no
+    outcome depends on the machine's load): the two barrier waits read
+    0.25 s and 0.5 s, the two runs 1.0 s and 0.5 s; the best run less the
+    best barrier is 0.25 s, and without the barrier the best run, 0.5 s."""
     x = torch.ones((64, 64))
+    barrier_reads = [0.0, 0.25, 1.0, 1.5]
+    run_reads = [10.0, 11.0, 20.0, 20.5]
+
+    def clock(reads):
+        it = iter(reads)
+        monkeypatch.setattr(profiling, "time", types.SimpleNamespace(
+            perf_counter=lambda: next(it)))
+        return it
+
+    left = clock(barrier_reads + run_reads)
     t = profiling.time_blocking(torch.matmul, x, x, repeats=2)
-    assert t > 0
+    assert next(left, None) is None
+    assert t == 0.25 > 0
+    left = clock(run_reads)
     t_raw = profiling.time_blocking(torch.matmul, x, x, repeats=2,
                                     subtract_barrier=False)
-    assert t_raw >= t * 0.5  # raw includes the barrier; both positive
+    assert next(left, None) is None
+    assert t_raw == 0.5 and t_raw - t == 0.25   # raw keeps the barrier
 
 
 def test_roofline_report_fields():
