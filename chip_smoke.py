@@ -207,7 +207,26 @@ non-zero without the final ``ok`` line):
     iteration counts and the wall per iteration beside the unsharded card
     solve's; then a one-rank NCCL group (``make_mesh`` with no process
     group) on the same LASSO in the three modes, ``torch.equal`` to the
-    unsharded card solve, with the same budget.
+    unsharded card solve, with the same budget;
+34. the layouts that shard x itself: K-B5's band form against its plain
+    version at a rank's rows of 512×512 over 4 ranks (128×512: a middle,
+    a top and a bottom band), a one-row band (and one above the image's
+    last row) and a ragged width (128×509), with no halo rows the K-B5
+    launch's bits, its stream and card time beside the bound; four ranks
+    on the one card over gloo, a 2×2 mesh (``shard_problem_2d``: LASSO
+    1000×2000 in the three modes, planar phase retrieval 16384×256,
+    sparse LASSO 1500×3000 at 2%, democratic 256×1024) and a 1-D mesh
+    (TV 512×512 split over image rows, adaptive and FISTA to tol 1e-5),
+    each objective within rtol 1e-5 of the float64 reference's (planar:
+    the phase-aligned solution within rel 1e-3 too; democratic 1e-3; TV:
+    the recovered image within rel 1e-3 too), converged where the
+    unsharded card solve converges, the ranks' series bit-identical (and
+    the blocks of x of ranks that share them), K-B4 and K-B5's band form
+    one launch a trial a rank, no plain version, the collectives on the
+    budget of ``tests/test_torch_sharding_x.py``, the wall per iteration
+    beside the unsharded card solve's; then a one-rank NCCL group on TV
+    (``make_mesh``), ``torch.equal`` to the unsharded card solve in both
+    modes, the band form one launch a trial.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -504,7 +523,7 @@ def reset_launches() -> None:
     microsolver_planar.WIDE_LAUNCHES = 0
     microsolver_planar.WIDE_BATCH_LAUNCHES = 0
     microsolver.LAUNCHES = microsolver.PATH_LAUNCHES = 0
-    tv_fused.LAUNCHES = 0
+    tv_fused.LAUNCHES = tv_fused.BAND_LAUNCHES = 0
     microsolver_tv.LAUNCHES = microsolver_tv.PATH_LAUNCHES = 0
     microsolver_tv.LAUNCHES_RESIDENT = 0
     microsolver_tv.PATH_LAUNCHES_RESIDENT = 0
@@ -524,6 +543,7 @@ def read_launches() -> dict:
             "K-B3": lstsq_fused.LAUNCHES,
             "K-B3p": lstsq_fused.POINTWISE_LAUNCHES,
             "K-B5": tv_fused.LAUNCHES,
+            "K-B5 band": tv_fused.BAND_LAUNCHES,
             "K-B6": microsolver_tv.LAUNCHES,
             "K-B6p": microsolver_tv.PATH_LAUNCHES,
             "K-B7": planar_fused.LAUNCHES,
@@ -3773,6 +3793,7 @@ def phase_later_problems() -> dict:
                                 r.iteration_count)
             host[name][mode] = on_host.solve(tol=1e-6, max_iters=2000, **kw)
         probs[name] = prob
+    REFS["later"] = refs
 
     dem, sl = probs["democratic"], probs["sparse_lasso"]
     A32 = dem.instance["A"].astype(np.float32)
@@ -4125,11 +4146,12 @@ def sharded_rank(rank: int, world: int, store_path: str, out) -> None:
             dist.destroy_process_group()
 
 
-def run_ranks(world: int, timeout: float = 900.0) -> list:
-    """``world`` processes of :func:`sharded_rank` (the ``spawn`` start
-    method), rendezvous through a ``FileStore`` under ``build/``; their
-    rows in rank order.  A failed or silent rank fails the phase; every
-    process is stopped before this returns."""
+def run_ranks(world: int, timeout: float = 900.0, target=None,
+              phase: int = 33) -> list:
+    """``world`` processes of ``target`` (:func:`sharded_rank` when None;
+    the ``spawn`` start method), rendezvous through a ``FileStore`` under
+    ``build/``; their rows in rank order.  A failed or silent rank fails
+    the phase; every process is stopped before this returns."""
     import multiprocessing as mp
     import queue
     import shutil
@@ -4139,7 +4161,7 @@ def run_ranks(world: int, timeout: float = 900.0) -> list:
     root.mkdir(parents=True, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="sharded_store_", dir=root)
     out = ctx.Queue()
-    procs = [ctx.Process(target=sharded_rank,
+    procs = [ctx.Process(target=target or sharded_rank,
                          args=(r, world, f"{tmp}/store", out))
              for r in range(world)]
     for p in procs:
@@ -4153,10 +4175,11 @@ def run_ranks(world: int, timeout: float = 900.0) -> list:
                 require(time.monotonic() < deadline
                         and all(p.is_alive() or p.exitcode == 0
                                 for p in procs),
-                        f"a rank of phase 33 died or overran {timeout} s "
+                        f"a rank of phase {phase} died or overran "
+                        f"{timeout} s "
                         f"(exit codes {[p.exitcode for p in procs]})")
                 continue
-            require(ok, f"rank {rank} of phase 33 failed:\n{rows}")
+            require(ok, f"rank {rank} of phase {phase} failed:\n{rows}")
             results[rank] = rows
     finally:
         for p in procs:
@@ -4166,7 +4189,7 @@ def run_ranks(world: int, timeout: float = 900.0) -> list:
                 p.join(timeout=10)
         shutil.rmtree(tmp, ignore_errors=True)
     require(all(p.exitcode == 0 for p in procs),
-            f"phase 33's ranks exited {[p.exitcode for p in procs]}")
+            f"phase {phase}'s ranks exited {[p.exitcode for p in procs]}")
     return [results[r] for r in range(world)]
 
 
@@ -4271,7 +4294,7 @@ def phase_sharded() -> dict:
     from fasta_tpu_torch import sharding
     print(f"[33] card: {smi_line()}")
     sharded_blocks_against_plain()
-    refs = sharded_references()
+    refs = REFS["sharded"] = sharded_references()
     single = {}
     for tag, name, _, tau0, kw in SHARDED_RUNS:
         prob = refs[tag][0]
@@ -4377,6 +4400,391 @@ def phase_sharded() -> dict:
     return dict(launches=launches)
 
 
+# --------------------------------------------------------------------------
+# Slice 19: the layouts that shard x itself
+# --------------------------------------------------------------------------
+
+# phase 34's runs: (tag, mesh shape, problem, build keywords, τ₀, solve
+# keywords); the 2×2 mesh takes shard_problem_2d, the 1-D mesh of 4
+# shard_problem (TV: p and the image split over image rows)
+X_FISTA = MODE_OPTIONS["accelerated"]
+X_RUNS = (
+    ("2d lasso adaptive", (2, 2), "lasso", {}, 0.05,
+     dict(tol=1e-6, max_iters=5000, **MODE_OPTIONS["adaptive"])),
+    ("2d lasso plain", (2, 2), "lasso", {}, 0.05,
+     dict(tol=1e-6, max_iters=500, **MODE_OPTIONS["plain"])),
+    ("2d lasso FISTA", (2, 2), "lasso", {}, 0.05,
+     dict(tol=1e-6, max_iters=5000, **X_FISTA)),
+    ("2d planar adaptive", (2, 2), "phase_retrieval", dict(planar=True), 1.0,
+     dict(tol=1e-5, max_iters=2000)),
+    ("2d sparse adaptive", (2, 2), "sparse_lasso", {},
+     LATER_TAU0["sparse_lasso"], dict(tol=1e-6, max_iters=2000)),
+    ("2d democratic adaptive", (2, 2), "democratic", {},
+     LATER_TAU0["democratic"], dict(tol=1e-6, max_iters=2000)),
+    ("tv adaptive", (4,), "tv", {}, 2.0, dict(tol=1e-5, max_iters=20000)),
+    ("tv FISTA", (4,), "tv", {}, 2.0,
+     dict(tol=1e-5, max_iters=20000, **X_FISTA)),
+)
+# the kernel of this slice each run's ranks take, one launch a trial
+X_KERNEL = {"lasso": "K-B4", "sparse_lasso": "K-B4", "tv": "K-B5 band"}
+# the plain versions a run could reach, counted in the ranks
+X_PLAIN = {"K-B4": (prox_fused, "shrink_step_reference"),
+           "K-B5 band": (tv_fused, "tv_gradmap_band_reference")}
+X_SERIES = ("taus", "residuals", "solution")
+
+
+def x_budget(tag: str, row: dict) -> dict:
+    """The collectives of a run (``tests/test_torch_sharding_x.py``'s
+    budgets): on the 2-D mesh 3 all-reduces at the set-up, 3 a trial (two
+    for the gradient map, d over cols and (f, g) over rows, one for the
+    trial's sums over x), 1 an iteration (the iteration's other sums over
+    x), FISTA 1 more (f at the extrapolated point); democratic an
+    all-gather a trial (the L∞ prox). TV: 1 all-reduce at the set-up, 2 a
+    trial (f, the trial's sums over p), 1 an iteration, FISTA 1 more; a
+    halo exchange a trial and 2 at the set-up."""
+    k, trials = row["k"], row["k"] + row["bt"]
+    fista = tag.endswith("FISTA")
+    if tag.startswith("tv"):
+        return {"all_reduce": 1 + 2 * trials + (2 if fista else 1) * k,
+                "halo": 2 + trials}
+    out = {"all_reduce": 3 + 3 * trials + (2 if fista else 1) * k}
+    if "democratic" in tag:
+        out["all_gather"] = trials
+    return out
+
+
+def x_solves(meshes) -> dict:
+    """Each of ``X_RUNS`` built on this rank's device, placed on its mesh
+    and solved by ``Problem.solve`` after a 3-iteration warm-up: its
+    series (the solution this rank's block), counts, launches,
+    collectives, plain calls and wall time."""
+    from fasta_tpu_torch import sharding
+    rows = {}
+    for tag, shape, name, kw, tau0, solve_kw in X_RUNS:
+        mesh = meshes[shape]
+        prob = problems.build(name, device=sharding.mesh_device(mesh), **kw)
+        sp = (sharding.shard_problem(prob, mesh) if len(shape) == 1
+              else sharding.shard_problem_2d(prob, mesh))
+        sp.solve(tau0=tau0, **dict(solve_kw, max_iters=3))
+        with counting_plain(X_PLAIN) as plain:
+            reset_launches()
+            sharding.reset_collective_counts()
+            t0 = time.perf_counter()
+            r = sp.solve(tau0=tau0, **solve_kw)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            colls = sharding.collective_counts()
+        rows[tag] = dict(
+            k=r.iteration_count, bt=r.total_backtracks,
+            converged=r.converged, wall=wall, launches=launches,
+            collectives=colls, plain=dict(plain), op=type(sp.op).__name__,
+            x_block=tuple(sp.x0.shape), name=sp.name,
+            **{key: np.asarray(getattr(r, key)) for key in X_SERIES})
+    return rows
+
+
+def x_rank(rank: int, world: int, store_path: str, out) -> None:
+    """One rank of phase 34: a gloo group through a ``FileStore``, a 2×2
+    and a 1-D mesh over it on this rank's card, the solves; its rows, or
+    its traceback, to ``out``."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from fasta_tpu_torch import sharding
+    try:
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                store=dist.FileStore(store_path, world),
+                                timeout=timedelta(seconds=300))
+        meshes = {(2, 2): sharding.make_mesh_2d(2, 2),
+                  (4,): sharding.make_mesh()}
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _build.library()
+        out.put((rank, True, x_solves(meshes)))
+    except Exception:                  # the parent fails the phase
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def band_against_plain() -> dict:
+    """K-B5's band form against its plain version on the card, at a rank's
+    rows of 512×512 over 4 ranks (128×512): a middle band with both halos,
+    the top and the bottom band; a one-row band (both halos, and the row
+    below the image's last); a ragged width (128×509, masked scalars).
+    d and g to max|Δ| ≤ 1e-6·max(1, max|ref|), f to rel 1e-5, phase 10's
+    tolerances; both edges set, the K-B5 launch's bits.  Then the stream
+    time of the middle band beside its plain version and its card time (a
+    CUDA graph), against the bound: 24 B a pixel and the four halo rows."""
+    gen = torch.Generator(device=DEV).manual_seed(34)
+    worst = 0.0
+
+    def data(hb, w):
+        p = torch.randn((2, hb, w), generator=gen, device=DEV)
+        b = torch.randn((hb, w), generator=gen, device=DEV)
+        halo = (torch.randn(w, generator=gen, device=DEV),
+                torch.randn((2, w), generator=gen, device=DEV),
+                torch.randn(w, generator=gen, device=DEV))
+        return p, b, halo
+
+    cases = []
+    for hb, w in ((128, 512), (1, 512), (128, 509)):
+        p, b, (above, below, b_below) = data(hb, w)
+        cases.append((f"{hb}x{w} middle", p, b, above, below, b_below))
+        if hb == 128 and w == 512:
+            cases.append((f"{hb}x{w} top", p, b, None, below, b_below))
+            cases.append((f"{hb}x{w} bottom", p, b, above, None, None))
+        if hb == 1:
+            last = torch.stack([torch.zeros_like(below[0]), below[1]])
+            cases.append((f"{hb}x{w} above the last row", p, b, above,
+                          last, b_below))
+    for tag, p, b, above, below, b_below in cases:
+        got = tv_fused.fused_tv_gradmap_band(p, b, 0.1, above, below,
+                                             b_below)
+        ref = tv_fused.tv_gradmap_band_reference(p, b, 0.1, above, below,
+                                                 b_below)
+        torch.cuda.synchronize()
+        err_d = float((got[0] - ref[0]).abs().max())
+        err_g = float((got[2] - ref[2]).abs().max())
+        rel_f = abs(float(got[1]) - float(ref[1])) / abs(float(ref[1]))
+        tol_d = 1e-6 * max(1.0, float(ref[0].abs().max()))
+        tol_g = 1e-6 * max(1.0, float(ref[2].abs().max()))
+        print(f"[34 K-B5 band {tag}] max|dd| {err_d:.3e} (tol {tol_d:.1e}) "
+              f"max|dg| {err_g:.3e} (tol {tol_g:.1e}) rel df {rel_f:.3e} "
+              f"(tol 1e-5)")
+        require(err_d <= tol_d and err_g <= tol_g and rel_f <= 1e-5,
+                f"K-B5's band form at {tag} disagrees with its plain version")
+        worst = max(worst, err_d, err_g)
+    p, b, (above, below, b_below) = data(128, 512)
+    whole = tv_fused.fused_tv_gradmap_band(p, b, 0.1)
+    one = tv_fused.fused_tv_gradmap(p, b, 0.1)
+    same = all(torch.equal(u, v) for u, v in zip(whole, one))
+    print(f"[34 K-B5 band 128x512] both edges set, no halo rows: the K-B5 "
+          f"launch's bits {same}")
+    require(same, "the band form with both edges set is not K-B5's launch")
+
+    def kernel_fn():
+        return tv_fused.fused_tv_gradmap_band(p, b, 0.1, above, below,
+                                              b_below)
+
+    def plain_fn():
+        return tv_fused.tv_gradmap_band_reference(p, b, 0.1, above, below,
+                                                  b_below)
+    kern, plain = stream_ms(kernel_fn), stream_ms(plain_fn)
+    card = graph_ms(kernel_fn)
+    hb, w = 128, 512
+    nbytes = 24.0 * hb * w + 16.0 * w
+    bnd = bound(nbytes, 11.0 * (hb + 1) * w)
+    print(f"[34 K-B5 band 128x512] stream time, 20 back-to-back runs: kernel "
+          f"{kern:.4f} ms, plain {plain:.4f} ms; card {card * 1e3:.3f} µs a "
+          f"call (200 in a CUDA graph); bound {bnd['bound_ms']:.5f} ms "
+          f"({bnd['bound_by']}: 24 B a pixel and the halo rows), card "
+          f"{card / bnd['bound_ms']:.1f}x")
+    return dict(max_abs_err=worst, ms=kern, plain_ms=plain, **bnd,
+                library_ms=None, card_ms=card,
+                shape="128x512 (512x512 over 4 ranks), both halos, stream "
+                      "time")
+
+
+def x_references() -> dict:
+    """The float64 references of phase 34's runs (objective, and the
+    solution or image where it is held): phase 33's for LASSO and planar
+    phase retrieval, phase 31's oracle runs for sparse LASSO and
+    democratic, phase 13's for TV; each made here when its phase did not
+    run."""
+    if "sharded" not in REFS:
+        REFS["sharded"] = sharded_references()
+    sharded = REFS["sharded"]
+    refs = {}
+    for mode in ("adaptive", "plain", "FISTA"):
+        lasso, goal, _ = sharded[f"lasso {mode}"]
+        refs[f"2d lasso {mode}"] = (lasso, goal, None)
+    refs["2d planar adaptive"] = sharded["planar adaptive"]
+    later = REFS.get("later", {})
+    for name in ("sparse_lasso", "democratic"):
+        prob = problems.build(name, device=DEV)
+        if name not in later:
+            inst = prob.instance
+            r = fasta_np(inst["op"], inst.get("op_t"), inst["f"],
+                         inst["gradf"], inst["g"], inst["proxg"],
+                         inst["x0"], tau0=LATER_TAU0[name], tol=1e-6,
+                         max_iters=2000, **MODE_OPTIONS["adaptive"])
+            later[name] = {"adaptive": (instance_objective(inst,
+                                                           r.solution),
+                                        r.iteration_count)}
+        tag = ("2d sparse adaptive" if name == "sparse_lasso"
+               else "2d democratic adaptive")
+        refs[tag] = (prob, later[name]["adaptive"][0], None)
+    tv = problems.build("tv", device=DEV)
+    if "tv" not in REFS:
+        ref_prob = problems.build("tv", dtype=torch.float64, device=DEV)
+        r = ref_prob.solve(tau0=2.0, tol=1e-7, max_iters=30000)
+        p_ref = torch.as_tensor(r.solution, device=DEV)
+        REFS["tv"] = (tv_objective(ref_prob.fterm.b, 0.1, p_ref),
+                      ref_prob.recover(p_ref))
+    for tag in ("tv adaptive", "tv FISTA"):
+        refs[tag] = (tv, REFS["tv"][0], REFS["tv"][1])
+    return refs
+
+
+def x_whole(tag: str, rows: list) -> np.ndarray:
+    """The whole solution from the ranks' blocks: p's rows over the 4 ranks
+    (TV), the col blocks of the 2×2 mesh's first row (leading axis)."""
+    if tag.startswith("tv"):
+        return np.concatenate([r["solution"] for r in rows], axis=1)
+    return np.concatenate([rows[0]["solution"], rows[1]["solution"]])
+
+
+def x_check(tag: str, prob, goal, x_ref, sol) -> float:
+    """The run's objective against its float64 reference (and the image or
+    the solution where it is held), printed; the objective's rel."""
+    if tag.startswith("tv"):
+        p = torch.as_tensor(sol, device=DEV)
+        obj = tv_objective(prob.fterm.b.double(), 0.1, p)
+        img = prob.recover(p)
+        img_rel = float(torch.linalg.vector_norm(img - x_ref)
+                        / torch.linalg.vector_norm(x_ref))
+        print(f"[34 {tag}] recovered image rel L2 {img_rel:.2e} (tol 1e-3)")
+        require(img_rel <= 1e-3, f"{tag}: the image against the reference")
+    elif tag.startswith("2d planar"):
+        obj = sharded_objective("planar", prob, sol)
+        x = planar_complex(sol)
+        phase = np.vdot(x, x_ref)
+        x_rel = float(np.linalg.norm(x * phase / abs(phase) - x_ref)
+                      / np.linalg.norm(x_ref))
+        print(f"[34 {tag}] phase-aligned solution rel L2 {x_rel:.2e} (tol "
+              f"1e-3)")
+        require(x_rel <= 1e-3, f"{tag}: solution against the oracle's")
+    elif "lasso" in tag and "sparse" not in tag:
+        obj = objective64(prob.instance, sol)
+    else:
+        obj = instance_objective(prob.instance, sol)
+    return obj, abs(obj - goal) / abs(goal)
+
+
+def phase_sharded_x() -> dict:
+    """The layouts that shard x itself on the card: K-B5's band form
+    against its plain version and its times; four ranks on the one card
+    over gloo — the 2×2 mesh (``shard_problem_2d``: LASSO 1000×2000 in the
+    three modes, planar phase retrieval 16384×256, sparse LASSO 1500×3000
+    at 2%, democratic 256×1024) and the 1-D mesh (TV 512×512 split over
+    image rows, adaptive and FISTA) — against the float64 references and
+    the unsharded card solves; then a one-rank NCCL group on TV,
+    ``torch.equal`` to the unsharded card solve."""
+    import torch.distributed as dist
+
+    from fasta_tpu_torch import sharding
+    print(f"[34] card: {smi_line()}")
+    band = band_against_plain()
+    refs = x_references()
+    single = {}
+    for tag, _, name, _, tau0, kw in X_RUNS:
+        prob = refs[tag][0]
+        prob.solve(tau0=tau0, **dict(kw, max_iters=3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = prob.solve(tau0=tau0, **kw)
+        single[tag] = (r.iteration_count, time.perf_counter() - t0,
+                       r.converged)
+
+    world = 4
+    ranks = run_ranks(world, target=x_rank, phase=34)
+    launches = dict.fromkeys(read_launches(), 0)
+    for tag, shape, name, _, _, _ in X_RUNS:
+        rows = [rk[tag] for rk in ranks]
+        row = rows[0]
+        # the ranks that hold the same block of x: all of a TV run's hold
+        # their own; on the 2×2 mesh ranks r and r + 2
+        peers = ([(r, r) for r in range(world)] if len(shape) == 1
+                 else [(r, r % 2) for r in range(world)])
+        same = all(r["k"] == row["k"] and r["bt"] == row["bt"]
+                   and all(np.array_equal(r[key], row[key])
+                           for key in ("taus", "residuals"))
+                   for r in rows[1:]) and all(
+            np.array_equal(rows[r]["solution"], rows[q]["solution"])
+            for r, q in peers)
+        trials = row["k"] + row["bt"]
+        prob, goal, x_ref = refs[tag]
+        sol = x_whole(tag, rows)
+        obj, rel = x_check(tag, prob, goal, x_ref, sol)
+        band_tol = LATER_BAND["democratic"] if "democratic" in tag else 1e-5
+        k1, wall1, conv1 = single[tag]
+        print(f"[34 gloo x{world} {tag}] {row['op']}, x {row['x_block']} a "
+              f"rank ({row['name']}): converged={row['converged']} in "
+              f"{row['k']} iterations (unsharded card solve: {k1}), "
+              f"{row['bt']} backtracks; objective {obj:.12g} against the "
+              f"float64 reference's {goal:.12g}: rel {rel:.2e} (tol "
+              f"{band_tol:g}); ranks bit-identical {same}; wall per "
+              f"iteration {row['wall'] / row['k'] * 1e3:.3f} ms (unsharded "
+              f"{wall1 / k1 * 1e3:.3f} ms)")
+        kernel = X_KERNEL.get(name)
+        for r, rk in enumerate(rows):
+            want = x_budget(tag, rk)
+            print(f"[34 gloo x{world} {tag}] rank {r}: "
+                  + (f"{kernel} {rk['launches'][kernel]} launches for "
+                     f"{trials} trials; " if kernel else "")
+                  + f"collectives {rk['collectives']} (budget {want}); plain "
+                  f"versions {rk['plain']}")
+            require(kernel is None or rk["launches"][kernel] == trials,
+                    f"{tag} rank {r}: {kernel} not one launch a trial")
+            require(rk["collectives"] == want,
+                    f"{tag} rank {r}: collectives off the budget")
+            require(not any(rk["plain"].values()),
+                    f"{tag} rank {r}: a plain version ran")
+            for key, v in rk["launches"].items():
+                launches[key] += v
+        require(same, f"{tag}: the ranks' series differ")
+        require(row["converged"] or not conv1,
+                f"{tag} did not converge where the unsharded solve does")
+        require(np.isfinite(obj) and rel <= band_tol,
+                f"{tag}: objective against the float64 reference")
+
+    require(not dist.is_initialized(), "a process group exists already")
+    mesh = sharding.make_mesh()           # a one-rank NCCL group
+    backend = dist.get_backend()
+    try:
+        require(backend == "nccl", f"the one-rank group is {backend}")
+        tv = refs["tv adaptive"][0]
+        sp = sharding.shard_problem(tv, mesh)
+        for tag, _, _, _, tau0, kw in X_RUNS[-2:]:
+            opts = ftt.FastaOptions(**kw)
+            reset_launches()
+            sharding.reset_collective_counts()
+            got = ftt.make_solver(opts)(sp.op, sp.fterm, sp.gterm, sp.x0,
+                                        tau0)
+            torch.cuda.synchronize()
+            run = read_launches()
+            colls = sharding.collective_counts()
+            ref = ftt.make_solver(opts)(tv.op, tv.fterm, tv.gterm, tv.x0,
+                                        tau0)
+            same = {key: torch.equal(getattr(got, key), getattr(ref, key))
+                    for key in ("solution", "taus", "residuals", "fvals",
+                                "backtracks")}
+            row = dict(k=got.iteration_count, bt=got.total_backtracks)
+            trials = row["k"] + row["bt"]
+            want = x_budget(tag, row)
+            print(f"[34 {backend} x1 {tag}] {got.iteration_count} iterations "
+                  f"(unsharded {ref.iteration_count}); torch.equal to the "
+                  f"unsharded card solve {same}; K-B5 band "
+                  f"{run['K-B5 band']} launches for {trials} trials; "
+                  f"collectives {colls} (budget {want})")
+            require(all(same.values())
+                    and got.iteration_count == ref.iteration_count,
+                    f"{tag}: the one-rank group differs from the unsharded "
+                    f"solve")
+            require(run["K-B5 band"] == trials and colls == want,
+                    f"{tag}: the one-rank group's launches or collectives")
+            for key, v in run.items():
+                launches[key] += v
+    finally:
+        dist.destroy_process_group()
+    print(f"[34] launches of the x-sharded runs (the four ranks and the "
+          f"one-rank group): {launches}")
+    return dict(launches=launches, band=band)
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -4412,10 +4820,12 @@ def main() -> None:
     later = phase_later_problems()
     resume = phase_exact_resume()
     sharded = phase_sharded()
+    sharded_x = phase_sharded_x()
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
                 + serving["launches"][k] + b8w["launches"][k]
                 + bf16["launches"][k] + later["launches"][k]
                 + resume["launches"][k] + sharded["launches"][k]
+                + sharded_x["launches"][k]
                 for k in lasso}
     del b8w["launches"]
     launches["K-P5"] = p5.pop("launches_timed")
@@ -4444,6 +4854,11 @@ def main() -> None:
              source="fasta_tpu_torch/csrc/tv_fused.cu",
              replaces="fasta_tpu/kernels/tv_fused.py:82",
              launches=launches["K-B5"], **b5),
+        dict(name="K-B5 band fused_tv_gradmap_band (a rank's rows of a "
+                  "row-sharded image)", route="cuda",
+             source="fasta_tpu_torch/csrc/tv_fused.cu",
+             replaces="fasta_tpu/kernels/tv_fused.py:82",
+             launches=launches["K-B5 band"], **sharded_x["band"]),
         dict(name="K-B6 microsolve_tv", route="cuda",
              source="fasta_tpu_torch/csrc/microsolver_tv.cu",
              replaces="fasta_tpu/kernels/microsolver_tv.py:607",

@@ -69,13 +69,25 @@ def planar_op_from_arrays(Ar, Ai, *, device) -> PlanarDenseOp:
     return PlanarDenseOp(_stored(Ar, device), _stored(Ai, device))
 
 
+def _sparse_entries(data, idx, offsets) -> tuple:
+    """(values, rows, cols) of the JAX sharded sparse operators' padded
+    blocks: the padding (zero entries at the block's (0, 0)) dropped, each
+    block's indices offset by ``offsets`` (its first row and column,
+    broadcast against the entries)."""
+    rows = idx[..., 0] + offsets[0]
+    cols = idx[..., 1] + offsets[1]
+    keep = data != 0
+    return data[keep], rows[keep], cols[keep]
+
+
 def sharded_op_arrays(op) -> dict:
-    """The global arrays of a JAX row-sharded operator
-    (``fasta_tpu.sharding``'s ``RowShardedDenseOp``,
-    ``RowShardedPlanarDenseOp``, ``ShardedCDPOp`` or ``RowShardedSparseOp``)
-    as NumPy, with its ``kind``: what :func:`sharded_op_from_arrays` takes
-    on each rank.  The sparse blocks' padding (zero entries at row 0)
-    is dropped and their rows offset to the whole matrix's."""
+    """The global arrays of a JAX sharded operator (``fasta_tpu.sharding``'s
+    ``RowShardedDenseOp``, ``RowShardedPlanarDenseOp``, ``ShardedCDPOp``,
+    ``RowShardedSparseOp``, ``GridShardedDenseOp``, ``GridShardedSparseOp``,
+    ``GridShardedPlanarDenseOp`` or ``RowShardedTVDivOp``) as NumPy, with
+    its ``kind``: what :func:`sharded_op_from_arrays` takes on each rank.
+    The sparse blocks' padding (zero entries) is dropped and their indices
+    offset to the whole matrix's."""
     kind = type(op).__name__
     if kind == "RowShardedDenseOp":
         return {"kind": "dense", "A": np.asarray(op.A)}
@@ -87,21 +99,50 @@ def sharded_op_arrays(op) -> dict:
                 "wins": np.asarray(op.wins)}
     if kind == "RowShardedSparseOp":
         data, idx = np.asarray(op.data), np.asarray(op.indices)
-        rows = idx[..., 0] + op.block_rows * np.arange(len(data))[:, None]
-        keep = data != 0
-        return {"kind": "sparse", "data": data[keep], "rows": rows[keep],
-                "cols": idx[..., 1][keep],
+        vals, rows, cols = _sparse_entries(
+            data, idx, (op.block_rows * np.arange(len(data))[:, None], 0))
+        return {"kind": "sparse", "data": vals, "rows": rows, "cols": cols,
                 "shape": (len(data) * op.block_rows, op.n)}
-    raise TypeError(f"no row-sharded counterpart of {kind}")
+    if kind == "GridShardedDenseOp":
+        return {"kind": "grid_dense", "A": np.asarray(op.A)}
+    if kind == "GridShardedPlanarDenseOp":
+        return {"kind": "grid_planar", "Ar": np.asarray(op.Ar),
+                "Ai": np.asarray(op.Ai)}
+    if kind == "GridShardedSparseOp":
+        data, idx = np.asarray(op.data), np.asarray(op.indices)
+        R, C = data.shape[:2]
+        vals, rows, cols = _sparse_entries(
+            data, idx, (op.block_rows * np.arange(R)[:, None, None],
+                        op.block_cols * np.arange(C)[None, :, None]))
+        return {"kind": "grid_sparse", "data": vals, "rows": rows,
+                "cols": cols,
+                "shape": (R * op.block_rows, C * op.block_cols)}
+    if kind == "RowShardedTVDivOp":
+        return {"kind": "tv", "c": float(op.c)}
+    raise TypeError(f"no sharded counterpart of {kind}")
 
 
 def sharded_op_from_arrays(arrays: dict, mesh):
-    """This rank's port operator (``sharding``'s row-sharded classes) over
-    the global arrays of :func:`sharded_op_arrays`; the rank, the world
-    and the device are the mesh's.  Both packages then hold the same
-    numbers."""
+    """This rank's port operator (``sharding``'s sharded classes) over the
+    global arrays of :func:`sharded_op_arrays`; the rank, the world and
+    the device are the mesh's (a 2-D rows × cols mesh for the grid
+    kinds).  Both packages then hold the same numbers."""
     from . import sharding as sh
     kind = arrays["kind"]
+    if kind == "grid_dense":
+        return sh.GridShardedDenseOp(
+            sh._grid_block(arrays["A"], mesh, "rows", "cols"), mesh)
+    if kind == "grid_planar":
+        return sh.GridShardedPlanarDenseOp(
+            sh._grid_block(arrays["Ar"], mesh, "rows", "cols"),
+            sh._grid_block(arrays["Ai"], mesh, "rows", "cols"), mesh)
+    if kind == "grid_sparse":
+        import scipy.sparse as sp
+        M = sp.coo_matrix((arrays["data"], (arrays["rows"], arrays["cols"])),
+                          shape=arrays["shape"])
+        return sh.GridShardedSparseOp.from_scipy(M, mesh)
+    if kind == "tv":
+        return sh.RowShardedTVDivOp(arrays["c"], mesh)
     if kind == "dense":
         return sh.RowShardedDenseOp(sh.shard_rows(arrays["A"], mesh), mesh)
     if kind == "planar":
@@ -116,7 +157,7 @@ def sharded_op_from_arrays(arrays: dict, mesh):
         M = sp.coo_matrix((arrays["data"], (arrays["rows"], arrays["cols"])),
                           shape=arrays["shape"])
         return sh.RowShardedSparseOp.from_scipy(M, mesh)
-    raise ValueError(f"no row-sharded operator of kind {kind!r}")
+    raise ValueError(f"no sharded operator of kind {kind!r}")
 
 
 def problem_from_arrays(A, b, mu: float, x0, tau0: Optional[float] = None,

@@ -58,53 +58,82 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
   __pipeline_memcpy_async(dst, src, sizeof(float));
 }
 
-// Queue the copy of row k of p's vertical channel (and, unless pv_only, of
-// its horizontal channel and of b) into ring row `st`: the thread's four
-// columns, then the halo columns by the block's first and last threads.
+// Queue the copy of one row of p's vertical channel (and, unless pv_only,
+// of its horizontal channel and of b), given by its three row pointers,
+// into ring row `st`: the thread's four columns, then the halo columns by
+// the block's first and last threads.
 template <bool VEC>
 __device__ __forceinline__ void load_row(float* st, const float* __restrict__ pv,
                                          const float* __restrict__ ph,
-                                         const float* __restrict__ b, int k, int W, int j0,
-                                         int L, bool pv_only) {
+                                         const float* __restrict__ b, int W, int j0, int L,
+                                         bool pv_only) {
   const int c = 4 * threadIdx.x, j = j0 + c, cw = L - kPad;
-  const size_t o = (size_t)k * W;
   if (VEC) {
     if (j < W) {
-      __pipeline_memcpy_async(st + 4 + c, pv + o + j, 16);
+      __pipeline_memcpy_async(st + 4 + c, pv + j, 16);
       if (!pv_only) {
-        __pipeline_memcpy_async(st + L + 4 + c, ph + o + j, 16);
-        __pipeline_memcpy_async(st + 2 * L + 4 + c, b + o + j, 16);
+        __pipeline_memcpy_async(st + L + 4 + c, ph + j, 16);
+        __pipeline_memcpy_async(st + 2 * L + 4 + c, b + j, 16);
       }
     }
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (j + e < W) {
-        copy4(st + 4 + c + e, pv + o + j + e);
+        copy4(st + 4 + c + e, pv + j + e);
         if (!pv_only) {
-          copy4(st + L + 4 + c + e, ph + o + j + e);
-          copy4(st + 2 * L + 4 + c + e, b + o + j + e);
+          copy4(st + L + 4 + c + e, ph + j + e);
+          copy4(st + 2 * L + 4 + c + e, b + j + e);
         }
       }
     }
   }
-  if (threadIdx.x == 0 && j0 > 0 && !pv_only) copy4(st + L + 3, ph + o + j0 - 1);
+  if (threadIdx.x == 0 && j0 > 0 && !pv_only) copy4(st + L + 3, ph + j0 - 1);
   if (threadIdx.x == blockDim.x - 1 && j0 + cw < W) {
-    copy4(st + 4 + cw, pv + o + j0 + cw);
+    copy4(st + 4 + cw, pv + j0 + cw);
     if (!pv_only) {
-      copy4(st + L + 4 + cw, ph + o + j0 + cw);
-      copy4(st + 2 * L + 4 + cw, b + o + j0 + cw);
+      copy4(st + L + 4 + cw, ph + j0 + cw);
+      copy4(st + 2 * L + 4 + cw, b + j0 + cw);
     }
+  }
+}
+
+// The rows the kernel reads: rows 0 … H − 1 of p and b; in the band form
+// also row −1 (`above`, p's vertical channel only) and row H (`below_*`).
+struct Rows {
+  const float* pv;
+  const float* ph;
+  const float* b;
+  const float* above;
+  const float* below_pv;
+  const float* below_ph;
+  const float* b_below;
+  int H, W;
+  bool top, bottom;  // the band's first (last) row is the image's
+};
+
+// queue row k (−1 ≤ k ≤ H) into ring row `st`
+template <bool VEC, bool BAND>
+__device__ __forceinline__ void load(float* st, const Rows& R, int k, int j0, int L, bool pv_only) {
+  if (BAND && k < 0) {
+    load_row<VEC>(st, R.above, nullptr, nullptr, R.W, j0, L, true);
+  } else if (BAND && k >= R.H) {
+    load_row<VEC>(st, R.below_pv, R.below_ph, R.b_below, R.W, j0, L, pv_only);
+  } else {
+    const size_t o = (size_t)k * R.W;
+    load_row<VEC>(st, R.pv + o, R.ph + o, R.b + o, R.W, j0, L, pv_only);
   }
 }
 
 // d = μ·div p and r = d − b at (k, j0 + slot − 4) from ring rows `up`
 // (row k − 1) and `cur` (row k); terms outside the image are zero
-// (generators.tv_div_2d)
+// (generators.tv_div_2d): the row above row 0 unless it is a halo row
+// (!top), the vertical dual of the image's last row (bottom)
 __device__ __forceinline__ float residual(const float* up, const float* cur, int L, int slot,
-                                          int k, int j, int H, int W, float mu, float& d) {
-  const float u = k > 0 ? up[slot] : 0.f;
-  const float hv = k < H - 1 ? cur[slot] : 0.f;
+                                          int k, int j, int H, int W, float mu, bool top,
+                                          bool bottom, float& d) {
+  const float u = (k > 0 || !top) ? up[slot] : 0.f;
+  const float hv = (k < H - 1 || !bottom) ? cur[slot] : 0.f;
   const float left = j > 0 ? cur[L + slot - 1] : 0.f;
   const float hh = j < W - 1 ? cur[L + slot] : 0.f;
   d = __fmul_rn(mu, __fadd_rn(__fsub_rn(u, hv), __fsub_rn(left, hh)));
@@ -114,8 +143,8 @@ __device__ __forceinline__ float residual(const float* up, const float* cur, int
 // residual at the thread's four columns j … j + 3 (ring slots 4 + c …),
 // the ring read as float4 (and the column left of them alone)
 __device__ __forceinline__ void residual4(const float* up, const float* cur, int L, int c, int k,
-                                          int j, int H, int W, float mu, float (&r)[4],
-                                          float (&d)[4]) {
+                                          int j, int H, int W, float mu, bool top, bool bottom,
+                                          float (&r)[4], float (&d)[4]) {
   const float4 u4 = *reinterpret_cast<const float4*>(up + 4 + c);
   const float4 v4 = *reinterpret_cast<const float4*>(cur + 4 + c);
   const float4 h4 = *reinterpret_cast<const float4*>(cur + L + 4 + c);
@@ -125,8 +154,8 @@ __device__ __forceinline__ void residual4(const float* up, const float* cur, int
   const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const float u = k > 0 ? uu[e] : 0.f;
-    const float hv = k < H - 1 ? vv[e] : 0.f;
+    const float u = (k > 0 || !top) ? uu[e] : 0.f;
+    const float hv = (k < H - 1 || !bottom) ? vv[e] : 0.f;
     const float left = j + e > 0 ? hh[e] : 0.f;
     const float hr = j + e < W - 1 ? hh[e + 1] : 0.f;
     d[e] = __fmul_rn(mu, __fadd_rn(__fsub_rn(u, hv), __fsub_rn(left, hr)));
@@ -135,13 +164,13 @@ __device__ __forceinline__ void residual4(const float* up, const float* cur, int
 }
 
 // Write d and g of row i for the thread's four columns from r and d of row
-// i (ri, di), r of row i + 1 (rb, unread on the last row) and `rrow`, row
-// i's r in shared memory (for the column right of the thread's); add r² to
-// acc.
+// i (ri, di), r of row i + 1 (rb, unread on the image's last row) and
+// `rrow`, row i's r in shared memory (for the column right of the
+// thread's); add r² to acc.
 template <bool VEC>
 __device__ __forceinline__ void emit(int i, const float (&ri)[4], const float (&di)[4],
                                      const float (&rb)[4], const float* rrow, int H, int W,
-                                     int j0, float mu, float* __restrict__ d,
+                                     bool bottom, int j0, float mu, float* __restrict__ d,
                                      float* __restrict__ g, double& acc) {
   const int c = 4 * threadIdx.x, j = j0 + c;
   if (j >= W) return;
@@ -149,7 +178,7 @@ __device__ __forceinline__ void emit(int i, const float (&ri)[4], const float (&
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const float right = e < 3 ? ri[e + 1] : rrow[4 + c + 4];
-    g0[e] = i < H - 1 ? __fmul_rn(mu, __fsub_rn(rb[e], ri[e])) : 0.f;
+    g0[e] = (i < H - 1 || !bottom) ? __fmul_rn(mu, __fsub_rn(rb[e], ri[e])) : 0.f;
     g1[e] = j + e < W - 1 ? __fmul_rn(mu, __fsub_rn(right, ri[e])) : 0.f;
     if (j + e < W) acc += double(ri[e]) * double(ri[e]);
   }
@@ -172,29 +201,32 @@ __device__ __forceinline__ void emit(int i, const float (&ri)[4], const float (&
 
 // work: the ticket in work[0] (an unsigned int, zero between launches),
 // then one FP64 partial per block from work + 1 (unused by a one-block
-// grid)
-template <bool VEC>
+// grid).  BAND: the band form (R's halo rows and flags read); else the
+// whole image (top and bottom set, no halo rows).
+template <bool VEC, bool BAND>
 __global__ void __launch_bounds__(kMaxThreads) tv_gradmap_kernel(
-    const float* __restrict__ p, const float* __restrict__ b, int H, int W, float mu,
-    float* __restrict__ d, float* __restrict__ g, double* work, float* __restrict__ f) {
+    Rows R, float mu, float* __restrict__ d, float* __restrict__ g, double* work,
+    float* __restrict__ f) {
   extern __shared__ __align__(16) float sm[];
   __shared__ double scratch[kMaxThreads / 32];
   __shared__ bool last;
   const int t = threadIdx.x, L = row_len(blockDim.x), cw = L - kPad;
+  const int H = R.H, W = R.W;
+  const bool top = BAND ? R.top : true, bottom = BAND ? R.bottom : true;
   const int j0 = blockIdx.x * cw;
   const int nb = gridDim.y, band = blockIdx.y;
   const int r0 = (int)((long long)band * H / nb), r1 = (int)((long long)(band + 1) * H / nb);
-  const int kend = r1 < H ? r1 : H - 1;  // the last row whose r the band needs
-  const float* pv = p;
-  const float* ph = p + (size_t)H * W;
+  // the last row whose r the block needs: the row below its rows, which
+  // past the last row is the halo row unless that row is the image's
+  const int kend = r1 < H ? r1 : (bottom ? H - 1 : H);
   auto ring = [&](int k) { return sm + ((k + kStages) % kStages) * 3 * L; };
   auto rrow = [&](int k) { return sm + 3 * kStages * L + (k & 1) * L; };
 
   // rows r0 − 1 (p's vertical channel only) and r0 in one group, then one
   // group a row up to r0 + kDepth − 1
-  if (r0 > 0) load_row<VEC>(ring(r0 - 1), pv, ph, b, r0 - 1, W, j0, L, true);
+  if (r0 > 0 || !top) load<VEC, BAND>(ring(r0 - 1), R, r0 - 1, j0, L, true);
   for (int q = 0; q < kDepth; ++q) {
-    if (r0 + q <= kend) load_row<VEC>(ring(r0 + q), pv, ph, b, r0 + q, W, j0, L, false);
+    if (r0 + q <= kend) load<VEC, BAND>(ring(r0 + q), R, r0 + q, j0, L, false);
     __pipeline_commit();
   }
 
@@ -203,27 +235,27 @@ __global__ void __launch_bounds__(kMaxThreads) tv_gradmap_kernel(
   for (int k = r0; k <= kend; ++k) {
     __pipeline_wait_prior(kDepth - 1);  // row k has landed
     __syncthreads();                    // … for every thread; step k − 1 is done
-    if (k + kDepth <= kend) load_row<VEC>(ring(k + kDepth), pv, ph, b, k + kDepth, W, j0, L, false);
+    if (k + kDepth <= kend) load<VEC, BAND>(ring(k + kDepth), R, k + kDepth, j0, L, false);
     __pipeline_commit();
     const float* up = ring(k - 1);
     const float* cur = ring(k);
-    residual4(up, cur, L, 4 * t, k, j0 + 4 * t, H, W, mu, rc, dc);
+    residual4(up, cur, L, 4 * t, k, j0 + 4 * t, H, W, mu, top, bottom, rc, dc);
     float* rr = rrow(k);
     *reinterpret_cast<float4*>(rr + 4 + 4 * t) = make_float4(rc[0], rc[1], rc[2], rc[3]);
     if (t == blockDim.x - 1 && j0 + cw < W) {
       float dh;
-      rr[4 + cw] = residual(up, cur, L, 4 + cw, k, j0 + cw, H, W, mu, dh);
+      rr[4 + cw] = residual(up, cur, L, 4 + cw, k, j0 + cw, H, W, mu, top, bottom, dh);
     }
-    if (k > r0) emit<VEC>(k - 1, rp, dp, rc, rrow(k - 1), H, W, j0, mu, d, g, acc);
+    if (k > r0) emit<VEC>(k - 1, rp, dp, rc, rrow(k - 1), H, W, bottom, j0, mu, d, g, acc);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       rp[e] = rc[e];
       dp[e] = dc[e];
     }
   }
-  if (r1 == H) {  // the image's last row: no row below it
+  if (r1 == H && bottom) {  // the image's last row: no row below it
     __syncthreads();
-    emit<VEC>(H - 1, rp, dp, rc, rrow(H - 1), H, W, j0, mu, d, g, acc);
+    emit<VEC>(H - 1, rp, dp, rc, rrow(H - 1), H, W, bottom, j0, mu, d, g, acc);
   }
 
   // one partial per block, then the last block sums them in block order
@@ -254,16 +286,47 @@ __global__ void __launch_bounds__(kMaxThreads) tv_gradmap_kernel(
 
 // the kernels that need more than 48 KB of shared memory, opted in once
 // per device
-template <bool VEC>
+template <bool VEC, bool BAND>
 cudaError_t allow_smem() {
   static unsigned long long done = 0;  // a bit per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 64 || (done >> dev & 1ull)) return err;
-  err = cudaFuncSetAttribute(tv_gradmap_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(tv_gradmap_kernel<VEC, BAND>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes(kMaxThreads));
   if (err == cudaSuccess) done |= 1ull << dev;
   return err;
+}
+
+bool aligned16(const void* q) { return (reinterpret_cast<size_t>(q) & 15) == 0; }
+
+template <bool BAND>
+int launch(const Rows& R, float mu, int threads, int nbands, float* d, float* f, float* g,
+           double* work, void* stream) {
+  const int H = R.H, W = R.W;
+  if (H < 1 || W < 1 || nbands < 1 || nbands > H || nbands > 65535 ||
+      (threads != 32 && threads != 64 && threads != 128 && threads != 256))
+    return cudaErrorInvalidValue;
+  const long long strips = ((long long)W + 4 * threads - 1) / (4 * threads);
+  if (strips > 0x7fffffff || (strips * nbands > 1 && work == nullptr))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool vec = aligned16(R.pv) && aligned16(R.b) && aligned16(d) && aligned16(g) && (W & 3) == 0;
+  if (BAND) {
+    if (!R.top) vec = vec && aligned16(R.above);
+    if (!R.bottom) vec = vec && aligned16(R.below_pv) && aligned16(R.below_ph) &&
+                         aligned16(R.b_below);
+  }
+  const dim3 grid((unsigned)strips, nbands);
+  const int smem = smem_bytes(threads);
+  cudaError_t err = vec ? allow_smem<true, BAND>() : allow_smem<false, BAND>();
+  if (err != cudaSuccess) return err;
+  if (vec)
+    tv_gradmap_kernel<true, BAND><<<grid, threads, smem, s>>>(R, mu, d, g, work, f);
+  else
+    tv_gradmap_kernel<false, BAND><<<grid, threads, smem, s>>>(R, mu, d, g, work, f);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -275,23 +338,26 @@ cudaError_t allow_smem() {
 extern "C" int fasta_tv_gradmap(const float* p, const float* b, int H, int W, float mu,
                                 int threads, int nbands, float* d, float* f, float* g,
                                 double* work, void* stream) {
-  if (H < 1 || W < 1 || nbands < 1 || nbands > H || nbands > 65535 ||
-      (threads != 32 && threads != 64 && threads != 128 && threads != 256))
+  const Rows R{p, p + (size_t)H * W, b, nullptr, nullptr, nullptr, nullptr, H, W, true, true};
+  return launch<false>(R, mu, threads, nbands, d, f, g, work, stream);
+}
+
+// The band form: (d, f, g) over a band p (2, Hb, W), b (Hb, W) of a taller
+// image.  above (W,): the row of p's vertical channel above the band,
+// read unless top; below (2, W): the vertical and horizontal channels of
+// the row below it, and b_below (W,) its image row, read unless bottom;
+// the caller zeroes below's vertical row when that row is the image's
+// last.  f: ½ Σ r² over the band's own rows.  With top and bottom set this
+// is fasta_tv_gradmap's launch (halo pointers unread, may be null).
+extern "C" int fasta_tv_gradmap_band(const float* p, const float* b, int Hb, int W, float mu,
+                                     const float* above, const float* below,
+                                     const float* b_below, int top, int bottom, int threads,
+                                     int nbands, float* d, float* f, float* g, double* work,
+                                     void* stream) {
+  if ((!top && above == nullptr) || (!bottom && (below == nullptr || b_below == nullptr)))
     return cudaErrorInvalidValue;
-  const long long strips = ((long long)W + 4 * threads - 1) / (4 * threads);
-  if (strips > 0x7fffffff || (strips * nbands > 1 && work == nullptr))
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = ((reinterpret_cast<size_t>(p) | reinterpret_cast<size_t>(b) |
-                     reinterpret_cast<size_t>(d) | reinterpret_cast<size_t>(g)) & 15) == 0 &&
-                   (W & 3) == 0;
-  const dim3 grid((unsigned)strips, nbands);
-  const int smem = smem_bytes(threads);
-  cudaError_t err = vec ? allow_smem<true>() : allow_smem<false>();
-  if (err != cudaSuccess) return err;
-  if (vec)
-    tv_gradmap_kernel<true><<<grid, threads, smem, s>>>(p, b, H, W, mu, d, g, work, f);
-  else
-    tv_gradmap_kernel<false><<<grid, threads, smem, s>>>(p, b, H, W, mu, d, g, work, f);
-  return cudaGetLastError();
+  if (top && bottom) return fasta_tv_gradmap(p, b, Hb, W, mu, threads, nbands, d, f, g, work, stream);
+  const Rows R{p, p + (size_t)Hb * W, b, above, below, below == nullptr ? nullptr : below + W,
+               b_below, Hb, W, top != 0, bottom != 0};
+  return launch<true>(R, mu, threads, nbands, d, f, g, work, stream);
 }

@@ -12,7 +12,9 @@ version beside it.
   ``csrc/dense_rows.cuh``.
 * K-B4 ``fused_shrink_step``, the L1 trial step (``prox_fused.py``,
   ``csrc/prox_fused.cu``; its soft threshold is in ``csrc/prox.cuh``)
-* K-B5 ``fused_tv_gradmap`` (``tv_fused.py``, ``csrc/tv_fused.cu``)
+* K-B5 ``fused_tv_gradmap`` and its band form ``fused_tv_gradmap_band``
+  over one rank's rows of a row-sharded image (``tv_fused.py``,
+  ``csrc/tv_fused.cu``)
 * K-B6 ``microsolve_tv``, K-B6p ``microsolve_tv_path`` and K-B6b
   ``microsolve_tv_batch`` (``microsolver_tv.py``, ``csrc/microsolver_tv.cu``)
 * K-B7 ``fused_planar_lstsq_gradmap`` / ``fused_planar_hinge_gradmap``
@@ -36,7 +38,8 @@ version beside it.
 
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors.  Each module counts its kernels' launches (``LAUNCHES``,
-``POINTWISE_LAUNCHES``, ``PATH_LAUNCHES``, ``BATCH_LAUNCHES``, and
+``POINTWISE_LAUNCHES``, ``PATH_LAUNCHES``, ``BATCH_LAUNCHES``,
+``BAND_LAUNCHES`` for K-B5's band form, and
 ``BF16_LAUNCHES``, ``POINTWISE_BF16_LAUNCHES``, ``WIDE_LAUNCHES``,
 ``WIDE_BATCH_LAUNCHES`` for the bfloat16 forms and K-B8's wide route,
 ``CHECK_LAUNCHES`` for K-P2); read
@@ -69,7 +72,8 @@ from .planar_fused import (fused_planar_hinge_gradmap,
                            fused_planar_lstsq_gradmap,
                            planar_hinge_gradmap_reference,
                            planar_lstsq_gradmap_reference)
-from .tv_fused import fused_tv_gradmap, tv_gradmap_reference
+from .tv_fused import (fused_tv_gradmap, fused_tv_gradmap_band,
+                       tv_gradmap_band_reference, tv_gradmap_reference)
 
 __all__ = [
     "bf16_probe", "lstsq_fused", "matvec_probe", "microsolver",
@@ -83,7 +87,8 @@ __all__ = [
     "fused_planar_lstsq_gradmap", "fused_planar_hinge_gradmap",
     "planar_lstsq_gradmap_reference", "planar_hinge_gradmap_reference",
     "microsolve_planar_phasemax", "microsolve_planar_phasemax_reference",
-    "fused_tv_gradmap", "tv_gradmap_reference", "microsolve_tv",
+    "fused_tv_gradmap", "tv_gradmap_reference", "fused_tv_gradmap_band",
+    "tv_gradmap_band_reference", "microsolve_tv",
     "microsolve_tv_reference", "microsolve_tv_path",
     "microsolve_tv_path_reference",
     "fused_lstsq_gradmap", "lstsq_gradmap_reference",

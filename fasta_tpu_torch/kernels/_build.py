@@ -47,6 +47,8 @@ _SIGNATURES = {
     "fasta_shrink_step": [_P, _P, _P, _F, _P, _F, _I, _I, _I, _I, _P, _P,
                           _P, _P],
     "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
+    "fasta_tv_gradmap_band": [_P, _P, _I, _I, _F, _P, _P, _P, _I, _I, _I,
+                              _I, _P, _P, _P, _P, _P],
     "fasta_microsolve_tv_grid": [_P, _P],
     "fasta_planar_gradmap_plan": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
     "fasta_planar_gradmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -70,6 +70,22 @@ class LinearOp:
         ``s`` itself here."""
         return s
 
+    # Signal-space hooks of the solver, ``estimate_stepsize`` and
+    # ``check_adjoint``.  An operator whose rank holds a block of x (the
+    # x-sharded layouts of ``sharding.py``) overrides both; an operator
+    # whose rank holds all of x keeps these, which stack, cast and launch
+    # nothing.
+
+    def signal_draw(self, x, generator: torch.Generator):
+        """Standard normal draws for the signal ``x``."""
+        return randn_like(x, generator)
+
+    def signal_sum(self, *parts):
+        """Sums over x's entries (per-lane partial sums on a rank that
+        holds a block of x) completed over the ranks that share x's
+        split, as a tuple: ``parts`` themselves here."""
+        return parts
+
 
 class AdjointOp(LinearOp):
     def __init__(self, base: LinearOp):
@@ -604,11 +620,12 @@ def check_adjoint(op: LinearOp, x_like: torch.Tensor,
     d_like = op(x_like)
     worst = 0.0
     for _ in range(n_trials):
-        x = randn_like(x_like, generator)
+        x = op.signal_draw(x_like, generator)
         y = op.measurement_draw(d_like, generator)
         lhs = complex(op.measurement_sum(
             torch.vdot(y.reshape(-1), op(x).reshape(-1))))
-        rhs = complex(torch.vdot(op.rmatvec(y).reshape(-1), x.reshape(-1)))
+        rhs = complex(op.signal_sum(
+            torch.vdot(op.rmatvec(y).reshape(-1), x.reshape(-1)))[0])
         scale = max(abs(lhs), abs(rhs), 1e-30)
         worst = max(worst, abs(lhs - rhs) / scale)
     if worst > rtol:

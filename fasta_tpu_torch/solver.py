@@ -11,6 +11,12 @@ warm-started regularization path ``solve_path``, the batch solver
 math is the JAX solver's — same update order, formulas and guard
 constants — so trajectories agree within floating-point tolerance.
 
+Every sum over x goes through the operator's ``signal_sum`` hook
+(``LinearOp``): a trial's sums in one call, the iteration's other sums in
+one more.  On an operator whose rank holds all of x the hook returns its
+arguments; on the x-sharded layouts of ``sharding.py`` each call is one
+all-reduce, so the decisions read completed sums, the same on every rank.
+
 The loop runs eagerly in PyTorch on the device of the data, over a
 leading lane axis: one solve is one lane, a batch many.  A solve is a
 set-up, which builds the state from (x0, τ₀), and the loop, which runs
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from .kernels.prox_fused import fused_shrink_step
-from .operators import LinearOp, as_linear_op, check_adjoint, randn_like
+from .operators import LinearOp, as_linear_op, check_adjoint
 from .options import FastaOptions, stop_test
 from .precision import (lane, lane_dot64, lane_norm2, lane_redot, norm2,
                         real_dtype, use_high_precision)
@@ -91,10 +97,6 @@ class FastaResult:
     nonfinite: bool = False
 
 
-def _norm(a):
-    return torch.sqrt(norm2(a))
-
-
 def estimate_stepsize(op: LinearOp, fterm: SmoothTerm, x0: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       points: Optional[tuple] = None) -> tuple:
@@ -103,8 +105,11 @@ def estimate_stepsize(op: LinearOp, fterm: SmoothTerm, x0: torch.Tensor,
 
     ``points=(z1, z2)`` supplies the two points (generate them once in
     NumPy and feed the same pair to the oracle's ``est_points`` for auto-τ₀
-    trajectory parity); otherwise they are drawn from ``generator``,
-    which must live on ``x0``'s device.  Returns (τ₀, L) as 0-d tensors."""
+    trajectory parity; on an x-sharded operator, this rank's blocks);
+    otherwise they are drawn from ``generator``, which must live on
+    ``x0``'s device, through the operator's ``signal_draw``.  The two
+    norms are sums over x (``signal_sum``).  Returns (τ₀, L) as 0-d
+    tensors."""
     if points is not None:
         z1 = torch.as_tensor(points[0]).to(x0.device, x0.dtype)
         z2 = torch.as_tensor(points[1]).to(x0.device, x0.dtype)
@@ -112,10 +117,11 @@ def estimate_stepsize(op: LinearOp, fterm: SmoothTerm, x0: torch.Tensor,
         raise ValueError("estimate_stepsize needs a torch.Generator or "
                          "explicit points")
     else:
-        z1, z2 = randn_like(x0, generator), randn_like(x0, generator)
+        z1, z2 = op.signal_draw(x0, generator), op.signal_draw(x0, generator)
     g1 = op.rmatvec(fterm.grad(op(z1)))
     g2 = op.rmatvec(fterm.grad(op(z2)))
-    L = _norm(g1 - g2) / torch.clamp_min(_norm(z2 - z1), 1e-30)
+    ng2, nz2 = op.signal_sum(norm2(g1 - g2), norm2(z2 - z1))
+    L = torch.sqrt(ng2) / torch.clamp_min(torch.sqrt(nz2), 1e-30)
     L = torch.clamp_min(L, 1e-6)
     return 2.0 / L / 10.0, L
 
@@ -206,10 +212,13 @@ def _setting(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
     # d and the gradient at the prox point comes free from the fused pass
     affine_accel = (opts.effective_mode == "accelerated"
                     and fused is not None and fterm.grad_affine)
-    # kernel K-B4 takes the L1 trial step of real float32 lanes; complex
-    # and float64 keep the composition, as in the reference
-    mu_b4 = (torch.as_tensor(gterm.mu, dtype=torch.float32, device=x.device)
-             if isinstance(gterm, L1Norm) and x.dtype == torch.float32
+    # kernel K-B4 takes the L1 trial step of real float32 lanes (on this
+    # rank's block where x is sharded); complex and float64 keep the
+    # composition, as in the reference
+    g_block = gterm.block_term
+    mu_b4 = (torch.as_tensor(g_block.mu, dtype=torch.float32,
+                             device=x.device)
+             if isinstance(g_block, L1Norm) and x.dtype == torch.float32
              else None)
     return _Setting(B, x.device, rdt, hp, torch.float64 if hp else rdt,
                     fused, fused_f64, affine_accel, mu_b4)
@@ -337,8 +346,9 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
                 x1, nd2, btd, nsm2 = fused_shrink_step(
                     x_.reshape(B, -1), g_.reshape(B, -1), tau, mu_b4)
                 x1 = x1.reshape(x_.shape)
-                # float64 sums, each used in the precision the
-                # composition gives it
+                # float64 sums over x, completed, each then used in the
+                # precision the composition gives it
+                nd2, btd, nsm2 = op.signal_sum(nd2, btd, nsm2)
                 nd2, nsm2 = nd2.to(rdt), nsm2.to(rdt)
                 btd = btd if hp else btd.to(rdt)
                 x1hat = Dx = None
@@ -346,8 +356,9 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
                 x1hat = x_ - lane(tau, x_) * g_
                 x1 = gterm.prox_lanes(x1hat, tau)
                 Dx = x1 - x_
-                nd2 = lane_norm2(Dx)
-                btd = lane_dot64(Dx, g_) if hp else lane_redot(Dx, g_)
+                nd2, btd = op.signal_sum(
+                    lane_norm2(Dx),
+                    lane_dot64(Dx, g_) if hp else lane_redot(Dx, g_))
                 nsm2 = None
             if fused is not None:
                 d1, f1, grad1 = fused(x1[0])
@@ -389,16 +400,52 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
                 bt = bt + (1 if B == 1 else need)
         x1, d1, f1, grad1 = t.x1, t.d1, t.f1, t.grad1
 
+        # the mode's inputs to the iteration's sums over x
+        if mode == "adaptive":
+            # Zhou–Gao–Dai BB stepsize; K-B4 returns neither x̂₁ nor Δx,
+            # so they are recomputed for the accepted trial
+            gradf1 = (grad1 if fused is not None
+                      else op.rmatvec_lanes(fterm.grad_lanes(d1)))
+            x1hat = (t.x1hat if t.x1hat is not None
+                     else x_ - lane(tau, x_) * g_)
+            Dx = t.Dx if t.Dx is not None else x1 - x_
+            Dg = gradf1 + (x1hat - x_) / lane(tau, x_)   # == gradf1 - g_
+        elif accelerated:
+            if affine_accel:
+                x_acc, d_acc, g_acc, alpha0 = accel
+            else:
+                x_acc, d_acc, alpha0 = accel
+        # the iteration's sums over x, completed in one call of the hook:
+        # the normalizer's ‖g‖² and ‖x₁ − x̂₁‖², the objective's g, the BB
+        # pair, FISTA's restart dot
+        parts = {"ng2": lane_norm2(g_)}
+        if t.nsm2 is None:
+            parts["nsm2"] = lane_norm2(x1 - t.x1hat)
+        g_part = (gterm.partial_value_lanes(x1) if opts.record_objective
+                  else None)
+        if g_part is not None:
+            parts["g"] = g_part
+        if mode == "adaptive":
+            parts["dot"] = (lane_dot64(Dx, Dg) if hp
+                            else lane_redot(Dx, Dg))
+            parts["nDg2"] = lane_norm2(Dg)
+        elif accelerated and opts.restart:
+            a, c = x_ - x1, x1 - x_acc
+            parts["rdot"] = lane_dot64(a, c) if hp else lane_redot(a, c)
+        sums = dict(zip(parts, op.signal_sum(*parts.values())))
+
         # residuals, diagnostics, best-iterate tracking
         res = torch.sqrt(t.nd2) / tau
         max_res_t = torch.maximum(max_res, res)
-        nsm2 = t.nsm2 if t.nsm2 is not None else lane_norm2(x1 - t.x1hat)
-        normalizer = (torch.maximum(torch.sqrt(lane_norm2(g_)),
+        nsm2 = t.nsm2 if t.nsm2 is not None else sums["nsm2"]
+        normalizer = (torch.maximum(torch.sqrt(sums["ng2"]),
                                     torch.sqrt(nsm2) / tau) + opts.eps_n)
         nres = res / normalizer
         f1_f = f1.to(rdt)
-        obj = (f1_f + gterm.value_lanes(x1).to(rdt) if opts.record_objective
-               else None)
+        obj = None
+        if opts.record_objective:
+            g_val = sums["g"] if g_part is not None else gterm.value_lanes(x1)
+            obj = f1_f + g_val.to(rdt)
         if rec:
             residuals[:, it] = keep(res, residuals[:, it], live)
             norm_residuals[:, it] = keep(nres, norm_residuals[:, it], live)
@@ -435,16 +482,8 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
         # iteration too, as in the reference
         x_next, f_record = x1, f1
         if mode == "adaptive":
-            # Zhou–Gao–Dai BB stepsize; K-B4 returns neither x̂₁ nor Δx,
-            # so they are recomputed for the accepted trial
-            gradf1 = (grad1 if fused is not None
-                      else op.rmatvec_lanes(fterm.grad_lanes(d1)))
-            x1hat = (t.x1hat if t.x1hat is not None
-                     else x_ - lane(tau, x_) * g_)
-            Dx = t.Dx if t.Dx is not None else x1 - x_
-            Dg = gradf1 + (x1hat - x_) / lane(tau, x_)   # == gradf1 - g_
-            dotprod = lane_dot64(Dx, Dg).to(rdt) if hp else lane_redot(Dx, Dg)
-            nDx2, nDg2 = t.nd2, lane_norm2(Dg)
+            dotprod = sums["dot"].to(rdt) if hp else sums["dot"]
+            nDx2, nDg2 = t.nd2, sums["nDg2"]
             tau_s = torch.where(dotprod != 0.0, nDx2 / dotprod, math.inf)
             tau_m = torch.clamp_min(
                 torch.where(nDg2 > 0.0, dotprod / nDg2, 0.0), 0.0)
@@ -454,14 +493,9 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
                           | torch.isnan(tau_next))
             tau_next = torch.where(degenerate, tau * 1.5, tau_next)
         elif accelerated:
-            if affine_accel:
-                x_acc, d_acc, g_acc, alpha0 = accel
-            else:
-                x_acc, d_acc, alpha0 = accel
             if opts.restart:
                 # O'Donoghue–Candès gradient restart
-                a, c = x_ - x1, x1 - x_acc
-                rdot = lane_dot64(a, c).to(rdt) if hp else lane_redot(a, c)
+                rdot = sums["rdot"].to(rdt) if hp else sums["rdot"]
                 alpha0 = torch.where(rdot > 0.0, 1.0, alpha0)
             alpha1 = (1.0 + torch.sqrt(1.0 + 4.0 * alpha0 ** 2)) / 2.0
             beta = (alpha0 - 1.0) / alpha1

@@ -464,6 +464,22 @@ class ProxTerm:
         default one call per lane (terms without lane data)."""
         return torch.stack([self.prox(zi, ti) for zi, ti in zip(z, t)])
 
+    def partial_value_lanes(self, x):
+        """g per lane as one of the solver's sums over x, which the
+        operator's ``signal_sum`` completes: ``value_lanes`` for a term
+        that holds all of x.  A term over a block of x
+        (``sharding.SignalShardedProx``) gives its rank's share, or None
+        where g is no sum over x's entries (a max), and then its
+        ``value_lanes`` completes itself."""
+        return self.value_lanes(x)
+
+    @property
+    def block_term(self) -> "ProxTerm":
+        """The term that acts on this rank's block of x: the term itself
+        here, a signal-sharded term's wrapped term (so that the solver
+        sees the L1 norm that kernel K-B4 takes)."""
+        return self
+
 
 def _weight(w, t):
     """A weight as the lanes see it: a number as it is, a tensor (one per

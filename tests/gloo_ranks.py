@@ -1,13 +1,16 @@
 """Gloo ranks on the CPU for the port's sharding tests (a helper module, not
 a test file).
 
-``Ranks(world)`` spawns ``world`` processes (the ``spawn`` start method),
-which rendezvous through a ``FileStore`` in a temporary directory (no TCP
-port, so concurrent test processes cannot collide), form one gloo group
-and a 1-D ``DeviceMesh`` on the CPU, and then run cases by name until
-closed: ``ranks.run("solve", ...)`` returns each rank's result, in rank
-order, as NumPy.  A rank that raises, dies or overruns the timeout fails
-the call.  The ranks import torch and the port, never JAX: the cases
+``Ranks(world, shapes)`` spawns ``world`` processes (the ``spawn`` start
+method), which rendezvous through a ``FileStore`` in a temporary
+directory (no TCP port, so concurrent test processes cannot collide),
+form one gloo group and, over it, one ``DeviceMesh`` on the CPU for each
+mesh shape of ``shapes`` (the 1-D ``(world,)`` always; ``(2, 4)`` a 2-D
+rows × cols mesh), and then run cases by name until closed:
+``ranks.run("solve", ..., shape=(2, 4))`` runs the case on the mesh of
+that shape (the 1-D one by default) and returns each rank's result, in
+rank order, as NumPy.  A rank that raises, dies or overruns the timeout
+fails the call.  The ranks import torch and the port, never JAX: the cases
 below are the ranks' side, and the test files hold them against the JAX
 package in the pytest process.
 """
@@ -29,25 +32,28 @@ import numpy as np
 class Ranks:
     """``world`` gloo ranks on the CPU, alive until :meth:`close`."""
 
-    def __init__(self, world: int = 4, timeout: float = 240.0):
+    def __init__(self, world: int = 4, shapes=(), timeout: float = 240.0):
         ctx = mp.get_context("spawn")
         self.world, self.timeout = world, timeout
+        shapes = ((world,),) + tuple(tuple(sh) for sh in shapes)
         self._dir = tempfile.mkdtemp(prefix="gloo_ranks_")
         store = os.path.join(self._dir, "store")
         self._inboxes = [ctx.Queue() for _ in range(world)]
         self._outbox = ctx.Queue()
         self._procs = [ctx.Process(target=_rank_main,
-                                   args=(r, world, store, self._inboxes[r],
-                                         self._outbox), daemon=True)
+                                   args=(r, world, store, shapes,
+                                         self._inboxes[r], self._outbox),
+                                   daemon=True)
                        for r in range(world)]
         for p in self._procs:
             p.start()
 
-    def run(self, case: str, *args) -> list:
-        """Every rank runs ``CASES[case](mesh, *args)``; their results in
-        rank order."""
+    def run(self, case: str, *args, shape=None) -> list:
+        """Every rank runs ``CASES[case](mesh, *args)`` on the mesh of
+        ``shape`` (the 1-D mesh when None); their results in rank
+        order."""
         for q in self._inboxes:
-            q.put((case, args))
+            q.put((case, args, shape or (self.world,)))
         results, deadline = {}, time.monotonic() + self.timeout
         while len(results) < self.world:
             try:
@@ -83,7 +89,7 @@ class Ranks:
             raise RuntimeError(f"ranks {alive} did not stop")
 
 
-def _rank_main(rank, world, store_path, inbox, outbox):
+def _rank_main(rank, world, store_path, shapes, inbox, outbox):
     import torch
     import torch.distributed as dist
 
@@ -93,14 +99,16 @@ def _rank_main(rank, world, store_path, inbox, outbox):
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=120))
     try:
-        mesh = sharding.make_mesh(device="cpu")
+        meshes = {sh: (sharding.make_mesh(device="cpu") if len(sh) == 1
+                       else sharding.make_mesh_2d(*sh, device="cpu"))
+                  for sh in shapes}
         while True:
             msg = inbox.get()
             if msg is None:
                 break
-            case, args = msg
+            case, args, shape = msg
             try:
-                outbox.put((rank, True, CASES[case](mesh, *args)))
+                outbox.put((rank, True, CASES[case](meshes[shape], *args)))
             except Exception:           # reported to the test, which fails
                 outbox.put((rank, False, traceback.format_exc()))
     finally:
@@ -128,10 +136,18 @@ def _dtype(name: str):
 
 
 def case_mesh(mesh):
+    """The mesh as this rank sees it: its axes, size, shape, device, this
+    rank's index on each axis and the global ranks of each axis's group."""
+    import torch.distributed as dist
+
     from fasta_tpu_torch import distributed
     whole = distributed.global_mesh(device="cpu")
-    return dict(names=mesh.mesh_dim_names, size=mesh.size(),
+    names = mesh.mesh_dim_names
+    return dict(names=names, size=mesh.size(), shape=tuple(mesh.shape),
                 device=mesh.device_type, rank=mesh.get_local_rank("rows"),
+                index={a: mesh.get_local_rank(a) for a in names},
+                groups={a: dist.get_process_group_ranks(mesh.get_group(a))
+                        for a in names},
                 distributed=distributed.is_distributed(),
                 global_size=whole.size())
 
@@ -155,16 +171,25 @@ def case_fasta(mesh, key):
     return out
 
 
+def _place(mesh, problem, explicit=True):
+    """``shard_problem`` on a 1-D mesh, ``shard_problem_2d`` on a 2-D
+    one."""
+    from fasta_tpu_torch import sharding as sh
+    if len(mesh.mesh_dim_names) == 2:
+        return sh.shard_problem_2d(problem, mesh)
+    return sh.shard_problem(problem, mesh, explicit=explicit)
+
+
 def case_solve(mesh, name, build_kw, tau0, solve_kw):
     """``name`` built by the port at ``build_kw`` (``dtype`` named as a
-    string), ``shard_problem``, ``Problem.solve``: the result, the
-    operator's class and the collectives the solve made."""
+    string), placed on the mesh (``shard_problem``, or
+    ``shard_problem_2d`` on a 2-D mesh), ``Problem.solve``: the result,
+    the operator's class and the collectives the solve made."""
     from fasta_tpu_torch import problems
     from fasta_tpu_torch import sharding as sh
     kw = dict(build_kw, dtype=_dtype(build_kw["dtype"]), device="cpu")
     explicit = solve_kw.pop("explicit", True)
-    sp = sh.shard_problem(problems.build(name, **kw), mesh,
-                          explicit=explicit)
+    sp = _place(mesh, problems.build(name, **kw), explicit)
     sh.reset_collective_counts()
     r = sp.solve(tau0=tau0, **solve_kw)
     out = host_result(r)
@@ -211,15 +236,111 @@ def case_blocks(mesh, build_kw):
 
 
 def case_raises(mesh, name, build_kw):
-    """What ``shard_problem`` raises on ``name``: (class name, message)."""
+    """What ``shard_problem`` (``shard_problem_2d`` on a 2-D mesh) raises
+    on ``name``: (class name, message)."""
+    from fasta_tpu_torch import problems
+    kw = dict(build_kw, dtype=_dtype(build_kw["dtype"]), device="cpu")
+    try:
+        _place(mesh, problems.build(name, **kw))
+    except (ValueError, NotImplementedError, TypeError) as e:
+        return type(e).__name__, str(e)
+    return None, ""
+
+
+def _x_blocks(op, x, y):
+    """This rank's blocks of a whole signal ``x`` and measurement ``y`` for
+    an x-sharded operator: x on its split axis (p's rows for the TV dual,
+    the leading axis over cols on a 2-D mesh), y on its rows."""
+    import torch
+
+    from fasta_tpu_torch import sharding as sh
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    if isinstance(op, sh.RowShardedTVDivOp):
+        return (sh._block(x, op.mesh, op.axis_name, 1),
+                sh.shard_rows(y, op.mesh, op.axis_name))
+    return (sh.shard_rows(x, op.mesh, op.col_axis),
+            sh.shard_rows(y, op.mesh, op.row_axis))
+
+
+def case_op_x(mesh, arrays, x, y):
+    """The x-sharded operator of ``convert.sharded_op_from_arrays`` at this
+    rank's blocks of the whole x and y: its blocks of A x and Aᴴ y, the
+    adjoint check's error (the draws whole, each rank's block kept) and
+    the collectives of the two products."""
+    import torch
+
+    from fasta_tpu_torch import check_adjoint, convert
+    from fasta_tpu_torch import sharding as sh
+    op = convert.sharded_op_from_arrays(arrays, mesh)
+    xb, yb = _x_blocks(op, x, y)
+    sh.reset_collective_counts()
+    d, g = op(xb), op.rmatvec(yb)
+    counts = sh.collective_counts()
+    err = check_adjoint(op, torch.zeros_like(xb),
+                        torch.Generator().manual_seed(0), rtol=1e-10)
+    return dict(d=d.numpy(), g=g.numpy(), err=err, counts=counts,
+                op=type(op).__name__, shape=getattr(op, "shape", None))
+
+
+def case_tv_map(mesh, p, b, mu):
+    """``sharded_tv_lstsq_gradmap`` at this rank's rows of p and b (b's
+    halo row fetched when the map is built): its (d, f, g) and the
+    collectives of one call."""
+    from fasta_tpu_torch import sharding as sh
+    op = sh.RowShardedTVDivOp(mu, mesh)
+    fn = sh.sharded_tv_lstsq_gradmap(op, sh.shard_rows(b, mesh))
+    pb, _ = _x_blocks(op, p, b)
+    sh.reset_collective_counts()
+    d, f, g = fn(pb)
+    return dict(d=d.numpy(), f=float(f), g=g.numpy(),
+                counts=sh.collective_counts())
+
+
+def case_blocks_x(mesh, name, build_kw):
+    """What ``shard_problem_2d`` (a 2-D mesh) or ``shard_problem`` (TV)
+    placed: the classes, shapes and devices, and whether each holds this
+    rank's block of the whole problem's."""
+    import torch
+
     from fasta_tpu_torch import problems
     from fasta_tpu_torch import sharding as sh
     kw = dict(build_kw, dtype=_dtype(build_kw["dtype"]), device="cpu")
-    try:
-        sh.shard_problem(problems.build(name, **kw), mesh)
-    except (ValueError, NotImplementedError) as e:
-        return type(e).__name__, str(e)
-    return None, ""
+    p = problems.build(name, **kw)
+    sp = _place(mesh, p)
+    op = sp.op
+    out = dict(op=type(op).__name__, gterm=type(sp.gterm).__name__,
+               fterm=type(sp.fterm).__name__, name=sp.name,
+               x0=tuple(sp.x0.shape))
+    fb = next(v for v in vars(sp.fterm.term).values()
+              if isinstance(v, torch.Tensor))
+    whole_b = next(v for v in vars(p.fterm).values()
+                   if isinstance(v, torch.Tensor))
+    if isinstance(op, sh.RowShardedTVDivOp):
+        xb, bb = _x_blocks(op, p.x0, whole_b)
+        out.update(b=tuple(fb.shape), b_rows=torch.equal(fb, bb),
+                   x0_block=torch.equal(sp.x0, xb),
+                   b_below=(None if sp.fterm.b_below is None
+                            else tuple(sp.fterm.b_below.shape)))
+        return out
+    xb, bb = _x_blocks(op, p.x0, whole_b)
+    mats = {"GridShardedDenseOp": ("A",),
+            "GridShardedPlanarDenseOp": ("Ar", "Ai")}
+    blocks = {}
+    for field in mats.get(type(op).__name__, ()):
+        whole = getattr(p.op, field)
+        blocks[field] = (tuple(getattr(op, field).shape),
+                         torch.equal(getattr(op, field),
+                                     sh._grid_block(whole, mesh, "rows",
+                                                    "cols")))
+    anchors = {k: (tuple(v.shape), torch.equal(v, sh.shard_rows(
+        getattr(p.gterm, k), mesh, "cols")))
+        for k, v in vars(sp.gterm.term).items()
+        if isinstance(v, torch.Tensor)}
+    out.update(b=tuple(fb.shape), b_rows=torch.equal(fb, bb),
+               x0_block=torch.equal(sp.x0, xb), blocks=blocks,
+               anchors=anchors, shape=op.shape,
+               devices={str(t.device) for t in (fb, sp.x0)})
+    return out
 
 
 def case_batch(mesh, mus, path):
@@ -278,6 +399,38 @@ def case_resume(mesh, state_dir, dtype):
     return out
 
 
+def case_resume_x(mesh, state_dir, dtype, name):
+    """The x-sharded exact resume: LASSO 64×48 on a 2-D mesh
+    (``shard_problem_2d``) or TV 16×16 over the 1-D mesh (p split over
+    image rows), 30 iterations, each rank's ``SolverState`` (its block of
+    x, and FISTA's carry) through its own file, ``resume_state`` to 60,
+    against the uninterrupted 60-iteration run, in the three modes."""
+    import torch
+
+    import fasta_tpu_torch as ftt
+    from fasta_tpu_torch import checkpoint, problems
+    rank = torch.distributed.get_rank()
+    kw = (dict(h=16, w=16) if name == "tv" else dict(m=64, n=48, k=6))
+    p = problems.build(name, dtype=_dtype(dtype), device="cpu", **kw)
+    sp = _place(mesh, p)
+    args = (sp.op, sp.fterm, sp.gterm, sp.x0, 2.0 if name == "tv" else 0.05)
+    out = {}
+    for mode, kw in ftt.MODE_OPTIONS.items():
+        o30 = ftt.FastaOptions(max_iters=30, stop_rule="iterations", **kw)
+        o60 = o30.replace(max_iters=60)
+        _, s30 = ftt.make_stateful_solver(o30)(*args)
+        path = os.path.join(state_dir,
+                            f"state_{name}_{mode}_{dtype}_{rank}.npz")
+        checkpoint.save_pytree(s30, path)
+        loaded = checkpoint.load_pytree(s30, path)
+        r_res, s60 = ftt.resume_state(*args[:3], loaded, o60)
+        r_full, _ = ftt.make_stateful_solver(o60)(*args)
+        out[mode] = dict(resumed=host_result(r_res), full=host_result(r_full),
+                         k=int(s60.k), x_block=tuple(s30.x1.shape))
+    return out
+
+
 CASES = {"mesh": case_mesh, "fasta": case_fasta, "solve": case_solve, "op": case_op,
          "blocks": case_blocks, "raises": case_raises, "batch": case_batch,
-         "resume": case_resume}
+         "resume": case_resume, "resume_x": case_resume_x,
+         "op_x": case_op_x, "tv_map": case_tv_map, "blocks_x": case_blocks_x}

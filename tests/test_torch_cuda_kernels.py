@@ -521,6 +521,41 @@ def test_tv_gradmap_kernel_matches_plain(dev, h, w):
     assert torch.equal(d, d2) and torch.equal(gr, g2) and torch.equal(f, f2)
 
 
+@pytest.mark.parametrize("hb,w,edges", [
+    (128, 512, "middle"), (128, 512, "top"), (128, 512, "bottom"),
+    (1, 512, "middle"), (1, 512, "last below"), (128, 509, "middle"),
+    (7, 33, "middle"), (3, 2000, "top"), (128, 512, "whole")])
+def test_tv_band_kernel_matches_plain(dev, hb, w, edges):
+    """K-B5's band form (a rank's rows of a row-sharded image) against its
+    plain version: with both halos, at the image's top or bottom, a
+    one-row band (and one above the image's last row), ragged widths; d
+    and g to max|Δ| ≤ 1e-6 of the scale, f to rel 1e-5; with no halo rows
+    the K-B5 launch's bits."""
+    g = torch.Generator(device=dev).manual_seed(hb * w + len(edges))
+    p = torch.randn((2, hb, w), generator=g, device=dev)
+    b = torch.randn((hb, w), generator=g, device=dev)
+    above = torch.randn(w, generator=g, device=dev)
+    below = torch.randn((2, w), generator=g, device=dev)
+    b_below = torch.randn(w, generator=g, device=dev)
+    if edges == "last below":
+        below[0] = 0.0
+    halo = {"middle": (above, below, b_below), "top": (None, below, b_below),
+            "bottom": (above, None, None), "last below": (above, below,
+                                                          b_below),
+            "whole": (None, None, None)}[edges]
+    before = tv_fused.BAND_LAUNCHES
+    d, f, gr = tv_fused.fused_tv_gradmap_band(p, b, 0.1, *halo)
+    assert tv_fused.BAND_LAUNCHES == before + 1
+    d0, f0, g0 = tv_fused.tv_gradmap_band_reference(p, b, 0.1, *halo)
+    torch.cuda.synchronize()
+    assert (d - d0).abs().max() <= 1e-6 * max(1.0, float(d0.abs().max()))
+    assert (gr - g0).abs().max() <= 1e-6 * max(1.0, float(g0.abs().max()))
+    assert abs(float(f) - float(f0)) <= 1e-5 * max(abs(float(f0)), 1e-30)
+    if edges == "whole":
+        for u, v in zip((d, f, gr), tv_fused.fused_tv_gradmap(p, b, 0.1)):
+            assert torch.equal(u, v)
+
+
 def test_tv_kernels_reject_what_they_do_not_take(dev):
     p = torch.zeros((2, 8, 8), device=dev)
     b = torch.zeros((8, 8), device=dev)

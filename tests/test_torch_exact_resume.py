@@ -161,7 +161,7 @@ def test_resume_leaves_the_state_as_it_was():
 
 @pytest.fixture(scope="module")
 def ranks():
-    r = Ranks(4)
+    r = Ranks(4, shapes=((2, 2),))
     yield r
     r.close()
 
@@ -186,6 +186,34 @@ def test_resume_bitwise_sharded(ranks, dtype, tmp_path):
             assert out[mode]["d_rows"] == (None if mode != "accelerated"
                                            else (16,))
             for key in RANK_SERIES:
+                np.testing.assert_array_equal(got[key],
+                                              outs[0][mode]["resumed"][key])
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("layout", ["grid", "tv"])
+def test_resume_bitwise_x_sharded(ranks, layout, dtype, tmp_path):
+    """Exact resume where x itself is split: LASSO 64×48 on a 2×2 mesh
+    (x's 24-entry block a rank, the iteration's sums over x completed by
+    the operator's hook) and TV 16×16 over four ranks (p's (2, 4, 16)
+    rows a rank, a halo exchange a map), 30 iterations, each rank's state
+    through its own file, ``resume_state`` to 60: the uninterrupted run's
+    bits on every rank in the three modes, and every rank's series the
+    same."""
+    name, shape, block = (("lasso", (2, 2), (24,)) if layout == "grid"
+                          else ("tv", None, (2, 4, 16)))
+    outs = ranks.run("resume_x", str(tmp_path), dtype, name, shape=shape)
+    assert len(list(tmp_path.glob("state_*.npz"))) == 4 * len(MODES)
+    for mode in MODES:
+        for out in outs:
+            got, full = out[mode]["resumed"], out[mode]["full"]
+            for key in RANK_SERIES:
+                np.testing.assert_array_equal(got[key], full[key])
+            assert got["iteration_count"] == full["iteration_count"] == 60
+            assert got["total_backtracks"] == full["total_backtracks"]
+            assert out[mode]["k"] == 60
+            assert out[mode]["x_block"] == block
+            for key in ("taus", "residuals", "fvals", "backtracks"):
                 np.testing.assert_array_equal(got[key],
                                               outs[0][mode]["resumed"][key])
 

@@ -3,8 +3,8 @@ gloo ranks on the CPU, held against ``fasta_tpu.sharding`` on the 8
 virtual devices of ``conftest.py`` (the counterpart of
 ``tests/sharded/test_sharded.py``, ``test_sharded_breadth.py:29-115``,
 ``test_batch_composition.py``, ``test_collectives.py`` and
-``test_multihost.py``, but their TV and 2-D cases, which are the next
-slice).
+``test_multihost.py``, but their TV and 2-D cases, which
+``tests/test_torch_sharding_x.py`` holds).
 
 The ranks are spawned once for the module (``gloo_ranks.Ranks``); they
 import no JAX, build each problem with the port's ``problems.build``
@@ -264,13 +264,18 @@ def test_indivisible_mesh_raises(ranks):
 
 
 def test_tv_and_unported_layouts_raise(ranks):
-    """The TV dual's row split (its halo exchange) is the next slice:
-    ``shard_problem`` says so rather than solve unsharded."""
-    for name, kw in (("tv", dict(h=16, w=16, dtype="float64")),
-                     ("matrix_completion", dict(d1=8, d2=8, rank=2,
-                                                dtype="float64"))):
-        for kind, msg in ranks.run("raises", name, kw):
-            assert kind == "NotImplementedError" and "13b" in msg
+    """The TV dual now shards (its dual field over image rows, the halo
+    layout of ``tests/test_torch_sharding_x.py``); an operator the
+    reference leaves to GSPMD (matrix completion's ``IdentityOp``) still
+    raises rather than solve unsharded, naming the ROADMAP item that
+    covers it."""
+    for kind, msg in ranks.run("raises", "tv",
+                               dict(h=16, w=16, dtype="float64")):
+        assert kind is None and msg == ""
+    for kind, msg in ranks.run("raises", "matrix_completion",
+                               dict(d1=8, d2=8, rank=2, dtype="float64")):
+        assert kind == "NotImplementedError" and "13c" in msg
+        assert "IdentityOp" in msg
 
 
 # --------------------------------------------- test_sharded_breadth.py --
