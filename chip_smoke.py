@@ -215,8 +215,9 @@ non-zero without the final ``ok`` line):
     launch's bits, its stream and card time beside the bound; four ranks
     on the one card over gloo, a 2×2 mesh (``shard_problem_2d``: LASSO
     1000×2000 in the three modes, planar phase retrieval 16384×256,
-    sparse LASSO 1500×3000 at 2%, democratic 256×1024) and a 1-D mesh
-    (TV 512×512 split over image rows, adaptive and FISTA to tol 1e-5),
+    sparse LASSO 1500×3000 at 2%, democratic 256×1024 for 1000
+    iterations) and a 1-D mesh (TV 512×512 split over image rows,
+    adaptive and FISTA to tol 1e-4),
     each objective within rtol 1e-5 of the float64 reference's (planar:
     the phase-aligned solution within rel 1e-3 too; democratic 1e-3; TV:
     the recovered image within rel 1e-3 too), converged where the
@@ -226,7 +227,27 @@ non-zero without the final ``ok`` line):
     budget of ``tests/test_torch_sharding_x.py``, the wall per iteration
     beside the unsharded card solve's; then a one-rank NCCL group on TV
     (``make_mesh``), ``torch.equal`` to the unsharded card solve in both
-    modes, the band form one launch a trial.
+    modes, the band form one launch a trial;
+35. the layouts the reference leaves to GSPMD: K-B3 bf16 and K-B3p bf16
+    at a rank's rows of the bfloat16 LASSO (4096×16384) and K-B4 at the
+    batch's lanes (16×2000) and the bfloat16 LASSO's x (1×16384) against
+    their plain versions; two ranks on the one card over gloo —
+    ``shard_problem`` of the bfloat16 LASSO 8192×16384 (the parent
+    writes A's float32 values and bfloat16 bits once under ``build/``,
+    each rank loads them onto its card and keeps its rows) to tol 1e-3,
+    ``checkpoint.save_pytree`` / ``load_pytree`` of the result, the
+    row-sharded float32 ``resume`` to 1e-6 within 1e-4 of the float32
+    solve from scratch, logistic and the squared hinge over the same
+    bfloat16 rows (20 iterations); matrix completion 200×200 r5 and
+    max-norm 300×60 over the identity's rows; NMF 80×60 r5 and a
+    ``FunctionOp`` LASSO 1000×2000 replicated; LASSO × 32 at 1000×2000
+    through ``make_batch_solver``, 16 lanes a rank — each against the
+    unsharded card solve and the float64 reference, the ranks' series
+    bit-identical, the kernels one launch a trial, the collectives on the
+    budget of ``tests/test_torch_sharding_gspmd.py``, no plain version,
+    the wall per iteration beside the unsharded solve's; then a one-rank
+    NCCL group on the bfloat16 LASSO and the batch, ``torch.equal`` to
+    the unsharded card solves.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -4408,6 +4429,11 @@ def phase_sharded() -> dict:
 # keywords); the 2×2 mesh takes shard_problem_2d, the 1-D mesh of 4
 # shard_problem (TV: p and the image split over image rows)
 X_FISTA = MODE_OPTIONS["accelerated"]
+# the depth of the two longest runs, cut to keep the script inside its
+# limit on a loaded host (phase 35 came after them): democratic stops at
+# 1000 iterations (phase 31's 2000 do not converge either; its float64
+# reference runs the same 1000), TV at tol 1e-4 (phase 13 holds 1e-5)
+X_DEMOCRATIC_ITERS = 1000
 X_RUNS = (
     ("2d lasso adaptive", (2, 2), "lasso", {}, 0.05,
      dict(tol=1e-6, max_iters=5000, **MODE_OPTIONS["adaptive"])),
@@ -4420,10 +4446,10 @@ X_RUNS = (
     ("2d sparse adaptive", (2, 2), "sparse_lasso", {},
      LATER_TAU0["sparse_lasso"], dict(tol=1e-6, max_iters=2000)),
     ("2d democratic adaptive", (2, 2), "democratic", {},
-     LATER_TAU0["democratic"], dict(tol=1e-6, max_iters=2000)),
-    ("tv adaptive", (4,), "tv", {}, 2.0, dict(tol=1e-5, max_iters=20000)),
+     LATER_TAU0["democratic"], dict(tol=1e-6, max_iters=X_DEMOCRATIC_ITERS)),
+    ("tv adaptive", (4,), "tv", {}, 2.0, dict(tol=1e-4, max_iters=20000)),
     ("tv FISTA", (4,), "tv", {}, 2.0,
-     dict(tol=1e-5, max_iters=20000, **X_FISTA)),
+     dict(tol=1e-4, max_iters=20000, **X_FISTA)),
 )
 # the kernel of this slice each run's ranks take, one launch a trial
 X_KERNEL = {"lasso": "K-B4", "sparse_lasso": "K-B4", "tv": "K-B5 band"}
@@ -4591,9 +4617,10 @@ def band_against_plain() -> dict:
 def x_references() -> dict:
     """The float64 references of phase 34's runs (objective, and the
     solution or image where it is held): phase 33's for LASSO and planar
-    phase retrieval, phase 31's oracle runs for sparse LASSO and
-    democratic, phase 13's for TV; each made here when its phase did not
-    run."""
+    phase retrieval, phase 31's oracle run for sparse LASSO (made here
+    when phase 31 did not run), the oracle's 1000 iterations for
+    democratic, phase 13's for TV (made here when phase 13 did not
+    run)."""
     if "sharded" not in REFS:
         REFS["sharded"] = sharded_references()
     sharded = REFS["sharded"]
@@ -4605,18 +4632,19 @@ def x_references() -> dict:
     later = REFS.get("later", {})
     for name in ("sparse_lasso", "democratic"):
         prob = problems.build(name, device=DEV)
-        if name not in later:
+        iters = X_DEMOCRATIC_ITERS if name == "democratic" else 2000
+        if name not in later or iters != 2000:
             inst = prob.instance
             r = fasta_np(inst["op"], inst.get("op_t"), inst["f"],
                          inst["gradf"], inst["g"], inst["proxg"],
                          inst["x0"], tau0=LATER_TAU0[name], tol=1e-6,
-                         max_iters=2000, **MODE_OPTIONS["adaptive"])
-            later[name] = {"adaptive": (instance_objective(inst,
-                                                           r.solution),
-                                        r.iteration_count)}
+                         max_iters=iters, **MODE_OPTIONS["adaptive"])
+            goal = instance_objective(inst, r.solution)
+        else:
+            goal = later[name]["adaptive"][0]
         tag = ("2d sparse adaptive" if name == "sparse_lasso"
                else "2d democratic adaptive")
-        refs[tag] = (prob, later[name]["adaptive"][0], None)
+        refs[tag] = (prob, goal, None)
     tv = problems.build("tv", device=DEV)
     if "tv" not in REFS:
         ref_prob = problems.build("tv", dtype=torch.float64, device=DEV)
@@ -4785,47 +4813,625 @@ def phase_sharded_x() -> dict:
     return dict(launches=launches, band=band)
 
 
+# --------------------------------------------------------------------------
+# The layouts the reference leaves to GSPMD (phase 35)
+# --------------------------------------------------------------------------
+
+# phase 27's bfloat16 LASSO, split over two ranks' rows; the batch's
+# LASSO 1000×2000 instances (make_lasso seeds 0..31); the parent's files
+# of both under build/, which every rank loads onto its card
+GSPMD_LASSO = dict(m=8192, n=16384, k=100, mu=0.1, seed=1)
+GSPMD_BATCH, GSPMD_BATCH_MN = 32, (1000, 2000)
+GSPMD_DATA = _build._BUILD_DIR.parent / "gspmd_data"
+GSPMD_BF16_KW = dict(tol=1e-3, max_iters=2000)
+GSPMD_F32_KW = dict(tol=1e-6, max_iters=2000)
+GSPMD_POINTWISE_KW = dict(tau0=0.05, tol=0.0, max_iters=20)
+# (tag, problem, τ₀, solve keywords) of the identity's rows (matrix
+# completion, max-norm) and the replicated NMF, at the sizes and τ₀ of
+# phase 31; the FunctionOp LASSO is phase 33's BASELINE instance
+GSPMD_LATER = (
+    ("matrix_completion adaptive", "matrix_completion", 1.7,
+     dict(tol=1e-6, max_iters=2000)),
+    ("max_norm adaptive", "max_norm", 0.2, dict(tol=1e-6, max_iters=2000)),
+    ("max_norm FISTA", "max_norm", 0.2,
+     dict(tol=1e-6, max_iters=2000, **MODE_OPTIONS["accelerated"])),
+    ("nmf adaptive", "nmf", 0.0026, dict(tol=1e-6, max_iters=2000)),
+)
+GSPMD_FOP_KW = dict(tol=1e-6, max_iters=5000)
+GSPMD_BATCH_KW = dict(tol=1e-6, max_iters=5000)
+# each run's operator class, its kernel (one launch a trial; None: none)
+# and its collectives: "rows" 2 + trials all-reduces (FISTA over the
+# identity + 2 an iteration: f and the gradient at the extrapolated
+# point, evaluated as the unsharded solve does), "none", "gather" one
+# all-gather after the batch's loop
+GSPMD_EXPECT = {
+    "bf16 lasso": ("RowShardedLowPrecDenseOp", "K-B3 bf16", "rows"),
+    "f32 resume": ("RowShardedDenseOp", "K-B3", "rows"),
+    "bf16 logistic": ("RowShardedLowPrecDenseOp", "K-B3p bf16", "rows"),
+    "bf16 squared_hinge": ("RowShardedLowPrecDenseOp", "K-B3p bf16",
+                           "rows"),
+    "matrix_completion adaptive": ("RowShardedIdentityOp", None, "rows"),
+    "max_norm adaptive": ("RowShardedIdentityOp", None, "rows"),
+    "max_norm FISTA": ("RowShardedIdentityOp", None, "rows"),
+    "nmf adaptive": ("IdentityOp", None, "none"),
+    "functionop lasso": ("FunctionOp", None, "none"),
+    "lasso x32 batch": ("LaneShardedDenseOp", "K-B4", "gather"),
+}
+
+
+def gspmd_budget(tag: str, row: dict) -> dict:
+    kind = GSPMD_EXPECT[tag][2]
+    if kind == "none":
+        return {}
+    if kind == "gather":
+        return {"all_gather": 1}
+    k, trials = row["k"], row["k"] + row["bt"]
+    return {"all_reduce": 2 + trials + (2 * k if "FISTA" in tag else 0)}
+
+
+def gspmd_batch_problem(dev):
+    """LASSO × 32 at 1000×2000 from the parent's files: one stacked
+    ``DenseOp`` (32, 1000, 2000) float32, b one row a lane."""
+    A = torch.from_numpy(np.load(GSPMD_DATA / "batch_A.npy")).to(dev)
+    b = torch.from_numpy(np.load(GSPMD_DATA / "batch_b.npy")).to(dev)
+    m, n = GSPMD_BATCH_MN
+    return ftt.Problem(f"lasso[{m}x{n}]x{GSPMD_BATCH}", op=ftt.DenseOp(A),
+                       fterm=ftt.LeastSquares(b), gterm=ftt.L1Norm(0.1),
+                       x0=torch.zeros(n, device=dev), tau0=0.05)
+
+
+def gspmd_lasso(dev) -> tuple:
+    """Phase 27's LASSO 8192×16384 from the parent's files on ``dev``: the
+    float32 problem, its bfloat16 form (``LowPrecDenseOp`` over the bits
+    the parent rounded from the float64 matrix) and b."""
+    A32 = torch.from_numpy(np.load(GSPMD_DATA / "A32.npy")).to(dev)
+    A16 = torch.from_numpy(np.load(GSPMD_DATA / "A16.npy")).to(dev).view(
+        torch.bfloat16)
+    b = torch.from_numpy(np.load(GSPMD_DATA / "b.npy")).to(dev)
+    p32 = ftt.Problem("lasso[8192x16384]", op=ftt.DenseOp(A32),
+                      fterm=ftt.LeastSquares(b),
+                      gterm=ftt.L1Norm(GSPMD_LASSO["mu"]),
+                      x0=torch.zeros(A32.shape[1], device=dev), tau0=0.05)
+    return p32, p32.with_parts(op=ftt.LowPrecDenseOp(A16)), b
+
+
+def gspmd_pointwise(p16, b, loss):
+    """The bfloat16 problem with the logistic loss (labels b > 0) or the
+    squared hinge (labels ±1) in place of least squares."""
+    y = (b > 0).float()
+    term = (ftt.Logistic(y) if loss == "logistic"
+            else ftt.SquaredHinge(2.0 * y - 1.0))
+    return p16.with_parts(fterm=term)
+
+
+def gspmd_later_problem(name, dev):
+    if name == "functionop lasso":
+        p = problems.build("lasso", device=dev)
+        A = p.op.A
+        return p.with_parts(op=ftt.FunctionOp(lambda v: A @ v,
+                                              lambda v: A.mT @ v))
+    return problems.build(name, device=dev)
+
+
+def gspmd_solves(mesh) -> dict:
+    """This rank's runs of phase 35 (``shard_problem`` on ``mesh`` of every
+    problem, each run after a 3-iteration warm-up of its problem): series,
+    counts, launches, collectives, plain calls and wall time."""
+    import tempfile
+
+    from fasta_tpu_torch import sharding
+    dev = sharding.mesh_device(mesh)
+    rank = mesh.get_local_rank("rows")
+    rows = {}
+
+    def run(tag, sp, solve, warm):
+        warm()
+        torch.cuda.synchronize()
+        with counting_plain(SHARDED_PLAIN) as plain:
+            reset_launches()
+            sharding.reset_collective_counts()
+            t0 = time.perf_counter()
+            r = solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            colls = sharding.collective_counts()
+        batch = np.ndim(r.iteration_count) > 0
+        rows[tag] = dict(
+            k=(np.asarray(r.iteration_count) if batch
+               else r.iteration_count),
+            bt=(np.asarray(r.total_backtracks) if batch
+                else r.total_backtracks),
+            converged=np.asarray(r.converged), wall=wall,
+            launches=launches, collectives=colls, plain=dict(plain),
+            op=type(sp.op).__name__, name=sp.name,
+            fvals=np.asarray(torch.as_tensor(r.fvals).cpu()),
+            **{key: np.asarray(torch.as_tensor(getattr(r, key)).cpu())
+               for key in SHARDED_SERIES})
+        return r
+
+    p32, p16, b = gspmd_lasso(dev)
+    sp16 = sharding.shard_problem(p16, mesh)
+    sp32 = sharding.shard_problem(p32, mesh)
+    pointwise = {loss: sharding.shard_problem(gspmd_pointwise(p16, b, loss),
+                                              mesh)
+                 for loss in ("logistic", "squared_hinge")}
+    del p32, p16, b                 # each rank keeps its rows alone
+    torch.cuda.empty_cache()
+    r16 = run("bf16 lasso", sp16,
+              lambda: sp16.solve(**GSPMD_BF16_KW),
+              lambda: sp16.solve(**dict(GSPMD_BF16_KW, max_iters=3)))
+    with tempfile.TemporaryDirectory(dir=GSPMD_DATA) as tmp:
+        path = checkpoint.save_pytree(r16, f"{tmp}/bf16_result_{rank}.npz")
+        loaded = checkpoint.load_pytree(r16, path)
+    require(np.array_equal(loaded.solution, r16.solution)
+            and np.array_equal(loaded.taus, r16.taus),
+            "the checkpoint round trip changed the result")
+    run("f32 resume", sp32,
+        lambda: checkpoint.resume(sp32, loaded, **GSPMD_F32_KW),
+        lambda: sp32.solve(**dict(GSPMD_F32_KW, max_iters=3)))
+    for loss, sp in pointwise.items():
+        run(f"bf16 {loss}", sp, lambda sp=sp: sp.solve(**GSPMD_POINTWISE_KW),
+            lambda sp=sp: sp.solve(**dict(GSPMD_POINTWISE_KW, max_iters=3)))
+    del sp16, sp32, pointwise
+    torch.cuda.empty_cache()
+    for tag, name, tau0, kw in GSPMD_LATER + (
+            ("functionop lasso", "functionop lasso", 0.05, GSPMD_FOP_KW),):
+        sp = sharding.shard_problem(gspmd_later_problem(name, dev), mesh)
+        run(tag, sp, lambda sp=sp, tau0=tau0, kw=kw: sp.solve(tau0=tau0,
+                                                               **kw),
+            lambda sp=sp, tau0=tau0, kw=kw: sp.solve(
+                tau0=tau0, **dict(kw, max_iters=3)))
+    sp = sharding.shard_problem(gspmd_batch_problem(dev), mesh)
+    require(sp.op.A.shape[0] == GSPMD_BATCH // mesh.size(),
+            "the batch's lanes are not split over the ranks")
+    batch = ftt.make_batch_solver(ftt.FastaOptions(**GSPMD_BATCH_KW),
+                                  (0, 0, None, None, None))
+    warm = ftt.make_batch_solver(
+        ftt.FastaOptions(**dict(GSPMD_BATCH_KW, max_iters=3)),
+        (0, 0, None, None, None))
+    run("lasso x32 batch", sp,
+        lambda: batch(sp.op, sp.fterm, sp.gterm, sp.x0, 0.05),
+        lambda: warm(sp.op, sp.fterm, sp.gterm, sp.x0, 0.05))
+    return rows
+
+
+def gspmd_rank(rank: int, world: int, store_path: str, out) -> None:
+    """One rank of phase 35: a gloo group through a ``FileStore``, the mesh
+    on this rank's card, the runs; its rows, or its traceback, to
+    ``out``."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from fasta_tpu_torch import sharding
+    try:
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                store=dist.FileStore(store_path, world),
+                                timeout=timedelta(seconds=300))
+        mesh = sharding.make_mesh()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _build.library()
+        out.put((rank, True, gspmd_solves(mesh)))
+    except Exception:                  # the parent fails the phase
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def gspmd_write_data() -> dict:
+    """The one float64 host copy of phase 27's LASSO (1.07 GB), made here
+    in the parent: A's float32 values and bfloat16 bits, rounded on the
+    card from the float64 matrix, and b written under ``build/`` for the
+    ranks; the matrix kept on the card in float64 for the objectives.
+    The batch's 32 instances written alike, with the float64 oracle's
+    objective of each (adaptive, tol 1e-6, τ₀ 0.05)."""
+    GSPMD_DATA.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    inst = make_lasso(**GSPMD_LASSO)
+    A64 = torch.as_tensor(inst["A"], device=DEV)
+    del inst["A"], inst["op"]
+    np.save(GSPMD_DATA / "A32.npy", A64.float().cpu().numpy())
+    np.save(GSPMD_DATA / "A16.npy",
+            A64.to(torch.bfloat16).view(torch.int16).cpu().numpy())
+    b32 = np.asarray(inst["b"], np.float32)
+    np.save(GSPMD_DATA / "b.npy", b32)
+    As, bs, goals = [], [], []
+    for seed in range(GSPMD_BATCH):
+        one = make_lasso(m=GSPMD_BATCH_MN[0], n=GSPMD_BATCH_MN[1], k=100,
+                         mu=0.1, seed=seed)
+        r = fasta_np(one["op"], None, one["f"], one["gradf"], one["g"],
+                     one["proxg"], one["x0"], tau0=0.05, tol=1e-6,
+                     max_iters=5000)
+        goals.append(objective64(one, r.solution))
+        As.append(one["A"].astype(np.float32))
+        bs.append(np.asarray(one["b"], np.float32))
+        del one
+    np.save(GSPMD_DATA / "batch_A.npy", np.stack(As))
+    np.save(GSPMD_DATA / "batch_b.npy", np.stack(bs))
+    A64_batch = torch.as_tensor(np.stack(As), device=DEV).double()
+    b64_batch = torch.as_tensor(np.stack(bs), device=DEV).double()
+    print(f"[35] data written in {time.perf_counter() - t0:.1f} s: A float32 "
+          f"{A64.numel() * 4 / 1e6:.1f} MB and bfloat16 "
+          f"{A64.numel() * 2 / 1e6:.1f} MB, the batch "
+          f"{GSPMD_BATCH * np.prod(GSPMD_BATCH_MN) * 4 / 1e6:.1f} MB")
+    return dict(A64=A64, b64=torch.as_tensor(inst["b"], device=DEV),
+                mu=float(inst["mu"]), batch_goals=goals,
+                batch64=(A64_batch, b64_batch))
+
+
+def gspmd_kernels_against_plain(lasso) -> dict:
+    """K-B3 bf16 and K-B3p bf16 (logistic, squared hinge) at a rank's rows
+    of the bfloat16 LASSO (4096×16384 of two ranks) and K-B4 at a rank's
+    lanes of the batch (16×2000) and the LASSO's x (1×16384) against their plain versions (phase
+    3's and phase 18's tolerances); the maps' call and stream times beside
+    the bound of one read of the rows."""
+    gen = torch.Generator(device=DEV).manual_seed(35)
+    m, n = GSPMD_LASSO["m"] // 2, GSPMD_LASSO["n"]
+    A = lasso["A64"][:m].to(torch.bfloat16)
+    x = torch.randn(n, generator=gen, device=DEV) * 0.05
+    b = lasso["b64"][:m].float()
+    y = (b > 0).float()
+    out = {}
+    print(gradmap_plan_line(f"[35 K-B3 bf16 {m}x{n}]", m, n, True))
+    for tag, fn, ref in (
+            ("K-B3 bf16", lambda: lstsq_fused.fused_lstsq_gradmap(A, x, b),
+             lambda: lstsq_fused.lstsq_gradmap_reference(A, x, b)),
+            ("K-B3p bf16 logistic",
+             lambda: lstsq_fused.fused_pointwise_gradmap(A, x, y, "logistic"),
+             lambda: lstsq_fused.pointwise_gradmap_reference(A, x, y,
+                                                             "logistic")),
+            ("K-B3p bf16 squared_hinge",
+             lambda: lstsq_fused.fused_pointwise_gradmap(
+                 A, x, 2.0 * y - 1.0, "squared_hinge"),
+             lambda: lstsq_fused.pointwise_gradmap_reference(
+                 A, x, 2.0 * y - 1.0, "squared_hinge"))):
+        err = check_map(f"[35 {tag} {m}x{n}]", fn(), ref())
+        kern, plain = cuda_ms(fn, 20), cuda_ms(ref, 20)
+        ks = stream_ms(fn)
+        bd = bound(gradmap_bytes(m, n, 2), 4.0 * m * n)
+        print(f"[35 {tag} {m}x{n}] call, median of 20: kernel {kern:.4f} "
+              f"ms, plain {plain:.4f} ms; stream {ks:.4f} ms; bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+              f"{ks / bd['bound_ms']:.2f}x")
+        out[tag] = dict(err=err, ms=kern, plain_ms=plain, stream_ms=ks, **bd)
+    for R, n in ((GSPMD_BATCH // 2, GSPMD_BATCH_MN[1]), (1, n)):
+        x0 = torch.randn((R, n), generator=gen, device=DEV)
+        g = torch.randn((R, n), generator=gen, device=DEV)
+        tau = torch.rand(R, generator=gen, device=DEV) + 0.05
+        mu = torch.full((R,), 0.1, device=DEV)
+        got = prox_fused.fused_shrink_step(x0, g, tau, mu)
+        ref = prox_fused.shrink_step_reference(x0, g, tau, mu)
+        torch.cuda.synchronize()
+        err = float((got[0] - ref[0]).abs().max())
+        rel = max(float(((a - c).abs() / c.abs()).max())
+                  for a, c in zip(got[1:], ref[1:]))
+        print(f"[35 K-B4 {R}x{n}] max|dx1| {err:.1e} (tol 0: bit for bit); "
+              f"sums max rel {rel:.2e} (tol 1e-10)")
+        require(err == 0.0 and rel <= 1e-10,
+                f"K-B4 {R}x{n} disagrees with its plain version")
+    del A
+    return out
+
+
+def gspmd_references(lasso) -> dict:
+    """The parent's unsharded card solves of phase 35's runs (count, wall,
+    the result) and the float64 goal of each: the float32 solve from
+    scratch for the bfloat16 workflow (the refined objective's bar), the
+    unsharded run's f after 20 iterations for logistic and the squared
+    hinge, phase 31's float64 oracle runs for the later problems (run here
+    when phase 31 did not), the oracle on LASSO 1000×2000 for the
+    ``FunctionOp``, the oracle on each instance for the batch."""
+    dev = DEV
+    refs = {}
+
+    def timed(fn):
+        fn()                                   # warm-up, as the ranks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    p32, p16, b = gspmd_lasso(dev)
+    full, w_full = timed(lambda: p32.solve(**GSPMD_F32_KW))
+    f_full = lasso_objective64(lasso["A64"], lasso["b64"], lasso["mu"],
+                               full.solution)
+    r16, w16 = timed(lambda: p16.solve(**GSPMD_BF16_KW))
+    refs["bf16 lasso"] = (r16, w16, f_full)
+    res, w_res = timed(lambda: checkpoint.resume(p32, r16, **GSPMD_F32_KW))
+    refs["f32 resume"] = (res, w_res, f_full)
+    print(f"[35] unsharded card solves: float32 from scratch "
+          f"{full.iteration_count} iterations in {w_full * 1e3:.1f} ms, "
+          f"objective {f_full:.12g}; bfloat16 {r16.iteration_count} "
+          f"iterations; float32 resume {res.iteration_count}")
+    for loss in ("logistic", "squared_hinge"):
+        q = gspmd_pointwise(p16, b, loss)
+        r, w = timed(lambda q=q: q.solve(**GSPMD_POINTWISE_KW))
+        refs[f"bf16 {loss}"] = (r, w, float(r.fvals[-1]))
+    refs["p16"] = p16
+    later = REFS.get("later", {})
+    for tag, name, tau0, kw in GSPMD_LATER:
+        prob = gspmd_later_problem(name, dev)
+        mode = "accelerated" if "FISTA" in tag else "adaptive"
+        if name in later:
+            goal = later[name][mode][0]
+        else:
+            inst = prob.instance
+            o = fasta_np(inst["op"], inst.get("op_t"), inst["f"],
+                         inst["gradf"], inst["g"], inst["proxg"], inst["x0"],
+                         tau0=tau0, **{**kw, **MODE_OPTIONS[mode]})
+            goal = instance_objective(inst, o.solution)
+        r, w = timed(lambda prob=prob, tau0=tau0, kw=kw: prob.solve(
+            tau0=tau0, **kw))
+        refs[tag] = (r, w, goal)
+    prob = gspmd_later_problem("functionop lasso", dev)
+    inst = prob.instance
+    o = fasta_np(inst["op"], None, inst["f"], inst["gradf"], inst["g"],
+                 inst["proxg"], inst["x0"], tau0=0.05, **GSPMD_FOP_KW)
+    r, w = timed(lambda: prob.solve(tau0=0.05, **GSPMD_FOP_KW))
+    refs["functionop lasso"] = (r, w, objective64(inst, o.solution))
+    bp = gspmd_batch_problem(dev)
+    batch = ftt.make_batch_solver(ftt.FastaOptions(**GSPMD_BATCH_KW),
+                                  (0, 0, None, None, None))
+    r, w = timed(lambda: batch(bp.op, bp.fterm, bp.gterm, bp.x0, 0.05))
+    refs["lasso x32 batch"] = (r, w, lasso["batch_goals"])
+    refs["batch problem"] = bp
+    return refs
+
+
+def gspmd_objective(tag, lasso, row, goal) -> tuple:
+    """The run's float64 objective (per lane for the batch) and its rel to
+    the goal; for the 20-iteration pointwise runs the rank's last f."""
+    if tag in ("bf16 lasso", "f32 resume"):
+        obj = lasso_objective64(lasso["A64"], lasso["b64"], lasso["mu"],
+                                row["solution"])
+        return obj, abs(obj - goal) / abs(goal)
+    if tag.startswith("bf16 "):
+        obj = float(row["fvals"][-1])
+        return obj, abs(obj - goal) / abs(goal)
+    if tag == "lasso x32 batch":
+        A64, b64 = lasso["batch64"]
+        objs = [lasso_objective64(A64[i], b64[i], 0.1, row["solution"][i])
+                for i in range(GSPMD_BATCH)]
+        rels = [abs(o - g) / abs(g) for o, g in zip(objs, goal)]
+        return float(np.mean(objs)), max(rels)
+    inst = (problems.build("lasso", device=DEV).instance
+            if tag == "functionop lasso"
+            else problems.build(tag.split()[0], device=DEV).instance)
+    obj = instance_objective(inst, row["solution"])
+    return obj, abs(obj - goal) / abs(goal)
+
+
+def phase_sharded_gspmd() -> dict:
+    """The layouts the reference leaves to GSPMD on the card: the
+    kernels at their new shapes against their plain versions;
+    two ranks on the one card over gloo on the bfloat16 LASSO 8192×16384
+    with its checkpoint and float32 resume, logistic and the squared hinge
+    over its bfloat16 rows, matrix completion and max-norm over the
+    identity's rows, NMF and a ``FunctionOp`` LASSO replicated, LASSO × 32
+    through ``make_batch_solver`` over the lanes — against the unsharded
+    card solves and the float64 references; then a one-rank NCCL group,
+    ``torch.equal`` to the unsharded bfloat16 LASSO and batch.
+
+    The trouble spot of phase 27, the 1.07 GB float64 host copy of A,
+    stays one: the parent makes it, writes A's float32 values and
+    bfloat16 bits under ``build/`` once, and each rank loads them onto its
+    card, where ``shard_problem`` keeps the rank's rows."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from fasta_tpu_torch import sharding
+    print(f"[35] card: {smi_line()}")
+    lasso = gspmd_write_data()
+    try:
+        kernels = gspmd_kernels_against_plain(lasso)
+        refs = gspmd_references(lasso)
+        world = 2
+        ranks = run_ranks(world, target=gspmd_rank, phase=35)
+    finally:
+        shutil.rmtree(GSPMD_DATA, ignore_errors=True)
+    launches = dict.fromkeys(read_launches(), 0)
+    for tag, (cls, kernel, _) in GSPMD_EXPECT.items():
+        rows = [rk[tag] for rk in ranks]
+        row = rows[0]
+        same = all(np.array_equal(r["k"], row["k"])
+                   and np.array_equal(r["bt"], row["bt"])
+                   and all(np.array_equal(r[key], row[key])
+                           for key in SHARDED_SERIES) for r in rows[1:])
+        ref, wall1, goal = refs[tag]
+        k1 = np.asarray(ref.iteration_count)
+        obj, rel = gspmd_objective(tag, lasso, row, goal)
+        batch = tag == "lasso x32 batch"
+        # a batch's wall per iteration of its loop, which runs to the
+        # slowest lane (a rank's loop to the slowest of its own lanes)
+        its = int(np.max(row["k"]))
+        its1 = int(np.max(k1))
+        print(f"[35 gloo x{world} {tag}] {row['op']} ({row['name']}): "
+              f"converged={bool(np.all(row['converged']))} in "
+              f"{int(np.sum(row['k']))} iterations (unsharded card solve: "
+              f"{int(np.sum(k1))}), {int(np.sum(row['bt']))} backtracks; "
+              f"objective {obj:.12g} against {goal if not batch else 'the oracle per lane'}"
+              f": rel {rel:.2e}; ranks bit-identical {same}; wall per "
+              f"iteration {row['wall'] / its * 1e3:.3f} ms (unsharded "
+              f"{wall1 / its1 * 1e3:.3f} ms); card: {smi_line()}")
+        for r, rk in enumerate(rows):
+            want = gspmd_budget(tag, rk)
+            ran = rk["launches"].get(kernel) if kernel else None
+            if batch:
+                # the rank's own lanes: its loop's iterations, and at most
+                # one backtracking trial more a backtrack
+                own = slice(r * GSPMD_BATCH // world,
+                            (r + 1) * GSPMD_BATCH // world)
+                k_own = int(np.max(rk["k"][own]))
+                trials = k_own + int(np.sum(rk["bt"][own]))
+            else:
+                trials = rk["k"] + rk["bt"]
+            print(f"[35 gloo x{world} {tag}] rank {r}: "
+                  + (f"{kernel} {ran} launches for {trials} trials"
+                     + (f" (its loop: {k_own} iterations)" if batch
+                        else "") + "; " if kernel else "")
+                  + f"K-B4 {rk['launches']['K-B4']}; collectives "
+                  f"{rk['collectives']} (budget {want}); plain versions "
+                  f"{rk['plain']}")
+            require(rk["op"] == cls, f"{tag} rank {r}: operator {rk['op']}")
+            if batch:
+                require(k_own <= ran <= trials,
+                        f"{tag} rank {r}: K-B4 not one launch a batch trial")
+            elif kernel:
+                require(ran == trials,
+                        f"{tag} rank {r}: {kernel} not one launch a trial")
+            if tag in ("bf16 lasso", "f32 resume"):
+                require(rk["launches"]["K-B4"] == trials,
+                        f"{tag} rank {r}: K-B4 not one launch a trial")
+            require(rk["collectives"] == want,
+                    f"{tag} rank {r}: collectives off the budget")
+            require(not any(rk["plain"].values()),
+                    f"{tag} rank {r}: a plain version ran")
+            for key, v in rk["launches"].items():
+                launches[key] += v
+        require(same, f"{tag}: the ranks' series differ")
+        if tag.startswith("bf16 ") or tag == "f32 resume":
+            # the bfloat16 bars: counts within max(5, 20%)
+            require(abs(int(row["k"]) - int(k1)) <= max(5, int(0.2 * k1)),
+                    f"{tag}: iterations against the unsharded solve's")
+        else:
+            require(np.array_equal(row["k"], k1),
+                    f"{tag}: iterations against the unsharded solve's")
+        if GSPMD_EXPECT[tag][2] == "none":
+            require(np.array_equal(row["solution"],
+                                   ref.solution.cpu().numpy()
+                                   if torch.is_tensor(ref.solution)
+                                   else ref.solution),
+                    f"{tag}: the replicated solve differs from the "
+                    f"unsharded one")
+        # the mixed-precision bar for the bfloat16 LASSO and its refinement
+        # against the float32 solve from scratch, 1e-5 elsewhere
+        band = 1e-4 if tag in ("bf16 lasso", "f32 resume") else 1e-5
+        pointwise = tag in ("bf16 logistic", "bf16 squared_hinge")
+        require(pointwise or bool(np.all(row["converged"])),
+                f"{tag} did not converge")
+        require(np.isfinite(obj) and rel <= band,
+                f"{tag}: objective {rel:.2e} off its band {band:g}")
+
+    require(not dist.is_initialized(), "a process group exists already")
+    mesh = sharding.make_mesh()           # a one-rank NCCL group
+    backend = dist.get_backend()
+    try:
+        require(backend == "nccl", f"the one-rank group is {backend}")
+        p16 = refs["p16"]
+        sp = sharding.shard_problem(p16, mesh)
+        opts = ftt.FastaOptions(**GSPMD_BF16_KW)
+        reset_launches()
+        sharding.reset_collective_counts()
+        got = ftt.make_solver(opts)(sp.op, sp.fterm, sp.gterm, sp.x0, 0.05)
+        torch.cuda.synchronize()
+        run, colls = read_launches(), sharding.collective_counts()
+        ref = ftt.make_solver(opts)(p16.op, p16.fterm, p16.gterm, p16.x0,
+                                    0.05)
+        same = {key: torch.equal(getattr(got, key), getattr(ref, key))
+                for key in ("solution", "taus", "residuals", "fvals",
+                            "backtracks")}
+        row = dict(k=got.iteration_count, bt=got.total_backtracks)
+        want = gspmd_budget("bf16 lasso", row)
+        print(f"[35 {backend} x1 bf16 lasso] {got.iteration_count} "
+              f"iterations (unsharded {ref.iteration_count}); torch.equal to "
+              f"the unsharded card solve {same}; K-B3 bf16 "
+              f"{run['K-B3 bf16']} launches for {row['k'] + row['bt']} "
+              f"trials; collectives {colls} (budget {want})")
+        require(all(same.values())
+                and got.iteration_count == ref.iteration_count,
+                "the one-rank bfloat16 group differs from the unsharded "
+                "solve")
+        require(run["K-B3 bf16"] == row["k"] + row["bt"] and colls == want,
+                "the one-rank bfloat16 group's launches or collectives")
+        for key, v in run.items():
+            launches[key] += v
+        bp = refs["batch problem"]
+        sp = sharding.shard_problem(bp, mesh)
+        batch = ftt.make_batch_solver(ftt.FastaOptions(**GSPMD_BATCH_KW),
+                                      (0, 0, None, None, None))
+        reset_launches()
+        sharding.reset_collective_counts()
+        got = batch(sp.op, sp.fterm, sp.gterm, sp.x0, 0.05)
+        torch.cuda.synchronize()
+        run, colls = read_launches(), sharding.collective_counts()
+        ref = refs["lasso x32 batch"][0]
+        same = {key: torch.equal(getattr(got, key), getattr(ref, key))
+                for key in ("solution", "taus", "residuals", "backtracks")}
+        same["iteration_count"] = np.array_equal(got.iteration_count,
+                                                 ref.iteration_count)
+        print(f"[35 {backend} x1 lasso x32 batch] torch.equal to the "
+              f"unsharded card batch {same}; K-B4 {run['K-B4']} launches; "
+              f"collectives {colls}")
+        require(all(same.values()) and colls == {"all_gather": 1},
+                "the one-rank batch differs from the unsharded batch")
+        for key, v in run.items():
+            launches[key] += v
+    finally:
+        dist.destroy_process_group()
+    for key in ("K-B3 bf16", "K-B3p bf16", "K-B4", "K-B3"):
+        require(launches[key] >= 1, f"{key} never launched in phase 35")
+    print(f"[35] launches of the GSPMD layouts' runs (both ranks and the "
+          f"one-rank group): {launches}")
+    return dict(launches=launches, kernels=kernels)
+
+
 def main() -> None:
-    name = phase_device()
-    phase_build()
-    b3 = phase_gradmap()
-    b1 = phase_microsolver()
-    lasso = phase_main_path()
-    b3p = phase_pointwise()
-    b1_pairs = phase_pairs()
-    b1p = phase_path()
-    dense = phase_dense_main_path()
-    b5 = phase_tv_gradmap()
-    b6 = phase_tv_microsolver()
-    b6p = phase_tv_path()
-    tv = phase_tv_main_path()
-    b7 = phase_planar_gradmap()
-    p5 = phase_planar_probe()
-    b8 = phase_planar_microsolver()
-    pr = phase_pr_main_path()
-    b4 = phase_shrink_step()
-    b1b = phase_batch_dense()
-    b6b = phase_batch_tv()
-    b8b = phase_batch_planar()
-    serving = phase_serving()
-    b3_16, b3p_16 = phase_bf16_gradmap()
-    b7_16 = phase_bf16_planar_gradmap()
-    p4 = phase_bf16_probe()
-    b8w = phase_wide_planar()
-    bf16 = phase_bf16_main_path()
-    p2 = phase_gradmap_check()
-    p1 = phase_matvec_probe()
-    p1g = phase_gradmap_probe()
-    p3 = phase_tail_probe()
-    later = phase_later_problems()
-    resume = phase_exact_resume()
-    sharded = phase_sharded()
-    sharded_x = phase_sharded_x()
+    t_start, seconds = time.perf_counter(), {}
+
+    def run(phase):
+        """``phase()``, its wall seconds kept for the line before the
+        kernels line."""
+        t = time.perf_counter()
+        out = phase()
+        seconds[phase.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    name = run(phase_device)
+    run(phase_build)
+    b3 = run(phase_gradmap)
+    b1 = run(phase_microsolver)
+    lasso = run(phase_main_path)
+    b3p = run(phase_pointwise)
+    b1_pairs = run(phase_pairs)
+    b1p = run(phase_path)
+    dense = run(phase_dense_main_path)
+    b5 = run(phase_tv_gradmap)
+    b6 = run(phase_tv_microsolver)
+    b6p = run(phase_tv_path)
+    tv = run(phase_tv_main_path)
+    b7 = run(phase_planar_gradmap)
+    p5 = run(phase_planar_probe)
+    b8 = run(phase_planar_microsolver)
+    pr = run(phase_pr_main_path)
+    b4 = run(phase_shrink_step)
+    b1b = run(phase_batch_dense)
+    b6b = run(phase_batch_tv)
+    b8b = run(phase_batch_planar)
+    serving = run(phase_serving)
+    b3_16, b3p_16 = run(phase_bf16_gradmap)
+    b7_16 = run(phase_bf16_planar_gradmap)
+    p4 = run(phase_bf16_probe)
+    b8w = run(phase_wide_planar)
+    bf16 = run(phase_bf16_main_path)
+    p2 = run(phase_gradmap_check)
+    p1 = run(phase_matvec_probe)
+    p1g = run(phase_gradmap_probe)
+    p3 = run(phase_tail_probe)
+    later = run(phase_later_problems)
+    resume = run(phase_exact_resume)
+    sharded = run(phase_sharded)
+    sharded_x = run(phase_sharded_x)
+    gspmd = run(phase_sharded_gspmd)
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
                 + serving["launches"][k] + b8w["launches"][k]
                 + bf16["launches"][k] + later["launches"][k]
                 + resume["launches"][k] + sharded["launches"][k]
-                + sharded_x["launches"][k]
+                + sharded_x["launches"][k] + gspmd["launches"][k]
                 for k in lasso}
     del b8w["launches"]
     launches["K-P5"] = p5.pop("launches_timed")
@@ -4940,6 +5546,8 @@ def main() -> None:
              replaces="benchmarks/micro_tail_probe.py:411",
              launches=launches["K-P3"], **p3),
     ]
+    print(f"[time] seconds a phase: {seconds}; the whole script "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

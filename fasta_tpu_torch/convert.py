@@ -80,20 +80,34 @@ def _sparse_entries(data, idx, offsets) -> tuple:
     return data[keep], rows[keep], cols[keep]
 
 
-def sharded_op_arrays(op) -> dict:
-    """The global arrays of a JAX sharded operator (``fasta_tpu.sharding``'s
-    ``RowShardedDenseOp``, ``RowShardedPlanarDenseOp``, ``ShardedCDPOp``,
-    ``RowShardedSparseOp``, ``GridShardedDenseOp``, ``GridShardedSparseOp``,
-    ``GridShardedPlanarDenseOp`` or ``RowShardedTVDivOp``) as NumPy, with
-    its ``kind``: what :func:`sharded_op_from_arrays` takes on each rank.
-    The sparse blocks' padding (zero entries) is dropped and their indices
-    offset to the whole matrix's."""
+def sharded_op_arrays(op, rows: Optional[int] = None) -> dict:
+    """The global arrays of the operator of a problem that
+    ``fasta_tpu.sharding`` placed (its ``RowShardedDenseOp`` — a stacked
+    A (B, m, n) splits its lanes — ``RowShardedPlanarDenseOp`` (stacked
+    alike), ``ShardedCDPOp``, ``RowShardedSparseOp``,
+    ``GridShardedDenseOp``, ``GridShardedSparseOp``,
+    ``GridShardedPlanarDenseOp`` or ``RowShardedTVDivOp``, or an operator
+    it left to GSPMD: a ``LowPrecDenseOp``, whose bfloat16 matrix crosses
+    as its bits, or an ``IdentityOp``, which carries no shape: ``rows``
+    gives x's rows) as NumPy, with its ``kind``: what
+    :func:`sharded_op_from_arrays` takes on each rank.  The sparse blocks'
+    padding (zero entries) is dropped and their indices offset to the
+    whole matrix's."""
     kind = type(op).__name__
     if kind == "RowShardedDenseOp":
-        return {"kind": "dense", "A": np.asarray(op.A)}
+        A = np.asarray(op.A)
+        return {"kind": "lanes_dense" if A.ndim == 3 else "dense", "A": A}
     if kind == "RowShardedPlanarDenseOp":
-        return {"kind": "planar", "Ar": np.asarray(op.Ar),
-                "Ai": np.asarray(op.Ai)}
+        Ar = np.asarray(op.Ar)
+        return {"kind": "lanes_planar" if Ar.ndim == 3 else "planar",
+                "Ar": Ar, "Ai": np.asarray(op.Ai)}
+    if kind == "LowPrecDenseOp":
+        return {"kind": "lowprec", "A": np.asarray(op.A)}
+    if kind == "IdentityOp":
+        if rows is None:
+            raise ValueError("an IdentityOp carries no shape: pass rows, "
+                             "the leading axis of x")
+        return {"kind": "identity", "rows": int(rows)}
     if kind == "ShardedCDPOp":
         return {"kind": "cdp", "mods": np.asarray(op.mods),
                 "wins": np.asarray(op.wins)}
@@ -157,6 +171,17 @@ def sharded_op_from_arrays(arrays: dict, mesh):
         M = sp.coo_matrix((arrays["data"], (arrays["rows"], arrays["cols"])),
                           shape=arrays["shape"])
         return sh.RowShardedSparseOp.from_scipy(M, mesh)
+    if kind == "lowprec":
+        return sh.RowShardedLowPrecDenseOp(
+            sh.shard_rows(_stored(arrays["A"], "cpu"), mesh), mesh)
+    if kind == "identity":
+        return sh.RowShardedIdentityOp(arrays["rows"], mesh)
+    if kind == "lanes_dense":
+        return sh.LaneShardedDenseOp(sh.shard_rows(arrays["A"], mesh), mesh)
+    if kind == "lanes_planar":
+        return sh.LaneShardedPlanarDenseOp(sh.shard_rows(arrays["Ar"], mesh),
+                                           sh.shard_rows(arrays["Ai"], mesh),
+                                           mesh)
     raise ValueError(f"no sharded operator of kind {kind!r}")
 
 

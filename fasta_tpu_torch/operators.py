@@ -86,6 +86,13 @@ class LinearOp:
         split, as a tuple: ``parts`` themselves here."""
         return parts
 
+    def gather_lanes(self, result):
+        """``solver.make_batch_solver``'s result over this operator's lanes
+        as the caller sees it: ``result`` itself here.  An operator whose
+        rank holds a block of the lanes (``sharding``'s lane layouts)
+        gathers every rank's lanes."""
+        return result
+
 
 class AdjointOp(LinearOp):
     def __init__(self, base: LinearOp):
@@ -269,6 +276,13 @@ class LowPrecDenseOp(LinearOp):
             device = default_device(device, "LowPrecDenseOp.from_dense")
             A = torch.as_tensor(np.asarray(A))
         return cls(A.to(device=device, dtype=storage_dtype))
+
+    @property
+    def stored_bytes(self) -> int:
+        """The stored matrix's bytes, which the 64 MB gate of the one-read
+        gradient maps judges (``terms._lowprec_fused``); a rank's rows of
+        a row-sharded matrix answer for the whole matrix."""
+        return self.A.numel() * self.A.element_size()
 
     def _rounded(self, v):
         """``v`` rounded to the storage type, as float32."""

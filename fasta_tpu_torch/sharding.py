@@ -27,6 +27,20 @@ Two families of layouts, both driving the one solver:
   wrapped in ``SignalShardedProx`` (its value completed, the L∞ norm's
   prox over the gathered x).
 
+* **The layouts the reference leaves to XLA's partitioner** (GSPMD places
+  the leaves and partitions the rest; PyTorch has none, so each is a
+  layout here): a bfloat16 ``LowPrecDenseOp`` over rows
+  (``RowShardedLowPrecDenseOp``: K-B3 / K-B3p bf16 on the rank's rows,
+  the 64 MB gate judged on the whole matrix); an ``IdentityOp`` whose
+  smooth term's data has x's rows (``RowShardedIdentityOp``: x
+  replicated, the term's rows split, one all-reduce a gradient map); a
+  stacked ``DenseOp`` or ``PlanarDenseOp`` over its lanes
+  (``LaneShardedDenseOp``, ``LaneShardedPlanarDenseOp``: whole members a
+  rank, no collective in the batch solver's loop, one all-gather of the
+  result after it); and the replicated layout for what has no split form
+  (``FunctionOp``, a ``FunctionSmooth``, NMF, the other structured
+  operators): every rank solves the whole problem with no collective.
+
 An all-reduce hands every rank the same sum, so **every rank takes the
 same stepsize and stopping decisions**, bit for bit.
 
@@ -42,12 +56,10 @@ partitioner, so both build the explicit operators here.
 Every all-reduce sums in float64 (complex as float64 pairs) and rounds
 each result back to its own dtype once; on one rank it returns its input
 bit for bit, so a one-rank group solves exactly as the unsharded port
-does.  Nothing is gathered but the L∞ prox's x.  Every collective goes
-through one function that counts it by kind (:func:`collective_counts`).
-
-The operators the reference leaves to GSPMD (``LowPrecDenseOp``, a
-batched ``DenseOp``, ``IdentityOp``, ``FunctionOp``) have no sharded form
-here: ``shard_problem`` raises, naming ROADMAP Queue A item 13c.
+does.  Nothing is gathered but x for a prox that needs all of it (L∞,
+the nuclear norm, a closure) and a lane-split batch's result.  Every
+collective goes through one function that counts it by kind
+(:func:`collective_counts`).
 """
 
 from __future__ import annotations
@@ -56,22 +68,28 @@ import copy
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as torch_dist
 
-from .operators import (ComposeOp, DenseOp, DiagonalOp, LinearOp,
-                        MaskedFourierOp, PlanarDenseOp, ScaledOp, SparseOp,
-                        StackedOp, TVDiv2D, randn_like)
+from .operators import (ComposeOp, DenseOp, DiagonalOp, IdentityOp,
+                        LinearOp, LowPrecDenseOp, MaskedFourierOp,
+                        PlanarDenseOp, ScaledOp, SparseOp, StackedOp,
+                        TVDiv2D, randn_like)
 from .problem import Problem
 from .terms import (BoxIndicator, FunctionSmooth, L1Norm, L2Norm2, L21Norm,
                     LeastSquares, LinearAnchor, LinfBallIndicator, LinfNorm,
-                    NonnegIndicator, PlanarLinearAnchor, ProxTerm,
-                    SmoothTerm, ZeroTerm)
+                    Logistic, MaskedLogistic, MaxRowNormBall,
+                    NonnegIndicator, PhaseHinge, PlanarLinearAnchor,
+                    PlanarPhaseHinge, ProxTerm, SmoothTerm, SquaredHinge,
+                    ZeroTerm)
 
 __all__ = [
     "make_mesh", "make_mesh_2d", "mesh_device", "replicate", "shard_rows",
     "shard_cols", "shard_problem", "shard_problem_2d", "RowShardedDenseOp",
     "RowShardedPlanarDenseOp", "ShardedCDPOp", "RowShardedSparseOp",
+    "RowShardedLowPrecDenseOp", "RowShardedIdentityOp",
+    "LaneShardedDenseOp", "LaneShardedPlanarDenseOp",
     "GridShardedDenseOp", "GridShardedSparseOp", "GridShardedPlanarDenseOp",
     "RowShardedTVDivOp", "RowShardedSmooth", "SignalShardedProx",
     "sharded_lstsq_gradmap", "sharded_pointwise_gradmap",
@@ -82,18 +100,15 @@ __all__ = [
     "collective_counts", "reset_collective_counts",
 ]
 
-_NEXT_ITEM = ("ROADMAP Queue A item 13c (the operators the reference leaves "
-              "to GSPMD: LowPrecDenseOp, a batched DenseOp, IdentityOp, "
-              "FunctionOp)")
-
 
 # --------------------------------------------------------------------------
 # Collectives: one counted entry point
 # --------------------------------------------------------------------------
 
 # Collectives this process made, by kind: sums ("all_reduce"), the L∞
-# norm's max ("all_reduce_max") and its prox's gather of x ("all_gather"),
-# and the TV stencils' neighbour exchanges ("halo").  Gloo takes card
+# norm's max ("all_reduce_max"), gathers ("all_gather": x for a prox that
+# needs all of it, a lane-split batch's result) and the TV stencils'
+# neighbour exchanges ("halo").  Gloo takes card
 # tensors in its collectives itself, through host copies of its own
 # (staging them here saved nothing: tools/gloo_allreduce.py).
 _COLLECTIVES = {"all_reduce": 0, "all_reduce_max": 0, "all_gather": 0,
@@ -489,6 +504,174 @@ def _host_csr(op: SparseOp):
                           M.crow_indices().numpy()), shape=tuple(M.shape))
 
 
+class _LowPrecRows(LowPrecDenseOp):
+    """A rank's rows of a ``LowPrecDenseOp``, which answers the 64 MB gate
+    for the whole matrix (``whole_bytes``): the gate chooses the function
+    (the kernel keeps x in float32, the two-call path rounds it to
+    bfloat16), so every rank must choose what the unsharded solve
+    chooses."""
+
+    def __init__(self, A: torch.Tensor, whole_bytes: int):
+        super().__init__(A)
+        self.whole_bytes = whole_bytes
+
+    @property
+    def stored_bytes(self) -> int:
+        return self.whole_bytes
+
+
+class RowShardedLowPrecDenseOp(_RowSharded):
+    """A low-precision (bfloat16) dense operator with its rows split over
+    the mesh: ``A`` is this rank's block of rows in the storage type
+    (:func:`shard_rows` of ``LowPrecDenseOp.A``).  The reference places
+    A's rows on the mesh and leaves the product to XLA
+    (``fasta_tpu/sharding.py:1095-1106``); here, as
+    :class:`RowShardedDenseOp`: the forward local, x rounded to the
+    storage type as ``LowPrecDenseOp`` rounds it; the adjoint local and
+    one all-reduce.  The fused map is the rank's one-read pass — kernel
+    K-B3 bf16 for least squares, K-B3p bf16 for the logistic loss and the
+    squared hinge — and one all-reduce, when the WHOLE matrix passes the
+    64 MB gate (``terms._lowprec_fused``, judged as the reference's gate
+    judges the global matrix), else the two-call pass and one
+    all-reduce."""
+
+    def __init__(self, A: torch.Tensor, mesh, axis_name: str = "rows"):
+        size = _axis(mesh, axis_name)[1]
+        super().__init__(_LowPrecRows(A, A.numel() * A.element_size() * size),
+                         mesh, axis_name)
+        self.A = A
+
+    @property
+    def shape(self):
+        m, n = self.A.shape
+        return (m * self.size, n)
+
+
+class _Rows(LinearOp):
+    """The rows [lo, lo + k) of a variable whose leading axis is m: the
+    forward takes them, the adjoint puts them back into a zero tensor
+    shaped like the variable.  Leading axes of ``lanes`` are lanes."""
+
+    def __init__(self, lo: int, k: int, m: int):
+        self.lo, self.k, self.m = lo, k, m
+
+    def __call__(self, x):
+        return x[self.lo:self.lo + self.k]
+
+    def rmatvec(self, y):
+        out = y.new_zeros((self.m,) + tuple(y.shape[1:]))
+        out[self.lo:self.lo + self.k] = y
+        return out
+
+    def lanes(self, x):
+        return x[:, self.lo:self.lo + self.k]
+
+    def rmatvec_lanes(self, y):
+        out = y.new_zeros((y.shape[0], self.m) + tuple(y.shape[2:]))
+        out[:, self.lo:self.lo + self.k] = y
+        return out
+
+
+class RowShardedIdentityOp(_RowSharded):
+    """The identity with the smooth term's rows split over the mesh: x
+    (its leading axis of ``m`` rows) is replicated, and this rank's
+    measurements are its rows of x (matrix completion's
+    ``MaskedLogistic``, max-norm's ``LeastSquares``: the reference places
+    the term's Y, mask or b by rows and leaves the elementwise loss to
+    XLA, ``fasta_tpu/sharding.py:1095-1106``).  Forward: the rank's rows,
+    no communication.  Adjoint: the rows put back into a zero tensor
+    shaped like x and one all-reduce (the float64 sum of one nonzero
+    block and zeros is that block, so the gradient is the unsharded
+    one's bit for bit).  The fused map is the rank's two-call pass and
+    one all-reduce of (f, g); the prox runs on the replicated x on every
+    rank."""
+
+    def __init__(self, m: int, mesh, axis_name: str = "rows"):
+        rank, size, _ = _axis(mesh, axis_name)
+        if m % size:
+            raise ValueError(f"row count {m} not divisible by mesh {size}")
+        k = m // size
+        super().__init__(_Rows(rank * k, k, m), mesh, axis_name)
+        self.m = m
+
+
+def _gather_lanes(group, size: int, result):
+    """A batch result over this rank's lanes (``solver.DeviceResult``) with
+    every rank's lanes in rank order: ONE all-gather of one float64 buffer
+    (B/ranks, ...) holding every field — the counts and flags too — each
+    field then restored to its own type (every value is exact in float64:
+    float32, complex parts, counts below 2⁵³, flags)."""
+    dev = result.solution.device
+    fields, flat = [], []
+    for name, v in zip(result._fields, result):
+        if v is None:
+            continue
+        t = torch.as_tensor(v, device=dev)
+        wide = torch.view_as_real(t.to(torch.complex128)) if t.is_complex() \
+            else t.to(torch.float64)
+        fields.append((name, v, t))
+        flat.append(wide.reshape(t.shape[0], -1))
+    whole = _gather_over_ranks(group, size, torch.cat(flat, dim=1), 0)
+    out, at = {}, 0
+    for (name, v, t), f in zip(fields, flat):
+        seg = whole[:, at:at + f.shape[1]]
+        at += f.shape[1]
+        shape = (whole.shape[0],) + tuple(t.shape[1:])
+        if t.is_complex():
+            pairs = seg.reshape(shape + (2,))
+            seg = torch.complex(pairs[..., 0], pairs[..., 1])
+        seg = seg.reshape(shape).to(t.dtype)
+        out[name] = (seg.cpu().numpy() if isinstance(v, np.ndarray)
+                     else seg.contiguous())
+    return result._replace(**out)
+
+
+class _LaneSharded:
+    """A stacked operator (one matrix a lane of
+    ``solver.make_batch_solver``, its leading axis the lanes) whose rank
+    holds whole members: B/ranks of them.  Every product is the rank's
+    own, so the batch solver's loop makes no collective — a lane never
+    depends on another lane, a stopped lane being frozen — and its result
+    over the rank's lanes is gathered once after the loop
+    (:meth:`gather_lanes`, one all-gather), so that every rank holds every
+    lane, as the reference's global arrays do."""
+
+    def _on_mesh(self, mesh, axis_name: str):
+        self.mesh, self.axis_name = mesh, axis_name
+        self.rank, self.size, self.group = _axis(mesh, axis_name)
+
+    def gather_lanes(self, result):
+        return _gather_lanes(self.group, self.size, result)
+
+    @property
+    def shape(self):
+        B, m, n = getattr(self, self.lane_fields[0]).shape
+        return (B * self.size, m, n)
+
+
+class LaneShardedDenseOp(_LaneSharded, DenseOp):
+    """A stacked ``DenseOp`` (A (B, m, n)) with its lanes split over the
+    mesh: ``A`` is this rank's (B/ranks, m, n) members (the reference's
+    ``RowShardedDenseOp`` over a 3-D A, placed ``P('rows', None, None)``,
+    ``fasta_tpu/sharding.py:1095-1124``).  See :class:`_LaneSharded`."""
+
+    def __init__(self, A: torch.Tensor, mesh, axis_name: str = "rows"):
+        DenseOp.__init__(self, A)
+        self._on_mesh(mesh, axis_name)
+
+
+class LaneShardedPlanarDenseOp(_LaneSharded, PlanarDenseOp):
+    """A stacked ``PlanarDenseOp`` (Ar, Ai (B, m, n)) with its lanes split
+    over the mesh: ``Ar`` and ``Ai`` are this rank's members (the
+    reference sends it to ``RowShardedPlanarDenseOp`` by the same rule,
+    ``fasta_tpu/sharding.py:1125-1127``).  See :class:`_LaneSharded`."""
+
+    def __init__(self, Ar: torch.Tensor, Ai: torch.Tensor, mesh,
+                 axis_name: str = "rows"):
+        PlanarDenseOp.__init__(self, Ar, Ai)
+        self._on_mesh(mesh, axis_name)
+
+
 # --------------------------------------------------------------------------
 # Layouts that shard x: the 2-D rows×cols meshes
 # --------------------------------------------------------------------------
@@ -709,6 +892,13 @@ class _ShardedGradmap:
         self.local_op, self.term, self.group = local_op, term, group
         self.decision = decision
         self._local = _local_pass(local_op, term)
+        # Over the rows of a LowPrecDenseOp below the gate and of the
+        # identity, the unsharded solve has no map: it takes the two-call
+        # path and FISTA evaluates the gradient at the extrapolated point
+        # (for bfloat16 storage, the rounding makes the map no affine
+        # function of d), so the solver must not extrapolate this map's.
+        self.affine = (term.fused_gradmap(local_op) is not None
+                       or not isinstance(local_op, (LowPrecDenseOp, _Rows)))
 
     def __call__(self, x):
         d, f, g = self._local(x)
@@ -869,7 +1059,6 @@ def sharded_pointwise_gradmap(op: RowShardedDenseOp, data: torch.Tensor,
     with one all-reduce (``fasta_tpu/sharding.py:262-288``); ``data`` is
     this rank's labels.  The local pass is K-B3p on a float32 block on the
     card."""
-    from .terms import Logistic, SquaredHinge
     terms = {"logistic": Logistic, "squared_hinge": SquaredHinge}
     if loss not in terms:
         raise ValueError(f"unknown pointwise loss {loss!r} (choose "
@@ -880,7 +1069,6 @@ def sharded_pointwise_gradmap(op: RowShardedDenseOp, data: torch.Tensor,
 def sharded_phase_hinge_gradmap(op: RowShardedDenseOp, b: torch.Tensor):
     """The PhaseMax hinge over a complex row-sharded matrix, Wirtinger
     gradient, one all-reduce (``fasta_tpu/sharding.py:311-331``)."""
-    from .terms import PhaseHinge
     return _sharded_map(op, PhaseHinge(b), op.axis_name)
 
 
@@ -889,7 +1077,6 @@ def sharded_planar_phase_hinge_gradmap(op: RowShardedPlanarDenseOp,
     """The PhaseMax hinge over planar channels, one all-reduce
     (``fasta_tpu/sharding.py:226-259``); the local pass is K-B7 on float32
     or bfloat16 channels on the card."""
-    from .terms import PlanarPhaseHinge
     return _sharded_map(op, PlanarPhaseHinge(b), op.axis_name)
 
 
@@ -897,7 +1084,6 @@ def sharded_cdp_phase_hinge_gradmap(op: ShardedCDPOp, b: torch.Tensor):
     """The PhaseMax hinge over the coded-diffraction stack: batched local
     FFTs, one all-reduce (``fasta_tpu/sharding.py:394-416``); ``b`` is this
     rank's (K/ranks, n) magnitudes."""
-    from .terms import PhaseHinge
     return _sharded_map(op, PhaseHinge(b), op.axis_name)
 
 
@@ -926,7 +1112,6 @@ def sharded_planar_phase_hinge_gradmap_2d(op: GridShardedPlanarDenseOp,
                                           b: torch.Tensor):
     """The PhaseMax hinge over planar channels on the 2-D mesh, ``b`` this
     rank's (m/R,) magnitudes (``fasta_tpu/sharding.py:855-865``)."""
-    from .terms import PlanarPhaseHinge
     return _sharded_map(op, PlanarPhaseHinge(b), op.row_axis)
 
 
@@ -946,10 +1131,12 @@ def sharded_tv_lstsq_gradmap(op: RowShardedTVDivOp, b: torch.Tensor,
 # --------------------------------------------------------------------------
 
 # Prox terms whose value is a sum over x's entries and whose prox acts on
-# each entry (each row, for the L2,1 norm, whose rows run along x's split
-# axis) alone: on a block of x they need only the value completed.
+# each entry (each row, for the L2,1 norm and the max-row-norm ball, whose
+# rows run along x's split axis) alone: on a block of x they need only
+# the value completed.
 _SEPARABLE = (L1Norm, L21Norm, L2Norm2, LinearAnchor, PlanarLinearAnchor,
-              NonnegIndicator, BoxIndicator, LinfBallIndicator, ZeroTerm)
+              NonnegIndicator, BoxIndicator, LinfBallIndicator,
+              MaxRowNormBall, ZeroTerm)
 
 
 class SignalShardedProx(ProxTerm):
@@ -957,65 +1144,68 @@ class SignalShardedProx(ProxTerm):
     linear anchors) this rank's block too: x is split along ``dim`` over
     the ranks of ``axis_name``.
 
-    The value is completed over those ranks: a sum all-reduce for the
-    separable terms (the L1, L2,1 and ridge norms, the linear anchors, the
-    indicators), a **max** all-reduce for ``LinfNorm`` (its own kind in
-    :func:`collective_counts`).  The solver gathers a separable term's
-    share into its iteration's one sum over x (``partial_value_lanes``).
-    The prox is local for the separable terms; ``LinfNorm``'s sorts all of
-    x, so it gathers the blocks (one all-gather, its own kind), runs on
-    the whole vector on every rank and keeps the rank's block, as the
-    reference's 2-D democratic case does
-    (``tests/sharded/test_sharded_breadth.py:250-279``).  ``block_term``
-    is the wrapped term, so the solver still sees an ``L1Norm`` and runs
-    kernel K-B4 on the rank's block.  Other terms raise
-    ``NotImplementedError``."""
+    The separable terms (the L1, L2,1 and ridge norms, the linear
+    anchors, the indicators, the max-row-norm ball) act on the block: the
+    prox is local and the value a sum all-reduce, which the solver
+    gathers into its iteration's one sum over x (``partial_value_lanes``);
+    ``block_term`` is the wrapped term, so the solver still sees an
+    ``L1Norm`` and runs kernel K-B4 on the rank's block.  ``LinfNorm``'s
+    value is a **max** all-reduce (its own kind in
+    :func:`collective_counts`).  Every other term — ``LinfNorm``'s prox,
+    which sorts all of x, the nuclear norm, a ``FunctionProx`` — needs the
+    whole of x: one all-gather of the blocks (its own kind), the prox (and
+    the value, with no sum) on the whole x on every rank, the rank's
+    block of the prox kept, as the reference's 2-D democratic case does
+    (``tests/sharded/test_sharded_breadth.py:250-279``) and as GSPMD
+    gathers a sharded operand of a non-elementwise function."""
 
     def __init__(self, term: ProxTerm, mesh, axis_name: str = "cols",
                  dim: int = 0):
-        if not isinstance(term, _SEPARABLE + (LinfNorm,)):
-            raise NotImplementedError(
-                f"{type(term).__name__} has no form over a block of x "
-                f"(the reference leaves it to GSPMD); see {_NEXT_ITEM}")
         self.term = term
         self.mesh = mesh
         self.axis_name = axis_name
         self.dim = dim
         self.rank, self.size, self.group = _axis(mesh, axis_name)
+        self._local = isinstance(term, _SEPARABLE)
         self._max = isinstance(term, LinfNorm)
 
     @property
     def block_term(self) -> ProxTerm:
         return self.term
 
+    def _gathered(self, z, dim: int):
+        """The whole of x from the ranks' blocks: one all-gather."""
+        return _gather_over_ranks(self.group, self.size, z, dim)
+
     def _whole(self, fn, z, t, dim: int):
         """``fn`` (the wrapped term's prox) on the gathered x, this rank's
         block of the result."""
         k = z.shape[dim]
-        whole = _gather_over_ranks(self.group, self.size, z, dim)
-        return fn(whole, t).narrow(dim, self.rank * k, k).clone()
+        return fn(self._gathered(z, dim), t).narrow(
+            dim, self.rank * k, k).clone()
 
     def value(self, x):
         return self.value_lanes(x[None])[0]
 
     def value_lanes(self, x):
-        v = self.term.value_lanes(x)
+        if self._local:
+            return _sum_over_ranks(self.group, self.term.value_lanes(x))[0]
         if self._max:
-            return _max_over_ranks(self.group, v)
-        return _sum_over_ranks(self.group, v)[0]
+            return _max_over_ranks(self.group, self.term.value_lanes(x))
+        return self.term.value_lanes(self._gathered(x, self.dim + 1))
 
     def partial_value_lanes(self, x):
-        return None if self._max else self.term.value_lanes(x)
+        return self.term.value_lanes(x) if self._local else None
 
     def prox(self, z, t):
-        if self._max:
-            return self._whole(self.term.prox, z, t, self.dim)
-        return self.term.prox(z, t)
+        if self._local:
+            return self.term.prox(z, t)
+        return self._whole(self.term.prox, z, t, self.dim)
 
     def prox_lanes(self, z, t):
-        if self._max:
-            return self._whole(self.term.prox_lanes, z, t, self.dim + 1)
-        return self.term.prox_lanes(z, t)
+        if self._local:
+            return self.term.prox_lanes(z, t)
+        return self._whole(self.term.prox_lanes, z, t, self.dim + 1)
 
 
 # --------------------------------------------------------------------------
@@ -1030,29 +1220,46 @@ def _is_cdp_stack(op) -> bool:
                     for member in op.ops))
 
 
+def _rows_of(obj, m: int, mesh, axis_name: str):
+    """A copy of a term whose tensors with a leading axis of m hold this
+    rank's rows (the reference's placement rule), the others on this
+    rank's device."""
+    out = copy.copy(obj)
+    for name, value in vars(obj).items():
+        if isinstance(value, torch.Tensor):
+            setattr(out, name,
+                    shard_rows(value, mesh, axis_name)
+                    if value.ndim >= 1 and value.shape[0] == m
+                    else replicate(value, mesh))
+    return out
+
+
 def _sharded_term(term: SmoothTerm, m: int, mesh, axis_name: str,
                   **kwargs):
     """A copy of ``term`` whose tensors with a leading axis of m hold this
-    rank's rows (the reference's placement rule), wrapped to sum over the
-    ranks."""
-    if isinstance(term, (FunctionSmooth, RowShardedSmooth)):
-        raise NotImplementedError(
-            f"shard_problem: {type(term).__name__} holds no data tensor to "
-            f"place on the mesh")
-    local = copy.copy(term)
-    for name, value in vars(term).items():
-        if isinstance(value, torch.Tensor) and value.ndim >= 1 \
-                and value.shape[0] == m:
-            setattr(local, name, shard_rows(value, mesh, axis_name))
-    return RowShardedSmooth(local, mesh, axis_name, **kwargs)
+    rank's rows, wrapped to sum over the ranks."""
+    if isinstance(term, RowShardedSmooth):
+        raise ValueError("shard_problem: the problem is placed already")
+    return RowShardedSmooth(_rows_of(term, m, mesh, axis_name), mesh,
+                            axis_name, **kwargs)
 
 
-def _replicated(term, mesh):
-    """A copy of a prox term with its tensors on this rank's device."""
-    out = copy.copy(term)
-    for name, value in vars(term).items():
-        if isinstance(value, torch.Tensor):
-            setattr(out, name, replicate(value, mesh))
+def _replicated(obj, mesh):
+    """A copy of an operator or a term with its tensors — and those of the
+    operators and terms it holds — on this rank's device (a tensor there
+    already is kept, not copied); closures are left as they are."""
+    def place(v):
+        if isinstance(v, torch.Tensor):
+            return replicate(v, mesh)
+        if isinstance(v, (LinearOp, SmoothTerm, ProxTerm)):
+            return _replicated(v, mesh)
+        if isinstance(v, tuple) and v and all(isinstance(u, LinearOp)
+                                              for u in v):
+            return tuple(_replicated(u, mesh) for u in v)
+        return v
+    out = copy.copy(obj)
+    for name, value in vars(obj).items():
+        setattr(out, name, place(value))
     return out
 
 
@@ -1080,10 +1287,6 @@ def _shard_tv(problem: Problem, mesh, axis_name: str) -> Problem:
         raise ValueError(f"TV dual field {tuple(x0.shape)} needs H "
                          f"divisible by mesh size {size}")
     fterm = problem.fterm
-    if not isinstance(fterm, LeastSquares):
-        raise NotImplementedError(
-            f"shard_problem: the TV layout takes a LeastSquares term, not "
-            f"{type(fterm).__name__}")
     H = x0.shape[1]
     hb = H // size
     b_below = (None if rank == size - 1 else
@@ -1096,46 +1299,122 @@ def _shard_tv(problem: Problem, mesh, axis_name: str) -> Problem:
         name=problem.name + f"@{size}dev")
 
 
+# Smooth terms whose value is a sum over the rows of d and whose gradient
+# is elementwise: over the identity, their rows of x can be split
+_ROWWISE = (LeastSquares, Logistic, SquaredHinge, PhaseHinge,
+            PlanarPhaseHinge, MaskedLogistic)
+
+
+def _shard_replicated(problem: Problem, mesh, n_dev: int) -> Problem:
+    """The replicated layout: every rank holds the whole problem on its
+    device and solves it alone, with no collective, bit for bit as the
+    unsharded port does."""
+    return problem.with_parts(
+        op=_replicated(problem.op, mesh),
+        fterm=_replicated(problem.fterm, mesh),
+        gterm=_replicated(problem.gterm, mesh),
+        x0=replicate(problem.x0, mesh),
+        name=problem.name + f"@{n_dev}dev")
+
+
+def _shard_lanes(problem: Problem, mesh, axis_name: str) -> Problem:
+    """A stacked operator split over its lanes: each rank's members, and
+    the terms' tensors with a leading axis of B (one a lane) split the
+    same way; x0 replicated."""
+    op = problem.op
+    _, size, _ = _axis(mesh, axis_name)
+    B = getattr(op, op.lane_fields[0]).shape[0]
+    if B % size:
+        raise ValueError(f"lane count {B} not divisible by mesh size "
+                         f"{size}")
+    blocks = [shard_rows(getattr(op, f), mesh, axis_name)
+              for f in op.lane_fields]
+    cls = (LaneShardedDenseOp if isinstance(op, DenseOp)
+           else LaneShardedPlanarDenseOp)
+    return problem.with_parts(
+        op=cls(*blocks, mesh, axis_name),
+        fterm=_rows_of(problem.fterm, B, mesh, axis_name),
+        gterm=_rows_of(problem.gterm, B, mesh, axis_name),
+        x0=replicate(problem.x0, mesh),
+        name=problem.name + f"@{size}dev")
+
+
+def _holds_rows(term: SmoothTerm, m: int) -> bool:
+    """Whether a row-wise term holds data with x's m rows."""
+    return isinstance(term, _ROWWISE) and any(
+        isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == m
+        for v in vars(term).values())
+
+
 def shard_problem(problem: Problem, mesh, axis_name: str = "rows",
                   explicit: bool = True) -> Problem:
-    """Place a problem on the mesh, row-sharded over its measurements
-    (``fasta_tpu/sharding.py:1066-1148``).
+    """Place a problem on the mesh (``fasta_tpu/sharding.py:1066-1148``).
 
-    The operator becomes its row-sharded form — ``DenseOp`` →
-    :class:`RowShardedDenseOp`, ``PlanarDenseOp`` →
-    :class:`RowShardedPlanarDenseOp`, ``SparseOp`` →
-    :class:`RowShardedSparseOp`, the coded-diffraction ``StackedOp`` →
-    :class:`ShardedCDPOp` (its K members collapsed into mask arrays) —
-    holding this rank's rows; the smooth term's tensors whose leading axis
-    is the measurement dimension m are split the same way and the term
-    wrapped in :class:`RowShardedSmooth`; the prox term and x0 (signal
-    space) are replicated.  The TV dual (``ScaledOp(c, TVDiv2D())``)
-    splits the dual field itself over image rows: the operator becomes
-    :class:`RowShardedTVDivOp`, x0 (2, H, W) and b (H, W) hold this rank's
-    rows (and b's next row, the fused map's halo), the prox term is a
-    :class:`SignalShardedProx` over p's rows; H must divide by the mesh
-    size.  The result is named ``"<name>@<ranks>dev"``.
+    Row layouts, over the measurements: the operator becomes its
+    row-sharded form — ``DenseOp`` → :class:`RowShardedDenseOp`,
+    ``PlanarDenseOp`` → :class:`RowShardedPlanarDenseOp`, ``SparseOp`` →
+    :class:`RowShardedSparseOp`, a 2-D ``LowPrecDenseOp`` →
+    :class:`RowShardedLowPrecDenseOp`, the coded-diffraction
+    ``StackedOp`` → :class:`ShardedCDPOp` (its K members collapsed into
+    mask arrays) — holding this rank's rows; an ``IdentityOp`` whose
+    row-wise smooth term holds data with x's rows (matrix completion,
+    max-norm) → :class:`RowShardedIdentityOp`.  The smooth term's tensors
+    whose leading axis is the measurement dimension m are split the same
+    way and the term wrapped in :class:`RowShardedSmooth`; the prox term
+    and x0 (signal space) are replicated; m (for the CDP stack, the mask
+    count) must divide by the mesh size (``ValueError``, as in the
+    reference).
 
-    ``explicit=False`` builds the same operators: the reference then left
-    the collectives to GSPMD, which has no PyTorch counterpart.  Every
-    operator the reference leaves to GSPMD (``LowPrecDenseOp``,
-    ``FunctionOp``, ``IdentityOp``, a batched matrix, ...) raises
-    ``NotImplementedError``: there is no silent unsharded fallback.  m
-    (for the CDP stack, the mask count) must divide by the mesh size
-    (``ValueError``, as in the reference)."""
+    The TV dual (``ScaledOp(c, TVDiv2D())``) with a least-squares term
+    splits the dual field itself over image rows: the operator becomes :class:`RowShardedTVDivOp`, x0
+    (2, H, W) and b (H, W) hold this rank's rows (and b's next row, the
+    fused map's halo), the prox term is a :class:`SignalShardedProx` over
+    p's rows; H must divide by the mesh size.
+
+    A stacked ``DenseOp`` or ``PlanarDenseOp`` (one matrix a lane of
+    ``make_batch_solver``) splits its lanes: :class:`LaneShardedDenseOp`
+    or :class:`LaneShardedPlanarDenseOp` with B/ranks whole members, the
+    terms' tensors with a leading axis of B split alike (the reference's
+    rule, B being its measurement dimension there: a shared tensor whose
+    leading axis happens to be B is split too); B must divide by the mesh
+    size.
+
+    Everything else takes the replicated layout, which is what GSPMD
+    itself does with what it cannot split: a ``FunctionOp`` (its closures
+    are opaque: the reference splits b and gathers A x, which here would
+    cost an all-gather a gradient for nothing), a ``FunctionSmooth``, an
+    ``IdentityOp`` whose terms hold no tensor with x's rows (NMF), a bare
+    ``MaskedFourierOp``, a non-CDP ``StackedOp`` or ``ComposeOp``,
+    ``TVGrad2D``, a non-TV ``ScaledOp``, the TV dual with another smooth
+    term.  Every rank holds the whole
+    problem and solves it with no collective, bit for bit as the
+    unsharded port does; nothing is split, so nothing need divide.
+
+    The result is named ``"<name>@<ranks>dev"``.  ``explicit=False``
+    builds the same layouts: the reference then left the collectives to
+    GSPMD, which has no PyTorch counterpart."""
     del explicit            # one mechanism: see the docstring
-    op = problem.op
+    op, fterm = problem.op, problem.fterm
     _, n_dev, _ = _axis(mesh, axis_name)
-    if isinstance(op, ScaledOp) and isinstance(op.op, TVDiv2D):
+    x0 = torch.as_tensor(problem.x0)
+    if isinstance(fterm, FunctionSmooth):
+        return _shard_replicated(problem, mesh, n_dev)
+    if (isinstance(op, ScaledOp) and isinstance(op.op, TVDiv2D)
+            and isinstance(fterm, LeastSquares)):
         return _shard_tv(problem, mesh, axis_name)
+    if ((isinstance(op, DenseOp) and op.A.ndim == 3)
+            or (isinstance(op, PlanarDenseOp) and op.Ar.ndim == 3)):
+        return _shard_lanes(problem, mesh, axis_name)
     dense = isinstance(op, DenseOp) and op.A.ndim == 2
     planar = isinstance(op, PlanarDenseOp) and op.Ar.ndim == 2
+    lowprec = isinstance(op, LowPrecDenseOp) and op.A.ndim == 2
     cdp = _is_cdp_stack(op)
-    if not (dense or planar or cdp or isinstance(op, SparseOp)):
-        raise NotImplementedError(
-            f"shard_problem: {type(op).__name__} has no row-sharded form "
-            f"(the reference leaves it to GSPMD); see {_NEXT_ITEM}")
-    m = op(torch.as_tensor(problem.x0)).shape[0]
+    rows = (isinstance(op, IdentityOp) and x0.ndim >= 1
+            and _holds_rows(fterm, x0.shape[0]))
+    if not (dense or planar or lowprec or cdp or rows
+            or isinstance(op, SparseOp)):
+        return _shard_replicated(problem, mesh, n_dev)
+    m = op(x0).shape[0]
     if m % n_dev != 0:
         if cdp:
             raise ValueError(f"CDP mask count {m} not divisible by mesh "
@@ -1150,6 +1429,11 @@ def shard_problem(problem: Problem, mesh, axis_name: str = "rows",
         sop = RowShardedPlanarDenseOp(shard_rows(op.Ar, mesh, axis_name),
                                       shard_rows(op.Ai, mesh, axis_name),
                                       mesh, axis_name)
+    elif lowprec:
+        sop = RowShardedLowPrecDenseOp(shard_rows(op.A, mesh, axis_name),
+                                       mesh, axis_name)
+    elif rows:
+        sop = RowShardedIdentityOp(m, mesh, axis_name)
     elif cdp:
         mods = torch.stack([member.inner.d for member in op.ops])
         wins = torch.stack([member.outer.mask for member in op.ops])
@@ -1159,7 +1443,7 @@ def shard_problem(problem: Problem, mesh, axis_name: str = "rows",
     else:
         sop = RowShardedSparseOp.from_sparse_op(op, mesh, axis_name)
     return problem.with_parts(
-        op=sop, fterm=_sharded_term(problem.fterm, m, mesh, axis_name),
+        op=sop, fterm=_sharded_term(fterm, m, mesh, axis_name),
         gterm=_replicated(problem.gterm, mesh),
         x0=replicate(problem.x0, mesh),
         name=problem.name + f"@{n_dev}dev")

@@ -210,8 +210,10 @@ def _setting(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
         fused = fused.decision_precision()
     # zero-matvec FISTA gradient extrapolation: valid when ∇f is affine in
     # d and the gradient at the prox point comes free from the fused pass
+    # (a row-sharded map over a two-call pass says no: its ``affine``)
     affine_accel = (opts.effective_mode == "accelerated"
-                    and fused is not None and fterm.grad_affine)
+                    and fused is not None and fterm.grad_affine
+                    and getattr(fused, "affine", True))
     # kernel K-B4 takes the L1 trial step of real float32 lanes (on this
     # rank's block where x is sharded); complex and float64 keep the
     # composition, as in the reference
@@ -771,7 +773,10 @@ def make_batch_solver(opts: FastaOptions, in_axes) -> Callable:
     products.  With more than one lane, or a batched operator, the
     gradient map is the plain composition (no fused pass).  The result's
     tensors gain a leading lane axis; its counts and flags are NumPy
-    arrays."""
+    arrays.  Over an operator whose rank holds a block of the lanes
+    (``sharding.shard_problem`` of a stacked operator) each rank runs its
+    own lanes, and the result holds every rank's (the operator's
+    ``gather_lanes``)."""
     axes = tuple(in_axes)
     if len(axes) != 5 or any(a not in (None, 0) for a in axes):
         raise ValueError(f"in_axes names None or 0 for each of (op, fterm, "
@@ -808,7 +813,8 @@ def make_batch_solver(opts: FastaOptions, in_axes) -> Callable:
         xs = (x0 if axes[3] == 0
               else x0.expand((B,) + tuple(x0.shape))).clone()
         t0 = tau0 if axes[4] == 0 else tau0.expand(B)
-        return _solve(opts, op, terms[0], terms[1], xs, t0, lanes=True)[0]
+        out = _solve(opts, op, terms[0], terms[1], xs, t0, lanes=True)[0]
+        return op.gather_lanes(out)
     return solve_fn
 
 

@@ -172,7 +172,8 @@ def _lowprec_fused(op, data, loss):
     """The one-read gradient map of ``loss`` ("lstsq", "logistic" or
     "squared_hinge") over a ``LowPrecDenseOp``: kernel K-B3 or K-B3p in
     its bfloat16 form when the storage is bfloat16 and the stored bytes
-    pass the 64 MB gate, else None (the two-call path through the
+    (``op.stored_bytes``: the whole matrix's, also on a rank that holds a
+    block of its rows) pass the 64 MB gate, else None (the two-call path through the
     operator, x rounded to the storage type).  A float16 operator always
     takes None: the reference's kernel takes bfloat16 only.  None too for
     any other operator."""
@@ -181,7 +182,7 @@ def _lowprec_fused(op, data, loss):
         return None
     A = op.A
     if (A.ndim != 2 or A.dtype != torch.bfloat16 or data.ndim != 1
-            or A.numel() * A.element_size() <= _STREAMING_BYTES):
+            or op.stored_bytes <= _STREAMING_BYTES):
         return None
     from .kernels.lstsq_fused import (fused_lstsq_gradmap,
                                       fused_pointwise_gradmap)

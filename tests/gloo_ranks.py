@@ -198,10 +198,10 @@ def case_solve(mesh, name, build_kw, tau0, solve_kw):
     return out
 
 
-def case_op(mesh, arrays, x, y):
+def case_op(mesh, arrays, x, y, rtol=1e-10):
     """The operator of ``convert.sharded_op_from_arrays``: this rank's
     block of A x, Aᴴ y (y whole; the rank takes its rows) and the adjoint
-    check's error."""
+    check's error (at ``rtol``: a bfloat16 operator rounds its vectors)."""
     import torch
 
     from fasta_tpu_torch import check_adjoint, convert
@@ -209,9 +209,9 @@ def case_op(mesh, arrays, x, y):
     op = convert.sharded_op_from_arrays(arrays, mesh)
     x, y = torch.as_tensor(x), sh.shard_rows(y, mesh)
     err = check_adjoint(op, torch.zeros_like(x),
-                        torch.Generator().manual_seed(0), rtol=1e-10)
+                        torch.Generator().manual_seed(0), rtol=rtol)
     return dict(d=op(x).numpy(), g=op.rmatvec(y).numpy(), err=err,
-                op=type(op).__name__, shape=op.shape)
+                op=type(op).__name__, shape=getattr(op, "shape", None))
 
 
 def case_blocks(mesh, build_kw):
@@ -430,7 +430,188 @@ def case_resume_x(mesh, state_dir, dtype, name):
     return out
 
 
+# ---------------------------------------------- the GSPMD layouts (13c) --
+
+def lane_data(kind: str, seed: int, B: int, m: int, n: int) -> dict:
+    """A stack of B seeded instances, one a lane: ``kind`` "dense" (A
+    (B, m, n), b (B, m)) or "planar" (Ar, Ai (B, m, n), b (B, m, 2)), as
+    float64 NumPy; both packages build their problems from these."""
+    rng = np.random.default_rng(seed)
+    if kind == "dense":
+        return dict(A=rng.standard_normal((B, m, n)) / np.sqrt(m),
+                    b=rng.standard_normal((B, m)))
+    return dict(Ar=rng.standard_normal((B, m, n)) / np.sqrt(2 * m),
+                Ai=rng.standard_normal((B, m, n)) / np.sqrt(2 * m),
+                b=np.abs(rng.standard_normal((B, m, 2))))
+
+
+def gspmd_problem(spec: dict):
+    """The port's problem of a case of ``test_torch_sharding_gspmd.py``:
+    ``name`` built at ``build`` (``dtype`` a string), then its
+    ``variant``: "bf16" (the operator a ``LowPrecDenseOp`` over the JAX
+    operator's bfloat16 bits ``A16``, or over the matrix rounded here), "function" (a ``FunctionOp``
+    closing over the matrix), "nuclear" or "maxrow" (the prox term a
+    ``NuclearNorm`` or ``MaxRowNormBall`` of weight ``weight``), "lanes"
+    (a stacked ``DenseOp`` or ``PlanarDenseOp`` over :func:`lane_data`,
+    ``LeastSquares`` of each lane's b, ``L1Norm(weight)``)."""
+    import torch
+
+    import fasta_tpu_torch as ftt
+    from fasta_tpu_torch import convert, problems
+    variant = spec.get("variant")
+    if variant == "lanes":
+        d = {k: torch.as_tensor(v) for k, v in
+             lane_data(spec["name"], *spec["build"]).items()}
+        op = (ftt.DenseOp(d["A"]) if spec["name"] == "dense"
+              else ftt.PlanarDenseOp(d["Ar"], d["Ai"]))
+        n = spec["build"][3]
+        x0 = torch.zeros((n,) if spec["name"] == "dense" else (n, 2),
+                         dtype=torch.float64)
+        return ftt.Problem(f"{spec['name']}_lanes", op=op,
+                           fterm=ftt.LeastSquares(d["b"]),
+                           gterm=ftt.L1Norm(spec["weight"]), x0=x0)
+    kw = dict(spec["build"], dtype=_dtype(spec["build"]["dtype"]),
+              device="cpu")
+    p = problems.build(spec["name"], **kw)
+    if variant == "bf16":
+        if spec.get("A16") is None:       # rounded here, not carried
+            return p.with_parts(op=ftt.LowPrecDenseOp.from_dense(p.op.A))
+        return p.with_parts(op=convert.lowprec_op_from_arrays(
+            spec["A16"], device="cpu"))
+    if variant == "function":
+        A = p.op.A
+        return p.with_parts(op=ftt.FunctionOp(lambda x: A @ x,
+                                              lambda y: A.mT @ y))
+    if variant == "fsmooth":
+        b = p.fterm.b
+        return p.with_parts(fterm=ftt.FunctionSmooth(
+            lambda d: 0.5 * torch.sum((d - b) ** 2), lambda d: d - b))
+    if variant == "nuclear":
+        return p.with_parts(gterm=ftt.NuclearNorm(spec["weight"]))
+    if variant == "maxrow":
+        return p.with_parts(gterm=ftt.MaxRowNormBall(spec["weight"]))
+    return p
+
+
+def case_gspmd(mesh, spec, solve_kw):
+    """:func:`gspmd_problem` placed (``shard_problem``, or
+    ``shard_problem_2d`` on a 2-D mesh) and solved — a lanes case through
+    ``make_batch_solver`` with the operator and the smooth term on axis 0:
+    the result, the objectives when recorded, the classes, the name and
+    the collectives the solve made."""
+    import fasta_tpu_torch as ftt
+    from fasta_tpu_torch import convert
+    from fasta_tpu_torch import sharding as sh
+    sp = _place(mesh, gspmd_problem(spec))
+    sh.reset_collective_counts()
+    if spec.get("variant") == "lanes":
+        r = ftt.make_batch_solver(ftt.FastaOptions(**solve_kw),
+                                  (0, 0, None, None, None))(
+            sp.op, sp.fterm, sp.gterm, sp.x0, spec["tau0"])
+    else:
+        r = sp.solve(tau0=spec["tau0"], **solve_kw)
+    counts = sh.collective_counts()
+    out = convert.result_to_numpy(r)
+    out.update(counts=counts, op=type(sp.op).__name__,
+               gterm=type(sp.gterm).__name__, name=sp.name,
+               lanes=tuple(getattr(sp.op, "A", getattr(sp.op, "Ar", None))
+                           .shape) if spec.get("variant") == "lanes"
+               else None)
+    return out
+
+
+def case_place(mesh, spec):
+    """What ``shard_problem`` makes of :func:`gspmd_problem`: the classes
+    and the name (nothing solved)."""
+    sp = _place(mesh, gspmd_problem(spec))
+    return dict(op=type(sp.op).__name__, fterm=type(sp.fterm).__name__,
+                gterm=type(sp.gterm).__name__, name=sp.name)
+
+
+def case_gate(mesh, A16, b, x, gate):
+    """The bfloat16 LASSO map on this rank's rows with the 64 MB gate set
+    to ``gate`` bytes: whether the rank's map kept x in float32 (the
+    kernel's function) or rounded it to bfloat16 (the two-call path), and
+    its (d, f, g) beside the unsharded operator's map at the same gate."""
+    import torch
+
+    from fasta_tpu_torch import convert, terms
+    from fasta_tpu_torch import sharding as sh
+    x, b = torch.as_tensor(x), torch.as_tensor(b)
+    saved = terms._STREAMING_BYTES
+    terms._STREAMING_BYTES = gate
+    try:
+        op = convert.sharded_op_from_arrays({"kind": "lowprec", "A": A16},
+                                            mesh)
+        whole = convert.lowprec_op_from_arrays(A16, device="cpu")
+        fn = sh.sharded_lstsq_gradmap(op, sh.shard_rows(b, mesh))
+        d, f, g = fn(x)
+        term = terms.LeastSquares(b)
+        ref = term.fused_gradmap(whole)
+        d1, f1, g1 = (ref(x) if ref is not None else
+                      (whole(x), term.value(whole(x)),
+                       whole.rmatvec(term.grad(whole(x)))))
+    finally:
+        terms._STREAMING_BYTES = saved
+    rows = op.A.float()
+    return dict(kernel=torch.equal(d, rows @ x),
+                rounded=torch.equal(d, rows @ x.bfloat16().float()),
+                block_bytes=op.A.numel() * 2, d=d.numpy(), f=float(f),
+                g=g.numpy(), whole_d=d1.numpy(), whole_f=float(f1),
+                whole_g=g1.numpy())
+
+
+def case_lane_op(mesh, arrays):
+    """The stacked operator of ``convert.sharded_op_from_arrays``: its
+    class, this rank's members (the first channel) and its shape."""
+    from fasta_tpu_torch import convert
+    op = convert.sharded_op_from_arrays(arrays, mesh)
+    first = op.A if hasattr(op, "A") else op.Ar
+    return dict(op=type(op).__name__, members=first.numpy(), shape=op.shape)
+
+
+def case_raises_spec(mesh, spec):
+    """What ``shard_problem`` raises on :func:`gspmd_problem`: (class
+    name, message)."""
+    try:
+        _place(mesh, gspmd_problem(spec))
+    except (ValueError, NotImplementedError, TypeError) as e:
+        return type(e).__name__, str(e)
+    return None, ""
+
+
+def case_resume_gspmd(mesh, state_dir, spec):
+    """Exact resume over a layout of ``gspmd_problem(spec)``: 20
+    iterations, each rank's ``SolverState`` through its own file,
+    ``resume_state`` to 40, against the uninterrupted 40-iteration run,
+    in the three modes."""
+    import torch
+
+    import fasta_tpu_torch as ftt
+    from fasta_tpu_torch import checkpoint
+    rank = torch.distributed.get_rank()
+    sp = _place(mesh, gspmd_problem(spec))
+    args = (sp.op, sp.fterm, sp.gterm, sp.x0, spec["tau0"])
+    out = {}
+    for mode, kw in ftt.MODE_OPTIONS.items():
+        o20 = ftt.FastaOptions(max_iters=20, stop_rule="iterations", **kw)
+        o40 = o20.replace(max_iters=40)
+        _, s20 = ftt.make_stateful_solver(o20)(*args)
+        path = os.path.join(state_dir,
+                            f"state_{spec['name']}_{mode}_{rank}.npz")
+        checkpoint.save_pytree(s20, path)
+        loaded = checkpoint.load_pytree(s20, path)
+        r_res, s40 = ftt.resume_state(*args[:3], loaded, o40)
+        r_full, _ = ftt.make_stateful_solver(o40)(*args)
+        out[mode] = dict(resumed=host_result(r_res), full=host_result(r_full),
+                         k=int(s40.k), op=type(sp.op).__name__)
+    return out
+
+
 CASES = {"mesh": case_mesh, "fasta": case_fasta, "solve": case_solve, "op": case_op,
          "blocks": case_blocks, "raises": case_raises, "batch": case_batch,
          "resume": case_resume, "resume_x": case_resume_x,
-         "op_x": case_op_x, "tv_map": case_tv_map, "blocks_x": case_blocks_x}
+         "op_x": case_op_x, "tv_map": case_tv_map, "blocks_x": case_blocks_x,
+         "gspmd": case_gspmd, "place": case_place, "gate": case_gate,
+         "resume_gspmd": case_resume_gspmd, "lane_op": case_lane_op,
+         "raises_spec": case_raises_spec}

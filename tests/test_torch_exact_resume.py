@@ -4,8 +4,10 @@
 equals the uninterrupted 100-iteration run BIT FOR BIT (solution, τ,
 residual, f and backtrack series, counts) in the three modes in float64,
 in float32 with hp, in lean mode and with the records continued; and row
-sharded over four gloo ranks (``test_resume_bitwise_sharded``), each
-rank's state saved to a file of its own.
+sharded over four gloo ranks (``test_resume_bitwise_sharded``, and over
+the layouts the reference leaves to GSPMD,
+``test_resume_bitwise_gspmd_layouts``), each rank's state saved to a file
+of its own.
 
 Across packages, on the same seeded LASSO 48×80 float64 instance: a state
 saved by ``fasta_tpu.make_stateful_solver`` resumes in the port, and a
@@ -214,6 +216,42 @@ def test_resume_bitwise_x_sharded(ranks, layout, dtype, tmp_path):
             assert out[mode]["k"] == 60
             assert out[mode]["x_block"] == block
             for key in ("taus", "residuals", "fvals", "backtracks"):
+                np.testing.assert_array_equal(got[key],
+                                              outs[0][mode]["resumed"][key])
+
+
+# layout: (gloo_ranks.gspmd_problem spec, the operator class it places)
+GSPMD_RESUME = {
+    "bf16": (dict(name="lasso", build=dict(m=64, n=48, k=6,
+                                           dtype="float32"),
+                  tau0=0.05, variant="bf16"), "RowShardedLowPrecDenseOp"),
+    "identity": (dict(name="matrix_completion",
+                      build=dict(d1=64, d2=32, rank=2, dtype="float64"),
+                      tau0=1.7), "RowShardedIdentityOp"),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(GSPMD_RESUME))
+def test_resume_bitwise_gspmd_layouts(ranks, layout, tmp_path):
+    """Exact resume over the layouts the reference leaves to GSPMD: the
+    bfloat16 LASSO 64×48 over rows (the two-call pass a rank, one
+    all-reduce a map) and matrix completion 64×32 over the identity's
+    rows, 20 iterations, each rank's state through its own file,
+    ``resume_state`` to 40: the uninterrupted run's bits on every rank in
+    the three modes, and every rank's series the same."""
+    spec, cls = GSPMD_RESUME[layout]
+    outs = ranks.run("resume_gspmd", str(tmp_path), spec)
+    assert len(list(tmp_path.glob("state_*.npz"))) == 4 * len(MODES)
+    for mode in MODES:
+        for out in outs:
+            got, full = out[mode]["resumed"], out[mode]["full"]
+            assert out[mode]["op"] == cls
+            for key in RANK_SERIES:
+                np.testing.assert_array_equal(got[key], full[key])
+            assert got["iteration_count"] == full["iteration_count"] == 40
+            assert got["total_backtracks"] == full["total_backtracks"]
+            assert out[mode]["k"] == 40
+            for key in RANK_SERIES:
                 np.testing.assert_array_equal(got[key],
                                               outs[0][mode]["resumed"][key])
 

@@ -264,18 +264,24 @@ def test_indivisible_mesh_raises(ranks):
 
 
 def test_tv_and_unported_layouts_raise(ranks):
-    """The TV dual now shards (its dual field over image rows, the halo
-    layout of ``tests/test_torch_sharding_x.py``); an operator the
-    reference leaves to GSPMD (matrix completion's ``IdentityOp``) still
-    raises rather than solve unsharded, naming the ROADMAP item that
-    covers it."""
+    """The TV dual shards (its dual field over image rows, the halo layout
+    of ``tests/test_torch_sharding_x.py``), and so does matrix completion's
+    ``IdentityOp``, which the reference leaves to GSPMD (its term's rows
+    split: ``tests/test_torch_sharding_gspmd.py``); what still raises is
+    a split that does not divide, as in the reference."""
     for kind, msg in ranks.run("raises", "tv",
                                dict(h=16, w=16, dtype="float64")):
         assert kind is None and msg == ""
     for kind, msg in ranks.run("raises", "matrix_completion",
                                dict(d1=8, d2=8, rank=2, dtype="float64")):
-        assert kind == "NotImplementedError" and "13c" in msg
-        assert "IdentityOp" in msg
+        assert kind is None and msg == ""
+    prob = jax_problems.build("matrix_completion", d1=10, d2=8, rank=2,
+                              dtype=jnp.float64)
+    with pytest.raises(ValueError):
+        jsh.shard_problem(prob, jsh.make_mesh())
+    for kind, msg in ranks.run("raises", "matrix_completion",
+                               dict(d1=10, d2=8, rank=2, dtype="float64")):
+        assert kind == "ValueError" and "not divisible" in msg
 
 
 # --------------------------------------------- test_sharded_breadth.py --
