@@ -40,6 +40,7 @@ from .kernels.microsolver_tv import (microsolve_tv, microsolve_tv_batch,
                                      microsolve_tv_path)
 from .operators import DenseOp, PlanarDenseOp, ScaledOp, TVDiv2D
 from .problem import Problem
+from .profiling import span
 from .terms import (BoxIndicator, L1Norm, L2Norm2, LeastSquares, Logistic,
                     NonnegIndicator, PlanarLinearAnchor, PlanarPhaseHinge,
                     SquaredHinge)
@@ -253,41 +254,45 @@ def microsolve(problem: Problem, tau0: Optional[float] = None,
     The problem's data must lie on one device: a CUDA problem runs the
     kernel, a CPU problem its plain version.  Raises ``ValueError`` when
     the structure has no kernel."""
-    kind, detail, data, x0, tau0 = _start(
-        problem, "microsolve", tau0, engine, interpret, generator,
-        record_iterates)
-    kw = dict(max_iters=max_iters, window=window, tol=tol,
-              shrink_factor=shrink_factor, max_backtracks=max_backtracks,
-              stop_rule=stop_rule, accelerate=accelerate, restart=restart,
-              restart_dd=restart_dd, record_fvals=record_fvals,
-              record_bts=record_bts, record_objs=record_objs,
-              record_nres=record_nres)
+    with span("fasta.micro.start"):
+        kind, detail, data, x0, tau0 = _start(
+            problem, "microsolve", tau0, engine, interpret, generator,
+            record_iterates)
+        kw = dict(max_iters=max_iters, window=window, tol=tol,
+                  shrink_factor=shrink_factor, max_backtracks=max_backtracks,
+                  stop_rule=stop_rule, accelerate=accelerate, restart=restart,
+                  restart_dd=restart_dd, record_fvals=record_fvals,
+                  record_bts=record_bts, record_objs=record_objs,
+                  record_nres=record_nres)
     t0 = time.perf_counter()
-    if kind == "tv":
-        out = microsolve_tv(data, x0, tau0, detail,
-                            hp=True if hp is None else bool(hp), **kw)
-    elif kind == "planar":
-        op = problem.op
-        out = microsolve_planar_phasemax(
-            op.Ar.to(torch.float32), op.Ai.to(torch.float32), data,
-            problem.gterm.c.to(torch.float32), x0, tau0, hp=bool(hp),
-            record_its=record_iterates, **kw)
-    else:
-        loss, prox, mu = detail
-        out = microsolve_lasso(
-            problem.op.A.to(torch.float32), data, x0, tau0, mu, hp=bool(hp),
-            loss=loss, prox=prox, record_its=record_iterates, **kw)
-    k = int(out.iteration_count)
-    status = STATUS_NAMES[int(out.halt)]
-    solve_time = time.perf_counter() - t0
+    with span("fasta.micro.launch"):
+        if kind == "tv":
+            out = microsolve_tv(data, x0, tau0, detail,
+                                hp=True if hp is None else bool(hp), **kw)
+        elif kind == "planar":
+            op = problem.op
+            out = microsolve_planar_phasemax(
+                op.Ar.to(torch.float32), op.Ai.to(torch.float32), data,
+                problem.gterm.c.to(torch.float32), x0, tau0, hp=bool(hp),
+                record_its=record_iterates, **kw)
+        else:
+            loss, prox, mu = detail
+            out = microsolve_lasso(
+                problem.op.A.to(torch.float32), data, x0, tau0, mu,
+                hp=bool(hp), loss=loss, prox=prox,
+                record_its=record_iterates, **kw)
+    with span("fasta.micro.result"):
+        k = int(out.iteration_count)
+        status = STATUS_NAMES[int(out.halt)]
+        solve_time = time.perf_counter() - t0
 
-    def host(a):
-        return None if a is None else a.detach().cpu().numpy()[:k]
+        def host(a):
+            return None if a is None else a.detach().cpu().numpy()[:k]
 
-    res_h, objs_h = host(out.residuals), host(out.objectives)
-    bts_h = host(out.backtracks)
-    if bts_h is not None:
-        bts_h = bts_h.astype(np.int64)
+        res_h, objs_h = host(out.residuals), host(out.objectives)
+        bts_h = host(out.backtracks)
+        if bts_h is not None:
+            bts_h = bts_h.astype(np.int64)
     return MicroResult(
         solution=out.x,
         iteration_count=k,
@@ -376,39 +381,41 @@ def microsolve_sweep(problem: Problem, mus, tau0: Optional[float] = None,
 def _pack_batch(out, B: int, t0: float) -> MicroBatchResult:
     """A batched kernel output (leading axis of B points) as a
     :class:`MicroBatchResult`, its series trimmed to each point's count;
-    ``t0`` is the perf_counter reading before the launch."""
-    ks = out.iteration_count.cpu().numpy().astype(np.int64)
-    statuses = np.array([STATUS_NAMES[int(h)] for h in out.halt.cpu()])
-    solve_time = time.perf_counter() - t0
+    ``t0`` is the perf_counter reading before the launch.  The copies to
+    the host and the series are the span ``fasta.micro.result``."""
+    with span("fasta.micro.result"):
+        ks = out.iteration_count.cpu().numpy().astype(np.int64)
+        statuses = np.array([STATUS_NAMES[int(h)] for h in out.halt.cpu()])
+        solve_time = time.perf_counter() - t0
 
-    def ragged(a, dtype=None):
-        if a is None:
-            return None
-        a = a.detach().cpu().numpy()
-        if dtype is not None:
-            a = a.astype(dtype)
-        return [a[i, :ks[i]] for i in range(B)]
+        def ragged(a, dtype=None):
+            if a is None:
+                return None
+            a = a.detach().cpu().numpy()
+            if dtype is not None:
+                a = a.astype(dtype)
+            return [a[i, :ks[i]] for i in range(B)]
 
-    res_l, objs_l = ragged(out.residuals), ragged(out.objectives)
-    bts_l = ragged(out.backtracks, np.int64)
-    best_l = objs_l if objs_l is not None else res_l
-    best = [_best(statuses[i], best_l[i]) for i in range(B)]
-    return MicroBatchResult(
-        solutions=out.x,
-        iteration_counts=ks,
-        converged=statuses == "converged",
-        residuals=res_l,
-        taus=ragged(out.taus),
-        solve_time=solve_time,
-        fvals=ragged(out.fvals),
-        statuses=statuses,
-        norm_residuals=ragged(out.norm_residuals),
-        backtracks=bts_l,
-        total_backtracks=(None if bts_l is None
-                          else np.array([int(b.sum()) for b in bts_l])),
-        best_indices=np.array([-1 if i is None else i for i in best]),
-        objectives=objs_l,
-    )
+        res_l, objs_l = ragged(out.residuals), ragged(out.objectives)
+        bts_l = ragged(out.backtracks, np.int64)
+        best_l = objs_l if objs_l is not None else res_l
+        best = [_best(statuses[i], best_l[i]) for i in range(B)]
+        return MicroBatchResult(
+            solutions=out.x,
+            iteration_counts=ks,
+            converged=statuses == "converged",
+            residuals=res_l,
+            taus=ragged(out.taus),
+            solve_time=solve_time,
+            fvals=ragged(out.fvals),
+            statuses=statuses,
+            norm_residuals=ragged(out.norm_residuals),
+            backtracks=bts_l,
+            total_backtracks=(None if bts_l is None
+                              else np.array([int(b.sum()) for b in bts_l])),
+            best_indices=np.array([-1 if i is None else i for i in best]),
+            objectives=objs_l,
+        )
 
 
 def microsolve_batch(problem: Problem, bs, x0s=None, tau0=None,
@@ -440,49 +447,54 @@ def microsolve_batch(problem: Problem, bs, x0s=None, tau0=None,
     mean on :func:`microsolve`.  Raises ``ValueError`` for a structure
     without a kernel and for ``bs``, ``x0s`` or ``tau0`` of the wrong
     shape."""
-    kind, detail, data, x0, tau0 = _start(
-        problem, "microsolve_batch", tau0, engine, interpret, generator)
-    dev = data.device
-    bs = torch.as_tensor(bs).to(dev, torch.float32)
-    if bs.ndim != data.ndim + 1:
-        raise ValueError(f"microsolve_batch: bs must stack {data.ndim}-d "
-                         f"instance data on a leading batch axis, got "
-                         f"ndim={bs.ndim}")
-    B = bs.shape[0]
-    if x0s is None:
-        x0s = x0                      # shared: the kernels read it once
-    else:
-        x0s = torch.as_tensor(x0s).to(dev, torch.float32)
-        if tuple(x0s.shape) != (B,) + tuple(x0.shape):
-            raise ValueError(f"microsolve_batch: x0s shape "
-                             f"{tuple(x0s.shape)} != {(B,) + tuple(x0.shape)}")
-    tau0 = torch.as_tensor(tau0, dtype=torch.float32)
-    if tau0.ndim > 1:
-        raise ValueError(f"microsolve_batch: tau0 must be a scalar or a (B,) "
-                         f"vector of per-instance stepsizes, got "
-                         f"ndim={tau0.ndim}")
-    if tau0.ndim == 1 and tuple(tau0.shape) != (B,):
-        raise ValueError(f"microsolve_batch: per-instance tau0 shape "
-                         f"{tuple(tau0.shape)} != ({B},)")
-    tau0s = tau0.to(dev) if tau0.ndim else float(tau0)
-    kw = dict(max_iters=max_iters, window=window, tol=tol,
-              shrink_factor=shrink_factor, max_backtracks=max_backtracks,
-              stop_rule=stop_rule, accelerate=accelerate, restart=restart,
-              restart_dd=restart_dd, record_fvals=record_fvals,
-              record_bts=record_bts, record_objs=record_objs,
-              record_nres=record_nres)
+    with span("fasta.micro.start"):
+        kind, detail, data, x0, tau0 = _start(
+            problem, "microsolve_batch", tau0, engine, interpret, generator)
+        dev = data.device
+        bs = torch.as_tensor(bs).to(dev, torch.float32)
+        if bs.ndim != data.ndim + 1:
+            raise ValueError(f"microsolve_batch: bs must stack {data.ndim}-d "
+                             f"instance data on a leading batch axis, got "
+                             f"ndim={bs.ndim}")
+        B = bs.shape[0]
+        if x0s is None:
+            x0s = x0                  # shared: the kernels read it once
+        else:
+            x0s = torch.as_tensor(x0s).to(dev, torch.float32)
+            if tuple(x0s.shape) != (B,) + tuple(x0.shape):
+                raise ValueError(
+                    f"microsolve_batch: x0s shape {tuple(x0s.shape)} != "
+                    f"{(B,) + tuple(x0.shape)}")
+        tau0 = torch.as_tensor(tau0, dtype=torch.float32)
+        if tau0.ndim > 1:
+            raise ValueError(f"microsolve_batch: tau0 must be a scalar or a "
+                             f"(B,) vector of per-instance stepsizes, got "
+                             f"ndim={tau0.ndim}")
+        if tau0.ndim == 1 and tuple(tau0.shape) != (B,):
+            raise ValueError(f"microsolve_batch: per-instance tau0 shape "
+                             f"{tuple(tau0.shape)} != ({B},)")
+        tau0s = tau0.to(dev) if tau0.ndim else float(tau0)
+        kw = dict(max_iters=max_iters, window=window, tol=tol,
+                  shrink_factor=shrink_factor, max_backtracks=max_backtracks,
+                  stop_rule=stop_rule, accelerate=accelerate, restart=restart,
+                  restart_dd=restart_dd, record_fvals=record_fvals,
+                  record_bts=record_bts, record_objs=record_objs,
+                  record_nres=record_nres)
     t0 = time.perf_counter()
-    if kind == "tv":
-        out = microsolve_tv_batch(bs, x0s, tau0s, detail,
-                                  hp=True if hp is None else bool(hp), **kw)
-    elif kind == "planar":
-        op = problem.op
-        out = microsolve_planar_phasemax_batch(
-            op.Ar.to(torch.float32), op.Ai.to(torch.float32), bs,
-            problem.gterm.c.to(torch.float32), x0s, tau0s, hp=bool(hp), **kw)
-    else:
-        loss, prox, mu = detail
-        out = microsolve_lasso_batch(
-            problem.op.A.to(torch.float32), bs, x0s, tau0s, mu, hp=bool(hp),
-            loss=loss, prox=prox, **kw)
+    with span("fasta.micro.launch"):
+        if kind == "tv":
+            out = microsolve_tv_batch(
+                bs, x0s, tau0s, detail, hp=True if hp is None else bool(hp),
+                **kw)
+        elif kind == "planar":
+            op = problem.op
+            out = microsolve_planar_phasemax_batch(
+                op.Ar.to(torch.float32), op.Ai.to(torch.float32), bs,
+                problem.gterm.c.to(torch.float32), x0s, tau0s, hp=bool(hp),
+                **kw)
+        else:
+            loss, prox, mu = detail
+            out = microsolve_lasso_batch(
+                problem.op.A.to(torch.float32), bs, x0s, tau0s, mu,
+                hp=bool(hp), loss=loss, prox=prox, **kw)
     return _pack_batch(out, B, t0)

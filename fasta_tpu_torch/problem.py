@@ -11,6 +11,7 @@ import torch
 
 from .operators import LinearOp
 from .options import FastaOptions
+from .profiling import span
 from .solver import DeviceResult, FastaResult, fasta, make_solver
 from .terms import ProxTerm, SmoothTerm
 
@@ -77,12 +78,14 @@ class Problem:
         :func:`fasta_tpu_torch.serving.recommend_path` picks for this
         problem and batch: ``bs`` stacks the requests' measurements on a
         leading axis (None: one solve of the problem's own); the other
-        keyword arguments go to that path."""
+        keyword arguments go to that path.  The whole request is the span
+        ``fasta.serve``."""
         from .serving import recommend_path
-        batch = 1 if bs is None else len(bs)
-        plan = recommend_path(self, batch,
-                              need_full_diagnostics=need_full_diagnostics)
-        return plan.run(bs, **kwargs)
+        with span("fasta.serve"):
+            batch = 1 if bs is None else len(bs)
+            plan = recommend_path(self, batch,
+                                  need_full_diagnostics=need_full_diagnostics)
+            return plan.run(bs, **kwargs)
 
     def with_parts(self, **kwargs) -> "Problem":
         """A copy with the named fields replaced (``op``, ``fterm``,

@@ -11,12 +11,20 @@
     of a run of calls and their card time, read from a trace;
   * ``host_us(fn)`` — the host's time per call, with no wait for the card;
   * ``graph_node_kinds(graph)`` — the kinds of a captured CUDA graph's
-    nodes (kernels, memsets, copies), read from the CUDA driver.
+    nodes (kernels, memsets, copies), read from the CUDA driver;
+  * ``span(name)`` — the program's own named span: a
+    ``torch.profiler.record_function`` while a profiler runs, else a
+    shared null context that costs one attribute read.
 
-Per-iteration diagnostics are tensors in the solvers' results, so no
-separate tracer is needed.  Rates are keyed on
-``torch.cuda.get_device_name()``; the TPU table of the JAX module does not
-carry over.  On the CPU, or on a card not in the table, the roofline is
+Per-iteration diagnostics are tensors in the solvers' results; where the
+host's time goes in a request, the spans tell.  The serving path, the
+PyTorch loop and the whole-solve routes open them (``fasta.serve``,
+``fasta.route.<route>``, ``fasta.loop.*``, ``fasta.micro.*``; README),
+and any ``torch.profiler`` run records them in the same trace as the
+card's kernels, on the same clock.  No switch turns them on.
+
+Rates are keyed on ``torch.cuda.get_device_name()``; the TPU table of the
+JAX module does not carry over.  On the CPU, or on a card not in the table, the roofline is
 None.
 """
 
@@ -33,7 +41,7 @@ import torch
 
 __all__ = ["trace", "roofline_report", "device_memory_stats",
            "time_blocking", "device_ops", "host_us", "graph_node_kinds",
-           "H100_HBM_GBPS"]
+           "span", "H100_HBM_GBPS"]
 
 # The H100 SXM's data-sheet HBM3 rate (GB/s), the one card the port is
 # measured on; ``chip_smoke.py``'s bounds read it from here.
@@ -43,6 +51,21 @@ H100_HBM_GBPS = 3350.0
 # device name.  "h100" alone would also match the PCIe part (2000 GB/s),
 # so the SXM part is named by its HBM3.
 _HBM_ROOFLINE_GBPS = {"h100 80gb hbm3": H100_HBM_GBPS}
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The context of the program's span ``name``: a
+    ``torch.profiler.record_function`` while a profiler runs, else one
+    shared null context.  The profiler's flag is read from its module on
+    every call (torch has no public form of it): an entered
+    ``record_function`` costs the host microseconds even with no
+    profiler, the read a small fraction of one."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _on_card(args) -> bool:

@@ -42,6 +42,7 @@ import torch
 from .micro import microsolve_supported
 from .options import FastaOptions
 from .problem import Problem
+from .profiling import span
 
 __all__ = ["ServingPlan", "recommend_path", "BATCH_CROSSOVER_UNKNOWNS",
            "ROUTES"]
@@ -80,7 +81,8 @@ class ServingPlan:
     Keyword arguments go to the route: :func:`~fasta_tpu_torch.micro.
     microsolve` / :func:`~fasta_tpu_torch.micro.microsolve_batch` options
     for the kernel routes, ``options=`` (a :class:`FastaOptions`) and
-    ``tau0=`` for the loop routes."""
+    ``tau0=`` for the loop routes.  The route's own call is the span
+    ``fasta.route.<path>``; the set-up before it is not."""
 
     path: str
     reason: str
@@ -89,6 +91,7 @@ class ServingPlan:
 
     def run(self, bs: Optional[Any] = None, **kwargs):
         p = self.problem
+        route = span(f"fasta.route.{self.path}")
         if self.path in ("microsolve", "loop"):
             if bs is not None:
                 if len(bs) != 1:
@@ -97,14 +100,16 @@ class ServingPlan:
                         f"holds {len(bs)}: ask recommend_path for batch size "
                         f"{len(bs)}")
                 p = p.with_parts(fterm=_with_data(p.fterm, bs[0]))
-            if self.path == "microsolve":
-                return p.microsolve(**kwargs)
-            return p.solve(kwargs.pop("options", None), **kwargs)
+            with route:
+                if self.path == "microsolve":
+                    return p.microsolve(**kwargs)
+                return p.solve(kwargs.pop("options", None), **kwargs)
         if bs is None:
             raise ValueError("a batched plan needs the stacked measurement "
                              "vectors bs")
         if self.path == "microsolve_batch":
-            return p.microsolve_batch(bs, **kwargs)
+            with route:
+                return p.microsolve_batch(bs, **kwargs)
         from .solver import estimate_stepsize, make_batch_solver
         opts = kwargs.pop("options", None) or FastaOptions()
         tau0 = kwargs.pop("tau0", None)
@@ -118,7 +123,9 @@ class ServingPlan:
             gen = torch.Generator(device=x0.device).manual_seed(0)
             tau0 = float(estimate_stepsize(p.op, p.fterm, x0, gen)[0])
         solve = make_batch_solver(opts, in_axes=(None, 0, None, None, None))
-        return solve(p.op, _with_data(p.fterm, bs), p.gterm, x0, tau0)
+        fterm = _with_data(p.fterm, bs)
+        with route:
+            return solve(p.op, fterm, p.gterm, x0, tau0)
 
 
 def recommend_path(problem: Problem, batch_size: int = 1, *,

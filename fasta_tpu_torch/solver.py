@@ -45,6 +45,7 @@ from .operators import LinearOp, as_linear_op, check_adjoint
 from .options import FastaOptions, stop_test
 from .precision import (lane, lane_dot64, lane_norm2, lane_redot, norm2,
                         real_dtype, use_high_precision)
+from .profiling import span
 from .terms import (L1Norm, ProxTerm, SmoothTerm, as_prox_term,
                     as_smooth_term)
 
@@ -316,9 +317,11 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
         """``m`` in the live lanes, False in the stopped ones."""
         return m if B == 1 else m & live
 
-    def any_lane(m):
-        """Whether ``m`` holds in some lane: one device read."""
-        return bool(m) if B == 1 else bool(m.any())
+    def any_lane(m, cause):
+        """Whether ``m`` holds in some lane: one device read, the span
+        ``fasta.loop.read.<cause>``."""
+        with span(f"fasta.loop.read.{cause}"):
+            return bool(m) if B == 1 else bool(m.any())
 
     def fval(d):
         return _fval(st, fterm, d)
@@ -336,210 +339,215 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
         # a resumed state that has stopped runs no iteration (one device
         # read at the state's edge; a fresh solve reads none)
         live = ~s.stop
-        running = any_lane(live)
+        running = any_lane(live, "resume")
     while running and it < N:
-        x_, g_ = x, gradf
+        with span("fasta.loop.iteration"):
+            x_, g_ = x, gradf
 
-        def fb_step(tau):
-            """Forward (gradient) step, backward (prox) step, the step's
-            sums, f at the trial point; the fused pass also returns its
-            gradient."""
-            if mu_b4 is not None:
-                x1, nd2, btd, nsm2 = fused_shrink_step(
-                    x_.reshape(B, -1), g_.reshape(B, -1), tau, mu_b4)
-                x1 = x1.reshape(x_.shape)
-                # float64 sums over x, completed, each then used in the
-                # precision the composition gives it
-                nd2, btd, nsm2 = op.signal_sum(nd2, btd, nsm2)
-                nd2, nsm2 = nd2.to(rdt), nsm2.to(rdt)
-                btd = btd if hp else btd.to(rdt)
-                x1hat = Dx = None
-            else:
-                x1hat = x_ - lane(tau, x_) * g_
-                x1 = gterm.prox_lanes(x1hat, tau)
-                Dx = x1 - x_
-                nd2, btd = op.signal_sum(
-                    lane_norm2(Dx),
-                    lane_dot64(Dx, g_) if hp else lane_redot(Dx, g_))
-                nsm2 = None
-            if fused is not None:
-                d1, f1, grad1 = fused(x1[0])
-                d1, grad1 = d1[None], grad1[None]
-                f1 = (fval(d1) if hp and not st.fused_f64
-                      else f1.to(st.sdt).reshape(1))
-            else:
-                d1 = op.lanes(x1)
-                f1, grad1 = fval(d1), None
-            return _Trial(x1, d1, f1, grad1, nd2, btd, nsm2, x1hat, Dx)
-
-        t = fb_step(tau)
-        bt = 0 if B == 1 else torch.zeros(B, dtype=torch.int32, device=dev)
-        if opts.backtrack:
-            # nonmonotone backtracking line search (Zhang–Hager window); a
-            # lane that violates at trial j violated at every trial before,
-            # so it has made j shrinks and the trial bound is its own
-            M = torch.amax(fwin, dim=1)
-            for _ in range(opts.max_backtracks):
-                if hp:
-                    # the JAX hp slack: 1e-12 plus 64 ulp (float32) of
-                    # the f scale, since the iterates are float32-rounded
-                    slack = 1e-12 + (64.0 * _EPS32) * (torch.abs(M)
-                                                       + torch.abs(t.f1))
-                    q = (t.nd2 / (2.0 * tau)).double()
-                    suff = M + (t.btd + q)
-                    viol = t.f1 - suff > slack
+            def fb_step(tau):
+                """Forward (gradient) step, backward (prox) step, the step's
+                sums, f at the trial point; the fused pass also returns its
+                gradient."""
+                if mu_b4 is not None:
+                    x1, nd2, btd, nsm2 = fused_shrink_step(
+                        x_.reshape(B, -1), g_.reshape(B, -1), tau, mu_b4)
+                    x1 = x1.reshape(x_.shape)
+                    # float64 sums over x, completed, each then used in the
+                    # precision the composition gives it
+                    nd2, btd, nsm2 = op.signal_sum(nd2, btd, nsm2)
+                    nd2, nsm2 = nd2.to(rdt), nsm2.to(rdt)
+                    btd = btd if hp else btd.to(rdt)
+                    x1hat = Dx = None
                 else:
-                    suff = M + t.btd + t.nd2 / (2.0 * tau)
-                    viol = t.f1 - 1e-12 > suff
-                need = masked(viol)
-                if not any_lane(need):
-                    break
-                tau = torch.where(need, tau * shrink_f, tau)
-                new = fb_step(tau)
-                t = new if B == 1 else _Trial(*(
-                    None if a is None else torch.where(lane(need, a), a, b)
-                    for a, b in zip(new, t)))
-                bt = bt + (1 if B == 1 else need)
-        x1, d1, f1, grad1 = t.x1, t.d1, t.f1, t.grad1
+                    x1hat = x_ - lane(tau, x_) * g_
+                    x1 = gterm.prox_lanes(x1hat, tau)
+                    Dx = x1 - x_
+                    nd2, btd = op.signal_sum(
+                        lane_norm2(Dx),
+                        lane_dot64(Dx, g_) if hp else lane_redot(Dx, g_))
+                    nsm2 = None
+                if fused is not None:
+                    d1, f1, grad1 = fused(x1[0])
+                    d1, grad1 = d1[None], grad1[None]
+                    f1 = (fval(d1) if hp and not st.fused_f64
+                          else f1.to(st.sdt).reshape(1))
+                else:
+                    d1 = op.lanes(x1)
+                    f1, grad1 = fval(d1), None
+                return _Trial(x1, d1, f1, grad1, nd2, btd, nsm2, x1hat, Dx)
 
-        # the mode's inputs to the iteration's sums over x
-        if mode == "adaptive":
-            # Zhou–Gao–Dai BB stepsize; K-B4 returns neither x̂₁ nor Δx,
-            # so they are recomputed for the accepted trial
-            gradf1 = (grad1 if fused is not None
-                      else op.rmatvec_lanes(fterm.grad_lanes(d1)))
-            x1hat = (t.x1hat if t.x1hat is not None
-                     else x_ - lane(tau, x_) * g_)
-            Dx = t.Dx if t.Dx is not None else x1 - x_
-            Dg = gradf1 + (x1hat - x_) / lane(tau, x_)   # == gradf1 - g_
-        elif accelerated:
-            if affine_accel:
-                x_acc, d_acc, g_acc, alpha0 = accel
-            else:
-                x_acc, d_acc, alpha0 = accel
-        # the iteration's sums over x, completed in one call of the hook:
-        # the normalizer's ‖g‖² and ‖x₁ − x̂₁‖², the objective's g, the BB
-        # pair, FISTA's restart dot
-        parts = {"ng2": lane_norm2(g_)}
-        if t.nsm2 is None:
-            parts["nsm2"] = lane_norm2(x1 - t.x1hat)
-        g_part = (gterm.partial_value_lanes(x1) if opts.record_objective
-                  else None)
-        if g_part is not None:
-            parts["g"] = g_part
-        if mode == "adaptive":
-            parts["dot"] = (lane_dot64(Dx, Dg) if hp
-                            else lane_redot(Dx, Dg))
-            parts["nDg2"] = lane_norm2(Dg)
-        elif accelerated and opts.restart:
-            a, c = x_ - x1, x1 - x_acc
-            parts["rdot"] = lane_dot64(a, c) if hp else lane_redot(a, c)
-        sums = dict(zip(parts, op.signal_sum(*parts.values())))
+            t = fb_step(tau)
+            bt = 0 if B == 1 else torch.zeros(B, dtype=torch.int32, device=dev)
+            if opts.backtrack:
+                # nonmonotone backtracking line search (Zhang–Hager window); a
+                # lane that violates at trial j violated at every trial before,
+                # so it has made j shrinks and the trial bound is its own
+                M = torch.amax(fwin, dim=1)
+                for _ in range(opts.max_backtracks):
+                    if hp:
+                        # the JAX hp slack: 1e-12 plus 64 ulp (float32) of
+                        # the f scale, since the iterates are float32-rounded
+                        slack = 1e-12 + (64.0 * _EPS32) * (torch.abs(M)
+                                                           + torch.abs(t.f1))
+                        q = (t.nd2 / (2.0 * tau)).double()
+                        suff = M + (t.btd + q)
+                        viol = t.f1 - suff > slack
+                    else:
+                        suff = M + t.btd + t.nd2 / (2.0 * tau)
+                        viol = t.f1 - 1e-12 > suff
+                    need = masked(viol)
+                    if not any_lane(need, "backtrack"):
+                        break
+                    tau = torch.where(need, tau * shrink_f, tau)
+                    new = fb_step(tau)
+                    t = new if B == 1 else _Trial(*(
+                        None if a is None else torch.where(lane(need, a), a, b)
+                        for a, b in zip(new, t)))
+                    bt = bt + (1 if B == 1 else need)
+            x1, d1, f1, grad1 = t.x1, t.d1, t.f1, t.grad1
 
-        # residuals, diagnostics, best-iterate tracking
-        res = torch.sqrt(t.nd2) / tau
-        max_res_t = torch.maximum(max_res, res)
-        nsm2 = t.nsm2 if t.nsm2 is not None else sums["nsm2"]
-        normalizer = (torch.maximum(torch.sqrt(sums["ng2"]),
-                                    torch.sqrt(nsm2) / tau) + opts.eps_n)
-        nres = res / normalizer
-        f1_f = f1.to(rdt)
-        obj = None
-        if opts.record_objective:
-            g_val = sums["g"] if g_part is not None else gterm.value_lanes(x1)
-            obj = f1_f + g_val.to(rdt)
-        if rec:
-            residuals[:, it] = keep(res, residuals[:, it], live)
-            norm_residuals[:, it] = keep(nres, norm_residuals[:, it], live)
-            taus[:, it] = keep(tau, taus[:, it], live)
-            backtracks[:, it] = keep(bt, backtracks[:, it], live)
+            # the mode's inputs to the iteration's sums over x
+            if mode == "adaptive":
+                # Zhou–Gao–Dai BB stepsize; K-B4 returns neither x̂₁ nor Δx,
+                # so they are recomputed for the accepted trial
+                gradf1 = (grad1 if fused is not None
+                          else op.rmatvec_lanes(fterm.grad_lanes(d1)))
+                x1hat = (t.x1hat if t.x1hat is not None
+                         else x_ - lane(tau, x_) * g_)
+                Dx = t.Dx if t.Dx is not None else x1 - x_
+                Dg = gradf1 + (x1hat - x_) / lane(tau, x_)   # == gradf1 - g_
+            elif accelerated:
+                if affine_accel:
+                    x_acc, d_acc, g_acc, alpha0 = accel
+                else:
+                    x_acc, d_acc, alpha0 = accel
+            # the iteration's sums over x, completed in one call of the hook:
+            # the normalizer's ‖g‖² and ‖x₁ − x̂₁‖², the objective's g, the BB
+            # pair, FISTA's restart dot
+            parts = {"ng2": lane_norm2(g_)}
+            if t.nsm2 is None:
+                parts["nsm2"] = lane_norm2(x1 - t.x1hat)
+            g_part = (gterm.partial_value_lanes(x1) if opts.record_objective
+                      else None)
+            if g_part is not None:
+                parts["g"] = g_part
+            if mode == "adaptive":
+                parts["dot"] = (lane_dot64(Dx, Dg) if hp
+                                else lane_redot(Dx, Dg))
+                parts["nDg2"] = lane_norm2(Dg)
+            elif accelerated and opts.restart:
+                a, c = x_ - x1, x1 - x_acc
+                parts["rdot"] = lane_dot64(a, c) if hp else lane_redot(a, c)
+            sums = dict(zip(parts, op.signal_sum(*parts.values())))
+
+            # residuals, diagnostics, best-iterate tracking
+            res = torch.sqrt(t.nd2) / tau
+            max_res_t = torch.maximum(max_res, res)
+            nsm2 = t.nsm2 if t.nsm2 is not None else sums["nsm2"]
+            normalizer = (torch.maximum(torch.sqrt(sums["ng2"]),
+                                        torch.sqrt(nsm2) / tau) + opts.eps_n)
+            nres = res / normalizer
+            f1_f = f1.to(rdt)
+            obj = None
             if opts.record_objective:
-                objectives[:, it] = keep(obj, objectives[:, it], live)
-            if opts.record_iterates:
-                iterates[:, it] = keep(x1, iterates[:, it], live)
-        new_obj = obj if opts.record_objective else res
-        better = masked(new_obj < min_obj)
-        min_obj = torch.where(better, new_obj, min_obj)
-        best_x = torch.where(lane(better, x1), x1, best_x)
+                g_val = (sums["g"] if g_part is not None
+                         else gterm.value_lanes(x1))
+                obj = f1_f + g_val.to(rdt)
+            if rec:
+                residuals[:, it] = keep(res, residuals[:, it], live)
+                norm_residuals[:, it] = keep(nres, norm_residuals[:, it], live)
+                taus[:, it] = keep(tau, taus[:, it], live)
+                backtracks[:, it] = keep(bt, backtracks[:, it], live)
+                if opts.record_objective:
+                    objectives[:, it] = keep(obj, objectives[:, it], live)
+                if opts.record_iterates:
+                    iterates[:, it] = keep(x1, iterates[:, it], live)
+            new_obj = obj if opts.record_objective else res
+            better = masked(new_obj < min_obj)
+            min_obj = torch.where(better, new_obj, min_obj)
+            best_x = torch.where(lane(better, x1), x1, best_x)
 
-        stop = stop_test(opts.stop_rule, res, nres, max_res_t, opts.tol,
-                         opts.eps_r)
-        if opts.stop_fn is not None:
-            counts = k if B > 1 else torch.full((1,), it, device=dev)
-            asked = (opts.stop_fn(counts, res, nres, max_res_t, f1_f) if lanes
-                     else opts.stop_fn(it, res[0], nres[0], max_res_t[0],
-                                       f1_f[0]))
-            stop = stop | torch.as_tensor(asked, device=dev).reshape(-1)
-        if opts.guard_nonfinite:
-            bad = ~(torch.isfinite(f1_f) & torch.isfinite(res))
-            stop = stop | bad
-            nonfinite = nonfinite | masked(bad)
-        if opts.verbose:
-            print(f"[fasta-torch] iter {it}  lanes live {int(live.sum())}  "
-                  f"tau {float(tau[0]):.3e}  resid {float(res[0]):.3e}  "
-                  f"nresid {float(nres[0]):.3e}  f {float(f1_f[0]):.6e}  "
-                  f"bt {int(bt[0]) if torch.is_tensor(bt) else bt}")
+            stop = stop_test(opts.stop_rule, res, nres, max_res_t, opts.tol,
+                             opts.eps_r)
+            if opts.stop_fn is not None:
+                counts = k if B > 1 else torch.full((1,), it, device=dev)
+                asked = (opts.stop_fn(counts, res, nres, max_res_t, f1_f)
+                         if lanes
+                         else opts.stop_fn(it, res[0], nres[0], max_res_t[0],
+                                           f1_f[0]))
+                stop = stop | torch.as_tensor(asked, device=dev).reshape(-1)
+            if opts.guard_nonfinite:
+                bad = ~(torch.isfinite(f1_f) & torch.isfinite(res))
+                stop = stop | bad
+                nonfinite = nonfinite | masked(bad)
+            if opts.verbose:
+                print(f"[fasta-torch] iter {it}  "
+                      f"lanes live {int(live.sum())}  "
+                      f"tau {float(tau[0]):.3e}  resid {float(res[0]):.3e}  "
+                      f"nresid {float(nres[0]):.3e}  f {float(f1_f[0]):.6e}  "
+                      f"bt {int(bt[0]) if torch.is_tensor(bt) else bt}")
 
-        # the mode's next point and stepsize; computed on the stopping
-        # iteration too, as in the reference
-        x_next, f_record = x1, f1
-        if mode == "adaptive":
-            dotprod = sums["dot"].to(rdt) if hp else sums["dot"]
-            nDx2, nDg2 = t.nd2, sums["nDg2"]
-            tau_s = torch.where(dotprod != 0.0, nDx2 / dotprod, math.inf)
-            tau_m = torch.clamp_min(
-                torch.where(nDg2 > 0.0, dotprod / nDg2, 0.0), 0.0)
-            tau_next = torch.where(2.0 * tau_m > tau_s, tau_m,
-                                   tau_s - 0.5 * tau_m)
-            degenerate = ((tau_next <= 0.0) | torch.isinf(tau_next)
-                          | torch.isnan(tau_next))
-            tau_next = torch.where(degenerate, tau * 1.5, tau_next)
-        elif accelerated:
-            if opts.restart:
-                # O'Donoghue–Candès gradient restart
-                rdot = sums["rdot"].to(rdt) if hp else sums["rdot"]
-                alpha0 = torch.where(rdot > 0.0, 1.0, alpha0)
-            alpha1 = (1.0 + torch.sqrt(1.0 + 4.0 * alpha0 ** 2)) / 2.0
-            beta = (alpha0 - 1.0) / alpha1
-            x_next = x1 + lane(beta, x1) * (x1 - x_acc)
-            d_next = d1 + lane(beta, d1) * (d1 - d_acc)   # A is linear
-            if affine_accel:
-                # Aᴴ∇f(d) is affine in d too: the same combination
-                gradf1 = grad1 + lane(beta, grad1) * (grad1 - g_acc)
-                accel_next = (x1, d1, grad1, alpha1)
+            # the mode's next point and stepsize; computed on the stopping
+            # iteration too, as in the reference
+            x_next, f_record = x1, f1
+            if mode == "adaptive":
+                dotprod = sums["dot"].to(rdt) if hp else sums["dot"]
+                nDx2, nDg2 = t.nd2, sums["nDg2"]
+                tau_s = torch.where(dotprod != 0.0, nDx2 / dotprod, math.inf)
+                tau_m = torch.clamp_min(
+                    torch.where(nDg2 > 0.0, dotprod / nDg2, 0.0), 0.0)
+                tau_next = torch.where(2.0 * tau_m > tau_s, tau_m,
+                                       tau_s - 0.5 * tau_m)
+                degenerate = ((tau_next <= 0.0) | torch.isinf(tau_next)
+                              | torch.isnan(tau_next))
+                tau_next = torch.where(degenerate, tau * 1.5, tau_next)
+            elif accelerated:
+                if opts.restart:
+                    # O'Donoghue–Candès gradient restart
+                    rdot = sums["rdot"].to(rdt) if hp else sums["rdot"]
+                    alpha0 = torch.where(rdot > 0.0, 1.0, alpha0)
+                alpha1 = (1.0 + torch.sqrt(1.0 + 4.0 * alpha0 ** 2)) / 2.0
+                beta = (alpha0 - 1.0) / alpha1
+                x_next = x1 + lane(beta, x1) * (x1 - x_acc)
+                d_next = d1 + lane(beta, d1) * (d1 - d_acc)   # A is linear
+                if affine_accel:
+                    # Aᴴ∇f(d) is affine in d too: the same combination
+                    gradf1 = grad1 + lane(beta, grad1) * (grad1 - g_acc)
+                    accel_next = (x1, d1, grad1, alpha1)
+                else:
+                    gradf1 = op.rmatvec_lanes(fterm.grad_lanes(d_next))
+                    accel_next = (x1, d1, alpha1)
+                accel = tuple(keep(a, b, live)
+                              for a, b in zip(accel_next, accel))
+                tau_next = tau
+                # the window sees f at the next search point (the
+                # extrapolated y); on a stop the prox-point value
+                f_record = torch.where(stop, f1, fval(d_next))
             else:
-                gradf1 = op.rmatvec_lanes(fterm.grad_lanes(d_next))
-                accel_next = (x1, d1, alpha1)
-            accel = tuple(keep(a, b, live) for a, b in zip(accel_next, accel))
-            tau_next = tau
-            # the window sees f at the next search point (the
-            # extrapolated y); on a stop the prox-point value
-            f_record = torch.where(stop, f1, fval(d_next))
-        else:
-            gradf1 = (grad1 if fused is not None
-                      else op.rmatvec_lanes(fterm.grad_lanes(d1)))
-            tau_next = tau
-        if rec:
-            fvals[:, it] = keep(f_record.to(rdt), fvals[:, it], live)
+                gradf1 = (grad1 if fused is not None
+                          else op.rmatvec_lanes(fterm.grad_lanes(d1)))
+                tau_next = tau
+            if rec:
+                fvals[:, it] = keep(f_record.to(rdt), fvals[:, it], live)
 
-        slot = (it + 1) % W          # each live lane's k + 1
-        fwin[:, slot] = keep(f_record, fwin[:, slot], live)
-        total_bt = total_bt + bt        # a stopped lane makes no trials
-        # on a stop the loop breaks at the prox iterate; at max_iters
-        # FISTA returns the extrapolated point
-        sol = (torch.where(lane(stop, x1), x1, x_next) if accelerated
-               else x1)
-        solution = keep(sol, solution, live)
-        x = keep(x_next, x, live)
-        gradf = keep(gradf1, gradf, live)
-        tau = keep(tau_next, tau, live)
-        max_res = keep(max_res_t, max_res, live)
-        if B > 1:
-            k = k + live
-        live = masked(~stop)
-        it += 1
-        if not any_lane(live):
-            break
+            slot = (it + 1) % W          # each live lane's k + 1
+            fwin[:, slot] = keep(f_record, fwin[:, slot], live)
+            total_bt = total_bt + bt        # a stopped lane makes no trials
+            # on a stop the loop breaks at the prox iterate; at max_iters
+            # FISTA returns the extrapolated point
+            sol = (torch.where(lane(stop, x1), x1, x_next) if accelerated
+                   else x1)
+            solution = keep(sol, solution, live)
+            x = keep(x_next, x, live)
+            gradf = keep(gradf1, gradf, live)
+            tau = keep(tau_next, tau, live)
+            max_res = keep(max_res_t, max_res, live)
+            if B > 1:
+                k = k + live
+            live = masked(~stop)
+            it += 1
+            if not any_lane(live, "stop"):
+                break
 
     if B == 1:
         k = it
@@ -550,27 +558,31 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
         solution=solution, best_x=best_x, min_objective=min_obj,
         max_residual=max_res, total_bt=total_bt, accel=accel,
         nonfinite=nonfinite, diags=diags) if with_state else None)
-    converged = ~live & ~nonfinite
-    if lanes:
-        def host(v):
-            return v.cpu().numpy() if torch.is_tensor(v) else np.full(B, v)
-        return DeviceResult(
-            solution=solution, best_iterate=best_x,
-            iteration_count=host(k), converged=host(converged),
-            residuals=residuals, norm_residuals=norm_residuals, taus=taus,
-            fvals=fvals, objectives=objectives, backtracks=backtracks,
-            total_backtracks=host(total_bt), iterates=iterates,
-            nonfinite=host(nonfinite)), state
+    with span("fasta.loop.result"):
+        converged = ~live & ~nonfinite
+        if lanes:
+            def host(v):
+                return (v.cpu().numpy() if torch.is_tensor(v)
+                        else np.full(B, v))
+            return DeviceResult(
+                solution=solution, best_iterate=best_x,
+                iteration_count=host(k), converged=host(converged),
+                residuals=residuals, norm_residuals=norm_residuals,
+                taus=taus, fvals=fvals, objectives=objectives,
+                backtracks=backtracks, total_backtracks=host(total_bt),
+                iterates=iterates, nonfinite=host(nonfinite)), state
 
-    def one_lane(v):
-        return None if v is None else v[0]
-    return DeviceResult(
-        solution=solution[0], best_iterate=best_x[0], iteration_count=it,
-        converged=bool(converged[0]), residuals=one_lane(residuals),
-        norm_residuals=one_lane(norm_residuals), taus=one_lane(taus),
-        fvals=one_lane(fvals), objectives=one_lane(objectives),
-        backtracks=one_lane(backtracks), total_backtracks=total_bt,
-        iterates=one_lane(iterates), nonfinite=bool(nonfinite[0])), state
+        def one_lane(v):
+            return None if v is None else v[0]
+        return DeviceResult(
+            solution=solution[0], best_iterate=best_x[0],
+            iteration_count=it, converged=bool(converged[0]),
+            residuals=one_lane(residuals),
+            norm_residuals=one_lane(norm_residuals), taus=one_lane(taus),
+            fvals=one_lane(fvals), objectives=one_lane(objectives),
+            backtracks=one_lane(backtracks), total_backtracks=total_bt,
+            iterates=one_lane(iterates),
+            nonfinite=bool(nonfinite[0])), state
 
 
 def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
@@ -581,8 +593,9 @@ def _solve(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
     x0 = torch.as_tensor(x0)
     if not lanes:
         x0 = x0[None]
-    st = _setting(opts, op, fterm, gterm, x0)
-    s = _setup(opts, st, op, fterm, x0, tau0)
+    with span("fasta.loop.setup"):
+        st = _setting(opts, op, fterm, gterm, x0)
+        s = _setup(opts, st, op, fterm, x0, tau0)
     return _run(opts, st, op, fterm, gterm, s, 0, lanes, with_state)
 
 
