@@ -106,6 +106,8 @@ non-zero without the final ``ok`` line):
     planar phase retrieval 16384×256 × 16, one request of each, and
     LASSO with full diagnostics — its routes, the launch counters of
     K-B4, K-B1b, K-B6b and K-B8b (and no call of their plain versions),
+    the lane kernels L1-L3 on every trial and iteration of the LASSO
+    batch loop,
     objectives against the float64 references, the batch loop's lanes
     against separate solves, and the wall time per instance of a batch
     against separate calls on both batch routes;
@@ -247,7 +249,15 @@ non-zero without the final ``ok`` line):
     budget of ``tests/test_torch_sharding_gspmd.py``, no plain version,
     the wall per iteration beside the unsharded solve's; then a one-rank
     NCCL group on the bfloat16 LASSO and the batch, ``torch.equal`` to
-    the unsharded card solves.
+    the unsharded card solves;
+36. the adaptive loop's lane kernels L1-L3 (``kernels/lane_fused.py``)
+    against their plain versions at the benchmark cell's 16384×1000 and
+    16384×2000, at 32×2000, at one row and at 1×8192 (the longest row
+    their plan admits): r and the update bit for bit, the float64 sums
+    within 1e-12 of their terms' magnitudes, a NaN kept to its row; call
+    and stream times beside the plain versions' and the bound, and at
+    the cell's shapes and one row the card time, the host time and the
+    device operations of a call, as in phase 10.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move (each input read once,
@@ -282,8 +292,8 @@ if not torch.cuda.is_available():
 import fasta_tpu_torch as ftt  # noqa: E402
 from fasta_tpu_torch import checkpoint, problems, profiling  # noqa: E402
 from fasta_tpu_torch.harness import MODE_OPTIONS  # noqa: E402
-from fasta_tpu_torch.kernels import (_build, bf16_probe, lstsq_fused,  # noqa: E402
-                                     matvec_probe, microsolver,
+from fasta_tpu_torch.kernels import (_build, bf16_probe, lane_fused,  # noqa: E402
+                                     lstsq_fused, matvec_probe, microsolver,
                                      microsolver_planar, microsolver_tv,
                                      planar_fused, planar_probe, prox_fused,
                                      tail_probe, tv_fused)
@@ -556,6 +566,8 @@ def reset_launches() -> None:
     microsolver_planar.BATCH_LAUNCHES = 0
     matvec_probe.LAUNCHES = matvec_probe.CHECK_LAUNCHES = 0
     tail_probe.LAUNCHES = 0
+    lane_fused.RESIDUAL_LAUNCHES = lane_fused.SUMS_LAUNCHES = 0
+    lane_fused.UPDATE_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -585,7 +597,10 @@ def read_launches() -> dict:
             "K-B8bw": microsolver_planar.WIDE_BATCH_LAUNCHES,
             "K-P1": matvec_probe.LAUNCHES,
             "K-P2": matvec_probe.CHECK_LAUNCHES,
-            "K-P3": tail_probe.LAUNCHES}
+            "K-P3": tail_probe.LAUNCHES,
+            "L1": lane_fused.RESIDUAL_LAUNCHES,
+            "L2": lane_fused.SUMS_LAUNCHES,
+            "L3": lane_fused.UPDATE_LAUNCHES}
 
 
 def smi_line() -> str:
@@ -2123,6 +2138,208 @@ def phase_shrink_step() -> dict:
                 card_ms_1x2pow24=big[5], host_ms_1x2pow24=big[6])
 
 
+def lane_bytes(kernel: str, R: int, n: int, shared_b: bool = False,
+               live: int = None, better: int = None) -> float:
+    """The bytes a lane kernel must move, each input read once and each
+    output written once: the residual reads d and b and writes r (b once
+    when shared); the sums read x, g, x₁ and ∇f₁; the update reads x₁ and
+    ∇f₁ and writes x and ∇f in the live rows, x₁ to the best iterate in
+    the better ones.  The per-row sums and flags are left out."""
+    if kernel == "residual":
+        return 4.0 * (2 * R * n + (n if shared_b else R * n))
+    if kernel == "sums":
+        return 16.0 * R * n
+    live = R if live is None else live
+    better = live if better is None else better
+    return 4.0 * n * (4 * live + better)
+
+
+# float32 operations an entry: the residual's subtraction and its square
+# added; the sums' x̂₁ (2), Δx (1), Δg (3) and three products added (6)
+LANE_FLOPS = {"residual": 3.0, "sums": 12.0, "update": 0.0}
+
+
+def phase_lane_fused() -> dict:
+    """The adaptive loop's lane kernels L1-L3 (``kernels/lane_fused.py``)
+    against their plain versions, the composition the loop runs without
+    them, on seeded rows at the benchmark cell's shapes (16384×1000 for
+    the residual, b a row a lane; 16384×2000 for the sums and the update),
+    at 32×2000 (the serving batch's lanes), at one row of 1000 or 2000 (a
+    single solve) and at one row of 8192 (the longest ``lane_plan``
+    admits): r and the update's three outputs bit for bit (stopped rows
+    and best iterates kept where their flags are clear); the float64 sums
+    within 1e-12 of the sum of their terms' magnitudes and the float32
+    ones within rtol 1e-5 (their order), with hp and without; a second
+    call equal (no atomics); a NaN carried into r, f and the sums.  Call
+    time (median of 20) and stream time (20 back-to-back calls) of kernel
+    and plain version at the cell's shapes, one row and 1×8192, against
+    ``bound``; at the cell's shapes and one row the card time, the host
+    time and the device operations of a call (one kernel, no memset)."""
+    gen = torch.Generator(device=DEV).manual_seed(36)
+
+    def rows(R, n, k):
+        return [torch.randn((R, n), generator=gen, device=DEV)
+                for _ in range(k)]
+
+    def timed(tag, key, kernel_fn, plain_fn, nbytes, flops, split):
+        kern, plain = cuda_ms(kernel_fn, 20), cuda_ms(plain_fn, 20)
+        ks, ps = stream_ms(kernel_fn), stream_ms(plain_fn)
+        bd = bound(nbytes, flops)
+        print(f"{tag} call, median of 20: kernel {kern:.4f} ms, plain "
+              f"{plain:.4f} ms; stream time, 20 back-to-back calls: kernel "
+              f"{ks:.4f} ms, plain {ps:.4f} ms; {nbytes / 1e6:.1f} MB, "
+              f"{nbytes / ks / 1e6:.1f} GB/s of stream time, "
+              f"{100 * bd['bound_ms'] / ks:.1f}% of the bound's rate; bound "
+              f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+        out = {f"ms{key}": kern, f"plain_ms{key}": plain,
+               f"stream_ms{key}": ks, f"plain_stream_ms{key}": ps,
+               f"bound_ms{key}": bd["bound_ms"], f"bytes{key}": nbytes}
+        if split:
+            card, host, _ = call_split(tag, kernel_fn, traced=True)
+            out.update({f"card_ms{key}": card, f"host_ms{key}": host})
+        return out, bd
+
+    res, sums, upd = {}, {}, {}
+    cell = {"residual": (16384, 1000), "sums": (16384, 2000)}
+    for R, m, shared in ((16384, 1000, False), (32, 1000, False),
+                         (1, 1000, True), (1, 8192, True)):
+        d, b = rows(R, m, 2)
+        b = b[0].clone() if shared else b
+        for hp in (True, False):
+            r, f = lane_fused.residual_value(d, b, hp)
+            r0, f0 = lane_fused.residual_value_reference(d, b, hp)
+            again = lane_fused.residual_value(d, b, hp)
+            torch.cuda.synchronize()
+            gap = (f.double() - f0.double()).abs()
+            tol = (1e-12 if hp else 1e-5) * f0.double().abs()
+            same = torch.equal(again[0], r) and torch.equal(again[1], f)
+            ok = torch.equal(r, r0) and bool((gap <= tol).all()) and same
+            how = "shared" if shared else "a row a lane"
+            worst = float((gap / f0.double().abs()).max())
+            print(f"[36 L1 residual {R}x{m} b {how} hp={hp}] r bit for "
+                  f"bit {torch.equal(r, r0)}; f max |df|/f {worst:.2e} "
+                  f"(tol {'1e-12' if hp else '1e-5'}); second call equal "
+                  f"{same}")
+            require(ok, f"L1 {R}x{m} hp={hp} disagrees with its plain "
+                    f"version")
+        key = {(16384, 1000): "", (1, 1000): "_1x1000",
+               (1, 8192): "_1x8192"}.get((R, m))
+        if key is not None:
+            out, bd = timed(f"[36 L1 residual {R}x{m}]", key,
+                            lambda: lane_fused.residual_value(d, b, True),
+                            lambda: lane_fused.residual_value_reference(
+                                d, b, True),
+                            lane_bytes("residual", R, m, shared),
+                            LANE_FLOPS["residual"] * R * m, key != "_1x8192")
+            res.update(out)
+            if key == "":
+                res.update(bd)
+        del d, b
+    for R, n in ((16384, 2000), (32, 2000), (1, 2000), (1, 8192)):
+        x, g, x1, gf1 = rows(R, n, 4)
+        tau = torch.rand(R, generator=gen, device=DEV) + 0.05
+        t = tau[:, None]
+        dx = (x1 - x).double()
+        dg = (gf1 + ((x - t * g) - x) / t).double()
+        scale = (dx * dg).abs().sum(1)
+        for hp in (True, False):
+            out = lane_fused.adaptive_sums(x, g, x1, gf1, tau, hp)
+            ref = lane_fused.adaptive_sums_reference(x, g, x1, gf1, tau, hp)
+            again = lane_fused.adaptive_sums(x, g, x1, gf1, tau, hp)
+            torch.cuda.synchronize()
+            rel = max(float(((a - b).abs() / b.abs()).max())
+                      for a, b in ((out[0], ref[0]), (out[2], ref[2])))
+            dot = float(((out[1].double() - ref[1].double()).abs()
+                         / scale).max())
+            same = all(torch.equal(a, b) for a, b in zip(out, again))
+            ok = (rel <= 1e-5 and dot <= (1e-12 if hp else 1e-5) and same
+                  and [a.dtype for a in out] == [a.dtype for a in ref])
+            print(f"[36 L2 sums {R}x{n} hp={hp}] ‖g‖², ‖Δg‖² max rel "
+                  f"{rel:.2e} (tol 1e-5); ⟨Δx, Δg⟩ max |diff| over "
+                  f"Σ|ΔxΔg| {dot:.2e} (tol {'1e-12' if hp else '1e-5'}); "
+                  f"second call equal {same}")
+            require(ok, f"L2 {R}x{n} hp={hp} disagrees with its plain "
+                    f"version")
+        key = {(16384, 2000): "", (1, 2000): "_1x2000",
+               (1, 8192): "_1x8192"}.get((R, n))
+        if key is not None:
+            o, bd = timed(f"[36 L2 sums {R}x{n}]", key,
+                          lambda: lane_fused.adaptive_sums(x, g, x1, gf1,
+                                                           tau, True),
+                          lambda: lane_fused.adaptive_sums_reference(
+                              x, g, x1, gf1, tau, True),
+                          lane_bytes("sums", R, n),
+                          LANE_FLOPS["sums"] * R * n, key != "_1x8192")
+            sums.update(o)
+            if key == "":
+                sums.update(bd)
+        # the update: 2/3 of the rows live (the first always), better in
+        # half of those
+        live = torch.rand(R, generator=gen, device=DEV) < 2 / 3
+        live[0] = True
+        better = live & (torch.rand(R, generator=gen, device=DEV) < 0.5)
+        olds = [x, g, gf1.neg()]
+        outs, refs = [a.clone() for a in olds], [a.clone() for a in olds]
+        keep = (x1.clone(), tau.clone())
+        lane_fused.lane_update(x1, gf1, live, better, *outs)
+        lane_fused.lane_update_reference(x1, gf1, live, better, *refs)
+        torch.cuda.synchronize()
+        bits = all(torch.equal(a, b) for a, b in zip(outs, refs))
+        kept = (all(torch.equal(o[~live], a[~live])
+                    for o, a in zip(outs, olds))
+                and torch.equal(outs[2][~better], olds[2][~better])
+                and torch.equal(x1, keep[0]))
+        print(f"[36 L3 update {R}x{n}, {int(live.sum())} rows live, "
+              f"{int(better.sum())} better] outputs bit for bit {bits}; "
+              f"stopped rows and unbettered best iterates kept {kept}")
+        require(bits and kept, f"L3 {R}x{n} disagrees with its plain version")
+        if key is not None:
+            every = torch.ones(R, dtype=torch.bool, device=DEV)
+            o, bd = timed(f"[36 L3 update {R}x{n}, every row live and "
+                          f"better]", key,
+                          lambda: lane_fused.lane_update(x1, gf1, every,
+                                                         every, *outs),
+                          lambda: lane_fused.lane_update_reference(
+                              x1, gf1, every, every, *outs),
+                          lane_bytes("update", R, n), 0.0, key != "_1x8192")
+            upd.update(o)
+            if key == "":
+                upd.update(bd)
+                o, _ = timed(f"[36 L3 update {R}x{n}, {int(live.sum())} "
+                             f"rows live, {int(better.sum())} better]",
+                             "_part",
+                             lambda: lane_fused.lane_update(
+                                 x1, gf1, live, better, *outs),
+                             lambda: lane_fused.lane_update_reference(
+                                 x1, gf1, live, better, *outs),
+                             lane_bytes("update", R, n, live=int(live.sum()),
+                                        better=int(better.sum())),
+                             0.0, False)
+                upd.update(o)
+        del x, g, x1, gf1, outs, refs, olds
+    d = torch.randn((2, 1000), generator=gen, device=DEV)
+    d[1, 300] = float("nan")
+    r, f = lane_fused.residual_value(d, torch.zeros(1000, device=DEV), True)
+    x, g, x1, gf1 = rows(2, 2000, 4)
+    x1[1, 700] = float("nan")
+    s = lane_fused.adaptive_sums(x, g, x1, gf1, torch.ones(2, device=DEV),
+                                 True)
+    nan_ok = (bool(torch.isnan(r[1, 300])) and bool(torch.isnan(f[1]))
+              and not bool(torch.isnan(f[0])) and bool(torch.isnan(s[1][1]))
+              and not bool(torch.isnan(s[1][0])))
+    print(f"[36 L1, L2] a NaN entry stays NaN in r, f and ⟨Δx, Δg⟩ of its "
+          f"row alone: {nan_ok}")
+    require(nan_ok, "a lane kernel dropped a NaN or spread it to a row")
+    shape = {"residual": "16384x1000, b a row a lane (the cell's trial), "
+                         "call time",
+             "sums": "16384x2000 (the cell's lanes), call time",
+             "update": "16384x2000 (the cell's lanes), every row live and "
+                       "better, call time"}
+    return {name: dict(library_ms=None, shape=shape[name], **v)
+            for name, v in (("residual", res), ("sums", sums),
+                            ("update", upd))}
+
+
 def phase_batch_dense() -> dict:
     """K-B1b on LASSO 1000×2000, 32 instances (b·(1 + 0.02·i), τ₀ 0.05,
     0.075 or 0.1 by i mod 3), adaptive and FISTA (restart_dd), hp, tol
@@ -2514,6 +2731,11 @@ def phase_serving() -> dict:
             return tv_objective(reqs["tv"][i], 0.1, x)
         return phase_objective(A_c, bm * scale, cc, planar_complex(x))
 
+    def lane_counts():
+        return (lane_fused.RESIDUAL_LAUNCHES, lane_fused.SUMS_LAUNCHES,
+                lane_fused.UPDATE_LAUNCHES)
+
+    lane_runs = {}      # config: the lane kernels' launches in its batch
     with counting_plain() as plain_calls:
         reset_launches()
         runs = []       # (config, what, result, instances)
@@ -2524,8 +2746,11 @@ def phase_serving() -> dict:
             require(plan.path == routes[name], f"{name}: route {plan.path}")
             kw = (kernel_kw[name] if plan.path == "microsolve_batch"
                   else dict(options=loop_opts[name]))
+            before = lane_counts()
             runs.append((name, "recommend_path.run", plan.run(reqs[name],
                                                               **kw)))
+            torch.cuda.synchronize()
+            lane_runs[name] = [b - a for a, b in zip(before, lane_counts())]
             runs.append((name, "solve_serving", p.solve_serving(reqs[name],
                                                                 **kw)))
             if name != "tv":
@@ -2600,6 +2825,15 @@ def phase_serving() -> dict:
 
     print(f"[22 serving] launches during the main path: {launches}; plain "
           f"versions called: {plain}")
+    # the LASSO batch loop on the lane kernels at every trial and iteration
+    loops = int(np.max(next(r for n, w, r in runs if n == "lasso" and w ==
+                            "recommend_path.run").iteration_count))
+    res, sums, upd = lane_runs["lasso"]
+    print(f"[22 serving lasso] the batch loop's {loops} iterations: lane "
+          f"kernels residual {res}, sums {sums}, update {upd} launches "
+          f"(TV {lane_runs['tv']}, planar {lane_runs['pr']})")
+    require(sums == upd == loops and res >= loops + 1,
+            f"the LASSO batch loop left the lane kernels: {lane_runs}")
     for kernel in ("K-B4", "K-B1b", "K-B6b", "K-B8b", "K-B1", "K-B6", "K-B8",
                    "K-B3"):
         require(launches[kernel] >= 1, f"{kernel} never launched on the "
@@ -5427,6 +5661,7 @@ def main() -> None:
     sharded = run(phase_sharded)
     sharded_x = run(phase_sharded_x)
     gspmd = run(phase_sharded_gspmd)
+    lanes = run(phase_lane_fused)
     launches = {k: lasso[k] + dense[k] + tv[k] + pr[k]
                 + serving["launches"][k] + b8w["launches"][k]
                 + bf16["launches"][k] + later["launches"][k]
@@ -5545,6 +5780,20 @@ def main() -> None:
              source="fasta_tpu_torch/csrc/tail_probe.cu",
              replaces="benchmarks/micro_tail_probe.py:411",
              launches=launches["K-P3"], **p3),
+        dict(name="L1 lane_residual_kernel (the adaptive loop's residual "
+                  "and f)", route="cuda",
+             source="fasta_tpu_torch/csrc/lane_fused.cu",
+             replaces="none: XLA fuses the loop body, fasta_tpu/solver.py",
+             launches=launches["L1"], **lanes["residual"]),
+        dict(name="L2 lane_sums_kernel (the adaptive step's sums)",
+             route="cuda", source="fasta_tpu_torch/csrc/lane_fused.cu",
+             replaces="none: XLA fuses the loop body, fasta_tpu/solver.py",
+             launches=launches["L2"], **lanes["sums"]),
+        dict(name="L3 lane_update_kernel (the loop's carried tensors in "
+                  "place)", route="cuda",
+             source="fasta_tpu_torch/csrc/lane_fused.cu",
+             replaces="none: XLA fuses the loop body, fasta_tpu/solver.py",
+             launches=launches["L3"], **lanes["update"]),
     ]
     print(f"[time] seconds a phase: {seconds}; the whole script "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -12,6 +12,11 @@ version beside it.
   ``csrc/dense_rows.cuh``.
 * K-B4 ``fused_shrink_step``, the L1 trial step (``prox_fused.py``,
   ``csrc/prox_fused.cu``; its soft threshold is in ``csrc/prox.cuh``)
+* the adaptive loop's elementwise chain over the lanes: ``residual_value``
+  (r = d − b and ½‖r‖²), ``adaptive_sums`` (‖g‖², ⟨Δx, Δg⟩, ‖Δg‖²) and
+  ``lane_update`` (x, ∇f, the solution and the best iterate in place)
+  (``lane_fused.py``, ``csrc/lane_fused.cu``; no TPU kernel: XLA fuses
+  that chain in the reference)
 * K-B5 ``fused_tv_gradmap`` and its band form ``fused_tv_gradmap_band``
   over one rank's rows of a row-sharded image (``tv_fused.py``,
   ``csrc/tv_fused.cu``)
@@ -42,13 +47,14 @@ tensors.  Each module counts its kernels' launches (``LAUNCHES``,
 ``BAND_LAUNCHES`` for K-B5's band form, and
 ``BF16_LAUNCHES``, ``POINTWISE_BF16_LAUNCHES``, ``WIDE_LAUNCHES``,
 ``WIDE_BATCH_LAUNCHES`` for the bfloat16 forms and K-B8's wide route,
-``CHECK_LAUNCHES`` for K-P2); read
+``CHECK_LAUNCHES`` for K-P2, ``RESIDUAL_LAUNCHES``, ``SUMS_LAUNCHES``
+and ``UPDATE_LAUNCHES`` for the lane kernels); read
 them as module attributes (``lstsq_fused.LAUNCHES``), since importing the
 name copies the integer.  Nothing is compiled at import.
 """
 
-from . import (bf16_probe, lstsq_fused, matvec_probe, microsolver,
-               microsolver_planar, microsolver_tv, planar_fused,
+from . import (bf16_probe, lane_fused, lstsq_fused, matvec_probe,
+               microsolver, microsolver_planar, microsolver_tv, planar_fused,
                planar_probe, prox_fused, tail_probe, tv_fused)
 from .lstsq_fused import (fused_lstsq_gradmap, fused_pointwise_gradmap,
                           lstsq_gradmap_reference,
@@ -76,7 +82,7 @@ from .tv_fused import (fused_tv_gradmap, fused_tv_gradmap_band,
                        tv_gradmap_band_reference, tv_gradmap_reference)
 
 __all__ = [
-    "bf16_probe", "lstsq_fused", "matvec_probe", "microsolver",
+    "bf16_probe", "lane_fused", "lstsq_fused", "matvec_probe", "microsolver",
     "microsolver_planar", "microsolver_tv", "planar_fused", "planar_probe",
     "prox_fused", "tail_probe", "tv_fused",
     "fused_shrink_step", "shrink_step_reference",

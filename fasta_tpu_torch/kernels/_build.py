@@ -46,6 +46,9 @@ _SIGNATURES = {
     "fasta_fbs_work_doubles": [_I, _P],
     "fasta_shrink_step": [_P, _P, _P, _F, _P, _F, _I, _I, _I, _I, _P, _P,
                           _P, _P],
+    "fasta_lane_residual": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "fasta_lane_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "fasta_lane_update": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "fasta_tv_gradmap": [_P, _P, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "fasta_tv_gradmap_band": [_P, _P, _I, _I, _F, _P, _P, _P, _I, _I, _I,
                               _I, _P, _P, _P, _P, _P],

@@ -25,7 +25,13 @@ from a state.  Decisions
 synchronises with the device; the whole-solve kernels
 (``fasta_tpu_torch.micro``) keep them on the card.  An L1 trial step of
 real float32 data is kernel K-B4 (``kernels/prox_fused.py``), which
-returns x₁ and the step's three sums in one pass.
+returns x₁ and the step's three sums in one pass.  On those lanes the
+adaptive mode's sums and its update of the carried tensors are the
+kernels of ``kernels/lane_fused.py``, which write only what the loop
+carries (x, ∇f, the solution and the best iterate, in place in the
+loop's own copies); with the plain least-squares term the residual
+d − b and f come from one more, and the trial carries the residual to
+the gradient map.
 """
 
 from __future__ import annotations
@@ -40,14 +46,15 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from .kernels import lane_fused
 from .kernels.prox_fused import fused_shrink_step
 from .operators import LinearOp, as_linear_op, check_adjoint
 from .options import FastaOptions, stop_test
 from .precision import (lane, lane_dot64, lane_norm2, lane_redot, norm2,
                         real_dtype, use_high_precision)
 from .profiling import span
-from .terms import (L1Norm, ProxTerm, SmoothTerm, as_prox_term,
-                    as_smooth_term)
+from .terms import (L1Norm, LeastSquares, ProxTerm, SmoothTerm,
+                    as_prox_term, as_smooth_term)
 
 __all__ = ["fasta", "solve", "make_solver", "make_stateful_solver",
            "resume_state", "make_batch_solver", "solve_path",
@@ -168,8 +175,9 @@ class SolverState(NamedTuple):
 class _Trial(NamedTuple):
     """One line-search trial over the lanes: the prox point, A x₁, f(A x₁)
     in the decision precision, the fused pass's gradient (or None), ‖Δx‖²
-    and ⟨Δx, g⟩ (the latter in the decision precision), and either
-    ‖x₁ − x̂₁‖² (kernel K-B4) or the composition's x̂₁ and Δx."""
+    and ⟨Δx, g⟩ (the latter in the decision precision), either
+    ‖x₁ − x̂₁‖² (kernel K-B4) or the composition's x̂₁ and Δx, and the
+    residual A x₁ − b where the lane kernels computed it (or None)."""
     x1: Any
     d1: Any
     f1: Any
@@ -179,6 +187,7 @@ class _Trial(NamedTuple):
     nsm2: Any
     x1hat: Any
     Dx: Any
+    r: Any
 
 
 class _Setting(NamedTuple):
@@ -193,6 +202,8 @@ class _Setting(NamedTuple):
     fused_f64: bool           # the fused map's f is the hp decision value
     affine_accel: bool
     mu_b4: Optional[torch.Tensor]
+    lanes_fused: bool         # the adaptive sums and update are lane_fused's
+    residual: bool            # and the residual with f too
 
 
 def _setting(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
@@ -223,14 +234,34 @@ def _setting(opts: FastaOptions, op: LinearOp, fterm: SmoothTerm,
                              device=x.device)
              if isinstance(g_block, L1Norm) and x.dtype == torch.float32
              else None)
+    # on those lanes the adaptive loop's sums and update are the lane
+    # kernels (an iterate record keeps the composition), and the residual
+    # with f is one more where f is the plain least-squares term; decided
+    # here, once a solve
+    lanes_fused = (mu_b4 is not None and opts.effective_mode == "adaptive"
+                   and not opts.record_iterates
+                   and lane_fused.lanes_route(x))
+    residual = (lanes_fused and type(fterm) is LeastSquares
+                and lane_fused.residual_route(fterm.b, B, x.device))
     return _Setting(B, x.device, rdt, hp, torch.float64 if hp else rdt,
-                    fused, fused_f64, affine_accel, mu_b4)
+                    fused, fused_f64, affine_accel, mu_b4, lanes_fused,
+                    residual)
 
 
-def _fval(st: _Setting, fterm: SmoothTerm, d):
-    """f(d) per lane in the decision precision."""
+def _fval_r(st: _Setting, fterm: SmoothTerm, d):
+    """f(d) per lane in the decision precision, and the residual d − b
+    where the lane kernel computed it along (else None).  A real operator
+    gives float32 d on every trial of a solve, a complex one never."""
+    if st.residual and d.dtype == torch.float32:
+        r, f = lane_fused.residual_value(d.contiguous(), fterm.b, st.hp)
+        return f, r
     return (fterm.value_f64_lanes(d) if st.hp
-            else fterm.value_lanes(d).to(st.rdt))
+            else fterm.value_lanes(d).to(st.rdt)), None
+
+
+def _grad_map(op: LinearOp, fterm: SmoothTerm, d, r):
+    """Aᴴ∇f(d), from the residual r = ∇f(d) where the trial carries it."""
+    return op.rmatvec_lanes(fterm.grad_lanes(d) if r is None else r)
 
 
 def _setup(opts: FastaOptions, st: _Setting, op: LinearOp,
@@ -244,8 +275,9 @@ def _setup(opts: FastaOptions, st: _Setting, op: LinearOp,
     tau = torch.as_tensor(tau0, dtype=rdt).to(dev).expand(B).clone()
     d0 = op.lanes(x0)
     fwin = torch.full((B, W), -math.inf, dtype=st.sdt, device=dev)
-    fwin[:, 0] = _fval(st, fterm, d0)
-    gradf = op.rmatvec_lanes(fterm.grad_lanes(d0))
+    f0, r0 = _fval_r(st, fterm, d0)
+    fwin[:, 0] = f0
+    gradf = _grad_map(op, fterm, d0, r0)
     # FISTA carry: the last prox point, A·(it), its gradient map (affine
     # case only) and the momentum α
     one = torch.ones(B, dtype=rdt, device=dev)
@@ -324,10 +356,18 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
             return bool(m) if B == 1 else bool(m.any())
 
     def fval(d):
-        return _fval(st, fterm, d)
+        return _fval_r(st, fterm, d)[0]
 
     x, gradf, tau, fwin = s.x1, s.gradf1, s.tau1, s.fwin
     solution, best_x = s.solution, s.best_x
+    if st.lanes_fused:
+        # the lane update writes these in place: the loop's own copies,
+        # never the caller's x0 or state, nor a tensor an operator handed
+        # back (a FunctionOp's adjoint may return its argument); in
+        # adaptive mode the solution is x₁ at every point, so x is both
+        x, gradf, best_x = (t.clone(memory_format=torch.contiguous_format)
+                            for t in (x, gradf, best_x))
+        solution = x
     min_obj, max_res = s.min_objective, s.max_residual
     k, total_bt, accel, nonfinite = s.k, s.total_bt, s.accel, s.nonfinite
     (residuals, norm_residuals, taus, fvals, objectives, backtracks,
@@ -366,15 +406,17 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
                         lane_norm2(Dx),
                         lane_dot64(Dx, g_) if hp else lane_redot(Dx, g_))
                     nsm2 = None
+                r = None
                 if fused is not None:
                     d1, f1, grad1 = fused(x1[0])
                     d1, grad1 = d1[None], grad1[None]
                     f1 = (fval(d1) if hp and not st.fused_f64
                           else f1.to(st.sdt).reshape(1))
                 else:
-                    d1 = op.lanes(x1)
-                    f1, grad1 = fval(d1), None
-                return _Trial(x1, d1, f1, grad1, nd2, btd, nsm2, x1hat, Dx)
+                    d1, grad1 = op.lanes(x1), None
+                    f1, r = _fval_r(st, fterm, d1)
+                return _Trial(x1, d1, f1, grad1, nd2, btd, nsm2, x1hat, Dx,
+                              r)
 
             t = fb_step(tau)
             bt = 0 if B == 1 else torch.zeros(B, dtype=torch.int32, device=dev)
@@ -407,15 +449,22 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
             x1, d1, f1, grad1 = t.x1, t.d1, t.f1, t.grad1
 
             # the mode's inputs to the iteration's sums over x
+            bb = None
             if mode == "adaptive":
                 # Zhou–Gao–Dai BB stepsize; K-B4 returns neither x̂₁ nor Δx,
-                # so they are recomputed for the accepted trial
+                # so they are recomputed for the accepted trial (in the
+                # lane kernel's registers, where it takes the lanes)
                 gradf1 = (grad1 if fused is not None
-                          else op.rmatvec_lanes(fterm.grad_lanes(d1)))
-                x1hat = (t.x1hat if t.x1hat is not None
-                         else x_ - lane(tau, x_) * g_)
-                Dx = t.Dx if t.Dx is not None else x1 - x_
-                Dg = gradf1 + (x1hat - x_) / lane(tau, x_)   # == gradf1 - g_
+                          else _grad_map(op, fterm, d1, t.r))
+                if st.lanes_fused:
+                    gradf1 = gradf1.contiguous()
+                    bb = lane_fused.adaptive_sums(x_, g_, x1, gradf1, tau,
+                                                  hp)
+                else:
+                    x1hat = (t.x1hat if t.x1hat is not None
+                             else x_ - lane(tau, x_) * g_)
+                    Dx = t.Dx if t.Dx is not None else x1 - x_
+                    Dg = gradf1 + (x1hat - x_) / lane(tau, x_)   # gradf1 - g_
             elif accelerated:
                 if affine_accel:
                     x_acc, d_acc, g_acc, alpha0 = accel
@@ -424,14 +473,16 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
             # the iteration's sums over x, completed in one call of the hook:
             # the normalizer's ‖g‖² and ‖x₁ − x̂₁‖², the objective's g, the BB
             # pair, FISTA's restart dot
-            parts = {"ng2": lane_norm2(g_)}
+            parts = {"ng2": lane_norm2(g_) if bb is None else bb[0]}
             if t.nsm2 is None:
                 parts["nsm2"] = lane_norm2(x1 - t.x1hat)
             g_part = (gterm.partial_value_lanes(x1) if opts.record_objective
                       else None)
             if g_part is not None:
                 parts["g"] = g_part
-            if mode == "adaptive":
+            if bb is not None:
+                parts["dot"], parts["nDg2"] = bb[1], bb[2]
+            elif mode == "adaptive":
                 parts["dot"] = (lane_dot64(Dx, Dg) if hp
                                 else lane_redot(Dx, Dg))
                 parts["nDg2"] = lane_norm2(Dg)
@@ -465,7 +516,6 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
             new_obj = obj if opts.record_objective else res
             better = masked(new_obj < min_obj)
             min_obj = torch.where(better, new_obj, min_obj)
-            best_x = torch.where(lane(better, x1), x1, best_x)
 
             stop = stop_test(opts.stop_rule, res, nres, max_res_t, opts.tol,
                              opts.eps_r)
@@ -525,7 +575,7 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
                 f_record = torch.where(stop, f1, fval(d_next))
             else:
                 gradf1 = (grad1 if fused is not None
-                          else op.rmatvec_lanes(fterm.grad_lanes(d1)))
+                          else _grad_map(op, fterm, d1, t.r))
                 tau_next = tau
             if rec:
                 fvals[:, it] = keep(f_record.to(rdt), fvals[:, it], live)
@@ -535,11 +585,17 @@ def _run(opts: FastaOptions, st: _Setting, op: LinearOp, fterm: SmoothTerm,
             total_bt = total_bt + bt        # a stopped lane makes no trials
             # on a stop the loop breaks at the prox iterate; at max_iters
             # FISTA returns the extrapolated point
-            sol = (torch.where(lane(stop, x1), x1, x_next) if accelerated
-                   else x1)
-            solution = keep(sol, solution, live)
-            x = keep(x_next, x, live)
-            gradf = keep(gradf1, gradf, live)
+            if st.lanes_fused:
+                # adaptive: the next point, and so the solution, is x₁
+                lane_fused.lane_update(x1, gradf1, live, better, x, gradf,
+                                       best_x)
+            else:
+                sol = (torch.where(lane(stop, x1), x1, x_next)
+                       if accelerated else x1)
+                solution = keep(sol, solution, live)
+                x = keep(x_next, x, live)
+                gradf = keep(gradf1, gradf, live)
+                best_x = torch.where(lane(better, x1), x1, best_x)
             tau = keep(tau_next, tau, live)
             max_res = keep(max_res_t, max_res, live)
             if B > 1:

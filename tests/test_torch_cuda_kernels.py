@@ -14,11 +14,11 @@ import torch
 import fasta_tpu_torch as ftt
 from fasta_tpu_torch import problems
 from fasta_tpu_torch.kernels.microsolver import MicrosolveOutput
-from fasta_tpu_torch.kernels import (bf16_probe, lstsq_fused, matvec_probe,
-                                     microsolver, microsolver_planar,
-                                     microsolver_tv, planar_fused,
-                                     planar_probe, prox_fused, tail_probe,
-                                     tv_fused)
+from fasta_tpu_torch.kernels import (bf16_probe, lane_fused, lstsq_fused,
+                                     matvec_probe, microsolver,
+                                     microsolver_planar, microsolver_tv,
+                                     planar_fused, planar_probe, prox_fused,
+                                     tail_probe, tv_fused)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -2290,3 +2290,196 @@ def test_later_problem_loops_take_their_kernels_and_repeat_bits(dev, name):
     np.testing.assert_array_equal(runs[0].taus, runs[1].taus)
     np.testing.assert_array_equal(runs[0].solution, runs[1].solution)
     assert np.isfinite(runs[0].solution).all()
+
+
+# --------------------------------------------------------------------------
+# The lane kernels of the adaptive loop (lane_fused)
+# --------------------------------------------------------------------------
+
+def _lane_rows(dev, R, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((R, n), generator=g, device=dev) for _ in range(4)], \
+        torch.rand(R, generator=g, device=dev) + 0.05
+
+
+def _close64(a, b, scale):
+    """Float64 sums that differ only in their order: within 1e-12 of the
+    sum of their terms' magnitudes (``scale``)."""
+    assert ((a - b).abs() <= 1e-12 * scale).all(), (a - b).abs().max()
+
+
+@pytest.mark.parametrize("R,m,per_row", [(16384, 1000, True),
+                                         (16384, 2000, False), (3, 1001, True),
+                                         (3, 1001, False), (1, 1000, False),
+                                         (5, 7, True)])
+@pytest.mark.parametrize("hp", [True, False])
+def test_lane_residual_kernel_matches_plain(dev, R, m, per_row, hp):
+    """r bit for bit, f within 1e-12 of its terms with hp (float64 sums
+    in another order) and rtol 1e-5 without (float32), b shared or a row
+    a lane, aligned and ragged rows; a second call gives the same bits."""
+    (d, b, _, _), _ = _lane_rows(dev, R, m, R + m)
+    b = b if per_row else b[0].clone()
+    before = lane_fused.RESIDUAL_LAUNCHES
+    r, f = lane_fused.residual_value(d, b, hp)
+    assert lane_fused.RESIDUAL_LAUNCHES == before + 1
+    r0, f0 = lane_fused.residual_value_reference(d, b, hp)
+    torch.cuda.synchronize()
+    assert torch.equal(r, r0) and f.dtype == f0.dtype
+    if hp:
+        _close64(f, f0, f0)
+    else:
+        torch.testing.assert_close(f, f0, rtol=1e-5, atol=0)
+    again = lane_fused.residual_value(d, b, hp)
+    assert torch.equal(again[0], r) and torch.equal(again[1], f)
+
+
+@pytest.mark.parametrize("R,n", [(16384, 2000), (3, 1001), (1, 2000),
+                                 (7, 5), (1, lane_fused.ROW_MAX_N)])
+@pytest.mark.parametrize("hp", [True, False])
+def test_lane_sums_kernel_matches_plain(dev, R, n, hp):
+    """⟨Δx, Δg⟩ within 1e-12 of Σ|ΔxΔg| with hp — so x̂₁, Δx and Δg
+    round in registers as the composition rounds them — and the float32
+    sums within rtol 1e-5 (their order); a second call equal."""
+    (x, g, x1, gf1), tau = _lane_rows(dev, R, n, 3 * R + n)
+    before = lane_fused.SUMS_LAUNCHES
+    out = lane_fused.adaptive_sums(x, g, x1, gf1, tau, hp)
+    assert lane_fused.SUMS_LAUNCHES == before + 1
+    ref = lane_fused.adaptive_sums_reference(x, g, x1, gf1, tau, hp)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in out] == [t.dtype for t in ref]
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(out[2], ref[2], rtol=1e-5, atol=0)
+    t = tau[:, None]
+    dx = (x1 - x).double()
+    dg = (gf1 + ((x - t * g) - x) / t).double()
+    if hp:
+        _close64(out[1], ref[1], (dx * dg).abs().sum(1))
+    else:
+        assert ((out[1] - ref[1]).abs().double()
+                <= 1e-5 * (dx * dg).abs().sum(1)).all()
+    again = lane_fused.adaptive_sums(x, g, x1, gf1, tau, hp)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("R,n", [(16384, 2000), (3, 1001), (1, 2000),
+                                 (9, 6)])
+def test_lane_update_kernel_matches_plain_and_keeps_stopped_rows(dev, R, n):
+    """The three outputs bit for bit as the plain version's; a row whose
+    live flag is clear keeps its bits in all three, best_x changes only
+    where better is set, and x1 and ∇f₁ are not written."""
+    (x1, gf1, a, b), _ = _lane_rows(dev, R, n, 5 * R + n)
+    g = torch.Generator(device=dev).manual_seed(R)
+    live = torch.rand(R, generator=g, device=dev) < 0.6
+    live[0] = True
+    better = live & (torch.rand(R, generator=g, device=dev) < 0.5)
+    olds = [a, b, b.neg()]
+    outs = [t.clone() for t in olds]
+    refs = [t.clone() for t in olds]
+    keep = (x1.clone(), gf1.clone())
+    before = lane_fused.UPDATE_LAUNCHES
+    lane_fused.lane_update(x1, gf1, live, better, *outs)
+    assert lane_fused.UPDATE_LAUNCHES == before + 1
+    lane_fused.lane_update_reference(x1, gf1, live, better, *refs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, r) for o, r in zip(outs, refs))
+    assert torch.equal(x1, keep[0]) and torch.equal(gf1, keep[1])
+    for out, old in zip(outs, olds):
+        assert torch.equal(out[~live], old[~live])
+    assert torch.equal(outs[2][~better], olds[2][~better])
+    assert torch.equal(outs[2][better], x1[better])
+
+
+def test_lane_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.zeros((4, 8), device=dev)
+    tau = torch.ones(4, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        lane_fused.adaptive_sums(x.double(), x, x, x, tau, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        lane_fused.residual_value(torch.zeros((8, 4), device=dev).t(), x,
+                                  True)
+    with pytest.raises(ValueError, match="lane_plan"):
+        lane_fused.adaptive_sums(*(torch.zeros((1, 9000), device=dev),) * 4,
+                                 tau[:1], True)
+    assert lane_fused.lanes_route(torch.zeros((1, lane_fused.ROW_MAX_N),
+                                              device=dev))
+    assert not lane_fused.lanes_route(torch.zeros((1, 9000), device=dev))
+
+
+def _composition(monkeypatch):
+    """Make the loop choose today's composition on the card: the setting
+    of every solve with the lane kernels off."""
+    from fasta_tpu_torch import solver
+    real = solver._setting
+
+    def off(*a, **kw):
+        return real(*a, **kw)._replace(lanes_fused=False, residual=False)
+    monkeypatch.setattr(solver, "_setting", off)
+
+
+def test_batch_lasso_on_the_lane_kernels_matches_the_composition(
+        dev, monkeypatch):
+    """A batch LASSO 1000×2000 × 256 through make_batch_solver, adaptive,
+    hp: the route engages (every loop iteration launches each lane
+    kernel once a trial or an iteration), the composition launches none,
+    and the caller's x0 is never written.  The solutions' bound checks
+    only that the two runs end near each other: the two round their sums
+    in another order, so their float32 trajectories part, and each stops
+    at a normalized residual of 1e-6, where the composition itself lies
+    1.3e-6 to 1.8e-6 from the float64 solution (PERF.md, section 2); at
+    2e-6 relative it cannot tell a wrong sum precision from that
+    reordering.  The kernel tests above, at 1e-12 of the float64 sums'
+    terms and bit for bit elsewhere, guard the arithmetic."""
+    p = problems.build("lasso", device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    B = 256
+    bs = p.fterm.b + 0.01 * torch.randn((B, p.fterm.b.numel()), generator=g,
+                                        device=dev)
+    x0 = 0.01 * torch.randn((B, p.x0.numel()), generator=g, device=dev)
+    x0_bits = x0.clone()
+    opts = ftt.FastaOptions(max_iters=1000, tol=1e-6, adaptive=True,
+                            precision="high",
+                            stop_rule="hybrid_residual")
+    solve = ftt.make_batch_solver(opts, in_axes=(None, 0, None, 0, None))
+    counts = [lane_fused.RESIDUAL_LAUNCHES, lane_fused.SUMS_LAUNCHES,
+              lane_fused.UPDATE_LAUNCHES]
+    fused = solve(p.op, ftt.LeastSquares(bs), p.gterm, x0, 0.05)
+    counts = [c1 - c0 for c0, c1 in zip(counts, [
+        lane_fused.RESIDUAL_LAUNCHES, lane_fused.SUMS_LAUNCHES,
+        lane_fused.UPDATE_LAUNCHES])]
+    loops = int(np.max(fused.iteration_count))
+    assert counts[1] == counts[2] == loops and counts[0] >= loops + 1
+    assert torch.equal(x0, x0_bits)
+    _composition(monkeypatch)
+    before = lane_fused.SUMS_LAUNCHES
+    plain = solve(p.op, ftt.LeastSquares(bs), p.gterm, x0, 0.05)
+    assert lane_fused.SUMS_LAUNCHES == before
+    assert np.all(fused.converged) and np.all(plain.converged)
+    gap = np.abs(np.asarray(fused.iteration_count)
+                 - np.asarray(plain.iteration_count))
+    assert gap.max() <= 2, gap.max()
+    rel = (torch.linalg.vector_norm(fused.solution - plain.solution, dim=1)
+           / torch.linalg.vector_norm(plain.solution, dim=1))
+    assert float(rel.max()) <= 2e-6, float(rel.max())
+
+
+def test_single_solve_and_resume_keep_the_callers_tensors(dev):
+    """A single LASSO solve on the lane kernels (one row) leaves its x0,
+    and a resume leaves the state it continues from, bit for bit; the
+    resumed run equals the uninterrupted one."""
+    p = problems.build("lasso", device=dev)
+    x0 = 0.01 * torch.ones_like(p.x0)
+    x0_bits = x0.clone()
+    before = lane_fused.UPDATE_LAUNCHES
+    run = ftt.make_stateful_solver(ftt.FastaOptions(max_iters=20, tol=1e-12))
+    half, state = run(p.op, p.fterm, p.gterm, x0, 0.05)
+    assert lane_fused.UPDATE_LAUNCHES == before + 20
+    assert torch.equal(x0, x0_bits)
+    bits = [t.clone() for t in (state.x1, state.gradf1, state.solution,
+                                state.best_x)]
+    out, _ = ftt.resume_state(p.op, p.fterm, p.gterm, state,
+                              ftt.FastaOptions(max_iters=40, tol=1e-12))
+    assert all(torch.equal(a, b) for a, b in zip(
+        bits, (state.x1, state.gradf1, state.solution, state.best_x)))
+    whole = ftt.make_solver(ftt.FastaOptions(max_iters=40, tol=1e-12))(
+        p.op, p.fterm, p.gterm, x0, 0.05)
+    assert torch.equal(out.solution, whole.solution)
