@@ -100,7 +100,9 @@ non-zero without the final ``ok`` line):
     resident route;
 21. K-B8b: planar phase retrieval 16384×256, 16 instances, as phase 19,
     each launch on the resident route (the route counters), µs an
-    iteration and a trial;
+    iteration and a trial; once more with one anchor and start an
+    instance (c (16, 256, 2)), each instance bit-identical to its own
+    K-B8 launch;
 22. the serving main path — ``recommend_path(...).run(bs)`` and
     ``Problem.solve_serving`` on TV 512×512 × 8, LASSO 1000×2000 × 32 and
     planar phase retrieval 16384×256 × 16, one request of each, and
@@ -2574,6 +2576,48 @@ def phase_batch_planar() -> dict:
         require(ok, f"K-B8b {mode} disagrees with its separate launches or "
                 f"its plain version")
         timed[accelerate] = (kern, plain, sep, trials(out))
+    # one anchor and start an instance: c (B, n, 2) read at each
+    # instance's offset, held against K-B8 launches with that anchor
+    cs = torch.stack([torch.roll(c, 7 * i, 0) * (1.0 + 0.02 * i)
+                      for i in range(B)])
+    x0s = torch.stack([torch.roll(x0, 7 * i, 0) for i in range(B)])
+    kw = dict(max_iters=2000, tol=1e-5, hp=True, restart_dd=True,
+              record_bts=True)
+    before = route_counts()
+    own = microsolver_planar.microsolve_planar_phasemax_batch(
+        Ar, Ai, bs, cs, x0s, t0s, **kw)
+    ran = routes_ran(before)
+    require(ran == dict(resident=1, streamed=0, columns=0),
+            f"K-B8b with own anchors did not keep A on the chip: {ran}")
+    routes = {r: routes[r] + ran[r] for r in routes}
+    same = identical(own, [microsolver_planar.microsolve_planar_phasemax(
+        Ar, Ai, bs[i], cs[i], x0s[i], float(t0s[i]), **kw)
+        for i in range(B)])
+    ref = microsolver_planar.microsolve_planar_phasemax_batch_reference(
+        Ar, Ai, bs, cs, x0s, t0s, **kw)
+    ok, ks = same, own.iteration_count.tolist()
+    for i in (0, B - 1):
+        one = ref._replace(**{f: None if getattr(ref, f) is None
+                              else getattr(ref, f)[i] for f in ref._fields})
+        tau_err, res_ok, bt_ok = prefix_ok(own, i, one)
+        scale = 1.0 + 0.02 * i
+        f1 = phase_objective(A, bm * scale, planar_complex(cs[i]),
+                             planar_complex(own.x[i]))
+        f2 = phase_objective(A, bm * scale, planar_complex(cs[i]),
+                             planar_complex(one.x))
+        rel = abs(f1 - f2) / abs(f2)
+        good = (int(own.halt[i]) == int(one.halt) == 1 and tau_err <= 1e-3
+                and res_ok and bt_ok and rel <= 1e-6)
+        print(f"[21 K-B8b own anchors instance {i}] iterations kernel "
+              f"{ks[i]} plain {int(one.iteration_count)}; taus[:10] max rel "
+              f"{tau_err:.2e} (tol 1e-3); residuals {res_ok}; backtracks "
+              f"{bt_ok}; objective rel {rel:.2e} (tol 1e-6): {good}")
+        ok &= good
+    print(f"[21 K-B8b own anchors] {B} instances, iterations {min(ks)}-"
+          f"{max(ks)}; each bit-identical to its own K-B8 launch with its "
+          f"anchor and start: {same}; route {ran}")
+    require(ok, "K-B8b with own anchors disagrees with its separate "
+            "launches or its plain version")
     kern, plain, sep, (tried, k) = timed[False]
     m, n = 16384, 256
     # Ar, Ai, the B magnitude vectors, c, x₀ and the τ₀s in; each

@@ -12,7 +12,9 @@ gradient-map kernels), ``Problem.microsolve`` (the whole-solve kernels),
 ``solve_path`` and ``Problem.microsolve_sweep`` (the regularization
 path), ``Problem.recovery_error``, and the serving path:
 ``recommend_path`` / ``ServingPlan`` and ``Problem.solve_serving``, which
-route a request to the whole-solve kernels, their batched forms
+route a request (stacked measurements, or an ``InstanceBatch`` whose
+instances carry their own prox data and starts) to the whole-solve
+kernels, their batched forms
 (``microsolve_batch``) or the batch solver (``make_batch_solver``);
 bfloat16 storage (``LowPrecDenseOp``, bfloat16 ``PlanarDenseOp``) with
 float32 refinement through ``checkpoint.resume``, and ``checkpoint``'s
@@ -48,7 +50,8 @@ from .problem import Problem
 from .prox import (project_box, project_l1_ball, project_linf_ball,
                    project_nonneg, prox_l1, prox_l21, prox_linear, prox_linf,
                    prox_zero, shrink, shrink_rows, svt)
-from .serving import BATCH_CROSSOVER_UNKNOWNS, ServingPlan, recommend_path
+from .serving import (BATCH_CROSSOVER_UNKNOWNS, InstanceBatch, ServingPlan,
+                      recommend_path)
 from .solver import (DeviceResult, Diagnostics, FastaResult, SolverState,
                      estimate_stepsize, fasta, make_batch_solver, make_solver,
                      make_stateful_solver, resume_state, solve, solve_path)
@@ -81,6 +84,7 @@ __all__ = [
     "compare_modes", "format_comparison", "MODE_OPTIONS",
     "MicroResult", "MicroBatchResult", "microsolve", "microsolve_supported",
     "microsolve_sweep", "microsolve_batch", "recommend_path", "ServingPlan",
+    "InstanceBatch",
     "BATCH_CROSSOVER_UNKNOWNS", "checkpoint", "distributed", "operators",
     "plotting", "profiling", "prox", "sharding", "smooth", "terms",
 ]

@@ -2,8 +2,8 @@
 //     min_x  ½ Σᵢ max(|(A x)ᵢ| − bᵢ, 0)²  −  ⟨c, x⟩,   prox(z, τ) = z + τ·c,
 // A = Ar + i·Ai complex (m, n) in planar layout, x and c (n, 2), b (m,)
 // magnitudes, float32, in adaptive (BB) or FISTA mode, for one instance
-// (K-B8) or a batch of instances sharing A and c, each with its own b, x₀
-// and τ₀ (K-B8b).
+// (K-B8) or a batch of instances sharing A, each with its own b, x₀ and
+// τ₀ and with one shared c or its own (K-B8b).
 //
 // Replaces: fasta_tpu/kernels/microsolver_planar.py,
 // microsolve_planar_phasemax (pallas_call at :669), body _make_kernel —
@@ -56,10 +56,12 @@
 //    plan that streams more rows gives the same bits.
 //  * K-B8b runs the instances in turn inside the launch, each over the
 //    whole grid as K-B8 runs its one (Points in fbs_control.cuh:
-//    per-instance b, x₀ and τ₀; A and c shared, and A staged on the chip
-//    once a launch).  A grid barrier separates instances, after which
-//    start_point resets the window, τ, the counts and the halt code, so
-//    each instance is bit-identical to its own K-B8 launch.
+//    per-instance b, x₀ and τ₀; A shared and staged on the chip once a
+//    launch; c shared, staged once a launch, or one an instance, staged
+//    at the instance's start, at c + p·c_stride).  A grid barrier
+//    separates instances, after which start_point resets the window, τ,
+//    the counts and the halt code, so each instance is bit-identical to
+//    its own K-B8 launch.
 //  * Storage: the public split (Ar, Ai) row-major layout, which K-P5
 //    measured fastest on the H100 (PERF.md); ragged n is padded to a
 //    multiple of 4 with zero columns by the wrapper (zero columns of A, x
@@ -100,7 +102,8 @@ struct Args {
   const float* A0;   // Ar (m, n4)
   const float* A1;   // Ai (m, n4)
   Points pts;        // each instance's b (m,), cold x₀ (n4, 2) and τ₀
-  const float* c;    // (n4, 2)
+  const float* c;    // (n4, 2): instance p's anchor at c + p·c_stride
+  long long c_stride;
   float* x_out;      // (npoints, n, 2)
   Records rec;
   float* its;        // (npoints, max_iters, n, 2) or null
@@ -659,16 +662,17 @@ __host__ __device__ inline int wide_scratch(int n4) {
 
 // One pass over the block's band (see Pass) with a row spread over the
 // block, bb the band's b.  With STAGE (n-sized state in device memory) x₁
-// is formed from xs and gs at stepsize tau (kStart: xs itself) into the
-// scratch, whence each thread reads its slots as it needs them; without,
-// xs is x₁ in shared memory already.  kExtrap takes no dot.  The row
+// is formed from xs, gs and the anchor c at stepsize tau (kStart: xs
+// itself) into the scratch, whence each thread reads its slots as it
+// needs them; without, xs is x₁ in shared memory already.  kExtrap takes no dot.  The row
 // lanes' shares meet in the scratch.  Returns the block's Σr² in Acc (valid in
 // thread 0); with the adjoint, writes the block's (2·n4,) share of Aᴴℓ to
 // gpart.
 template <typename Acc, int S, int PASS, bool STAGE>
 __device__ __forceinline__ Acc rows_wide(const Args& a, const Tile& t, const float* sA,
                                          const float* bb, const float* xs, const float* gs,
-                                         float tau, float beta, float* scratch, Acc* acc_scratch,
+                                         const float* c, float tau, float beta, float* scratch,
+                                         Acc* acc_scratch,
                                          float2 (*rowred)[kBatchRows][kWarps], float2* lrow) {
   constexpr int TB = S == 1 ? kBatchRows : 4 / S;  // rows a lane takes at a time
   constexpr bool kAdj = PASS != kFista;
@@ -687,8 +691,8 @@ __device__ __forceinline__ Acc rows_wide(const Args& a, const Tile& t, const flo
         sx[e] = xv;
       } else {
         const float4 gv = __ldcg(reinterpret_cast<const float4*>(gs + h * n4) + q);
-        const float4 c0 = __ldg(reinterpret_cast<const float4*>(a.c) + 2 * q);
-        const float4 c1 = __ldg(reinterpret_cast<const float4*>(a.c) + 2 * q + 1);
+        const float4 c0 = __ldg(reinterpret_cast<const float4*>(c) + 2 * q);
+        const float4 c1 = __ldg(reinterpret_cast<const float4*>(c) + 2 * q + 1);
         const float4 cv = h ? make_float4(c0.y, c0.w, c1.y, c1.w)
                             : make_float4(c0.x, c0.z, c1.x, c1.z);
         sx[e] = make_float4(trial_at(xv.x, gv.x, cv.x, tau), trial_at(xv.y, gv.y, cv.y, tau),
@@ -885,8 +889,8 @@ __device__ __forceinline__ Acc rows_any(const Args& a, const Tile& t, const floa
   if constexpr (S == 0)
     return rows_pass<Acc, CPT, PASS>(a, t, sA, bb, x, beta, aux, acc_scratch, ra, rc);
   else
-    return rows_wide<Acc, S, PASS, false>(a, t, sA, bb, x, nullptr, 0.f, beta, aux, acc_scratch,
-                                          rowred, lrow);
+    return rows_wide<Acc, S, PASS, false>(a, t, sA, bb, x, nullptr, nullptr, 0.f, beta, aux,
+                                          acc_scratch, rowred, lrow);
 }
 
 template <typename Acc, bool ACCEL, int CPT, int S>
@@ -923,10 +927,6 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_kernel(Args a) 
   unsigned gen = 0;
   auto barrier = [&]() { grid_barrier(a.bar, nb, gen); };
 
-  for (int j = tid; j < n4; j += kThreads) {
-    cs[j] = a.c[2 * j];
-    cs[n4 + j] = a.c[2 * j + 1];
-  }
   // the band on the chip for the whole launch: each warp's first rows in
   // registers (n4 ≤ 256), the next in shared memory
   float4 ra[TM][CPT], rc[TM][CPT];
@@ -947,10 +947,16 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_kernel(Args a) 
   for (int p = 0; p < a.npoints; ++p) {
     const float* bb = stage_b(a.pts.b_at(p), tile, bsh);
     const float* x0 = a.pts.x0_at(p);
+    const float* cp = a.c + p * a.c_stride;
     const size_t rec0 = (size_t)p * a.ctl.max_iters;
     for (int j = tid; j < n4; j += kThreads) {
       X[0][j] = x0[2 * j];
       X[0][n4 + j] = x0[2 * j + 1];
+      // the anchor: once a launch when shared, else each instance's
+      if (p == 0 || a.c_stride) {
+        cs[j] = cp[2 * j];
+        cs[n4 + j] = cp[2 * j + 1];
+      }
       if (ACCEL) {
         xacc[j] = X[0][j];
         xacc[n4 + j] = X[0][n4 + j];
@@ -1176,6 +1182,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_wide_kernel(Arg
   for (int p = 0; p < a.npoints; ++p) {
     const float* bb = stage_b(a.pts.b_at(p), tile, bsh);
     const float* x0 = a.pts.x0_at(p);
+    const float* cp = a.c + p * a.c_stride;
     const size_t rec0 = (size_t)p * a.ctl.max_iters;
     for (int e = tid; e < 2 * cnt; e += kThreads) {
       const int h = e >= cnt, j = c0 + e - h * cnt, idx = h * n4 + j;
@@ -1186,7 +1193,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_wide_kernel(Arg
 
     // ---- start: d₀ = A x₀, f₀, g₀ = Aᴴℓ(d₀); FISTA: d_acc = d₀
     {
-      const Acc f = rows_wide<Acc, S, kStart, true>(a, tile, sA, bb, a.X[0], nullptr, 0.f, 0.f,
+      const Acc f = rows_wide<Acc, S, kStart, true>(a, tile, sA, bb, a.X[0], nullptr, cp, 0.f, 0.f,
                                               scratch, acc_scratch, rowred, lrow);
       if (tid == 0) P0[kF * nb + blk] = double(f);
       barrier();
@@ -1218,7 +1225,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_wide_kernel(Arg
         Acc w[2] = {Acc(0), Acc(0)};
         for (int e = tid; e < 2 * cnt; e += kThreads) {
           const int h = e >= cnt, j = c0 + e - h * cnt, idx = h * n4 + j;
-          const float xv = __ldcg(xc + idx), gv = __ldcg(gc + idx), cv = __ldg(a.c + 2 * j + h);
+          const float xv = __ldcg(xc + idx), gv = __ldcg(gc + idx), cv = __ldg(cp + 2 * j + h);
           const float z = step_hat(xv, gv, tau);
           const float xn = trial_at(xv, gv, cv, tau);
           x1[idx] = xn;
@@ -1250,10 +1257,12 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_wide_kernel(Arg
 
       // ---- the rows at x₁: f (and the adaptive gradient's shares)
       {
-        const Acc f = ACCEL ? rows_wide<Acc, S, kFista, true>(a, tile, sA, bb, xc, gc, tau, 0.f,
-                                                         scratch, acc_scratch, rowred, lrow)
-                            : rows_wide<Acc, S, kAdaptive, true>(a, tile, sA, bb, xc, gc, tau, 0.f,
-                                                           scratch, acc_scratch, rowred, lrow);
+        const Acc f = ACCEL ? rows_wide<Acc, S, kFista, true>(a, tile, sA, bb, xc, gc, cp, tau,
+                                                              0.f, scratch, acc_scratch, rowred,
+                                                              lrow)
+                            : rows_wide<Acc, S, kAdaptive, true>(a, tile, sA, bb, xc, gc, cp,
+                                                                 tau, 0.f, scratch, acc_scratch,
+                                                                 rowred, lrow);
         if (tid == 0) P[kF * nb + blk] = double(f);
       }
       grid_arrive(a.bar, gen);
@@ -1291,8 +1300,9 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_wide_kernel(Arg
         const float beta = st.beta;
         // ---- the rows at d_n = d₁ + β(d₁ − d_acc): f(d_n) and g_n's
         // shares; y_n = x₁ + β(x₁ − x_acc), x_acc = x₁ on the own columns
-        const Acc fn = rows_wide<Acc, S, kExtrap, true>(a, tile, sA, bb, nullptr, nullptr, 0.f, beta,
-                                                  scratch, acc_scratch, rowred, lrow);
+        const Acc fn = rows_wide<Acc, S, kExtrap, true>(a, tile, sA, bb, nullptr, nullptr, cp,
+                                                        0.f, beta, scratch, acc_scratch, rowred,
+                                                        lrow);
         if (tid == 0) P[kFn * nb + blk] = double(fn);
         float* y = a.X[cur];
         for (int e = tid; e < 2 * cnt; e += kThreads) {
@@ -1506,6 +1516,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_columns_kernel(
   for (int p = 0; p < a.npoints; ++p) {
     const float* bp = a.pts.b_at(p);
     const float* x0 = a.pts.x0_at(p);
+    const float* cp = a.c + p * a.c_stride;
     const size_t rec0 = (size_t)p * a.ctl.max_iters;
     for (int e = tid; e < 2 * cnt; e += kThreads) {
       const int h = e >= cnt, j = c0 + e - h * cnt, idx = h * n4 + j;
@@ -1545,7 +1556,7 @@ __global__ void __launch_bounds__(kThreads, 1) microsolve_planar_columns_kernel(
         double rdot64 = 0.0;
         for (int e = tid; e < 2 * cnt; e += kThreads) {
           const int h = e >= cnt, j = c0 + e - h * cnt, idx = h * n4 + j;
-          const float xv = xc[idx], gv = gc[idx], cv = __ldg(a.c + 2 * j + h);
+          const float xv = xc[idx], gv = gc[idx], cv = __ldg(cp + 2 * j + h);
           const float z = step_hat(xv, gv, tau);
           const float xn = trial_at(xv, gv, cv, tau);
           x1[idx] = xn;
@@ -1776,9 +1787,10 @@ extern "C" int fasta_microsolve_planar_work(int m, int n4, int nblocks, int rout
   return cudaSuccess;
 }
 
-// Run npoints solves on `stream`, point p taking b + p·b_stride, the cold
-// start x0 + p·x0_stride and τ₀ tau0s[p] (tau0 when tau0s is null); see
-// the option bits in Flag (kWarm is not taken).  A0 and A1 are Ar and Ai
+// Run npoints solves on `stream`, point p taking b + p·b_stride, the
+// anchor c + p·c_stride, the cold start x0 + p·x0_stride and τ₀ tau0s[p]
+// (tau0 when tau0s is null); see the option bits in Flag (kWarm is not
+// taken).  A0 and A1 are Ar and Ai
 // (m, n4), c and each x0 (n4, 2), all with n4 − n zero columns and 16-byte
 // aligned; x_out is (npoints, n, 2), its (npoints, max_iters, n, 2) or
 // null.  route is the plan's kernel, the one for n4 (0: n4 ≤ 512, 1: n4 ≤
@@ -1790,9 +1802,9 @@ extern "C" int fasta_microsolve_planar_work(int m, int n4, int nblocks, int rout
 // work_d fasta_fbs_work_doubles(nblocks) doubles.  fvals, bts, objs and
 // nres may be null.
 extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const float* b,
-                                       int b_stride, const float* c, const float* x0,
-                                       int x0_stride, const float* tau0s, int npoints,
-                                       float tau0, int m, int n,
+                                       int b_stride, const float* c, int c_stride,
+                                       const float* x0, int x0_stride, const float* tau0s,
+                                       int npoints, float tau0, int m, int n,
                                        int n4, int max_iters, int window, float tol,
                                        float shrink_factor, int max_backtracks, int stop_rule_code,
                                        int flags, float* x_out, float* taus, float* res,
@@ -1803,8 +1815,8 @@ extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const f
   if (m < 1 || n < 1 || n4 < n || n4 % 4 || max_iters < 1 || window < 1 ||
       window > kWinMax || max_backtracks < 0 || stop_rule_code < kResidual ||
       stop_rule_code > kIterations || (flags & kWarm) || npoints < 1 || b_stride < 0 ||
-      x0_stride < 0 || route != route_of(n4) || (route != kRouteColumns && !tiles) ||
-      smem_rows < 0 || !bar)
+      c_stride < 0 || x0_stride < 0 || route != route_of(n4) ||
+      (route != kRouteColumns && !tiles) || smem_rows < 0 || !bar)
     return cudaErrorInvalidValue;
   int limit = 0, budget = 0, optin = 0, fixed = 0;
   if (fasta_microsolve_planar_grid(n4, &limit, &budget, &optin, &fixed) != cudaSuccess)
@@ -1816,6 +1828,7 @@ extern "C" int fasta_microsolve_planar(const float* A0, const float* A1, const f
   args.A1 = A1;
   args.pts = Points{b, x0, nullptr, tau0s, b_stride, x0_stride, 0, tau0};
   args.c = c;
+  args.c_stride = c_stride;
   args.x_out = x_out;
   args.rec = Records{taus, res, fvals, bts, objs, nres};
   args.its = its;

@@ -74,7 +74,7 @@ _SIGNATURES = {
                          _P, _P, _I, _P, _I, _P],
     "fasta_microsolve_planar_grid": [_I, _P, _P, _P, _P],
     "fasta_microsolve_planar_work": [_I, _I, _I, _I, _P],
-    "fasta_microsolve_planar": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _F,
+    "fasta_microsolve_planar": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _F,
                                 _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _I, _I, _P, _P, _P, _I, _P],

@@ -5,8 +5,9 @@ min ½ Σ max(|Ax| − b, 0)² − ⟨c, x⟩ on planar x (n, 2), A = Ar + i·Ai
 (m, n), b (m,) magnitudes, c (n, 2) the anchor; port of
 ``fasta_tpu/kernels/microsolver_planar.py:45-64, 606-722`` (pallas_call at
 :669).  ``microsolve_planar_phasemax_batch`` (K-B8b) solves B instances
-sharing A and c, each with its own b, x₀ and τ₀, in one launch; port of
-the kernel under ``jax.vmap`` (``fasta_tpu/micro.py:435``).  The CUDA
+sharing A, each with its own b, x₀ and τ₀ and with one shared anchor c
+or its own, in one launch; port of the kernel under ``jax.vmap``
+(``fasta_tpu/micro.py:435``, whose instances share c).  The CUDA
 source is ``fasta_tpu_torch/csrc/microsolver_planar.cu``
 (its header note gives the design).  ``tile_plan`` decides, on the
 host, which rows of the channel matrices each block of a launch keeps on
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -187,18 +189,20 @@ def microsolve_planar_phasemax(Ar, Ai, b, c, x0, tau0, *, record_its=False,
 def microsolve_planar_phasemax_batch(Ar, Ai, bs, c, x0s, tau0s,
                                      **options) -> MicrosolveOutput:
     """The solve of ``microsolve_planar_phasemax`` for B instances sharing
-    Ar, Ai and the anchor c in one launch: magnitudes ``bs`` (B, m), starts
-    ``x0s`` (B, n, 2) or one shared (n, 2), τ₀ a number or a (B,) tensor.
-    Every output field gains a leading axis of B instances, each
-    bit-identical to a separate ``microsolve_planar_phasemax`` call on the
-    same device.
+    Ar and Ai in one launch: magnitudes ``bs`` (B, m), anchors ``c``
+    (B, n, 2) or one shared (n, 2), starts ``x0s`` (B, n, 2) or one shared
+    (n, 2), τ₀ a number or a (B,) tensor.  Every output field gains a
+    leading axis of B instances, each bit-identical to a separate
+    ``microsolve_planar_phasemax`` call on the same device.
 
     CUDA tensors launch kernel K-B8b; CPU tensors run the plain version."""
     o = _options(options)
-    B = _check_batch(Ar, bs, x0s, tau0s, 1,
-                     "microsolve_planar_phasemax_batch")
-    _check(Ar, Ai, bs[0], c, x0s if x0s.ndim == 2 else x0s[0],
-           "microsolve_planar_phasemax_batch")
+    what = "microsolve_planar_phasemax_batch"
+    B = _check_batch(Ar, bs, x0s, tau0s, 1, what)
+    if c.ndim == 3 and c.shape[0] != B:
+        raise ValueError(f"{what}: {c.shape[0]} anchors for {B} instances")
+    _check(Ar, Ai, bs[0], c if c.ndim == 2 else c[0],
+           x0s if x0s.ndim == 2 else x0s[0], what)
     if Ar.device.type == "cpu":
         return microsolve_planar_phasemax_batch_reference(
             Ar, Ai, bs, c, x0s, tau0s, **options)
@@ -214,11 +218,15 @@ def microsolve_planar_phasemax_batch(Ar, Ai, bs, c, x0s, tau0s,
 def microsolve_planar_phasemax_batch_reference(Ar, Ai, bs, c, x0s, tau0s,
                                                **options
                                                ) -> MicrosolveOutput:
-    """The plain version of K-B8b: the plain K-B8 solve per instance, its
-    outputs stacked on a leading axis."""
+    """The plain version of K-B8b: the plain K-B8 solve per instance, with
+    its own anchor where ``c`` is (B, n, 2), its outputs stacked on a
+    leading axis."""
     o = _options(options)
+    # batch_reference solves the instances in order
+    anchors = iter(c) if c.ndim == 3 else itertools.repeat(c)
     return batch_reference(
-        lambda b, x0, tau0: _solve(Ar, Ai, b, c, x0, tau0, False, o),
+        lambda b, x0, tau0: _solve(Ar, Ai, b, next(anchors), x0, tau0,
+                                   False, o),
         bs, x0s, tau0s, 2)
 
 
@@ -414,7 +422,7 @@ def _count(plan: TilePlan) -> None:
 
 
 def _launch(Ar, Ai, b, c, x0, tau0, B, record_its, o, plan=None):
-    """One launch over B instances: b (m,) or (B, m), x0 (n, 2) or
+    """One launch over B instances: b (m,) or (B, m), c and x0 (n, 2) or
     (B, n, 2), τ₀ a number or (B,); ``plan`` the tile plan, by default
     the device's (``_tiles``).  Counts the launch by its route."""
     m, n = Ar.shape
@@ -439,6 +447,7 @@ def _launch(Ar, Ai, b, c, x0, tau0, B, record_its, o, plan=None):
     kernel = _KERNELS.index(plan.kernel)
     f32 = dict(device=dev, dtype=torch.float32)
     b_stride, x0_stride, tau0s, tau0 = _points(B, b, 1, x0, 2, tau0, dev)
+    c_stride = c[0].numel() if c.ndim == 3 else 0
     x = torch.empty((B, n, 2), **f32)
     r = _outputs(B, K, o, dev, nb)
     its = torch.zeros((B, K, n, 2), **f32) if record_its else None
@@ -451,8 +460,8 @@ def _launch(Ar, Ai, b, c, x0, tau0, B, record_its, o, plan=None):
         bar = _build.stream_scratch(dev, stream, 1)
         _build.check(_build.library().fasta_microsolve_planar(
             Ar.data_ptr(), Ai.data_ptr(), b.data_ptr(), b_stride,
-            c.data_ptr(), x0.data_ptr(), x0_stride, _ptr(tau0s), B, tau0,
-            m, n, n4, K, o["window"],
+            c.data_ptr(), c_stride, x0.data_ptr(), x0_stride, _ptr(tau0s), B,
+            tau0, m, n, n4, K, o["window"],
             float(o["tol"]), float(o["shrink_factor"]), o["max_backtracks"],
             STOP_RULES.index(o["stop_rule"]), flags, x.data_ptr(),
             r.taus.data_ptr(), r.res.data_ptr(), _ptr(r.fvals), _ptr(r.bts),

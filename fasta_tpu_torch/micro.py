@@ -378,6 +378,23 @@ def microsolve_sweep(problem: Problem, mus, tau0: Optional[float] = None,
     return _pack_batch(out, B, t0)
 
 
+def _instance_anchors(kind, problem, prox, B, dev):
+    """The (B,) + c.shape float32 anchors of a planar batch; raises for a
+    kernel that takes no per-instance prox data."""
+    if kind != "planar":
+        kernel = "K-B6b" if kind == "tv" else "K-B1b"
+        raise ValueError(
+            f"microsolve_batch: {kernel} shares the prox term "
+            f"{type(problem.gterm).__name__} across the batch and takes no "
+            f"per-instance prox data")
+    c = problem.gterm.c
+    prox = torch.as_tensor(prox).to(dev, torch.float32)
+    if tuple(prox.shape) != (B,) + tuple(c.shape):
+        raise ValueError(f"microsolve_batch: prox shape {tuple(prox.shape)} "
+                         f"!= {(B,) + tuple(c.shape)}")
+    return prox
+
+
 def _pack_batch(out, B: int, t0: float) -> MicroBatchResult:
     """A batched kernel output (leading axis of B points) as a
     :class:`MicroBatchResult`, its series trimmed to each point's count;
@@ -418,7 +435,7 @@ def _pack_batch(out, B: int, t0: float) -> MicroBatchResult:
         )
 
 
-def microsolve_batch(problem: Problem, bs, x0s=None, tau0=None,
+def microsolve_batch(problem: Problem, bs, x0s=None, tau0=None, prox=None,
                      max_iters: int = 1000, tol: float = 1e-3,
                      window: int = 10, shrink_factor: float = 0.2,
                      max_backtracks: int = 20, hp: Optional[bool] = None,
@@ -439,14 +456,18 @@ def microsolve_batch(problem: Problem, bs, x0s=None, tau0=None,
     ``bs`` stacks the instances' measurements, labels or images on a new
     leading axis (``(B,) +`` the smooth term's data shape); ``x0s``
     stacks their starts (default: every instance starts from
-    ``problem.x0``).  ``tau0`` is one stepsize for all, or a (B,) vector
-    of one per instance (default: the problem's, else estimated as
-    :func:`microsolve` does).  Each instance runs the whole solve with its
-    own stopping decision and is bit-identical to a separate
-    :func:`microsolve` call on the same device.  Options mean what they
+    ``problem.x0``); ``prox`` stacks the prox term's data, one an
+    instance: planar PhaseMax's anchors c (B, n, 2), which K-B8b reads
+    per instance (default: the problem's one c for all; K-B1b and K-B6b
+    take none and raise ``ValueError``).  ``tau0`` is one stepsize for
+    all, or a (B,) vector of one per instance (default: the problem's,
+    else estimated as :func:`microsolve` does).  Each instance runs the
+    whole solve with its own stopping decision and is bit-identical to a
+    separate :func:`microsolve` call on the same device (with its own
+    anchor, start and stepsize).  Options mean what they
     mean on :func:`microsolve`.  Raises ``ValueError`` for a structure
-    without a kernel and for ``bs``, ``x0s`` or ``tau0`` of the wrong
-    shape."""
+    without a kernel and for ``bs``, ``x0s``, ``prox`` or ``tau0`` of the
+    wrong shape."""
     with span("fasta.micro.start"):
         kind, detail, data, x0, tau0 = _start(
             problem, "microsolve_batch", tau0, engine, interpret, generator)
@@ -465,6 +486,8 @@ def microsolve_batch(problem: Problem, bs, x0s=None, tau0=None,
                 raise ValueError(
                     f"microsolve_batch: x0s shape {tuple(x0s.shape)} != "
                     f"{(B,) + tuple(x0.shape)}")
+        if prox is not None:
+            prox = _instance_anchors(kind, problem, prox, B, dev)
         tau0 = torch.as_tensor(tau0, dtype=torch.float32)
         if tau0.ndim > 1:
             raise ValueError(f"microsolve_batch: tau0 must be a scalar or a "
@@ -490,8 +513,8 @@ def microsolve_batch(problem: Problem, bs, x0s=None, tau0=None,
             op = problem.op
             out = microsolve_planar_phasemax_batch(
                 op.Ar.to(torch.float32), op.Ai.to(torch.float32), bs,
-                problem.gterm.c.to(torch.float32), x0s, tau0s, hp=bool(hp),
-                **kw)
+                problem.gterm.c.to(torch.float32) if prox is None else prox,
+                x0s, tau0s, hp=bool(hp), **kw)
         else:
             loss, prox, mu = detail
             out = microsolve_lasso_batch(

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .precision import real_dtype
+from .profiling import span
 
 __all__ = ["LinearOp", "AdjointOp", "DenseOp", "SparseOp",
            "LowPrecDenseOp", "PlanarDenseOp", "IdentityOp", "FunctionOp",
@@ -359,15 +360,19 @@ class PlanarDenseOp(LinearOp):
     def lanes(self, x):
         """Lanes (B, n, 2) in two batched products (one lane: the single
         solve's products); stacked channels (B, m, n) take lane i through
-        pair i."""
-        if x.shape[0] == 1 and self.Ar.ndim == 2:
-            return super().lanes(x)
-        return self(x)
+        pair i.  The call is the span ``fasta.op.planar.forward``."""
+        with span("fasta.op.planar.forward"):
+            if x.shape[0] == 1 and self.Ar.ndim == 2:
+                return super().lanes(x)
+            return self(x)
 
     def rmatvec_lanes(self, y):
-        if y.shape[0] == 1 and self.Ar.ndim == 2:
-            return super().rmatvec_lanes(y)
-        return self.rmatvec(y)
+        """The adjoint over lanes (B, m, 2), as ``lanes``; the span
+        ``fasta.op.planar.adjoint``."""
+        with span("fasta.op.planar.adjoint"):
+            if y.shape[0] == 1 and self.Ar.ndim == 2:
+                return super().rmatvec_lanes(y)
+            return self.rmatvec(y)
 
     @property
     def shape(self):

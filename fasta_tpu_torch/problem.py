@@ -67,8 +67,9 @@ class Problem:
 
     def microsolve_batch(self, bs, x0s=None, **kwargs):
         """B instances sharing this problem's operator — measurements
-        ``bs`` stacked on a leading axis, optional starts ``x0s`` — in one
-        kernel launch; see :func:`fasta_tpu_torch.micro.microsolve_batch`."""
+        ``bs`` stacked on a leading axis, optional starts ``x0s`` and prox
+        data ``prox=`` — in one kernel launch; see
+        :func:`fasta_tpu_torch.micro.microsolve_batch`."""
         from .micro import microsolve_batch as _batch
         return _batch(self, bs, x0s=x0s, **kwargs)
 
@@ -77,8 +78,10 @@ class Problem:
         """Solve on the serving path that
         :func:`fasta_tpu_torch.serving.recommend_path` picks for this
         problem and batch: ``bs`` stacks the requests' measurements on a
-        leading axis (None: one solve of the problem's own); the other
-        keyword arguments go to that path.  The whole request is the span
+        leading axis, or is a :class:`~fasta_tpu_torch.serving.
+        InstanceBatch` that also carries each instance's prox data and
+        start (None: one solve of the problem's own); the other keyword
+        arguments go to that path.  The whole request is the span
         ``fasta.serve``."""
         from .serving import recommend_path
         with span("fasta.serve"):

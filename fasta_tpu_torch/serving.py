@@ -29,6 +29,12 @@ One fault of the reference is not inherited (ROADMAP C-ref-6): its plan
 ignores ``bs`` on the single routes, so a one-row request solved the
 problem's own measurements.  Here a single route given ``bs`` of one row
 solves that row.
+
+A request whose instances differ in more than the smooth term's data is
+an :class:`InstanceBatch`: each instance also carries its own prox data
+(planar PhaseMax's anchor) and start, which every route takes.  The
+reference's plan has no such request: its batch routes share the
+problem's prox term and start.
 """
 
 from __future__ import annotations
@@ -44,8 +50,8 @@ from .options import FastaOptions
 from .problem import Problem
 from .profiling import span
 
-__all__ = ["ServingPlan", "recommend_path", "BATCH_CROSSOVER_UNKNOWNS",
-           "ROUTES"]
+__all__ = ["ServingPlan", "InstanceBatch", "recommend_path",
+           "BATCH_CROSSOVER_UNKNOWNS", "ROUTES"]
 
 # The reference's size crossover between the two batch routes (unknowns
 # per instance); not measured on the H100 (ROADMAP M5).
@@ -55,18 +61,57 @@ ROUTES = ("microsolve", "microsolve_batch", "batch_solver", "loop")
 
 
 def _with_data(term, data):
-    """A copy of the smooth term ``term`` whose one data tensor is
-    ``data``, in the dtype and on the device of the term's own."""
+    """A copy of the term ``term`` whose one data tensor is ``data``, in
+    the dtype and on the device of the term's own."""
     field = getattr(term, "lane_field", None)
     if field is None:
         raise ValueError(
-            f"the batch route replaces the smooth term's one data tensor; "
+            f"the batch route replaces the term's one data tensor; "
             f"{type(term).__name__} has none — build the batched term "
             f"yourself and call make_batch_solver")
     old = getattr(term, field)
     out = copy.copy(term)
     setattr(out, field, torch.as_tensor(data).to(old.device, old.dtype))
     return out
+
+
+@dataclass(eq=False)
+class InstanceBatch:
+    """A request of instances that share the problem's operator, each
+    with its own data: ``data`` (B, ...) the smooth term's one data tensor
+    an instance (what a plain ``bs`` holds), ``prox`` (B, ...) the prox
+    term's one data tensor (its ``lane_field``: planar PhaseMax's anchor
+    c) an instance, ``x0`` (B, ...) each instance's start; None shares the
+    problem's own.  ``len`` is B; ``shape`` is ``data``'s and ``[i]``
+    indexes the leading axis of all three, so an ``InstanceBatch`` of
+    (P, B, ...) tensors is also a pool whose ``[i]`` is a request."""
+
+    data: Any
+    prox: Optional[Any] = None
+    x0: Optional[Any] = None
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    def __getitem__(self, i) -> "InstanceBatch":
+        return InstanceBatch(self.data[i],
+                             None if self.prox is None else self.prox[i],
+                             None if self.x0 is None else self.x0[i])
+
+
+def _instance(p: Problem, one: InstanceBatch) -> Problem:
+    """``p`` with the data, prox data and start of one instance."""
+    parts = dict(fterm=_with_data(p.fterm, one.data))
+    if one.prox is not None:
+        parts["gterm"] = _with_data(p.gterm, one.prox)
+    if one.x0 is not None:
+        x0 = torch.as_tensor(p.x0)
+        parts["x0"] = torch.as_tensor(one.x0).to(x0.device, x0.dtype)
+    return p.with_parts(**parts)
 
 
 @dataclass
@@ -76,8 +121,10 @@ class ServingPlan:
 
     ``run(bs, ...)`` executes it.  ``bs`` stacks the requests'
     measurements on a leading axis (``(B,) +`` the smooth term's data
-    shape): the batch routes need it; a single route solves the problem's
-    own measurements without it, or the one row of a ``bs`` of one row.
+    shape), or is an :class:`InstanceBatch` whose instances also carry
+    their own prox data and starts: the batch routes need it; a single
+    route solves the problem's own measurements without it, or the one
+    row of a ``bs`` of one row.
     Keyword arguments go to the route: :func:`~fasta_tpu_torch.micro.
     microsolve` / :func:`~fasta_tpu_torch.micro.microsolve_batch` options
     for the kernel routes, ``options=`` (a :class:`FastaOptions`) and
@@ -92,6 +139,8 @@ class ServingPlan:
     def run(self, bs: Optional[Any] = None, **kwargs):
         p = self.problem
         route = span(f"fasta.route.{self.path}")
+        if bs is not None and not isinstance(bs, InstanceBatch):
+            bs = InstanceBatch(bs)
         if self.path in ("microsolve", "loop"):
             if bs is not None:
                 if len(bs) != 1:
@@ -99,7 +148,7 @@ class ServingPlan:
                         f"a {self.path!r} plan solves one instance, but bs "
                         f"holds {len(bs)}: ask recommend_path for batch size "
                         f"{len(bs)}")
-                p = p.with_parts(fterm=_with_data(p.fterm, bs[0]))
+                p = _instance(p, bs[0])
             with route:
                 if self.path == "microsolve":
                     return p.microsolve(**kwargs)
@@ -109,7 +158,8 @@ class ServingPlan:
                              "vectors bs")
         if self.path == "microsolve_batch":
             with route:
-                return p.microsolve_batch(bs, **kwargs)
+                return p.microsolve_batch(
+                    bs.data, **{"x0s": bs.x0, "prox": bs.prox, **kwargs})
         from .solver import estimate_stepsize, make_batch_solver
         opts = kwargs.pop("options", None) or FastaOptions()
         tau0 = kwargs.pop("tau0", None)
@@ -122,10 +172,16 @@ class ServingPlan:
         if tau0 is None:
             gen = torch.Generator(device=x0.device).manual_seed(0)
             tau0 = float(estimate_stepsize(p.op, p.fterm, x0, gen)[0])
-        solve = make_batch_solver(opts, in_axes=(None, 0, None, None, None))
-        fterm = _with_data(p.fterm, bs)
+        gterm, g_axis, x_axis = p.gterm, None, None
+        if bs.prox is not None:
+            gterm, g_axis = _with_data(p.gterm, bs.prox), 0
+        if bs.x0 is not None:
+            x0, x_axis = torch.as_tensor(bs.x0).to(x0.device, x0.dtype), 0
+        solve = make_batch_solver(opts, in_axes=(None, 0, g_axis, x_axis,
+                                                 None))
+        fterm = _with_data(p.fterm, bs.data)
         with route:
-            return solve(p.op, fterm, p.gterm, x0, tau0)
+            return solve(p.op, fterm, gterm, x0, tau0)
 
 
 def recommend_path(problem: Problem, batch_size: int = 1, *,

@@ -1991,6 +1991,54 @@ def test_planar_streamed_remainder_gives_the_resident_bits(dev, case):
                     for i in range(3)])
 
 
+@pytest.mark.parametrize("case", list(PLANAR_ROUTES))
+def test_planar_batch_takes_each_instance_anchor(dev, case):
+    """K-B8b with one anchor an instance (c (B, n, 2)), on every route:
+    each instance bit-identical to its own K-B8 launch with its anchor,
+    start and τ₀, adaptive and FISTA; the same anchor given B times gives
+    the bits of the shared anchor."""
+    m, n, budget, _, _ = PLANAR_ROUTES[case]
+    p, (Ar, Ai, b, c, x0) = _phase(dev, m, n)
+    plan = _plan(dev, m, n, budget)
+    bs = _stack(b, 3)
+    cs = torch.stack([torch.roll(c, i, 0) * (1.0 + 0.2 * i)
+                      for i in range(3)])
+    x0s = torch.stack([torch.roll(x0, i, 0) for i in range(3)])
+    t0s = torch.tensor([1.0, 0.3, 2.0], device=dev)
+    for mode in (dict(), dict(hp=True, accelerate=True, restart_dd=True)):
+        kw = dict(max_iters=150, tol=1e-5, record_bts=True,
+                  record_fvals=True, record_objs=True, **mode)
+        out = _planar_launch((Ar, Ai, bs, cs, x0s), t0s, kw, plan, B=3)
+        _same(out, [_planar_launch((Ar, Ai, bs[i], cs[i], x0s[i]),
+                                   float(t0s[i]), kw, plan)
+                    for i in range(3)])
+        shared = _planar_launch((Ar, Ai, bs, c, x0s), t0s, kw, plan, B=3)
+        given = _planar_launch((Ar, Ai, bs, c.expand(3, -1, -1), x0s), t0s,
+                               kw, plan, B=3)
+        assert all(a is None and g is None or torch.equal(a, g)
+                   for a, g in zip(shared, given))
+        assert not torch.equal(out.x[1:], shared.x[1:])
+
+
+def test_planar_batch_own_anchors_at_the_cell_shape(dev):
+    """At 16384×256, through ``microsolve_batch``: four signals, each with
+    its own magnitudes, anchor and start, bit-identical to four
+    ``microsolve`` calls."""
+    p, (Ar, Ai, b, c, x0) = _phase(dev, 16384, 256)
+    bs = _stack(b, 4)
+    cs = torch.stack([torch.roll(c, 7 * i, 0) for i in range(4)])
+    x0s = torch.stack([torch.roll(x0, 7 * i, 0) for i in range(4)])
+    kw = dict(max_iters=300, tol=1e-5, tau0=1.0)
+    out = p.microsolve_batch(bs, x0s=x0s, prox=cs, **kw)
+    for i in range(4):
+        one = p.with_parts(fterm=ftt.PlanarPhaseHinge(bs[i]),
+                           gterm=ftt.PlanarLinearAnchor(cs[i]),
+                           x0=x0s[i]).microsolve(**kw)
+        assert torch.equal(out.solutions[i], one.solution)
+        assert int(out.iteration_counts[i]) == one.iteration_count
+        np.testing.assert_array_equal(out.taus[i], one.taus)
+
+
 def test_planar_column_fallback_batches_and_halts(dev):
     """Past 8192 columns the column fallback: a batch of 3 bit-identical
     to its separate launches (each counted on the route), and a NaN τ₀
